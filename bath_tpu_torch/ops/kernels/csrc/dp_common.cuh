@@ -1,0 +1,319 @@
+// Shared device code of the Forward-gate and domain-decoding kernels.
+//
+// Layout.  One item (an ORF) is computed by a group of W warps; its
+// model lanes k = 0..Mp-1 (lane k = model position k+1) are split into
+// contiguous runs of P lanes, one run per thread, held in registers.
+// P is odd, so the P-strided shared-memory reads of 32 threads hit 32
+// different banks.  W = 1 for M <= 32*33: the group is one warp, the
+// lane-neighbour exchange and the D->D scan are warp shuffles, and a
+// block holds several independent items.  W > 1 (longer models) puts
+// one item in a block and adds __syncthreads() exchanges.
+//
+// The D->D chain D[k] = tMD[k]*M[k-1] + tDD[k]*D[k-1] is a linear
+// recurrence along k: each thread reduces its run to an affine map
+// (carry in -> carry out, plus the run's sum of D), the group scans the
+// maps, and each thread replays its run from its carry.  This replaces
+// the TPU kernels' dense M x M closure operators (W3, UB), which cost
+// M^2 multiply-adds per row.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace bt {
+
+// transition rows, bath_tpu/constants.py P_* order
+enum { P_MM = 0, P_IM, P_DM, P_BM, P_MD, P_DD, P_MI, P_II, NTR };
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// y_out = a * y_in + b; the run's sum of y = c * y_in + e
+struct Aff {
+  float a, b, c, e;
+};
+
+__device__ __forceinline__ Aff aff_identity() { return Aff{1.f, 0.f, 0.f, 0.f}; }
+
+// the map that applies `first`, then `second`
+__device__ __forceinline__ Aff aff_then(const Aff& first, const Aff& second) {
+  Aff r;
+  r.a = second.a * first.a;
+  r.b = fmaf(second.a, first.b, second.b);
+  r.c = fmaf(second.c, first.a, first.c);
+  r.e = first.e + fmaf(second.c, first.b, second.e);
+  return r;
+}
+
+__device__ __forceinline__ Aff aff_shfl_up(const Aff& x, int d) {
+  return Aff{__shfl_up_sync(FULL, x.a, d), __shfl_up_sync(FULL, x.b, d),
+             __shfl_up_sync(FULL, x.c, d), __shfl_up_sync(FULL, x.e, d)};
+}
+
+__device__ __forceinline__ Aff aff_shfl_down(const Aff& x, int d) {
+  return Aff{__shfl_down_sync(FULL, x.a, d), __shfl_down_sync(FULL, x.b, d),
+             __shfl_down_sync(FULL, x.c, d), __shfl_down_sync(FULL, x.e, d)};
+}
+
+__device__ __forceinline__ Aff aff_shfl(const Aff& x, int src) {
+  return Aff{__shfl_sync(FULL, x.a, src), __shfl_sync(FULL, x.b, src),
+             __shfl_sync(FULL, x.c, src), __shfl_sync(FULL, x.e, src)};
+}
+
+// Per-group shared scratch for W > 1 (sized W entries each).
+struct Exch {
+  Aff* agg;     // warp aggregates of a scan
+  float* bnd;   // 3 boundary values per warp
+  float* red;   // warp partial sums
+};
+
+struct Group {
+  int W;      // warps per item
+  int warp;   // this warp's index in the group
+  int lane;
+  int t;      // thread index in the group
+  Exch x;
+};
+
+// Scan of the threads' maps in lane order (REV: from the highest lane
+// down).  Returns the composition of the maps of all threads before
+// this one in chain order (`excl`) and of the whole group (`total`).
+template <bool REV>
+__device__ __forceinline__ void group_scan(const Group& g, Aff x, Aff& excl,
+                                           Aff& total) {
+  Aff inc = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    if (!REV) {
+      Aff o = aff_shfl_up(inc, d);
+      if (g.lane >= d) inc = aff_then(o, inc);
+    } else {
+      Aff o = aff_shfl_down(inc, d);
+      if (g.lane + d < 32) inc = aff_then(o, inc);
+    }
+  }
+  Aff ex = REV ? aff_shfl_down(inc, 1) : aff_shfl_up(inc, 1);
+  if (g.lane == (REV ? 31 : 0)) ex = aff_identity();
+  const Aff wtot = aff_shfl(inc, REV ? 0 : 31);
+  if (g.W == 1) {
+    excl = ex;
+    total = wtot;
+    return;
+  }
+  if (g.lane == 0) g.x.agg[g.warp] = wtot;
+  __syncthreads();
+  Aff pre = aff_identity(), tot = aff_identity();
+  for (int s = 0; s < g.W; ++s) {
+    const int w = REV ? g.W - 1 - s : s;
+    const Aff v = g.x.agg[w];
+    if (REV ? (w > g.warp) : (w < g.warp)) pre = aff_then(pre, v);
+    tot = aff_then(tot, v);
+  }
+  excl = aff_then(pre, ex);
+  total = tot;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+  return v;
+}
+
+// Copies the padded tables ([Kp][Mp] odds, [NTR][Mp] transitions) into
+// shared memory when `smem` holds them; every thread of the block calls
+// it, then the block syncs.  Returns the tables to read.
+__device__ __forceinline__ void load_tables(const float* __restrict__ etab_g,
+                                            const float* __restrict__ ttab_g,
+                                            int Kp, int Mp, float* smem,
+                                            bool in_smem, const float*& etab,
+                                            const float*& ttab) {
+  if (in_smem) {
+    const int ne = Kp * Mp, nt = NTR * Mp;
+    for (int q = threadIdx.x; q < ne; q += blockDim.x) smem[q] = etab_g[q];
+    for (int q = threadIdx.x; q < nt; q += blockDim.x) smem[ne + q] = ttab_g[q];
+    __syncthreads();
+    etab = smem;
+    ttab = smem + ne;
+  } else {
+    etab = etab_g;
+    ttab = ttab_g;
+  }
+}
+
+// Transition row r at lane k; lanes at or past Mp read 0.
+__device__ __forceinline__ float trv(const float* ttab, int Mp, int r, int k) {
+  return k < Mp ? ttab[r * Mp + k] : 0.f;
+}
+
+// The forward pass over one item's `len` residues.  STORE (decoding)
+// rescales sparsely (only when xE > 1e4, the host kernel's cadence) and
+// writes the six specials of every row to `spec` (6 rows of stride
+// ld); the gate rescales every row by max(xE, 1).  Returns the Forward
+// score in nats and, in `lsf`, the total log scale.  The log scale is
+// summed in double: at scores of hundreds of nats an f32 sum rounds at
+// ~1e-4, which the posterior weights exp(logw - logZ) would inherit.
+template <int P, bool STORE>
+__device__ double forward_pass(const Group& g, const float* etab,
+                               const float* ttab, int Mp,
+                               const int8_t* __restrict__ seq, int len,
+                               float pmove, float nj, double* spec, int ld,
+                               double& lsf) {
+  const int k0 = g.t * P;
+  const float ploop = 1.f - pmove;
+  const float emove = nj > 0.f ? 0.5f : 1.f;
+  const float eloop = nj > 0.f ? 0.5f : 0.f;
+  float m[P], iv[P], d[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) m[j] = iv[j] = d[j] = 0.f;
+  float xN = 1.f, xJ = 0.f, xC = 0.f, xB = pmove;
+  double lacc = 0.0, score = -INFINITY;
+  if (STORE && g.t == 0) {
+    spec[0] = pmove;
+    spec[ld] = 1.f;
+    spec[2 * ld] = spec[3 * ld] = spec[4 * ld] = spec[5 * ld] = 0.f;
+  }
+  for (int i = 0; i < len; ++i) {
+    const float* e = etab + (int)seq[i] * Mp + k0;
+    // the previous row at lane k0-1
+    if (g.W > 1) {
+      if (g.lane == 31) {
+        g.x.bnd[3 * g.warp] = m[P - 1];
+        g.x.bnd[3 * g.warp + 1] = iv[P - 1];
+        g.x.bnd[3 * g.warp + 2] = d[P - 1];
+      }
+      __syncthreads();
+    }
+    float mp = __shfl_up_sync(FULL, m[P - 1], 1);
+    float ip = __shfl_up_sync(FULL, iv[P - 1], 1);
+    float dp = __shfl_up_sync(FULL, d[P - 1], 1);
+    if (g.lane == 0) {
+      if (g.warp == 0) {
+        mp = ip = dp = 0.f;
+      } else {
+        mp = g.x.bnd[3 * (g.warp - 1)];
+        ip = g.x.bnd[3 * (g.warp - 1) + 1];
+        dp = g.x.bnd[3 * (g.warp - 1) + 2];
+      }
+    }
+    // M and I rows in place, high lane first (lane j reads j-1's old row)
+    float sumsv = 0.f;
+#pragma unroll
+    for (int j = P - 1; j >= 0; --j) {
+      const int k = k0 + j;
+      const float mm = j ? m[j - 1] : mp;
+      const float ii = j ? iv[j - 1] : ip;
+      const float dd = j ? d[j - 1] : dp;
+      const float sv = (xB * ttab[P_BM * Mp + k] + mm * ttab[P_MM * Mp + k] +
+                        ii * ttab[P_IM * Mp + k] + dd * ttab[P_DM * Mp + k]) *
+                       e[j];
+      iv[j] = m[j] * ttab[P_MI * Mp + k] + iv[j] * ttab[P_II * Mp + k];
+      m[j] = sv;
+      sumsv += sv;
+    }
+    // this run's D chain as a map of its carry D[k0]
+    float coef = 1.f, val = 0.f, sc = 1.f, se = 0.f;
+#pragma unroll
+    for (int j = 1; j < P; ++j) {
+      const int k = k0 + j;
+      const float tdd = ttab[P_DD * Mp + k];
+      val = ttab[P_MD * Mp + k] * m[j - 1] + tdd * val;
+      coef *= tdd;
+      sc += coef;
+      se += val;
+    }
+    const float tddn = trv(ttab, Mp, P_DD, k0 + P);
+    const float tmdn = trv(ttab, Mp, P_MD, k0 + P);
+    Aff loc{tddn * coef, tmdn * m[P - 1] + tddn * val, sc, se + sumsv};
+    Aff ex, tot;
+    group_scan<false>(g, loc, ex, tot);
+    const float xE = tot.e;
+    d[0] = ex.b;
+#pragma unroll
+    for (int j = 1; j < P; ++j) {
+      const int k = k0 + j;
+      d[j] = ttab[P_MD * Mp + k] * m[j - 1] + ttab[P_DD * Mp + k] * d[j - 1];
+    }
+    const float xN2 = xN * ploop;
+    const float xC2 = xC * ploop + xE * emove;
+    const float xJ2 = xJ * ploop + xE * eloop;
+    const float xB2 = xJ2 * pmove + xN2 * pmove;
+    const float s = STORE ? (xE > 1.0e4f ? xE : 1.f) : fmaxf(xE, 1.f);
+    const float sinv = 1.f / s;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      m[j] *= sinv;
+      iv[j] *= sinv;
+      d[j] *= sinv;
+    }
+    xN = xN2 * sinv;
+    xJ = xJ2 * sinv;
+    xC = xC2 * sinv;
+    xB = xB2 * sinv;
+    lacc += (double)logf(s);
+    if (i == len - 1) score = lacc + (double)logf(xC * pmove);
+    if (STORE && g.t == 0) {
+      double* r = spec + i + 1;
+      r[0] = xB;
+      r[ld] = xN;
+      r[2 * ld] = xJ;
+      r[3 * ld] = xC;
+      r[4 * ld] = xE * sinv;
+      r[5 * ld] = lacc;
+    }
+  }
+  lsf = lacc;
+  return score;
+}
+
+}  // namespace bt
+
+// Host side: the block shape and shared memory of a launch.
+struct BtLaunch {
+  int W, G, threads, blocks;
+  bool tab_in_smem;
+  size_t smem;
+};
+
+// Tables go to shared memory when they fit in `tab_cap` bytes; the
+// rest of the block's shared memory is the W > 1 exchange scratch.
+static inline BtLaunch bt_plan(int B, int Kp, int Mp, int P, size_t tab_cap) {
+  BtLaunch l;
+  l.W = Mp / (32 * P);
+  l.G = l.W == 1 ? 8 : 1;
+  l.threads = 32 * l.W * l.G;
+  l.blocks = (B + l.G - 1) / l.G;
+  const size_t tab = (size_t)(Kp + bt::NTR) * Mp * sizeof(float);
+  l.tab_in_smem = tab <= tab_cap;
+  const size_t exch = (size_t)l.W * (sizeof(bt::Aff) + 4 * sizeof(float));
+  l.smem = (l.tab_in_smem ? tab : 0) + exch;
+  return l;
+}
+
+// Carves the exchange scratch out of the dynamic shared memory, past
+// the tables.
+__device__ __forceinline__ bt::Group bt_group(int W, float* smem,
+                                              size_t tab_floats) {
+  bt::Group g;
+  g.W = W;
+  g.warp = (threadIdx.x >> 5) % W;
+  g.lane = threadIdx.x & 31;
+  g.t = g.warp * 32 + g.lane;
+  float* base = smem + tab_floats;
+  g.x.agg = reinterpret_cast<bt::Aff*>(base);
+  g.x.bnd = base + 4 * W;
+  g.x.red = base + 7 * W;
+  return g;
+}
+
+#define BT_DISPATCH_P(P, CALL)        \
+  switch (P) {                        \
+    case 3: CALL(3); break;           \
+    case 5: CALL(5); break;           \
+    case 9: CALL(9); break;           \
+    case 13: CALL(13); break;         \
+    case 17: CALL(17); break;         \
+    case 25: CALL(25); break;         \
+    case 33: CALL(33); break;         \
+    default: return cudaErrorInvalidValue; \
+  }

@@ -1,0 +1,179 @@
+"""Builds, loads and launches the CUDA kernels of ``csrc/``.
+
+On first use the sources ``csrc/*.cu`` are compiled with nvcc for
+``sm_90a`` into one shared library with a plain C interface under
+``build/bath_tpu_torch/`` at the repository root; the file name carries
+a hash of the sources, so an edited source builds anew.  The library is
+bound with ctypes.  Each C entry returns the launch's
+``cudaGetLastError()``; a non-zero code raises.  Without nvcc or a CUDA
+device the loader raises: it never returns None and no caller falls
+back to the plain versions.
+
+The wrappers allocate outputs with ``torch.empty``/``zeros`` on the
+input's device and launch on PyTorch's current stream; they do not
+synchronise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..fwd import ProfileTensors
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "bath_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# Lanes per thread the kernels are instantiated for (odd: conflict-free
+# strided shared-memory reads).  A model of M positions takes the
+# smallest P with 32*P >= M in one warp, or W warps of P = 33 beyond.
+LANES_PER_THREAD = (3, 5, 9, 13, 17, 25, 33)
+
+_lib = None
+
+
+class CudaKernelError(RuntimeError):
+    pass
+
+
+def layout(M: int) -> tuple[int, int, int]:
+    """(P, W, Mp): lanes per thread, warps per item, padded lanes."""
+    for P in LANES_PER_THREAD:
+        if 32 * P >= M:
+            return P, 1, 32 * P
+    P = LANES_PER_THREAD[-1]
+    W = -(-M // (32 * P))
+    return P, W, 32 * P * W
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    path = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if path is None:
+        raise CudaKernelError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the "
+            "bath_tpu_torch CUDA kernels cannot be built")
+    return path
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libbath_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the current sources
+    exists.  Writes to a temporary name and renames, so concurrent
+    processes never load a half-written file."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise CudaKernelError(f"nvcc failed ({r.returncode}):\n"
+                              f"{' '.join(cmd)}\n{r.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    if not torch.cuda.is_available():
+        raise CudaKernelError("no CUDA device: the bath_tpu_torch kernels "
+                              "run only on an NVIDIA GPU")
+    so = ctypes.CDLL(str(build()))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.bt_fwd_parser.restype = I
+    so.bt_fwd_parser.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P]
+    so.bt_domdec.restype = I
+    so.bt_domdec.argtypes = [P, P, I, I, P, P, I, I, I, I, F, P, P, P, P,
+                             P, P]
+    _lib = so
+    return so
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise CudaKernelError(f"{name} launch failed: cudaError {err}")
+
+
+def _check_inputs(dsq, lens, p):
+    if dsq.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a {dsq.device} tensor")
+    if not (dsq.is_contiguous() and lens.is_contiguous()):
+        raise ValueError("dsq and lens must be contiguous")
+    if dsq.numel():
+        lo, hi = (int(v) for v in torch.aminmax(dsq))
+        if lo < 0 or hi >= p.Kp:
+            raise ValueError(f"residue codes must lie in [0, {p.Kp})")
+        lo, hi = (int(v) for v in torch.aminmax(lens))
+        if lo < 0 or hi > dsq.shape[1]:
+            raise ValueError("lens must lie in [0, L]")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch_fwd(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
+               nj: float) -> torch.Tensor:
+    """fwd_parser.cu: Forward-gate scores [B] f32 (nats)."""
+    _check_inputs(dsq, lens, p)
+    so = lib()
+    B, L = dsq.shape
+    P, _, Mp = layout(p.M)
+    etab, ttab = p.padded(Mp)
+    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
+    _check(so.bt_fwd_parser(dsq.data_ptr(), lens.data_ptr(), B, L,
+                            etab.data_ptr(), ttab.data_ptr(), p.Kp, Mp, P,
+                            float(nj), out.data_ptr(), _stream()),
+           "fwd_parser")
+    return out
+
+
+def launch_domdec(dsq: torch.Tensor, lens: torch.Tensor,
+                  p: ProfileTensors, nj: float):
+    """domdec.cu: normalised increments (inc_b, inc_e, njr) [B, L], and
+    logZ and logZ minus the total forward log scale, [B] each."""
+    _check_inputs(dsq, lens, p)
+    so = lib()
+    B, L = dsq.shape
+    P, _, Mp = layout(p.M)
+    etab, ttab = p.padded(Mp)
+    dev = dsq.device
+    spec = torch.empty(B, 6, L + 1, dtype=torch.float64, device=dev)
+    inc = torch.zeros(3, B, L, dtype=torch.float32, device=dev)
+    logz2 = torch.empty(B, 2, dtype=torch.float32, device=dev)
+    _check(so.bt_domdec(dsq.data_ptr(), lens.data_ptr(), B, L,
+                        etab.data_ptr(), ttab.data_ptr(), p.Kp, p.M, Mp, P,
+                        float(nj), spec.data_ptr(), inc[0].data_ptr(),
+                        inc[1].data_ptr(), inc[2].data_ptr(),
+                        logz2.data_ptr(), _stream()),
+           "domdec")
+    return inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]

@@ -1,0 +1,274 @@
+"""Smoke test of bath_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels of the standard bathsearch path from
+``bath_tpu_torch/ops/kernels/csrc/``, holds each against its plain
+PyTorch version on the card, times both, then searches a seeded 5 Mb
+genome with a seeded M = 400 profile through the port's CLI and checks
+that the output is byte-identical to the host path (``bath_tpu``
+``--backend numpy``), that the embedded homologs are found, and that the
+search went through both kernels.  Every phase prints one line; any
+failure exits non-zero.  The last two lines are the kernels' JSON
+record and ``{"ok": true, "device": ...}``.
+
+Needs a CUDA device, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and
+g++ (the host library of the integer filters).  Everything it builds or
+writes goes under ``build/`` next to this file.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build" / "bath_tpu_torch"
+
+DEVICE = "cuda"
+M_SEARCH = 400              # a Pfam-sized profile
+GENOME_NT = 5_000_000       # one bacterial genome
+N_EMBEDS = 40
+MIN_FOUND = 30
+SEED = 20261016
+PARITY_FWD = (256, 2048)    # (B, longest L) of the parity batches
+PARITY_DOMDEC = (32, 2048)
+WIDE = (1500, 8, 1600)      # (M, B, L): several warps per ORF
+TIME_FWD_B, TIME_DOMDEC_B = 4096, 128
+TIME_FWD_M = (400, 1000)
+FWD_TOL = 1e-3              # nats, kernel vs plain version
+DOMDEC_TOL = 1e-4           # posterior units
+MIN_OK_SHARE = 0.95
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def phase(tag: str, **kv) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over <reps> runs, by CUDA events, after
+    one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def one_batch(orfs, dev):
+    """(lengths as numpy, dsq, lens): <orfs> as one padded batch on
+    <dev>, built as the cascade builds its batches."""
+    from bath_tpu_torch.device_pipeline import batches
+    ln = np.array([len(o) for o in orfs], np.int32)
+    _, dsq, lens = next(batches(orfs, ln, dev, batch=len(orfs)))
+    return ln, dsq, lens
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    # the host library of the integer filters builds into build/
+    os.environ["XDG_CACHE_HOME"] = str(BUILD / "cache")
+    sys.path.insert(0, str(ROOT))
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd
+    from bath_tpu_torch.ops.kernels import loader
+
+    dev = torch.device(DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi exited {smi.returncode}: {smi.stderr[-500:]}")
+    card = smi.stdout.strip().splitlines()[0]
+    bathsearch.require_native()
+    phase("device", torch=torch.__version__, cuda=torch.version.cuda,
+          name=repr(kind), count=torch.cuda.device_count(),
+          native_lib="loaded")
+    print(card, flush=True)
+
+    # 2. kernel build
+    t = time.perf_counter()
+    so = loader.build()
+    loader.lib()
+    phase("build", seconds=f"{time.perf_counter() - t:.1f}",
+          nvcc=" ".join(loader.NVCC_FLAGS),
+          sources=",".join(str(p.relative_to(ROOT))
+                           for p in loader.sources()),
+          library=so.relative_to(ROOT))
+
+    # 3. parity with the plain versions, on the card
+    rng = np.random.default_rng(SEED)
+    hmm, q = fixtures.make_query(M_SEARCH, rng, calibrate=False)
+    p400 = fwd.fwd_params(fixtures.search_profile(hmm), dev)
+    dsq, lens = fixtures.kernel_batch(q, *PARITY_FWD, rng)
+    dsq, lens = torch.from_numpy(dsq).to(dev), torch.from_numpy(lens).to(dev)
+    got = fwd.fwd_score(dsq, lens, p400)
+    want = fwd.fwd_score_ref(dsq, lens, p400)
+    fwd_err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not fwd_err <= FWD_TOL:
+        fail(f"fwd kernel vs plain: max |d| {fwd_err} > {FWD_TOL}")
+    phase("parity", kernel="fwd_parser", M=M_SEARCH, B=PARITY_FWD[0],
+          L=f"1..{PARITY_FWD[1]}",
+          max_abs_err=fwd_err, tol=FWD_TOL,
+          best_score=f"{float(got.max()):.2f}")
+    dsq, lens = fixtures.kernel_batch(q, *PARITY_DOMDEC, rng)
+    dsq, lens = torch.from_numpy(dsq).to(dev), torch.from_numpy(lens).to(dev)
+    got = dd.domdec(dsq, lens, p400)
+    want = dd.domdec_ref(dsq, lens, p400)
+    dd_err = max(float((a - b).abs().max()) for a, b in zip(got[:3],
+                                                            want[:3]))
+    if not dd_err <= DOMDEC_TOL or not torch.equal(got[3], want[3]):
+        fail(f"domdec kernel vs plain: max |d| {dd_err} > {DOMDEC_TOL} "
+             f"or ok differs ({got[3].sum()} vs {want[3].sum()})")
+    phase("parity", kernel="domdec", M=M_SEARCH, B=PARITY_DOMDEC[0],
+          L=f"1..{PARITY_DOMDEC[1]}", max_abs_err=dd_err, tol=DOMDEC_TOL,
+          ok=f"{int(got[3].sum())}/{PARITY_DOMDEC[0]}", ok_identical=True)
+    # a model past one warp's reach (several warps per ORF)
+    hmm_w, q_w = fixtures.make_query(WIDE[0], rng, calibrate=False)
+    p_w = fwd.fwd_params(fixtures.search_profile(hmm_w), dev)
+    dsq, lens = fixtures.kernel_batch(q_w, WIDE[1], WIDE[2], rng)
+    dsq, lens = torch.from_numpy(dsq).to(dev), torch.from_numpy(lens).to(dev)
+    e1 = float((fwd.fwd_score(dsq, lens, p_w)
+                - fwd.fwd_score_ref(dsq, lens, p_w)).abs().max())
+    g, w = dd.domdec(dsq, lens, p_w), dd.domdec_ref(dsq, lens, p_w)
+    e2 = max(float((a - b).abs().max()) for a, b in zip(g[:3], w[:3]))
+    if not (e1 <= FWD_TOL and e2 <= DOMDEC_TOL and torch.equal(g[3], w[3])):
+        fail(f"M={WIDE[0]} parity: fwd {e1}, domdec {e2}")
+    phase("parity", kernel="both", M=WIDE[0], layout=loader.layout(WIDE[0]),
+          fwd_err=e1, domdec_err=e2)
+
+    # 4. timing at the main path's shapes (ORFs of the search genome)
+    fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED)
+    times = {}
+    for M in TIME_FWD_M:
+        hm, _ = fixtures.make_query(M, np.random.default_rng(M),
+                                    calibrate=False)
+        pm = fwd.fwd_params(fixtures.search_profile(hm), dev)
+        ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_FWD_B,
+                                                   SEED), dev)
+        k_ms = cuda_ms(lambda: fwd.fwd_score(d, lt, pm), 20)
+        p_ms = cuda_ms(lambda: fwd.fwd_score_ref(d, lt, pm), 2)
+        cells = float(ln.sum()) * M
+        times[("fwd", M)] = (k_ms, p_ms)
+        phase("timing", kernel="fwd_parser", M=M, B=TIME_FWD_B,
+              mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
+              ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              gcups=f"{cells / k_ms / 1e6:.2f}",
+              plain_gcups=f"{cells / p_ms / 1e6:.3f}")
+    ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_DOMDEC_B,
+                                               SEED, min_len=100), dev)
+    k_ms = cuda_ms(lambda: dd.domdec(d, lt, p400), 10)
+    p_ms = cuda_ms(lambda: dd.domdec_ref(d, lt, p400), 1)
+    times["domdec"] = (k_ms, p_ms)
+    cells = float(ln.sum()) * M_SEARCH
+    phase("timing", kernel="domdec", M=M_SEARCH, B=TIME_DOMDEC_B, min_L=100,
+          mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
+          ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          gcups=f"{cells / k_ms / 1e6:.2f}")
+
+    # 5. end to end: the port's CLI against the host path, in turns
+    # (numpy, torch, torch, numpy); --backend numpy runs
+    # bath_tpu.cli.bathsearch.run as it is.  The first torch run is the
+    # one whose kernel launches are counted.
+    walls: dict = {"torch": [], "numpy": []}
+
+    def search(backend, stats=None):
+        stem = f"e2e_{backend}{len(walls[backend])}"
+        out, tbl = BUILD / f"{stem}.out", BUILD / f"{stem}.tbl"
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", backend, "--device", DEVICE,
+                             "--tblout", str(tbl), "-o", str(out),
+                             fx.hmm_path, fx.fasta_path], stats=stats)
+        torch.cuda.synchronize()
+        walls[backend].append(time.perf_counter() - t)
+        if rc != 0:
+            fail(f"{backend} bathsearch exited {rc}")
+        return out, tbl
+
+    out_n, tbl_n = search("numpy")
+    stats: dict = {}
+    fwd.fwd_score.launches = 0
+    dd.domdec.launches = 0
+    out_t, tbl_t = search("torch", stats)
+    launches = {"fwd_parser": fwd.fwd_score.launches,
+                "domdec": dd.domdec.launches}
+    search("torch")
+    search("numpy")
+
+    def masked(path):
+        return re.sub(r"# (CPU time|Mc/sec):.*", "", path.read_text())
+    identical = masked(out_t) == masked(out_n)
+    found_t = fixtures.embeds_found(str(tbl_t), fx)
+    found_n = fixtures.embeds_found(str(tbl_n), fx)
+    ok_share = stats["domdec_ok"] / max(1, stats["domdec_items"])
+    wall_t, wall_n = (float(np.mean(walls[b])) for b in ("torch", "numpy"))
+    phase("e2e", genome_nt=GENOME_NT, M=M_SEARCH, embeds=N_EMBEDS,
+          found_torch=found_t, found_numpy=found_n,
+          byte_identical=identical,
+          walls_torch_s=",".join(f"{w:.4f}" for w in walls["torch"]),
+          walls_numpy_s=",".join(f"{w:.4f}" for w in walls["numpy"]),
+          mb_per_s_torch=f"{GENOME_NT / 1e6 / wall_t:.3f}",
+          mb_per_s_numpy=f"{GENOME_NT / 1e6 / wall_n:.3f}",
+          cascade_fwd_s=f"{stats['fwd_s']:.4f}",
+          cascade_domdec_s=f"{stats['domdec_s']:.4f}",
+          f3_candidates=stats["fwd_items"],
+          f3_survivors=stats["domdec_items"],
+          device_ok=stats["domdec_ok"], ok_share=f"{ok_share:.4f}",
+          launches=launches)
+    if not identical:
+        fail("torch output differs from the numpy backend")
+    if found_t < MIN_FOUND:
+        fail(f"only {found_t}/{N_EMBEDS} embeds reported")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the path never launched: {launches}")
+    if ok_share < MIN_OK_SHARE:
+        fail(f"device ok share {ok_share} < {MIN_OK_SHARE}")
+
+    # 6. the record
+    kernels = [
+        {"name": "fwd_parser", "route": "cuda",
+         "source": "bath_tpu_torch/ops/kernels/csrc/fwd_parser.cu",
+         "replaces": "bath_tpu/ops/pallas/fwd.py:32",
+         "launches": launches["fwd_parser"], "max_abs_err": fwd_err,
+         "ms": times[("fwd", TIME_FWD_M[0])][0],
+         "plain_ms": times[("fwd", TIME_FWD_M[0])][1]},
+        {"name": "domdec", "route": "cuda",
+         "source": "bath_tpu_torch/ops/kernels/csrc/domdec.cu",
+         "replaces": "bath_tpu/ops/jaxk/kernels.py:988",
+         "launches": launches["domdec"], "max_abs_err": dd_err,
+         "ms": times["domdec"][0], "plain_ms": times["domdec"][1]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""bath_tpu_torch's CUDA kernels on the card (marked ``cuda``; they
+skip without one).  Run them where there is a card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it also runs where JAX is not installed.
+Each kernel is held against its plain PyTorch version on the same
+inputs: the gate within 1e-3 nats, decoding within 1e-4 with
+identical `ok` flags.  M = 1500 takes the layout with two warps per
+ORF.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from bath_tpu_torch import fixtures
+from bath_tpu_torch.cli import bathsearch
+from bath_tpu_torch.ops import domdec as td
+from bath_tpu_torch.ops import fwd as tf
+
+pytestmark = pytest.mark.cuda
+
+
+def card_batch(M, B, Lmax):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(M)
+    hmm, q = fixtures.make_query(M, rng, calibrate=False)
+    p = tf.fwd_params(fixtures.search_profile(hmm), "cuda")
+    dsq, lens = fixtures.kernel_batch(q, B, Lmax, rng)
+    return p, torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+
+
+@pytest.mark.parametrize("M", [100, 400, 1500])
+def test_fwd_kernel_vs_plain(M):
+    p, dsq, lens = card_batch(M, 32, 1200)
+    before = tf.fwd_score.launches
+    got = tf.fwd_score(dsq, lens, p)
+    torch.cuda.synchronize()
+    assert tf.fwd_score.launches == before + 1
+    want = tf.fwd_score_ref(dsq, lens, p)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("M", [100, 400, 1500])
+def test_domdec_kernel_vs_plain(M):
+    p, dsq, lens = card_batch(M, 8, 1600)
+    before = td.domdec.launches
+    got = td.domdec(dsq, lens, p)
+    torch.cuda.synchronize()
+    assert td.domdec.launches == before + 1
+    want = td.domdec_ref(dsq, lens, p)
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_search_on_card_matches_host(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0")
+    monkeypatch.setenv("BATH_VIT_DEVICE", "0")
+    fx = fixtures.write_fixture(120, 300_000, 8, 11, directory=tmp_path)
+    outs = {}
+    for backend, device in (("numpy", "cpu"), ("torch", "cuda")):
+        out = tmp_path / f"{backend}.out"
+        stats = {}
+        assert bathsearch.run(["--backend", backend, "--device", device,
+                               "-o", str(out), fx.hmm_path, fx.fasta_path],
+                              stats=stats) == 0
+        outs[backend] = re.sub(r"# (CPU time|Mc/sec):.*", "",
+                               out.read_text())
+    assert outs["torch"] == outs["numpy"]
+    assert stats["fwd_items"] > 0 and stats["domdec_items"] > 0

@@ -1,0 +1,160 @@
+"""The bath_tpu_torch slice end to end: ``bath_tpu_torch.cli.bathsearch
+--backend torch`` against ``bath_tpu --backend numpy`` on a seeded
+fixture (M = 120, 300 kb, 8 embeds), on the CPU through the kernels'
+plain versions.
+
+Byte identity alone is weak evidence (the gate band and the per-item
+`ok` fallback absorb device error), so the BATH_DEVICE_PERTURB twin of
+tests/test_device_pipeline.py shows the gate scores reach the output,
+and the kernel modules are held to the JAX package numerically in
+test_torch_fwd.py and test_torch_domdec.py.  The subprocesses pin
+BATH_MSV_DEVICE/BATH_VIT_DEVICE to 0 (conftest.py sets 1 for the JAX
+package's device filters, which the torch backend refuses).
+"""
+
+import math
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bath_tpu import constants as C
+from bath_tpu.hmmfile import read_hmm
+from bath_tpu.pipeline import DEVICE_GATE_BAND
+from bath_tpu_torch import fixtures
+from bath_tpu_torch.cli import bathsearch
+from bath_tpu_torch.device_pipeline import TorchCascade, batches
+from bath_tpu_torch.ops import fwd as tf
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def fx(tmp_path_factory):
+    return fixtures.write_fixture(120, 300_000, 8, 11,
+                                  directory=tmp_path_factory.mktemp("fx"))
+
+
+def search(fx, tmp_path, module, args, env_extra=None, hmm=None):
+    env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0",
+               JAX_PLATFORMS="cpu")
+    env.update(env_extra or {})
+    tbl = tmp_path / f"{module}-{len(os.listdir(tmp_path))}.tbl"
+    r = subprocess.run(
+        [sys.executable, "-m", module, *args, "--tblout", str(tbl),
+         hmm or fx.hmm_path, fx.fasta_path],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return re.sub(r"# (CPU time|Mc/sec):.*", "", r.stdout), str(tbl)
+
+
+def numpy_out(fx, tmp_path, hmm=None):
+    return search(fx, tmp_path, "bath_tpu.cli.bathsearch",
+                  ["--backend", "numpy"], hmm=hmm)
+
+
+def torch_out(fx, tmp_path, env_extra=None, hmm=None):
+    return search(fx, tmp_path, "bath_tpu_torch.cli.bathsearch",
+                  ["--backend", "torch", "--device", "cpu"], env_extra, hmm)
+
+
+def test_torch_backend_byte_identical_to_numpy(fx, tmp_path):
+    want, tbl_n = numpy_out(fx, tmp_path)
+    got, tbl_t = torch_out(fx, tmp_path)
+    assert got == want
+    assert fixtures.embeds_found(tbl_t, fx) == len(fx.embeds) == 8
+    assert fixtures.embeds_found(tbl_n, fx) == 8
+
+
+def test_two_query_file_runs_the_serial_loop(fx, tmp_path):
+    other = fixtures.write_fixture(90, 200_000, 4, 12, directory=tmp_path)
+    two = tmp_path / "two.bhmm"
+    two.write_text(open(fx.hmm_path).read() + open(other.hmm_path).read())
+    want, _ = numpy_out(fx, tmp_path, hmm=str(two))
+    got, _ = torch_out(fx, tmp_path, hmm=str(two))
+    assert got == want and got.count("Query:") == 2
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_gate_band_perturbation_byte_invariant(fx, tmp_path, sign):
+    """0.9 of the band's worth of gate-score error leaves the bytes."""
+    flambda = float(read_hmm(fx.hmm_path).evparam[C.EV_FLAMBDA])
+    eps = sign * 0.9 * math.log(DEVICE_GATE_BAND) / flambda * math.log(2)
+    assert abs(eps) > 1.0
+    want, _ = numpy_out(fx, tmp_path)
+    got, _ = torch_out(fx, tmp_path, {"BATH_DEVICE_PERTURB": f"{eps:.6f}"})
+    assert got == want
+
+
+def test_gate_band_overdrive_changes_output(fx, tmp_path):
+    """-60 nats on every gate score rejects the true hits: the gate
+    scores do reach the output."""
+    want, _ = numpy_out(fx, tmp_path)
+    got, _ = torch_out(fx, tmp_path, {"BATH_DEVICE_PERTURB": "-60.0"})
+    assert got != want
+
+
+def test_search_imports_no_jax(fx, tmp_path):
+    code = ("import sys\n"
+            "from bath_tpu_torch.cli.bathsearch import run\n"
+            f"rc = run(['--device', 'cpu', '-o', {str(tmp_path / 'o')!r},"
+            f" {fx.hmm_path!r}, {fx.fasta_path!r}])\n"
+            "print(rc, 'jax' in sys.modules)\n")
+    env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["0", "False"]
+
+
+def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0")
+    monkeypatch.setenv("BATH_VIT_DEVICE", "0")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        bathsearch.run([fx.hmm_path, fx.fasta_path])
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--fs"], 1), (["--fsonly"], 1), (["--cpu", "2"], 5),
+    (["--mesh", "2"], 5), (["--splice"], 6), ([], 2)])
+def test_unported_modes_name_their_roadmap_item(fx, monkeypatch, extra,
+                                                item):
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0" if extra else "1")
+    monkeypatch.setenv("BATH_VIT_DEVICE", "0")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        bathsearch.run(["--device", "cpu", *extra, fx.hmm_path,
+                        fx.fasta_path])
+
+
+def test_cascade_batches_and_scatter(fx):
+    """fwd_scores sorts, batches and scatters back: each item's score
+    is its own plain-version score."""
+    om = fixtures.search_profile(read_hmm(fx.hmm_path))
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(0, 20, n).astype(np.int8)
+            for n in (5, 300, 1, 47, 120, 47)]
+    lens = np.array([len(s) for s in seqs])
+    seen = np.concatenate([i for i, _, _ in batches(seqs, lens, "cpu", 4)])
+    assert sorted(seen) == list(range(len(seqs)))
+    capped = [(i, d) for i, d, _ in batches(seqs, lens, "cpu",
+                                            max_cells=150)]
+    assert sorted(np.concatenate([i for i, _ in capped])) == \
+        list(range(len(seqs)))
+    assert all(d.numel() <= 150 or len(i) == 1 for i, d in capped)
+    stats = {}
+    cas = TorchCascade(om, device="cpu", stats=stats)
+    got = cas.fwd_scores(seqs, lens)
+    p = tf.fwd_params(om)
+    for s, g in zip(seqs, got):
+        want = tf.fwd_score_ref(torch.from_numpy(s)[None],
+                                torch.tensor([len(s)], dtype=torch.int32), p)
+        assert abs(float(want[0]) - float(g)) < 1e-5
+    assert stats["fwd_items"] == len(seqs)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        cas.msv_scores(seqs, lens)
