@@ -9,6 +9,9 @@ cascade: windows and six-frame ORFs on the host, the integer filters
 (MSV/SSV, bias, ViterbiFilter) in the native host library, the
 Forward gate (F3) and domain decoding on the device through
 ``TorchCascade``, and host rescoring, domain definition and output.
+``--fs``/``--fsonly`` add the frameshift branch: merged DNA windows on
+the host, the fs3-Forward gate (F4) and fs3 domain decoding on the
+device, and the host fs5 envelope stack.
 Its output is byte-identical to ``--backend numpy``, which runs
 ``bath_tpu.cli.bathsearch`` unchanged.  ``--device`` defaults to
 ``cuda``, and a missing CUDA device is an error; the CPU is used only
@@ -34,6 +37,7 @@ from bath_tpu.device_pipeline import (ChunkEntry, flush_downstream,
                                       flush_gates)
 from bath_tpu.gencode import GeneticCode, extract_orfs
 from bath_tpu.oprofile import oprofile_convert
+from bath_tpu.ops.reference.fwdback_fs import fs_oprofile_convert
 from bath_tpu.pipeline import statistics_text
 from bath_tpu.profile import profile_config, profile_config_fs
 from bath_tpu.scoredata import score_data_create
@@ -60,8 +64,6 @@ def backend_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """The first requested mode this backend cannot run yet."""
-    if args.fs or args.fsonly:
-        return not_ported("--fs/--fsonly", 1)
     if os.environ.get("BATH_MSV_DEVICE") == "1" \
             or os.environ.get("BATH_VIT_DEVICE") == "1":
         return not_ported("BATH_MSV_DEVICE=1/BATH_VIT_DEVICE=1 (the "
@@ -151,8 +153,14 @@ def run(argv=None, stats=None) -> int:
     for hmm in load_queries(args.queryfile, args):
         nquery += 1
         t0 = time.time()
-        hmm.fs = False
-        hmm.fsprob = 0.0
+        if args.fs or args.fsonly:
+            if not (hmm.fsprob and hmm.ct):
+                raise SystemExit(
+                    f"HMM file {args.queryfile} not formatted for "
+                    "frameshift search; run bathconvert first.")
+        else:
+            hmm.fs = False
+            hmm.fsprob = 0.0
         if hmm.ct and hmm.ct != args.ct:
             raise SystemExit(
                 f"--ct {args.ct} does not match HMM codon table {hmm.ct}")
@@ -162,6 +170,11 @@ def run(argv=None, stats=None) -> int:
         gm = profile_config(hmm, bg, L=100, mode=C.P7_LOCAL)
         om = oprofile_convert(gm)
         gm_fs5 = profile_config_fs(hmm, bg, gcode, 5, 100, C.P7_LOCAL)
+        om_fs3 = om_fs5 = None
+        if args.fs or args.fsonly:
+            om_fs3 = fs_oprofile_convert(
+                profile_config_fs(hmm, bg, gcode, 3, 100, C.P7_LOCAL))
+            om_fs5 = fs_oprofile_convert(gm_fs5)
         data = score_data_create(om)
         pli = make_pipeline(args)
         pli.nmodels = 1
@@ -177,12 +190,12 @@ def run(argv=None, stats=None) -> int:
             ofp.write("Accession:   %s\n" % hmm.acc)
         if hmm.desc:
             ofp.write("Description: %s\n" % hmm.desc)
-        cascade = TorchCascade(om, device=device, stats=stats)
+        cascade = TorchCascade(om, om_fs3, device=device, stats=stats)
 
         def down_flush(chunk):
             staged = flush_gates(chunk, cascade, pli, om, data, bg,
                                  hit_windows)
-            flush_downstream(staged, cascade, pli, om, gm, None, None,
+            flush_downstream(staged, cascade, pli, om, gm, om_fs3, om_fs5,
                              gm_fs5, data, bg, th, gcode, hit_windows,
                              use_device=True)
 

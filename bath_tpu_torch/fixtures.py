@@ -8,10 +8,17 @@ about 30% amino-acid substitutions: half on the minus strand, every
 eighth site (the last ones) an ORF that holds two copies (a two-domain
 hit), and one copy placed across the first window boundary.
 
+For ``--fs`` searches the query is built with frameshift calibration
+(``BuilderConfig(fs=True)``: the ``.bhmm`` carries the fs3/fs5 taus,
+the frameshift probability and the codon table), and <n_frameshift>
+copies carry a 1-nt deletion or insertion near their middle,
+alternating between the two.
+
 The CPU tests use a small fixture (M = 120, 300 kb); ``chip_smoke.py``
 searches a 5 Mb genome (one bacterial genome) with M = 400 (a
-Pfam-sized profile) and 40 embeds.  Files are written once per
-parameter set under ``build/bath_tpu_torch/fixtures/`` and reused.
+Pfam-sized profile) and 40 embeds, 16 of them frameshifted in its fs
+drive.  Files are written once per parameter set under
+``build/bath_tpu_torch/fixtures/`` and reused.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import io
 import json
 import os
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +51,8 @@ class Fixture:
     fasta_path: str
     # (first, last) 1-based plus-strand nt coordinates of every copy
     embeds: list
+    # the subset of <embeds> that carries a frameshift
+    frameshifted: list = field(default_factory=list)
 
 
 def _write_atomic(path: Path, text: str) -> None:
@@ -53,12 +62,14 @@ def _write_atomic(path: Path, text: str) -> None:
     os.replace(tmp, path)
 
 
-def make_query(M: int, rng: np.random.Generator, calibrate: bool = True):
+def make_query(M: int, rng: np.random.Generator, calibrate: bool = True,
+               fs: bool = False):
     """(hmm, query residues): a background-drawn protein built into a
-    single-sequence profile (standard search; no frameshift taus)."""
+    single-sequence profile; <fs> adds the frameshift calibration that
+    ``--fs``/``--fsonly`` need."""
     f = Background().f[:20].astype(np.float64)
     q = rng.choice(20, size=M, p=f / f.sum()).astype(np.uint8)
-    hmm = single_build(q, f"synth{M}", BuilderConfig(fs=False),
+    hmm = single_build(q, f"synth{M}", BuilderConfig(fs=fs),
                        do_calibrate=calibrate)
     return hmm, q
 
@@ -82,19 +93,35 @@ def _mutate(q: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     return aa
 
 
+def frameshift_sites(sites: int, n_frameshift: int) -> set:
+    """The <n_frameshift> site indices, evenly spread over <sites>,
+    whose first copy carries a frameshift."""
+    if n_frameshift <= 0:
+        return set()
+    if n_frameshift > sites:
+        raise ValueError(f"{n_frameshift} frameshifts for {sites} sites")
+    return {int(v) for v in np.linspace(0, sites - 1, n_frameshift)
+            .round()}
+
+
 def make_genome(q: np.ndarray, genome_len: int, n_embeds: int,
                 rng: np.random.Generator,
-                block_length: int = C.BLOCK_LENGTH_DEFAULT):
+                block_length: int = C.BLOCK_LENGTH_DEFAULT,
+                n_frameshift: int = 0):
     """(DNA string, [(first, last), ...] 1-based coordinates of each
-    copy) of a random genome carrying <n_embeds> mutated copies of the
-    protein <q>."""
+    copy, [(first, last), ...] of the frameshifted copies) of a random
+    genome carrying <n_embeds> mutated copies of the protein <q>.
+    <n_frameshift> sites get a 1-nt deletion (even count) or insertion
+    (odd) inside the middle codon of their first copy."""
     codons = _codons()
     n_double = n_embeds // 8
     sites = n_embeds - n_double           # the last n_double hold two
+    fs_sites = frameshift_sites(sites, n_frameshift)
     seq = np.frombuffer(NT.encode(), np.uint8)[
         rng.integers(0, 4, genome_len)]
     spacing = genome_len // (sites + 1)
-    embeds = []
+    embeds, shifted = [], []
+    n_shift = 0
     for s in range(sites):
         ncopy = 2 if s >= sites - n_double else 1
         parts, spans = [], []
@@ -110,6 +137,18 @@ def make_genome(q: np.ndarray, genome_len: int, n_embeds: int,
             pos += len(aa)
         dna = "".join(codons[int(a)][rng.integers(len(codons[int(a)]))]
                       for a in np.concatenate(parts))
+        if s in fs_sites:
+            # the middle codon's second nt of the first copy
+            at = spans[0][0] + 3 * (len(q) // 2) + 1
+            if n_shift % 2 == 0:
+                dna = dna[:at] + dna[at + 1:]
+                d = -1
+            else:
+                dna = dna[:at] + NT[int(rng.integers(0, 4))] + dna[at:]
+                d = 1
+            n_shift += 1
+            spans = [(spans[0][0], spans[0][1] + d)] + \
+                [(b + d, e + d) for b, e in spans[1:]]
         minus = s % 2 == 1
         if minus:
             dna = dna.translate(str.maketrans("ACGT", "TGCA"))[::-1]
@@ -119,32 +158,48 @@ def make_genome(q: np.ndarray, genome_len: int, n_embeds: int,
         if s == 1 and genome_len > block_length + len(dna):
             start = block_length - len(dna) // 2
         seq[start:start + len(dna)] = np.frombuffer(dna.encode(), np.uint8)
-        embeds += [(start + b + 1, start + e) for b, e in spans]
-    return seq.tobytes().decode(), sorted(embeds)
+        copies = [(start + b + 1, start + e) for b, e in spans]
+        embeds += copies
+        if s in fs_sites:
+            shifted.append(copies[0])
+    return seq.tobytes().decode(), sorted(embeds), sorted(shifted)
 
 
 def write_fixture(M: int, genome_len: int, n_embeds: int, seed: int,
                   directory: Path | None = None,
-                  calibrate: bool = True) -> Fixture:
-    """The fixture for these parameters, written on first use."""
+                  calibrate: bool = True, fs: bool = False,
+                  n_frameshift: int = 0) -> Fixture:
+    """The fixture for these parameters, written on first use.  <fs>
+    builds the query for frameshift search; <n_frameshift> copies carry
+    a frameshift.  Both appear in the file stem (``-fs``, ``-F<K>``);
+    the meta file of a fixture with frameshifts also lists them."""
     d = Path(directory or FIXTURE_DIR)
     d.mkdir(parents=True, exist_ok=True)
-    stem = d / f"synth-M{M}-L{genome_len}-E{n_embeds}-s{seed}"
+    stem = d / (f"synth-M{M}-L{genome_len}-E{n_embeds}-s{seed}"
+                + ("-fs" if fs else "")
+                + (f"-F{n_frameshift}" if n_frameshift else ""))
     meta = stem.with_suffix(".json")
     hmm_path, fa_path = stem.with_suffix(".bhmm"), stem.with_suffix(".fa")
     if meta.exists():
-        return Fixture(str(hmm_path), str(fa_path),
-                       json.loads(meta.read_text()))
+        m = json.loads(meta.read_text())
+        if isinstance(m, dict):
+            return Fixture(str(hmm_path), str(fa_path), m["embeds"],
+                           m["frameshifted"])
+        return Fixture(str(hmm_path), str(fa_path), m)
     rng = np.random.default_rng(seed)
-    hmm, q = make_query(M, rng, calibrate)
-    dna, embeds = make_genome(q, genome_len, n_embeds, rng)
+    hmm, q = make_query(M, rng, calibrate, fs=fs)
+    dna, embeds, shifted = make_genome(q, genome_len, n_embeds, rng,
+                                       n_frameshift=n_frameshift)
     buf = io.StringIO()
     write_hmm(buf, hmm)
     _write_atomic(hmm_path, buf.getvalue())
     body = "\n".join(dna[i:i + 80] for i in range(0, len(dna), 80))
     _write_atomic(fa_path, f">genome{seed}\n{body}\n")
-    fx = Fixture(str(hmm_path), str(fa_path), [list(e) for e in embeds])
-    _write_atomic(meta, json.dumps(fx.embeds))
+    fx = Fixture(str(hmm_path), str(fa_path), [list(e) for e in embeds],
+                 [list(e) for e in shifted])
+    _write_atomic(meta, json.dumps(
+        {"embeds": fx.embeds, "frameshifted": fx.frameshifted}
+        if n_frameshift else fx.embeds))
     return fx
 
 
@@ -167,6 +222,60 @@ def search_profile(hmm):
     from bath_tpu.oprofile import oprofile_convert
     from bath_tpu.profile import profile_config
     return oprofile_convert(profile_config(hmm, Background(), L=100))
+
+
+def fs_search_profile(hmm, ct: int = 1):
+    """The fs3 profile (``FSOProfile``) a ``--fs`` search configures for
+    <hmm>; the hmm must carry the frameshift fields
+    (``make_query(..., fs=True)``)."""
+    from bath_tpu.ops.reference.fwdback_fs import fs_oprofile_convert
+    from bath_tpu.profile import profile_config_fs
+    gcode = GeneticCode.create(ct)
+    gcode.set_initiator_any()
+    return fs_oprofile_convert(profile_config_fs(hmm, Background(), gcode,
+                                                 3, 100, C.P7_LOCAL))
+
+
+def _back_translate(aa: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    codons = _codons()
+    dna = "".join(codons[int(a)][rng.integers(len(codons[int(a)]))]
+                  for a in aa)
+    return np.frombuffer(dna.translate(str.maketrans(NT, "\0\1\2\3"))
+                         .encode(), np.uint8).astype(np.int8)
+
+
+def fs_window_batch(q: np.ndarray, B: int, Lmax: int,
+                    rng: np.random.Generator):
+    """(dsq [B, Lmax] int8 padded with 17, lens [B] int32): ragged random
+    DNA windows of up to Lmax nt, the first five of 0, 2, 3, 4 and Lmax
+    nt.  Every second window long enough carries a back-translated
+    mutated copy of <q> and every fourth two; every third copy has a
+    1-nt deletion or insertion in its middle, and every fifth window a
+    run of ten N."""
+    lens = rng.integers(5, Lmax + 1, B).astype(np.int32)
+    lens[:min(B, 5)] = (0, 2, 3, 4, Lmax)[:min(B, 5)]
+    dsq = np.full((B, Lmax), 17, np.int8)
+    ncopies = 0
+    for b, L in enumerate(lens):
+        s = rng.integers(0, 4, L).astype(np.int8)
+        ncopy = 0 if b % 2 else (2 if b % 4 == 0 else 1)
+        span = 3 * len(q) + 1
+        for c in range(ncopy):
+            if L < (c + 1) * span:
+                continue
+            dna = _back_translate(_mutate(q, rng), rng)
+            if ncopies % 3 == 0:
+                at = 3 * (len(q) // 2) + 1
+                dna = np.delete(dna, at) if ncopies % 2 == 0 \
+                    else np.insert(dna, at, rng.integers(0, 4))
+            ncopies += 1
+            k = c * span + int(rng.integers(0, L // (c + 1) - span + 1))
+            s[k:k + len(dna)] = dna
+        if b % 5 == 4 and L > 20:
+            k = int(rng.integers(0, L - 10))
+            s[k:k + 10] = 15
+        dsq[b, :L] = s
+    return dsq, lens
 
 
 def kernel_batch(q: np.ndarray, B: int, Lmax: int,
@@ -209,3 +318,30 @@ def sample_orfs(fasta_path: str, n: int, seed: int,
     rng = np.random.default_rng(seed)
     return [pool[i] for i in rng.choice(len(pool), size=n,
                                         replace=len(pool) < n)]
+
+
+def sample_windows(fasta_path: str, n: int, length: int,
+                   seed: int) -> list[np.ndarray]:
+    """<n> DNA windows (int8 nucleotide codes) of <length> nt at random
+    places of a genome's first sequence, the shape of the fs3 gate's
+    merged windows (2 * max_length * 3 nt)."""
+    from bath_tpu.alphabet import dna
+    from bath_tpu.sequence import read_fasta
+    seq = read_fasta(fasta_path, dna())[0].dsq
+    rng = np.random.default_rng(seed)
+    return [np.asarray(seq[s:s + length], np.int8)
+            for s in rng.integers(0, len(seq) - length, n)]
+
+
+def frameshifts_found(fstblout_path: str, fx: Fixture) -> int:
+    """Frameshifted copies that a hit listed in an ``--fstblout`` table
+    overlaps (its alignment's nt range)."""
+    spans = []
+    with open(fstblout_path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            a, b = (int(x) for x in line.split()[5:7])
+            spans.append((min(a, b), max(a, b)))
+    return sum(any(a <= e and b >= s for a, b in spans)
+               for s, e in fx.frameshifted)

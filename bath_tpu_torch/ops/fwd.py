@@ -65,11 +65,9 @@ def _canonical_tr(tr: np.ndarray) -> np.ndarray:
     return tr
 
 
-def fwd_params(om, device="cpu") -> ProfileTensors:
-    """Parameters of an ``OProfile`` for the gate and domain-decoding
-    kernels."""
-    M = om.M
-    tfv = om.tfv
+def transition_rows(tfv: np.ndarray, M: int) -> np.ndarray:
+    """``tr [8, M]`` in the lane convention above, from a profile's
+    ``tfv [M+1, 8]`` (slot k = transitions out of position k)."""
     tr = np.zeros((8, M), np.float32)
     for r in (C.P_BM, C.P_MM, C.P_IM, C.P_DM):
         tr[r] = tfv[:M, r]
@@ -77,9 +75,17 @@ def fwd_params(om, device="cpu") -> ProfileTensors:
         tr[r] = tfv[1:M + 1, r]
     for r in (C.P_MD, C.P_DD):
         tr[r, 1:M] = tfv[1:M, r]
+    return _canonical_tr(tr)
+
+
+def fwd_params(om, device="cpu") -> ProfileTensors:
+    """Parameters of an ``OProfile`` for the gate and domain-decoding
+    kernels."""
+    M = om.M
     rfv = np.ascontiguousarray(om.rfv[:, 1:M + 1], np.float32)
-    return ProfileTensors(torch.from_numpy(rfv),
-                          torch.from_numpy(_canonical_tr(tr))).to(device)
+    return ProfileTensors(
+        torch.from_numpy(rfv),
+        torch.from_numpy(transition_rows(om.tfv, M))).to(device)
 
 
 def fwd_params_from_jax(rfv, tr, M: int, device="cpu") -> ProfileTensors:

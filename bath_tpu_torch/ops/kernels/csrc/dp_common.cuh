@@ -120,6 +120,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The run's last value of three rows at lane k0-1 (the previous
+// thread's, or the previous warp's for W > 1; 0 at lane -1).
+__device__ __forceinline__ void lane_before(const Group& g, float a, float b,
+                                            float c, float& pa, float& pb,
+                                            float& pc) {
+  if (g.W > 1) {
+    if (g.lane == 31) {
+      g.x.bnd[3 * g.warp] = a;
+      g.x.bnd[3 * g.warp + 1] = b;
+      g.x.bnd[3 * g.warp + 2] = c;
+    }
+    __syncthreads();
+  }
+  pa = __shfl_up_sync(FULL, a, 1);
+  pb = __shfl_up_sync(FULL, b, 1);
+  pc = __shfl_up_sync(FULL, c, 1);
+  if (g.lane == 0) {
+    if (g.warp == 0) {
+      pa = pb = pc = 0.f;
+    } else {
+      pa = g.x.bnd[3 * (g.warp - 1)];
+      pb = g.x.bnd[3 * (g.warp - 1) + 1];
+      pc = g.x.bnd[3 * (g.warp - 1) + 2];
+    }
+  }
+}
+
 // Copies the padded tables ([Kp][Mp] odds, [NTR][Mp] transitions) into
 // shared memory when `smem` holds them; every thread of the block calls
 // it, then the block syncs.  Returns the tables to read.
@@ -176,26 +203,8 @@ __device__ double forward_pass(const Group& g, const float* etab,
   for (int i = 0; i < len; ++i) {
     const float* e = etab + (int)seq[i] * Mp + k0;
     // the previous row at lane k0-1
-    if (g.W > 1) {
-      if (g.lane == 31) {
-        g.x.bnd[3 * g.warp] = m[P - 1];
-        g.x.bnd[3 * g.warp + 1] = iv[P - 1];
-        g.x.bnd[3 * g.warp + 2] = d[P - 1];
-      }
-      __syncthreads();
-    }
-    float mp = __shfl_up_sync(FULL, m[P - 1], 1);
-    float ip = __shfl_up_sync(FULL, iv[P - 1], 1);
-    float dp = __shfl_up_sync(FULL, d[P - 1], 1);
-    if (g.lane == 0) {
-      if (g.warp == 0) {
-        mp = ip = dp = 0.f;
-      } else {
-        mp = g.x.bnd[3 * (g.warp - 1)];
-        ip = g.x.bnd[3 * (g.warp - 1) + 1];
-        dp = g.x.bnd[3 * (g.warp - 1) + 2];
-      }
-    }
+    float mp, ip, dp;
+    lane_before(g, m[P - 1], iv[P - 1], d[P - 1], mp, ip, dp);
     // M and I rows in place, high lane first (lane j reads j-1's old row)
     float sumsv = 0.f;
 #pragma unroll

@@ -1,7 +1,8 @@
 """Builds, loads and launches the CUDA kernels of ``csrc/``.
 
 On first use the sources ``csrc/*.cu`` are compiled with nvcc for
-``sm_90a`` into one shared library with a plain C interface under
+``sm_90a``, one nvcc per source, all started together, and linked into
+one shared library with a plain C interface under
 ``build/bath_tpu_torch/`` at the repository root; the file name carries
 a hash of the sources, so an edited source builds anew.  The library is
 bound with ctypes.  Each C entry returns the launch's
@@ -26,17 +27,21 @@ from pathlib import Path
 
 import torch
 
+from ..fs3 import DNA_CODES
 from ..fwd import ProfileTensors
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "bath_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # Lanes per thread the kernels are instantiated for (odd: conflict-free
 # strided shared-memory reads).  A model of M positions takes the
 # smallest P with 32*P >= M in one warp, or W warps of P = 33 beyond.
 LANES_PER_THREAD = (3, 5, 9, 13, 17, 25, 33)
+# The fs3 kernels keep ~10 rows of P floats a thread in their rings, so
+# they stop at P = 13 and put W warps of 13 lanes on a longer model.
+FS3_LANES_PER_THREAD = (3, 5, 9, 13)
 
 _lib = None
 
@@ -45,14 +50,18 @@ class CudaKernelError(RuntimeError):
     pass
 
 
-def layout(M: int) -> tuple[int, int, int]:
+def layout(M: int, lanes=LANES_PER_THREAD) -> tuple[int, int, int]:
     """(P, W, Mp): lanes per thread, warps per item, padded lanes."""
-    for P in LANES_PER_THREAD:
+    for P in lanes:
         if 32 * P >= M:
             return P, 1, 32 * P
-    P = LANES_PER_THREAD[-1]
+    P = lanes[-1]
     W = -(-M // (32 * P))
     return P, W, 32 * P * W
+
+
+def fs3_layout(M: int) -> tuple[int, int, int]:
+    return layout(M, FS3_LANES_PER_THREAD)
 
 
 def _nvcc() -> str:
@@ -81,21 +90,37 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library of the current sources
-    exists.  Writes to a temporary name and renames, so concurrent
-    processes never load a half-written file."""
+    exists: one nvcc per source, run together, then one link.  Writes
+    to temporary names and renames, so concurrent processes never load
+    a half-written file."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise CudaKernelError(f"nvcc failed ({r.returncode}):\n"
-                              f"{' '.join(cmd)}\n{r.stderr[-4000:]}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        errors = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{' '.join(cmd)}\n{err[-4000:]}")
+        if errors:
+            raise CudaKernelError("nvcc failed:\n" + "\n".join(errors))
+        tmp = os.path.join(tmpdir, so.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise CudaKernelError(f"nvcc link failed ({r.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{r.stderr[-4000:]}")
+        os.replace(tmp, so)
     return so
 
 
@@ -114,6 +139,10 @@ def lib() -> ctypes.CDLL:
     so.bt_domdec.restype = I
     so.bt_domdec.argtypes = [P, P, I, I, P, P, I, I, I, I, F, P, P, P, P,
                              P, P]
+    so.bt_fs3_parser.restype = I
+    so.bt_fs3_parser.argtypes = [P, P, I, I, P, P, I, I, F, P, P]
+    so.bt_fs3_domdec.restype = I
+    so.bt_fs3_domdec.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P, P, P]
     _lib = so
     return so
 
@@ -123,15 +152,16 @@ def _check(err: int, name: str) -> None:
         raise CudaKernelError(f"{name} launch failed: cudaError {err}")
 
 
-def _check_inputs(dsq, lens, p):
+def _check_inputs(dsq, lens, codes: int):
+    """<codes>: the number of residue codes the kernel takes."""
     if dsq.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dsq.device} tensor")
     if not (dsq.is_contiguous() and lens.is_contiguous()):
         raise ValueError("dsq and lens must be contiguous")
     if dsq.numel():
         lo, hi = (int(v) for v in torch.aminmax(dsq))
-        if lo < 0 or hi >= p.Kp:
-            raise ValueError(f"residue codes must lie in [0, {p.Kp})")
+        if lo < 0 or hi >= codes:
+            raise ValueError(f"residue codes must lie in [0, {codes})")
         lo, hi = (int(v) for v in torch.aminmax(lens))
         if lo < 0 or hi > dsq.shape[1]:
             raise ValueError("lens must lie in [0, L]")
@@ -144,7 +174,7 @@ def _stream() -> int:
 def launch_fwd(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
                nj: float) -> torch.Tensor:
     """fwd_parser.cu: Forward-gate scores [B] f32 (nats)."""
-    _check_inputs(dsq, lens, p)
+    _check_inputs(dsq, lens, p.Kp)
     so = lib()
     B, L = dsq.shape
     P, _, Mp = layout(p.M)
@@ -161,7 +191,7 @@ def launch_domdec(dsq: torch.Tensor, lens: torch.Tensor,
                   p: ProfileTensors, nj: float):
     """domdec.cu: normalised increments (inc_b, inc_e, njr) [B, L], and
     logZ and logZ minus the total forward log scale, [B] each."""
-    _check_inputs(dsq, lens, p)
+    _check_inputs(dsq, lens, p.Kp)
     so = lib()
     B, L = dsq.shape
     P, _, Mp = layout(p.M)
@@ -177,3 +207,42 @@ def launch_domdec(dsq: torch.Tensor, lens: torch.Tensor,
                         logz2.data_ptr(), _stream()),
            "domdec")
     return inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]
+
+
+def launch_fs3(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
+               nj: float) -> torch.Tensor:
+    """fs3_parser.cu: fs3-Forward gate scores [B] f32 (nats) of DNA
+    windows (residue codes 0..17)."""
+    _check_inputs(dsq, lens, DNA_CODES)
+    so = lib()
+    B, L = dsq.shape
+    P, _, Mp = fs3_layout(p.M)
+    etab, ttab = p.padded(Mp)
+    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
+    _check(so.bt_fs3_parser(dsq.data_ptr(), lens.data_ptr(), B, L,
+                            etab.data_ptr(), ttab.data_ptr(), Mp, P,
+                            float(nj), out.data_ptr(), _stream()),
+           "fs3_parser")
+    return out
+
+
+def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
+                      p: ProfileTensors, nj: float):
+    """fs3_domdec.cu: the forward and backward specials [B, 6, L+1] f64
+    of every nucleotide row, and (logZ, total forward log scale) [B, 2]
+    f64."""
+    _check_inputs(dsq, lens, DNA_CODES)
+    so = lib()
+    B, L = dsq.shape
+    P, _, Mp = fs3_layout(p.M)
+    etab, ttab = p.padded(Mp)
+    dev = dsq.device
+    spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
+    logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
+    _check(so.bt_fs3_domdec(dsq.data_ptr(), lens.data_ptr(), B, L,
+                            etab.data_ptr(), ttab.data_ptr(), p.M, Mp, P,
+                            float(nj), spec[0].data_ptr(),
+                            spec[1].data_ptr(), logz2.data_ptr(),
+                            _stream()),
+           "fs3_domdec")
+    return spec[0], spec[1], logz2

@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the standard bathsearch path from
-``bath_tpu_torch/ops/kernels/csrc/``, holds each against its plain
-PyTorch version on the card, times both, then searches a seeded 5 Mb
-genome with a seeded M = 400 profile through the port's CLI and checks
-that the output is byte-identical to the host path (``bath_tpu``
-``--backend numpy``), that the embedded homologs are found, and that the
-search went through both kernels.  Every phase prints one line; any
-failure exits non-zero.  The last two lines are the kernels' JSON
-record and ``{"ok": true, "device": ...}``.
+Builds the CUDA kernels of the standard and the ``--fs`` bathsearch
+paths from ``bath_tpu_torch/ops/kernels/csrc/``, holds each against its
+plain PyTorch version on the card, times both, then searches a seeded
+5 Mb genome with a seeded M = 400 profile through the port's CLI: the
+standard search, then ``--fs`` and ``--fsonly`` on the genome's
+frameshift twin (16 of its 40 embeds carry a 1-nt deletion or
+insertion).  It checks that the output is byte-identical to the host
+path (``bath_tpu --backend numpy``), that the embedded homologs and
+the frameshifts are found, and that each search went through its
+kernels.  Every phase prints one line; any failure exits non-zero.  The
+last two lines are the kernels' JSON record and ``{"ok": true,
+"device": ...}``.
 
 Needs a CUDA device, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 g++ (the host library of the integer filters).  Everything it builds or
@@ -45,6 +48,14 @@ TIME_FWD_M = (400, 1000)
 FWD_TOL = 1e-3              # nats, kernel vs plain version
 DOMDEC_TOL = 1e-4           # posterior units
 MIN_OK_SHARE = 0.95
+# --fs: parity batches (B, longest L in nt) at M_SEARCH and FS3_WIDE_M
+PARITY_FS3 = (64, 6000)
+PARITY_FS3DD = (16, 6000)
+FS3_WIDE_M = 1500           # several warps per window
+TIME_FS3_M = (134, 409, 781, 1000, 2048)
+TIME_FS3_B, TIME_FS3DD_B = 256, 32
+N_FRAMESHIFT = 16
+MIN_FS_FOUND = 12
 
 
 def fail(msg: str) -> None:
@@ -72,12 +83,12 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def one_batch(orfs, dev):
+def one_batch(orfs, dev, pad=28):
     """(lengths as numpy, dsq, lens): <orfs> as one padded batch on
     <dev>, built as the cascade builds its batches."""
     from bath_tpu_torch.device_pipeline import batches
     ln = np.array([len(o) for o in orfs], np.int32)
-    _, dsq, lens = next(batches(orfs, ln, dev, batch=len(orfs)))
+    _, dsq, lens = next(batches(orfs, ln, dev, batch=len(orfs), pad=pad))
     return ln, dsq, lens
 
 
@@ -91,6 +102,8 @@ def main() -> None:
     from bath_tpu_torch import fixtures
     from bath_tpu_torch.cli import bathsearch
     from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fs3
+    from bath_tpu_torch.ops import fs3_domdec as fdd
     from bath_tpu_torch.ops import fwd
     from bath_tpu_torch.ops.kernels import loader
 
@@ -163,6 +176,41 @@ def main() -> None:
     phase("parity", kernel="both", M=WIDE[0], layout=loader.layout(WIDE[0]),
           fwd_err=e1, domdec_err=e2)
 
+    # 3b. the --fs kernels against their plain versions: DNA windows of
+    # 0, 2, 3, 4 and up to 6000 nt with homologs (one in three
+    # frameshifted) and runs of N, at M_SEARCH and at a model that
+    # takes several warps per window
+    fs3_err = fs3dd_err = 0.0
+    for M in (M_SEARCH, FS3_WIDE_M):
+        hm, qm = fixtures.make_query(M, rng, calibrate=False, fs=True)
+        pm = fs3.fs3_params(fixtures.fs_search_profile(hm), dev)
+        dsq, lens = (torch.from_numpy(a).to(dev) for a in
+                     fixtures.fs_window_batch(qm, *PARITY_FS3, rng))
+        got = fs3.fs3_score(dsq, lens, pm)
+        want = fs3.fs3_score_ref(dsq, lens, pm)
+        fin = torch.isfinite(want)
+        e1 = float((got - want)[fin].abs().max())
+        if not (torch.equal(fin, torch.isfinite(got)) and e1 <= FWD_TOL):
+            fail(f"fs3 kernel vs plain at M={M}: max |d| {e1} > {FWD_TOL} "
+                 "or the -inf windows differ")
+        dsq, lens = (torch.from_numpy(a).to(dev) for a in
+                     fixtures.fs_window_batch(qm, *PARITY_FS3DD, rng))
+        g = fdd.fs3_domdec(dsq, lens, pm, 100.0 / 103.0)
+        w = fdd.fs3_domdec_ref(dsq, lens, pm, 100.0 / 103.0)
+        e2 = max(float((a - b).abs().max()) for a, b in zip(g[:3], w[:3]))
+        if not (e2 <= DOMDEC_TOL and torch.equal(g[3], w[3])):
+            fail(f"fs3_domdec kernel vs plain at M={M}: max |d| {e2} > "
+                 f"{DOMDEC_TOL} or ok differs ({g[3].sum()} vs "
+                 f"{w[3].sum()})")
+        fs3_err, fs3dd_err = max(fs3_err, e1), max(fs3dd_err, e2)
+        phase("parity", kernel="fs3_parser,fs3_domdec", M=M,
+              layout=loader.fs3_layout(M),
+              B=f"{PARITY_FS3[0]},{PARITY_FS3DD[0]}",
+              L=f"0..{PARITY_FS3[1]}", fs3_err=e1, fs3_tol=FWD_TOL,
+              fs3_domdec_err=e2, fs3_domdec_tol=DOMDEC_TOL,
+              ok=f"{int(g[3].sum())}/{PARITY_FS3DD[0]}", ok_identical=True,
+              best_score=f"{float(want[fin].max()):.2f}")
+
     # 4. timing at the main path's shapes (ORFs of the search genome)
     fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED)
     times = {}
@@ -191,6 +239,36 @@ def main() -> None:
           mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
           ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           gcups=f"{cells / k_ms / 1e6:.2f}")
+
+    # 4b. the --fs kernels on windows of the fs3 gate's shape (2 *
+    # max_length * 3 nt) cut from the search genome; GCUPS count
+    # nucleotides x M
+    for M in TIME_FS3_M:
+        hm, _ = fixtures.make_query(M, np.random.default_rng(M),
+                                    calibrate=False, fs=True)
+        hm.set_max_length()
+        pm = fs3.fs3_params(fixtures.fs_search_profile(hm), dev)
+        wlen = 6 * hm.max_length
+        ln, d, lt = one_batch(fixtures.sample_windows(
+            fx.fasta_path, TIME_FS3_B, wlen, SEED), dev, pad=17)
+        k_ms = cuda_ms(lambda: fs3.fs3_score(d, lt, pm), 5)
+        p_ms = cuda_ms(lambda: fs3.fs3_score_ref(d, lt, pm), 1)
+        cells = float(ln.sum()) * M
+        times[("fs3", M)] = (k_ms, p_ms)
+        phase("timing", kernel="fs3_parser", M=M, B=TIME_FS3_B, L=wlen,
+              layout=loader.fs3_layout(M), ms=f"{k_ms:.4f}",
+              plain_ms=f"{p_ms:.2f}", us_per_row=f"{1e3 * k_ms / wlen:.3f}",
+              gcups=f"{cells / k_ms / 1e6:.2f}",
+              plain_gcups=f"{cells / p_ms / 1e6:.3f}")
+        if M == TIME_FS3_M[1]:
+            pdd, ddd, ldd, wdd = pm, d[:TIME_FS3DD_B], lt[:TIME_FS3DD_B], wlen
+    k_ms = cuda_ms(lambda: fdd.fs3_domdec(ddd, ldd, pdd, 100.0 / 103.0), 3)
+    p_ms = cuda_ms(lambda: fdd.fs3_domdec_ref(ddd, ldd, pdd, 100.0 / 103.0),
+                   1)
+    times["fs3_domdec"] = (k_ms, p_ms)
+    phase("timing", kernel="fs3_domdec", M=TIME_FS3_M[1], B=TIME_FS3DD_B,
+          L=wdd, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          gcups=f"{TIME_FS3DD_B * wdd * TIME_FS3_M[1] / k_ms / 1e6:.2f}")
 
     # 5. end to end: the port's CLI against the host path, in turns
     # (numpy, torch, torch, numpy); --backend numpy runs
@@ -250,6 +328,104 @@ def main() -> None:
     if ok_share < MIN_OK_SHARE:
         fail(f"device ok share {ok_share} < {MIN_OK_SHARE}")
 
+    # 5b. --fs and --fsonly on the frameshift twin of the genome: --fs
+    # in turns (numpy, torch, torch, numpy), --fsonly once each; the
+    # first torch --fs run is the one whose launches are counted
+    fs_fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED,
+                                   fs=True, n_frameshift=N_FRAMESHIFT)
+    fs_walls: dict = {}
+
+    def fs_search(backend, mode, stats=None):
+        runs = fs_walls.setdefault((backend, mode), [])
+        stem = BUILD / f"e2e{mode.replace('-', '_')}_{backend}{len(runs)}"
+        paths = [stem.with_suffix(x) for x in (".out", ".tbl", ".fst")]
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", backend, "--device", DEVICE, mode,
+                             "-o", str(paths[0]), "--tblout", str(paths[1]),
+                             "--fstblout", str(paths[2]), fs_fx.hmm_path,
+                             fs_fx.fasta_path], stats=stats)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+        if rc != 0:
+            fail(f"{backend} bathsearch {mode} exited {rc}")
+        return paths
+
+    def fs_masked(paths):
+        return (masked(paths[0]),
+                "".join(ln for ln in paths[2].read_text().splitlines(True)
+                        if not ln.startswith("#")))
+
+    fs_n = fs_search("numpy", "--fs")
+    fs_stats: dict = {}
+    for f in (fwd.fwd_score, dd.domdec, fs3.fs3_score, fdd.fs3_domdec):
+        f.launches = 0
+    fs_t = fs_search("torch", "--fs", fs_stats)
+    # under --fs the host decodes the standard branch's F3 survivors
+    # with the fs windows (pipeline.py:737), so domdec is not on this
+    # path: its count is printed, not required
+    fs_launches = {"fwd_parser": fwd.fwd_score.launches,
+                   "fs3_parser": fs3.fs3_score.launches,
+                   "fs3_domdec": fdd.fs3_domdec.launches}
+    fs_domdec_launches = dd.domdec.launches
+    fs_search("torch", "--fs")
+    fs_search("numpy", "--fs")
+    only_n = fs_search("numpy", "--fsonly")
+    only_stats: dict = {}
+    for f in (fwd.fwd_score, dd.domdec, fs3.fs3_score, fdd.fs3_domdec):
+        f.launches = 0
+    only_t = fs_search("torch", "--fsonly", only_stats)
+    only_launches = {"fwd_parser": fwd.fwd_score.launches,
+                     "fs3_parser": fs3.fs3_score.launches,
+                     "fs3_domdec": fdd.fs3_domdec.launches}
+    fs_identical = fs_masked(fs_t) == fs_masked(fs_n)
+    only_identical = fs_masked(only_t) == fs_masked(only_n)
+    fs_found = fixtures.embeds_found(str(fs_t[1]), fs_fx)
+    shifts = fixtures.frameshifts_found(str(fs_t[2]), fs_fx)
+    only_shifts = fixtures.frameshifts_found(str(only_t[2]), fs_fx)
+    fs_ok = fs_stats["fs3domdec_ok"] / max(1, fs_stats["fs3domdec_items"])
+    fw_t, fw_n = (float(np.mean(fs_walls[(b, "--fs")]))
+                  for b in ("torch", "numpy"))
+    phase("e2e_fs", genome_nt=GENOME_NT, M=M_SEARCH, embeds=N_EMBEDS,
+          frameshifted=N_FRAMESHIFT, found_torch=fs_found,
+          frameshifts_found=shifts, byte_identical=fs_identical,
+          walls_torch_s=",".join(f"{w:.4f}" for w in
+                                 fs_walls[("torch", "--fs")]),
+          walls_numpy_s=",".join(f"{w:.4f}" for w in
+                                 fs_walls[("numpy", "--fs")]),
+          mb_per_s_torch=f"{GENOME_NT / 1e6 / fw_t:.3f}",
+          mb_per_s_numpy=f"{GENOME_NT / 1e6 / fw_n:.3f}",
+          cascade_fwd_s=f"{fs_stats['fwd_s']:.4f}",
+          cascade_domdec_s=f"{fs_stats['domdec_s']:.4f}",
+          cascade_fs3_s=f"{fs_stats['fs3_s']:.4f}",
+          cascade_fs3domdec_s=f"{fs_stats['fs3domdec_s']:.4f}",
+          fs3_windows=fs_stats["fs3_items"],
+          fs3_survivors=fs_stats["fs3domdec_items"],
+          fs3_device_ok=fs_stats["fs3domdec_ok"], ok_share=f"{fs_ok:.4f}",
+          launches=fs_launches, domdec_launches=fs_domdec_launches)
+    phase("e2e_fsonly", byte_identical=only_identical,
+          frameshifts_found=only_shifts,
+          wall_torch_s=f"{fs_walls[('torch', '--fsonly')][0]:.4f}",
+          wall_numpy_s=f"{fs_walls[('numpy', '--fsonly')][0]:.4f}",
+          cascade_fs3_s=f"{only_stats['fs3_s']:.4f}",
+          cascade_fs3domdec_s=f"{only_stats['fs3domdec_s']:.4f}",
+          fs3_windows=only_stats["fs3_items"],
+          fs3_survivors=only_stats["fs3domdec_items"],
+          fs3_device_ok=only_stats["fs3domdec_ok"], launches=only_launches,
+          domdec_launches=dd.domdec.launches)
+    if not (fs_identical and only_identical):
+        fail(f"torch --fs/--fsonly output differs from the numpy backend "
+             f"(--fs {fs_identical}, --fsonly {only_identical})")
+    if fs_found < MIN_FOUND:
+        fail(f"--fs: only {fs_found}/{N_EMBEDS} embeds reported")
+    if shifts < MIN_FS_FOUND:
+        fail(f"--fs: only {shifts}/{N_FRAMESHIFT} frameshifted embeds in "
+             "--fstblout")
+    if min(fs_launches.values()) <= 0 or min(only_launches.values()) <= 0:
+        fail(f"a kernel of the --fs path never launched: {fs_launches}, "
+             f"--fsonly {only_launches}")
+    if fs_ok < MIN_OK_SHARE:
+        fail(f"fs3 device ok share {fs_ok} < {MIN_OK_SHARE}")
+
     # 6. the record
     kernels = [
         {"name": "fwd_parser", "route": "cuda",
@@ -263,6 +439,17 @@ def main() -> None:
          "replaces": "bath_tpu/ops/jaxk/kernels.py:988",
          "launches": launches["domdec"], "max_abs_err": dd_err,
          "ms": times["domdec"][0], "plain_ms": times["domdec"][1]},
+        {"name": "fs3_parser", "route": "cuda",
+         "source": "bath_tpu_torch/ops/kernels/csrc/fs3_parser.cu",
+         "replaces": "bath_tpu/ops/pallas/fs3.py:69",
+         "launches": fs_launches["fs3_parser"], "max_abs_err": fs3_err,
+         "ms": times[("fs3", TIME_FS3_M[1])][0],
+         "plain_ms": times[("fs3", TIME_FS3_M[1])][1]},
+        {"name": "fs3_domdec", "route": "cuda",
+         "source": "bath_tpu_torch/ops/kernels/csrc/fs3_domdec.cu",
+         "replaces": "bath_tpu/ops/jaxk/kernels.py:1235",
+         "launches": fs_launches["fs3_domdec"], "max_abs_err": fs3dd_err,
+         "ms": times["fs3_domdec"][0], "plain_ms": times["fs3_domdec"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

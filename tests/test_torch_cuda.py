@@ -5,9 +5,9 @@ skip without one).  Run them where there is a card:
 
 This file imports no JAX, so it also runs where JAX is not installed.
 Each kernel is held against its plain PyTorch version on the same
-inputs: the gate within 1e-3 nats, decoding within 1e-4 with
-identical `ok` flags.  M = 1500 takes the layout with two warps per
-ORF.
+inputs: the gates within 1e-3 nats, decoding within 1e-4 with
+identical `ok` flags.  M = 1500 takes the layouts with several warps
+per ORF or DNA window.
 """
 
 import re
@@ -19,6 +19,8 @@ import torch
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.cli import bathsearch
 from bath_tpu_torch.ops import domdec as td
+from bath_tpu_torch.ops import fs3 as t3
+from bath_tpu_torch.ops import fs3_domdec as td3
 from bath_tpu_torch.ops import fwd as tf
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +60,42 @@ def test_domdec_kernel_vs_plain(M):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def fs_card_batch(M, B, Lmax):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(M)
+    hmm, q = fixtures.make_query(M, rng, calibrate=False, fs=True)
+    p = t3.fs3_params(fixtures.fs_search_profile(hmm), "cuda")
+    dsq, lens = fixtures.fs_window_batch(q, B, Lmax, rng)
+    return p, torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+
+
+@pytest.mark.parametrize("M", [100, 400, 1500])
+def test_fs3_kernel_vs_plain(M):
+    p, dsq, lens = fs_card_batch(M, 16, 3 * M + 400)
+    before = t3.fs3_score.launches
+    got = t3.fs3_score(dsq, lens, p)
+    torch.cuda.synchronize()
+    assert t3.fs3_score.launches == before + 1
+    want = t3.fs3_score_ref(dsq, lens, p)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert float((got - want)[fin].abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("M", [100, 400, 1500])
+def test_fs3_domdec_kernel_vs_plain(M):
+    p, dsq, lens = fs_card_batch(M, 6, 3 * M + 400)
+    before = td3.fs3_domdec.launches
+    got = td3.fs3_domdec(dsq, lens, p, 100.0 / 103.0)
+    torch.cuda.synchronize()
+    assert td3.fs3_domdec.launches == before + 1
+    want = td3.fs3_domdec_ref(dsq, lens, p, 100.0 / 103.0)
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
 def test_search_on_card_matches_host(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -75,3 +113,27 @@ def test_search_on_card_matches_host(tmp_path, monkeypatch):
                                out.read_text())
     assert outs["torch"] == outs["numpy"]
     assert stats["fwd_items"] > 0 and stats["domdec_items"] > 0
+
+
+@pytest.mark.parametrize("mode", ["--fs", "--fsonly"])
+def test_fs_search_on_card_matches_host(tmp_path, monkeypatch, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0")
+    monkeypatch.setenv("BATH_VIT_DEVICE", "0")
+    fx = fixtures.write_fixture(120, 300_000, 8, 11, directory=tmp_path,
+                                fs=True, n_frameshift=4)
+    outs = {}
+    for backend, device in (("numpy", "cpu"), ("torch", "cuda")):
+        out, fst = tmp_path / f"{backend}.out", tmp_path / f"{backend}.fst"
+        stats = {}
+        assert bathsearch.run(["--backend", backend, "--device", device,
+                               mode, "--fstblout", str(fst), "-o", str(out),
+                               fx.hmm_path, fx.fasta_path],
+                              stats=stats) == 0
+        outs[backend] = (re.sub(r"# (CPU time|Mc/sec):.*", "",
+                                out.read_text()),
+                         [ln for ln in fst.read_text().splitlines()
+                          if not ln.startswith("#")])
+    assert outs["torch"] == outs["numpy"]
+    assert stats["fs3_items"] > 0 and stats["fs3domdec_items"] > 0

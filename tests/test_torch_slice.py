@@ -1,13 +1,16 @@
 """The bath_tpu_torch slice end to end: ``bath_tpu_torch.cli.bathsearch
 --backend torch`` against ``bath_tpu --backend numpy`` on a seeded
-fixture (M = 120, 300 kb, 8 embeds), on the CPU through the kernels'
-plain versions.
+fixture (M = 120, 300 kb, 8 embeds), and with ``--fs``/``--fsonly`` on
+its frameshift twin (the query calibrated for frameshift search, 4 of
+the 8 embeds carrying a 1-nt deletion or insertion), on the CPU through
+the kernels' plain versions.
 
 Byte identity alone is weak evidence (the gate band and the per-item
 `ok` fallback absorb device error), so the BATH_DEVICE_PERTURB twin of
 tests/test_device_pipeline.py shows the gate scores reach the output,
 and the kernel modules are held to the JAX package numerically in
-test_torch_fwd.py and test_torch_domdec.py.  The subprocesses pin
+test_torch_fwd.py, test_torch_domdec.py, test_torch_fs3.py and
+test_torch_fs3_domdec.py.  The subprocesses pin
 BATH_MSV_DEVICE/BATH_VIT_DEVICE to 0 (conftest.py sets 1 for the JAX
 package's device filters, which the torch backend refuses).
 """
@@ -39,6 +42,13 @@ def fx(tmp_path_factory):
                                   directory=tmp_path_factory.mktemp("fx"))
 
 
+@pytest.fixture(scope="module")
+def fs_fx(tmp_path_factory):
+    return fixtures.write_fixture(120, 300_000, 8, 11, fs=True,
+                                  n_frameshift=4,
+                                  directory=tmp_path_factory.mktemp("fsfx"))
+
+
 def search(fx, tmp_path, module, args, env_extra=None, hmm=None):
     env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0",
                JAX_PLATFORMS="cpu")
@@ -50,6 +60,22 @@ def search(fx, tmp_path, module, args, env_extra=None, hmm=None):
         capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     return re.sub(r"# (CPU time|Mc/sec):.*", "", r.stdout), str(tbl)
+
+
+def fs_search(fx, tmp_path, backend, mode, env_extra=None):
+    """(output, --fstblout without its '#' lines, its path, the
+    --tblout path) of a <mode> search (--fs or --fsonly) with
+    <backend>."""
+    fst = tmp_path / f"{backend}-{len(os.listdir(tmp_path))}.fst"
+    args = ["--backend", "numpy"] if backend == "numpy" else \
+        ["--backend", "torch", "--device", "cpu"]
+    module = "bath_tpu.cli.bathsearch" if backend == "numpy" \
+        else "bath_tpu_torch.cli.bathsearch"
+    out, tbl = search(fx, tmp_path, module,
+                      [*args, mode, "--fstblout", str(fst)], env_extra)
+    rows = "".join(line for line in fst.read_text().splitlines(True)
+                   if not line.startswith("#"))
+    return out, rows, str(fst), tbl
 
 
 def numpy_out(fx, tmp_path, hmm=None):
@@ -98,6 +124,39 @@ def test_gate_band_overdrive_changes_output(fx, tmp_path):
     assert got != want
 
 
+@pytest.mark.parametrize("mode", ["--fs", "--fsonly"])
+def test_fs_modes_byte_identical_to_numpy(fs_fx, tmp_path, mode):
+    """-o and --fstblout (its '#' lines masked) equal the host path's,
+    every embed is reported and every frameshifted one is covered by a
+    listed frameshift."""
+    want, want_fs, _, _ = fs_search(fs_fx, tmp_path, "numpy", mode)
+    got, got_fs, fst, tbl = fs_search(fs_fx, tmp_path, "torch", mode)
+    assert got == want
+    assert got_fs == want_fs and got_fs
+    assert fixtures.frameshifts_found(fst, fs_fx) == 4
+    assert fixtures.embeds_found(tbl, fs_fx) == 8
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_fs_gate_band_perturbation_byte_invariant(fs_fx, tmp_path, sign):
+    """0.9 of the band's worth of error on every gate score, the fs3
+    gate's included, leaves the --fs bytes."""
+    flambda = float(read_hmm(fs_fx.hmm_path).evparam[C.EV_FLAMBDA])
+    eps = sign * 0.9 * math.log(DEVICE_GATE_BAND) / flambda * math.log(2)
+    want = fs_search(fs_fx, tmp_path, "numpy", "--fs")[:2]
+    got = fs_search(fs_fx, tmp_path, "torch", "--fs",
+                    {"BATH_DEVICE_PERTURB": f"{eps:.6f}"})[:2]
+    assert got == want
+
+
+def test_fs_gate_band_overdrive_changes_output(fs_fx, tmp_path):
+    """-60 nats on every gate score changes the --fs output."""
+    want = fs_search(fs_fx, tmp_path, "numpy", "--fs")[:2]
+    got = fs_search(fs_fx, tmp_path, "torch", "--fs",
+                    {"BATH_DEVICE_PERTURB": "-60.0"})[:2]
+    assert got != want
+
+
 def test_search_imports_no_jax(fx, tmp_path):
     code = ("import sys\n"
             "from bath_tpu_torch.cli.bathsearch import run\n"
@@ -111,6 +170,30 @@ def test_search_imports_no_jax(fx, tmp_path):
     assert r.stdout.split() == ["0", "False"]
 
 
+def test_fs_search_imports_no_jax(fs_fx, tmp_path):
+    code = ("import sys\n"
+            "from bath_tpu_torch.cli.bathsearch import run\n"
+            f"rc = run(['--device', 'cpu', '--fs', '-o', "
+            f"{str(tmp_path / 'o')!r}, {fs_fx.hmm_path!r}, "
+            f"{fs_fx.fasta_path!r}])\n"
+            "print(rc, 'jax' in sys.modules)\n")
+    env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["0", "False"]
+
+
+def test_fs_needs_a_frameshift_model(fx, monkeypatch):
+    """--fs with a query built without the frameshift fields stops, as
+    the JAX CLI does."""
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0")
+    monkeypatch.setenv("BATH_VIT_DEVICE", "0")
+    with pytest.raises(SystemExit, match="not formatted for frameshift"):
+        bathsearch.run(["--device", "cpu", "--fs", "-o", os.devnull,
+                        fx.hmm_path, fx.fasta_path])
+
+
 def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -121,8 +204,10 @@ def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--fs"], 1), (["--fsonly"], 1), (["--cpu", "2"], 5),
-    (["--mesh", "2"], 5), (["--splice"], 6), ([], 2)])
+    pytest.param(["--cpu", "2"], 5, id="extra2-5"),
+    pytest.param(["--mesh", "2"], 5, id="extra3-5"),
+    pytest.param(["--splice"], 6, id="extra4-6"),
+    pytest.param([], 2, id="extra5-2")])
 def test_unported_modes_name_their_roadmap_item(fx, monkeypatch, extra,
                                                 item):
     monkeypatch.setenv("BATH_MSV_DEVICE", "0" if extra else "1")
@@ -158,3 +243,33 @@ def test_cascade_batches_and_scatter(fx):
     assert stats["fwd_items"] == len(seqs)
     with pytest.raises(NotImplementedError, match="item 2"):
         cas.msv_scores(seqs, lens)
+
+
+def test_fs3_cascade_batches_and_scatter(fs_fx):
+    """fs3_scores and fs3_domdec sort, batch (pad 17) and scatter back:
+    each window's result is its own plain-version result."""
+    from bath_tpu.sequence import Sequence
+    from bath_tpu_torch.ops import fs3 as t3
+    from bath_tpu_torch.ops import fs3_domdec as td3
+    hmm = read_hmm(fs_fx.hmm_path)
+    om3 = fixtures.fs_search_profile(hmm)
+    rng = np.random.default_rng(10)
+    seqs = [rng.integers(0, 4, n).astype(np.int8)
+            for n in (5, 700, 2, 131, 360, 131)]
+    lens = np.array([len(s) for s in seqs])
+    stats = {}
+    cas = TorchCascade(fixtures.search_profile(hmm), om3, device="cpu",
+                       stats=stats)
+    got = cas.fs3_scores(seqs, lens)
+    bt, et, mo, ok = cas.fs3_domdec([Sequence(name="w", dsq=s)
+                                     for s in seqs], 100.0 / 103.0)
+    p = t3.fs3_params(om3)
+    for s, g, b, k in zip(seqs, got, bt, ok):
+        one = (torch.from_numpy(s)[None],
+               torch.tensor([len(s)], dtype=torch.int32))
+        assert float(t3.fs3_score_ref(*one, p)[0]) == float(g)
+        want = td3.fs3_domdec_ref(*one, p, 100.0 / 103.0)
+        assert bool(want[3][0]) == bool(k)
+        assert np.abs(want[0][0].numpy() - b[:len(s) + 1]).max() < 1e-6
+    assert stats["fs3_items"] == stats["fs3domdec_items"] == len(seqs)
+    assert stats["fs3domdec_ok"] == int(ok.sum()) == len(seqs)
