@@ -9,6 +9,10 @@ cascade: windows and six-frame ORFs on the host, the integer filters
 (MSV/SSV, bias, ViterbiFilter) in the native host library, the
 Forward gate (F3) and domain decoding on the device through
 ``TorchCascade``, and host rescoring, domain definition and output.
+As in the JAX package, ``BATH_MSV_DEVICE=1`` moves MSV/SSV and the
+SSV window capture, and ``BATH_VIT_DEVICE=1`` the ViterbiFilter and its
+window capture, to the device (the all-device cascade); the bias
+filter stays on the host.
 ``--fs``/``--fsonly`` add the frameshift branch: merged DNA windows on
 the host, the fs3-Forward gate (F4) and fs3 domain decoding on the
 device, and the host fs5 envelope stack.
@@ -64,10 +68,6 @@ def backend_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """The first requested mode this backend cannot run yet."""
-    if os.environ.get("BATH_MSV_DEVICE") == "1" \
-            or os.environ.get("BATH_VIT_DEVICE") == "1":
-        return not_ported("BATH_MSV_DEVICE=1/BATH_VIT_DEVICE=1 (the "
-                          "device integer filters)", 2)
     if args.mesh and args.mesh > 1:
         return not_ported("--mesh", 5)
     if args.hosts and args.hosts > 1:
@@ -80,15 +80,17 @@ def _unported(args) -> str | None:
 
 
 def require_native():
-    """The native host library; the torch backend runs F1/F2 there and
-    refuses to fall back to the pure-numpy filters."""
+    """The native host library; the torch backend runs the bias filter,
+    and the integer filters unless BATH_MSV_DEVICE=1/BATH_VIT_DEVICE=1
+    send them to the device, there, and refuses to fall back to the
+    pure-numpy filters."""
     from bath_tpu.native import _SO, get_lib
     lib = get_lib()
     if lib is None:
         raise RuntimeError(
             f"the native host library ({_SO}) failed to build or load; "
-            "the torch backend runs the integer filters in it (their "
-            "device port is ROADMAP.md, 'Still to port', item 2)")
+            "the torch backend runs the bias filter and, by default, the "
+            "integer filters (MSV/SSV, ViterbiFilter) in it")
     return lib
 
 

@@ -3,8 +3,7 @@
 ``TorchCascade`` has the surface of ``bath_tpu.device_pipeline.
 DeviceCascade``, so the JAX package's own host orchestration
 (``flush_gates``, ``flush_downstream``, which import no JAX) drives it
-unchanged.  This slice runs the two f32 stages of the standard
-pipeline and the two of ``--fs``/``--fsonly`` on the device:
+unchanged.  The f32 stages run on the device:
 
 - ``fwd_scores``: the Forward-parser gate (F3) over every Viterbi
   survivor of a flush (``ops/fwd.py``);
@@ -16,31 +15,52 @@ pipeline and the two of ``--fs``/``--fsonly`` on the device:
   decoding over the windows that pass the gate and arbitration
   (``ops/fs3_domdec.py``).
 
-The integer filters (MSV/SSV F1, bias, Viterbi F2) stay in the native
-host library, as in the JAX package's production default; the other
-stages raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.  There is no watchdog and no host fallback: a CUDA error
-propagates to the caller.
+The integer filters run on the device when ``flush_gates`` selects
+them, as in the JAX package: ``BATH_MSV_DEVICE=1`` and
+``BATH_VIT_DEVICE=1`` (by default they stay in the native host
+library, the bias filter always does):
 
-Batching: items are sorted by length and cut into batches of at most
-``BATCH`` items, each padded to its own longest item; the decoding
-stages also cap a batch's padded residues.  A GPU needs no fixed shape
-buckets, so there is no length cap either.
+- ``msv_scores``: MSV/SSV (F1) over every ORF of a flush, read in
+  place from the flush's one residue stream (``ops/ssv.py``);
+- ``ssv_captures``: the SSV_BATH window capture over the bias
+  survivors already under F2 (``ops/ssv.py``);
+- ``vit_scores``: the ViterbiFilter (F2) over every bias survivor
+  (``ops/vit.py``);
+- ``vit_captures``: the ViterbiFilter_BATH capture over the F2
+  survivors (``ops/vit.py``).
+
+There is no watchdog and no host fallback: a CUDA error propagates to
+the caller.  The only host rescans are the reference's own: items whose
+SSV capture overflows its 16 slots.
+
+Batching: the f32 stages sort items by length and cut them into
+batches of at most ``BATCH`` items, each padded to its own longest
+item; the decoding stages also cap a batch's padded residues.  The
+integer filters take every item of a stage in one launch, each read at
+its offset in one residue stream.  A GPU needs no fixed shape buckets,
+so there is no length cap either.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import time
 
 import numpy as np
 import torch
 
+from bath_tpu import constants as C
 from bath_tpu.device_pipeline import _perturb
+from bath_tpu.stats import gumbel_invsurv
 
 from .ops.domdec import domdec as domdec_kernel
 from .ops.fs3 import DNA_PAD, fs3_params, fs3_score
 from .ops.fs3_domdec import fs3_domdec as fs3_domdec_kernel
 from .ops.fwd import PAD_RESIDUE, fwd_params, fwd_score
+from .ops.ssv import (SSVB_NCAP, msv_params, msv_post, msv_ssv,
+                      pack_stream, ssv_capture)
+from .ops.vit import vit_capture, vit_ints, vit_params
 
 BATCH = 4096
 # decoding keeps f64 forward specials and three f32 increment rows per
@@ -95,9 +115,13 @@ class TorchCascade:
     (``domdec_items``), those whose device posteriors were valid
     (``domdec_ok``), the same for the fs3 gate's DNA windows
     (``fs3_items``) and the fs-branch windows decoded
-    (``fs3domdec_items``, ``fs3domdec_ok``), and the host wall inside
-    each stage, transfers and the wait for the device included
-    (``fwd_s``, ``domdec_s``, ``fs3_s``, ``fs3domdec_s``)."""
+    (``fs3domdec_items``, ``fs3domdec_ok``), the integer filters' items
+    (``msv_items``, ``vit_items``, ``ssvcap_items``, ``vitcap_items``)
+    and the SSV captures with more than 16 events, which the host
+    rescans (``ssvcap_overflow``), and the host wall inside each stage,
+    transfers and the wait for the device included (``fwd_s``,
+    ``domdec_s``, ``fs3_s``, ``fs3domdec_s``, ``msv_s``, ``vit_s``,
+    ``ssvcap_s``, ``vitcap_s``)."""
 
     def __init__(self, om, om_fs3=None, device="cuda", stats=None):
         self.om = om
@@ -108,7 +132,10 @@ class TorchCascade:
         self.stats = stats if stats is not None else {}
         for k in ("fwd_items", "domdec_items", "domdec_ok", "fwd_s",
                   "domdec_s", "fs3_items", "fs3domdec_items",
-                  "fs3domdec_ok", "fs3_s", "fs3domdec_s"):
+                  "fs3domdec_ok", "fs3_s", "fs3domdec_s", "msv_items",
+                  "msv_s", "vit_items", "vit_s", "ssvcap_items",
+                  "ssvcap_overflow", "ssvcap_s", "vitcap_items",
+                  "vitcap_s"):
             self.stats.setdefault(k, 0)
 
     def _scores(self, score, params, seqs, lens, pad, key) -> np.ndarray:
@@ -176,19 +203,139 @@ class TorchCascade:
                                                 dec_loop, nj=1.0),
             winseqs, FS3DOMDEC_CELLS, DNA_PAD, "fs3domdec")
 
-    # -- stages of later slices ---------------------------------------
-    def msv_scores(self, seqs, lens, flat=None, offs=None):
-        raise NotImplementedError(
-            not_ported("the device MSV/SSV filter (F1)", 2))
+    # -- the integer filters (BATH_MSV_DEVICE=1 / BATH_VIT_DEVICE=1) ---
+    # their tables are built on first use: the default path runs these
+    # filters in the native host library and never reads them
+    @functools.cached_property
+    def msv(self):
+        return msv_params(self.om, self.device)
+
+    @functools.cached_property
+    def vit(self):
+        return vit_params(self.om, self.device)
+
+    def _stream(self, seqs, lens, flat=None, offs=None):
+        """(flat int8, offs int64, lens int32) on the device: <flat>
+        and <offs> as given, or <seqs> concatenated."""
+        if flat is None:
+            flat, offs, lens = pack_stream(seqs)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, t))
+                     .to(self.device) for a, t in ((flat, np.int8),
+                                                   (offs, np.int64),
+                                                   (lens, np.int32)))
+
+    def _ints(self, values) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(values, np.int32)).to(self.device)
+
+    def msv_scores(self, seqs, lens, flat=None, offs=None) -> np.ndarray:
+        """MSV (F1) scores (nats, f32; inf on overflow) of every item,
+        bit-identical to ``ops.reference.filters.msv_filter``: either
+        <seqs> or one int8 stream <flat> with per-item <offs>, read in
+        place by one launch."""
+        t0 = time.perf_counter()
+        n = len(lens)
+        p = self.msv
+        tjb = self._ints(p.tjb_for(lens))
+        stream = self._stream(seqs, lens, flat, offs)
+        out_int, out_inf = msv_post(*msv_ssv(*stream, tjb, p), tjb, p)
+        ints = out_int.cpu().numpy().astype(np.float64)
+        sc = np.float32((ints - float(p.base)) / p.scale - 3.0)
+        sc = np.where(out_inf.cpu().numpy(), np.float32(np.inf), sc) \
+            .astype(np.float32)
+        self.stats["msv_items"] += n
+        self.stats["msv_s"] += time.perf_counter() - t0
+        return sc
+
+    def ssv_thresholds(self, lens, nulls, F1):
+        """([B] tjb bytes, [B] sc_thresh) of the SSV_BATH capture: the
+        op order of ``_ssv_captures_impl`` in f64 (ref: msvfilter.c
+        :250); -2^30 (capture every row) where F1 = 1."""
+        om = self.om
+        invP = float(gumbel_invsurv(F1, om.evparam[C.EV_MMU],
+                                    om.evparam[C.EV_MLAMBDA]))
+        tjb = self.msv.tjb_for(lens)
+        val = ((np.asarray(nulls, np.float64) + invP * C.CONST_LOG2
+                + 3.0) * om.scale_b + om.base_b + om.tec_b + tjb)
+        thr = np.where(np.isfinite(val),
+                       np.ceil(val), -(1 << 30)).astype(np.int64)
+        if not math.isfinite(invP):
+            thr[:] = -(1 << 30)
+        return tjb, thr
 
     def ssv_captures(self, seqs, lens, nulls, F1):
-        raise NotImplementedError(
-            not_ported("the device SSV window capture", 2))
+        """SSV_BATH capture events of the bias survivors under F2:
+        {i: (nwin, [(row, k, score), ...])} for every item, as
+        ``DeviceCascade.ssv_captures``.  Items with more than 16 events
+        (nwin > len(events)) are rescanned by the host, by the
+        reference's contract; ``ssvcap_overflow`` counts them."""
+        t0 = time.perf_counter()
+        tjb, thr = self.ssv_thresholds(lens, nulls, F1)
+        nwin, wi, wk, wsc = (t.cpu().numpy() for t in ssv_capture(
+            *self._stream(seqs, lens), self._ints(tjb), self._ints(thr),
+            self.msv))
+        caps = {}
+        for i, nv in enumerate(nwin.tolist()):
+            caps[i] = (nv, list(zip(wi[i, :nv], wk[i, :nv], wsc[i, :nv])))
+        self.stats["ssvcap_items"] += len(lens)
+        self.stats["ssvcap_overflow"] += int((nwin > SSVB_NCAP).sum())
+        self.stats["ssvcap_s"] += time.perf_counter() - t0
+        return caps
 
-    def vit_scores(self, seqs, lens):
-        raise NotImplementedError(
-            not_ported("the device ViterbiFilter (F2)", 2))
+    def vit_scores(self, seqs, lens) -> np.ndarray:
+        """ViterbiFilter (F2) scores (nats, f32; -inf with no result,
+        inf on int16 overflow) of every item, bit-identical to
+        ``ops.reference.filters.viterbi_filter``."""
+        t0 = time.perf_counter()
+        p = self.vit
+        score, has, ovf = (t.cpu().numpy() for t in vit_ints(
+            *self._stream(seqs, lens), self._ints(p.move_for(lens)), p))
+        sc = np.float32((score.astype(np.float64) - float(p.base))
+                        / p.scale - 3.0)
+        sc = np.where(has, sc, np.float32(-np.inf))
+        sc = np.where(ovf, np.float32(np.inf), sc).astype(np.float32)
+        if np.isnan(sc).any():
+            # pipeline_gates would route the item to the host scan
+            raise RuntimeError("NaN ViterbiFilter score from the device")
+        self.stats["vit_items"] += len(lens)
+        self.stats["vit_s"] += time.perf_counter() - t0
+        return sc
+
+    def vit_thresholds(self, lens, filterscs, F2):
+        """([B] move words, [B] sc_thresh) of the ViterbiFilter_BATH
+        capture: the op order of ``vit_thresh_bath`` in f64, the C move
+        word per length (ref: vitfilter.c :286); -2^30 where F2 = 1."""
+        om = self.om
+        invP = float(gumbel_invsurv(F2, om.evparam[C.EV_VMU],
+                                    om.evparam[C.EV_VLAMBDA]))
+        move = self.vit.move_for(lens)
+        val = (np.asarray(filterscs, np.float64)
+               + C.CONST_LOG2 * invP + 3.0) * om.scale_w \
+            - float(self.vit.emove) - move.astype(np.float64) \
+            + float(om.base_w)
+        thr = np.where(np.isfinite(val), np.ceil(val),
+                       -(1 << 30)).astype(np.int64)
+        if not math.isfinite(invP):
+            thr[:] = -(1 << 30)
+        return move, thr
 
     def vit_captures(self, seqs, lens, filterscs, F2):
-        raise NotImplementedError(
-            not_ported("the device Viterbi window capture", 2))
+        """ViterbiFilter_BATH capture events of the F2 survivors:
+        {i: (rows, ks)} for every item, the ascending 1-based crossing
+        rows before the first int16-saturated row and their
+        striped-order k_start, as ``DeviceCascade.vit_captures``."""
+        t0 = time.perf_counter()
+        move, thr = self.vit_thresholds(lens, filterscs, F2)
+        flat, offs, lens = pack_stream(seqs)
+        karr, ovfrow = (t.cpu().numpy() for t in vit_capture(
+            *self._stream(None, lens, flat, offs), self._ints(move),
+            self._ints(thr), self.vit))
+        caps = {}
+        for i, (o, L) in enumerate(zip(offs.tolist(), lens.tolist())):
+            ks = karr[o:o + L]
+            rows = np.nonzero(ks)[0]
+            if ovfrow[i] > 0:
+                rows = rows[rows + 1 < ovfrow[i]]
+            caps[i] = (rows + 1, ks[rows])
+        self.stats["vitcap_items"] += len(lens)
+        self.stats["vitcap_s"] += time.perf_counter() - t0
+        return caps

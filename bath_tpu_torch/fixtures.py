@@ -299,10 +299,10 @@ def kernel_batch(q: np.ndarray, B: int, Lmax: int,
     return dsq, lens
 
 
-def sample_orfs(fasta_path: str, n: int, seed: int,
-                min_len: int = 1) -> list[np.ndarray]:
-    """<n> ORFs (int8 residues) drawn at random from the six-frame ORFs
-    of a genome, as bathsearch extracts them (minimum length 20)."""
+def genome_orfs(fasta_path: str, min_len: int = 1) -> list[np.ndarray]:
+    """Every six-frame ORF (int8 residues) of a genome's windows, as
+    bathsearch extracts them (minimum length 20, windows without
+    overlap)."""
     from bath_tpu.gencode import extract_orfs
     from bath_tpu.sequence import read_windows
     gcode = GeneticCode.create(1)
@@ -315,9 +315,63 @@ def sample_orfs(fasta_path: str, n: int, seed: int,
                      for o in extract_orfs(gcode, w.dsq, minlen=20,
                                            is_revcomp=rev)
                      if o.n >= min_len]
+    return pool
+
+
+def sample_orfs(fasta_path: str, n: int, seed: int,
+                min_len: int = 1) -> list[np.ndarray]:
+    """<n> ORFs (int8 residues) drawn at random from the six-frame ORFs
+    of a genome (``genome_orfs``)."""
+    pool = genome_orfs(fasta_path, min_len)
     rng = np.random.default_rng(seed)
     return [pool[i] for i in rng.choice(len(pool), size=n,
                                         replace=len(pool) < n)]
+
+
+def hot_orfs(fasta_path: str, embeds, margin: int = 30) -> list[np.ndarray]:
+    """The ORFs (int8 residues) of the embedded homologs of a genome:
+    for each (first, last) copy of <embeds>, the ORFs of both strands
+    of its span (+ <margin> nt) at least half the copy's length.  Their
+    high-scoring diagonals saturate the Viterbi filter's int16 and make
+    the SSV window capture overflow its slots at P = 1."""
+    from bath_tpu.alphabet import dna, revcomp
+    from bath_tpu.gencode import extract_orfs
+    from bath_tpu.sequence import read_fasta
+    gcode = GeneticCode.create(1)
+    gcode.set_initiator_any()
+    seq = read_fasta(fasta_path, dna())[0].dsq
+    out = []
+    for first, last in embeds:
+        seg = seq[max(0, first - 1 - margin):last + margin]
+        for s in (seg, revcomp(seg)):
+            out += [np.asarray(o.dsq, np.int8)
+                    for o in extract_orfs(gcode, s,
+                                          minlen=(last - first + 1) // 6)]
+    return out
+
+
+def filter_cases(fx: Fixture, n_genome: int, seed: int,
+                 long_len: int = 0) -> list[np.ndarray]:
+    """ORFs (int8 residues) for the integer filters' parity checks:
+    <n_genome> ORFs of the genome, its hot ORFs (``hot_orfs``), random
+    residues of 1, 2, 19, 20 and 21, three missing-data residues, an
+    empty one (no Viterbi result: the score is -inf) and, with
+    <long_len>, one random ORF that long carrying a copy of every hot
+    ORF."""
+    f = Background().f[:20].astype(np.float64)
+    rng = np.random.default_rng(seed)
+    hot = hot_orfs(fx.fasta_path, fx.embeds)
+    cases = sample_orfs(fx.fasta_path, n_genome, seed) + hot
+    cases += [rng.choice(20, size=n, p=f / f.sum()).astype(np.int8)
+              for n in (1, 2, 19, 20, 21)]
+    cases += [np.full(3, 28, np.int8), np.zeros(0, np.int8)]
+    if long_len:
+        long = rng.choice(20, size=long_len, p=f / f.sum()).astype(np.int8)
+        at = np.linspace(0, long_len, len(hot) + 1).astype(int)
+        for h, a in zip(hot, at):
+            long[a:a + len(h)] = h[:long_len - a]
+        cases.append(long)
+    return cases
 
 
 def sample_windows(fasta_path: str, n: int, length: int,

@@ -29,6 +29,7 @@ import torch
 
 from ..fs3 import DNA_CODES
 from ..fwd import ProfileTensors
+from ..ssv import SSVB_NCAP
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "bath_tpu_torch"
@@ -143,6 +144,18 @@ def lib() -> ctypes.CDLL:
     so.bt_fs3_parser.argtypes = [P, P, I, I, P, P, I, I, F, P, P]
     so.bt_fs3_domdec.restype = I
     so.bt_fs3_domdec.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P, P, P]
+    so.bt_msv_filter.restype = I
+    so.bt_msv_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, I,
+                                 P, P]
+    so.bt_ssv_capture.restype = I
+    so.bt_ssv_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
+                                  P, P, P]
+    so.bt_vit_filter.restype = I
+    so.bt_vit_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, P,
+                                 P]
+    so.bt_vit_capture.restype = I
+    so.bt_vit_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
+                                  P, P, P]
     _lib = so
     return so
 
@@ -165,6 +178,28 @@ def _check_inputs(dsq, lens, codes: int):
         lo, hi = (int(v) for v in torch.aminmax(lens))
         if lo < 0 or hi > dsq.shape[1]:
             raise ValueError("lens must lie in [0, L]")
+
+
+def _check_stream(flat, offs, lens, p, *per_item):
+    """The integer filters' input: contiguous tensors on the device of
+    the parameters <p>, residue codes in [0, p.Kp) and every item inside
+    <flat>."""
+    if flat.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a {flat.device} tensor")
+    if p.device != flat.device:
+        raise ValueError(f"parameters on {p.device}, input on "
+                         f"{flat.device}")
+    if not all(t.is_contiguous() for t in (flat, offs, lens, *per_item)):
+        raise ValueError("the stream and per-item tensors must be "
+                         "contiguous")
+    if flat.numel():
+        lo, hi = (int(v) for v in torch.aminmax(flat))
+        if lo < 0 or hi >= p.Kp:
+            raise ValueError(f"residue codes must lie in [0, {p.Kp})")
+    if lens.numel():
+        if int(lens.min()) < 0 or int(offs.min()) < 0 \
+                or int((offs + lens).max()) > flat.numel():
+            raise ValueError("every item must lie inside flat")
 
 
 def _stream() -> int:
@@ -246,3 +281,82 @@ def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
                             _stream()),
            "fs3_domdec")
     return spec[0], spec[1], logz2
+
+
+def launch_msv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
+               tjb: torch.Tensor, p):
+    """msv_filter.cu: (xEu, xJm, movf) [B] int32 of every ORF of the
+    stream (``ops/ssv.py`` ``MSVParams`` <p>)."""
+    _check_stream(flat, offs, lens, p, tjb)
+    so = lib()
+    B = lens.numel()
+    P, _, Mp = layout(p.M)
+    tab = p.table(Mp)
+    out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
+    _check(so.bt_msv_filter(flat.data_ptr(), offs.data_ptr(),
+                            lens.data_ptr(), tjb.data_ptr(), B,
+                            tab.data_ptr(), p.Kp, p.M, Mp, P, p.base, p.tec,
+                            p.tbm, p.bias, out.data_ptr(), _stream()),
+           "msv_filter")
+    return out[0], out[1], out[2]
+
+
+def launch_ssv_capture(flat: torch.Tensor, offs: torch.Tensor,
+                       lens: torch.Tensor, tjb: torch.Tensor,
+                       thresh: torch.Tensor, p):
+    """ssv_capture.cu: (nwin [B], wi, wk, wsc [B, SSVB_NCAP]) int32."""
+    _check_stream(flat, offs, lens, p, tjb, thresh)
+    so = lib()
+    B = lens.numel()
+    P, _, Mp = layout(p.M)
+    tab = p.table(Mp)
+    dev = flat.device
+    nwin = torch.empty(B, dtype=torch.int32, device=dev)
+    caps = torch.zeros(3, B, SSVB_NCAP, dtype=torch.int32, device=dev)
+    _check(so.bt_ssv_capture(flat.data_ptr(), offs.data_ptr(),
+                             lens.data_ptr(), tjb.data_ptr(),
+                             thresh.data_ptr(), B, tab.data_ptr(), p.Kp,
+                             p.M, Mp, P, p.base, p.tbm, p.bias,
+                             nwin.data_ptr(), caps.data_ptr(), _stream()),
+           "ssv_capture")
+    return nwin, caps[0], caps[1], caps[2]
+
+
+def launch_vit(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
+               move: torch.Tensor, p):
+    """vit_filter.cu: (score_int [B] int32, has [B] bool, ovf [B] bool)
+    (``ops/vit.py`` ``VitParams`` <p>)."""
+    _check_stream(flat, offs, lens, p, move)
+    so = lib()
+    B = lens.numel()
+    P, _, Mp = layout(p.M)
+    tab = p.table(Mp)
+    out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
+    _check(so.bt_vit_filter(flat.data_ptr(), offs.data_ptr(),
+                            lens.data_ptr(), move.data_ptr(), B,
+                            tab.data_ptr(), p.Kp, p.M, Mp, P, p.base,
+                            p.emove, p.eloop, out.data_ptr(), _stream()),
+           "vit_filter")
+    return out[0], out[1] != 0, out[2] != 0
+
+
+def launch_vit_capture(flat: torch.Tensor, offs: torch.Tensor,
+                       lens: torch.Tensor, move: torch.Tensor,
+                       thresh: torch.Tensor, p):
+    """vit_filter.cu (capture): (karr [N] int16 in the layout of
+    <flat>, ovfrow [B] int32)."""
+    _check_stream(flat, offs, lens, p, move, thresh)
+    so = lib()
+    B = lens.numel()
+    P, _, Mp = layout(p.M)
+    tab = p.table(Mp)
+    dev = flat.device
+    ovfrow = torch.empty(B, dtype=torch.int32, device=dev)
+    karr = torch.zeros(flat.numel(), dtype=torch.int16, device=dev)
+    _check(so.bt_vit_capture(flat.data_ptr(), offs.data_ptr(),
+                             lens.data_ptr(), move.data_ptr(),
+                             thresh.data_ptr(), B, tab.data_ptr(), p.Kp,
+                             p.M, Mp, P, p.base, p.emove, p.eloop,
+                             ovfrow.data_ptr(), karr.data_ptr(), _stream()),
+           "vit_capture")
+    return karr, ovfrow

@@ -2,15 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the standard and the ``--fs`` bathsearch
-paths from ``bath_tpu_torch/ops/kernels/csrc/``, holds each against its
-plain PyTorch version on the card, times both, then searches a seeded
-5 Mb genome with a seeded M = 400 profile through the port's CLI: the
-standard search, then ``--fs`` and ``--fsonly`` on the genome's
-frameshift twin (16 of its 40 embeds carry a 1-nt deletion or
-insertion).  It checks that the output is byte-identical to the host
-path (``bath_tpu --backend numpy``), that the embedded homologs and
-the frameshifts are found, and that each search went through its
+Builds the CUDA kernels of the standard, the ``--fs`` and the
+all-device bathsearch paths from ``bath_tpu_torch/ops/kernels/csrc/``,
+holds each against its plain PyTorch version on the card (the integer
+filters exactly, and MSV also against the native host library over
+every ORF of the search genome), times both and the host library's
+batch, then searches a seeded 5 Mb genome with a seeded M = 400 profile
+through the port's CLI: the standard search, then ``--fs`` and
+``--fsonly`` on the genome's frameshift twin (16 of its 40 embeds carry
+a 1-nt deletion or insertion), then the all-device cascade
+(``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``: MSV/SSV, the ViterbiFilter
+and their window captures on the card too), standard and ``--fs``.
+It checks that the output is byte-identical to the host path
+(``bath_tpu --backend numpy``), that the embedded homologs and the
+frameshifts are found, and that each search went through its
 kernels.  Every phase prints one line; any failure exits non-zero.  The
 last two lines are the kernels' JSON record and ``{"ok": true,
 "device": ...}``.
@@ -56,6 +61,20 @@ TIME_FS3_M = (134, 409, 781, 1000, 2048)
 TIME_FS3_B, TIME_FS3DD_B = 256, 32
 N_FRAMESHIFT = 16
 MIN_FS_FOUND = 12
+# the integer filters: parity cases (genome ORFs besides the hot, short
+# and empty ones) at M_SEARCH, with one ORF of LONG_ORF residues, and at
+# INT_WIDE_M; capture thresholds (bytes, words) crossed by the hot ORFs
+# only, then P = 1 (every row crosses)
+PARITY_INT_N = 512
+LONG_ORF = 16_500
+INT_WIDE_M = 1500
+SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
+TIME_INT_B = 4096           # ORFs of the Viterbi set and the captures
+F1, F2 = 0.02, 1e-3         # bathsearch's default filter thresholds
+# the all-device cascade also runs with looser F1/F2, so that ORFs take
+# the Viterbi path and pass it (the Viterbi capture's input)
+LOOSE = ["--F1", "0.1", "--F2", "0.05"]
+ALL_DEVICE = {"BATH_MSV_DEVICE": "1", "BATH_VIT_DEVICE": "1"}
 
 
 def fail(msg: str) -> None:
@@ -83,6 +102,20 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def host_ms(fn) -> float:
+    """Milliseconds of one fn() call by the host clock."""
+    t = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def exact(got, want) -> float:
+    """max |got - want| over the outputs of an integer kernel and its
+    plain version (0 when they agree bit for bit)."""
+    return max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               if g.numel() else 0.0 for g, w in zip(got, want))
+
+
 def one_batch(orfs, dev, pad=28):
     """(lengths as numpy, dsq, lens): <orfs> as one padded batch on
     <dev>, built as the cascade builds its batches."""
@@ -105,6 +138,8 @@ def main() -> None:
     from bath_tpu_torch.ops import fs3
     from bath_tpu_torch.ops import fs3_domdec as fdd
     from bath_tpu_torch.ops import fwd
+    from bath_tpu_torch.ops import ssv
+    from bath_tpu_torch.ops import vit
     from bath_tpu_torch.ops.kernels import loader
 
     dev = torch.device(DEVICE)
@@ -211,8 +246,87 @@ def main() -> None:
               ok=f"{int(g[3].sum())}/{PARITY_FS3DD[0]}", ok_identical=True,
               best_score=f"{float(want[fin].max()):.2f}")
 
-    # 4. timing at the main path's shapes (ORFs of the search genome)
+    # 3c. the integer filters against their plain versions, exactly:
+    # ORFs of the search genome, its hot ORFs (int16 overflow; SSV slots
+    # overflowing at P = 1), ORFs of 0, 1, 2, 19-21 and 3 missing-data
+    # residues and, at M_SEARCH, one of LONG_ORF residues; INT_WIDE_M
+    # takes several warps per ORF
+    from bath_tpu.hmmfile import read_hmm
     fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED)
+    om = fixtures.search_profile(read_hmm(fx.hmm_path))
+    int_err = {k: 0.0 for k in ("msv_filter", "ssv_capture", "vit_filter",
+                                "vit_capture")}
+
+    def ints(values):
+        return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
+
+    def held(name, got, want, M):
+        err = exact(got, want)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"{name} kernel vs plain at M={M}: max |d| {err}")
+        int_err[name] = max(int_err[name], err)
+        return got
+
+    for M in (M_SEARCH, INT_WIDE_M):
+        if M == M_SEARCH:
+            src, om_m = fx, om
+        else:
+            src = fixtures.write_fixture(M, 30_000, 4, M, calibrate=False)
+            om_m = fixtures.search_profile(read_hmm(src.hmm_path))
+        orfs = fixtures.filter_cases(src, PARITY_INT_N, SEED,
+                                     LONG_ORF if M == M_SEARCH else 1200)
+        flat, offs, lens = (torch.from_numpy(a).to(dev)
+                            for a in ssv.pack_stream(orfs))
+        pm, pv = ssv.msv_params(om_m, dev), vit.vit_params(om_m, dev)
+        ln = lens.cpu().numpy()
+        tjb, move = ints(pm.tjb_for(ln)), ints(pv.move_for(ln))
+        args = (flat, offs, lens)
+        movf = held("msv_filter", ssv.msv_ssv(*args, tjb, pm),
+                    ssv.msv_ssv_ref(*args, tjb, pm), M)[2]
+        vs = held("vit_filter", vit.vit_ints(*args, move, pv),
+                  vit.vit_ints_ref(*args, move, pv), M)
+        nwin = {}
+        for t in (SSV_THR, P1_THR):
+            thr = ints(np.full(len(orfs), t))
+            nwin[t] = held("ssv_capture", ssv.ssv_capture(*args, tjb, thr, pm),
+                           ssv.ssv_capture_ref(*args, tjb, thr, pm), M)[0]
+        orow = {}
+        for t in (VIT_THR, P1_THR):
+            thr = ints(np.full(len(orfs), t))
+            orow[t] = held("vit_capture",
+                           vit.vit_capture(*args, move, thr, pv),
+                           vit.vit_capture_ref(*args, move, thr, pv), M)[1]
+        branches = {"msv_overflow": int(movf.sum()),
+                    "vit_overflow": int(vs[2].sum()),
+                    "vit_no_result": int((~vs[1]).sum()),
+                    "ssvcap_over_16": int((nwin[P1_THR] > 16).sum()),
+                    "ssvcap_events": int(nwin[SSV_THR].sum()),
+                    "vitcap_ovfrow": int((orow[VIT_THR] > 0).sum())}
+        if min(branches.values()) <= 0:
+            fail(f"integer-filter parity cases at M={M} miss a branch: "
+                 f"{branches}")
+        phase("parity", kernel="msv_filter,ssv_capture,vit_filter,"
+              "vit_capture", M=M, layout=loader.layout(M), B=len(orfs),
+              max_L=int(ln.max()), identical=True, **branches)
+
+    # 3d. MSV through the cascade (one flat stream, one launch) over
+    # every ORF of the search genome against the native host batch
+    from bath_tpu.native import msv_filter_native_batch
+    from bath_tpu_torch.device_pipeline import TorchCascade
+    cas = TorchCascade(om, device=dev, stats={})
+    all_orfs = fixtures.genome_orfs(fx.fasta_path)
+    a_flat, a_offs, a_lens = ssv.pack_stream(all_orfs)
+    got = cas.msv_scores(None, a_lens, flat=a_flat, offs=a_offs)
+    want = msv_filter_native_batch(all_orfs, om)
+    if not np.array_equal(got, want):
+        fail(f"device MSV differs from msv_filter_native_batch on "
+             f"{int((got != want).sum())} of {len(all_orfs)} ORFs")
+    phase("parity", kernel="msv_filter", M=M_SEARCH,
+          vs="msv_filter_native_batch", orfs=len(all_orfs),
+          residues=int(a_lens.sum()), inf=int(np.isinf(got).sum()),
+          identical=True)
+
+    # 4. timing at the main path's shapes (ORFs of the search genome)
     times = {}
     for M in TIME_FWD_M:
         hm, _ = fixtures.make_query(M, np.random.default_rng(M),
@@ -269,6 +383,111 @@ def main() -> None:
     phase("timing", kernel="fs3_domdec", M=TIME_FS3_M[1], B=TIME_FS3DD_B,
           L=wdd, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           gcups=f"{TIME_FS3DD_B * wdd * TIME_FS3_M[1] / k_ms / 1e6:.2f}")
+
+    # 4c. the integer filters: MSV over one flush of the search genome's
+    # ORFs (the flat stream flush_gates hands over), the ViterbiFilter
+    # and both captures over TIME_INT_B of them, at the default F1/F2
+    # thresholds on the null scores; beside each kernel its plain version
+    # and, for MSV and Viterbi, the native host library's OpenMP batch
+    # on the same ORFs in the flat layout its ORF extractor hands over
+    from bath_tpu.bg import Background
+    from bath_tpu.gencode import OrfList
+    from bath_tpu.native import vit_filter_score_batch
+    from bath_tpu_torch.cli.bathsearch import CHUNK_ORFS
+
+    def host_layout(orfs):
+        flat, offs, lens = ssv.pack_stream(orfs)
+        out = OrfList(orfs)
+        out.flat, out.offs, out.lens = flat.astype(np.int32), offs, lens
+        return out
+    pm, pv = cas.msv, cas.vit
+    f_orfs = all_orfs[:CHUNK_ORFS]
+    f_host = host_layout(f_orfs)
+    f_flat, f_offs, f_lens = (torch.from_numpy(a).to(dev)
+                              for a in ssv.pack_stream(f_orfs))
+    f_tjb = ints(pm.tjb_for(f_lens.cpu().numpy()))
+    fa = (f_flat, f_offs, f_lens, f_tjb, pm)
+    k_ms = cuda_ms(lambda: ssv.msv_ssv(*fa), 20)
+    p_ms = cuda_ms(lambda: ssv.msv_ssv_ref(*fa), 1)
+    held("msv_filter", ssv.msv_ssv(*fa), ssv.msv_ssv_ref(*fa), M_SEARCH)
+    h_ms = host_ms(lambda: msv_filter_native_batch(f_host, om))
+    cells = float(f_lens.sum()) * M_SEARCH
+    times["msv_filter"] = (k_ms, p_ms)
+    phase("timing", kernel="msv_filter", M=M_SEARCH, B=len(f_orfs),
+          layout="flat", mean_L=f"{float(f_lens.float().mean()):.1f}",
+          max_L=int(f_lens.max()), ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          host_native_batch_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
+          gcups=f"{cells / k_ms / 1e6:.2f}",
+          host_gcups=f"{cells / h_ms / 1e6:.2f}", card=repr(card))
+    v_orfs = fixtures.sample_orfs(fx.fasta_path, TIME_INT_B, SEED)
+    v_host = host_layout(v_orfs)
+    v_flat, v_offs, v_lens = (torch.from_numpy(a).to(dev)
+                              for a in ssv.pack_stream(v_orfs))
+    vl = v_lens.cpu().numpy()
+    got = cas.vit_scores(v_orfs, vl)
+    want = vit_filter_score_batch(v_host, np.arange(len(v_orfs)), om)
+    if not np.array_equal(got, want.astype(np.float32)):
+        fail(f"device ViterbiFilter differs from vit_filter_score_batch on "
+             f"{int((got != want).sum())} of {len(v_orfs)} ORFs")
+    phase("parity", kernel="vit_filter", M=M_SEARCH,
+          vs="vit_filter_score_batch", orfs=len(v_orfs),
+          inf=int(np.isinf(got).sum()), identical=True)
+    bg = Background()
+    nulls = []
+    for n in vl.tolist():
+        bg.set_length(n)
+        nulls.append(bg.null_one(n))
+    tjb, s_thr = (ints(a) for a in cas.ssv_thresholds(vl, nulls, F1))
+    move, v_thr = (ints(a) for a in cas.vit_thresholds(vl, nulls, F2))
+    va = (v_flat, v_offs, v_lens)
+    cells = float(vl.sum()) * M_SEARCH
+    for name, k_fn, p_fn, host in (
+            ("vit_filter", lambda: vit.vit_ints(*va, move, pv),
+             lambda: vit.vit_ints_ref(*va, move, pv),
+             lambda: vit_filter_score_batch(v_host, np.arange(TIME_INT_B),
+                                            om)),
+            ("ssv_capture", lambda: ssv.ssv_capture(*va, tjb, s_thr, pm),
+             lambda: ssv.ssv_capture_ref(*va, tjb, s_thr, pm), None),
+            ("vit_capture", lambda: vit.vit_capture(*va, move, v_thr, pv),
+             lambda: vit.vit_capture_ref(*va, move, v_thr, pv), None)):
+        k_ms = cuda_ms(k_fn, 20)
+        p_ms = cuda_ms(p_fn, 1)
+        h_ms = host_ms(host) if host else None
+        times[name] = (k_ms, p_ms)
+        out = held(name, k_fn(), p_fn(), M_SEARCH)
+        events = {"ssv_capture": lambda: int(out[0].sum()),
+                  "vit_capture": lambda: int((out[0] != 0).sum()),
+                  "vit_filter": lambda: int(out[2].sum())}[name]()
+        phase("timing", kernel=name, M=M_SEARCH, B=TIME_INT_B,
+              mean_L=f"{vl.mean():.1f}", max_L=int(vl.max()),
+              ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              host_native_batch_ms="not timed" if h_ms is None
+              else f"{h_ms:.2f}",
+              gcups=f"{cells / k_ms / 1e6:.2f}",
+              **({"events": events} if name != "vit_filter"
+                 else {"overflow": events}), card=repr(card))
+
+    # 4d. the grid holds at most one ORF per resident warp, and an SM
+    # holds at most 64 warps: one flush's ORFs outnumber them, so every
+    # warp's grid-stride loop takes further ORFs; held exactly there
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * 64
+    if len(f_orfs) <= resident:
+        fail(f"{len(f_orfs)} ORFs do not outnumber {resident} warps")
+    f_move = ints(pv.move_for(f_lens.cpu().numpy()))
+    f_sthr, f_vthr = (ints(np.full(len(f_orfs), t))
+                      for t in (SSV_THR, VIT_THR))
+    fo = (f_flat, f_offs, f_lens)
+    held("vit_filter", vit.vit_ints(*fo, f_move, pv),
+         vit.vit_ints_ref(*fo, f_move, pv), M_SEARCH)
+    ev = held("ssv_capture", ssv.ssv_capture(*fo, f_tjb, f_sthr, pm),
+              ssv.ssv_capture_ref(*fo, f_tjb, f_sthr, pm), M_SEARCH)[0]
+    kr = held("vit_capture", vit.vit_capture(*fo, f_move, f_vthr, pv),
+              vit.vit_capture_ref(*fo, f_move, f_vthr, pv), M_SEARCH)[0]
+    phase("parity", kernel="msv_filter,ssv_capture,vit_filter,vit_capture",
+          M=M_SEARCH, B=len(f_orfs), resident_warps_max=resident,
+          ssvcap_events=int(ev.sum()), vitcap_events=int((kr != 0).sum()),
+          identical=True)
 
     # 5. end to end: the port's CLI against the host path, in turns
     # (numpy, torch, torch, numpy); --backend numpy runs
@@ -426,6 +645,83 @@ def main() -> None:
     if fs_ok < MIN_OK_SHARE:
         fail(f"fs3 device ok share {fs_ok} < {MIN_OK_SHARE}")
 
+    # 5c. the all-device cascade (BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1):
+    # standard twice against the numpy run of phase 5, --fs once against
+    # phase 5b's, then standard with LOOSE filter thresholds against a
+    # numpy run of its own; each run's launches are counted from 0, and
+    # the first run (the main path) must launch all four kernels
+    int_fns = {"msv_filter": ssv.msv_ssv, "ssv_capture": ssv.ssv_capture,
+               "vit_filter": vit.vit_ints, "vit_capture": vit.vit_capture}
+    saved = {k: os.environ.get(k) for k in ALL_DEVICE}
+    os.environ.update(ALL_DEVICE)
+    ad_walls, ad_stats, ad_launches = [], [], []
+
+    def all_device(extra, stem, fxr):
+        st: dict = {}
+        for f in int_fns.values():
+            f.launches = 0
+        paths = [BUILD / f"{stem}.{x}" for x in ("out", "tbl", "fst")]
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", "torch", "--device", DEVICE,
+                             *extra, "-o", str(paths[0]), "--tblout",
+                             str(paths[1]), "--fstblout", str(paths[2]),
+                             fxr.hmm_path, fxr.fasta_path], stats=st)
+        torch.cuda.synchronize()
+        ad_walls.append(time.perf_counter() - t)
+        if rc != 0:
+            fail(f"all-device bathsearch {extra} exited {rc}")
+        ad_launches.append({k: f.launches for k, f in int_fns.items()})
+        ad_stats.append(st)
+        return paths
+
+    ad0 = all_device([], "ad0", fx)
+    int_launches = ad_launches[0]
+    ad1 = all_device([], "ad1", fx)
+    ad_fs = all_device(["--fs"], "ad_fs", fs_fx)
+    ad_loose = all_device(LOOSE, "ad_loose", fx)
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    rc = bathsearch.run(["--backend", "numpy", *LOOSE, "-o",
+                         str(BUILD / "ad_loose_numpy.out"), fx.hmm_path,
+                         fx.fasta_path])
+    if rc != 0:
+        fail(f"numpy bathsearch {LOOSE} exited {rc}")
+    ad_identical = {
+        "standard": masked(ad0[0]) == masked(out_n),
+        "standard_again": masked(ad1[0]) == masked(out_n),
+        "fs": fs_masked(ad_fs) == fs_masked(fs_n),
+        "loose": masked(ad_loose[0]) == masked(BUILD /
+                                               "ad_loose_numpy.out")}
+    ad_found = fixtures.embeds_found(str(ad0[1]), fx)
+    for tag, st, w, n in zip(("standard", "standard_again", "fs", "loose"),
+                             ad_stats, ad_walls, ad_launches):
+        phase("e2e_all_device", run=tag, wall_s=f"{w:.4f}",
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in st.items()
+                 if k.split("_")[0] in ("msv", "ssvcap", "vit", "vitcap")},
+              launches=n)
+    phase("e2e_all_device", genome_nt=GENOME_NT, M=M_SEARCH,
+          found_torch=ad_found, byte_identical=ad_identical,
+          walls_all_device_s=",".join(f"{w:.4f}" for w in ad_walls[:2]),
+          walls_hybrid_torch_s=",".join(f"{w:.4f}" for w in walls["torch"]),
+          walls_numpy_s=",".join(f"{w:.4f}" for w in walls["numpy"]),
+          fs_wall_all_device_s=f"{ad_walls[2]:.4f}",
+          fs_walls_hybrid_torch_s=",".join(
+              f"{w:.4f}" for w in fs_walls[("torch", "--fs")]),
+          launches=int_launches,
+          ssvcap_host_rescans=ad_stats[0]["ssvcap_overflow"])
+    if not all(ad_identical.values()):
+        fail(f"all-device output differs from the numpy backend: "
+             f"{ad_identical}")
+    if ad_found < MIN_FOUND:
+        fail(f"all-device: only {ad_found}/{N_EMBEDS} embeds reported")
+    if min(int_launches.values()) <= 0:
+        fail(f"an integer-filter kernel never launched in the all-device "
+             f"search: {int_launches}")
+
     # 6. the record
     kernels = [
         {"name": "fwd_parser", "route": "cuda",
@@ -451,6 +747,19 @@ def main() -> None:
          "launches": fs_launches["fs3_domdec"], "max_abs_err": fs3dd_err,
          "ms": times["fs3_domdec"][0], "plain_ms": times["fs3_domdec"][1]},
     ]
+    for name, src, replaces in (
+            ("msv_filter", "msv_filter.cu", "bath_tpu/ops/pallas/ssv.py:30"),
+            ("ssv_capture", "ssv_capture.cu",
+             "bath_tpu/ops/jaxk/filters_mb.py:623"),
+            ("vit_filter", "vit_filter.cu", "bath_tpu/ops/pallas/vit.py:64"),
+            ("vit_capture", "vit_filter.cu",
+             "bath_tpu/ops/jaxk/filters_mb.py:304")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"bath_tpu_torch/ops/kernels/csrc/{src}",
+            "replaces": replaces, "launches": int_launches[name],
+            "max_abs_err": int_err[name], "ms": times[name][0],
+            "plain_ms": times[name][1]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

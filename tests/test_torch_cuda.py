@@ -6,8 +6,9 @@ skip without one).  Run them where there is a card:
 This file imports no JAX, so it also runs where JAX is not installed.
 Each kernel is held against its plain PyTorch version on the same
 inputs: the gates within 1e-3 nats, decoding within 1e-4 with
-identical `ok` flags.  M = 1500 takes the layouts with several warps
-per ORF or DNA window.
+identical `ok` flags, the integer filters (MSV/SSV, the SSV capture,
+the ViterbiFilter and its capture) exactly.  M = 1500 takes the layouts
+with several warps per ORF or DNA window.
 """
 
 import re
@@ -22,6 +23,8 @@ from bath_tpu_torch.ops import domdec as td
 from bath_tpu_torch.ops import fs3 as t3
 from bath_tpu_torch.ops import fs3_domdec as td3
 from bath_tpu_torch.ops import fwd as tf
+from bath_tpu_torch.ops import ssv as ts
+from bath_tpu_torch.ops import vit as tv
 
 pytestmark = pytest.mark.cuda
 
@@ -96,6 +99,64 @@ def test_fs3_domdec_kernel_vs_plain(M):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def int_case(M, tmp_path):
+    """(om, cases on the card as flat, offs, lens): genome, hot, short,
+    empty and one 16 500-residue ORF of a small seeded genome."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bath_tpu.hmmfile import read_hmm
+    fx = fixtures.write_fixture(M, 30_000, 4, M, calibrate=False,
+                                directory=tmp_path)
+    om = fixtures.search_profile(read_hmm(fx.hmm_path))
+    orfs = fixtures.filter_cases(fx, 64, M, long_len=16_500)
+    return om, [torch.from_numpy(a).cuda() for a in ts.pack_stream(orfs)]
+
+
+@pytest.mark.parametrize("M", [100, 400, 1500])
+def test_msv_and_ssv_capture_kernels_vs_plain(M, tmp_path):
+    om, (flat, offs, lens) = int_case(M, tmp_path)
+    p = ts.msv_params(om, "cuda")
+    tjb = torch.from_numpy(p.tjb_for(lens.cpu().numpy())).cuda()
+    before = ts.msv_ssv.launches
+    got = ts.msv_ssv(flat, offs, lens, tjb, p)
+    torch.cuda.synchronize()
+    assert ts.msv_ssv.launches == before + 1
+    want = ts.msv_ssv_ref(flat, offs, lens, tjb, p)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for t in (180, -(1 << 30)):
+        thr = torch.full_like(tjb, t)
+        before = ts.ssv_capture.launches
+        got = ts.ssv_capture(flat, offs, lens, tjb, thr, p)
+        torch.cuda.synchronize()
+        assert ts.ssv_capture.launches == before + 1
+        want = ts.ssv_capture_ref(flat, offs, lens, tjb, thr, p)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert bool((got[0] > ts.SSVB_NCAP).any())
+
+
+@pytest.mark.parametrize("M", [100, 400, 1500])
+def test_vit_and_vit_capture_kernels_vs_plain(M, tmp_path):
+    om, (flat, offs, lens) = int_case(M, tmp_path)
+    p = tv.vit_params(om, "cuda")
+    move = torch.from_numpy(p.move_for(lens.cpu().numpy())).cuda()
+    before = tv.vit_ints.launches
+    got = tv.vit_ints(flat, offs, lens, move, p)
+    torch.cuda.synchronize()
+    assert tv.vit_ints.launches == before + 1
+    want = tv.vit_ints_ref(flat, offs, lens, move, p)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool(got[2].any()) and not bool(got[1].all())
+    for t in (16_000, -(1 << 30)):
+        thr = torch.full_like(move, t)
+        before = tv.vit_capture.launches
+        got = tv.vit_capture(flat, offs, lens, move, thr, p)
+        torch.cuda.synchronize()
+        assert tv.vit_capture.launches == before + 1
+        want = tv.vit_capture_ref(flat, offs, lens, move, thr, p)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert bool((got[1] > 0).any())
+
+
 def test_search_on_card_matches_host(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -137,3 +198,27 @@ def test_fs_search_on_card_matches_host(tmp_path, monkeypatch, mode):
                           if not ln.startswith("#")])
     assert outs["torch"] == outs["numpy"]
     assert stats["fs3_items"] > 0 and stats["fs3domdec_items"] > 0
+
+
+def test_all_device_search_on_card_matches_host(tmp_path, monkeypatch):
+    """BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1 on the card: byte-identical to
+    the host path, every integer-filter kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fx = fixtures.write_fixture(120, 300_000, 8, 11, directory=tmp_path)
+    loose = ["--F1", "0.1", "--F2", "0.05"]
+    outs = {}
+    for backend, device in (("numpy", "cpu"), ("torch", "cuda")):
+        monkeypatch.setenv("BATH_MSV_DEVICE", "1")
+        monkeypatch.setenv("BATH_VIT_DEVICE", "1")
+        out = tmp_path / f"{backend}.out"
+        launches = [f.launches for f in (ts.msv_ssv, ts.ssv_capture,
+                                         tv.vit_ints, tv.vit_capture)]
+        assert bathsearch.run(["--backend", backend, "--device", device,
+                               *loose, "-o", str(out), fx.hmm_path,
+                               fx.fasta_path]) == 0
+        outs[backend] = re.sub(r"# (CPU time|Mc/sec):.*", "",
+                               out.read_text())
+    assert outs["torch"] == outs["numpy"]
+    assert all(f.launches > n for f, n in zip(
+        (ts.msv_ssv, ts.ssv_capture, tv.vit_ints, tv.vit_capture), launches))

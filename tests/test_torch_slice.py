@@ -10,9 +10,12 @@ Byte identity alone is weak evidence (the gate band and the per-item
 tests/test_device_pipeline.py shows the gate scores reach the output,
 and the kernel modules are held to the JAX package numerically in
 test_torch_fwd.py, test_torch_domdec.py, test_torch_fs3.py and
-test_torch_fs3_domdec.py.  The subprocesses pin
-BATH_MSV_DEVICE/BATH_VIT_DEVICE to 0 (conftest.py sets 1 for the JAX
-package's device filters, which the torch backend refuses).
+test_torch_fs3_domdec.py (the integer filters, exactly, in
+test_torch_ssv.py and test_torch_vit.py).  The searches pin
+BATH_MSV_DEVICE/BATH_VIT_DEVICE to 0, the production default of a host
+with the native library (conftest.py sets 1 for the JAX package's
+tests), except the all-device cascade's, which set both to 1 and run
+the integer filters through the port too.
 """
 
 import math
@@ -27,6 +30,7 @@ import torch
 
 from bath_tpu import constants as C
 from bath_tpu.hmmfile import read_hmm
+from bath_tpu.ops.reference.filters import msv_filter, viterbi_filter
 from bath_tpu.pipeline import DEVICE_GATE_BAND
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.cli import bathsearch
@@ -206,11 +210,10 @@ def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     pytest.param(["--cpu", "2"], 5, id="extra2-5"),
     pytest.param(["--mesh", "2"], 5, id="extra3-5"),
-    pytest.param(["--splice"], 6, id="extra4-6"),
-    pytest.param([], 2, id="extra5-2")])
+    pytest.param(["--splice"], 6, id="extra4-6")])
 def test_unported_modes_name_their_roadmap_item(fx, monkeypatch, extra,
                                                 item):
-    monkeypatch.setenv("BATH_MSV_DEVICE", "0" if extra else "1")
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0")
     monkeypatch.setenv("BATH_VIT_DEVICE", "0")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         bathsearch.run(["--device", "cpu", *extra, fx.hmm_path,
@@ -219,7 +222,8 @@ def test_unported_modes_name_their_roadmap_item(fx, monkeypatch, extra,
 
 def test_cascade_batches_and_scatter(fx):
     """fwd_scores sorts, batches and scatters back: each item's score
-    is its own plain-version score."""
+    is its own plain-version score; msv_scores and vit_scores of the
+    same items are the host filters' scores."""
     om = fixtures.search_profile(read_hmm(fx.hmm_path))
     rng = np.random.default_rng(9)
     seqs = [rng.integers(0, 20, n).astype(np.int8)
@@ -241,8 +245,12 @@ def test_cascade_batches_and_scatter(fx):
                                 torch.tensor([len(s)], dtype=torch.int32), p)
         assert abs(float(want[0]) - float(g)) < 1e-5
     assert stats["fwd_items"] == len(seqs)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        cas.msv_scores(seqs, lens)
+    msv, vit = cas.msv_scores(seqs, lens), cas.vit_scores(seqs, lens)
+    for s, m, v in zip(seqs, msv, vit):
+        om.reconfig_length(len(s))
+        assert m == np.float32(msv_filter(s.astype(np.int32), om))
+        assert v == np.float32(viterbi_filter(s.astype(np.int32), om))
+    assert stats["msv_items"] == stats["vit_items"] == len(seqs)
 
 
 def test_fs3_cascade_batches_and_scatter(fs_fx):
@@ -273,3 +281,55 @@ def test_fs3_cascade_batches_and_scatter(fs_fx):
         assert np.abs(want[0][0].numpy() - b[:len(s) + 1]).max() < 1e-6
     assert stats["fs3_items"] == stats["fs3domdec_items"] == len(seqs)
     assert stats["fs3domdec_ok"] == int(ok.sum()) == len(seqs)
+
+
+ALL_DEVICE = {"BATH_MSV_DEVICE": "1", "BATH_VIT_DEVICE": "1"}
+# looser F1/F2 than the defaults: on these fixtures some ORFs then take
+# the Viterbi path and pass it, so the Viterbi capture runs too
+LOOSE = ["--F1", "0.1", "--F2", "0.05"]
+
+
+def fst_rows(path):
+    return "".join(ln for ln in path.read_text().splitlines(True)
+                   if not ln.startswith("#"))
+
+
+@pytest.mark.parametrize("mode", [[], ["--fs"]], ids=["standard", "fs"])
+def test_all_device_cascade_byte_identical_to_numpy(fx, fs_fx, tmp_path,
+                                                    monkeypatch, mode):
+    """BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1: MSV/SSV, the SSV capture,
+    the ViterbiFilter and its capture run through the port too, and the
+    output stays the host path's, byte for byte."""
+    fixture = fs_fx if mode else fx
+    fst_n, fst_t = tmp_path / "numpy.fst", tmp_path / "torch.fst"
+    want, _ = search(fixture, tmp_path, "bath_tpu.cli.bathsearch",
+                     ["--backend", "numpy", *LOOSE, *mode, "--fstblout",
+                      str(fst_n)])
+    for k, v in ALL_DEVICE.items():
+        monkeypatch.setenv(k, v)
+    out = tmp_path / "torch.out"
+    stats = {}
+    assert bathsearch.run(["--device", "cpu", *LOOSE, *mode, "-o",
+                           str(out), "--fstblout", str(fst_t),
+                           fixture.hmm_path, fixture.fasta_path],
+                          stats=stats) == 0
+    assert re.sub(r"# (CPU time|Mc/sec):.*", "", out.read_text()) == want
+    assert fst_rows(fst_t) == fst_rows(fst_n)
+    for stage in ("msv", "ssvcap", "vit", "vitcap"):
+        assert stats[f"{stage}_items"] > 0, stage
+    assert stats["msv_items"] > stats["vit_items"] > stats["vitcap_items"]
+    assert stats["ssvcap_overflow"] > 0
+
+
+def test_all_device_search_imports_no_jax(fx, tmp_path):
+    code = ("import sys\n"
+            "from bath_tpu_torch.cli.bathsearch import run\n"
+            "stats = {}\n"
+            f"rc = run(['--device', 'cpu', '-o', {str(tmp_path / 'o')!r},"
+            f" {fx.hmm_path!r}, {fx.fasta_path!r}], stats=stats)\n"
+            "print(rc, 'jax' in sys.modules, stats['vit_items'] > 0)\n")
+    env = dict(os.environ, **ALL_DEVICE)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["0", "False", "True"]
