@@ -16,12 +16,20 @@ filter stays on the host.
 ``--fs``/``--fsonly`` add the frameshift branch: merged DNA windows on
 the host, the fs3-Forward gate (F4) and fs3 domain decoding on the
 device, and the host fs5 envelope stack.
-Its output is byte-identical to ``--backend numpy``, which runs
-``bath_tpu.cli.bathsearch`` unchanged.  ``--device`` defaults to
-``cuda``, and a missing CUDA device is an error; the CPU is used only
-when ``--device cpu`` is given, which runs the kernels' plain PyTorch
-versions.  Modes whose device stages are not ported yet are refused
-with the ROADMAP.md item that ports them.
+A query file with more than one HMM runs the multi-query drive
+(``multiquery.py``): one pass over the target, host filters per query
+over shared ORFs, and every device stage batched across all queries
+by the multi-model kernels (``ops/multimodel.py``).
+``BATH_MULTIQUERY=0`` forces the serial per-query loop.
+Its output is byte-identical to ``--backend numpy``, the package's own
+serial host drive (every stage in the host kernels).  ``--device``
+defaults to ``cuda``, and a missing CUDA device is an error; the CPU is
+used only when ``--device cpu`` is given, which runs the kernels' plain
+PyTorch versions.  Modes whose device stages are not ported yet are
+refused with the ROADMAP.md item that ports them.
+
+``build_parser``, ``make_pipeline``, ``output_header`` and
+``load_queries`` are the JAX package's own, copied.
 """
 
 from __future__ import annotations
@@ -33,22 +41,19 @@ import time
 
 import torch
 
-from bath_tpu import constants as C
-from bath_tpu.bg import Background
-from bath_tpu.cli.bathsearch import (build_parser, load_queries,
-                                     make_pipeline, output_header)
-from bath_tpu.device_pipeline import (ChunkEntry, flush_downstream,
-                                      flush_gates)
-from bath_tpu.gencode import GeneticCode, extract_orfs
-from bath_tpu.oprofile import oprofile_convert
-from bath_tpu.ops.reference.fwdback_fs import fs_oprofile_convert
-from bath_tpu.pipeline import statistics_text
-from bath_tpu.profile import profile_config, profile_config_fs
-from bath_tpu.scoredata import score_data_create
-from bath_tpu.sequence import read_windows
-from bath_tpu.tophits import IS_INCLUDED, IS_REPORTED, TopHits, tabular_tail
-
-from ..device_pipeline import TorchCascade, not_ported
+from .. import constants as C
+from ..bg import Background
+from ..device_pipeline import (ChunkEntry, TorchCascade, flush_downstream,
+                               flush_gates, not_ported)
+from ..gencode import GeneticCode, extract_orfs
+from ..hmmfile import read_hmms
+from ..oprofile import oprofile_convert
+from ..ops.reference.fwdback_fs import fs_oprofile_convert
+from ..pipeline import Pipeline, pipeline_bath, statistics_text
+from ..profile import profile_config, profile_config_fs
+from ..scoredata import score_data_create
+from ..sequence import read_windows
+from ..tophits import IS_INCLUDED, IS_REPORTED, TopHits, tabular_tail
 
 # ORFs per gate flush: the host filters run per chunk, and every flush's
 # F3 candidates and survivors go to the device together
@@ -57,17 +62,240 @@ CHUNK_ORFS = 65536
 
 def backend_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(add_help=False)
-    p.add_argument("--backend", default="torch", choices=["torch", "numpy"],
+    p.add_argument("--backend", default="torch",
+                   choices=["torch", "numpy", "jax"],
                    help="torch: the device cascade of bath_tpu_torch; "
-                        "numpy: bath_tpu's host path (byte-identical)")
+                        "numpy: the serial host drive, every stage in "
+                        "the host kernels (byte-identical)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the cascade (cuda, cuda:N, or "
                         "cpu for the kernels' plain versions)")
     return p
 
 
-def _unported(args) -> str | None:
-    """The first requested mode this backend cannot run yet."""
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="bathsearch",
+        description="search protein profile(s) against DNA sequence "
+                    "database (bath_tpu_torch)")
+    p.add_argument("queryfile")
+    p.add_argument("dbfile")
+    p.add_argument("-o", dest="outfile", default=None)
+    p.add_argument("--tblout", default=None)
+    p.add_argument("--fstblout", default=None)
+    p.add_argument("--exontblout", default=None)
+    p.add_argument("--qformat", default=None)
+    p.add_argument("--splice", action="store_true")
+    p.add_argument("--min_intron", type=int, default=13)
+    p.add_argument("--max_intron", type=int, default=200000)
+    p.add_argument("--fs", action="store_true")
+    p.add_argument("--fsonly", action="store_true")
+    p.add_argument("--acc", action="store_true")
+    p.add_argument("--noali", action="store_true")
+    p.add_argument("--notrans", action="store_true")
+    p.add_argument("--frameline", action="store_true")
+    p.add_argument("--cigar", action="store_true")
+    p.add_argument("--notextw", action="store_true")
+    p.add_argument("--textw", type=int, default=150)
+    p.add_argument("--ct", type=int, default=1)
+    p.add_argument("-l", dest="minlen", type=int, default=20)
+    p.add_argument("-m", dest="aug_only", action="store_true")
+    p.add_argument("-M", dest="init_any_codon", action="store_true")
+    p.add_argument("--strand", default="both",
+                   choices=["both", "plus", "minus"])
+    p.add_argument("-E", type=float, default=10.0)
+    p.add_argument("-T", type=float, default=None)
+    p.add_argument("--incE", type=float, default=0.01)
+    p.add_argument("--incT", type=float, default=None)
+    p.add_argument("--max", action="store_true")
+    p.add_argument("--F1", type=float, default=C.F1_DEFAULT)
+    p.add_argument("--F2", type=float, default=C.F2_DEFAULT)
+    p.add_argument("--F3", type=float, default=C.F3_DEFAULT)
+    p.add_argument("--F4", type=float, default=C.F4_DEFAULT)
+    p.add_argument("--nobias", action="store_true")
+    p.add_argument("--nonull2", action="store_true")
+    p.add_argument("-Z", type=float, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--mx", default="BLOSUM62",
+                   help="substitution score matrix for single-seq "
+                        "queries (built-in choices)")
+    p.add_argument("--mxfile", default=None,
+                   help="read substitution score matrix from file <f>")
+    p.add_argument("--crick", action="store_true",
+                   help="only translate top strand")
+    p.add_argument("--watson", action="store_true",
+                   help="only translate bottom strand")
+    p.add_argument("--nodeinfo", action="store_true",
+                   help="additional info on node types for "
+                        "--exontblout")
+    p.add_argument("--ssifile", default=None,
+                   help="override the restrictdb index file to <s>")
+    # accepted for reference cmdline compatibility; unused there too
+    # (ref: bathsearch.c options marked "Not used")
+    p.add_argument("--domE", type=float, default=10.0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--domT", type=float, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--domZ", type=float, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--incdomE", type=float, default=0.01,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--incdomT", type=float, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--block_length", type=int,
+                   default=C.BLOCK_LENGTH_DEFAULT)
+    p.add_argument("--restrictdb_stkey", default=None,
+                   help="search starts at the sequence named <key> "
+                        "(ref: bathsearch.c :143)")
+    p.add_argument("--restrictdb_n", type=int, default=-1,
+                   help="search at most <n> sequences from stkey")
+    p.add_argument("--hmmout", default=None,
+                   help="save HMMs built from MSA/seq queries to <f>")
+    p.add_argument("--tformat", default=None)
+    p.add_argument("--singlemx", action="store_true")
+    p.add_argument("--popen", type=float, default=0.02)
+    p.add_argument("--pextend", type=float, default=0.4)
+    p.add_argument("--w_beta", type=float, default=1e-7)
+    p.add_argument("--w_length", type=int, default=0)
+    import os as _os
+    p.add_argument("--cpu", type=int,
+                   default=int(_os.environ.get("HMMER_NCPU", 0)),
+                   help="number of parallel workers over target "
+                        "windows; 0/1 = serial (N > 1 is not ported "
+                        "yet)")
+    # --backend and --device are read by backend_parser before this
+    # one; the multi-device modes below are parsed so that run() can
+    # refuse them by name (ROADMAP.md, "Still to port", item 5)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard device gate batches over N devices "
+                        "(not ported yet)")
+    p.add_argument("--hosts", type=int,
+                   default=int(_os.environ.get("BATH_NPROCS", 0)),
+                   help="total process count of a multi-process "
+                        "data-parallel run (not ported yet)")
+    p.add_argument("--host-id", type=int, default=-1,
+                   help="this process's rank (0..hosts-1)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's coordinator")
+    return p
+
+
+def make_pipeline(args) -> Pipeline:
+    pli = Pipeline()
+    pli.fs_pipe = args.fs or args.fsonly
+    pli.std_pipe = not args.fsonly
+    pli.spliced = args.splice
+    pli.E = args.E
+    if args.T is not None:
+        pli.T = args.T
+        pli.by_E = False
+    pli.incE = args.incE
+    if args.incT is not None:
+        pli.incT = args.incT
+        pli.inc_by_E = False
+    pli.F1 = min(1.0, args.F1)
+    pli.F2 = min(1.0, args.F2)
+    pli.F3 = min(1.0, args.F3)
+    pli.F4 = min(1.0, args.F4)
+    if args.max:
+        pli.do_max = True
+        pli.do_biasfilter = False
+        pli.F1 = pli.F2 = pli.F3 = pli.F4 = 1.0
+    if args.nobias:
+        pli.do_biasfilter = False
+    if args.nonull2:
+        pli.do_null2 = False
+    pli.show_alignments = not args.noali
+    pli.show_accessions = args.acc
+    pli.show_frameline = args.frameline
+    pli.show_trans = not args.notrans
+    pli.show_cigar = args.cigar
+    pli.strands = {"both": C.STRAND_BOTH, "plus": C.STRAND_TOPONLY,
+                   "minus": C.STRAND_BOTTOMONLY}[args.strand]
+    pli.block_length = args.block_length
+    return pli
+
+
+def output_header(ofp, args):
+    ofp.write("# bathsearch :: search protein profile(s) against DNA "
+              "sequence database\n")
+    ofp.write("# bath_tpu (TPU-native framework)\n")
+    ofp.write("# - - - - - - - - - - - - - - - - - - - - - - - - - - - "
+              "- - - - - - - -\n")
+    ofp.write("# query HMM file:                                %s\n"
+              % args.queryfile)
+    ofp.write("# target sequence database:                      %s\n"
+              % args.dbfile)
+    ofp.write("# codon translation table:                       %d\n"
+              % args.ct)
+    ofp.write("# - - - - - - - - - - - - - - - - - - - - - - - - - - - "
+              "- - - - - - - -\n\n")
+
+
+def load_queries(path, args):
+    """Query open/autodetect: profile HMM file, MSA, or sequence(s)
+    (ref: bathsearch.c :552-632, p7_search_builder.c :98 — MSA/seq
+    queries are built + calibrated on the fly)."""
+    from ..sequence import _open_text
+    with _open_text(path) as fh:
+        head = fh.read(256)
+    qfmt = getattr(args, "qformat", None)
+    if head.startswith(("BATH", "HMMER")):
+        yield from read_hmms(path)
+        return
+    from ..builder import BuilderConfig, build, single_build
+    from ..msa import read_stockholm
+    cfg = BuilderConfig(fs=True, ct=args.ct,
+                        popen=getattr(args, "popen", 0.02),
+                        pextend=getattr(args, "pextend", 0.4),
+                        w_beta=getattr(args, "w_beta", 1e-7),
+                        w_len=getattr(args, "w_length", 0),
+                        mx=getattr(args, "mx", "BLOSUM62"),
+                        mxfile=getattr(args, "mxfile", None))
+    hmmout = getattr(args, "hmmout", None)
+    hfp = open(hmmout, "w") if hmmout else None
+
+    def emit(h):
+        if hfp is not None:
+            from ..hmmfile import write_hmm
+            write_hmm(hfp, h)
+            hfp.flush()
+        return h
+    if head.startswith("# STOCKHOLM") or qfmt in ("stockholm", "sto"):
+        for msa in read_stockholm(path):
+            if not msa.name:
+                msa.name = path.rsplit("/", 1)[-1].rsplit(".", 1)[0]
+            yield emit(build(msa, cfg))
+        return
+    if not head.lstrip().startswith(">"):
+        raise SystemExit(f"can't autodetect query format of {path}")
+    body = "".join(ln for ln in head.splitlines()[1:]
+                   if not ln.startswith(">"))
+    is_aligned = any(c in body for c in "-.")
+    if qfmt in ("afa",) or (is_aligned and qfmt is None):
+        from ..msa import read_afa
+        for msa in read_afa(path):
+            if not msa.name:
+                msa.name = path.rsplit("/", 1)[-1].rsplit(".", 1)[0]
+            yield emit(build(msa, cfg))
+        return
+    from ..alphabet import amino
+    from ..sequence import read_fasta
+    for sq in read_fasta(path, amino()):
+        h = single_build(sq.dsq, sq.name, cfg)
+        if sq.desc:
+            h.desc = sq.desc
+        yield emit(h)
+    if hfp is not None:
+        hfp.close()
+
+
+def _unported(args, backend: str) -> str | None:
+    """The first requested mode this package cannot run yet."""
+    if backend == "jax":
+        return ("--backend jax is the JAX package's (python -m "
+                "bath_tpu.cli.bathsearch); this package runs --backend "
+                "torch or numpy")
     if args.mesh and args.mesh > 1:
         return not_ported("--mesh", 5)
     if args.hosts and args.hosts > 1:
@@ -84,34 +312,51 @@ def require_native():
     and the integer filters unless BATH_MSV_DEVICE=1/BATH_VIT_DEVICE=1
     send them to the device, there, and refuses to fall back to the
     pure-numpy filters."""
-    from bath_tpu.native import _SO, get_lib
+    from ..native import _SO, _SRC, get_lib
     lib = get_lib()
     if lib is None:
         raise RuntimeError(
-            f"the native host library ({_SO}) failed to build or load; "
-            "the torch backend runs the bias filter and, by default, the "
-            "integer filters (MSV/SSV, ViterbiFilter) in it")
+            f"the native host library ({_SO}) failed to build from "
+            f"{_SRC} (g++) or to load; the torch backend runs the bias "
+            "filter and, by default, the integer filters (MSV/SSV, "
+            "ViterbiFilter) in it")
     return lib
 
 
+def check_query(hmm, args) -> None:
+    """The per-query checks of the serial loop; sets max_length."""
+    if args.fs or args.fsonly:
+        if not (hmm.fsprob and hmm.ct):
+            raise SystemExit(
+                f"HMM file {args.queryfile} not formatted for "
+                "frameshift search; run bathconvert first.")
+    else:
+        hmm.fs = False
+        hmm.fsprob = 0.0
+    if hmm.ct and hmm.ct != args.ct:
+        raise SystemExit(
+            f"--ct {args.ct} does not match HMM codon table {hmm.ct}")
+    if hmm.max_length == -1:
+        hmm.set_max_length()
+
+
 def run(argv=None, stats=None) -> int:
-    """The CLI.  <stats>: optional dict the cascade adds its device
-    counts to (see TorchCascade)."""
+    """The CLI.  <stats>: optional dict the device stages add their
+    counts to (see TorchCascade and multiquery.PackedGates)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     pre, rest = backend_parser().parse_known_args(argv)
-    if pre.backend == "numpy":
-        from bath_tpu.cli.bathsearch import run as run_numpy
-        return run_numpy(rest + ["--backend", "numpy"])
     args = build_parser().parse_args(rest)
-    why = _unported(args)
+    why = _unported(args, pre.backend)
     if why:
         raise NotImplementedError(why)
+    on_device = pre.backend == "torch"
     device = torch.device(pre.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--backend torch needs a CUDA device (none is "
-                           "available); --device cpu runs the plain "
-                           "PyTorch versions instead")
-    require_native()
+    if on_device:
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--backend torch needs a CUDA device (none "
+                               "is available); --device cpu runs the plain "
+                               "PyTorch versions instead")
+        require_native()
     if args.crick:
         args.strand = "plus"
     elif args.watson:
@@ -127,10 +372,10 @@ def run(argv=None, stats=None) -> int:
                   "--splice", file=sys.stderr)
             return 1
     if args.queryfile == "-":
-        from bath_tpu.cli._io import spool_stdin
+        from ._io import spool_stdin
         args.queryfile = spool_stdin(".bhmm")
     if args.dbfile == "-":
-        from bath_tpu.cli._io import spool_stdin
+        from ._io import spool_stdin
         args.dbfile = spool_stdin(".fa")
     for path, what in ((args.queryfile, "query file"),
                        (args.dbfile, "target sequence database")):
@@ -151,23 +396,45 @@ def run(argv=None, stats=None) -> int:
         gcode.set_initiator_any()
     output_header(ofp, args)
 
+    def finish():
+        for fp in (tblfp, fstblfp):
+            if fp:
+                fp.write(tabular_tail("bathsearch", args.queryfile,
+                                      args.dbfile,
+                                      "bathsearch " + " ".join(argv)))
+                fp.close()
+        ofp.write("[ok]\n")
+        if ofp is not sys.stdout:
+            ofp.close()
+        return 0
+
+    # Multi-query drive: one pass over the target, device gate batches
+    # across models (multiquery.py).  Byte-identical to the serial
+    # per-query loop; engaged for the torch backend when several HMMs
+    # share one query file.  BATH_MULTIQUERY=0 forces the serial loop.
+    queries = load_queries(args.queryfile, args)
+    if on_device and os.environ.get("BATH_MULTIQUERY", "1") != "0":
+        hmms = []
+        for hmm in queries:
+            check_query(hmm, args)
+            hmms.append(hmm)
+        if len(hmms) > 1:
+            from ..multiquery import run_multiquery
+            run_multiquery(args, hmms, gcode, require_init, ofp, tblfp,
+                           fstblfp, device=device, stats=stats)
+            return finish()
+        queries = iter(hmms)
+
+    fs_funcs = None
+    if args.fs or args.fsonly:
+        from ..pipeline_fs import pli_frameshift
+        fs_funcs = pli_frameshift
+
     nquery = 0
-    for hmm in load_queries(args.queryfile, args):
+    for hmm in queries:
         nquery += 1
         t0 = time.time()
-        if args.fs or args.fsonly:
-            if not (hmm.fsprob and hmm.ct):
-                raise SystemExit(
-                    f"HMM file {args.queryfile} not formatted for "
-                    "frameshift search; run bathconvert first.")
-        else:
-            hmm.fs = False
-            hmm.fsprob = 0.0
-        if hmm.ct and hmm.ct != args.ct:
-            raise SystemExit(
-                f"--ct {args.ct} does not match HMM codon table {hmm.ct}")
-        if hmm.max_length == -1:
-            hmm.set_max_length()
+        check_query(hmm, args)
         bg = Background()
         gm = profile_config(hmm, bg, L=100, mode=C.P7_LOCAL)
         om = oprofile_convert(gm)
@@ -192,7 +459,8 @@ def run(argv=None, stats=None) -> int:
             ofp.write("Accession:   %s\n" % hmm.acc)
         if hmm.desc:
             ofp.write("Description: %s\n" % hmm.desc)
-        cascade = TorchCascade(om, om_fs3, device=device, stats=stats)
+        cascade = TorchCascade(om, om_fs3, device=device, stats=stats) \
+            if on_device else None
 
         def down_flush(chunk):
             staged = flush_gates(chunk, cascade, pli, om, data, bg,
@@ -216,6 +484,13 @@ def run(argv=None, stats=None) -> int:
                 orfs = extract_orfs(gcode, w.dsq, minlen=args.minlen,
                                     is_revcomp=comp == C.COMPLEMENT,
                                     require_initiator=require_init)
+                if cascade is None:
+                    # the serial host drive: every stage of this
+                    # (window, strand) in the host kernels
+                    pipeline_bath(pli, om, gm, om_fs3, om_fs5, gm_fs5,
+                                  data, bg, th, seqid, w, orfs, gcode,
+                                  hit_windows, comp, fs_funcs)
+                    continue
                 chunk.append(ChunkEntry(w, seqid, comp, orfs, tid=tid,
                                         nres_at=nres_at))
                 pending_orfs += len(orfs)
@@ -262,16 +537,7 @@ def run(argv=None, stats=None) -> int:
                 hmm.name, hmm.acc, pli, nquery == 1))
         ofp.write(statistics_text(pli, time.time() - t0))
         ofp.write("//\n")
-
-    for fp in (tblfp, fstblfp):
-        if fp:
-            fp.write(tabular_tail("bathsearch", args.queryfile,
-                                  args.dbfile, "bathsearch " + " ".join(argv)))
-            fp.close()
-    ofp.write("[ok]\n")
-    if ofp is not sys.stdout:
-        ofp.close()
-    return 0
+    return finish()
 
 
 def _windows(args, pli, om, id_lengths):

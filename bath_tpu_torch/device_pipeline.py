@@ -1,9 +1,9 @@
 """The device stages of the chunked bathsearch cascade, on a GPU.
 
-``TorchCascade`` has the surface of ``bath_tpu.device_pipeline.
-DeviceCascade``, so the JAX package's own host orchestration
-(``flush_gates``, ``flush_downstream``, which import no JAX) drives it
-unchanged.  The f32 stages run on the device:
+``TorchCascade`` has the surface of the JAX package's
+``DeviceCascade``, and the host orchestration below it (``ChunkEntry``,
+``flush_gates``, ``flush_downstream``) is that package's own, copied
+with its imports.  The f32 stages run on the device:
 
 - ``fwd_scores``: the Forward-parser gate (F3) over every Viterbi
   survivor of a flush (``ops/fwd.py``);
@@ -45,15 +45,13 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 import time
 
 import numpy as np
 import torch
 
-from bath_tpu import constants as C
-from bath_tpu.device_pipeline import _perturb
-from bath_tpu.stats import gumbel_invsurv
-
+from . import constants as C
 from .ops.domdec import domdec as domdec_kernel
 from .ops.fs3 import DNA_PAD, fs3_params, fs3_score
 from .ops.fs3_domdec import fs3_domdec as fs3_domdec_kernel
@@ -61,6 +59,9 @@ from .ops.fwd import PAD_RESIDUE, fwd_params, fwd_score
 from .ops.ssv import (SSVB_NCAP, msv_params, msv_post, msv_ssv,
                       pack_stream, ssv_capture)
 from .ops.vit import vit_capture, vit_ints, vit_params
+from .stats import gumbel_invsurv
+
+F32 = np.float32
 
 BATCH = 4096
 # decoding keeps f64 forward specials and three f32 increment rows per
@@ -104,6 +105,24 @@ def batches(seqs, lens, device, batch: int = BATCH,
             dsq[r, :lens[i]] = np.asarray(seqs[i], np.int8)
         yield (idx, torch.from_numpy(dsq).to(device),
                torch.from_numpy(lens[idx].astype(np.int32)).to(device))
+
+
+def _perturb(scores: np.ndarray) -> np.ndarray:
+    """Test hook (BATH_DEVICE_PERTURB=<nats>): inject alternating-sign
+    error into the device gate scores.  tests/test_device_pipeline.py
+    drives this up to the DEVICE_GATE_BAND bound to prove output bytes
+    are invariant to device-score error within the band."""
+    eps = float(os.environ.get("BATH_DEVICE_PERTURB", 0) or 0)
+    if not eps:
+        return scores
+    if eps < 0:                  # uniform downward error (worst case)
+        signs = np.ones(len(scores))
+    else:                        # alternating-sign error
+        signs = np.where(np.arange(len(scores)) % 2 == 0, 1.0, -1.0)
+    return np.where(np.isfinite(scores),
+                    scores + np.float32(eps) * signs,
+                    scores).astype(np.float32)
+
 
 
 class TorchCascade:
@@ -339,3 +358,329 @@ class TorchCascade:
         self.stats["vitcap_items"] += len(lens)
         self.stats["vitcap_s"] += time.perf_counter() - t0
         return caps
+
+
+class ChunkEntry:
+    """One (window, strand) unit of a chunk: inputs plus the staged
+    pipeline state between phases."""
+    __slots__ = ("window", "seqid", "complementarity", "orfs", "tid",
+                 "win_start", "win_end", "cands", "P_orf", "fwdsc_arr",
+                 "oxf_holder", "fs_cands", "hits", "nres_at")
+
+    def __init__(self, window, seqid, complementarity, orfs, tid=0,
+                 nres_at=0):
+        self.window = window
+        self.seqid = seqid
+        self.complementarity = complementarity
+        self.orfs = orfs
+        self.tid = tid
+        self.win_start = 0
+        self.win_end = 0
+        self.cands = None
+        self.P_orf = None
+        self.fwdsc_arr = None
+        self.oxf_holder = None
+        self.fs_cands = None
+        self.hits = None
+        self.nres_at = nres_at
+
+
+def flush_chunk(chunk: list[ChunkEntry], cascade: TorchCascade, pli,
+                om, gm, om_fs3, om_fs5, gm_fs5, data, bg, hitlist,
+                gcode, hit_windows) -> None:
+    """Run one chunk through the staged cascade (gates + downstream).
+    Entries are processed in stream order at every phase, so
+    hit/window ordering (and output bytes) match the serial
+    per-window pipeline."""
+    staged = flush_gates(chunk, cascade, pli, om, data, bg,
+                         hit_windows)
+    flush_downstream(staged, cascade, pli, om, gm, om_fs3, om_fs5,
+                     gm_fs5, data, bg, hitlist, gcode, hit_windows)
+    return staged
+
+
+def flush_gates(chunk: list[ChunkEntry], cascade: TorchCascade, pli,
+                om, data, bg, hit_windows) -> list[ChunkEntry]:
+    """Phase 1 of the chunked cascade: the filter family
+    (MSV/bias/Viterbi + window captures) over every entry — host
+    native in the hybrid default, device otherwise.  Leaves each
+    entry's cands/P_orf/fwdsc_arr/oxf_holder staged for
+    flush_downstream and clears the input list."""
+    from .pipeline import pipeline_gate_plan, pipeline_gates
+
+    # Phase 1a: MSV (F1) over every ORF of the chunk, then the
+    # vectorized F1 + bias plan per entry.
+    #
+    # Engine choice (BATH_MSV_DEVICE, default auto): auto keeps the
+    # u8 max-plus MSV/SSV DP on the host native batch when it is
+    # available and sends everything downstream to the device; the
+    # integer family is a few percent of a drive's wall on either
+    # engine (PERF.md).  BATH_MSV_DEVICE=1 forces the device MSV
+    # (bit-identical either way, proven by the backend byte-parity
+    # tests).
+    sizes = [len(e.orfs) if e.orfs is not None else 0 for e in chunk]
+    skip = [e.orfs is None or len(e.orfs) == 0 or e.window.n < 15
+            for e in chunk]
+    msv_dev = os.environ.get("BATH_MSV_DEVICE", "auto")
+    vit_dev = os.environ.get("BATH_VIT_DEVICE", "auto")
+    if "auto" in (msv_dev, vit_dev):
+        from .native import get_lib
+        have_native = get_lib() is not None
+        if msv_dev == "auto":
+            msv_dev = "0" if have_native else "1"
+        # ViterbiFilter follows MSV: host native when available,
+        # device otherwise; BATH_VIT_DEVICE=1 forces the device
+        # scores + capture path (tests pin it)
+        if vit_dev == "auto":
+            vit_dev = "0" if have_native else "1"
+    # one concatenated int8 residue stream for the whole chunk: the
+    # MSV packer gathers rows vectorized instead of a per-ORF loop.
+    # Only built when the device MSV gate is selected — the hybrid
+    # default runs the native host batch and never reads it
+    flats: list = []
+    offs_parts: list = []
+    lens_parts: list = []
+    base = 0
+    if msv_dev != "0":
+        for e, sk in zip(chunk, skip):
+            if sk:
+                continue
+            if getattr(e.orfs, "flat", None) is not None:
+                f = np.asarray(e.orfs.flat, np.int8)
+                flats.append(f)
+                offs_parts.append(
+                    np.asarray(e.orfs.offs, np.int64) + base)
+                lens_parts.append(
+                    np.asarray(e.orfs.lens, np.int64))
+                base += len(f)
+            else:
+                for o in e.orfs:
+                    f = np.asarray(o.dsq, np.int8)
+                    flats.append(f)
+                    offs_parts.append(np.asarray([base], np.int64))
+                    lens_parts.append(np.asarray([o.n], np.int64))
+                    base += len(f)
+    if lens_parts:
+        flat_all = (flats[0] if len(flats) == 1
+                    else np.concatenate(flats))
+        usc_all = cascade.msv_scores(
+            None, np.concatenate(lens_parts), flat=flat_all,
+            offs=np.concatenate(offs_parts))
+    else:
+        # hybrid cascade: usc_pre=None makes pipeline_gate_plan run
+        # the per-window native OpenMP MSV batch (bit-identical)
+        usc_all = None if msv_dev == "0" else np.empty(0, F32)
+    pos = 0
+    plans = [None] * len(chunk)
+    for k, (e, sz, sk) in enumerate(zip(chunk, sizes, skip)):
+        if sk:
+            continue
+        plans[k] = pipeline_gate_plan(
+            pli, om, bg, e.window, e.orfs,
+            usc_pre=None if usc_all is None
+            else usc_all[pos:pos + sz])
+        pos += sz
+
+    # Phase 1b: device ViterbiFilter over every bias survivor of the
+    # chunk, then the host gates (capture + compo rescue) per entry.
+    # (vit_dev == "0": vitsc=None routes pipeline_gates to the native
+    # OpenMP score batch + native capture — the numpy backend's own
+    # path, byte-identical.)
+    vit_seqs: list = []
+    vit_lens: list = []
+    vit_cuts = []
+    for k, (e, p) in enumerate(zip(chunk, plans)):
+        lo = len(vit_seqs)
+        if vit_dev != "0" and p is not None \
+                and p.vit_idx is not None:
+            for i in p.vit_idx:
+                o = e.orfs[int(i)]
+                vit_seqs.append(o.dsq)
+                vit_lens.append(o.n)
+        vit_cuts.append((lo, len(vit_seqs)))
+    vsc_all = cascade.vit_scores(vit_seqs, np.asarray(vit_lens,
+                                                      np.int64)) \
+        if vit_lens else np.empty(0, F32)
+    if vsc_all is None:
+        # no device scores: route every entry through the host
+        # Viterbi path (vitsc=None), byte-identical
+        vsc_all = np.empty(0, F32)
+        vit_dev = "0"
+
+    # ViterbiFilter_BATH window capture for the F2 survivors among
+    # the scored lanes: batched device crossing-event scan; the host
+    # replays events (skip_until + O(window) diagonal extensions)
+    from . import constants as C
+    from . import stats
+    vcap_seqs: list = []
+    vcap_lens: list = []
+    vcap_flt: list = []
+    vcap_keys: list = []                 # (entry k, orf idx)
+    for k, (e, p) in enumerate(zip(chunk, plans)):
+        if vit_dev == "0" or p is None or p.vit_idx is None \
+                or not len(p.vit_idx) or p.filtersc is None:
+            continue
+        lo, hi = vit_cuts[k]
+        vsc = vsc_all[lo:hi]
+        fltv = p.filtersc[p.vit_idx]
+        seqv = (vsc - fltv) / C.CONST_LOG2
+        Pv = stats.gumbel_surv(seqv, om.evparam[C.EV_VMU],
+                               om.evparam[C.EV_VLAMBDA])
+        for r in np.nonzero(~(Pv > pli.F2))[0]:
+            i = int(p.vit_idx[r])
+            o = e.orfs[i]
+            vcap_seqs.append(o.dsq)
+            vcap_lens.append(o.n)
+            vcap_flt.append(float(fltv[r]))
+            vcap_keys.append((k, i))
+    vcaps_all = cascade.vit_captures(
+        vcap_seqs, np.asarray(vcap_lens, np.int64),
+        np.asarray(vcap_flt), pli.F2) if vcap_lens else {}
+    vcaps_by_entry: list[dict | None] = [None] * len(chunk)
+    for g, (k, i) in enumerate(vcap_keys):
+        if g in vcaps_all:
+            d = vcaps_by_entry[k]
+            if d is None:
+                d = vcaps_by_entry[k] = {}
+            d[i] = vcaps_all[g]
+
+    # SSV_BATH window capture for bias survivors already under F2
+    # (they skip Viterbi): batched device capture events; the host
+    # keeps only the O(window) diagonal walks
+    ssv_seqs: list = []
+    ssv_lens: list = []
+    ssv_nulls: list = []
+    ssv_cuts = []
+    for k, (e, p) in enumerate(zip(chunk, plans)):
+        lo = len(ssv_seqs)
+        if msv_dev != "0" and p is not None \
+                and p.ssv_idx is not None:
+            for i in p.ssv_idx:
+                o = e.orfs[int(i)]
+                ssv_seqs.append(o.dsq)
+                ssv_lens.append(o.n)
+                ssv_nulls.append(float(p.null[int(i)]))
+        ssv_cuts.append((lo, len(ssv_seqs)))
+    # (msv_dev == "0": SSV capture stays with its filter family on
+    # the host — ssvcaps=None routes pipeline_gates to the native
+    # scalar capture, the numpy backend's own path)
+    caps_all = cascade.ssv_captures(
+        ssv_seqs, np.asarray(ssv_lens, np.int64),
+        np.asarray(ssv_nulls), pli.F1) \
+        if ssv_lens and msv_dev != "0" else {}
+
+    for k, (e, p, sk) in enumerate(zip(chunk, plans, skip)):
+        from .tophits import TopHits
+        e.hits = TopHits()
+        if sk:
+            e.cands, e.P_orf, e.fwdsc_arr, e.oxf_holder = [], [], [], []
+            e.win_start = e.win_end = len(hit_windows)
+            continue
+        lo, hi = vit_cuts[k]
+        vitsc = vsc_all[lo:hi] if vit_dev != "0" and p is not None \
+            and p.vit_idx is not None else None
+        slo, _shi = ssv_cuts[k]
+        ssvcaps = None
+        if p is not None and p.ssv_idx is not None and caps_all:
+            ssvcaps = {int(i): caps_all[slo + r]
+                       for r, i in enumerate(p.ssv_idx)
+                       if (slo + r) in caps_all}
+        e.win_start = len(hit_windows)
+        e.cands, e.P_orf, e.fwdsc_arr, e.oxf_holder = pipeline_gates(
+            pli, om, data, bg, e.window, e.orfs, hit_windows,
+            e.seqid, e.complementarity, plan=p, vitsc=vitsc,
+            ssvcaps=ssvcaps, vitcaps=vcaps_by_entry[k])
+        e.win_end = len(hit_windows)
+
+    # staged entries may accumulate across the whole drive (the
+    # adaptive cascade defers downstream until the DP volume
+    # amortizes the device); drop what downstream never reads (a
+    # long drive otherwise retains every window + revcomp + ORF
+    # array to the end).  The fs branch rebuilds merged DNA windows from the ORF
+    # list + window sequence (fs_prepare), so only the standard
+    # pipeline can shed them.
+    if not pli.fs_pipe:
+        for e in chunk:
+            e.orfs = None
+            if not e.cands:
+                e.window = None
+
+    done = list(chunk)
+    chunk.clear()
+    return done
+
+
+def flush_downstream(staged: list[ChunkEntry], cascade: TorchCascade,
+                     pli, om, gm, om_fs3, om_fs5, gm_fs5, data, bg,
+                     hitlist, gcode, hit_windows,
+                     use_device: bool = True) -> None:
+    """Phases 2-3 of the chunked cascade over gate-staged entries:
+    Forward F3/F4 gate + domain definition, then the --fs branch.
+    <use_device>=False runs the bit-exact host path for every stage
+    (the adaptive cascade's surrender: identical bytes by the
+    DEVICE_GATE_BAND contract)."""
+    from .pipeline import pipeline_fwd_stage
+
+    # Phase 2: device Forward over every Vit survivor of the chunk,
+    # then the host F3/F4 stage (+ domaindef for F3 survivors).
+    cand_seqs = [c.orfsq.dsq for e in staged for c in e.cands]
+    cand_lens = [c.orfsq.n for e in staged for c in e.cands]
+    fwd_all = cascade.fwd_scores(cand_seqs, np.asarray(cand_lens,
+                                                       np.int64)) \
+        if cand_lens and use_device else None
+    nres_now = pli.nres
+    pos = 0
+    for e in staged:
+        # the early domain keep-filter uses pli.Z = nres/max_length
+        # with nres AS OF THIS WINDOW in the serial stream
+        # (_postdomaindef_bath; ref p7_pipeline.c:1230-1249) — restore
+        # each entry's value so deferred downstream work keeps the
+        # serial path's bytes
+        if e.nres_at:
+            pli.nres = e.nres_at
+        ncand = len(e.cands)
+        pipeline_fwd_stage(pli, om, gm, gm_fs5, bg, e.hits, e.seqid,
+                           e.window, hit_windows, e.complementarity,
+                           e.cands, e.P_orf, e.fwdsc_arr, e.oxf_holder,
+                           fwd_dev=None if fwd_all is None
+                           else fwd_all[pos:pos + ncand],
+                           domdec_fn=cascade.domdec if use_device
+                           else None)
+        pos += ncand
+
+    # Phase 3 (--fs): build merged DNA windows per entry, gate them
+    # through the device fs3-Forward, then arbitration + domaindef.
+    if pli.fs_pipe and om_fs3 is not None:
+        from .pipeline_fs import fs_gate_and_define, fs_prepare
+        for e in staged:
+            e.fs_cands = fs_prepare(
+                pli, om, data, bg, e.orfs, e.window, gcode, e.P_orf,
+                e.fwdsc_arr, hit_windows[e.win_start:],
+                e.complementarity) \
+                if e.orfs is not None and len(e.orfs) else []
+        fs_seqs = [c.tmpseq.dsq for e in staged for c in e.fs_cands]
+        fs_lens = [c.wlen for e in staged for c in e.fs_cands]
+        fs3_all = cascade.fs3_scores(fs_seqs, np.asarray(fs_lens,
+                                                         np.int64)) \
+            if fs_lens and use_device else None
+        pos = 0
+        for e in staged:
+            if e.nres_at:
+                pli.nres = e.nres_at
+            nfs = len(e.fs_cands)
+            fs_gate_and_define(pli, om, gm, om_fs3, om_fs5, gm_fs5,
+                               bg, e.hits, e.seqid, e.orfs, e.window,
+                               gcode, e.P_orf, e.oxf_holder,
+                               e.complementarity, e.fs_cands,
+                               fs3_dev=None if fs3_all is None
+                               else fs3_all[pos:pos + nfs],
+                               fs_domdec_fn=cascade.fs3_domdec
+                               if use_device else None)
+            pos += nfs
+
+    pli.nres = nres_now
+    # hits flow into the global list per entry, in stream order —
+    # exactly the serial path's (window, strand)-major hit ordering,
+    # which the stable downstream sorts rely on for tie cases
+    for e in staged:
+        hitlist.unsrt.extend(e.hits.unsrt)

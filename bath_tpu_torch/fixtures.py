@@ -1,4 +1,4 @@
-"""Seeded query and genome fixtures, made with ``bath_tpu`` itself.
+"""Seeded query and genome fixtures, made with the package itself.
 
 The query is a protein of M residues drawn from the background
 frequencies, built into a single-sequence profile HMM (BLOSUM62, as
@@ -19,10 +19,14 @@ searches a 5 Mb genome (one bacterial genome) with M = 400 (a
 Pfam-sized profile) and 40 embeds, 16 of them frameshifted in its fs
 drive.  Files are written once per parameter set under
 ``build/bath_tpu_torch/fixtures/`` and reused.
+
+``write_multi_fixture`` makes the multi-query twin: one query file of
+several seeded models and a genome with copies of some of them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
@@ -32,11 +36,11 @@ from pathlib import Path
 
 import numpy as np
 
-from bath_tpu import constants as C
-from bath_tpu.bg import Background
-from bath_tpu.builder import BuilderConfig, single_build
-from bath_tpu.gencode import GeneticCode
-from bath_tpu.hmmfile import write_hmm
+from . import constants as C
+from .bg import Background
+from .builder import BuilderConfig, single_build
+from .gencode import GeneticCode
+from .hmmfile import write_hmm
 
 FIXTURE_DIR = Path(__file__).resolve().parents[1] / "build" / \
     "bath_tpu_torch" / "fixtures"
@@ -203,6 +207,124 @@ def write_fixture(M: int, genome_len: int, n_embeds: int, seed: int,
     return fx
 
 
+@dataclass
+class MultiFixture:
+    hmm_path: str               # one query file holding every model
+    fasta_path: str
+    Ms: list                    # model lengths, file order
+    names: list                 # model names, file order
+    # {model index: [(first, last), ...]} 1-based plus-strand nt
+    # coordinates of the copies of each embedded model
+    embeds: dict
+    # the subset of <embeds> that carries a frameshift
+    frameshifted: dict = field(default_factory=dict)
+
+
+def write_multi_fixture(Ms, genome_len: int, embedded, copies: int,
+                        seed: int, directory: Path | None = None,
+                        calibrate: bool = True,
+                        fs: bool = False) -> MultiFixture:
+    """A query file of len(<Ms>) seeded models (lengths <Ms>, named
+    ``mq<i>-M<M>``) and one genome carrying <copies> mutated copies of
+    each model whose index is in <embedded>, alternating strands, the
+    first one across the first window boundary where the genome has
+    one.  With <fs> the models are built for frameshift search and the
+    first copy of each embedded model carries a 1-nt deletion or
+    insertion in its middle codon, alternating.  Written on first use,
+    as ``write_fixture``."""
+    d = Path(directory or FIXTURE_DIR)
+    d.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(repr((list(Ms), list(embedded))).encode()) \
+        .hexdigest()[:10]
+    stem = d / (f"multi-{len(Ms)}x{tag}-L{genome_len}-C{copies}-s{seed}"
+                + ("-fs" if fs else "") + ("" if calibrate else "-nocal"))
+    meta = stem.with_suffix(".json")
+    hmm_path, fa_path = stem.with_suffix(".bhmm"), stem.with_suffix(".fa")
+    names = [f"mq{i}-M{M}" for i, M in enumerate(Ms)]
+    if meta.exists():
+        m = json.loads(meta.read_text())
+        return MultiFixture(
+            str(hmm_path), str(fa_path), list(Ms), names,
+            {int(k): v for k, v in m["embeds"].items()},
+            {int(k): v for k, v in m["frameshifted"].items()})
+    rng = np.random.default_rng(seed)
+    codons = _codons()
+    buf = io.StringIO()
+    proteins = []
+    for name, M in zip(names, Ms):
+        hmm, q = make_query(M, rng, calibrate, fs=fs)
+        hmm.name = name
+        write_hmm(buf, hmm)
+        proteins.append(q)
+    seq = np.frombuffer(NT.encode(), np.uint8)[
+        rng.integers(0, 4, genome_len)]
+    sites = [(g, c) for c in range(copies) for g in embedded]
+    spacing = genome_len // (len(sites) + 1)
+    embeds: dict = {int(g): [] for g in embedded}
+    shifted: dict = {}
+    for s, (g, c) in enumerate(sites):
+        dna = "".join(codons[int(a)][rng.integers(len(codons[int(a)]))]
+                      for a in _mutate(proteins[g], rng))
+        if fs and c == 0:
+            at = 3 * (len(proteins[g]) // 2) + 1
+            dna = dna[:at] + dna[at + 1:] if s % 4 < 2 \
+                else dna[:at] + NT[int(rng.integers(0, 4))] + dna[at:]
+        if s % 2 == 1:
+            dna = dna.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+        start = spacing * (s + 1)
+        if s == 0 and genome_len > C.BLOCK_LENGTH_DEFAULT + len(dna):
+            start = C.BLOCK_LENGTH_DEFAULT - len(dna) // 2
+        if spacing < len(dna):
+            raise ValueError(f"genome of {genome_len} nt too short for "
+                             f"{len(sites)} copies")
+        seq[start:start + len(dna)] = np.frombuffer(dna.encode(), np.uint8)
+        embeds[int(g)].append([start + 1, start + len(dna)])
+        if fs and c == 0:
+            shifted[int(g)] = [embeds[int(g)][-1]]
+    _write_atomic(hmm_path, buf.getvalue())
+    dna = seq.tobytes().decode()
+    body = "\n".join(dna[i:i + 80] for i in range(0, len(dna), 80))
+    _write_atomic(fa_path, f">genome{seed}\n{body}\n")
+    _write_atomic(meta, json.dumps({"embeds": embeds,
+                                    "frameshifted": shifted}))
+    return MultiFixture(str(hmm_path), str(fa_path), list(Ms), names, embeds,
+                        shifted)
+
+
+def multi_embeds_found(tblout_path: str, fx: MultiFixture) -> dict:
+    """{model index: copies that a reported hit of that model's query
+    overlaps}, read from a ``--tblout`` table."""
+    spans: dict = {}
+    with open(tblout_path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            cols = line.split()
+            a, b = (int(x) for x in cols[9:11])
+            spans.setdefault(cols[3], []).append((min(a, b), max(a, b)))
+    return {g: sum(any(a <= e and b >= s
+                       for a, b in spans.get(fx.names[g], []))
+                   for s, e in copies)
+            for g, copies in fx.embeds.items()}
+
+
+def multi_frameshifts_found(fstblout_path: str, fx: MultiFixture) -> dict:
+    """{model index: frameshifted copies that a hit of that model's
+    query listed in an ``--fstblout`` table overlaps}."""
+    spans: dict = {}
+    with open(fstblout_path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            cols = line.split()
+            a, b = (int(x) for x in cols[5:7])
+            spans.setdefault(cols[2], []).append((min(a, b), max(a, b)))
+    return {g: sum(any(a <= e and b >= s
+                       for a, b in spans.get(fx.names[g], []))
+                   for s, e in copies)
+            for g, copies in fx.frameshifted.items()}
+
+
 def embeds_found(tblout_path: str, fx: Fixture) -> int:
     """Embedded copies that a reported hit's alignment overlaps, read
     from a ``--tblout`` table."""
@@ -219,8 +341,8 @@ def embeds_found(tblout_path: str, fx: Fixture) -> int:
 
 def search_profile(hmm):
     """The OProfile a standard search configures for <hmm>."""
-    from bath_tpu.oprofile import oprofile_convert
-    from bath_tpu.profile import profile_config
+    from .oprofile import oprofile_convert
+    from .profile import profile_config
     return oprofile_convert(profile_config(hmm, Background(), L=100))
 
 
@@ -228,8 +350,8 @@ def fs_search_profile(hmm, ct: int = 1):
     """The fs3 profile (``FSOProfile``) a ``--fs`` search configures for
     <hmm>; the hmm must carry the frameshift fields
     (``make_query(..., fs=True)``)."""
-    from bath_tpu.ops.reference.fwdback_fs import fs_oprofile_convert
-    from bath_tpu.profile import profile_config_fs
+    from .ops.reference.fwdback_fs import fs_oprofile_convert
+    from .profile import profile_config_fs
     gcode = GeneticCode.create(ct)
     gcode.set_initiator_any()
     return fs_oprofile_convert(profile_config_fs(hmm, Background(), gcode,
@@ -299,12 +421,44 @@ def kernel_batch(q: np.ndarray, B: int, Lmax: int,
     return dsq, lens
 
 
+def multi_kernel_batch(Ms, per_model: int, Lmax: int, seed: int,
+                       fs: bool = False):
+    """A mixed batch for the multi-model kernels: (profiles, dsq
+    [B, Lmax] int8, lens [B] int32, slot [B] int32) with <per_model>
+    items for each of the seeded models of lengths <Ms>, shuffled.
+    Standard: the search profiles and ``kernel_batch`` ORFs (pad 28);
+    <fs>: the fs3 profiles and ``fs_window_batch`` DNA windows (pad
+    17).  Each model's items carry copies of its own protein."""
+    rng = np.random.default_rng(seed)
+    profiles, rows, lens, slot = [], [], [], []
+    for g, M in enumerate(Ms):
+        hmm, q = make_query(M, rng, calibrate=False, fs=fs)
+        profiles.append(fs_search_profile(hmm) if fs
+                        else search_profile(hmm))
+        if fs:
+            # fs_window_batch opens with windows of 0, 2, 3, 4 and Lmax
+            # nt: the first model keeps them, the others take the
+            # random ones that follow
+            d, ln = fs_window_batch(q, per_model + 5, Lmax, rng)
+            keep = slice(0, per_model) if g == 0 else slice(5, None)
+            d, ln = d[keep], ln[keep]
+        else:
+            d, ln = kernel_batch(q, per_model, Lmax, rng)
+        rows.append(d)
+        lens.append(ln)
+        slot += [g] * per_model
+    order = rng.permutation(len(slot))
+    return (profiles, np.concatenate(rows)[order],
+            np.concatenate(lens)[order],
+            np.asarray(slot, np.int32)[order])
+
+
 def genome_orfs(fasta_path: str, min_len: int = 1) -> list[np.ndarray]:
     """Every six-frame ORF (int8 residues) of a genome's windows, as
     bathsearch extracts them (minimum length 20, windows without
     overlap)."""
-    from bath_tpu.gencode import extract_orfs
-    from bath_tpu.sequence import read_windows
+    from .gencode import extract_orfs
+    from .sequence import read_windows
     gcode = GeneticCode.create(1)
     gcode.set_initiator_any()
     pool = []
@@ -334,9 +488,9 @@ def hot_orfs(fasta_path: str, embeds, margin: int = 30) -> list[np.ndarray]:
     of its span (+ <margin> nt) at least half the copy's length.  Their
     high-scoring diagonals saturate the Viterbi filter's int16 and make
     the SSV window capture overflow its slots at P = 1."""
-    from bath_tpu.alphabet import dna, revcomp
-    from bath_tpu.gencode import extract_orfs
-    from bath_tpu.sequence import read_fasta
+    from .alphabet import dna, revcomp
+    from .gencode import extract_orfs
+    from .sequence import read_fasta
     gcode = GeneticCode.create(1)
     gcode.set_initiator_any()
     seq = read_fasta(fasta_path, dna())[0].dsq
@@ -379,8 +533,8 @@ def sample_windows(fasta_path: str, n: int, length: int,
     """<n> DNA windows (int8 nucleotide codes) of <length> nt at random
     places of a genome's first sequence, the shape of the fs3 gate's
     merged windows (2 * max_length * 3 nt)."""
-    from bath_tpu.alphabet import dna
-    from bath_tpu.sequence import read_fasta
+    from .alphabet import dna
+    from .sequence import read_fasta
     seq = read_fasta(fasta_path, dna())[0].dsq
     rng = np.random.default_rng(seed)
     return [np.asarray(seq[s:s + length], np.int8)

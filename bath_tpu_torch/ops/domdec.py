@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bath_tpu import constants as C
+from .. import constants as C
 
 from .fwd import (ProfileTensors, _canonical_tr, check_batch,
                   fwd_params, length_model, linear_scan, shift_left,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bath_tpu import constants as C
+from .. import constants as C
 
 from .fwd import (ProfileTensors, _canonical_tr, check_batch, linear_scan,
                   shift_right, transition_rows)

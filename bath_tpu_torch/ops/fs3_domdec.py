@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from bath_tpu import constants as C
+from .. import constants as C
 
 from .domdec import BWD_HI, BWD_LO, DD_UNDERFLOW_LOG
 from .fs3 import codon_index_streams, fs3_forward, fs3_length_model

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bath_tpu import constants as C
+from .. import constants as C
 
 PAD_RESIDUE = 28            # amino missing-data residue: zero odds
 

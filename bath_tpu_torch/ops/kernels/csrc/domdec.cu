@@ -16,6 +16,16 @@
 // M = 1056, many ORFs per SM), and the host-side cadence of the
 // rescaling (forward xE > 1e4, backward xB outside [1e-4, 1e4]) is
 // kept so the posteriors track the host kernel to ~1e-5.
+//
+// The multi-model entry bt_domdec_multi replaces
+// bath_tpu/ops/jaxk/multimodel.py domdec_pack_batch (build_domdec_pack):
+// item b is decoded under model slot[b].  It is this same kernel, item
+// for item the same arithmetic; the TPU's lane packing is not carried
+// over.  The tables of the models of one padded width Mp are stacked
+// [G, Kp, Mp] and [G, 8, Mp] with their lengths Ms [G]; a block finds
+// its model and its items in a per-block table (BtItem in
+// dp_common.cuh); one launch per Mp.  The bound is the single-model
+// one, 2L dependent rows per ORF.
 
 #include "dp_common.cuh"
 
@@ -163,15 +173,21 @@ __global__ void domdec_kernel(const int8_t* __restrict__ dsq,
                               int M, int Mp, int W, bool tab_in_smem, float nj,
                               double* __restrict__ spec, float* __restrict__ inc_b,
                               float* __restrict__ inc_e, float* __restrict__ njr,
-                              float* __restrict__ logz2) {
+                              float* __restrict__ logz2,
+                              const int* __restrict__ Ms,
+                              const int* __restrict__ blk,
+                              const int* __restrict__ order) {
   extern __shared__ float smem[];
+  const BtItem it = bt_item(blk, order, B, W);
+  if (Ms != nullptr) M = Ms[it.model];
   const float *etab, *ttab;
-  bt::load_tables(etab_g, ttab_g, Kp, Mp, smem, tab_in_smem, etab, ttab);
+  bt::load_tables(etab_g + (size_t)it.model * Kp * Mp,
+                  ttab_g + (size_t)it.model * bt::NTR * Mp, Kp, Mp, smem,
+                  tab_in_smem, etab, ttab);
   const size_t tab_floats = tab_in_smem ? (size_t)(Kp + bt::NTR) * Mp : 0;
   const bt::Group g = bt_group(W, smem, tab_floats);
-  const int G = blockDim.x / (32 * W);
-  const int b = blockIdx.x * G + (threadIdx.x >> 5) / W;
-  if (b >= B) return;
+  const int b = it.b;
+  if (b < 0) return;
   const int len = lens[b];
   const float pmove = (2.f + nj) / ((float)len + 2.f + nj);
   const int ld = L + 1;
@@ -191,6 +207,30 @@ __global__ void domdec_kernel(const int8_t* __restrict__ dsq,
   }
 }
 
+// One launch of `blocks` blocks; Ms/blk/order null for a single model.
+static int domdec_launch(const BtLaunch& l, int blocks, const void* dsq,
+                         const void* lens, int B, int L, const void* etab,
+                         const void* ttab, int Kp, int M, int Mp, int P,
+                         float nj, void* spec, void* inc_b, void* inc_e,
+                         void* njr, void* logz2, const void* Ms,
+                         const void* blk, const void* order, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define BT_LAUNCH_DD(PP)                                                     \
+  {                                                                          \
+    cudaFuncSetAttribute(domdec_kernel<PP>,                                  \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                         (int)l.smem);                                       \
+    domdec_kernel<PP><<<blocks, l.threads, l.smem, st>>>(                    \
+        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
+        (const float*)ttab, Kp, M, Mp, l.W, l.tab_in_smem, nj,               \
+        (double*)spec, (float*)inc_b, (float*)inc_e, (float*)njr,            \
+        (float*)logz2, (const int*)Ms, (const int*)blk, (const int*)order);  \
+  }
+  BT_DISPATCH_P(P, BT_LAUNCH_DD)
+#undef BT_LAUNCH_DD
+  return (int)cudaGetLastError();
+}
+
 // dsq [B, L] int8; lens [B] int32; etab [Kp, Mp], ttab [8, Mp] (zero
 // past the model, which has M positions); spec [B, 6, L+1] f64
 // scratch; inc_b, inc_e, njr [B, L] f32, zero-filled by the caller
@@ -204,19 +244,29 @@ extern "C" int bt_domdec(const void* dsq, const void* lens, int B, int L,
   if (B <= 0) return 0;
   if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
   const BtLaunch l = bt_plan(B, Kp, Mp, P, 100 * 1024);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define BT_LAUNCH_DD(PP)                                                     \
-  {                                                                          \
-    cudaFuncSetAttribute(domdec_kernel<PP>,                                  \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                         (int)l.smem);                                       \
-    domdec_kernel<PP><<<l.blocks, l.threads, l.smem, st>>>(                  \
-        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
-        (const float*)ttab, Kp, M, Mp, l.W, l.tab_in_smem, nj,               \
-        (double*)spec, (float*)inc_b, (float*)inc_e, (float*)njr,             \
-        (float*)logz2);                                                      \
-  }
-  BT_DISPATCH_P(P, BT_LAUNCH_DD)
-#undef BT_LAUNCH_DD
-  return (int)cudaGetLastError();
+  return domdec_launch(l, l.blocks, dsq, lens, B, L, etab, ttab, Kp, M, Mp, P,
+                       nj, spec, inc_b, inc_e, njr, logz2, nullptr, nullptr,
+                       nullptr, stream);
+}
+
+// The multi-model entry: etab [G, Kp, Mp], ttab [G, 8, Mp] and Ms [G]
+// int32 stack the models of padded width Mp; blk [nblocks, 3] int32 =
+// (model, first, count) per block and order [.] int32 the item rows
+// (BtItem); every block holds at most `per_block` items, which must be
+// the plan's.  The outputs, shaped as bt_domdec's over the whole batch,
+// are written at the listed items only.
+extern "C" int bt_domdec_multi(const void* dsq, const void* lens, int B,
+                               int L, const void* etab, const void* ttab,
+                               const void* Ms, int Kp, int Mp, int P,
+                               float nj, void* spec, void* inc_b,
+                               void* inc_e, void* njr, void* logz2,
+                               const void* blk, const void* order,
+                               int nblocks, int per_block, void* stream) {
+  if (nblocks <= 0) return 0;
+  if (Mp % (32 * P) != 0) return cudaErrorInvalidValue;
+  const BtLaunch l = bt_plan(B, Kp, Mp, P, 100 * 1024);
+  if (per_block != l.G) return cudaErrorInvalidValue;
+  return domdec_launch(l, nblocks, dsq, lens, B, L, etab, ttab, Kp, 0, Mp, P,
+                       nj, spec, inc_b, inc_e, njr, logz2, Ms, blk, order,
+                       stream);
 }

@@ -315,6 +315,46 @@ __device__ __forceinline__ bt::Group bt_group(int W, float* smem,
   return g;
 }
 
+// Which item, and which model of a stack of tables, a group of warps
+// computes.
+//
+// A single-model launch passes blk == nullptr: block x takes items
+// x*G .. x*G+G-1 of the batch in place, under model 0 (the only tables).
+// A multi-model launch scores item b under model slot[b].  The kernels
+// share one copy of a model's tables among the items of a block (in
+// shared memory where they fit), so a block must hold items of one
+// model only.  The caller therefore orders the items of a launch by
+// model and cuts each model's run into blocks of at most G items
+// (ops/multimodel.py block_plan): blk[3x .. 3x+2] = (model, first,
+// count) gives block x the items order[first .. first+count) and table
+// `model` of the stack.  Nothing is padded and no item moves: a block
+// of a short run simply leaves warps idle.  P and the warps per item
+// are compile- and launch-time constants, so one launch takes models
+// of one padded width Mp; models of other widths go to further
+// launches (at most one per entry of the P ladder and per W).
+struct BtItem {
+  int model;
+  int b;   // the item's row in the batch; < 0: this group has none
+};
+
+__device__ __forceinline__ BtItem bt_item(const int* __restrict__ blk,
+                                          const int* __restrict__ order,
+                                          int B, int W) {
+  const int G = blockDim.x / (32 * W);
+  const int gi = (threadIdx.x >> 5) / W;
+  BtItem it;
+  if (blk == nullptr) {
+    const int b = blockIdx.x * G + gi;
+    it.model = 0;
+    it.b = b < B ? b : -1;
+  } else {
+    const int* e = blk + 3 * blockIdx.x;
+    it.model = e[0];
+    it.b = gi < e[2] ? order[e[1] + gi] : -1;
+  }
+  return it;
+}
+
 #define BT_DISPATCH_P(P, CALL)        \
   switch (P) {                        \
     case 3: CALL(3); break;           \

@@ -26,6 +26,16 @@
 // L1/L2 per row and pass.  One warp per window up to M = 416, as the
 // gate.  The backward keeps 7P ring floats a thread (M of four rows, I
 // of three) and rotates them by copies.
+//
+// The multi-model entry bt_fs3_domdec_multi replaces
+// bath_tpu/ops/jaxk/multimodel.py fs3_domdec_pack_batch
+// (build_fs3_domdec_pack): window b is decoded under model slot[b].  It
+// is this same kernel, item for item the same arithmetic; the TPU's lane
+// packing is not carried over.  The tables of the models of one padded
+// width Mp are stacked [G, 338, Mp] and [G, 8, Mp] with their lengths
+// Ms [G]; a block finds its model and its windows in a per-block table
+// (BtItem in dp_common.cuh); one launch per Mp.  The per-window dec_loop
+// enters only the combine (ops/fs3_domdec.py finish), not the kernel.
 
 #include "fs3_common.cuh"
 
@@ -197,14 +207,20 @@ __global__ void fs3_domdec_kernel(const int8_t* __restrict__ dsq,
                                   int Mp, int W, float nj,
                                   double* __restrict__ fspec,
                                   double* __restrict__ bspec,
-                                  double* __restrict__ logz2) {
+                                  double* __restrict__ logz2, int erows,
+                                  const int* __restrict__ Ms,
+                                  const int* __restrict__ blk,
+                                  const int* __restrict__ order) {
   extern __shared__ float smem[];
+  const BtItem it = bt_item(blk, order, B, W);
+  if (Ms != nullptr) M = Ms[it.model];
+  etab += (size_t)it.model * erows * Mp;
   const float *unused, *ttab;
-  bt::load_tables(nullptr, ttab_g, 0, Mp, smem, true, unused, ttab);
+  bt::load_tables(nullptr, ttab_g + (size_t)it.model * bt::NTR * Mp, 0, Mp,
+                  smem, true, unused, ttab);
   const bt::Group g = bt_group(W, smem, (size_t)bt::NTR * Mp);
-  const int G = blockDim.x / (32 * W);
-  const int b = blockIdx.x * G + (threadIdx.x >> 5) / W;
-  if (b >= B) return;
+  const int b = it.b;
+  if (b < 0) return;
   const int len = lens[b];
   const float pmove = (2.f + nj) / ((float)(len / 3) + 2.f + nj);
   const int ld = L + 1;
@@ -223,6 +239,31 @@ __global__ void fs3_domdec_kernel(const int8_t* __restrict__ dsq,
   }
 }
 
+// One launch of `blocks` blocks; Ms/blk/order null for a single model
+// (erows, the emission rows of one model of a stack, is then unused).
+static int fs3_domdec_launch(const BtLaunch& l, int blocks, const void* dsq,
+                             const void* lens, int B, int L, const void* etab,
+                             const void* ttab, int M, int Mp, int P, float nj,
+                             void* fspec, void* bspec, void* logz2, int erows,
+                             const void* Ms, const void* blk,
+                             const void* order, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define BT_LAUNCH_FS3DD(PP)                                                  \
+  {                                                                          \
+    cudaFuncSetAttribute(fs3_domdec_kernel<PP>,                              \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                         (int)l.smem);                                       \
+    fs3_domdec_kernel<PP><<<blocks, l.threads, l.smem, st>>>(                \
+        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
+        (const float*)ttab, M, Mp, l.W, nj, (double*)fspec, (double*)bspec,  \
+        (double*)logz2, erows, (const int*)Ms, (const int*)blk,              \
+        (const int*)order);                                                  \
+  }
+  BT_DISPATCH_FS3_P(P, BT_LAUNCH_FS3DD)
+#undef BT_LAUNCH_FS3DD
+  return (int)cudaGetLastError();
+}
+
 // dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; etab [338, Mp],
 // ttab [8, Mp] (zero past the model, which has M positions); fspec and
 // bspec [B, 6, L+1] f64, zero-filled by the caller (rows past a window
@@ -236,18 +277,29 @@ extern "C" int bt_fs3_domdec(const void* dsq, const void* lens, int B, int L,
   if (B <= 0) return 0;
   if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
   const BtLaunch l = fs3_plan(B, Mp, P);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define BT_LAUNCH_FS3DD(PP)                                                  \
-  {                                                                          \
-    cudaFuncSetAttribute(fs3_domdec_kernel<PP>,                              \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                         (int)l.smem);                                       \
-    fs3_domdec_kernel<PP><<<l.blocks, l.threads, l.smem, st>>>(              \
-        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
-        (const float*)ttab, M, Mp, l.W, nj, (double*)fspec, (double*)bspec,  \
-        (double*)logz2);                                                     \
-  }
-  BT_DISPATCH_FS3_P(P, BT_LAUNCH_FS3DD)
-#undef BT_LAUNCH_FS3DD
-  return (int)cudaGetLastError();
+  return fs3_domdec_launch(l, l.blocks, dsq, lens, B, L, etab, ttab, M, Mp, P,
+                           nj, fspec, bspec, logz2, 0, nullptr, nullptr,
+                           nullptr, stream);
+}
+
+// The multi-model entry: etab [G, erows, Mp], ttab [G, 8, Mp] and Ms [G]
+// int32 stack the models of padded width Mp; blk [nblocks, 3] int32 =
+// (model, first, count) per block and order [.] int32 the window rows
+// (BtItem); every block holds at most `per_block` windows, which must
+// be the plan's.  The outputs, shaped as bt_fs3_domdec's over the whole
+// batch, are written at the listed windows only.
+extern "C" int bt_fs3_domdec_multi(const void* dsq, const void* lens, int B,
+                                   int L, const void* etab, const void* ttab,
+                                   const void* Ms, int erows, int Mp, int P,
+                                   float nj, void* fspec, void* bspec,
+                                   void* logz2, const void* blk,
+                                   const void* order, int nblocks,
+                                   int per_block, void* stream) {
+  if (nblocks <= 0) return 0;
+  if (Mp % (32 * P) != 0) return cudaErrorInvalidValue;
+  const BtLaunch l = fs3_plan(B, Mp, P);
+  if (per_block != l.G) return cudaErrorInvalidValue;
+  return fs3_domdec_launch(l, nblocks, dsq, lens, B, L, etab, ttab, 0, Mp, P,
+                           nj, fspec, bspec, logz2, erows, Ms, blk, order,
+                           stream);
 }

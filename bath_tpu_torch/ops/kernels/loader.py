@@ -25,6 +25,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..fs3 import DNA_CODES
@@ -43,6 +44,17 @@ LANES_PER_THREAD = (3, 5, 9, 13, 17, 25, 33)
 # The fs3 kernels keep ~10 rows of P floats a thread in their rings, so
 # they stop at P = 13 and put W warps of 13 lanes on a longer model.
 FS3_LANES_PER_THREAD = (3, 5, 9, 13)
+
+
+# Items to a thread block (bt_plan and fs3_plan in csrc/): one-warp
+# items share a block and its copy of the tables; an item of several
+# warps has a block to itself.  The multi-model entries check it.
+def items_per_block(W: int) -> int:
+    return 8 if W == 1 else 1
+
+
+def fs3_items_per_block(W: int) -> int:
+    return 4 if W == 1 else 1
 
 _lib = None
 
@@ -144,6 +156,18 @@ def lib() -> ctypes.CDLL:
     so.bt_fs3_parser.argtypes = [P, P, I, I, P, P, I, I, F, P, P]
     so.bt_fs3_domdec.restype = I
     so.bt_fs3_domdec.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P, P, P]
+    so.bt_fwd_parser_multi.restype = I
+    so.bt_fwd_parser_multi.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P,
+                                       P, I, I, P]
+    so.bt_domdec_multi.restype = I
+    so.bt_domdec_multi.argtypes = [P, P, I, I, P, P, P, I, I, I, F, P, P, P,
+                                   P, P, P, P, I, I, P]
+    so.bt_fs3_parser_multi.restype = I
+    so.bt_fs3_parser_multi.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P,
+                                       P, I, I, P]
+    so.bt_fs3_domdec_multi.restype = I
+    so.bt_fs3_domdec_multi.argtypes = [P, P, I, I, P, P, P, I, I, I, F, P,
+                                       P, P, P, P, I, I, P]
     so.bt_msv_filter.restype = I
     so.bt_msv_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, I,
                                  P, P]
@@ -281,6 +305,109 @@ def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
                             _stream()),
            "fs3_domdec")
     return spec[0], spec[1], logz2
+
+
+def _multi_plans(slot, pack, per_block, device):
+    """The launches of a multi-model batch (``ops.multimodel.
+    block_plan``) with their ``order`` and ``blk`` tables on the
+    device, sent in one copy: [(SizeClass, order, blk, nblocks, G)]."""
+    from ..multimodel import block_plan
+    if pack.device != device:
+        raise ValueError(f"pack on {pack.device}, input on {device}")
+    plans = block_plan(slot, pack, per_block)
+    if not plans:
+        return []
+    parts = [a.reshape(-1) for _, order, blk, _ in plans for a in (order, blk)]
+    flat = torch.from_numpy(np.concatenate(parts)).to(device)
+    out, at = [], 0
+    for cls, order, blk, G in plans:
+        o = flat[at:at + order.size]
+        at += order.size
+        b = flat[at:at + blk.size]
+        at += blk.size
+        out.append((cls, o, b, len(blk), G))
+    return out
+
+
+def launch_fwd_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
+                     nj: float):
+    """fwd_parser.cu, multi-model entry: (Forward-gate scores [B] f32
+    of item b under model slot[b], the number of launches)."""
+    _check_inputs(dsq, lens, pack.Kp)
+    so = lib()
+    B, L = dsq.shape
+    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
+    plans = _multi_plans(slot, pack, items_per_block, dsq.device)
+    for c, order, blk, nblocks, G in plans:
+        _check(so.bt_fwd_parser_multi(
+            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
+            c.ttab.data_ptr(), pack.Kp, c.Mp, c.P, float(nj), out.data_ptr(),
+            blk.data_ptr(), order.data_ptr(), nblocks, G, _stream()),
+            "fwd_parser_multi")
+    return out, len(plans)
+
+
+def launch_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
+                        nj: float):
+    """domdec.cu, multi-model entry: (launch_domdec's outputs over the
+    whole batch, the number of launches)."""
+    _check_inputs(dsq, lens, pack.Kp)
+    so = lib()
+    B, L = dsq.shape
+    dev = dsq.device
+    spec = torch.empty(B, 6, L + 1, dtype=torch.float64, device=dev)
+    inc = torch.zeros(3, B, L, dtype=torch.float32, device=dev)
+    logz2 = torch.empty(B, 2, dtype=torch.float32, device=dev)
+    plans = _multi_plans(slot, pack, items_per_block, dev)
+    for c, order, blk, nblocks, G in plans:
+        _check(so.bt_domdec_multi(
+            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
+            c.ttab.data_ptr(), c.Ms.data_ptr(), pack.Kp, c.Mp, c.P,
+            float(nj), spec.data_ptr(), inc[0].data_ptr(),
+            inc[1].data_ptr(), inc[2].data_ptr(), logz2.data_ptr(),
+            blk.data_ptr(), order.data_ptr(), nblocks, G, _stream()),
+            "domdec_multi")
+    return (inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]), len(plans)
+
+
+def launch_fs3_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
+                     nj: float):
+    """fs3_parser.cu, multi-model entry: (fs3 gate scores [B] f32 of
+    window b under model slot[b], the number of launches)."""
+    _check_inputs(dsq, lens, DNA_CODES)
+    so = lib()
+    B, L = dsq.shape
+    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
+    plans = _multi_plans(slot, pack, fs3_items_per_block, dsq.device)
+    for c, order, blk, nblocks, G in plans:
+        _check(so.bt_fs3_parser_multi(
+            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
+            c.ttab.data_ptr(), pack.Kp, c.Mp, c.P, float(nj), out.data_ptr(),
+            blk.data_ptr(), order.data_ptr(), nblocks, G, _stream()),
+            "fs3_parser_multi")
+    return out, len(plans)
+
+
+def launch_fs3_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot,
+                            pack, nj: float):
+    """fs3_domdec.cu, multi-model entry: (launch_fs3_domdec's outputs
+    over the whole batch, the number of launches)."""
+    _check_inputs(dsq, lens, DNA_CODES)
+    so = lib()
+    B, L = dsq.shape
+    dev = dsq.device
+    spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
+    logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
+    plans = _multi_plans(slot, pack, fs3_items_per_block, dev)
+    for c, order, blk, nblocks, G in plans:
+        _check(so.bt_fs3_domdec_multi(
+            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
+            c.ttab.data_ptr(), c.Ms.data_ptr(), pack.Kp, c.Mp, c.P,
+            float(nj), spec[0].data_ptr(), spec[1].data_ptr(),
+            logz2.data_ptr(), blk.data_ptr(), order.data_ptr(), nblocks, G,
+            _stream()),
+            "fs3_domdec_multi")
+    return (spec[0], spec[1], logz2), len(plans)
 
 
 def launch_msv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,

@@ -1,0 +1,397 @@
+"""Multi-model device gates for the multi-query drive: the four f32
+stages with a model slot per item.
+
+Counterpart of ``bath_tpu/ops/jaxk/multimodel.py`` (``build_fwd_pack``/
+``fwd_pack_scores``, ``build_domdec_pack``/``domdec_pack_batch``,
+``build_fs3_pack``/``fs3_pack_scores``, ``build_fs3_domdec_pack``/
+``fs3_domdec_pack_batch``).  What each computes is: item b scored (or
+decoded) under model ``slot[b]``.  The JAX kernels get there by packing
+G models side by side on the lane axis in blocks of Mg lanes, with a
+block-diagonal emission table and stacked ``[G, Mg, Mg]`` closure
+operators; none of that is carried over.  Here a pack is the list of
+the models' own ``ProfileTensors`` and, for the CUDA kernels, their
+zero-padded tables stacked per padded width Mp (``ModelPack.classes``).
+A launch takes the models of one Mp, because the lanes per thread P and
+the warps per item W are compile- and launch-time constants of the
+kernels; inside a launch the items are ordered by model and each
+model's run is cut into thread blocks of at most G items
+(``block_plan``), so a block holds items of one model only and shares
+one copy of that model's tables.  There is no limit on M, on the item
+length or on the number of models, and no batch ladder.
+
+Each packed call launches the multi-model entry of its single-model
+kernel (``ops/kernels/csrc/{fwd_parser,domdec,fs3_parser,fs3_domdec}.cu``,
+the same ``__global__`` kernel, so the same arithmetic item for item)
+for CUDA tensors, and runs its plain PyTorch version (``*_ref``: the
+single-model plain version over each model's items) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from .domdec import domdec_params_from_jax, domdec_ref
+from .domdec import finish as domdec_finish
+from .fs3 import fs3_params_from_jax, fs3_score_ref
+from .fs3_domdec import finish as fs3_domdec_finish
+from .fs3_domdec import fs3_domdec_ref
+from .fwd import check_batch, fwd_params_from_jax, fwd_score_ref
+
+
+@dataclass
+class SizeClass:
+    """The models of one padded width Mp, stacked for one launch."""
+    P: int                      # lanes per thread
+    W: int                      # warps per item
+    Mp: int
+    models: list                # pack slots, in stack order
+    etab: torch.Tensor          # [g, Kp, Mp] emission odds
+    ttab: torch.Tensor          # [g, 8, Mp] transition rows
+    Ms: torch.Tensor            # [g] int32 model lengths
+
+
+class ModelPack:
+    """G models for the multi-model kernels: ``params[g]`` is the
+    ``ProfileTensors`` of slot g (``ops.fwd.fwd_params`` for the Forward
+    gate and domain decoding, ``ops.fs3.fs3_params`` for the fs3 pair).
+    <layout> maps a model length to (P, W, Mp), the kernels' own
+    (``loader.layout`` or ``loader.fs3_layout``)."""
+
+    def __init__(self, params: list, layout):
+        if not params:
+            raise ValueError("a pack needs at least one model")
+        self.params = list(params)
+        self.device = params[0].rfv.device
+        self.Kp = params[0].Kp
+        for p in params:
+            if p.rfv.device != self.device or p.Kp != self.Kp:
+                raise ValueError("the models of a pack share a device and "
+                                 "an alphabet")
+        self.M = [p.M for p in params]
+        self.geometry = [layout(M) for M in self.M]
+
+    def __len__(self) -> int:
+        return len(self.params)
+
+    @functools.cached_property
+    def classes(self) -> dict:
+        """{Mp: SizeClass}: the padded tables stacked per width, built
+        on first use (the plain versions never read them)."""
+        by_mp: dict = {}
+        for g, (_, _, Mp) in enumerate(self.geometry):
+            by_mp.setdefault(Mp, []).append(g)
+        out = {}
+        for Mp, models in sorted(by_mp.items()):
+            P, W, _ = self.geometry[models[0]]
+            tabs = [self.params[g].padded(Mp) for g in models]
+            out[Mp] = SizeClass(
+                P, W, Mp, models,
+                torch.stack([e for e, _ in tabs]).contiguous(),
+                torch.stack([t for _, t in tabs]).contiguous(),
+                torch.tensor([self.M[g] for g in models], dtype=torch.int32,
+                             device=self.device))
+        return out
+
+    @functools.cached_property
+    def slot_class(self) -> tuple[np.ndarray, np.ndarray]:
+        """([G] Mp of each slot, [G] its index in that class's stack)."""
+        mp = np.array([g[2] for g in self.geometry], np.int64)
+        local = np.zeros(len(self), np.int64)
+        for c in self.classes.values():
+            local[c.models] = np.arange(len(c.models))
+        return mp, local
+
+
+def block_plan(slot: np.ndarray, pack: ModelPack, per_block):
+    """The launches of a batch whose item b belongs to model ``slot[b]``:
+    [(SizeClass, order [n] int32, blk [nblocks, 3] int32, G), ...], one
+    per padded width present.  ``order`` lists the class's item rows
+    sorted by model; ``blk[x] = (model's index in the class's stack,
+    first, count)`` gives block x the rows ``order[first:first+count]``,
+    all of one model, with count <= G = ``per_block(W)``."""
+    slot = np.asarray(slot, np.int64)
+    mp_of, local_of = pack.slot_class
+    item_mp = mp_of[slot]
+    plans = []
+    for Mp, cls in pack.classes.items():
+        rows = np.nonzero(item_mp == Mp)[0]
+        if not len(rows):
+            continue
+        local = local_of[slot[rows]]
+        by_model = np.argsort(local, kind="stable")
+        order = rows[by_model].astype(np.int32)
+        local = local[by_model]
+        G = per_block(cls.W)
+        # the runs of equal model, each cut into blocks of G
+        starts = np.nonzero(np.r_[True, local[1:] != local[:-1]])[0]
+        ends = np.r_[starts[1:], len(local)]
+        blk = [(local[s], f, min(G, e - f))
+               for s, e in zip(starts, ends) for f in range(s, e, G)]
+        plans.append((cls, order, np.asarray(blk, np.int32).reshape(-1, 3),
+                      G))
+    return plans
+
+
+def _check(pack: ModelPack, dsq, lens, slot) -> np.ndarray:
+    """The packed calls' input check; returns the slots as numpy."""
+    check_batch(dsq, lens, pack.params[0])
+    slot = np.asarray(slot.cpu() if isinstance(slot, torch.Tensor)
+                      else slot).astype(np.int64)
+    if slot.shape != (dsq.shape[0],):
+        raise ValueError(f"slot must be [B], got {slot.shape}")
+    if slot.size and (slot.min() < 0 or slot.max() >= len(pack)):
+        raise ValueError(f"model slots must lie in [0, {len(pack)})")
+    return slot
+
+
+def _per_model(slot: np.ndarray):
+    """[(model, rows of its items)] of a batch."""
+    return [(int(g), np.nonzero(slot == g)[0]) for g in np.unique(slot)]
+
+
+# ---------------------------------------------------------------------
+# The four packs
+# ---------------------------------------------------------------------
+def build_fwd_pack(params: list) -> ModelPack:
+    """<params>: ``ops.fwd.fwd_params`` of each model, slot order."""
+    from .kernels.loader import layout
+    return ModelPack(params, layout)
+
+
+def build_domdec_pack(params: list) -> ModelPack:
+    """Decoding reads the gate's tensors (``ops.domdec.domdec_params``),
+    so the pack is the gate's."""
+    return build_fwd_pack(params)
+
+
+def build_fs3_pack(params: list) -> ModelPack:
+    """<params>: ``ops.fs3.fs3_params`` of each model, slot order."""
+    from .kernels.loader import fs3_layout
+    return ModelPack(params, fs3_layout)
+
+
+def build_fs3_domdec_pack(params: list) -> ModelPack:
+    """fs3 decoding reads the fs3 gate's tensors, so the pack is the
+    gate's."""
+    return build_fs3_pack(params)
+
+
+# ---------------------------------------------------------------------
+# Packs from the JAX package's packs (numpy arrays), for the tests
+# ---------------------------------------------------------------------
+def _slot_view(arrays: dict, g: int, Mg: int, names) -> dict:
+    return {k: np.asarray(arrays[k])[g * Mg:(g + 1) * Mg] for k in names}
+
+
+def _backward_view(arrays: dict, g: int, Mg: int) -> dict:
+    v = _slot_view(arrays, g, Mg, ("tDM_next", "vMD"))
+    v["UB"] = np.asarray(arrays["UB"])[g]
+    return v
+
+
+def _models_of(arrays: dict, G: int, Mg: int) -> list:
+    """(slot, M) of the filled slots: M from the real-lane mask."""
+    mask = np.asarray(arrays["mask"]).reshape(G, Mg)
+    return [(g, int(m.sum())) for g, m in enumerate(mask) if m.any()]
+
+
+def fwd_pack_from_jax(models: list, G: int, Mg: int,
+                      device="cpu") -> ModelPack:
+    """The Forward-gate pack from the per-model Pallas parameter sets
+    ``(rfv, tr, M)`` of ``fwd_params_pallas``, in the slot order of the
+    JAX ``FwdPack`` they were packed into.  (``FwdPack.arrays`` holds
+    only the ``W3``/``u`` products, from which tMD and tDD cannot be
+    recovered at the last positions; see ``fwd_params_from_jax``.)
+    <G>, <Mg>: the JAX pack's geometry, checked against the models."""
+    if len(models) > G or any(M > Mg - 1 for _, _, M in models):
+        raise ValueError(f"{len(models)} models do not fit a pack of "
+                         f"G={G}, Mg={Mg}")
+    return build_fwd_pack([fwd_params_from_jax(rfv, tr, M, device)
+                           for rfv, tr, M in models])
+
+
+def domdec_pack_from_jax(arrays: dict, G: int, Mg: int, Kp: int,
+                         device="cpu") -> ModelPack:
+    """The decoding pack from ``DomDecPack.arrays`` (exact: the match
+    odds and five rows as packed, tDM and tMD from the backward
+    vectors, tDD from the superdiagonal of each ``UB``)."""
+    rfvT = np.asarray(arrays["rfvT"])
+    params = []
+    for g, M in _models_of(arrays, G, Mg):
+        f = _slot_view(arrays, g, Mg, ("tBM", "tMM", "tIM", "tMI", "tII"))
+        f["rfvT"] = rfvT[g * Mg:(g + 1) * Mg, g * Kp:(g + 1) * Kp]
+        params.append(domdec_params_from_jax(
+            SimpleNamespace(fwd=SimpleNamespace(M=M, **f),
+                            **_backward_view(arrays, g, Mg)), device))
+    return build_domdec_pack(params)
+
+
+def fs3_pack_from_jax(arrays: dict, G: int, Mg: int,
+                      device="cpu") -> ModelPack:
+    """The fs3 pack (gate and decoding) from ``FS3DomDecPack.arrays``
+    (exact, as ``fs3_params_from_jax``).  ``FS3Pack.arrays`` alone is
+    not enough: its ``UT`` folds tDD with tMD and the next lane's tDM,
+    which leaves tDD unrecoverable where tDM is zero, so the gate's
+    pack is carried from the decoding pack of the same models."""
+    T = {k: np.asarray(arrays[k]) for k in ("T2", "T3", "T4")}
+    params = []
+    for g, M in _models_of(arrays, G, Mg):
+        f = _slot_view(arrays, g, Mg, ("tBM", "tMM", "tIM", "tMI", "tII"))
+        for k, t in T.items():
+            n = t.shape[1] // G
+            f[k] = t[g * Mg:(g + 1) * Mg, g * n:(g + 1) * n]
+        params.append(fs3_params_from_jax(
+            SimpleNamespace(fs3=SimpleNamespace(M=M, **f),
+                            **_backward_view(arrays, g, Mg)), device))
+    return build_fs3_pack(params)
+
+
+# ---------------------------------------------------------------------
+# Plain PyTorch versions: the single-model plain version over each
+# model's items, scattered back
+# ---------------------------------------------------------------------
+def _scores_ref(score, pack, dsq, lens, slot, nj):
+    """<score> over each model's items, each group cut to its longest
+    item (rows past an item's length change nothing in a score)."""
+    out = torch.empty(dsq.shape[0], dtype=torch.float32, device=dsq.device)
+    for g, rows in _per_model(slot):
+        Lg = max(1, int(lens[rows].max()))
+        out[rows] = score(dsq[rows][:, :Lg], lens[rows], pack.params[g], nj)
+    return out
+
+
+def fwd_pack_scores_ref(pack: ModelPack, dsq, lens, slot,
+                        nj: float = 1.0) -> torch.Tensor:
+    """Forward-gate scores [B] (nats), item b under model slot[b]."""
+    slot = _check(pack, dsq, lens, slot)
+    return _scores_ref(fwd_score_ref, pack, dsq, lens, slot, nj)
+
+
+def _decode_ref(decode, pack, dsq, lens, slot, period: int):
+    """<decode>(model, rows, dsq, lens) over each model's items, each group
+    cut to its longest item and its rows extended to the batch's L + 1
+    as the uncut computation leaves them: the increments past an item
+    are zero, so btot and etot repeat with <period> (1, or 3 for the
+    stride-3 sums of the fs3 decoder) and mocc is zero."""
+    slot = _check(pack, dsq, lens, slot)
+    B, L = dsq.shape
+    post = [torch.zeros(B, L + 1, dtype=torch.float32, device=dsq.device)
+            for _ in range(3)]
+    ok = torch.zeros(B, dtype=torch.bool, device=dsq.device)
+    for g, rows in _per_model(slot):
+        Lg = min(L, max(period, int(lens[rows].max())))
+        bt, et, mo, rows_ok = decode(g, rows, dsq[rows][:, :Lg], lens[rows])
+        n = L - Lg
+        for t, r in zip(post[:2], (bt, et)):
+            tail = r[:, Lg + 1 - period:].repeat(1, -(-n // period))[:, :n]
+            t[rows] = torch.cat([r, tail], 1)
+        post[2][rows, :Lg + 1] = mo
+        ok[rows] = rows_ok
+    return (*post, ok)
+
+
+def domdec_pack_batch_ref(pack: ModelPack, dsq, lens, slot,
+                          nj: float = 1.0):
+    """(btot, etot, mocc) [B, L+1] and ok [B], item b under model
+    slot[b]."""
+    return _decode_ref(
+        lambda g, rows, d, ln: domdec_ref(d, ln, pack.params[g], nj),
+        pack, dsq, lens, slot, 1)
+
+
+def fs3_pack_scores_ref(pack: ModelPack, dsq, lens, slot,
+                        nj: float = 1.0) -> torch.Tensor:
+    """fs3-Forward gate scores [B] (nats), window b under model
+    slot[b]."""
+    slot = _check(pack, dsq, lens, slot)
+    return _scores_ref(fs3_score_ref, pack, dsq, lens, slot, nj)
+
+
+def _dec_loops(dec_loop, B: int, device) -> torch.Tensor:
+    return torch.as_tensor(dec_loop, dtype=torch.float64,
+                           device=device).expand(B)
+
+
+def fs3_domdec_pack_batch_ref(pack: ModelPack, dsq, lens, slot, dec_loop,
+                              nj: float = 1.0):
+    """(btot, etot, mocc) [B, L+1] and ok [B], window b under model
+    slot[b] and N/J/C loop probability ``dec_loop[b]`` (a scalar
+    serves every window)."""
+    dec = _dec_loops(dec_loop, dsq.shape[0], dsq.device)
+    return _decode_ref(
+        lambda g, rows, d, ln: fs3_domdec_ref(d, ln, pack.params[g],
+                                              dec[rows], nj),
+        pack, dsq, lens, slot, 3)
+
+
+# ---------------------------------------------------------------------
+# The four packed calls.  CUDA tensors launch the multi-model kernel
+# entries (or raise); CPU tensors run the plain versions.  <slot>: [B]
+# model slots, a numpy array or a tensor on any device: the launch plan
+# is built from it on the host.  Each wrapper counts its launches, one
+# per padded width present in the batch.
+# ---------------------------------------------------------------------
+def fwd_pack_scores(pack: ModelPack, dsq, lens, slot,
+                    nj: float = 1.0) -> torch.Tensor:
+    """Forward-gate scores [B] (nats), item b under model slot[b]."""
+    if dsq.device.type == "cpu":
+        return fwd_pack_scores_ref(pack, dsq, lens, slot, nj)
+    slot = _check(pack, dsq, lens, slot)
+    from .kernels import loader
+    out, n = loader.launch_fwd_multi(dsq, lens, slot, pack, nj)
+    fwd_pack_scores.launches += n
+    return out
+
+
+def domdec_pack_batch(pack: ModelPack, dsq, lens, slot, nj: float = 1.0):
+    """(btot, etot, mocc) [B, L+1] and ok [B], item b under model
+    slot[b]."""
+    if dsq.device.type == "cpu":
+        return domdec_pack_batch_ref(pack, dsq, lens, slot, nj)
+    slot = _check(pack, dsq, lens, slot)
+    from .kernels import loader
+    (inc_b, inc_e, njr, logz, log_xc), n = loader.launch_domdec_multi(
+        dsq, lens, slot, pack, nj)
+    domdec_pack_batch.launches += n
+    return domdec_finish(inc_b, inc_e, njr, lens, logz, log_xc)
+
+
+def fs3_pack_scores(pack: ModelPack, dsq, lens, slot,
+                    nj: float = 1.0) -> torch.Tensor:
+    """fs3-Forward gate scores [B] (nats), window b under model
+    slot[b]."""
+    if dsq.device.type == "cpu":
+        return fs3_pack_scores_ref(pack, dsq, lens, slot, nj)
+    slot = _check(pack, dsq, lens, slot)
+    from .kernels import loader
+    out, n = loader.launch_fs3_multi(dsq, lens, slot, pack, nj)
+    fs3_pack_scores.launches += n
+    return out
+
+
+def fs3_domdec_pack_batch(pack: ModelPack, dsq, lens, slot, dec_loop,
+                          nj: float = 1.0):
+    """(btot, etot, mocc) [B, L+1] and ok [B], window b under model
+    slot[b] and N/J/C loop probability ``dec_loop[b]``."""
+    if dsq.device.type == "cpu":
+        return fs3_domdec_pack_batch_ref(pack, dsq, lens, slot, dec_loop,
+                                         nj)
+    slot = _check(pack, dsq, lens, slot)
+    from .kernels import loader
+    (fspec, bspec, logz2), n = loader.launch_fs3_domdec_multi(
+        dsq, lens, slot, pack, nj)
+    fs3_domdec_pack_batch.launches += n
+    return fs3_domdec_finish(fspec, bspec, lens, logz2[:, 0], logz2[:, 1],
+                             _dec_loops(dec_loop, dsq.shape[0], dsq.device))
+
+
+# CUDA launches through each wrapper
+fwd_pack_scores.launches = 0
+domdec_pack_batch.launches = 0
+fs3_pack_scores.launches = 0
+fs3_domdec_pack_batch.launches = 0

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bath_tpu import constants as C
+from .. import constants as C
 
 from .ssv import by_length, check_stream, shift_in, striped_lane, \
     striped_order
@@ -88,7 +88,7 @@ class VitParams:
         """[B] int32: the N/J/C move word of each item's length model,
         as ``VitExactMB.move_for`` (``oprofile._wordify``), cached per
         length."""
-        from bath_tpu.oprofile import _wordify
+        from ..oprofile import _wordify
         lens = np.asarray(lens, np.int64)
         ulens, inv = np.unique(lens, return_inverse=True)
         vals = np.empty(len(ulens), np.int32)

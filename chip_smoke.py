@@ -2,27 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the standard, the ``--fs`` and the
-all-device bathsearch paths from ``bath_tpu_torch/ops/kernels/csrc/``,
-holds each against its plain PyTorch version on the card (the integer
-filters exactly, and MSV also against the native host library over
-every ORF of the search genome), times both and the host library's
-batch, then searches a seeded 5 Mb genome with a seeded M = 400 profile
-through the port's CLI: the standard search, then ``--fs`` and
-``--fsonly`` on the genome's frameshift twin (16 of its 40 embeds carry
-a 1-nt deletion or insertion), then the all-device cascade
-(``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``: MSV/SSV, the ViterbiFilter
-and their window captures on the card too), standard and ``--fs``.
-It checks that the output is byte-identical to the host path
-(``bath_tpu --backend numpy``), that the embedded homologs and the
+Builds the CUDA kernels of the standard, the ``--fs``, the all-device
+and the multi-query bathsearch paths from
+``bath_tpu_torch/ops/kernels/csrc/``, holds each against its plain
+PyTorch version on the card (the integer filters exactly, and MSV also
+against the native host library over every ORF of the search genome;
+the four multi-model entries also bit for bit against the single-model
+entries, on batches that mix 48 models of M = 60..1200), times both and
+the host library's batch, then searches a seeded 5 Mb genome with a
+seeded M = 400 profile through the port's CLI: the standard search,
+then ``--fs`` and ``--fsonly`` on the genome's frameshift twin (16 of
+its 40 embeds carry a 1-nt deletion or insertion), then the all-device
+cascade (``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``: MSV/SSV, the
+ViterbiFilter and their window captures on the card too), standard and
+``--fs``, then the multi-query drive: a 48-model query file against a
+5 Mb genome that holds copies of 12 of the models, standard and
+``--fs``.  It checks that the output is byte-identical to the host path
+(the port's own ``--backend numpy``), that the embedded homologs and the
 frameshifts are found, and that each search went through its
 kernels.  Every phase prints one line; any failure exits non-zero.  The
-last two lines are the kernels' JSON record and ``{"ok": true,
-"device": ...}``.
+last two lines are the kernels' JSON record (per kernel: launches on
+its main path, error against the plain version, time, the plain
+version's time, and the least time the card could take for the timed
+work) and ``{"ok": true, "device": ...}``.
 
 Needs a CUDA device, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 g++ (the host library of the integer filters).  Everything it builds or
-writes goes under ``build/`` next to this file.
+writes goes under ``build/`` next to this file.  It imports nothing of
+``bath_tpu`` and no JAX.
 """
 
 import json
@@ -54,10 +61,10 @@ FWD_TOL = 1e-3              # nats, kernel vs plain version
 DOMDEC_TOL = 1e-4           # posterior units
 MIN_OK_SHARE = 0.95
 # --fs: parity batches (B, longest L in nt) at M_SEARCH and FS3_WIDE_M
-PARITY_FS3 = (64, 6000)
-PARITY_FS3DD = (16, 6000)
+PARITY_FS3 = (64, 4500)
+PARITY_FS3DD = (16, 4500)
 FS3_WIDE_M = 1500           # several warps per window
-TIME_FS3_M = (134, 409, 781, 1000, 2048)
+TIME_FS3_M = (134, 409, 781, 1000)
 TIME_FS3_B, TIME_FS3DD_B = 256, 32
 N_FRAMESHIFT = 16
 MIN_FS_FOUND = 12
@@ -66,7 +73,7 @@ MIN_FS_FOUND = 12
 # INT_WIDE_M; capture thresholds (bytes, words) crossed by the hot ORFs
 # only, then P = 1 (every row crosses)
 PARITY_INT_N = 512
-LONG_ORF = 16_500
+LONG_ORF = 8_000
 INT_WIDE_M = 1500
 SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
 TIME_INT_B = 4096           # ORFs of the Viterbi set and the captures
@@ -75,6 +82,57 @@ F1, F2 = 0.02, 1e-3         # bathsearch's default filter thresholds
 # the Viterbi path and pass it (the Viterbi capture's input)
 LOOSE = ["--F1", "0.1", "--F2", "0.05"]
 ALL_DEVICE = {"BATH_MSV_DEVICE": "1", "BATH_VIT_DEVICE": "1"}
+# the multi-query drive: 48 models with M spread over 60..1200 (29 of
+# them past 511, where the JAX package's packs stop), every fourth one
+# with MQ_COPIES copies in the genome
+MQ_MS = [60 + (1140 * i) // 47 for i in range(48)]
+MQ_EMBEDDED = list(range(1, 48, 4))
+MQ_COPIES = 2
+# multi-model parity batches with homologs, (items per model, longest
+# item), every model's items carrying copies of its own protein: all
+# items against the single-model entries, and the items of
+# PARITY_MQ_PLAIN (the narrowest model, which also holds the shortest
+# items, and one model for each count of warps per item up to the
+# widest) against the plain versions, whose Python row loops run once
+# per model and take 1-5 ms a row.  The timing batches below hold the
+# entries against the plain versions at the drive's shapes.
+PARITY_MQ_FWD = (8, 1500)
+PARITY_MQ_DOMDEC = (3, 1500)
+PARITY_MQ_FS3 = (3, 6000)
+PARITY_MQ_FS3DD = (2, 4500)
+PARITY_MQ_PLAIN = (0, 11, 29, 47)
+PARITY_MQ_PLAIN_FS3DD = (0, 47)
+# multi-model timing batches, the shapes of the 5 Mb drive's one flush:
+# F3 candidates, F3 survivors and fs3 windows over all 48 models, fs3
+# survivors over the 12 embedded ones.  Each entry's output is also
+# held against its plain version's: the Forward gate and decoding on
+# every item; the fs3 pair, whose plain versions take 7 and 21 s a model
+# over windows of thousands of rows, on the items of every fourth model
+# and of four of the 12 (M = 84, 375, 763, 1151: one to three warps a
+# window).
+TIME_MQ_FWD_B, TIME_MQ_DOMDEC_B = 1600, 128
+TIME_MQ_FS3_B, TIME_MQ_FS3DD_B = 512, 24
+TIME_MQ_PLAIN_FS3 = tuple(range(3, 48, 4))
+TIME_MQ_PLAIN_FS3DD = (1, 13, 29, 45)
+# "torch_host": the multi-query drive with every stage's engagement
+# threshold out of reach, so the host runs the f32 stages on the same
+# items (what the card's stages are weighed against)
+MQ_TURNS = ("numpy", "torch", "torch_host", "torch")
+MQ_MIN_CELLS = ("BATH_MQ_FWD_MIN_CELLS", "BATH_MQ_DD_MIN_CELLS",
+                "BATH_MQ_FS3_MIN_CELLS", "BATH_MQ_FSDD_MIN_CELLS")
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# and float32 outside the tensor cores.  The DP kernels are f32 (or one
+# 32-bit int per cell) multiply-adds and maxima on the CUDA cores, so
+# that rate bounds their operations.
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+# Arithmetic per DP cell (one residue or nucleotide x one model
+# position), counted from the recurrences: the M, I, D updates, the
+# row sum and the rescale; decoding adds the backward pass's.
+OPS_PER_CELL = {"fwd_parser": 19, "domdec": 37, "fs3_parser": 23,
+                "fs3_domdec": 43, "msv_filter": 8, "ssv_capture": 4,
+                "vit_filter": 20, "vit_capture": 21}
 
 
 def fail(msg: str) -> None:
@@ -82,9 +140,28 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def phase(tag: str, **kv) -> None:
-    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    print(f"[{tag}] at_s={time.perf_counter() - T_START:.0f} "
+          + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def bound(kernel: str, cells: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take for
+    <cells> DP cells of <kernel> and <nbytes> bytes moved (each input
+    read once, each output written once), against the published
+    peaks."""
+    by_ops = 1e3 * cells * OPS_PER_CELL[kernel.replace("_multi", "")] \
+        / CORE_OPS_PER_S
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(by_ops, by_bytes), \
+        "operations" if by_ops >= by_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -100,6 +177,17 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def once_ms(fn) -> float:
+    """Milliseconds of one fn() call on the card, by the host clock
+    around a synchronise: for the plain versions, whose Python row
+    loops take seconds."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
 
 
 def host_ms(fn) -> float:
@@ -129,8 +217,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
-    # the host library of the integer filters builds into build/
-    os.environ["XDG_CACHE_HOME"] = str(BUILD / "cache")
     sys.path.insert(0, str(ROOT))
     from bath_tpu_torch import fixtures
     from bath_tpu_torch.cli import bathsearch
@@ -138,6 +224,7 @@ def main() -> None:
     from bath_tpu_torch.ops import fs3
     from bath_tpu_torch.ops import fs3_domdec as fdd
     from bath_tpu_torch.ops import fwd
+    from bath_tpu_torch.ops import multimodel as mm
     from bath_tpu_torch.ops import ssv
     from bath_tpu_torch.ops import vit
     from bath_tpu_torch.ops.kernels import loader
@@ -212,7 +299,7 @@ def main() -> None:
           fwd_err=e1, domdec_err=e2)
 
     # 3b. the --fs kernels against their plain versions: DNA windows of
-    # 0, 2, 3, 4 and up to 6000 nt with homologs (one in three
+    # 0, 2, 3, 4 and up to 4500 nt with homologs (one in three
     # frameshifted) and runs of N, at M_SEARCH and at a model that
     # takes several warps per window
     fs3_err = fs3dd_err = 0.0
@@ -251,7 +338,7 @@ def main() -> None:
     # overflowing at P = 1), ORFs of 0, 1, 2, 19-21 and 3 missing-data
     # residues and, at M_SEARCH, one of LONG_ORF residues; INT_WIDE_M
     # takes several warps per ORF
-    from bath_tpu.hmmfile import read_hmm
+    from bath_tpu_torch.hmmfile import read_hmm
     fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED)
     om = fixtures.search_profile(read_hmm(fx.hmm_path))
     int_err = {k: 0.0 for k in ("msv_filter", "ssv_capture", "vit_filter",
@@ -311,7 +398,7 @@ def main() -> None:
 
     # 3d. MSV through the cascade (one flat stream, one launch) over
     # every ORF of the search genome against the native host batch
-    from bath_tpu.native import msv_filter_native_batch
+    from bath_tpu_torch.native import msv_filter_native_batch
     from bath_tpu_torch.device_pipeline import TorchCascade
     cas = TorchCascade(om, device=dev, stats={})
     all_orfs = fixtures.genome_orfs(fx.fasta_path)
@@ -326,6 +413,137 @@ def main() -> None:
           residues=int(a_lens.sum()), inf=int(np.isinf(got).sum()),
           identical=True)
 
+    # 3e. the four multi-model entries at full width: 48 models of
+    # M = 60..1200 mixed in one batch per stage, items of up to 1500 aa
+    # and 6000 nt with copies of their model's protein.  Each entry,
+    # model by model, bit for bit against the single-model entry on the
+    # same rows (for the decoding pair: the kernels' own outputs bit
+    # for bit, the posteriors after the shared tensor-op combine within
+    # 1e-6, because torch.cumsum's summation order on the card depends
+    # on the batch's shape), and against its plain version on the items
+    # of a few models that span the widths and the warps per item.  4e
+    # holds every item of all 48 models against the plain versions at
+    # the multi-query drive's shapes.
+    def multi_case(fs, per_model, Lmax):
+        oms, d, ln, sl = fixtures.multi_kernel_batch(MQ_MS, per_model, Lmax,
+                                                     SEED, fs=fs)
+        params = [(fs3.fs3_params if fs else fwd.fwd_params)(om, dev)
+                  for om in oms]
+        pack = (mm.build_fs3_pack if fs else mm.build_fwd_pack)(params)
+        return (pack, torch.from_numpy(d).to(dev),
+                torch.from_numpy(ln).to(dev), sl)
+
+    def model_rows(sl):
+        return [(g, torch.from_numpy(np.nonzero(sl == g)[0]).to(dev))
+                for g in range(len(MQ_MS))]
+
+    def vs_plain(name, got, want):
+        """max |got - want| of a multi-model entry and its plain
+        version; fails past the single-model kernels' bounds: gates
+        FWD_TOL with the same -inf items, decoding DOMDEC_TOL on the
+        posteriors with `ok` identical."""
+        if isinstance(got, tuple):
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(got[:3], want[:3]))
+            if not (err <= DOMDEC_TOL and torch.equal(got[3], want[3])):
+                fail(f"{name} vs plain: max |d| {err} > {DOMDEC_TOL} or ok "
+                     f"differs ({got[3].sum()} vs {want[3].sum()})")
+            return err
+        fin = torch.isfinite(want)
+        err = float((got - want)[fin].abs().max())
+        if not (torch.equal(fin, torch.isfinite(got)) and err <= FWD_TOL):
+            fail(f"{name} vs plain: max |d| {err} > {FWD_TOL} or the -inf "
+                 "items differ")
+        return err
+
+    def plain_subset(sl, models):
+        sub = np.nonzero(np.isin(sl, models))[0]
+        return sub, torch.from_numpy(sub).to(dev)
+
+    def gate_case(name, fs, shape, call, single, ref):
+        """Holds one gate entry on a batch: against the single-model
+        entry model by model, and against the plain version on the
+        items of PARITY_MQ_PLAIN; returns the error against the plain
+        version."""
+        pack, d, lt, sl = multi_case(fs, *shape)
+        got = call(pack, d, lt, sl)
+        sub, rs = plain_subset(sl, PARITY_MQ_PLAIN)
+        err = vs_plain(name, got[rs], ref(pack, d[rs].contiguous(),
+                                          lt[rs].contiguous(), sl[sub]))
+        for g, r in model_rows(sl):
+            one = single(d[r].contiguous(), lt[r].contiguous(),
+                         pack.params[g])
+            if not torch.equal(one, got[r]):
+                fail(f"{name} differs from the single-model entry at "
+                     f"M={MQ_MS[g]}")
+        phase("parity", kernel=name, models=len(MQ_MS),
+              M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
+              B=len(sl), L=f"{int(lt.min())}..{int(lt.max())}",
+              vs_plain=err, plain_items=len(sub),
+              plain_M=[MQ_MS[g] for g in PARITY_MQ_PLAIN], tol=FWD_TOL,
+              best_score=f"{float(got[torch.isfinite(got)].max()):.2f}",
+              single_model_entry="bit for bit")
+        return err
+
+    def decoding_case(name, fs, shape, plain_models):
+        """The same for a decoding entry: the kernels' own outputs bit
+        for bit the single-model entry's, `ok` identical, posteriors
+        within 1e-6 of it."""
+        pack, d, lt, sl = multi_case(fs, *shape)
+        n3 = lt.cpu().numpy() // 3
+        dec = torch.from_numpy((n3 / (n3 + 3.0)).astype(np.float32)).to(dev)
+        sub, rs = plain_subset(sl, plain_models)
+        ds, ls = d[rs].contiguous(), lt[rs].contiguous()
+        if fs:
+            got = mm.fs3_domdec_pack_batch(pack, d, lt, sl, dec)
+            raw, _ = loader.launch_fs3_domdec_multi(d, lt, sl, pack, 1.0)
+            want = mm.fs3_domdec_pack_batch_ref(pack, ds, ls, sl[sub],
+                                                dec[rs])
+        else:
+            got = mm.domdec_pack_batch(pack, d, lt, sl)
+            raw, _ = loader.launch_domdec_multi(d, lt, sl, pack, 1.0)
+            want = mm.domdec_pack_batch_ref(pack, ds, ls, sl[sub])
+        err = vs_plain(name, tuple(t[rs] for t in got), want)
+        post_err = 0.0
+        for g, r in model_rows(sl):
+            args = (d[r].contiguous(), lt[r].contiguous(), pack.params[g])
+            one_raw = (loader.launch_fs3_domdec if fs
+                       else loader.launch_domdec)(*args, 1.0)
+            if not all(torch.equal(a, b[r]) for a, b in zip(one_raw, raw)):
+                fail(f"{name}'s kernel outputs differ from the single-model "
+                     f"entry's at M={MQ_MS[g]}")
+            one = fdd.fs3_domdec(*args, dec[r]) if fs else dd.domdec(*args)
+            if not torch.equal(one[3], got[3][r]):
+                fail(f"{name}: ok differs from the single-model entry's at "
+                     f"M={MQ_MS[g]}")
+            post_err = max(post_err, *(float((a - b[r]).abs().max())
+                                       for a, b in zip(one[:3], got[:3])))
+        if post_err > 1e-6:
+            fail(f"{name}: posteriors {post_err} from the single-model "
+                 "entry's")
+        phase("parity", kernel=name, models=len(MQ_MS),
+              M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
+              B=len(sl), L=f"{int(lt.min())}..{int(lt.max())}",
+              vs_plain=err, plain_items=len(sub),
+              plain_M=[MQ_MS[g] for g in plain_models], tol=DOMDEC_TOL,
+              ok=f"{int(got[3].sum())}/{len(sl)}",
+              single_model_entry="kernel outputs bit for bit",
+              posteriors_vs_single=post_err)
+        return err
+
+    mq_err = {
+        "fwd_parser_multi": gate_case(
+            "fwd_parser_multi", False, PARITY_MQ_FWD, mm.fwd_pack_scores,
+            fwd.fwd_score, mm.fwd_pack_scores_ref),
+        "fs3_parser_multi": gate_case(
+            "fs3_parser_multi", True, PARITY_MQ_FS3, mm.fs3_pack_scores,
+            fs3.fs3_score, mm.fs3_pack_scores_ref),
+        "domdec_multi": decoding_case(
+            "domdec_multi", False, PARITY_MQ_DOMDEC, PARITY_MQ_PLAIN),
+        "fs3_domdec_multi": decoding_case(
+            "fs3_domdec_multi", True, PARITY_MQ_FS3DD, PARITY_MQ_PLAIN_FS3DD),
+    }
+
     # 4. timing at the main path's shapes (ORFs of the search genome)
     times = {}
     for M in TIME_FWD_M:
@@ -335,9 +553,11 @@ def main() -> None:
         ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_FWD_B,
                                                    SEED), dev)
         k_ms = cuda_ms(lambda: fwd.fwd_score(d, lt, pm), 20)
-        p_ms = cuda_ms(lambda: fwd.fwd_score_ref(d, lt, pm), 2)
+        p_ms = once_ms(lambda: fwd.fwd_score_ref(d, lt, pm))
         cells = float(ln.sum()) * M
-        times[("fwd", M)] = (k_ms, p_ms)
+        times[("fwd", M)] = (k_ms, p_ms, *bound(
+            "fwd_parser", cells,
+            nbytes(d, lt, *pm.padded(loader.layout(M)[2])) + 4 * len(ln)))
         phase("timing", kernel="fwd_parser", M=M, B=TIME_FWD_B,
               mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
               ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
@@ -346,9 +566,12 @@ def main() -> None:
     ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_DOMDEC_B,
                                                SEED, min_len=100), dev)
     k_ms = cuda_ms(lambda: dd.domdec(d, lt, p400), 10)
-    p_ms = cuda_ms(lambda: dd.domdec_ref(d, lt, p400), 1)
-    times["domdec"] = (k_ms, p_ms)
+    p_ms = once_ms(lambda: dd.domdec_ref(d, lt, p400))
     cells = float(ln.sum()) * M_SEARCH
+    times["domdec"] = (k_ms, p_ms, *bound(
+        "domdec", cells,
+        nbytes(d, lt, *p400.padded(loader.layout(M_SEARCH)[2]))
+        + 4 * 3 * d.shape[0] * (d.shape[1] + 1) + len(ln)))
     phase("timing", kernel="domdec", M=M_SEARCH, B=TIME_DOMDEC_B, min_L=100,
           mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
           ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
@@ -366,9 +589,11 @@ def main() -> None:
         ln, d, lt = one_batch(fixtures.sample_windows(
             fx.fasta_path, TIME_FS3_B, wlen, SEED), dev, pad=17)
         k_ms = cuda_ms(lambda: fs3.fs3_score(d, lt, pm), 5)
-        p_ms = cuda_ms(lambda: fs3.fs3_score_ref(d, lt, pm), 1)
+        p_ms = once_ms(lambda: fs3.fs3_score_ref(d, lt, pm))
         cells = float(ln.sum()) * M
-        times[("fs3", M)] = (k_ms, p_ms)
+        times[("fs3", M)] = (k_ms, p_ms, *bound(
+            "fs3_parser", cells,
+            nbytes(d, lt, *pm.padded(loader.fs3_layout(M)[2])) + 4 * len(ln)))
         phase("timing", kernel="fs3_parser", M=M, B=TIME_FS3_B, L=wlen,
               layout=loader.fs3_layout(M), ms=f"{k_ms:.4f}",
               plain_ms=f"{p_ms:.2f}", us_per_row=f"{1e3 * k_ms / wlen:.3f}",
@@ -377,9 +602,12 @@ def main() -> None:
         if M == TIME_FS3_M[1]:
             pdd, ddd, ldd, wdd = pm, d[:TIME_FS3DD_B], lt[:TIME_FS3DD_B], wlen
     k_ms = cuda_ms(lambda: fdd.fs3_domdec(ddd, ldd, pdd, 100.0 / 103.0), 3)
-    p_ms = cuda_ms(lambda: fdd.fs3_domdec_ref(ddd, ldd, pdd, 100.0 / 103.0),
-                   1)
-    times["fs3_domdec"] = (k_ms, p_ms)
+    p_ms = once_ms(lambda: fdd.fs3_domdec_ref(ddd, ldd, pdd,
+                                              100.0 / 103.0))
+    times["fs3_domdec"] = (k_ms, p_ms, *bound(
+        "fs3_domdec", float(TIME_FS3DD_B) * wdd * TIME_FS3_M[1],
+        nbytes(ddd, ldd, *pdd.padded(loader.fs3_layout(TIME_FS3_M[1])[2]))
+        + 4 * 3 * TIME_FS3DD_B * (wdd + 1) + TIME_FS3DD_B))
     phase("timing", kernel="fs3_domdec", M=TIME_FS3_M[1], B=TIME_FS3DD_B,
           L=wdd, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           gcups=f"{TIME_FS3DD_B * wdd * TIME_FS3_M[1] / k_ms / 1e6:.2f}")
@@ -390,9 +618,9 @@ def main() -> None:
     # thresholds on the null scores; beside each kernel its plain version
     # and, for MSV and Viterbi, the native host library's OpenMP batch
     # on the same ORFs in the flat layout its ORF extractor hands over
-    from bath_tpu.bg import Background
-    from bath_tpu.gencode import OrfList
-    from bath_tpu.native import vit_filter_score_batch
+    from bath_tpu_torch.bg import Background
+    from bath_tpu_torch.gencode import OrfList
+    from bath_tpu_torch.native import vit_filter_score_batch
     from bath_tpu_torch.cli.bathsearch import CHUNK_ORFS
 
     def host_layout(orfs):
@@ -408,11 +636,15 @@ def main() -> None:
     f_tjb = ints(pm.tjb_for(f_lens.cpu().numpy()))
     fa = (f_flat, f_offs, f_lens, f_tjb, pm)
     k_ms = cuda_ms(lambda: ssv.msv_ssv(*fa), 20)
-    p_ms = cuda_ms(lambda: ssv.msv_ssv_ref(*fa), 1)
+    p_ms = once_ms(lambda: ssv.msv_ssv_ref(*fa))
     held("msv_filter", ssv.msv_ssv(*fa), ssv.msv_ssv_ref(*fa), M_SEARCH)
     h_ms = host_ms(lambda: msv_filter_native_batch(f_host, om))
     cells = float(f_lens.sum()) * M_SEARCH
-    times["msv_filter"] = (k_ms, p_ms)
+    Mp400 = loader.layout(M_SEARCH)[2]
+    times["msv_filter"] = (k_ms, p_ms, *bound(
+        "msv_filter", cells,
+        nbytes(f_flat, f_offs, f_lens, f_tjb, pm.table(Mp400))
+        + 4 * 3 * len(f_orfs)))
     phase("timing", kernel="msv_filter", M=M_SEARCH, B=len(f_orfs),
           layout="flat", mean_L=f"{float(f_lens.float().mean()):.1f}",
           max_L=int(f_lens.max()), ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
@@ -451,10 +683,14 @@ def main() -> None:
             ("vit_capture", lambda: vit.vit_capture(*va, move, v_thr, pv),
              lambda: vit.vit_capture_ref(*va, move, v_thr, pv), None)):
         k_ms = cuda_ms(k_fn, 20)
-        p_ms = cuda_ms(p_fn, 1)
+        p_ms = once_ms(p_fn)
         h_ms = host_ms(host) if host else None
-        times[name] = (k_ms, p_ms)
         out = held(name, k_fn(), p_fn(), M_SEARCH)
+        times[name] = (k_ms, p_ms, *bound(
+            name, cells,
+            nbytes(v_flat, v_offs, v_lens, move, v_thr,
+                   (pv if name.startswith("vit") else pm).table(Mp400))
+            + nbytes(*out)))
         events = {"ssv_capture": lambda: int(out[0].sum()),
                   "vit_capture": lambda: int((out[0] != 0).sum()),
                   "vit_filter": lambda: int(out[2].sum())}[name]()
@@ -489,10 +725,108 @@ def main() -> None:
           ssvcap_events=int(ev.sum()), vitcap_events=int((kr != 0).sum()),
           identical=True)
 
+    # 4e. the multi-model entries at the multi-query drive's shapes:
+    # genome ORFs (Forward gate, decoding) and genome windows of 2 *
+    # max_length * 3 nt of each window's model (fs3 pair), their models
+    # drawn over all 48; beside each entry, one single-model launch per
+    # model over the same items, split by model beforehand
+    mq_rng = np.random.default_rng(SEED + 1)
+    mq_hmms = []
+    for M in MQ_MS:
+        hm, _ = fixtures.make_query(M, mq_rng, calibrate=False, fs=True)
+        hm.set_max_length()
+        mq_hmms.append(hm)
+    std_pack = mm.build_fwd_pack(
+        [fwd.fwd_params(fixtures.search_profile(h), dev) for h in mq_hmms])
+    fs_pack = mm.build_fs3_pack(
+        [fs3.fs3_params(fixtures.fs_search_profile(h), dev)
+         for h in mq_hmms])
+    Ms = np.asarray(MQ_MS, np.float64)
+    wlens = np.array([6 * h.max_length for h in mq_hmms])
+    windows = fixtures.sample_windows(fx.fasta_path, TIME_MQ_FS3_B,
+                                      int(wlens.max()), SEED)
+    fs_slot = mq_rng.integers(0, len(MQ_MS), TIME_MQ_FS3_B)
+    windows = [w[:wlens[g]] for w, g in zip(windows, fs_slot)]
+    dd_slot = np.resize(np.asarray(MQ_EMBEDDED), TIME_MQ_FS3DD_B)
+    dd_windows = [w[:wlens[g]] for w, g in zip(
+        fixtures.sample_windows(fx.fasta_path, TIME_MQ_FS3DD_B,
+                                int(wlens.max()), SEED + 2), dd_slot)]
+
+    plain_items = {}
+
+    def time_multi(name, pack, items, sl, pad, call, single, reps, extra=(),
+                   plain_models=range(len(MQ_MS))):
+        """Times one entry on <items> under the models <sl>, beside one
+        single-model launch per model, and holds its output against the
+        single-model entries' on all items and against the plain
+        version's on the items of <plain_models>, which it times."""
+        ln, d, lt = one_batch(items, dev, pad=pad)
+        # one_batch sorts by length: carry the slots along
+        order = np.argsort([len(o) for o in items], kind="stable")
+        sl = np.asarray(sl)[order]
+        split = [(r, pack.params[g], d[r].contiguous(), lt[r].contiguous())
+                 for g, r in model_rows(sl) if len(r)]
+        k_ms = cuda_ms(lambda: call(pack, d, lt, sl, *extra), reps)
+        s_ms = cuda_ms(lambda: [single(dg, lg, pg, *extra)
+                                for _, pg, dg, lg in split], reps)
+        out = call(pack, d, lt, sl, *extra)
+        outs = out if isinstance(out, tuple) else (out,)
+        # the single-model entries on the same items: the gates bit for
+        # bit, the decoders' posteriors within 1e-6 (torch.cumsum)
+        for r, pg, dg, lg in split:
+            one = single(dg, lg, pg, *extra)
+            one = one if isinstance(one, tuple) else (one,)
+            if not (torch.equal(one[-1], outs[-1][r]) and all(
+                    float((a - b[r]).abs().max()) <= 1e-6
+                    for a, b in zip(one[:-1], outs[:-1]))):
+                fail(f"{name} differs from the single-model entry on the "
+                     "timing batch")
+        sub, rs = plain_subset(sl, list(plain_models))
+        ds, ls = d[rs].contiguous(), lt[rs].contiguous()
+        want = []
+        p_ms = once_ms(lambda: want.append(
+            getattr(mm, call.__name__ + "_ref")(pack, ds, ls, sl[sub],
+                                                *extra)))
+        got = tuple(t[rs] for t in outs)
+        err = vs_plain(name, got if len(outs) > 1 else got[0], want[0])
+        plain_items[name] = len(sub)
+        mq_err[name] = max(mq_err[name], err)
+        cells = float((ln[order] * Ms[sl]).sum())
+        tabs = [t for c in pack.classes.values() for t in (c.etab, c.ttab)]
+        times[name] = (k_ms, p_ms, *bound(name, cells,
+                                          nbytes(d, lt, *tabs, *outs)))
+        phase("timing", kernel=name, models=len(split), B=len(items),
+              mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
+              launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
+              per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              plain_items=len(sub),
+              plain_models=len(set(sl[sub].tolist())), vs_plain=err,
+              tol=DOMDEC_TOL if len(outs) > 1 else FWD_TOL,
+              single_model_entry="agrees",
+              gcups=f"{cells / k_ms / 1e6:.2f}",
+              bound_ms=f"{times[name][2]:.5f}", bound_by=times[name][3],
+              card=repr(card))
+
+    time_multi("fwd_parser_multi", std_pack,
+               fixtures.sample_orfs(fx.fasta_path, TIME_MQ_FWD_B, SEED),
+               mq_rng.integers(0, len(MQ_MS), TIME_MQ_FWD_B), 28,
+               mm.fwd_pack_scores, fwd.fwd_score, 10)
+    time_multi("domdec_multi", std_pack,
+               fixtures.sample_orfs(fx.fasta_path, TIME_MQ_DOMDEC_B, SEED,
+                                    min_len=100),
+               mq_rng.integers(0, len(MQ_MS), TIME_MQ_DOMDEC_B), 28,
+               mm.domdec_pack_batch, dd.domdec, 5)
+    time_multi("fs3_parser_multi", fs_pack, windows, fs_slot, 17,
+               mm.fs3_pack_scores, fs3.fs3_score, 3,
+               plain_models=TIME_MQ_PLAIN_FS3)
+    time_multi("fs3_domdec_multi", fs_pack, dd_windows, dd_slot, 17,
+               mm.fs3_domdec_pack_batch, fdd.fs3_domdec, 2,
+               extra=(100.0 / 103.0,), plain_models=TIME_MQ_PLAIN_FS3DD)
+
     # 5. end to end: the port's CLI against the host path, in turns
-    # (numpy, torch, torch, numpy); --backend numpy runs
-    # bath_tpu.cli.bathsearch.run as it is.  The first torch run is the
-    # one whose kernel launches are counted.
+    # (numpy, torch, torch, numpy); --backend numpy is the port's own
+    # serial host drive.  The first torch run is the one whose kernel
+    # launches are counted.
     walls: dict = {"torch": [], "numpy": []}
 
     def search(backend, stats=None):
@@ -722,30 +1056,149 @@ def main() -> None:
         fail(f"an integer-filter kernel never launched in the all-device "
              f"search: {int_launches}")
 
+    # 5d. the multi-query drive: the 48-model query file against a
+    # 5 Mb genome with MQ_COPIES copies of each of 12 of the models
+    # (under --fs the first copy of each frameshifted), --backend torch
+    # (one pass over the genome, the four multi-model kernels) against
+    # the port's --backend numpy (the serial per-query host drive), in
+    # turns; the first torch run of each mode is the one whose launches
+    # are counted.  Compared query by query: -o with its CPU-time lines
+    # masked, --tblout and --fstblout without their '#' lines.
+    def rows(path):
+        return "".join(ln for ln in path.read_text().splitlines(True)
+                       if not ln.startswith("#"))
+
+    def mq_drive(mode, turns, fixture):
+        walls: dict = {"torch": [], "numpy": [], "torch_host": []}
+        first: dict = {}
+        stats: dict = {}
+        host_stats: dict = {}
+        launches = None
+        fns = {"fwd_parser_multi": mm.fwd_pack_scores,
+               "domdec_multi": mm.domdec_pack_batch,
+               "fs3_parser_multi": mm.fs3_pack_scores,
+               "fs3_domdec_multi": mm.fs3_domdec_pack_batch}
+        for backend in turns:
+            stem = BUILD / (f"mq{''.join(mode).replace('-', '_')}_{backend}"
+                            f"{len(walls[backend])}")
+            paths = [stem.with_suffix(x) for x in (".out", ".tbl", ".fst")]
+            counted = backend == "torch" and launches is None
+            st = stats if counted else \
+                host_stats if backend == "torch_host" else {}
+            if counted:
+                for f in fns.values():
+                    f.launches = 0
+            if backend == "torch_host":
+                os.environ.update(dict.fromkeys(MQ_MIN_CELLS, "inf"))
+            t = time.perf_counter()
+            rc = bathsearch.run(
+                ["--backend", backend.split("_")[0], "--device", DEVICE,
+                 *mode, "-o", str(paths[0]), "--tblout", str(paths[1]),
+                 "--fstblout", str(paths[2]), fixture.hmm_path,
+                 fixture.fasta_path], stats=st)
+            torch.cuda.synchronize()
+            walls[backend].append(time.perf_counter() - t)
+            for k in MQ_MIN_CELLS:
+                os.environ.pop(k, None)
+            if counted:
+                launches = {k: f.launches for k, f in fns.items()}
+            if rc != 0:
+                fail(f"{backend} multi-query bathsearch {mode} exited {rc}")
+            first.setdefault(backend, paths)
+        t_out = masked(first["torch"][0]).split("//\n")
+        n_out = masked(first["numpy"][0]).split("//\n")
+        differ = [q for q, (a, b) in enumerate(zip(t_out, n_out)) if a != b]
+        identical = {
+            "out": not differ and len(t_out) == len(n_out) == len(MQ_MS) + 1,
+            "tblout": rows(first["torch"][1]) == rows(first["numpy"][1]),
+            "fstblout": rows(first["torch"][2]) == rows(first["numpy"][2]),
+            "host_stages": masked(first["torch_host"][0])
+            == masked(first["numpy"][0])}
+        found = fixtures.multi_embeds_found(str(first["torch"][1]), fixture)
+        tag = "e2e_multiquery" + "".join(mode).replace("--", "_")
+        for stage, items, cells, secs in stats["mq_stages"]:
+            phase(tag, flush_stage=stage, items=items, cells=cells,
+                  host_wall_s=f"{secs:.4f}")
+        phase(tag, genome_nt=GENOME_NT, models=len(MQ_MS),
+              M=f"{min(MQ_MS)}..{max(MQ_MS)}",
+              embedded_models=len(MQ_EMBEDDED), copies=MQ_COPIES,
+              found=f"{sum(found.values())}/{MQ_COPIES * len(MQ_EMBEDDED)}",
+              byte_identical=identical, queries_differing=differ,
+              walls_torch_s=",".join(f"{w:.3f}" for w in walls["torch"]),
+              walls_numpy_s=",".join(f"{w:.3f}" for w in walls["numpy"]),
+              walls_torch_host_stages_s=",".join(
+                  f"{w:.3f}" for w in walls["torch_host"]),
+              phase_s={k: round(v, 3)
+                       for k, v in stats["mq_phase_s"].items()},
+              phase_host_stages_s={
+                  k: round(v, 3)
+                  for k, v in host_stats["mq_phase_s"].items()},
+              **{k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in stats.items()
+                 if k not in ("mq_stages", "mq_phase_s")},
+              launches=launches, card=repr(card))
+        if any(host_stats[f"{k}_items"]
+               for k in ("fwd", "domdec", "fs3", "fs3domdec")):
+            fail(f"multi-query {mode}: a stage reached the card with its "
+                 f"threshold out of reach: {host_stats}")
+        if not all(identical.values()):
+            fail(f"multi-query {mode} output differs from the numpy "
+                 f"backend: {identical}, queries {differ}")
+        if sum(found.values()) < 0.75 * MQ_COPIES * len(MQ_EMBEDDED):
+            fail(f"multi-query {mode}: only {found} embeds reported")
+        return launches, stats, first
+
+    mq_fx = fixtures.write_multi_fixture(MQ_MS, GENOME_NT, MQ_EMBEDDED,
+                                         MQ_COPIES, SEED)
+    mq_launches, mq_stats, _ = mq_drive([], MQ_TURNS, mq_fx)
+    mq_fs_fx = fixtures.write_multi_fixture(MQ_MS, GENOME_NT, MQ_EMBEDDED,
+                                            MQ_COPIES, SEED, fs=True)
+    mq_fs_launches, mq_fs_stats, mq_fs_paths = mq_drive(
+        ["--fs"], MQ_TURNS, mq_fs_fx)
+    mq_shifts = fixtures.multi_frameshifts_found(
+        str(mq_fs_paths["torch"][2]), mq_fs_fx)
+    phase("e2e_multiquery_fs", frameshifts_found=f"{sum(mq_shifts.values())}"
+          f"/{len(MQ_EMBEDDED)}")
+    if sum(mq_shifts.values()) < 0.75 * len(MQ_EMBEDDED):
+        fail(f"multi-query --fs: only {mq_shifts} frameshifted copies in "
+             "--fstblout")
+    # the standard drive decodes on the device (domdec_multi); under
+    # --fs the host decodes the standard branch with the fs windows, as
+    # in the single-query drive, and the fs3 pair runs
+    mq_counts = {"fwd_parser_multi": mq_launches["fwd_parser_multi"],
+                 "domdec_multi": mq_launches["domdec_multi"],
+                 "fs3_parser_multi": mq_fs_launches["fs3_parser_multi"],
+                 "fs3_domdec_multi": mq_fs_launches["fs3_domdec_multi"]}
+    if min(mq_counts.values()) <= 0:
+        fail(f"a multi-model kernel never launched in the multi-query "
+             f"drives: {mq_counts} (standard {mq_launches}, --fs "
+             f"{mq_fs_launches})")
+    for st, key in ((mq_stats, "domdec"), (mq_fs_stats, "fs3domdec")):
+        share = st[f"{key}_ok"] / max(1, st[f"{key}_items"])
+        if share < MIN_OK_SHARE:
+            fail(f"multi-query {key} ok share {share} < {MIN_OK_SHARE}")
+
     # 6. the record
+    csrc = "bath_tpu_torch/ops/kernels/csrc/"
+
+    def entry(name, src, replaces, n, err, t):
+        # no single PyTorch call computes any of these DPs
+        return {"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                "bound_by": t[3], "library_ms": None}
+
     kernels = [
-        {"name": "fwd_parser", "route": "cuda",
-         "source": "bath_tpu_torch/ops/kernels/csrc/fwd_parser.cu",
-         "replaces": "bath_tpu/ops/pallas/fwd.py:32",
-         "launches": launches["fwd_parser"], "max_abs_err": fwd_err,
-         "ms": times[("fwd", TIME_FWD_M[0])][0],
-         "plain_ms": times[("fwd", TIME_FWD_M[0])][1]},
-        {"name": "domdec", "route": "cuda",
-         "source": "bath_tpu_torch/ops/kernels/csrc/domdec.cu",
-         "replaces": "bath_tpu/ops/jaxk/kernels.py:988",
-         "launches": launches["domdec"], "max_abs_err": dd_err,
-         "ms": times["domdec"][0], "plain_ms": times["domdec"][1]},
-        {"name": "fs3_parser", "route": "cuda",
-         "source": "bath_tpu_torch/ops/kernels/csrc/fs3_parser.cu",
-         "replaces": "bath_tpu/ops/pallas/fs3.py:69",
-         "launches": fs_launches["fs3_parser"], "max_abs_err": fs3_err,
-         "ms": times[("fs3", TIME_FS3_M[1])][0],
-         "plain_ms": times[("fs3", TIME_FS3_M[1])][1]},
-        {"name": "fs3_domdec", "route": "cuda",
-         "source": "bath_tpu_torch/ops/kernels/csrc/fs3_domdec.cu",
-         "replaces": "bath_tpu/ops/jaxk/kernels.py:1235",
-         "launches": fs_launches["fs3_domdec"], "max_abs_err": fs3dd_err,
-         "ms": times["fs3_domdec"][0], "plain_ms": times["fs3_domdec"][1]},
+        entry("fwd_parser", "fwd_parser.cu", "bath_tpu/ops/pallas/fwd.py:32",
+              launches["fwd_parser"], fwd_err, times[("fwd", TIME_FWD_M[0])]),
+        entry("domdec", "domdec.cu", "bath_tpu/ops/jaxk/kernels.py:988",
+              launches["domdec"], dd_err, times["domdec"]),
+        entry("fs3_parser", "fs3_parser.cu", "bath_tpu/ops/pallas/fs3.py:69",
+              fs_launches["fs3_parser"], fs3_err,
+              times[("fs3", TIME_FS3_M[1])]),
+        entry("fs3_domdec", "fs3_domdec.cu",
+              "bath_tpu/ops/jaxk/kernels.py:1235",
+              fs_launches["fs3_domdec"], fs3dd_err, times["fs3_domdec"]),
     ]
     for name, src, replaces in (
             ("msv_filter", "msv_filter.cu", "bath_tpu/ops/pallas/ssv.py:30"),
@@ -754,12 +1207,17 @@ def main() -> None:
             ("vit_filter", "vit_filter.cu", "bath_tpu/ops/pallas/vit.py:64"),
             ("vit_capture", "vit_filter.cu",
              "bath_tpu/ops/jaxk/filters_mb.py:304")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"bath_tpu_torch/ops/kernels/csrc/{src}",
-            "replaces": replaces, "launches": int_launches[name],
-            "max_abs_err": int_err[name], "ms": times[name][0],
-            "plain_ms": times[name][1]})
+        kernels.append(entry(name, src, replaces, int_launches[name],
+                             int_err[name], times[name]))
+    for name, src, line in (("fwd_parser_multi", "fwd_parser.cu", 171),
+                            ("domdec_multi", "domdec.cu", 220),
+                            ("fs3_parser_multi", "fs3_parser.cu", 263),
+                            ("fs3_domdec_multi", "fs3_domdec.cu", 312)):
+        kernels.append(entry(name, src,
+                             f"bath_tpu/ops/jaxk/multimodel.py:{line}",
+                             mq_counts[name], mq_err[name], times[name]))
+        # its plain version was timed on this many of the timed items
+        kernels[-1]["plain_items"] = plain_items[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,10 @@ Each kernel is held against its plain PyTorch version on the same
 inputs: the gates within 1e-3 nats, decoding within 1e-4 with
 identical `ok` flags, the integer filters (MSV/SSV, the SSV capture,
 the ViterbiFilter and its capture) exactly.  M = 1500 takes the layouts
-with several warps per ORF or DNA window.
+with several warps per ORF or DNA window.  The four multi-model entries
+(ops/multimodel.py) are held to their plain versions at the same bounds
+and, item for item, bit for bit to the single-model entries, on one
+batch that mixes seven models of five padded widths.
 """
 
 import re
@@ -23,6 +26,7 @@ from bath_tpu_torch.ops import domdec as td
 from bath_tpu_torch.ops import fs3 as t3
 from bath_tpu_torch.ops import fs3_domdec as td3
 from bath_tpu_torch.ops import fwd as tf
+from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops import ssv as ts
 from bath_tpu_torch.ops import vit as tv
 
@@ -222,3 +226,133 @@ def test_all_device_search_on_card_matches_host(tmp_path, monkeypatch):
     assert outs["torch"] == outs["numpy"]
     assert all(f.launches > n for f, n in zip(
         (ts.msv_ssv, ts.ssv_capture, tv.vit_ints, tv.vit_capture), launches))
+
+
+# models of five padded widths, two of them with several warps per item
+MULTI_MS = (60, 100, 300, 400, 600, 1100, 1500)
+
+
+def multi_case(fs, per_model, Lmax):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(
+        MULTI_MS, per_model, Lmax, 77, fs=fs)
+    params = [(t3.fs3_params if fs else tf.fwd_params)(om, "cuda")
+              for om in oms]
+    pack = (mm.build_fs3_pack if fs else mm.build_fwd_pack)(params)
+    return (pack, torch.from_numpy(dsq).cuda(),
+            torch.from_numpy(lens).cuda(), slot)
+
+
+def per_model_rows(slot):
+    return [(g, torch.from_numpy(np.nonzero(slot == g)[0]).cuda())
+            for g in range(len(MULTI_MS))]
+
+
+@pytest.mark.parametrize("kind", ["fwd", "fs3"])
+def test_multi_gate_vs_plain_and_single(kind):
+    fs = kind == "fs3"
+    pack, dsq, lens, slot = multi_case(fs, 9, 1500 if fs else 700)
+    call, ref, single = (
+        (mm.fs3_pack_scores, mm.fs3_pack_scores_ref, t3.fs3_score) if fs
+        else (mm.fwd_pack_scores, mm.fwd_pack_scores_ref, tf.fwd_score))
+    before = call.launches
+    got = call(pack, dsq, lens, slot)
+    torch.cuda.synchronize()
+    assert call.launches == before + len(pack.classes)
+    want = ref(pack, dsq, lens, slot)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert float((got - want)[fin].abs().max()) <= 1e-3
+    for g, rows in per_model_rows(slot):
+        one = single(dsq[rows].contiguous(), lens[rows].contiguous(),
+                     pack.params[g])
+        assert torch.equal(one, got[rows]), MULTI_MS[g]
+
+
+@pytest.mark.parametrize("kind", ["domdec", "fs3_domdec"])
+def test_multi_decoding_vs_plain_and_single(kind):
+    """The kernel entries' own outputs (normalised increments, or the
+    two passes' specials, and logZ) are bit for bit the single-model
+    entries'.  The posteriors after ``finish`` agree within 1e-6 only:
+    ``torch.cumsum`` on the card sums in an order that depends on the
+    batch's shape (1-3 ulp measured on the same values)."""
+    from bath_tpu_torch.ops.kernels import loader
+    fs = kind == "fs3_domdec"
+    pack, dsq, lens, slot = multi_case(fs, 4, 1200 if fs else 700)
+    n3 = lens.cpu().numpy() // 3
+    dec = torch.from_numpy((n3 / (n3 + 3.0)).astype(np.float32)).cuda()
+    if fs:
+        call, extra = mm.fs3_domdec_pack_batch, (dec,)
+        ref, single = mm.fs3_domdec_pack_batch_ref, td3.fs3_domdec
+        raw, _ = loader.launch_fs3_domdec_multi(dsq, lens, slot, pack, 1.0)
+        raw_single = loader.launch_fs3_domdec
+    else:
+        call, extra = mm.domdec_pack_batch, ()
+        ref, single = mm.domdec_pack_batch_ref, td.domdec
+        raw, _ = loader.launch_domdec_multi(dsq, lens, slot, pack, 1.0)
+        raw_single = loader.launch_domdec
+    before = call.launches
+    got = call(pack, dsq, lens, slot, *extra)
+    torch.cuda.synchronize()
+    assert call.launches == before + len(pack.classes)
+    want = ref(pack, dsq, lens, slot, *extra)
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert float((a - b).abs().max()) <= 1e-4
+    for g, rows in per_model_rows(slot):
+        args = (dsq[rows].contiguous(), lens[rows].contiguous(),
+                pack.params[g])
+        for a, b in zip(raw_single(*args, 1.0), raw):
+            assert torch.equal(a, b[rows]), MULTI_MS[g]
+        one = single(*args, *[e[rows] for e in extra])
+        assert torch.equal(one[3], got[3][rows])
+        for a, b in zip(one[:3], got[:3]):
+            assert float((a - b[rows]).abs().max()) <= 1e-6, MULTI_MS[g]
+
+
+def test_multi_entry_refuses_a_cpu_pack():
+    """A CUDA batch never reaches a plain version: a pack on the CPU
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch((60, 100), 2, 90, 5)
+    pack = mm.build_fwd_pack([tf.fwd_params(om) for om in oms])
+    with pytest.raises(ValueError):
+        mm.fwd_pack_scores(pack, torch.from_numpy(dsq).cuda(),
+                           torch.from_numpy(lens).cuda(), slot)
+
+
+@pytest.mark.parametrize("mode", [[], ["--fs"]], ids=["standard", "fs"])
+def test_multiquery_on_card_matches_host(tmp_path, monkeypatch, mode):
+    """A 6-model query file (M up to 700: three padded widths, one past
+    the reference's 511 limit) through the multi-query drive on the
+    card against the port's host drive."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("BATH_MSV_DEVICE", "0")
+    monkeypatch.setenv("BATH_VIT_DEVICE", "0")
+    fx = fixtures.write_multi_fixture([120, 45, 700, 64, 300, 90], 400_000,
+                                      [0, 2, 4], 2, 5, directory=tmp_path,
+                                      fs=bool(mode))
+    outs = {}
+    for backend, device in (("numpy", "cpu"), ("torch", "cuda")):
+        out = tmp_path / f"{backend}.out"
+        stats = {}
+        for f in (mm.fwd_pack_scores, mm.domdec_pack_batch,
+                  mm.fs3_pack_scores, mm.fs3_domdec_pack_batch):
+            f.launches = 0
+        assert bathsearch.run(["--backend", backend, "--device", device,
+                               *mode, "-o", str(out), fx.hmm_path,
+                               fx.fasta_path], stats=stats) == 0
+        outs[backend] = re.sub(r"# (CPU time|Mc/sec):.*", "",
+                               out.read_text())
+    assert outs["torch"] == outs["numpy"]
+    assert mm.fwd_pack_scores.launches > 0
+    if mode:
+        assert mm.fs3_pack_scores.launches > 0
+        assert mm.fs3_domdec_pack_batch.launches > 0
+        assert stats["fs3domdec_ok"] == stats["fs3domdec_items"] > 0
+    else:
+        assert mm.domdec_pack_batch.launches > 0
+        assert stats["domdec_ok"] == stats["domdec_items"] > 0

@@ -1,0 +1,432 @@
+"""bath_tpu_torch stands on its own: it imports nothing of ``bath_tpu``
+and no JAX, and its host code is a faithful copy of the reference's.
+
+- Static: no module of the port, and not ``chip_smoke.py``, has an
+  import of ``bath_tpu`` or ``jax``.
+- Dynamic: the port's CLI (single- and multi-query, standard and
+  ``--fs``, ``--device cpu``, and its own ``--backend numpy``), its
+  fixtures and ``chip_smoke``'s module body run in a subprocess where
+  ``bath_tpu``, ``jax`` and ``jaxlib`` are unimportable, and leave none
+  of them in ``sys.modules``.
+- Drift: every module copied whole differs from its original only in
+  import lines, in the reference checkout's path prefix that comment
+  references to the C sources carried, and in the lines and regions
+  listed here with their reasons.  Functions copied into modules that
+  are not whole copies (the CLI, ``device_pipeline``, ``multiquery``)
+  are compared as code: comments, docstrings and the listed statements
+  aside, their syntax trees are equal.
+
+The test names the module and the line when a copy drifts.
+"""
+
+import ast
+import difflib
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF, PORT = os.path.join(ROOT, "bath_tpu"), os.path.join(ROOT,
+                                                         "bath_tpu_torch")
+
+# modules copied whole, by their path under both packages
+COPIED = """constants logsum rng codontable alphabet stats bg hmm hmmfile
+prior msa builder evalues scorematrix gencode sequence profile oprofile
+scoredata phasestats ops/reference/__init__ ops/reference/filters
+ops/reference/fwdback ops/reference/fwdback_fs native/__init__ domaindef
+ensemble tracealign alidisplay tophits pipeline pipeline_fs
+cli/_io""".split()
+
+# the reference's comments point into a checkout of the C sources by an
+# absolute path; the copies keep the path inside that checkout
+REF_PREFIX = "/".join(["", "root", "reference", ""])
+
+# Lines of a copy (stripped) that differ from the original for a reason
+# other than an import, and the reason.
+LINES = {
+    "constants": {
+        '"""Core constants for bath_tpu_torch.': "names its own package",
+        "Python ints/floats for the framework.": "named the TPU",
+    },
+    "gencode": {
+        "# native C++ fast path (bath_tpu_torch/native, src at "
+        "native/src/bathio.cpp)": "names its own package",
+    },
+    "ops/reference/filters": {
+        "(ops.ssv.ssv_capture).\"\"\"": "named the jnp capture kernel",
+        "event kernel (ops.vit.vit_capture).  Returns":
+            "named the jnp capture kernel",
+    },
+}
+
+# Regions (first line, last line; stripped, inclusive) cut from both
+# files before they are compared, and the reason.
+REGIONS = {
+    "native/__init__": [
+        ('"""ctypes bindings for the native C++ host runtime', '"""',
+         "the docstring says where the port builds its own library"),
+        ("import ctypes", "import subprocess",
+         "imports (hashlib for the library's name)"),
+        ("def _so_path() -> str:", "_SO = _so_path()",
+         "the port's library lives in build/bath_tpu_torch/ under a name "
+         "that carries a hash of the source and the CPU flags, so it can "
+         "never load the reference's libbathio.so"),
+        ("def _build() -> bool:", "return False",
+         "built under a temporary name and renamed; the second "
+         "'return False' closes the function"),
+        ("def get_lib():", "lib = ctypes.CDLL(_SO)",
+         "no BATH_NATIVE_SO override, no mtime check: the name carries "
+         "the source's hash"),
+    ],
+}
+
+
+def read(base, mod, ext=".py"):
+    with open(os.path.join(base, mod + ext)) as f:
+        return f.read()
+
+
+def cut_regions(lines, regions, which):
+    """<lines> without the listed regions; <which> names the file in
+    the failure message."""
+    out, i = [], 0
+    todo = list(regions)
+    while i < len(lines):
+        if todo and lines[i].strip() == todo[0][0]:
+            j = i if todo[0][0] == todo[0][1] else i + 1
+            # a region that ends with 'return False' closes at the
+            # function's last one
+            ends = [k for k in range(j, len(lines))
+                    if lines[k].strip() == todo[0][1]]
+            assert ends, f"{which}: region {todo[0][0]!r} has no end"
+            if todo[0][1] == "return False":
+                nxt = next(k for k in range(j, len(lines))
+                           if lines[k].startswith("def ") and k > i)
+                end = max(k for k in ends if k < nxt)
+            else:
+                end = ends[0]
+            i = end + 1
+            todo.pop(0)
+            continue
+        out.append(lines[i])
+        i += 1
+    assert not todo, f"{which}: region {todo[0][0]!r} not found"
+    return out
+
+
+IMPORT = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s+\S)")
+
+
+@pytest.mark.parametrize("mod", COPIED)
+def test_copied_module_differs_only_in_imports(mod):
+    ref = read(REF, mod).replace(REF_PREFIX, "").splitlines()
+    port = read(PORT, mod).splitlines()
+    regions = REGIONS.get(mod, [])
+    ref = cut_regions(ref, regions, f"bath_tpu/{mod}.py")
+    port = cut_regions(port, regions, f"bath_tpu_torch/{mod}.py")
+    allowed = LINES.get(mod, {})
+    drift = []
+    sm = difflib.SequenceMatcher(a=ref, b=port, autojunk=False)
+    for tag, a0, a1, b0, b1 in sm.get_opcodes():
+        if tag == "equal":
+            continue
+        for n, line in enumerate(port[b0:b1], b0 + 1):
+            if not (IMPORT.match(line) or line.strip() in allowed):
+                drift.append(f"bath_tpu_torch/{mod}.py (line {n} after the "
+                             f"listed regions): {line!r}")
+        if b1 - b0 < a1 - a0 or tag == "delete":
+            # lines the copy dropped or merged: each must be an import
+            # or the original of a listed line
+            for line in ref[a0 + (b1 - b0):a1]:
+                if not IMPORT.match(line):
+                    drift.append(f"bath_tpu/{mod}.py dropped: {line!r}")
+    assert not drift, "\n".join(drift)
+
+
+def test_native_source_differs_only_in_package_names():
+    """bathio.cpp: comment lines that name the package, nothing else."""
+    ref = read(REF, "native/src/bathio", ".cpp").splitlines()
+    port = read(PORT, "native/src/bathio", ".cpp").splitlines()
+    assert len(ref) == len(port)
+    changed = [(n, a, b) for n, (a, b) in enumerate(zip(ref, port), 1)
+               if a != b]
+    assert 0 < len(changed) <= 8
+    for n, a, b in changed:
+        assert a.lstrip().startswith("//") and b.lstrip().startswith("//"), n
+        assert a.replace("bath_tpu", "bath_tpu_torch").replace(
+            "the TPU framework", "the framework") == b, (n, a, b)
+
+
+# ---------------------------------------------------------------------
+# Functions copied into modules that are not whole copies
+# ---------------------------------------------------------------------
+class Normalise(ast.NodeTransformer):
+    """Drops docstrings and the statements named by <drop> (a predicate
+    on statement nodes)."""
+
+    def __init__(self, drop):
+        self.drop = drop
+
+    def _body(self, node):
+        self.generic_visit(node)
+        body = [s for s in node.body if not self.drop(s)]
+        if body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            body = body[1:]
+        node.body = body or [ast.Pass()]
+        return node
+
+    visit_FunctionDef = visit_ClassDef = visit_If = visit_For = _body
+
+
+def definition(text, name):
+    for node in ast.parse(text).body:
+        if getattr(node, "name", None) == name:
+            return node
+    raise AssertionError(f"no top-level {name}")
+
+
+def calls(stmt, *names):
+    """Is <stmt> an expression or assignment whose value calls one of
+    <names>?"""
+    v = getattr(stmt, "value", None)
+    return isinstance(stmt, (ast.Expr, ast.Assign)) \
+        and isinstance(v, ast.Call) \
+        and getattr(v.func, "id", None) in names
+
+
+def never(stmt):
+    return False
+
+
+def phase_marks(stmt):
+    # the reference's stderr phase clock (BATH_MQ_STATS) is the port's
+    # PackedGates.stats["mq_phase_s"]
+    return calls(stmt, "mark", "report", "_phase_clock")
+
+
+def lane_pack_state(stmt):
+    # the lane packs' per-query state: component dicts and size classes
+    return (isinstance(stmt, ast.FunctionDef) and stmt.name == "size_class") \
+        or (isinstance(stmt, ast.AnnAssign)
+            and getattr(stmt.target, "attr", None) == "comps")
+
+
+def from_import(stmt):
+    return isinstance(stmt, (ast.Import, ast.ImportFrom))
+
+
+def parser_tail(stmt):
+    # build_parser: --cpu's help and the --backend/--mesh/--hosts block
+    # named JAX; the port reads --backend/--device in backend_parser
+    if isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call):
+        args = stmt.value.args
+        return bool(args) and isinstance(args[0], ast.Constant) \
+            and args[0].value in ("--cpu", "--backend", "--mesh", "--hosts",
+                                  "--host-id", "--coordinator")
+    return False
+
+
+# flush_multi: what the port leaves out of the reference's text.  The
+# BATH_MQ_COMBINED and BATH_MQ_RESLICE switches (the combined native
+# batches and the serial ORF views are always on); the guards for items
+# a device stage gave up (the port's stages answer every item or
+# raise); and the thresholds, read from the environment at every flush.
+FLUSH_MULTI = [
+    ('    use_combined = os.environ.get("BATH_MQ_COMBINED", "1") != "0"\n',
+     ''),
+    ('    reslice_on = not ctx_pinned and \\\n'
+     '        os.environ.get("BATH_MQ_RESLICE", "1") != "0"\n', ''),
+    ('-1 if not reslice_on else', '-1 if ctx_pinned else'),
+    ('_combine_flat(chunk, skip) if use_combined else None',
+     '_combine_flat(chunk, skip)'),
+    (' \\\n            if use_combined else (None, None)', ''),
+    ('                if post is not None:\n'
+     '                    qs.dd_cache[key] = post',
+     '                qs.dd_cache[key] = post'),
+    ('                if post is not None:\n'
+     '                    qs.fsdd_cache[key] = post',
+     '                qs.fsdd_cache[key] = post'),
+    ('np.array(\n                    [np.nan if v is None else v\n'
+     '                     for v in fwd_all[lo:hi]], F32)',
+     'np.array(fwd_all[lo:hi], F32)'),
+    ('np.array(\n                        [np.nan if v is None else v\n'
+     '                         for v in fs3_all[lo:hi]], F32)',
+     'np.array(fs3_all[lo:hi], F32)'),
+] + [(f'_DEV_MIN["{k}"]', f'_dev_min("{k}")')
+     for k in ("fwd", "domdec", "fs3", "fs3dd")]
+
+FUNCTIONS = [
+    # (reference module, port module, name, statements dropped, textual
+    #  substitutions made in the reference first)
+    ("cli/bathsearch", "cli/bathsearch", "build_parser", parser_tail,
+     [("(TPU-native bath_tpu)", "(bath_tpu_torch)")]),
+    ("cli/bathsearch", "cli/bathsearch", "make_pipeline", never, []),
+    ("cli/bathsearch", "cli/bathsearch", "output_header", never, []),
+    ("cli/bathsearch", "cli/bathsearch", "load_queries", never, []),
+    ("device_pipeline", "device_pipeline", "_perturb", never, []),
+    ("device_pipeline", "device_pipeline", "ChunkEntry", never, []),
+    ("device_pipeline", "device_pipeline", "flush_chunk", never,
+     [("DeviceCascade", "TorchCascade")]),
+    ("device_pipeline", "device_pipeline", "flush_gates", never,
+     [("DeviceCascade", "TorchCascade")]),
+    ("device_pipeline", "device_pipeline", "flush_downstream", never,
+     [("DeviceCascade", "TorchCascade")]),
+    ("multiquery", "multiquery", "QState", lane_pack_state, []),
+    ("multiquery", "multiquery", "MQEntry", never, []),
+    ("multiquery", "multiquery", "_CombinedOrfs", never, []),
+    ("multiquery", "multiquery", "_combine_flat", never, []),
+    ("multiquery", "multiquery", "_combine_orfs", never, []),
+    ("multiquery", "multiquery", "_dd_server", never, []),
+    ("multiquery", "multiquery", "_entry_views", never, []),
+    ("multiquery", "multiquery", "flush_multi", phase_marks,
+     FLUSH_MULTI),
+]
+
+
+@pytest.mark.parametrize("ref_mod,port_mod,name,drop,subs", FUNCTIONS,
+                         ids=[f"{f[1]}:{f[2]}" for f in FUNCTIONS])
+def test_copied_function_is_the_same_code(ref_mod, port_mod, name, drop,
+                                          subs):
+    ref = read(REF, ref_mod)
+    for a, b in subs:
+        assert a in ref, f"not in the reference: {a!r}"
+        ref = ref.replace(a, b)
+    trees = []
+    for text in (ref, read(PORT, port_mod)):
+        node = Normalise(drop).visit(definition(text, name))
+        trees.append(ast.unparse(node).splitlines())
+    diff = [ln for ln in difflib.unified_diff(
+        trees[0], trees[1], f"bath_tpu/{ref_mod}.py:{name}",
+        f"bath_tpu_torch/{port_mod}.py:{name}", lineterm="", n=0)]
+    assert not diff, "\n".join(diff)
+
+
+# ---------------------------------------------------------------------
+# No import of the reference or of JAX
+# ---------------------------------------------------------------------
+def port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_no_module_imports_the_reference_or_jax():
+    bad = []
+    assert len(port_files()) > 40
+    for path in port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                if n.split(".")[0] in ("bath_tpu", "jax", "jaxlib"):
+                    bad.append(f"{os.path.relpath(path, ROOT)}:"
+                               f"{node.lineno}: {n}")
+    assert not bad, "\n".join(bad)
+
+
+BLOCK = '''
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("bath_tpu", "jax", "jaxlib"):
+            raise ImportError(name + " is made unimportable")
+sys.meta_path.insert(0, _Block())
+try:
+    import bath_tpu
+except ImportError:
+    pass
+else:
+    raise SystemExit("the block does not hold")
+'''
+
+REPORT = '''
+print("LEFT", sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("bath_tpu", "jax", "jaxlib")))
+'''
+
+FIXTURES = '''
+from bath_tpu_torch import fixtures
+fx = fixtures.write_fixture(60, 40_000, 2, 3, directory=sys.argv[1])
+fs_fx = fixtures.write_fixture(60, 40_000, 2, 3, directory=sys.argv[1],
+                               fs=True, n_frameshift=1)
+mq = fixtures.write_multi_fixture([60, 40, 70], 60_000, [0, 2], 1, 4,
+                                  directory=sys.argv[1])
+mq_fs = fixtures.write_multi_fixture([60, 40, 70], 60_000, [0, 2], 1, 4,
+                                     directory=sys.argv[1], fs=True)
+'''
+
+SEARCH = '''
+from bath_tpu_torch.cli import bathsearch
+stats = {{}}
+rc = bathsearch.run([{args}, "-o", sys.argv[1] + "/out", "--tblout",
+                     sys.argv[1] + "/tbl", {fixture}.hmm_path,
+                     {fixture}.fasta_path], stats=stats)
+hits = sum(1 for ln in open(sys.argv[1] + "/tbl") if ln[0] != "#")
+print("RUN", rc, hits, {check})
+'''
+
+CASES = {
+    "fixtures": ("", "RUN"),
+    "cli-single": (SEARCH.format(
+        args='"--device", "cpu"', fixture="fx",
+        check='stats["fwd_items"] > 0'), "RUN 0 2 True"),
+    "cli-single-fs": (SEARCH.format(
+        args='"--device", "cpu", "--fs"', fixture="fs_fx",
+        check='stats["fs3_items"] > 0'), "RUN 0 2 True"),
+    "cli-multi": (SEARCH.format(
+        args='"--device", "cpu"', fixture="mq",
+        check='len(stats["mq_stages"]) > 0'), "RUN 0 2 True"),
+    "cli-multi-fs": (SEARCH.format(
+        args='"--device", "cpu", "--fs"', fixture="mq_fs",
+        check='stats["fs3_items"] > 0'), "RUN 0 2 True"),
+    "cli-numpy-backend": (SEARCH.format(
+        args='"--backend", "numpy"', fixture="mq", check="stats == {}"),
+        "RUN 0 2 True"),
+    "chip_smoke-body": ('''
+import chip_smoke
+print("RUN", callable(chip_smoke.main))
+''', "RUN True"),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_runs_with_the_reference_and_jax_unimportable(case, tmp_path):
+    body, want = CASES[case]
+    env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0")
+    env.pop("BATH_WINDOW_CONTEXT", None)
+    r = subprocess.run(
+        [sys.executable, "-c", BLOCK + FIXTURES + body + REPORT,
+         str(tmp_path)],
+        capture_output=True, text=True, timeout=900, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.splitlines()
+    assert lines[-1] == "LEFT []", lines[-1]
+    if want != "RUN":
+        assert want in lines, r.stdout[-2000:]
+
+
+def test_port_builds_its_own_native_library():
+    """From its own source, into build/bath_tpu_torch/, under a name of
+    its own; nothing under the reference's package or native/."""
+    from bath_tpu_torch import native
+    from bath_tpu_torch.cli.bathsearch import require_native
+    require_native()
+    so = os.path.relpath(native._SO, ROOT)
+    assert so.startswith(os.path.join("build", "bath_tpu_torch",
+                                      "libbathio_torch_"))
+    assert os.path.exists(native._SO)
+    assert os.path.relpath(native._SRC, ROOT) == os.path.join(
+        "bath_tpu_torch", "native", "src", "bathio.cpp")
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert "build/" in f.read().split()

@@ -101,12 +101,17 @@ def test_torch_backend_byte_identical_to_numpy(fx, tmp_path):
 
 
 def test_two_query_file_runs_the_serial_loop(fx, tmp_path):
+    """BATH_MULTIQUERY=0 keeps a multi-HMM file on the serial per-query
+    loop (one TorchCascade per query); without it the file takes the
+    multi-query drive (tests/test_torch_multiquery.py)."""
     other = fixtures.write_fixture(90, 200_000, 4, 12, directory=tmp_path)
     two = tmp_path / "two.bhmm"
     two.write_text(open(fx.hmm_path).read() + open(other.hmm_path).read())
     want, _ = numpy_out(fx, tmp_path, hmm=str(two))
-    got, _ = torch_out(fx, tmp_path, hmm=str(two))
+    got, _ = torch_out(fx, tmp_path, {"BATH_MULTIQUERY": "0"}, hmm=str(two))
     assert got == want and got.count("Query:") == 2
+    packed, _ = torch_out(fx, tmp_path, hmm=str(two))
+    assert packed == want
 
 
 @pytest.mark.parametrize("sign", [1.0, -1.0])
@@ -161,12 +166,19 @@ def test_fs_gate_band_overdrive_changes_output(fs_fx, tmp_path):
     assert got != want
 
 
+# the expression a search's subprocess prints: did it load JAX or any
+# module of the JAX package?
+LOADED = ("any(m.split('.')[0] in ('jax', 'jaxlib', 'bath_tpu') "
+          "for m in sys.modules)")
+
+
 def test_search_imports_no_jax(fx, tmp_path):
+    """Neither JAX nor any module of ``bath_tpu``."""
     code = ("import sys\n"
             "from bath_tpu_torch.cli.bathsearch import run\n"
             f"rc = run(['--device', 'cpu', '-o', {str(tmp_path / 'o')!r},"
             f" {fx.hmm_path!r}, {fx.fasta_path!r}])\n"
-            "print(rc, 'jax' in sys.modules)\n")
+            f"print(rc, {LOADED})\n")
     env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600, cwd=ROOT, env=env)
@@ -180,7 +192,7 @@ def test_fs_search_imports_no_jax(fs_fx, tmp_path):
             f"rc = run(['--device', 'cpu', '--fs', '-o', "
             f"{str(tmp_path / 'o')!r}, {fs_fx.hmm_path!r}, "
             f"{fs_fx.fasta_path!r}])\n"
-            "print(rc, 'jax' in sys.modules)\n")
+            f"print(rc, {LOADED})\n")
     env = dict(os.environ, BATH_MSV_DEVICE="0", BATH_VIT_DEVICE="0")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600, cwd=ROOT, env=env)
@@ -210,12 +222,17 @@ def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     pytest.param(["--cpu", "2"], 5, id="extra2-5"),
     pytest.param(["--mesh", "2"], 5, id="extra3-5"),
-    pytest.param(["--splice"], 6, id="extra4-6")])
+    pytest.param(["--splice"], 6, id="extra4-6"),
+    pytest.param(["--hosts", "2"], 5, id="hosts-5"),
+    pytest.param(["--backend", "numpy", "--cpu", "2"], 5, id="numpy-cpu-5"),
+    pytest.param(["--backend", "jax"], None, id="backend-jax")])
 def test_unported_modes_name_their_roadmap_item(fx, monkeypatch, extra,
                                                 item):
+    """--backend jax is refused by name too: it is the JAX package's."""
     monkeypatch.setenv("BATH_MSV_DEVICE", "0")
     monkeypatch.setenv("BATH_VIT_DEVICE", "0")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    match = f"item {item}" if item else "--backend jax is the JAX package"
+    with pytest.raises(NotImplementedError, match=match):
         bathsearch.run(["--device", "cpu", *extra, fx.hmm_path,
                         fx.fasta_path])
 
@@ -327,7 +344,7 @@ def test_all_device_search_imports_no_jax(fx, tmp_path):
             "stats = {}\n"
             f"rc = run(['--device', 'cpu', '-o', {str(tmp_path / 'o')!r},"
             f" {fx.hmm_path!r}, {fx.fasta_path!r}], stats=stats)\n"
-            "print(rc, 'jax' in sys.modules, stats['vit_items'] > 0)\n")
+            f"print(rc, {LOADED}, stats['vit_items'] > 0)\n")
     env = dict(os.environ, **ALL_DEVICE)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600, cwd=ROOT, env=env)
