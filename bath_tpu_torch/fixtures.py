@@ -22,6 +22,10 @@ drive.  Files are written once per parameter set under
 
 ``write_multi_fixture`` makes the multi-query twin: one query file of
 several seeded models and a genome with copies of some of them.
+``write_msa_fixture`` makes the input of ``bathbuild`` (one Stockholm
+file of alignments emitted from seeded models) and
+``write_convert_input`` the input of ``bathconvert`` (a model file
+stripped of its frameshift calibration).
 """
 
 from __future__ import annotations
@@ -222,22 +226,27 @@ class MultiFixture:
 
 def write_multi_fixture(Ms, genome_len: int, embedded, copies: int,
                         seed: int, directory: Path | None = None,
-                        calibrate: bool = True,
-                        fs: bool = False) -> MultiFixture:
+                        calibrate: bool = True, fs: bool = False,
+                        device=None) -> MultiFixture:
     """A query file of len(<Ms>) seeded models (lengths <Ms>, named
     ``mq<i>-M<M>``) and one genome carrying <copies> mutated copies of
     each model whose index is in <embedded>, alternating strands, the
     first one across the first window boundary where the genome has
     one.  With <fs> the models are built for frameshift search and the
     first copy of each embedded model carries a 1-nt deletion or
-    insertion in its middle codon, alternating.  Written on first use,
+    insertion in its middle codon, alternating.  With <device> the
+    models are calibrated together by ``evalues_device`` on that torch
+    device (the same MSV/Viterbi mus and fs5 tau as the host
+    calibration, the f32 gates' taus within ~1e-5) instead of one by
+    one on the host (the file's name says which).  Written on first use,
     as ``write_fixture``."""
     d = Path(directory or FIXTURE_DIR)
     d.mkdir(parents=True, exist_ok=True)
     tag = hashlib.sha256(repr((list(Ms), list(embedded))).encode()) \
         .hexdigest()[:10]
     stem = d / (f"multi-{len(Ms)}x{tag}-L{genome_len}-C{copies}-s{seed}"
-                + ("-fs" if fs else "") + ("" if calibrate else "-nocal"))
+                + ("-fs" if fs else "") + ("" if calibrate else "-nocal")
+                + ("-devcal" if calibrate and device is not None else ""))
     meta = stem.with_suffix(".json")
     hmm_path, fa_path = stem.with_suffix(".bhmm"), stem.with_suffix(".fa")
     names = [f"mq{i}-M{M}" for i, M in enumerate(Ms)]
@@ -250,12 +259,18 @@ def write_multi_fixture(Ms, genome_len: int, embedded, copies: int,
     rng = np.random.default_rng(seed)
     codons = _codons()
     buf = io.StringIO()
-    proteins = []
+    hmms, proteins = [], []
     for name, M in zip(names, Ms):
-        hmm, q = make_query(M, rng, calibrate, fs=fs)
+        hmm, q = make_query(M, rng, calibrate and device is None, fs=fs)
         hmm.name = name
-        write_hmm(buf, hmm)
+        hmms.append(hmm)
         proteins.append(q)
+    if calibrate and device is not None:
+        from .evalues import CalibrateConfig
+        from .evalues_device import calibrate_many_device
+        calibrate_many_device(hmms, CalibrateConfig(fs=fs), device=device)
+    for hmm in hmms:
+        write_hmm(buf, hmm)
     seq = np.frombuffer(NT.encode(), np.uint8)[
         rng.integers(0, 4, genome_len)]
     sites = [(g, c) for c in range(copies) for g in embedded]
@@ -289,6 +304,82 @@ def write_multi_fixture(Ms, genome_len: int, embedded, copies: int,
                                     "frameshifted": shifted}))
     return MultiFixture(str(hmm_path), str(fa_path), list(Ms), names, embeds,
                         shifted)
+
+
+AMINO = "ACDEFGHIKLMNPQRSTVWY"
+
+
+def emit_alignment(hmm, nseq: int, r) -> list[str]:
+    """<nseq> aligned rows sampled from the core model of <hmm>
+    (``emit.core_emit``): one column per match state (upper case, '-'
+    where the path takes D) and, after position k, as many insert
+    columns as the longest insertion there (lower case, '.' padding)."""
+    from .emit import core_emit
+    M = hmm.M
+    paths = []
+    for _ in range(nseq):
+        seq, trace = core_emit(r, hmm)
+        match = ["-"] * (M + 1)
+        inserts: list[list[str]] = [[] for _ in range(M + 1)]
+        at = 0
+        for state, k in trace:
+            if state == "D":
+                continue
+            res = AMINO[int(seq[at])]
+            at += 1
+            if state == "M":
+                match[k] = res
+            else:
+                inserts[k].append(res.lower())
+        paths.append((match, inserts))
+    width = [max(len(ins[k]) for _, ins in paths) for k in range(M + 1)]
+    return ["".join(("" if k == 0 else match[k])
+                    + "".join(ins[k]).ljust(width[k], ".")
+                    for k in range(M + 1)) for match, ins in paths]
+
+
+def write_msa_fixture(Ms, nseq: int, seed: int,
+                      directory: Path | None = None):
+    """(path, names): one multi-alignment Stockholm file with, for each
+    of the seeded models of ``write_multi_fixture`` (lengths <Ms>), an
+    alignment of <nseq> sequences emitted from it, named ``msa<i>-M<M>``;
+    what ``bathbuild`` takes.  Written on first use."""
+    from .rng import Randomness
+    d = Path(directory or FIXTURE_DIR)
+    d.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(repr(list(Ms)).encode()).hexdigest()[:10]
+    path = d / f"msa-{len(Ms)}x{tag}-N{nseq}-s{seed}.sto"
+    names = [f"msa{i}-M{M}" for i, M in enumerate(Ms)]
+    if path.exists():
+        return str(path), names
+    rng = np.random.default_rng(seed)
+    r = Randomness(seed)
+    blocks = []
+    for name, M in zip(names, Ms):
+        hmm, _ = make_query(M, rng, calibrate=False)
+        rows = emit_alignment(hmm, nseq, r)
+        blocks.append("# STOCKHOLM 1.0\n#=GF ID " + name + "\n" + "".join(
+            f"{name}-s{j:<4d} {row}\n" for j, row in enumerate(rows))
+            + "//\n")
+    _write_atomic(path, "".join(blocks))
+    return str(path), names
+
+
+def write_convert_input(bhmm_path: str, out_path: str,
+                        hmmer3: bool = False) -> str:
+    """The models of <bhmm_path> written without their frameshift
+    calibration (no fs3/fs5 taus, no frameshift probability), as
+    BATH3/f or, with <hmmer3>, HMMER3/f: what ``bathconvert`` takes."""
+    from .hmmfile import read_hmms
+    buf = io.StringIO()
+    for hmm in read_hmms(bhmm_path):
+        hmm.fs = False
+        hmm.fsprob = 0.0
+        hmm.evparam[C.EV_FTAUFS3] = C.EVPARAM_UNSET
+        hmm.evparam[C.EV_FTAUFS5] = C.EVPARAM_UNSET
+        write_hmm(buf, hmm, fmt="3f" if hmmer3 else "bath3f")
+    _write_atomic(Path(out_path), buf.getvalue())
+    return out_path
 
 
 def multi_embeds_found(tblout_path: str, fx: MultiFixture) -> dict:

@@ -49,6 +49,10 @@ class ProfileTensors(nn.Module):
         return self._padded[key]
 
     @property
+    def device(self) -> torch.device:
+        return self.rfv.device
+
+    @property
     def M(self) -> int:
         return int(self.tr.shape[1])
 

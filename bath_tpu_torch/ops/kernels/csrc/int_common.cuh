@@ -15,6 +15,13 @@
 //
 // Every maximum over model lanes is masked to the M real lanes: the
 // host reference works on exactly M+1 positions.
+//
+// The multi-model entries (bt_msv_filter_multi, bt_vit_filter_multi) run
+// the same kernels with a per-block table: blk[x] = (model's index in
+// the stack of tables of this padded width, first, count) gives block x
+// the items order[first .. first+count), all of one model, whose table
+// it loads once and whose scalars it reads from one row of a small int
+// array (bi::Items, bi::block_items).
 
 #pragma once
 
@@ -137,6 +144,37 @@ __device__ __forceinline__ MaxPlus group_scan_excl(const Group& g, MaxPlus x) {
   for (int w = 0; w < g.warp; ++w) pre = mp_then(pre, MaxPlus{g.x[2 * w], g.x[2 * w + 1]});
   __syncthreads();
   return mp_then(pre, ex);
+}
+
+// The items of a block's groups.  Single-model launch (blk null): model
+// 0, the items b = first, first + step, ... < end with blocks striding
+// over all B items.  Multi-model launch: the model and the run
+// [first, end) of `order` of this block's row of blk; each group takes
+// every G-th entry of the run.  With W > 1 a block is one group, so
+// every thread of a block makes the same trips and the block barriers
+// inside the group functions stay uniform.
+struct Items {
+  int model, first, end, step;
+};
+
+__device__ __forceinline__ Items block_items(const int* __restrict__ blk,
+                                             int B, int W) {
+  const int G = blockDim.x / (32 * W);
+  const int gi = (threadIdx.x >> 5) / W;
+  Items it;
+  if (blk == nullptr) {
+    it.model = 0;
+    it.first = blockIdx.x * G + gi;
+    it.end = B;
+    it.step = gridDim.x * G;
+  } else {
+    const int* e = blk + 3 * blockIdx.x;
+    it.model = e[0];
+    it.first = e[1] + gi;
+    it.end = e[1] + e[2];
+    it.step = G;
+  }
+  return it;
 }
 
 // Copies an int table of n entries into shared memory when `in_smem`;

@@ -21,6 +21,18 @@
 // odd stride P per thread, free of bank conflicts.  The design answers
 // with one warp per ORF, eight to a block, blocks striding over the
 // ORFs so the table is loaded once per block.
+//
+// The multi-model entry bt_msv_filter_multi replaces the MSV half of
+// bath_tpu/evalues_device.py _dyn_kernels (the vmap of _ssv_msv_mb_impl
+// over models with base/tec/tbm/bias as traced values): item b is
+// filtered under model slot[b].  It is this same kernel, so the same
+// arithmetic item for item; the models' tables of one padded width Mp
+// are stacked [G, Kp, Mp], a block finds its model and its items in a
+// per-block table (bi::block_items) and reads that model's M, base, tec,
+// tbm and bias from one row of scal [G, 5]; one launch per Mp.  Items
+// are read at their own offsets, so the models of a calibration share
+// one copy of the simulated batch (offsets repeat).  The same bound
+// holds: integer ALU throughput and the row chain.
 
 #include "int_common.cuh"
 
@@ -32,14 +44,26 @@ __global__ void msv_filter_kernel(const int8_t* __restrict__ flat,
                                   const int* __restrict__ tab_g, int Kp, int M,
                                   int Mp, int W, bool in_smem, int base,
                                   int tec, int tbm, int bias,
-                                  int* __restrict__ out) {
+                                  int* __restrict__ out,
+                                  const int* __restrict__ blk,
+                                  const int* __restrict__ order,
+                                  const int* __restrict__ scal) {
   extern __shared__ int smem[];
-  const int* tab = bi::load_table(tab_g, Kp * Mp, smem, in_smem);
+  const bi::Items it = bi::block_items(blk, B, W);
+  if (blk != nullptr) {  // this block's model: its scalars and its table
+    const int* s = scal + 5 * it.model;
+    M = s[0];
+    base = s[1];
+    tec = s[2];
+    tbm = s[3];
+    bias = s[4];
+  }
+  const int* tab = bi::load_table(tab_g + (size_t)it.model * Kp * Mp, Kp * Mp,
+                                  smem, in_smem);
   const bi::Group g = bi::make_group(W, smem + (in_smem ? Kp * Mp : 0));
-  const int G = blockDim.x / (32 * W);
   const int k0 = g.t * P;
-  for (int b = blockIdx.x * G + (threadIdx.x >> 5) / W; b < B;
-       b += gridDim.x * G) {
+  for (int q = it.first; q < it.end; q += it.step) {
+    const int b = blk != nullptr ? order[q] : q;
     const int len = lens[b];
     const int tjbm = (tjb[b] + tbm) & 0xFF;
     const int8_t* seq = flat + offs[b];
@@ -89,6 +113,34 @@ __global__ void msv_filter_kernel(const int8_t* __restrict__ flat,
   }
 }
 
+// One launch: blk, order and scal null for a single model (the grid is
+// the plan's); else `nblocks` blocks, one per row of blk, each of at
+// most `per_block` items, which must be the plan's.
+static int msv_launch(const void* flat, const void* offs, const void* lens,
+                      const void* tjb, int B, const void* tab, int Kp, int M,
+                      int Mp, int P, int base, int tec, int tbm, int bias,
+                      void* out, const void* blk, const void* order,
+                      const void* scal, int nblocks, int per_block,
+                      void* stream) {
+  if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t tab_bytes = (size_t)Kp * Mp * sizeof(int);
+#define BI_LAUNCH_MSV(PP)                                                    \
+  {                                                                          \
+    const BiLaunch l = bi_plan(msv_filter_kernel<PP>, B, Mp, PP, tab_bytes); \
+    if (blk != nullptr && per_block != l.G) return cudaErrorInvalidValue;    \
+    msv_filter_kernel<PP>                                                    \
+        <<<blk != nullptr ? nblocks : l.blocks, l.threads, l.smem, st>>>(    \
+            (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,     \
+            (const int*)tjb, B, (const int*)tab, Kp, M, Mp, l.W, l.in_smem,  \
+            base, tec, tbm, bias, (int*)out, (const int*)blk,                \
+            (const int*)order, (const int*)scal);                            \
+  }
+  BI_DISPATCH_P(P, BI_LAUNCH_MSV)
+#undef BI_LAUNCH_MSV
+  return (int)cudaGetLastError();
+}
+
 // flat [N] int8 residues; offs [B] int64, lens [B] int32, tjb [B] int32
 // per ORF; tab [Kp, Mp] int32 (SSV byte in bits 0-7, MSV cost in bits
 // 8-15; 127/255 past the model); out [3, B] int32: xEu, xJm, movf.
@@ -99,18 +151,24 @@ extern "C" int bt_msv_filter(const void* flat, const void* offs,
                              int base, int tec, int tbm, int bias, void* out,
                              void* stream) {
   if (B <= 0) return 0;
-  if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t tab_bytes = (size_t)Kp * Mp * sizeof(int);
-#define BI_LAUNCH_MSV(PP)                                                    \
-  {                                                                          \
-    const BiLaunch l = bi_plan(msv_filter_kernel<PP>, B, Mp, PP, tab_bytes); \
-    msv_filter_kernel<PP><<<l.blocks, l.threads, l.smem, st>>>(              \
-        (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,         \
-        (const int*)tjb, B, (const int*)tab, Kp, M, Mp, l.W, l.in_smem,      \
-        base, tec, tbm, bias, (int*)out);                                    \
-  }
-  BI_DISPATCH_P(P, BI_LAUNCH_MSV)
-#undef BI_LAUNCH_MSV
-  return (int)cudaGetLastError();
+  return msv_launch(flat, offs, lens, tjb, B, tab, Kp, M, Mp, P, base, tec,
+                    tbm, bias, out, nullptr, nullptr, nullptr, 0, 0, stream);
+}
+
+// The multi-model entry: tab [G, Kp, Mp] stacks the tables of the models
+// of padded width Mp and scal [G, 5] int32 holds each one's M, base,
+// tec, tbm, bias; blk [nblocks, 3] int32 = (model, first, count) per
+// block and order [.] int32 the item rows (bi::block_items).  out
+// [3, B] is written at the listed items only.
+extern "C" int bt_msv_filter_multi(const void* flat, const void* offs,
+                                   const void* lens, const void* tjb, int B,
+                                   const void* tab, const void* scal, int Kp,
+                                   int Mp, int P, void* out, const void* blk,
+                                   const void* order, int nblocks,
+                                   int per_block, void* stream) {
+  if (nblocks <= 0) return 0;
+  if (blk == nullptr || order == nullptr || scal == nullptr)
+    return cudaErrorInvalidValue;
+  return msv_launch(flat, offs, lens, tjb, B, tab, Kp, 0, Mp, P, 0, 0, 0, 0,
+                    out, blk, order, scal, nblocks, per_block, stream);
 }

@@ -24,6 +24,16 @@
 // bounds one ORF; the F2 stage sees only the bias survivors of a flush
 // (thousands), so the design keeps one warp per ORF, eight to a block,
 // the word tables in shared memory when they fit.
+//
+// The multi-model entry bt_vit_filter_multi replaces the Viterbi half of
+// bath_tpu/evalues_device.py _dyn_kernels (the vmap of _vit_mb_impl over
+// models with base_w and the xE move/loop words as traced values): item
+// b is filtered under model slot[b].  It is this same kernel (the score
+// entry), so the same arithmetic item for item; the models' tables of
+// one padded width Mp are stacked [G, Kp + 8, Mp], a block finds its
+// model and its items in a per-block table (bi::block_items) and reads
+// that model's M, base, emove and eloop from one row of scal [G, 4]; one
+// launch per Mp.  The same bound holds: the row chain of each item.
 
 #include "int_common.cuh"
 
@@ -39,17 +49,28 @@ __global__ void vit_filter_kernel(const int8_t* __restrict__ flat,
                                   const int* __restrict__ tab_g, int Kp, int M,
                                   int Mp, int W, bool in_smem, int base,
                                   int emove, int eloop, int* __restrict__ out,
-                                  int16_t* __restrict__ karr) {
+                                  int16_t* __restrict__ karr,
+                                  const int* __restrict__ blk,
+                                  const int* __restrict__ order,
+                                  const int* __restrict__ scal) {
   extern __shared__ int smem[];
+  const bi::Items it = bi::block_items(blk, B, W);
+  if (blk != nullptr) {  // this block's model: its scalars and its table
+    const int* s = scal + 4 * it.model;
+    M = s[0];
+    base = s[1];
+    emove = s[2];
+    eloop = s[3];
+  }
   const int n_tab = (Kp + NTR) * Mp;
-  const int* rwv = bi::load_table(tab_g, n_tab, smem, in_smem);
+  const int* rwv = bi::load_table(tab_g + (size_t)it.model * n_tab, n_tab, smem,
+                                  in_smem);
   const int* tr = rwv + Kp * Mp;
   const bi::Group g = bi::make_group(W, smem + (in_smem ? n_tab : 0));
-  const int G = blockDim.x / (32 * W);
   const int k0 = g.t * P;
   const int Q = max(2, (M + 7) / 8);
-  for (int b = blockIdx.x * G + (threadIdx.x >> 5) / W; b < B;
-       b += gridDim.x * G) {
+  for (int q = it.first; q < it.end; q += it.step) {
+    const int b = blk != nullptr ? order[q] : q;
     const int len = lens[b];
     const int mv = move[b];
     const int th = CAPTURE ? thresh[b] : 0;
@@ -131,13 +152,16 @@ __global__ void vit_filter_kernel(const int8_t* __restrict__ flat,
   }
 }
 
+// One launch: blk, order and scal null for a single model (the grid is
+// the plan's); else `nblocks` blocks, one per row of blk, each of at
+// most `per_block` items, which must be the plan's.
 template <bool CAPTURE>
 static int vit_launch(const void* flat, const void* offs, const void* lens,
                       const void* move, const void* thresh, int B,
                       const void* tab, int Kp, int M, int Mp, int P, int base,
                       int emove, int eloop, void* out, void* karr,
-                      void* stream) {
-  if (B <= 0) return 0;
+                      const void* blk, const void* order, const void* scal,
+                      int nblocks, int per_block, void* stream) {
   if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const size_t tab_bytes = (size_t)(Kp + NTR) * Mp * sizeof(int);
@@ -145,10 +169,14 @@ static int vit_launch(const void* flat, const void* offs, const void* lens,
   {                                                                          \
     const BiLaunch l =                                                       \
         bi_plan(vit_filter_kernel<PP, CAPTURE>, B, Mp, PP, tab_bytes);       \
-    vit_filter_kernel<PP, CAPTURE><<<l.blocks, l.threads, l.smem, st>>>(     \
-        (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,         \
-        (const int*)move, (const int*)thresh, B, (const int*)tab, Kp, M, Mp, \
-        l.W, l.in_smem, base, emove, eloop, (int*)out, (int16_t*)karr);      \
+    if (blk != nullptr && per_block != l.G) return cudaErrorInvalidValue;    \
+    vit_filter_kernel<PP, CAPTURE>                                           \
+        <<<blk != nullptr ? nblocks : l.blocks, l.threads, l.smem, st>>>(    \
+            (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,     \
+            (const int*)move, (const int*)thresh, B, (const int*)tab, Kp, M, \
+            Mp, l.W, l.in_smem, base, emove, eloop, (int*)out,               \
+            (int16_t*)karr, (const int*)blk, (const int*)order,              \
+            (const int*)scal);                                               \
   }
   BI_DISPATCH_P(P, BI_LAUNCH_VIT)
 #undef BI_LAUNCH_VIT
@@ -165,8 +193,29 @@ extern "C" int bt_vit_filter(const void* flat, const void* offs,
                              const void* tab, int Kp, int M, int Mp, int P,
                              int base, int emove, int eloop, void* out,
                              void* stream) {
+  if (B <= 0) return 0;
   return vit_launch<false>(flat, offs, lens, move, nullptr, B, tab, Kp, M, Mp,
-                           P, base, emove, eloop, out, nullptr, stream);
+                           P, base, emove, eloop, out, nullptr, nullptr,
+                           nullptr, nullptr, 0, 0, stream);
+}
+
+// The multi-model entry of bt_vit_filter: tab [G, Kp + 8, Mp] stacks the
+// tables of the models of padded width Mp and scal [G, 4] int32 holds
+// each one's M, base, emove, eloop; blk [nblocks, 3] int32 = (model,
+// first, count) per block and order [.] int32 the item rows
+// (bi::block_items).  out [3, B] is written at the listed items only.
+extern "C" int bt_vit_filter_multi(const void* flat, const void* offs,
+                                   const void* lens, const void* move, int B,
+                                   const void* tab, const void* scal, int Kp,
+                                   int Mp, int P, void* out, const void* blk,
+                                   const void* order, int nblocks,
+                                   int per_block, void* stream) {
+  if (nblocks <= 0) return 0;
+  if (blk == nullptr || order == nullptr || scal == nullptr)
+    return cudaErrorInvalidValue;
+  return vit_launch<false>(flat, offs, lens, move, nullptr, B, tab, Kp, 0, Mp,
+                           P, 0, 0, 0, out, nullptr, blk, order, scal, nblocks,
+                           per_block, stream);
 }
 
 // As bt_vit_filter, with thresh [B] int32 per ORF; out [B] int32: the
@@ -179,6 +228,8 @@ extern "C" int bt_vit_capture(const void* flat, const void* offs,
                               int Kp, int M, int Mp, int P, int base,
                               int emove, int eloop, void* out, void* karr,
                               void* stream) {
+  if (B <= 0) return 0;
   return vit_launch<true>(flat, offs, lens, move, thresh, B, tab, Kp, M, Mp,
-                          P, base, emove, eloop, out, karr, stream);
+                          P, base, emove, eloop, out, karr, nullptr, nullptr,
+                          nullptr, 0, 0, stream);
 }

@@ -171,6 +171,12 @@ def lib() -> ctypes.CDLL:
     so.bt_msv_filter.restype = I
     so.bt_msv_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, I,
                                  P, P]
+    so.bt_msv_filter_multi.restype = I
+    so.bt_msv_filter_multi.argtypes = [P, P, P, P, I, P, P, I, I, I, P, P, P,
+                                       I, I, P]
+    so.bt_vit_filter_multi.restype = I
+    so.bt_vit_filter_multi.argtypes = [P, P, P, P, I, P, P, I, I, I, P, P, P,
+                                       I, I, P]
     so.bt_ssv_capture.restype = I
     so.bt_ssv_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
                                   P, P, P]
@@ -426,6 +432,41 @@ def launch_msv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
                             p.tbm, p.bias, out.data_ptr(), _stream()),
            "msv_filter")
     return out[0], out[1], out[2]
+
+
+def _launch_int_multi(entry: str, flat, offs, lens, per_item, slot, pack):
+    """One launch of a multi-model integer filter entry per padded
+    width: ([3, B] int32, the number of launches)."""
+    _check_stream(flat, offs, lens, pack, per_item)
+    fn = getattr(lib(), f"bt_{entry}")
+    B = lens.numel()
+    out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
+    plans = _multi_plans(slot, pack, items_per_block, flat.device)
+    for c, order, blk, nblocks, G in plans:
+        _check(fn(flat.data_ptr(), offs.data_ptr(), lens.data_ptr(),
+                  per_item.data_ptr(), B, c.tab.data_ptr(), c.scal.data_ptr(),
+                  pack.Kp, c.Mp, c.P, out.data_ptr(), blk.data_ptr(),
+                  order.data_ptr(), nblocks, G, _stream()), entry)
+    return out, len(plans)
+
+
+def launch_msv_multi(flat: torch.Tensor, offs: torch.Tensor,
+                     lens: torch.Tensor, tjb: torch.Tensor, slot, pack):
+    """msv_filter.cu, multi-model entry: ((xEu, xJm, movf) [B] int32 of
+    item b under model slot[b], the number of launches)."""
+    out, n = _launch_int_multi("msv_filter_multi", flat, offs, lens, tjb,
+                               slot, pack)
+    return (out[0], out[1], out[2]), n
+
+
+def launch_vit_multi(flat: torch.Tensor, offs: torch.Tensor,
+                     lens: torch.Tensor, move: torch.Tensor, slot, pack):
+    """vit_filter.cu, multi-model entry: ((score_int [B] int32, has,
+    ovf [B] bool) of item b under model slot[b], the number of
+    launches)."""
+    out, n = _launch_int_multi("vit_filter_multi", flat, offs, lens, move,
+                               slot, pack)
+    return (out[0], out[1] != 0, out[2] != 0), n
 
 
 def launch_ssv_capture(flat: torch.Tensor, offs: torch.Tensor,

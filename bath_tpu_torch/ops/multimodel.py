@@ -1,5 +1,6 @@
-"""Multi-model device gates for the multi-query drive: the four f32
-stages with a model slot per item.
+"""Multi-model device stages: the four f32 stages of the multi-query
+drive and the two integer filters of the device calibration, with a
+model slot per item.
 
 Counterpart of ``bath_tpu/ops/jaxk/multimodel.py`` (``build_fwd_pack``/
 ``fwd_pack_scores``, ``build_domdec_pack``/``domdec_pack_batch``,
@@ -24,6 +25,17 @@ kernel (``ops/kernels/csrc/{fwd_parser,domdec,fs3_parser,fs3_domdec}.cu``,
 the same ``__global__`` kernel, so the same arithmetic item for item)
 for CUDA tensors, and runs its plain PyTorch version (``*_ref``: the
 single-model plain version over each model's items) for CPU tensors.
+
+The integer filters with a model axis (``build_msv_pack``/
+``msv_ssv_multi``, ``build_vit_pack``/``vit_ints_multi``) are the
+counterpart of ``bath_tpu/evalues_device.py`` ``_dyn_kernels``: the
+[model, batch] MSV and ViterbiFilter kernels vmapped over models with
+each model's quantisation scalars as traced values.  Here they are the
+multi-model entries of ``csrc/msv_filter.cu`` and ``csrc/vit_filter.cu``
+under the same per-block plan, the models' scalars in a small int array
+beside the stacked tables (``IntPack``).  Items travel as in
+``ops/ssv.py``, one int8 stream read at per-item offsets, so the models
+of a calibration share one copy of the simulated batch: offsets repeat.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ from .fs3 import fs3_params_from_jax, fs3_score_ref
 from .fs3_domdec import finish as fs3_domdec_finish
 from .fs3_domdec import fs3_domdec_ref
 from .fwd import check_batch, fwd_params_from_jax, fwd_score_ref
+from .ssv import MSVParams, check_stream, msv_ssv_ref
+from .vit import NEG, R_DDS, R_MDS, VitParams, vit_ints_ref
 
 
 @dataclass
@@ -66,10 +80,10 @@ class ModelPack:
         if not params:
             raise ValueError("a pack needs at least one model")
         self.params = list(params)
-        self.device = params[0].rfv.device
+        self.device = params[0].device
         self.Kp = params[0].Kp
         for p in params:
-            if p.rfv.device != self.device or p.Kp != self.Kp:
+            if p.device != self.device or p.Kp != self.Kp:
                 raise ValueError("the models of a pack share a device and "
                                  "an alphabet")
         self.M = [p.M for p in params]
@@ -85,17 +99,17 @@ class ModelPack:
         by_mp: dict = {}
         for g, (_, _, Mp) in enumerate(self.geometry):
             by_mp.setdefault(Mp, []).append(g)
-        out = {}
-        for Mp, models in sorted(by_mp.items()):
-            P, W, _ = self.geometry[models[0]]
-            tabs = [self.params[g].padded(Mp) for g in models]
-            out[Mp] = SizeClass(
-                P, W, Mp, models,
-                torch.stack([e for e, _ in tabs]).contiguous(),
-                torch.stack([t for _, t in tabs]).contiguous(),
-                torch.tensor([self.M[g] for g in models], dtype=torch.int32,
-                             device=self.device))
-        return out
+        return {Mp: self._stack(*self.geometry[models[0]][:2], Mp, models)
+                for Mp, models in sorted(by_mp.items())}
+
+    def _stack(self, P: int, W: int, Mp: int, models: list):
+        tabs = [self.params[g].padded(Mp) for g in models]
+        return SizeClass(
+            P, W, Mp, models,
+            torch.stack([e for e, _ in tabs]).contiguous(),
+            torch.stack([t for _, t in tabs]).contiguous(),
+            torch.tensor([self.M[g] for g in models], dtype=torch.int32,
+                         device=self.device))
 
     @functools.cached_property
     def slot_class(self) -> tuple[np.ndarray, np.ndarray]:
@@ -105,6 +119,47 @@ class ModelPack:
         for c in self.classes.values():
             local[c.models] = np.arange(len(c.models))
         return mp, local
+
+
+@dataclass
+class IntClass:
+    """The models of one padded width Mp of an integer filter, stacked
+    for one launch."""
+    P: int
+    W: int
+    Mp: int
+    models: list
+    tab: torch.Tensor           # [g, rows, Mp] int32 kernel tables
+    scal: torch.Tensor          # [g, k] int32: M, then the pack's scalars
+
+
+class IntPack(ModelPack):
+    """G models for a multi-model integer filter: ``params[g]`` is the
+    ``MSVParams`` or ``VitParams`` of slot g, <scalars> the names of the
+    per-model scalar bytes or words the kernel reads beside M."""
+
+    def __init__(self, params: list, scalars: tuple):
+        from .kernels.loader import layout
+        super().__init__(params, layout)
+        self.scalars = tuple(scalars)
+
+    def _stack(self, P: int, W: int, Mp: int, models: list):
+        return IntClass(
+            P, W, Mp, models,
+            torch.stack([self.params[g].table(Mp) for g in models])
+            .contiguous(),
+            torch.tensor([[getattr(self.params[g], k)
+                           for k in ("M",) + self.scalars] for g in models],
+                         dtype=torch.int32, device=self.device))
+
+    def per_item(self, slot) -> SimpleNamespace:
+        """Each scalar as a [B] int64 tensor, item b's from model
+        ``slot[b]`` (what ``ops.ssv.msv_post`` takes for <p>)."""
+        slot = torch.as_tensor(np.asarray(slot, np.int64), device=self.device)
+        return SimpleNamespace(**{
+            k: torch.tensor([getattr(p, k) for p in self.params],
+                            dtype=torch.int64, device=self.device)[slot]
+            for k in self.scalars})
 
 
 def block_plan(slot: np.ndarray, pack: ModelPack, per_block):
@@ -149,6 +204,22 @@ def _check(pack: ModelPack, dsq, lens, slot) -> np.ndarray:
     return slot
 
 
+def _check_stream_slots(pack: IntPack, flat, offs, lens, per_item,
+                        slot) -> np.ndarray:
+    """The integer packed calls' input check; returns the slots as
+    numpy."""
+    check_stream(flat, offs, lens, per_item)
+    if flat.device != pack.device:
+        raise ValueError(f"pack on {pack.device}, input on {flat.device}")
+    slot = np.asarray(slot.cpu() if isinstance(slot, torch.Tensor)
+                      else slot).astype(np.int64)
+    if slot.shape != (lens.shape[0],):
+        raise ValueError(f"slot must be [B], got {slot.shape}")
+    if slot.size and (slot.min() < 0 or slot.max() >= len(pack)):
+        raise ValueError(f"model slots must lie in [0, {len(pack)})")
+    return slot
+
+
 def _per_model(slot: np.ndarray):
     """[(model, rows of its items)] of a batch."""
     return [(int(g), np.nonzero(slot == g)[0]) for g in np.unique(slot)]
@@ -179,6 +250,20 @@ def build_fs3_domdec_pack(params: list) -> ModelPack:
     """fs3 decoding reads the fs3 gate's tensors, so the pack is the
     gate's."""
     return build_fs3_pack(params)
+
+
+MSV_SCALARS = ("base", "tec", "tbm", "bias")
+VIT_SCALARS = ("base", "emove", "eloop")
+
+
+def build_msv_pack(params: list) -> IntPack:
+    """<params>: ``ops.ssv.msv_params`` of each model, slot order."""
+    return IntPack(params, MSV_SCALARS)
+
+
+def build_vit_pack(params: list) -> IntPack:
+    """<params>: ``ops.vit.vit_params`` of each model, slot order."""
+    return IntPack(params, VIT_SCALARS)
 
 
 # ---------------------------------------------------------------------
@@ -251,10 +336,70 @@ def fs3_pack_from_jax(arrays: dict, G: int, Mg: int,
     return build_fs3_pack(params)
 
 
+def msv_pack_from_jax(sbvT, rbvT, Ms, base, tec, tbm, bias,
+                      device="cpu") -> IntPack:
+    """The MSV pack from the stacked arrays the JAX calibration hands
+    its vmapped kernel: ``sbvT`` [G, Mt, Kp] int8 and ``rbvT``
+    [G, Mt, Kp] uint8 (rows past a model's M are padding) and the [G]
+    scalar bytes; <Ms> the model lengths."""
+    return build_msv_pack([
+        MSVParams.from_arrays(
+            np.asarray(sbvT[g], np.int32)[:M].T,
+            np.asarray(rbvT[g], np.int32)[:M].T,
+            base[g], tec[g], tbm[g], bias[g], device=device)
+        for g, M in enumerate(Ms)])
+
+
+def vit_pack_from_jax(rwvT, tvs, Ms, base, emove, eloop,
+                      device="cpu") -> IntPack:
+    """The ViterbiFilter pack from the JAX calibration's stacked arrays:
+    ``rwvT`` [G, Mt, Kp] int16, <tvs> the eight [G, Mt] int16 transition
+    rows (tBM, tMM, tIM, tDM, tMD, tDD, tMI, tII; tMD and tDD there hold
+    at lane k the move out of position k+1, here the move into D at
+    k+1), and the [G] scalar words."""
+    params = []
+    for g, M in enumerate(Ms):
+        tr = np.stack([np.asarray(t[g], np.int32)[:M] for t in tvs])
+        for r in (R_MDS, R_DDS):
+            tr[r] = np.r_[NEG, tr[r, :M - 1]]
+        params.append(VitParams.from_arrays(
+            np.asarray(rwvT[g], np.int32)[:M].T, tr, base[g], emove[g],
+            eloop[g], device=device))
+    return build_vit_pack(params)
+
+
 # ---------------------------------------------------------------------
 # Plain PyTorch versions: the single-model plain version over each
 # model's items, scattered back
 # ---------------------------------------------------------------------
+def _ints_ref(ref, pack, flat, offs, lens, per_item, slot):
+    """<ref> (a single-model integer filter) over each model's items;
+    [3, B] int32."""
+    out = torch.empty(3, lens.numel(), dtype=torch.int32, device=flat.device)
+    for g, rows in _per_model(slot):
+        r = torch.from_numpy(rows).to(flat.device)
+        out[:, r] = torch.stack([
+            t.to(torch.int32) for t in ref(flat, offs[r], lens[r],
+                                           per_item[r], pack.params[g])])
+    return out
+
+
+def msv_ssv_multi_ref(pack: IntPack, flat, offs, lens, tjb, slot):
+    """(xEu, xJm, movf) [B] int32 of ``ops.ssv.msv_ssv_ref``, item b
+    under model slot[b]."""
+    slot = _check_stream_slots(pack, flat, offs, lens, tjb, slot)
+    out = _ints_ref(msv_ssv_ref, pack, flat, offs, lens, tjb, slot)
+    return out[0], out[1], out[2]
+
+
+def vit_ints_multi_ref(pack: IntPack, flat, offs, lens, move, slot):
+    """(score_int [B] int32, has [B] bool, ovf [B] bool) of
+    ``ops.vit.vit_ints_ref``, item b under model slot[b]."""
+    slot = _check_stream_slots(pack, flat, offs, lens, move, slot)
+    out = _ints_ref(vit_ints_ref, pack, flat, offs, lens, move, slot)
+    return out[0], out[1] != 0, out[2] != 0
+
+
 def _scores_ref(score, pack, dsq, lens, slot, nj):
     """<score> over each model's items, each group cut to its longest
     item (rows past an item's length change nothing in a score)."""
@@ -390,7 +535,36 @@ def fs3_domdec_pack_batch(pack: ModelPack, dsq, lens, slot, dec_loop,
                              _dec_loops(dec_loop, dsq.shape[0], dsq.device))
 
 
+def msv_ssv_multi(pack: IntPack, flat, offs, lens, tjb, slot):
+    """(xEu, xJm, movf) [B] int32 of the fused SSV+MSV filter, item b
+    (``flat[offs[b]:offs[b] + lens[b]]``, J->B byte ``tjb[b]``) under
+    model slot[b]; ``ops.ssv.msv_post`` with ``pack.per_item(slot)``
+    turns them into scores."""
+    if flat.device.type == "cpu":
+        return msv_ssv_multi_ref(pack, flat, offs, lens, tjb, slot)
+    slot = _check_stream_slots(pack, flat, offs, lens, tjb, slot)
+    from .kernels import loader
+    out, n = loader.launch_msv_multi(flat, offs, lens, tjb, slot, pack)
+    msv_ssv_multi.launches += n
+    return out
+
+
+def vit_ints_multi(pack: IntPack, flat, offs, lens, move, slot):
+    """(score_int [B] int32, has [B] bool, ovf [B] bool) of the
+    ViterbiFilter, item b (N/J/C move word ``move[b]``) under model
+    slot[b]."""
+    if flat.device.type == "cpu":
+        return vit_ints_multi_ref(pack, flat, offs, lens, move, slot)
+    slot = _check_stream_slots(pack, flat, offs, lens, move, slot)
+    from .kernels import loader
+    out, n = loader.launch_vit_multi(flat, offs, lens, move, slot, pack)
+    vit_ints_multi.launches += n
+    return out
+
+
 # CUDA launches through each wrapper
+msv_ssv_multi.launches = 0
+vit_ints_multi.launches = 0
 fwd_pack_scores.launches = 0
 domdec_pack_batch.launches = 0
 fs3_pack_scores.launches = 0

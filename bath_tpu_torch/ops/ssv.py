@@ -38,19 +38,33 @@ class MSVParams:
 
     def __init__(self, om, device="cpu"):
         M = om.M
-        self.M, self.Kp = M, om.Kp
-        self.sbv = torch.from_numpy(
-            om.sbv[:, 1:M + 1].astype(np.int32)).to(device)
-        self.rbv = torch.from_numpy(
-            om.rbv[:, 1:M + 1].astype(np.int32)).to(device)
-        self.base = int(om.base_b)
-        self.tec = int(om.tec_b)
-        self.tbm = int(om.tbm_b)
-        self.bias = int(om.bias_b)
-        self.scale = float(om.scale_b)
+        self._set(om.sbv[:, 1:M + 1], om.rbv[:, 1:M + 1], om.base_b,
+                  om.tec_b, om.tbm_b, om.bias_b, om.scale_b, device)
         self._om = om
+
+    def _set(self, sbv, rbv, base, tec, tbm, bias, scale, device):
+        self.Kp, self.M = sbv.shape
+        self.sbv = torch.from_numpy(
+            np.ascontiguousarray(sbv, np.int32)).to(device)
+        self.rbv = torch.from_numpy(
+            np.ascontiguousarray(rbv, np.int32)).to(device)
+        self.base, self.tec = int(base), int(tec)
+        self.tbm, self.bias = int(tbm), int(bias)
+        self.scale = float(scale)
+        self._om = None
         self._tjb: dict[int, int] = {}
         self._table: dict = {}
+
+    @classmethod
+    def from_arrays(cls, sbv, rbv, base, tec, tbm, bias, scale=1.0,
+                    device="cpu") -> "MSVParams":
+        """From the tables themselves (``sbv``, ``rbv`` [Kp, M]) and the
+        scalar bytes, without an ``OProfile``: ``tjb_for`` then raises
+        (the caller brings its own J->B bytes)."""
+        p = cls.__new__(cls)
+        p._set(np.asarray(sbv), np.asarray(rbv), base, tec, tbm, bias, scale,
+               device)
+        return p
 
     @property
     def device(self) -> torch.device:
@@ -60,6 +74,9 @@ class MSVParams:
         """[B] int32: the length-dependent J->B byte of each item, as
         ``MSVExactMB.tjb_for`` (``om._unbiased_byteify``), cached per
         length."""
+        if self._om is None:
+            raise ValueError("parameters made from arrays carry no profile "
+                             "to take the J->B byte from")
         lens = np.asarray(lens, np.int64)
         ulens, inv = np.unique(lens, return_inverse=True)
         vals = np.empty(len(ulens), np.int32)
@@ -186,7 +203,10 @@ def msv_post(xEu: torch.Tensor, xJm: torch.Tensor, movf: torch.Tensor,
     uint16 wraparound and the fall back to the MSV score where SSV has
     no result (``ssv_msv_post_np``, ref: ssvfilter.c :875 tail).  The
     score in nats is ``(out_int - base) / scale - 3`` in f64, inf where
-    ``out_inf``."""
+    ``out_inf``.  <p> gives ``base``, ``tbm``, ``tec`` and ``bias``: the
+    ints of one model's ``MSVParams``, or [B] int64 tensors with each
+    item's own model's (``IntPack.per_item``), so one call serves the
+    items of many models."""
     xEu, xJm, tjb = (t.to(torch.int64) for t in (xEu, xJm, tjb))
     base, tbm, tec, bias = p.base, p.tbm, p.tec, p.bias
     no_ssv = (tjb + tbm + tec + bias) >= 127

@@ -55,7 +55,6 @@ class VitParams:
 
     def __init__(self, om, device="cpu"):
         M = om.M
-        self.M, self.Kp = M, om.Kp
         twv = om.twv.astype(np.int32)
         tr = np.full((8, M), NEG, np.int32)
         tr[R_BM] = twv[:M, C.P_BM]
@@ -66,19 +65,36 @@ class VitParams:
         tr[R_DDS, 1:] = twv[1:M, C.P_DD]
         tr[R_MI] = twv[1:M + 1, C.P_MI]
         tr[R_II] = twv[1:M + 1, C.P_II]
+        self._set(om.rwv[:, 1:M + 1], tr, om.base_w, om.scale_w,
+                  om.xw[C.X_E, C.MOVE], om.xw[C.X_E, C.LOOP], device)
+
+    def _set(self, rwv, tr, base, scale, emove, eloop, device):
         # the (max, +) closure composes exactly only for tDD <= 0
         if (tr[R_DDS] > 0).any():
             raise ValueError("a positive D->D transition word: the "
                              "Viterbi kernels' D->D scan needs tDD <= 0")
+        self.Kp, self.M = rwv.shape
         self.rwv = torch.from_numpy(
-            om.rwv[:, 1:M + 1].astype(np.int32)).to(device)
-        self.tr = torch.from_numpy(tr).to(device)
-        self.base = int(om.base_w)
-        self.scale = float(om.scale_w)
-        self.emove = int(om.xw[C.X_E, C.MOVE])
-        self.eloop = int(om.xw[C.X_E, C.LOOP])
+            np.ascontiguousarray(rwv, np.int32)).to(device)
+        self.tr = torch.from_numpy(
+            np.ascontiguousarray(tr, np.int32)).to(device)
+        self.base = int(base)
+        self.scale = float(scale)
+        self.emove = int(emove)
+        self.eloop = int(eloop)
         self._move: dict[int, int] = {}
         self._table: dict = {}
+
+    @classmethod
+    def from_arrays(cls, rwv, tr, base, emove, eloop, scale=1.0,
+                    device="cpu") -> "VitParams":
+        """From the words themselves (``rwv`` [Kp, M], ``tr`` [8, M] in
+        ``R_*`` order and lane convention) and the scalar words, without
+        an ``OProfile``; <scale> is what ``move_for`` words with."""
+        p = cls.__new__(cls)
+        p._set(np.asarray(rwv), np.asarray(tr), base, scale, emove, eloop,
+               device)
+        return p
 
     @property
     def device(self) -> torch.device:

@@ -3,28 +3,45 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of the standard, the ``--fs``, the all-device
-and the multi-query bathsearch paths from
-``bath_tpu_torch/ops/kernels/csrc/``, holds each against its plain
-PyTorch version on the card (the integer filters exactly, and MSV also
-against the native host library over every ORF of the search genome;
-the four multi-model entries also bit for bit against the single-model
-entries, on batches that mix 48 models of M = 60..1200), times both and
-the host library's batch, then searches a seeded 5 Mb genome with a
-seeded M = 400 profile through the port's CLI: the standard search,
-then ``--fs`` and ``--fsonly`` on the genome's frameshift twin (16 of
-its 40 embeds carry a 1-nt deletion or insertion), then the all-device
-cascade (``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``: MSV/SSV, the
-ViterbiFilter and their window captures on the card too), standard and
-``--fs``, then the multi-query drive: a 48-model query file against a
-5 Mb genome that holds copies of 12 of the models, standard and
-``--fs``.  It checks that the output is byte-identical to the host path
-(the port's own ``--backend numpy``), that the embedded homologs and the
-frameshifts are found, and that each search went through its
-kernels.  Every phase prints one line; any failure exits non-zero.  The
-last two lines are the kernels' JSON record (per kernel: launches on
-its main path, error against the plain version, time, the plain
-version's time, and the least time the card could take for the timed
-work) and ``{"ok": true, "device": ...}``.
+and the multi-query bathsearch paths and of bathbuild's device
+calibration from ``bath_tpu_torch/ops/kernels/csrc/``, holds each
+against its plain PyTorch version on the card (the integer filters
+exactly, and MSV also against the native host library over every ORF of
+the search genome; the six multi-model entries also bit for bit against
+the single-model entries, on batches that mix 48 models of
+M = 60..1200), times both and the host library's batch, then searches a
+seeded 5 Mb genome with a seeded M = 400 profile through the port's
+CLI: the standard search, then ``--fs`` and ``--fsonly`` on the
+genome's frameshift twin (16 of its 40 embeds carry a 1-nt deletion or
+insertion), then the all-device cascade (``BATH_MSV_DEVICE=1
+BATH_VIT_DEVICE=1``: MSV/SSV, the ViterbiFilter and their window
+captures on the card too), standard and ``--fs``, then the multi-query
+drive: a 48-model query file against a 5 Mb genome that holds copies of
+12 of the models, standard and ``--fs``.  It checks that the output is
+byte-identical to the host path (the port's own ``--backend numpy``),
+that the embedded homologs and the frameshifts are found, and that each
+search went through its kernels.
+
+Then the build path: ``bathbuild`` of a 48-alignment Stockholm file and
+``bathconvert`` of the built models stripped of their frameshift
+calibration, ``--backend torch`` (all models calibrated in one
+device-batched pass through the two integer multi-model entries and the
+two f32 gate ones) against ``--backend numpy`` (the serial host
+calibration).  Both backends of ``bathconvert`` run in this process, one
+after the other; ``bathbuild --backend numpy``, the longest single step
+(two to three minutes), runs in a child process beside the parity phases
+and has ended before anything is timed, so its own wall, printed with
+``wall_numpy_concurrent=True``, carries those phases' load and no other
+number in the output carries its.  The files may differ only in their
+DATE lines and in the taus the f32 gates simulate; ``bathstat`` and
+``bathfetch`` print the same for both, and a ``bathsearch --fs`` with
+the built models finds the proteins they were emitted from.
+
+Every phase prints one line; any failure exits non-zero.  The last two
+lines are the kernels' JSON record (per kernel: launches on its main
+path, error against the plain version, time, the plain version's time,
+and the least time the card could take for the timed work) and
+``{"ok": true, "device": ...}``.
 
 Needs a CUDA device, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 g++ (the host library of the integer filters).  Everything it builds or
@@ -32,6 +49,7 @@ writes goes under ``build/`` next to this file.  It imports nothing of
 ``bath_tpu`` and no JAX.
 """
 
+import atexit
 import json
 import os
 import re
@@ -61,10 +79,10 @@ FWD_TOL = 1e-3              # nats, kernel vs plain version
 DOMDEC_TOL = 1e-4           # posterior units
 MIN_OK_SHARE = 0.95
 # --fs: parity batches (B, longest L in nt) at M_SEARCH and FS3_WIDE_M
-PARITY_FS3 = (64, 4500)
-PARITY_FS3DD = (16, 4500)
+PARITY_FS3 = (32, 2500)
+PARITY_FS3DD = (8, 2500)
 FS3_WIDE_M = 1500           # several warps per window
-TIME_FS3_M = (134, 409, 781, 1000)
+TIME_FS3_M = (134, 409)
 TIME_FS3_B, TIME_FS3DD_B = 256, 32
 N_FRAMESHIFT = 16
 MIN_FS_FOUND = 12
@@ -73,7 +91,7 @@ MIN_FS_FOUND = 12
 # INT_WIDE_M; capture thresholds (bytes, words) crossed by the hot ORFs
 # only, then P = 1 (every row crosses)
 PARITY_INT_N = 512
-LONG_ORF = 8_000
+LONG_ORF = 2_000
 INT_WIDE_M = 1500
 SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
 TIME_INT_B = 4096           # ORFs of the Viterbi set and the captures
@@ -96,30 +114,44 @@ MQ_COPIES = 2
 # widest) against the plain versions, whose Python row loops run once
 # per model and take 1-5 ms a row.  The timing batches below hold the
 # entries against the plain versions at the drive's shapes.
-PARITY_MQ_FWD = (8, 1500)
-PARITY_MQ_DOMDEC = (3, 1500)
-PARITY_MQ_FS3 = (3, 6000)
-PARITY_MQ_FS3DD = (2, 4500)
+PARITY_MQ_FWD = (8, 1250)
+PARITY_MQ_DOMDEC = (3, 1250)
+PARITY_MQ_FS3 = (3, 3700)
+PARITY_MQ_FS3DD = (2, 3700)
 PARITY_MQ_PLAIN = (0, 11, 29, 47)
 PARITY_MQ_PLAIN_FS3DD = (0, 47)
 # multi-model timing batches, the shapes of the 5 Mb drive's one flush:
 # F3 candidates, F3 survivors and fs3 windows over all 48 models, fs3
 # survivors over the 12 embedded ones.  Each entry's output is also
-# held against its plain version's: the Forward gate and decoding on
-# every item; the fs3 pair, whose plain versions take 7 and 21 s a model
-# over windows of thousands of rows, on the items of every fourth model
-# and of four of the 12 (M = 84, 375, 763, 1151: one to three warps a
-# window).
+# held against its plain version's: the Forward gate on every item,
+# decoding on the items of every second model; the fs3 pair, whose plain
+# versions take 7 and 21 s a model over windows of thousands of rows, on
+# the items of two models (M = 132, 1200) and of two of the 12 (M = 84
+# and 763, one and two warps a window; 3e holds both against them at up
+# to three warps a window).
 TIME_MQ_FWD_B, TIME_MQ_DOMDEC_B = 1600, 128
 TIME_MQ_FS3_B, TIME_MQ_FS3DD_B = 512, 24
-TIME_MQ_PLAIN_FS3 = tuple(range(3, 48, 4))
-TIME_MQ_PLAIN_FS3DD = (1, 13, 29, 45)
+TIME_MQ_PLAIN_DOMDEC = tuple(range(0, 48, 2))
+TIME_MQ_PLAIN_FS3 = (3, 47)
+TIME_MQ_PLAIN_FS3DD = (1, 29)
 # "torch_host": the multi-query drive with every stage's engagement
 # threshold out of reach, so the host runs the f32 stages on the same
-# items (what the card's stages are weighed against)
-MQ_TURNS = ("numpy", "torch", "torch_host", "torch")
+# items (what the card's stages are weighed against).  The standard
+# drive takes such a turn; the --fs drive, whose host fs3 stages take
+# longest, leaves its time to the build path
+MQ_TURNS = ("numpy", "torch", "torch_host")
+MQ_FS_TURNS = ("numpy", "torch")
 MQ_MIN_CELLS = ("BATH_MQ_FWD_MIN_CELLS", "BATH_MQ_DD_MIN_CELLS",
                 "BATH_MQ_FS3_MIN_CELLS", "BATH_MQ_FSDD_MIN_CELLS")
+
+# bathbuild and bathconvert: alignments of MSA_NSEQ sequences emitted
+# from the 48 multi-query models, the default calibration (200 x 200 aa
+# for the MSV and Viterbi mus, 200 x 100 aa and 200 x 300 nt for the
+# taus).  A tau of an f32 gate may sit TAU_WARN from the host parser's
+# before the run says so, and TAU_TOL before it fails.
+MSA_NSEQ = 20
+TAU_WARN, TAU_TOL = 0.02, 0.05
+F32_GATE_LINES = ("STATS LOCAL FORWARD", "STATS LOCAL FS3 FORWARD")
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # and float32 outside the tensor cores.  The DP kernels are f32 (or one
@@ -135,9 +167,53 @@ OPS_PER_CELL = {"fwd_parser": 19, "domdec": 37, "fs3_parser": 23,
                 "vit_filter": 20, "vit_capture": 21}
 
 
+CHILDREN: list = []             # child processes still to be reaped
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+atexit.register(stop_children)
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def host_tool(name: str, argv) -> tuple:
+    """Starts ``--backend numpy`` of one of the port's CLIs in a child
+    process (no CUDA there), its output into a file under build/;
+    ``host_result`` waits for it.  For bathbuild, whose serial host
+    calibration of 48 models would add its minutes to the run."""
+    log = BUILD / f"{name}_numpy.stdout"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"bath_tpu_torch.cli.{name}", "--backend",
+             "numpy", *(str(a) for a in argv)], cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT)
+    CHILDREN.append(proc)
+    return name, proc, log
+
+
+def host_result(child: tuple) -> tuple:
+    """(stdout with its run-dependent lines masked, the wall the CLI
+    itself prints) of a ``host_tool`` child; fails if it did."""
+    name, proc, log = child
+    rc = proc.wait(timeout=900)
+    text = log.read_text()
+    wall = re.search(r"# CPU time: ([0-9.]+)u", text)
+    if rc != 0 or not wall:
+        fail(f"{name} --backend numpy exited {rc}: {text[-2000:]}")
+    return mask_tool(text), float(wall.group(1))
+
+
+def mask_tool(text: str) -> str:
+    return re.sub(r"# (CPU time|output HMM file):.*", "", text)
 
 
 T_START = time.perf_counter()
@@ -247,6 +323,18 @@ def main() -> None:
           native_lib="loaded")
     print(card, flush=True)
 
+    # 1b. the host yardstick of phase 5e starts now, in a child process
+    # beside the kernel phases (it needs no card, the host has cores to
+    # spare, and nothing timed below runs before it has ended):
+    # bathbuild --backend numpy, the serial host calibration, of the
+    # 48-alignment fixture
+    BUILD.mkdir(parents=True, exist_ok=True)
+    sto, msa_names = fixtures.write_msa_fixture(MQ_MS, MSA_NSEQ, SEED)
+    built = {b: BUILD / f"built_{b}.bhmm" for b in ("numpy", "torch")}
+    host_build = host_tool("bathbuild", [built["numpy"], sto])
+    phase("bathbuild", backend="numpy", started="in a child process",
+          alignments=len(MQ_MS), nseq=MSA_NSEQ)
+
     # 2. kernel build
     t = time.perf_counter()
     so = loader.build()
@@ -299,7 +387,7 @@ def main() -> None:
           fwd_err=e1, domdec_err=e2)
 
     # 3b. the --fs kernels against their plain versions: DNA windows of
-    # 0, 2, 3, 4 and up to 4500 nt with homologs (one in three
+    # 0, 2, 3, 4 and up to 2500 nt with homologs (one in three
     # frameshifted) and runs of N, at M_SEARCH and at a model that
     # takes several warps per window
     fs3_err = fs3dd_err = 0.0
@@ -414,8 +502,8 @@ def main() -> None:
           identical=True)
 
     # 3e. the four multi-model entries at full width: 48 models of
-    # M = 60..1200 mixed in one batch per stage, items of up to 1500 aa
-    # and 6000 nt with copies of their model's protein.  Each entry,
+    # M = 60..1200 mixed in one batch per stage, items of up to 1250 aa
+    # and 3700 nt with copies of their model's protein.  Each entry,
     # model by model, bit for bit against the single-model entry on the
     # same rows (for the decoding pair: the kernels' own outputs bit
     # for bit, the posteriors after the shared tensor-op combine within
@@ -543,6 +631,12 @@ def main() -> None:
         "fs3_domdec_multi": decoding_case(
             "fs3_domdec_multi", True, PARITY_MQ_FS3DD, PARITY_MQ_PLAIN_FS3DD),
     }
+
+    # 3f. the child of phase 1b has to have ended before anything is
+    # timed
+    build_table_numpy, build_wall_numpy = host_result(host_build)
+    phase("bathbuild", backend="numpy", ended=True,
+          wall_s=f"{build_wall_numpy:.3f}", concurrent=True)
 
     # 4. timing at the main path's shapes (ORFs of the search genome)
     times = {}
@@ -815,13 +909,107 @@ def main() -> None:
                fixtures.sample_orfs(fx.fasta_path, TIME_MQ_DOMDEC_B, SEED,
                                     min_len=100),
                mq_rng.integers(0, len(MQ_MS), TIME_MQ_DOMDEC_B), 28,
-               mm.domdec_pack_batch, dd.domdec, 5)
+               mm.domdec_pack_batch, dd.domdec, 5,
+               plain_models=TIME_MQ_PLAIN_DOMDEC)
     time_multi("fs3_parser_multi", fs_pack, windows, fs_slot, 17,
                mm.fs3_pack_scores, fs3.fs3_score, 3,
                plain_models=TIME_MQ_PLAIN_FS3)
     time_multi("fs3_domdec_multi", fs_pack, dd_windows, dd_slot, 17,
                mm.fs3_domdec_pack_batch, fdd.fs3_domdec, 2,
                extra=(100.0 / 103.0,), plain_models=TIME_MQ_PLAIN_FS3DD)
+
+    # 4f. the two integer multi-model entries at the device
+    # calibration's shapes: the 48 models, each over the one shared
+    # batch of 200 x 200 aa (item b = model b // 200, sequence b % 200,
+    # read at a repeated offset).  Each equal to its plain version and,
+    # model by model, to the single-model entry and to the native host
+    # batch; timed beside one single-model launch per model and the host
+    # batches.
+    from bath_tpu_torch import evalues_device as ed
+    from bath_tpu_torch.evalues import CalibrateConfig
+    from bath_tpu_torch.oprofile import oprofile_convert
+    from bath_tpu_torch.profile import profile_config
+    ccfg = CalibrateConfig(fs=True)
+    cal_draws = ed.shared_draws(ccfg, Background())
+    cal_oms = [oprofile_convert(profile_config(h, Background(), L=ccfg.EvL))
+               for h in mq_hmms]
+
+    cal_err: dict = {}
+
+    def int_multi(name, batch, make, build_pack, word_for, call, ref, single,
+                  scores, native):
+        N, L = batch.shape
+        params = [make(om_g, dev) for om_g in cal_oms]
+        pack = build_pack(params)
+        flat, offs, lens, slot = ed.shared_stream(batch, len(cal_oms), dev)
+        word = ed.per_model_words([word_for(p_g, L) for p_g in params], N,
+                                  dev)
+        args = (flat, offs, lens, word)
+        got = call(pack, *args, slot)
+        want = []
+        p_ms = once_ms(lambda: want.append(ref(pack, *args, slot)))
+        if not all(torch.equal(a, b) for a, b in zip(got, want[0])):
+            fail(f"{name} differs from its plain version: max |d| "
+                 f"{exact(got, want[0])}")
+        cal_err[name] = exact(got, want[0])
+        split = [(params[g], r, offs[r].contiguous(), lens[r].contiguous(),
+                  word[r].contiguous()) for g, r in model_rows(slot)]
+        host = host_layout(list(batch))
+        for g, (p_g, r, o_g, l_g, w_g) in enumerate(split):
+            one = single(flat, o_g, l_g, w_g, p_g)
+            if not all(torch.equal(a, b[r]) for a, b in zip(one, got)):
+                fail(f"{name} differs from the single-model entry at "
+                     f"M={MQ_MS[g]}")
+            if not np.array_equal(scores(one, w_g, p_g),
+                                  native(host, cal_oms[g])
+                                  .astype(np.float32)):
+                fail(f"{name} differs from the native host batch at "
+                     f"M={MQ_MS[g]}")
+        k_ms = cuda_ms(lambda: call(pack, *args, slot), 10)
+        s_ms = cuda_ms(lambda: [single(flat, o_g, l_g, w_g, p_g)
+                                for p_g, _, o_g, l_g, w_g in split], 5)
+        h_ms = host_ms(lambda: [native(host, om_g) for om_g in cal_oms])
+        cells = float(N * L * Ms.sum())
+        tabs = [t for c in pack.classes.values() for t in (c.tab, c.scal)]
+        times[name] = (k_ms, p_ms, *bound(name, cells,
+                                          nbytes(*args, *tabs, *got)))
+        plain_items[name] = len(slot)
+        phase("timing", kernel=name, models=len(cal_oms),
+              M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
+              B=len(slot), batch=f"{N}x{L}", vs_plain="identical",
+              max_abs_err=cal_err[name],
+              single_model_entry="bit for bit", native_host_batch="identical",
+              launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
+              per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              host_native_batches_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
+              gcups=f"{cells / k_ms / 1e6:.2f}",
+              bound_ms=f"{times[name][2]:.5f}", bound_by=times[name][3],
+              card=repr(card))
+
+    def msv_nats(raw, tjb_g, p_g):
+        out_int, out_inf = (t.cpu().numpy()
+                            for t in ssv.msv_post(*raw, tjb_g, p_g))
+        sc = np.float32((out_int.astype(np.float64) - float(p_g.base))
+                        / p_g.scale - 3.0)
+        return np.where(out_inf, np.float32(np.inf), sc).astype(np.float32)
+
+    def vit_nats(raw, _move, p_g):
+        score, has, ovf = (t.cpu().numpy() for t in raw)
+        sc = np.float32((score.astype(np.float64) - float(p_g.base))
+                        / p_g.scale - 3.0)
+        sc = np.where(has, sc, np.float32(-np.inf))
+        return np.where(ovf, np.float32(np.inf), sc).astype(np.float32)
+
+    int_multi("msv_filter_multi", cal_draws.msv, ssv.msv_params,
+              mm.build_msv_pack, lambda p_g, L: p_g.tjb_for([L])[0],
+              mm.msv_ssv_multi, mm.msv_ssv_multi_ref, ssv.msv_ssv, msv_nats,
+              msv_filter_native_batch)
+    int_multi("vit_filter_multi", cal_draws.vit, vit.vit_params,
+              mm.build_vit_pack, lambda p_g, L: p_g.move_for([L])[0],
+              mm.vit_ints_multi, mm.vit_ints_multi_ref, vit.vit_ints,
+              vit_nats,
+              lambda h, om_g: vit_filter_score_batch(
+                  h, np.arange(len(h)), om_g))
 
     # 5. end to end: the port's CLI against the host path, in turns
     # (numpy, torch, torch, numpy); --backend numpy is the port's own
@@ -1111,9 +1299,10 @@ def main() -> None:
         identical = {
             "out": not differ and len(t_out) == len(n_out) == len(MQ_MS) + 1,
             "tblout": rows(first["torch"][1]) == rows(first["numpy"][1]),
-            "fstblout": rows(first["torch"][2]) == rows(first["numpy"][2]),
-            "host_stages": masked(first["torch_host"][0])
-            == masked(first["numpy"][0])}
+            "fstblout": rows(first["torch"][2]) == rows(first["numpy"][2])}
+        if "torch_host" in first:
+            identical["host_stages"] = masked(first["torch_host"][0]) \
+                == masked(first["numpy"][0])
         found = fixtures.multi_embeds_found(str(first["torch"][1]), fixture)
         tag = "e2e_multiquery" + "".join(mode).replace("--", "_")
         for stage, items, cells, secs in stats["mq_stages"]:
@@ -1132,13 +1321,14 @@ def main() -> None:
                        for k, v in stats["mq_phase_s"].items()},
               phase_host_stages_s={
                   k: round(v, 3)
-                  for k, v in host_stats["mq_phase_s"].items()},
+                  for k, v in host_stats.get("mq_phase_s", {}).items()},
               **{k: (round(v, 4) if isinstance(v, float) else v)
                  for k, v in stats.items()
                  if k not in ("mq_stages", "mq_phase_s")},
               launches=launches, card=repr(card))
-        if any(host_stats[f"{k}_items"]
-               for k in ("fwd", "domdec", "fs3", "fs3domdec")):
+        if "torch_host" in turns and (not host_stats or any(
+                host_stats.get(f"{k}_items")
+                for k in ("fwd", "domdec", "fs3", "fs3domdec"))):
             fail(f"multi-query {mode}: a stage reached the card with its "
                  f"threshold out of reach: {host_stats}")
         if not all(identical.values()):
@@ -1148,13 +1338,16 @@ def main() -> None:
             fail(f"multi-query {mode}: only {found} embeds reported")
         return launches, stats, first
 
+    # (the fixtures' 48 models are calibrated in one pass on the card:
+    # phase 5e holds that calibration against the host's)
     mq_fx = fixtures.write_multi_fixture(MQ_MS, GENOME_NT, MQ_EMBEDDED,
-                                         MQ_COPIES, SEED)
+                                         MQ_COPIES, SEED, device=DEVICE)
     mq_launches, mq_stats, _ = mq_drive([], MQ_TURNS, mq_fx)
     mq_fs_fx = fixtures.write_multi_fixture(MQ_MS, GENOME_NT, MQ_EMBEDDED,
-                                            MQ_COPIES, SEED, fs=True)
+                                            MQ_COPIES, SEED, fs=True,
+                                            device=DEVICE)
     mq_fs_launches, mq_fs_stats, mq_fs_paths = mq_drive(
-        ["--fs"], MQ_TURNS, mq_fs_fx)
+        ["--fs"], MQ_FS_TURNS, mq_fs_fx)
     mq_shifts = fixtures.multi_frameshifts_found(
         str(mq_fs_paths["torch"][2]), mq_fs_fx)
     phase("e2e_multiquery_fs", frameshifts_found=f"{sum(mq_shifts.values())}"
@@ -1177,6 +1370,197 @@ def main() -> None:
         share = st[f"{key}_ok"] / max(1, st[f"{key}_items"])
         if share < MIN_OK_SHARE:
             fail(f"multi-query {key} ok share {share} < {MIN_OK_SHARE}")
+
+    # 5e. bathbuild and bathconvert: --backend torch (host builds, then
+    # all 48 models calibrated in one device-batched pass), in this
+    # process, against --backend numpy (the serial host calibration):
+    # bathbuild's ran in the child process of phase 1b, bathconvert's
+    # runs here, just before the torch one.
+    # The files may differ in their DATE line and in the taus of the
+    # f32 gates' STATS lines (within TAU_TOL), nowhere else: the MSV and
+    # VITERBI lines come from the bit-exact integer entries, the FS5
+    # line from the same host parser.
+    from bath_tpu_torch.cli import bathbuild, bathconvert, bathfetch, \
+        bathstat
+    import contextlib
+    import io
+    cal_fns = {"msv_filter_multi": mm.msv_ssv_multi,
+               "vit_filter_multi": mm.vit_ints_multi,
+               "fwd_parser_multi": mm.fwd_pack_scores,
+               "fs3_parser_multi": mm.fs3_pack_scores}
+
+    def tool(main, argv, **kw):
+        """(stdout, wall) of one CLI call; the launch counts start at 0."""
+        for f in cal_fns.values():
+            f.launches = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main([str(a) for a in argv], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if rc:
+            fail(f"{main.__module__} {argv} exited {rc}")
+        return mask_tool(out.getvalue()), wall
+
+    def model_diff(a, b, allowed, what):
+        """The largest tau difference between two model files that may
+        differ only in their DATE lines and in the tau of the <allowed>
+        STATS lines; fails on any other difference or past TAU_TOL."""
+        la, lb = (["" if ln.startswith("DATE") else ln
+                   for ln in Path(x).read_text().splitlines()]
+                  for x in (a, b))
+        if len(la) != len(lb):
+            fail(f"{what}: {len(la)} lines against {len(lb)}")
+        worst, n = 0.0, 0
+        for x, y in zip(la, lb):
+            if x == y:
+                continue
+            fx, fy = x.split(), y.split()
+            if not (x.startswith(allowed) and y.startswith(allowed)
+                    and fx[:-2] == fy[:-2] and fx[-1] == fy[-1]):
+                fail(f"{what}: the files differ outside the f32 gates' "
+                     f"taus: {x!r} against {y!r}")
+            worst = max(worst, abs(float(fx[-2]) - float(fy[-2])))
+            n += 1
+        if worst > TAU_TOL:
+            fail(f"{what}: a tau differs by {worst} > {TAU_TOL}")
+        return worst, n
+
+    def stats_lines(path, key):
+        return sum(ln.startswith(f"STATS LOCAL {key}")
+                   for ln in Path(path).read_text().splitlines())
+
+    build_stats: dict = {}
+    build_table, build_wall = tool(
+        bathbuild.main, ["--backend", "torch", "--device", DEVICE,
+                         built["torch"], sto], stats=build_stats)
+    build_launches = {k: f.launches for k, f in cal_fns.items()}
+    build_err, build_ndiff = model_diff(built["torch"], built["numpy"],
+                                        F32_GATE_LINES, "bathbuild")
+    phase("bathbuild", alignments=len(MQ_MS), nseq=MSA_NSEQ,
+          M=f"{min(MQ_MS)}..{max(MQ_MS)}", fs=True,
+          calibration="200x200 aa (MSV, Viterbi), 200x100 aa (Forward), "
+          "200x300 nt (fs3, fs5)",
+          wall_numpy_s=f"{build_wall_numpy:.3f}",
+          wall_numpy_concurrent=True,
+          wall_torch_s=f"{build_wall:.3f}",
+          **{k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in build_stats.items()},
+          msv_viterbi_fs5_lines="equal as text",
+          gate_tau_lines_differing=build_ndiff,
+          max_tau_diff=f"{build_err:.4f}", tau_warn=TAU_WARN, tau_tol=TAU_TOL,
+          within_warn=build_err <= TAU_WARN,
+          tables_identical=build_table == build_table_numpy,
+          launches=build_launches, card=repr(card))
+    if build_table != build_table_numpy:
+        fail("bathbuild's tables differ between the backends")
+    if stats_lines(built["torch"], "FS5") != len(MQ_MS) \
+            or build_stats.get("cal_fs_serial"):
+        fail(f"bathbuild: {stats_lines(built['torch'], 'FS5')} models with "
+             f"frameshift taus, {build_stats.get('cal_fs_serial')} through "
+             "the serial fallback")
+    if min(build_launches.values()) <= 0:
+        fail(f"a kernel of the calibration never launched in bathbuild: "
+             f"{build_launches}")
+
+    # bathconvert on the numpy-built models without their frameshift
+    # calibration: only the fs3 rows may differ
+    conv_in = fixtures.write_convert_input(str(built["numpy"]),
+                                           str(BUILD / "convert_in.bhmm"))
+    conv = {b: BUILD / f"converted_{b}.bhmm" for b in ("numpy", "torch")}
+    conv_table_numpy, conv_wall_numpy = tool(
+        bathconvert.main, ["--backend", "numpy", conv["numpy"], conv_in])
+    conv_stats: dict = {}
+    conv_table, conv_wall = tool(
+        bathconvert.main, ["--backend", "torch", "--device", DEVICE,
+                           conv["torch"], conv_in], stats=conv_stats)
+    conv_launches = {"fs3_parser_multi": mm.fs3_pack_scores.launches}
+    conv_err, conv_ndiff = model_diff(conv["torch"], conv["numpy"],
+                                      F32_GATE_LINES[1:], "bathconvert")
+    phase("bathconvert", models=len(MQ_MS),
+          wall_numpy_s=f"{conv_wall_numpy:.3f}",
+          wall_numpy_concurrent=False,
+          wall_torch_s=f"{conv_wall:.3f}",
+          **{k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in conv_stats.items()},
+          fs3_lines_differing=conv_ndiff, max_tau_diff=f"{conv_err:.4f}",
+          tau_tol=TAU_TOL,
+          tables_identical=conv_table == conv_table_numpy,
+          launches=conv_launches, card=repr(card))
+    if conv_table != conv_table_numpy:
+        fail("bathconvert's tables differ between the backends")
+    if stats_lines(conv["torch"], "FS3") != len(MQ_MS):
+        fail("bathconvert left models without frameshift taus")
+    if conv_launches["fs3_parser_multi"] <= 0:
+        fail("bathconvert never launched the fs3 gate")
+
+    # bathstat and bathfetch on both built files: nothing they print
+    # holds a tau, so the output is the same (the fetched model but for
+    # its gate taus).  The fetched model, as an HMMER3/f file without
+    # frameshift calibration, through bathconvert on both backends in
+    # this process.
+    stat = {b: tool(bathstat.main, [built[b]])[0] for b in built}
+    fetched = {}
+    for b in built:
+        tool(bathfetch.main, ["--index", built[b]])
+        fetched[b] = BUILD / f"fetched_{b}.bhmm"
+        tool(bathfetch.main, ["-o", fetched[b], built[b], msa_names[29]])
+    fetch_err, _ = model_diff(fetched["torch"], fetched["numpy"],
+                              F32_GATE_LINES, "bathfetch")
+    h3_in = fixtures.write_convert_input(str(fetched["numpy"]),
+                                         str(BUILD / "fetched.hmm"),
+                                         hmmer3=True)
+    for b in built:
+        tool(bathconvert.main, ["--backend", b, "--device", DEVICE,
+                                BUILD / f"fetched_h3_{b}.bhmm", h3_in])
+    h3_err, _ = model_diff(BUILD / "fetched_h3_torch.bhmm",
+                           BUILD / "fetched_h3_numpy.bhmm",
+                           F32_GATE_LINES[1:], "bathconvert of HMMER3/f")
+    phase("bathstat_bathfetch", bathstat_identical=stat["torch"] ==
+          stat["numpy"], rows=len(stat["torch"].splitlines()),
+          fetched=msa_names[29], fetched_tau_diff=f"{fetch_err:.4f}",
+          fetched_as_hmmer3_converted_tau_diff=f"{h3_err:.4f}")
+    if stat["torch"] != stat["numpy"] \
+            or len(stat["torch"].splitlines()) < len(MQ_MS):
+        fail("bathstat differs between the torch- and the numpy-built file")
+
+    # one bathsearch --fs of the multi-query genome (copies of 12 of the
+    # proteins the alignments were emitted from) with either file: the
+    # same hits
+    def hit_set(tbl):
+        hits = set()
+        for ln in Path(tbl).read_text().splitlines():
+            if ln and not ln.startswith("#"):
+                cols = ln.split()
+                hits.add((cols[3], cols[9], cols[10]))
+        return hits
+
+    hits, search_walls = {}, {}
+    for b in built:
+        tbl = BUILD / f"built_{b}_search.tbl"
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", "torch", "--device", DEVICE,
+                             "--fs", "-o", str(tbl.with_suffix(".out")),
+                             "--tblout", str(tbl), str(built[b]),
+                             mq_fs_fx.fasta_path])
+        torch.cuda.synchronize()
+        search_walls[b] = time.perf_counter() - t
+        if rc != 0:
+            fail(f"bathsearch --fs with the {b}-built file exited {rc}")
+        hits[b] = hit_set(tbl)
+    phase("bathsearch_with_built_models", genome_nt=GENOME_NT,
+          models=len(MQ_MS), hits_torch_built=len(hits["torch"]),
+          hits_numpy_built=len(hits["numpy"]),
+          same_hits=hits["torch"] == hits["numpy"],
+          queries_with_hits=len({h[0] for h in hits["torch"]}),
+          walls_s=",".join(f"{search_walls[b]:.3f}" for b in built))
+    if hits["torch"] != hits["numpy"]:
+        fail(f"bathsearch --fs reports other hits with the torch-built "
+             f"file: {sorted(hits['torch'] ^ hits['numpy'])[:10]}")
+    if len({h[0] for h in hits["torch"]}) < 0.75 * len(MQ_EMBEDDED):
+        fail(f"the built models find only {len(hits['torch'])} hits of "
+             f"{len(MQ_EMBEDDED)} embedded proteins")
 
     # 6. the record
     csrc = "bath_tpu_torch/ops/kernels/csrc/"
@@ -1217,6 +1601,12 @@ def main() -> None:
                              f"bath_tpu/ops/jaxk/multimodel.py:{line}",
                              mq_counts[name], mq_err[name], times[name]))
         # its plain version was timed on this many of the timed items
+        kernels[-1]["plain_items"] = plain_items[name]
+    for name, src, line in (("msv_filter_multi", "msv_filter.cu", 160),
+                            ("vit_filter_multi", "vit_filter.cu", 175)):
+        kernels.append(entry(name, src, f"bath_tpu/evalues_device.py:{line}",
+                             build_launches[name], cal_err[name],
+                             times[name]))
         kernels[-1]["plain_items"] = plain_items[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

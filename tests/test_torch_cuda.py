@@ -11,7 +11,10 @@ the ViterbiFilter and its capture) exactly.  M = 1500 takes the layouts
 with several warps per ORF or DNA window.  The four multi-model entries
 (ops/multimodel.py) are held to their plain versions at the same bounds
 and, item for item, bit for bit to the single-model entries, on one
-batch that mixes seven models of five padded widths.
+batch that mixes seven models of five padded widths.  The two integer
+multi-model entries (MSV/SSV and the ViterbiFilter with a model slot per
+item) are held exactly to their plain versions and to the single-model
+entries, and the device calibration built on them to the host's.
 """
 
 import re
@@ -108,7 +111,7 @@ def int_case(M, tmp_path):
     empty and one 16 500-residue ORF of a small seeded genome."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from bath_tpu.hmmfile import read_hmm
+    from bath_tpu_torch.hmmfile import read_hmm
     fx = fixtures.write_fixture(M, 30_000, 4, M, calibrate=False,
                                 directory=tmp_path)
     om = fixtures.search_profile(read_hmm(fx.hmm_path))
@@ -356,3 +359,77 @@ def test_multiquery_on_card_matches_host(tmp_path, monkeypatch, mode):
     else:
         assert mm.domdec_pack_batch.launches > 0
         assert stats["domdec_ok"] == stats["domdec_items"] > 0
+
+
+@pytest.mark.parametrize("kind", ["msv", "vit"])
+def test_int_multi_vs_plain_and_single(kind):
+    """The integer multi-model entries, seven models of five padded
+    widths (one to two warps an item): random and homolog-bearing items
+    of each model's own, and one shared batch that every model reads at
+    repeated offsets, exactly equal to the plain version and, model by
+    model, to the single-model entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(MULTI_MS, 6, 300, 11)
+    own = [row[:n] for row, n in zip(dsq, lens)]
+    shared = own[:5]
+    flat, offs, ln = ts.pack_stream(own)
+    # the shared items: every model over the first five rows again
+    offs = np.r_[offs, np.tile(offs[:5], len(MULTI_MS))]
+    ln = np.r_[ln, np.tile(ln[:5], len(MULTI_MS))].astype(np.int32)
+    slot = np.r_[slot, np.repeat(np.arange(len(MULTI_MS)), len(shared))]
+    flat, offs, ln_t = (torch.from_numpy(a).cuda() for a in (flat, offs, ln))
+    if kind == "msv":
+        params = [ts.msv_params(om, "cuda") for om in oms]
+        pack, call = mm.build_msv_pack(params), mm.msv_ssv_multi
+        ref, single = mm.msv_ssv_multi_ref, ts.msv_ssv
+        word = np.array([params[g].tjb_for([n])[0]
+                         for g, n in zip(slot, ln)], np.int32)
+    else:
+        params = [tv.vit_params(om, "cuda") for om in oms]
+        pack, call = mm.build_vit_pack(params), mm.vit_ints_multi
+        ref, single = mm.vit_ints_multi_ref, tv.vit_ints
+        word = np.array([params[g].move_for([n])[0]
+                         for g, n in zip(slot, ln)], np.int32)
+    word = torch.from_numpy(word).cuda()
+    before = call.launches
+    got = call(pack, flat, offs, ln_t, word, slot)
+    torch.cuda.synchronize()
+    assert call.launches == before + len(pack.classes) == before + 5
+    for a, b in zip(got, ref(pack, flat, offs, ln_t, word, slot)):
+        assert torch.equal(a, b)
+    for g, rows in per_model_rows(slot):
+        one = single(flat, offs[rows].contiguous(), ln_t[rows].contiguous(),
+                     word[rows].contiguous(), params[g])
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[rows]), MULTI_MS[g]
+
+
+def test_device_calibration_on_card_matches_host():
+    """calibrate_many_device on the card against the host calibrate:
+    mus and the fs5 tau equal, the f32 gates' taus within 0.02."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from bath_tpu_torch import constants as C
+    from bath_tpu_torch.evalues import CalibrateConfig, calibrate
+    from bath_tpu_torch.evalues_device import calibrate_many_device
+    rng = np.random.default_rng(3)
+    hmms = [fixtures.make_query(M, rng, calibrate=False, fs=True)[0]
+            for M in (45, 300, 1100)]
+    cfg = CalibrateConfig(fs=True)
+    host = copy.deepcopy(hmms)
+    for h in host:
+        calibrate(h, cfg)
+    counters = (mm.msv_ssv_multi, mm.vit_ints_multi, mm.fwd_pack_scores,
+                mm.fs3_pack_scores)
+    for f in counters:
+        f.launches = 0
+    calibrate_many_device(hmms, cfg, device="cuda")
+    assert all(f.launches > 0 for f in counters)
+    for a, b in zip(host, hmms):
+        for k in (C.EV_MMU, C.EV_VMU, C.EV_FTAUFS5, C.EV_MLAMBDA):
+            assert a.evparam[k] == b.evparam[k], (a.M, k)
+        for k in (C.EV_FTAU, C.EV_FTAUFS3):
+            assert abs(a.evparam[k] - b.evparam[k]) <= 0.02, (a.M, k)

@@ -3,8 +3,10 @@ and no JAX, and its host code is a faithful copy of the reference's.
 
 - Static: no module of the port, and not ``chip_smoke.py``, has an
   import of ``bath_tpu`` or ``jax``.
-- Dynamic: the port's CLI (single- and multi-query, standard and
-  ``--fs``, ``--device cpu``, and its own ``--backend numpy``), its
+- Dynamic: the port's CLIs (bathsearch single- and multi-query,
+  standard and ``--fs``, ``--device cpu``, and its own ``--backend
+  numpy``; bathbuild and bathconvert ``--backend torch --device cpu``,
+  bathstat, bathfetch), its
   fixtures and ``chip_smoke``'s module body run in a subprocess where
   ``bath_tpu``, ``jax`` and ``jaxlib`` are unimportable, and leave none
   of them in ``sys.modules``.
@@ -38,7 +40,7 @@ prior msa builder evalues scorematrix gencode sequence profile oprofile
 scoredata phasestats ops/reference/__init__ ops/reference/filters
 ops/reference/fwdback ops/reference/fwdback_fs native/__init__ domaindef
 ensemble tracealign alidisplay tophits pipeline pipeline_fs
-cli/_io""".split()
+cli/_io emit ssi cli/bathstat cli/bathfetch""".split()
 
 # the reference's comments point into a checkout of the C sources by an
 # absolute path; the copies keep the path inside that checkout
@@ -55,6 +57,14 @@ LINES = {
         "# native C++ fast path (bath_tpu_torch/native, src at "
         "native/src/bathio.cpp)": "names its own package",
     },
+    "emit": {"hmmemit program).": "one word of the docstring"},
+    "ssi": {
+        "Keys are sorted bytewise (the reference binary-searches).  "
+        "This module": "named the other package",
+        "earlier versions are still read.": "named the other package",
+    },
+    "cli/bathstat": {'"(bath_tpu_torch)")': "names its own package"},
+    "cli/bathfetch": {'"(bath_tpu_torch)")': "names its own package"},
     "ops/reference/filters": {
         "(ops.ssv.ssv_capture).\"\"\"": "named the jnp capture kernel",
         "event kernel (ops.vit.vit_capture).  Returns":
@@ -260,6 +270,40 @@ FLUSH_MULTI = [
 ] + [(f'_DEV_MIN["{k}"]', f'_dev_min("{k}")')
      for k in ("fwd", "domdec", "fs3", "fs3dd")]
 
+def backend_options(stmt):
+    # bathbuild/bathconvert build_parser: --backend names torch, and the
+    # port adds --device
+    if isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call):
+        args = stmt.value.args
+        return bool(args) and isinstance(args[0], ast.Constant) \
+            and args[0].value in ("--backend", "--device")
+    return False
+
+
+# cli/bathbuild.py main and cli/bathconvert.py main: the device backend
+# is named torch, takes --device and a stats dict, and is called without
+# the reference's stall deadline (run_guarded): a CUDA error propagates.
+BUILD_MAIN = [
+    ('def main(argv=None) -> int:', 'def main(argv=None, stats=None) -> int:'),
+    ('args.backend == "jax"', 'args.backend == "torch"'),
+    ('run_guarded(\n                    lambda: calibrate_many_device('
+     'hmms, ccfg),\n                    len(hmms), "device calibration")',
+     'calibrate_many_device(hmms, ccfg, device=args.device, stats=stats)'),
+    ('run_guarded(\n                    lambda: calibrate_many_device(\n'
+     '                        [h for h, _, _ in rows], ccfg),\n'
+     '                    len(rows), "device calibration")',
+     'calibrate_many_device([h for h, _, _ in rows], ccfg, '
+     'device=args.device, stats=stats)'),
+]
+CONVERT_MAIN = [
+    ('def main(argv=None) -> int:', 'def main(argv=None, stats=None) -> int:'),
+    ('args.backend == "jax"', 'args.backend == "torch"'),
+    ('run_guarded(lambda: convert_fs_taus_device(fs_items, r, bg),\n'
+     '                    len(fs_items), "device fs-tau calibration")',
+     'convert_fs_taus_device(fs_items, r, bg, device=args.device, '
+     'stats=stats)'),
+]
+
 FUNCTIONS = [
     # (reference module, port module, name, statements dropped, textual
     #  substitutions made in the reference first)
@@ -285,7 +329,22 @@ FUNCTIONS = [
     ("multiquery", "multiquery", "_entry_views", never, []),
     ("multiquery", "multiquery", "flush_multi", phase_marks,
      FLUSH_MULTI),
-]
+    ("cli/bathbuild", "cli/bathbuild", "_build_task", never, []),
+    ("cli/bathbuild", "cli/bathbuild", "build_parser", backend_options,
+     [("(TPU-native bath_tpu)", "(bath_tpu_torch)")]),
+    ("cli/bathbuild", "cli/bathbuild", "config_from_args", never, []),
+    ("cli/bathbuild", "cli/bathbuild", "main", from_import, BUILD_MAIN),
+    ("cli/bathbuild", "cli/bathbuild", "cli_entry", never, []),
+    ("cli/bathconvert", "cli/bathconvert", "build_parser", backend_options,
+     [("(TPU-native bath_tpu)", "(bath_tpu_torch)")]),
+    ("cli/bathconvert", "cli/bathconvert", "main", from_import,
+     CONVERT_MAIN),
+    ("cli/bathconvert", "cli/bathconvert", "cli_entry", never, []),
+] + [("evalues_device", "evalues_device", name, never, [])
+     for name in ("_clone_rng", "_SharedDraws", "_sample_batch",
+                  "_sample_dna_batch", "shared_draws", "_exp_tau",
+                  "_fs5_xv_host", "_finish_convert_model",
+                  "_fs_taus_serial")]
 
 
 @pytest.mark.parametrize("ref_mod,port_mod,name,drop,subs", FUNCTIONS,
@@ -393,6 +452,22 @@ CASES = {
     "cli-numpy-backend": (SEARCH.format(
         args='"--backend", "numpy"', fixture="mq", check="stats == {}"),
         "RUN 0 2 True"),
+    "bathbuild-torch": ('''
+from bath_tpu_torch.cli import bathbuild, bathconvert, bathfetch, bathstat
+sto, names = fixtures.write_msa_fixture([40, 70], 8, 3, directory=sys.argv[1])
+out = sys.argv[1] + "/built.bhmm"
+stats = {}
+rc = bathbuild.main(["--backend", "torch", "--device", "cpu", "-o",
+                     sys.argv[1] + "/build.log", out, sto], stats=stats)
+src = fixtures.write_convert_input(out, sys.argv[1] + "/conv_in.bhmm")
+rc2 = bathconvert.main(["--backend", "torch", "--device", "cpu",
+                        sys.argv[1] + "/conv.bhmm", src])
+rc3 = bathstat.main([out])
+rc4 = bathfetch.main(["-o", sys.argv[1] + "/one.bhmm", out, names[1]])
+fs5 = sum(ln.startswith("STATS LOCAL FS5")
+          for ln in open(sys.argv[1] + "/conv.bhmm"))
+print("RUN", rc, rc2, rc3, rc4, stats["cal_models"], fs5)
+''', "RUN 0 0 0 0 2 2"),
     "chip_smoke-body": ('''
 import chip_smoke
 print("RUN", callable(chip_smoke.main))
