@@ -632,6 +632,21 @@ def sample_windows(fasta_path: str, n: int, length: int,
             for s in rng.integers(0, len(seq) - length, n)]
 
 
+def longest_orfs(windows) -> list[np.ndarray]:
+    """The longest six-frame ORF (int8 residues) of each DNA window."""
+    from .gencode import extract_orfs
+    from .sequence import revcomp
+    gcode = GeneticCode.create(1)
+    gcode.set_initiator_any()
+    out = []
+    for w in windows:
+        w = np.asarray(w, np.int32)
+        orfs = [o.dsq for d, rev in ((w, False), (revcomp(w), True))
+                for o in extract_orfs(gcode, d, minlen=1, is_revcomp=rev)]
+        out.append(np.asarray(max(orfs, key=len), np.int8))
+    return out
+
+
 def frameshifts_found(fstblout_path: str, fx: Fixture) -> int:
     """Frameshifted copies that a hit listed in an ``--fstblout`` table
     overlaps (its alignment's nt range)."""

@@ -11,8 +11,9 @@ device the loader raises: it never returns None and no caller falls
 back to the plain versions.
 
 The wrappers allocate outputs with ``torch.empty``/``zeros`` on the
-input's device and launch on PyTorch's current stream; they do not
-synchronise.
+input's device and launch (``_launch``) with that device selected, on
+its current stream, so the kernels of several cards run at once; they
+do not synchronise.
 """
 
 from __future__ import annotations
@@ -186,6 +187,15 @@ def lib() -> ctypes.CDLL:
     so.bt_vit_capture.restype = I
     so.bt_vit_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
                                   P, P, P]
+    so.bt_ub_chain.restype = I
+    so.bt_ub_chain.argtypes = [P, P, I, I, I, P]
+    for name in ("bt_ub_onehot_gather", "bt_ub_onehot_mma"):
+        getattr(so, name).restype = I
+        getattr(so, name).argtypes = [P, P, P, I, I, I, I, P]
+    so.bt_ub_overlap.restype = I
+    so.bt_ub_overlap.argtypes = [P, P, P, P, I, I, I, I, P]
+    so.bt_ub_scalars.restype = I
+    so.bt_ub_scalars.argtypes = [P, P, I, I, P]
     _lib = so
     return so
 
@@ -232,8 +242,21 @@ def _check_stream(flat, offs, lens, p, *per_item):
             raise ValueError("every item must lie inside flat")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _launch(name: str, entry, *args) -> None:
+    """Calls the C entry <entry> with <args>, each tensor passed as its
+    data pointer, on the device of its tensors and that device's
+    current stream; raises unless all of them lie on one CUDA device,
+    and on a non-zero cudaError."""
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: the tensors of one launch must lie on "
+                         f"one CUDA device, got {sorted(map(str, devs))}")
+    dev = devs.pop()
+    with torch.cuda.device(dev):
+        err = entry(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, name)
 
 
 def launch_fwd(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
@@ -245,10 +268,8 @@ def launch_fwd(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
     P, _, Mp = layout(p.M)
     etab, ttab = p.padded(Mp)
     out = torch.empty(B, dtype=torch.float32, device=dsq.device)
-    _check(so.bt_fwd_parser(dsq.data_ptr(), lens.data_ptr(), B, L,
-                            etab.data_ptr(), ttab.data_ptr(), p.Kp, Mp, P,
-                            float(nj), out.data_ptr(), _stream()),
-           "fwd_parser")
+    _launch("fwd_parser", so.bt_fwd_parser, dsq, lens, B, L, etab, ttab, p.Kp,
+            Mp, P, float(nj), out)
     return out
 
 
@@ -265,12 +286,8 @@ def launch_domdec(dsq: torch.Tensor, lens: torch.Tensor,
     spec = torch.empty(B, 6, L + 1, dtype=torch.float64, device=dev)
     inc = torch.zeros(3, B, L, dtype=torch.float32, device=dev)
     logz2 = torch.empty(B, 2, dtype=torch.float32, device=dev)
-    _check(so.bt_domdec(dsq.data_ptr(), lens.data_ptr(), B, L,
-                        etab.data_ptr(), ttab.data_ptr(), p.Kp, p.M, Mp, P,
-                        float(nj), spec.data_ptr(), inc[0].data_ptr(),
-                        inc[1].data_ptr(), inc[2].data_ptr(),
-                        logz2.data_ptr(), _stream()),
-           "domdec")
+    _launch("domdec", so.bt_domdec, dsq, lens, B, L, etab, ttab, p.Kp, p.M, Mp,
+            P, float(nj), spec, inc[0], inc[1], inc[2], logz2)
     return inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]
 
 
@@ -284,10 +301,8 @@ def launch_fs3(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
     P, _, Mp = fs3_layout(p.M)
     etab, ttab = p.padded(Mp)
     out = torch.empty(B, dtype=torch.float32, device=dsq.device)
-    _check(so.bt_fs3_parser(dsq.data_ptr(), lens.data_ptr(), B, L,
-                            etab.data_ptr(), ttab.data_ptr(), Mp, P,
-                            float(nj), out.data_ptr(), _stream()),
-           "fs3_parser")
+    _launch("fs3_parser", so.bt_fs3_parser, dsq, lens, B, L, etab, ttab, Mp, P,
+            float(nj), out)
     return out
 
 
@@ -304,12 +319,8 @@ def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
     dev = dsq.device
     spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
     logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
-    _check(so.bt_fs3_domdec(dsq.data_ptr(), lens.data_ptr(), B, L,
-                            etab.data_ptr(), ttab.data_ptr(), p.M, Mp, P,
-                            float(nj), spec[0].data_ptr(),
-                            spec[1].data_ptr(), logz2.data_ptr(),
-                            _stream()),
-           "fs3_domdec")
+    _launch("fs3_domdec", so.bt_fs3_domdec, dsq, lens, B, L, etab, ttab, p.M,
+            Mp, P, float(nj), spec[0], spec[1], logz2)
     return spec[0], spec[1], logz2
 
 
@@ -345,11 +356,9 @@ def launch_fwd_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
     out = torch.empty(B, dtype=torch.float32, device=dsq.device)
     plans = _multi_plans(slot, pack, items_per_block, dsq.device)
     for c, order, blk, nblocks, G in plans:
-        _check(so.bt_fwd_parser_multi(
-            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
-            c.ttab.data_ptr(), pack.Kp, c.Mp, c.P, float(nj), out.data_ptr(),
-            blk.data_ptr(), order.data_ptr(), nblocks, G, _stream()),
-            "fwd_parser_multi")
+        _launch("fwd_parser_multi", so.bt_fwd_parser_multi, dsq, lens, B, L,
+                c.etab, c.ttab, pack.Kp, c.Mp, c.P, float(nj), out, blk, order,
+                nblocks, G)
     return out, len(plans)
 
 
@@ -366,13 +375,9 @@ def launch_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
     logz2 = torch.empty(B, 2, dtype=torch.float32, device=dev)
     plans = _multi_plans(slot, pack, items_per_block, dev)
     for c, order, blk, nblocks, G in plans:
-        _check(so.bt_domdec_multi(
-            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
-            c.ttab.data_ptr(), c.Ms.data_ptr(), pack.Kp, c.Mp, c.P,
-            float(nj), spec.data_ptr(), inc[0].data_ptr(),
-            inc[1].data_ptr(), inc[2].data_ptr(), logz2.data_ptr(),
-            blk.data_ptr(), order.data_ptr(), nblocks, G, _stream()),
-            "domdec_multi")
+        _launch("domdec_multi", so.bt_domdec_multi, dsq, lens, B, L, c.etab,
+                c.ttab, c.Ms, pack.Kp, c.Mp, c.P, float(nj), spec, inc[0],
+                inc[1], inc[2], logz2, blk, order, nblocks, G)
     return (inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]), len(plans)
 
 
@@ -386,11 +391,9 @@ def launch_fs3_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
     out = torch.empty(B, dtype=torch.float32, device=dsq.device)
     plans = _multi_plans(slot, pack, fs3_items_per_block, dsq.device)
     for c, order, blk, nblocks, G in plans:
-        _check(so.bt_fs3_parser_multi(
-            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
-            c.ttab.data_ptr(), pack.Kp, c.Mp, c.P, float(nj), out.data_ptr(),
-            blk.data_ptr(), order.data_ptr(), nblocks, G, _stream()),
-            "fs3_parser_multi")
+        _launch("fs3_parser_multi", so.bt_fs3_parser_multi, dsq, lens, B, L,
+                c.etab, c.ttab, pack.Kp, c.Mp, c.P, float(nj), out, blk, order,
+                nblocks, G)
     return out, len(plans)
 
 
@@ -406,13 +409,9 @@ def launch_fs3_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot,
     logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
     plans = _multi_plans(slot, pack, fs3_items_per_block, dev)
     for c, order, blk, nblocks, G in plans:
-        _check(so.bt_fs3_domdec_multi(
-            dsq.data_ptr(), lens.data_ptr(), B, L, c.etab.data_ptr(),
-            c.ttab.data_ptr(), c.Ms.data_ptr(), pack.Kp, c.Mp, c.P,
-            float(nj), spec[0].data_ptr(), spec[1].data_ptr(),
-            logz2.data_ptr(), blk.data_ptr(), order.data_ptr(), nblocks, G,
-            _stream()),
-            "fs3_domdec_multi")
+        _launch("fs3_domdec_multi", so.bt_fs3_domdec_multi, dsq, lens, B, L,
+                c.etab, c.ttab, c.Ms, pack.Kp, c.Mp, c.P, float(nj), spec[0],
+                spec[1], logz2, blk, order, nblocks, G)
     return (spec[0], spec[1], logz2), len(plans)
 
 
@@ -426,11 +425,8 @@ def launch_msv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     P, _, Mp = layout(p.M)
     tab = p.table(Mp)
     out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
-    _check(so.bt_msv_filter(flat.data_ptr(), offs.data_ptr(),
-                            lens.data_ptr(), tjb.data_ptr(), B,
-                            tab.data_ptr(), p.Kp, p.M, Mp, P, p.base, p.tec,
-                            p.tbm, p.bias, out.data_ptr(), _stream()),
-           "msv_filter")
+    _launch("msv_filter", so.bt_msv_filter, flat, offs, lens, tjb, B, tab,
+            p.Kp, p.M, Mp, P, p.base, p.tec, p.tbm, p.bias, out)
     return out[0], out[1], out[2]
 
 
@@ -443,10 +439,8 @@ def _launch_int_multi(entry: str, flat, offs, lens, per_item, slot, pack):
     out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
     plans = _multi_plans(slot, pack, items_per_block, flat.device)
     for c, order, blk, nblocks, G in plans:
-        _check(fn(flat.data_ptr(), offs.data_ptr(), lens.data_ptr(),
-                  per_item.data_ptr(), B, c.tab.data_ptr(), c.scal.data_ptr(),
-                  pack.Kp, c.Mp, c.P, out.data_ptr(), blk.data_ptr(),
-                  order.data_ptr(), nblocks, G, _stream()), entry)
+        _launch(entry, fn, flat, offs, lens, per_item, B, c.tab, c.scal,
+                pack.Kp, c.Mp, c.P, out, blk, order, nblocks, G)
     return out, len(plans)
 
 
@@ -481,12 +475,8 @@ def launch_ssv_capture(flat: torch.Tensor, offs: torch.Tensor,
     dev = flat.device
     nwin = torch.empty(B, dtype=torch.int32, device=dev)
     caps = torch.zeros(3, B, SSVB_NCAP, dtype=torch.int32, device=dev)
-    _check(so.bt_ssv_capture(flat.data_ptr(), offs.data_ptr(),
-                             lens.data_ptr(), tjb.data_ptr(),
-                             thresh.data_ptr(), B, tab.data_ptr(), p.Kp,
-                             p.M, Mp, P, p.base, p.tbm, p.bias,
-                             nwin.data_ptr(), caps.data_ptr(), _stream()),
-           "ssv_capture")
+    _launch("ssv_capture", so.bt_ssv_capture, flat, offs, lens, tjb, thresh, B,
+            tab, p.Kp, p.M, Mp, P, p.base, p.tbm, p.bias, nwin, caps)
     return nwin, caps[0], caps[1], caps[2]
 
 
@@ -500,11 +490,8 @@ def launch_vit(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     P, _, Mp = layout(p.M)
     tab = p.table(Mp)
     out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
-    _check(so.bt_vit_filter(flat.data_ptr(), offs.data_ptr(),
-                            lens.data_ptr(), move.data_ptr(), B,
-                            tab.data_ptr(), p.Kp, p.M, Mp, P, p.base,
-                            p.emove, p.eloop, out.data_ptr(), _stream()),
-           "vit_filter")
+    _launch("vit_filter", so.bt_vit_filter, flat, offs, lens, move, B, tab,
+            p.Kp, p.M, Mp, P, p.base, p.emove, p.eloop, out)
     return out[0], out[1] != 0, out[2] != 0
 
 
@@ -521,10 +508,76 @@ def launch_vit_capture(flat: torch.Tensor, offs: torch.Tensor,
     dev = flat.device
     ovfrow = torch.empty(B, dtype=torch.int32, device=dev)
     karr = torch.zeros(flat.numel(), dtype=torch.int16, device=dev)
-    _check(so.bt_vit_capture(flat.data_ptr(), offs.data_ptr(),
-                             lens.data_ptr(), move.data_ptr(),
-                             thresh.data_ptr(), B, tab.data_ptr(), p.Kp,
-                             p.M, Mp, P, p.base, p.emove, p.eloop,
-                             ovfrow.data_ptr(), karr.data_ptr(), _stream()),
-           "vit_capture")
+    _launch("vit_capture", so.bt_vit_capture, flat, offs, lens, move, thresh,
+            B, tab, p.Kp, p.M, Mp, P, p.base, p.emove, p.eloop, ovfrow, karr)
     return karr, ovfrow
+
+
+# ---------------------------------------------------------------------
+# ubench.cu: the card's microbenchmarks (``bath_tpu_torch/ubench.py``)
+# ---------------------------------------------------------------------
+def _check_ub(*tensors):
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a {tensors[0].device} tensor")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the microbenchmarks take contiguous tensors")
+
+
+def launch_ub_chain(x: torch.Tensor, nops: int, reps: int) -> torch.Tensor:
+    """ubench.cu bt_ub_chain: x [Mt, Bt] f32 stepped <reps> times."""
+    _check_ub(x)
+    out = torch.empty_like(x)
+    _launch("ub_chain", lib().bt_ub_chain, x, out, x.numel(), int(nops),
+            int(reps))
+    return out
+
+
+UB_MAX_MT = 136                 # rows of t the onehot entries take
+
+
+def launch_ub_onehot(t: torch.Tensor, idx: torch.Tensor,
+                     mma: bool) -> torch.Tensor:
+    """ubench.cu bt_ub_onehot_mma (tensor cores) or bt_ub_onehot_gather
+    (by index): acc [Mt, Bt] f32 = sum over reps i of t[:, idx[i]]; an
+    index outside [0, n) adds nothing (not checked here: that would
+    read the indices back and stall the host on every call)."""
+    _check_ub(t, idx)
+    Mt, n = t.shape
+    reps, Bt = idx.shape
+    if Mt > UB_MAX_MT or (mma and Bt % 16):
+        raise ValueError(f"the onehot entries take Mt <= {UB_MAX_MT} (and "
+                         f"Bt a multiple of 16 on the tensor cores), got "
+                         f"[{Mt}, {Bt}]")
+    out = torch.empty(Mt, Bt, dtype=torch.float32, device=t.device)
+    name = "ub_onehot_mma" if mma else "ub_onehot_gather"
+    _launch(name, getattr(lib(), "bt_" + name), t, idx, out, Mt, n, Bt,
+            reps)
+    return out
+
+
+OVERLAP_MODES = {"chain": 1, "dot": 2, "both": 3}
+
+
+def launch_ub_overlap(g: torch.Tensor, x: torch.Tensor, mode: str,
+                      reps: int, y0=None) -> torch.Tensor:
+    """ubench.cu bt_ub_overlap: acc + yacc[:Mt], [Mt, Bt] f32; yacc
+    starts at 0.3, or at <y0> [2Mt, Bt] bf16."""
+    _check_ub(g, x, *(() if y0 is None else (y0,)))
+    Mt, Bt = x.shape
+    if Mt % 8 or Bt % 32 or Mt > UB_MAX_MT:
+        raise ValueError(f"the overlap entry takes Mt a multiple of 8 up "
+                         f"to {UB_MAX_MT} and Bt of 32, got [{Mt}, {Bt}]")
+    out = torch.empty_like(x)
+    _launch("ub_overlap", lib().bt_ub_overlap, g, x, y0, out, Mt, Bt,
+            OVERLAP_MODES[mode], int(reps))
+    return out
+
+
+def launch_ub_scalars(Bt: int, reps: int, device) -> torch.Tensor:
+    """ubench.cu bt_ub_scalars: row 0 [1, Bt] f32 of the stepped
+    scratch."""
+    sp = torch.full((32, Bt), 0.3, dtype=torch.float32, device=device)
+    out = torch.empty(1, Bt, dtype=torch.float32, device=device)
+    _check_ub(sp, out)
+    _launch("ub_scalars", lib().bt_ub_scalars, sp, out, Bt, int(reps))
+    return out

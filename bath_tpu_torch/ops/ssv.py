@@ -70,6 +70,18 @@ class MSVParams:
     def device(self) -> torch.device:
         return self.sbv.device
 
+    def to(self, device) -> "MSVParams":
+        """A copy of these parameters on <device> (itself when they lie
+        there already), with the profile that gives ``tjb_for``."""
+        if torch.device(device) == self.device:
+            return self
+        q = MSVParams.from_arrays(self.sbv.cpu().numpy(),
+                                  self.rbv.cpu().numpy(), self.base,
+                                  self.tec, self.tbm, self.bias, self.scale,
+                                  device)
+        q._om = self._om
+        return q
+
     def tjb_for(self, lens) -> np.ndarray:
         """[B] int32: the length-dependent J->B byte of each item, as
         ``MSVExactMB.tjb_for`` (``om._unbiased_byteify``), cached per

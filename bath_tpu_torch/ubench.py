@@ -1,0 +1,424 @@
+"""The card's own microbenchmarks: the four questions that
+``scripts/ubench_vpu.py`` asks of the TPU, asked of the H100.
+
+    python -m bath_tpu_torch.ubench [chain|onehot|overlap|scalars|all]
+
+Counterpart of the script's four Pallas kernels, with their functions,
+types, outputs and shapes (``Mt, Bt = 136, 1024``, ``REPS = 512``):
+
+- ``chain`` (``bench_chain``): ``REPS`` x {``nops`` x ``v = v*v + 0.25``;
+  ``v *= 0.5``} on an f32 ``[Mt, Bt]`` tile, ``nops`` 4 and 16: the
+  latency and rate of a dependent f32 chain;
+- ``onehot`` (``bench_onehot``): ``acc[m, b] = sum_i t[m, idx[i, b]]``
+  with ``t [Mt, n]`` bf16, ``idx [REPS, Bt]`` int32, ``n`` 17, 65 and
+  257 (the fs3 gate's codon tables): the table read by index
+  (``onehot_gather``, how the ported gates read emissions) against the
+  one-hot product on the tensor cores (``onehot_mma``, how the TPU
+  gates read them);
+- ``overlap`` (``bench_overlap``): per step, a 12-op chain on ``acc
+  [Mt, Bt]`` f32 and ``yacc [2Mt, Bt] <- bf16((1e-3 g @ yacc)^2 +
+  0.25)`` with ``g [2Mt, 2Mt]`` bf16, modes chain, dot and both: does
+  the SM overlap a tensor-core product with an independent FMA chain;
+- ``scalars`` (``bench_scalars``): a ``[32, Bt]`` scratch from 0.3,
+  rows 0-7 one by one and the block of rows 8-15 stepped ``v*v + 0.25``
+  per step, row 0 out; the input ``x`` is read by nothing, as in the
+  script.
+
+Each case has its plain PyTorch version (``*_ref``) and a wrapper with a
+``.launches`` count: a CUDA tensor launches the hand-written kernel of
+``ops/kernels/csrc/ubench.cu`` or raises, a CPU tensor runs the plain
+version.  ``drive`` times the wrappers by CUDA events after one warm-up
+call, at the script's shapes and at ``Bt = 4096``, which fills the card
+(``[136, 1024]`` is 139 264 threads, about half of its 132 x 2048), and
+the chain also on one warp (the latency of a lone chain, what a gate's
+row chain runs at).  ``main`` prints the card's name and power limit,
+then one JSON line per case.  Without a CUDA device it raises.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+MT, BT, REPS = 136, 1024, 512
+BT_FULL = 4096
+CHAIN_NOPS = (4, 16)
+ONEHOT_N = (17, 65, 257)
+OVERLAP_NOPS = 12
+OVERLAP_MODES = ("chain", "dot", "both")
+CASES = ("chain", "onehot", "overlap", "scalars")
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory, float32 outside the tensor cores, bf16 on the tensor cores.
+# chip_smoke.py's bounds use them too.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+
+
+# ---------------------------------------------------------------------
+# Plain PyTorch versions.  The tests hold them against the script's
+# Pallas kernels in interpret mode, and chip_smoke.py holds the CUDA
+# kernels against them on the card.  The matrix product of
+# ``overlap_ref`` is f32 (no TF32) on bf16 operands, exact products.
+# ---------------------------------------------------------------------
+def chain_ref(x: torch.Tensor, nops: int, reps: int = REPS) -> torch.Tensor:
+    v = x.clone()
+    for _ in range(reps):
+        for _ in range(nops):
+            v = v * v + 0.25
+        v = v * 0.5
+    return v
+
+
+def onehot_ref(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """acc [Mt, Bt] f32, summed in step order."""
+    tf, cols = t.float(), idx.long()
+    acc = torch.zeros(t.shape[0], idx.shape[1], dtype=torch.float32,
+                      device=t.device)
+    for i in range(idx.shape[0]):
+        acc = acc + tf[:, cols[i]]
+    return acc
+
+
+def overlap_ref(g: torch.Tensor, x: torch.Tensor, mode: str,
+                reps: int = REPS, y0=None) -> torch.Tensor:
+    """yacc starts at 0.3, as in the script, or at <y0> [2Mt, Bt]
+    bf16."""
+    Mt, Bt = x.shape
+    acc = x.clone()
+    yacc = torch.full((2 * Mt, Bt), 0.3, dtype=torch.bfloat16,
+                      device=x.device) if y0 is None else y0.clone()
+    gf = g.float()
+    for _ in range(reps):
+        if mode != "chain":
+            y = (gf @ yacc.float()) * 1e-3
+            yacc = (y * y + 0.25).to(torch.bfloat16)
+        if mode != "dot":
+            v = acc
+            for _ in range(OVERLAP_NOPS):
+                v = v * v + 0.25
+            acc = v * 0.5
+    return acc + yacc[:Mt].float()
+
+
+def scalars_ref(x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    sp = torch.full((32, x.shape[1]), 0.3, dtype=torch.float32,
+                    device=x.device)
+    for _ in range(reps):
+        for r in range(8):
+            sp[r] = sp[r] * sp[r] + 0.25
+        sp[8:16] = sp[8:16] * sp[8:16] + 0.25
+    return sp[0:1].clone()
+
+
+# ---------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------
+def _check(name: str, t: torch.Tensor, dtype, ndim: int = 2) -> None:
+    if t.dim() != ndim or t.dtype != dtype:
+        raise ValueError(f"{name} must be {ndim}-D {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def chain(x: torch.Tensor, nops: int, reps: int = REPS) -> torch.Tensor:
+    """#7 on ``x [Mt, Bt]`` f32."""
+    _check("x", x, torch.float32)
+    if nops not in CHAIN_NOPS:
+        raise ValueError(f"nops must be one of {CHAIN_NOPS}")
+    if x.device.type == "cpu":
+        return chain_ref(x, nops, reps)
+    from .ops.kernels import loader
+    out = loader.launch_ub_chain(x, nops, reps)
+    chain.launches += 1
+    return out
+
+
+def _onehot_args(t: torch.Tensor, idx: torch.Tensor) -> None:
+    _check("t", t, torch.bfloat16)
+    _check("idx", idx, torch.int32)
+    if t.device != idx.device:
+        raise ValueError(f"t on {t.device}, idx on {idx.device}")
+
+
+def onehot_gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """#8, the table read by index: acc [Mt, Bt] f32."""
+    _onehot_args(t, idx)
+    if t.device.type == "cpu":
+        return onehot_ref(t, idx)
+    from .ops.kernels import loader
+    out = loader.launch_ub_onehot(t, idx, mma=False)
+    onehot_gather.launches += 1
+    return out
+
+
+def onehot_mma(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """#8, the one-hot product on the tensor cores: acc [Mt, Bt] f32."""
+    _onehot_args(t, idx)
+    if t.device.type == "cpu":
+        return onehot_ref(t, idx)
+    from .ops.kernels import loader
+    out = loader.launch_ub_onehot(t, idx, mma=True)
+    onehot_mma.launches += 1
+    return out
+
+
+def overlap(g: torch.Tensor, x: torch.Tensor, mode: str,
+            reps: int = REPS, y0=None) -> torch.Tensor:
+    """#9: acc + yacc[:Mt], [Mt, Bt] f32, ``g [2Mt, 2Mt]`` bf16; yacc
+    starts at 0.3 (the script's function) or at <y0> [2Mt, Bt] bf16."""
+    _check("g", g, torch.bfloat16)
+    _check("x", x, torch.float32)
+    if mode not in OVERLAP_MODES or g.shape != (2 * x.shape[0],) * 2:
+        raise ValueError(f"mode must be one of {OVERLAP_MODES} and g "
+                         f"[2Mt, 2Mt]; got {mode!r}, {tuple(g.shape)}")
+    if y0 is not None:
+        _check("y0", y0, torch.bfloat16)
+        if y0.shape != (2 * x.shape[0], x.shape[1]):
+            raise ValueError(f"y0 must be [2Mt, Bt], got {tuple(y0.shape)}")
+    if x.device.type == "cpu":
+        return overlap_ref(g, x, mode, reps, y0)
+    from .ops.kernels import loader
+    out = loader.launch_ub_overlap(g, x, mode, reps, y0)
+    overlap.launches += 1
+    return out
+
+
+def scalars(x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """#10: row 0 [1, Bt] f32; <x [1, Bt]> gives the width and the
+    device, as the script's input, and is read by nothing."""
+    _check("x", x, torch.float32)
+    if x.device.type == "cpu":
+        return scalars_ref(x, reps)
+    from .ops.kernels import loader
+    out = loader.launch_ub_scalars(x.shape[1], reps, x.device)
+    scalars.launches += 1
+    return out
+
+
+WRAPPERS = (chain, onehot_gather, onehot_mma, overlap, scalars)
+for _w in WRAPPERS:
+    _w.launches = 0             # CUDA launches through this wrapper
+
+
+# ---------------------------------------------------------------------
+# Inputs, bounds, timing
+# ---------------------------------------------------------------------
+def bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def inputs(case: str, Mt: int = MT, Bt: int = BT, reps: int = REPS,
+           n: int = ONEHOT_N[-1], seed: int = 0) -> tuple:
+    """Seeded CPU inputs of one case: chain, overlap and scalars take x
+    in (0, 0.5), where ``v*v + 0.25`` stays below its fixed point 0.5
+    (past it the chain grows to inf); onehot a normal bf16 table
+    and uniform indices; overlap a bf16 g uniform in [0, 6), which keeps
+    yacc's map v -> (0.8 v)^2 + 0.25 at a stable fixed point (~0.32)
+    with rows that differ."""
+    rng = np.random.default_rng(seed)
+    if case == "onehot":
+        return (bf16(rng.standard_normal((Mt, n))),
+                torch.from_numpy(rng.integers(0, n, (reps, Bt),
+                                              dtype=np.int32)))
+    shape = (1, Bt) if case == "scalars" else (Mt, Bt)
+    x = torch.from_numpy(rng.uniform(0.01, 0.49, shape).astype(np.float32))
+    if case == "overlap":
+        return bf16(rng.uniform(0.0, 6.0, (2 * Mt, 2 * Mt))), x
+    return (x,)
+
+
+def overlap_start(Mt: int = MT, Bt: int = BT, seed: int = 1) -> torch.Tensor:
+    """A yacc start [2Mt, Bt] bf16 whose columns differ: column c is
+    s_c in (0, 0.5) times u in (0.5, 1.5) per element, so that after a
+    step with ``inputs("overlap")``'s g a column's yacc lies anywhere in
+    [0.25, ~0.48] by its s_c (below 0.5, where a bf16 ulp is 2**-9, as
+    at the script's fixed point).  From the script's start of 0.3 every
+    column stays equal, and a check could not see the columns' mapping
+    in the product; from this one it can, for the few steps before yacc
+    reaches its fixed point."""
+    rng = np.random.default_rng(seed)
+    return bf16(rng.uniform(0.0, 0.5, (1, Bt))
+                * rng.uniform(0.5, 1.5, (2 * Mt, Bt)))
+
+
+def bound(case: str, Mt: int, Bt: int, reps: int, nops: int = 0,
+          n: int = 0, mode: str = ""):
+    """(bound_ms, bound_by): the least time the card could take for the
+    case's function at its published peaks: the bytes of each input
+    read once and each output written once, and the operations the
+    function needs of each type (f32 on the CUDA cores, bf16 products
+    on the tensor cores; an FMA is two) over that type's rate; the
+    largest of the three.  The one-hot sum needs one f32 add per
+    element and step, whichever entry computes it (``tc_bound_ms`` is
+    the tensor-core entry's own product)."""
+    f32 = tc = 0.0
+    if case == "chain":
+        f32 = Mt * Bt * reps * (2 * nops + 1)
+        nbytes = 2 * 4 * Mt * Bt
+    elif case == "onehot":
+        f32 = Mt * Bt * reps
+        nbytes = 2 * Mt * n + 4 * reps * Bt + 4 * Mt * Bt
+    elif case == "overlap":
+        if mode != "chain":
+            tc = 2 * (2 * Mt) ** 2 * Bt * reps
+            f32 += 3 * 2 * Mt * Bt * reps
+        if mode != "dot":
+            f32 += Mt * Bt * reps * (2 * OVERLAP_NOPS + 1)
+        nbytes = 2 * (2 * Mt) ** 2 + 2 * 4 * Mt * Bt
+    else:
+        f32 = 2 * 16 * Bt * reps
+        nbytes = 4 * Bt
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "operations": max(f32 / F32_OPS_PER_S, tc / BF16_TC_OPS_PER_S)}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by
+
+
+def tc_bound_ms(Mt: int, Bt: int, reps: int, n: int) -> float:
+    """The one-hot product's own work on the tensor cores, 2 n Mt Bt
+    reps bf16 operations over the card's dense bf16 rate: what
+    ``bt_ub_onehot_mma`` asks of them, not a bound of the function
+    (that is ``bound``'s, one add per element and step).  ``mma.sync``
+    does not reach that rate (only ``wgmma`` does): the share is
+    against the card, not the instruction."""
+    return 1e3 * 2 * n * Mt * Bt * reps / BF16_TC_OPS_PER_S
+
+
+def onehot_mma_tol(ref: torch.Tensor, reps: int = REPS) -> float:
+    """The tensor-core entry's bound against the plain version: the
+    tensor cores accumulate in f32 but do not round each step's add as
+    an IEEE add does, so each of the <reps> steps may leave an ulp of the
+    largest |acc|."""
+    return reps * 2.0 ** -23 * float(ref.abs().max())
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over <reps> calls, by CUDA events,
+    after one warm-up call.  The card first sleeps long enough for the
+    host to queue all <reps> calls behind it, so a kernel shorter than
+    its call's host overhead (~30-50 us a call) is timed by itself and
+    not by the host.  A call that reads the device back before it
+    launches (the input checks of the search entries' wrappers) waits
+    for the sleep and for the calls before it, so its time includes
+    its host time all the same."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e5) * reps)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+# ---------------------------------------------------------------------
+# The drive
+# ---------------------------------------------------------------------
+def drive(cases=CASES) -> list[dict]:
+    """Times every case's kernel at [MT, BT] and [MT, BT_FULL] (and the
+    chain on one warp), REPS steps a call, each call ten times: one
+    record a case and shape, with ``ms``, ``bound_ms``, ``bound_by`` and
+    the script's derived figure."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the microbenchmarks time the card: no CUDA "
+                           "device")
+    dev = torch.device("cuda")
+
+    def on(*ts):
+        return [t.to(dev) for t in ts]
+
+    def record(case, entry, ms, **shape):
+        b_ms, by = bound(case, **shape)
+        return {"case": case, "entry": entry, **shape, "ms": ms,
+                "bound_ms": b_ms, "bound_by": by}
+
+    Mt, reps, timing_reps, seed = MT, REPS, 10, 0
+    recs = []
+    shapes = [(Mt, Bt) for Bt in (BT, BT_FULL)]
+    for M, Bt in shapes + [(1, 32)] if "chain" in cases else []:
+        x, = on(*inputs("chain", M, Bt, reps, seed=seed))
+        for nops in CHAIN_NOPS:
+            ms = cuda_ms(lambda: chain(x, nops, reps), timing_reps)
+            r = record("chain", "bt_ub_chain", ms, Mt=M, Bt=Bt, reps=reps,
+                       nops=nops)
+            # the script's ns per [Mt, Bt]-op: every element takes one
+            # dependent step of its chain per op
+            r["ns_per_step"] = 1e6 * ms / (reps * (nops + 1))
+            r["shape"] = "one warp" if M * Bt == 32 else "tile"
+            recs.append(r)
+    for M, Bt in shapes:
+        if "onehot" in cases:
+            for n in ONEHOT_N:
+                t, idx = on(*inputs("onehot", M, Bt, reps, n=n, seed=seed))
+                for mma, fn in ((False, onehot_gather), (True, onehot_mma)):
+                    ms = cuda_ms(lambda: fn(t, idx), timing_reps)
+                    r = record("onehot", "bt_ub_" + fn.__name__, ms, Mt=M,
+                               Bt=Bt, reps=reps, n=n)
+                    r["mma"] = mma
+                    if mma:
+                        r["tc_bound_ms"] = tc_bound_ms(M, Bt, reps, n)
+                    r["ns_per_pos"] = 1e6 * ms / reps
+                    recs.append(r)
+        if "overlap" in cases:
+            g, x = on(*inputs("overlap", M, Bt, reps, seed=seed))
+            per = {}
+            for mode in OVERLAP_MODES:
+                ms = cuda_ms(lambda: overlap(g, x, mode, reps), timing_reps)
+                per[mode] = 1e6 * ms / reps
+                r = record("overlap", "bt_ub_overlap", ms, Mt=M, Bt=Bt,
+                           reps=reps, mode=mode)
+                r["ns_per_step"] = per[mode]
+                recs.append(r)
+            ideal, serial = max(per["chain"], per["dot"]), \
+                per["chain"] + per["dot"]
+            recs[-1].update(
+                ideal_ns=ideal, serial_ns=serial,
+                hidden_share=(serial - per["both"]) / min(per["chain"],
+                                                          per["dot"]))
+        if "scalars" in cases:
+            x, = on(*inputs("scalars", M, Bt, reps, seed=seed))
+            ms = cuda_ms(lambda: scalars(x, reps), timing_reps)
+            r = record("scalars", "bt_ub_scalars", ms, Mt=M, Bt=Bt,
+                       reps=reps)
+            r["ns_per_iter"] = 1e6 * ms / reps
+            recs.append(r)
+    return recs
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi exited {r.returncode}: "
+                           f"{r.stderr[-500:]}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
+    cases = CASES if not args or "all" in args else tuple(args)
+    unknown = set(cases) - set(CASES)
+    if unknown:
+        print(f"unknown cases {sorted(unknown)}; cases: {' '.join(CASES)} "
+              "all", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    for r in drive(cases):
+        print(json.dumps({**r, "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,46 +1,61 @@
 """Smoke test of bath_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases parity,timing,...]
 
-Builds the CUDA kernels of the standard, the ``--fs``, the all-device
-and the multi-query bathsearch paths and of bathbuild's device
-calibration from ``bath_tpu_torch/ops/kernels/csrc/``, holds each
-against its plain PyTorch version on the card (the integer filters
-exactly, and MSV also against the native host library over every ORF of
-the search genome; the six multi-model entries also bit for bit against
-the single-model entries, on batches that mix 48 models of
-M = 60..1200), times both and the host library's batch, then searches a
-seeded 5 Mb genome with a seeded M = 400 profile through the port's
-CLI: the standard search, then ``--fs`` and ``--fsonly`` on the
-genome's frameshift twin (16 of its 40 embeds carry a 1-nt deletion or
-insertion), then the all-device cascade (``BATH_MSV_DEVICE=1
-BATH_VIT_DEVICE=1``: MSV/SSV, the ViterbiFilter and their window
-captures on the card too), standard and ``--fs``, then the multi-query
-drive: a 48-model query file against a 5 Mb genome that holds copies of
-12 of the models, standard and ``--fs``.  It checks that the output is
-byte-identical to the host path (the port's own ``--backend numpy``),
-that the embedded homologs and the frameshifts are found, and that each
-search went through its kernels.
+Builds the CUDA kernels of ``bath_tpu_torch/ops/kernels/csrc/`` and runs
+its phases in this order (``--phases`` picks some; the default is every
+phase but ``deep``; ``all`` adds ``deep``):
 
-Then the build path: ``bathbuild`` of a 48-alignment Stockholm file and
-``bathconvert`` of the built models stripped of their frameshift
-calibration, ``--backend torch`` (all models calibrated in one
-device-batched pass through the two integer multi-model entries and the
-two f32 gate ones) against ``--backend numpy`` (the serial host
-calibration).  Both backends of ``bathconvert`` run in this process, one
-after the other; ``bathbuild --backend numpy``, the longest single step
-(two to three minutes), runs in a child process beside the parity phases
-and has ended before anything is timed, so its own wall, printed with
-``wall_numpy_concurrent=True``, carries those phases' load and no other
-number in the output carries its.  The files may differ only in their
-DATE lines and in the taus the f32 gates simulate; ``bathstat`` and
-``bathfetch`` print the same for both, and a ``bathsearch --fs`` with
-the built models finds the proteins they were emitted from.
+- ``parity``: every single- and multi-model kernel entry of the search
+  and calibration paths against its plain PyTorch version on the card
+  (the integer filters exactly, and MSV also against the native host
+  library over every ORF of the search genome; the six multi-model
+  entries also bit for bit against the single-model entries, on batches
+  that mix 48 models of M = 60..1200);
+- ``timing``: the same entries at the main paths' shapes, beside their
+  plain versions, the host library's batches and one single-model
+  launch per model, each output held again;
+- ``ubench``: the card's microbenchmarks (``bath_tpu_torch.ubench``,
+  the counterparts of ``scripts/ubench_vpu.py``), each of the five
+  entries against its plain version at the script's shapes, then the
+  drive (chain, one-hot by index and on the tensor cores, overlap,
+  scalars at [136, 1024] and [136, 4096]);
+- ``mesh``: the data-parallel gate step (``parallel/mesh.py``) over
+  every card of the machine on one flush's shape, bit for bit the three
+  single-model entries launched on the whole batch;
+- ``search``: a seeded 5 Mb genome against a seeded M = 400 profile
+  through the port's CLI, standard, then ``--fs`` and ``--fsonly`` on
+  its frameshift twin (16 of its 40 embeds carry a 1-nt indel), then
+  the all-device cascade (``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``),
+  standard and ``--fs``;
+- ``multiquery``: a 48-model query file against a 5 Mb genome that
+  holds copies of 12 of the models, standard and ``--fs``;
+- ``build``: ``bathbuild`` of a 48-alignment Stockholm file and
+  ``bathconvert`` of the built models stripped of their frameshift
+  calibration, ``--backend torch`` (one device-batched calibration)
+  against ``--backend numpy`` (the serial host calibration), then
+  ``bathstat``, ``bathfetch`` and a ``bathsearch --fs`` with each file;
+- ``deep`` (not in the default run, for its time): the parity shapes
+  the default run cuts: an ORF of 16 500 residues through the integer
+  filters, fs3 windows of 4500 nt, the fs3 gate timed at M = 781, 1000
+  and 2048, and the plain fs3 pair at the multi-query drive's shapes
+  on 12 and 4 models.
 
-Every phase prints one line; any failure exits non-zero.  The last two
-lines are the kernels' JSON record (per kernel: launches on its main
-path, error against the plain version, time, the plain version's time,
-and the least time the card could take for the timed work) and
+The searches check that the output is byte-identical to the host path
+(the port's own ``--backend numpy``), that the embedded homologs and the
+frameshifts are found, and that each search went through its kernels;
+the built files may differ from the host's only in their DATE lines
+and in the taus the f32 gates simulate.  ``bathbuild --backend numpy``,
+the longest single step (two to three minutes), runs in a child process
+beside the parity phase and has ended before anything is timed, so its
+own wall, printed with ``wall_numpy_concurrent=True``, carries that
+phase's load and no other number in the output carries its.
+
+Every step prints one line, every phase a ``[phase] <name>
+seconds=...`` line; any failure exits non-zero.  The last two lines are
+the kernels' JSON record (per kernel entry: launches on its main path,
+error against the plain version, time, the plain version's time, and
+the least time the card could take for the timed work) and
 ``{"ok": true, "device": ...}``.
 
 Needs a CUDA device, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and
@@ -49,7 +64,10 @@ writes goes under ``build/`` next to this file.  It imports nothing of
 ``bath_tpu`` and no JAX.
 """
 
+import argparse
 import atexit
+import contextlib
+import io
 import json
 import os
 import re
@@ -63,8 +81,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 BUILD = ROOT / "build" / "bath_tpu_torch"
+sys.path.insert(0, str(ROOT))
+# the card's published peaks and the timer, shared with the ubench phase
+from bath_tpu_torch.ubench import (  # noqa: E402
+    F32_OPS_PER_S, HBM_BYTES_PER_S, card_line, cuda_ms)
 
 DEVICE = "cuda"
+DEV = torch.device(DEVICE)
 M_SEARCH = 400              # a Pfam-sized profile
 GENOME_NT = 5_000_000       # one bacterial genome
 N_EMBEDS = 40
@@ -127,8 +150,8 @@ PARITY_MQ_PLAIN_FS3DD = (0, 47)
 # decoding on the items of every second model; the fs3 pair, whose plain
 # versions take 7 and 21 s a model over windows of thousands of rows, on
 # the items of two models (M = 132, 1200) and of two of the 12 (M = 84
-# and 763, one and two warps a window; 3e holds both against them at up
-# to three warps a window).
+# and 763, one and two warps a window; the parity phase holds both
+# against them at up to three warps a window, ``deep`` on 12 and 4).
 TIME_MQ_FWD_B, TIME_MQ_DOMDEC_B = 1600, 128
 TIME_MQ_FS3_B, TIME_MQ_FS3DD_B = 512, 24
 TIME_MQ_PLAIN_DOMDEC = tuple(range(0, 48, 2))
@@ -153,15 +176,25 @@ MSA_NSEQ = 20
 TAU_WARN, TAU_TOL = 0.02, 0.05
 F32_GATE_LINES = ("STATS LOCAL FORWARD", "STATS LOCAL FS3 FORWARD")
 
-# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# and float32 outside the tensor cores.  The DP kernels are f32 (or one
-# 32-bit int per cell) multiply-adds and maxima on the CUDA cores, so
-# that rate bounds their operations.
-HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
-# Arithmetic per DP cell (one residue or nucleotide x one model
-# position), counted from the recurrences: the M, I, D updates, the
-# row sum and the rescale; decoding adds the backward pass's.
+# the mesh step on one flush's shape: MESH_B DNA windows of MESH_LN nt
+# (the fs3 gate's windows at M = 409), MESH_HOMOLOGS of them over
+# embedded copies of the model, and the longest ORF of each
+MESH_B, MESH_LN, MESH_HOMOLOGS = 256, 2748, 16
+
+# deep: the shapes the default run cuts for its time
+DEEP_LONG_ORF = 16_500
+DEEP_PARITY_FS3 = (32, 4500)
+DEEP_PARITY_FS3DD = (8, 4500)
+DEEP_TIME_FS3_M = (781, 1000, 2048)
+DEEP_TIME_MQ_PLAIN_FS3 = tuple(range(3, 48, 4))      # 12 models
+DEEP_TIME_MQ_PLAIN_FS3DD = (1, 13, 29, 45)           # M = 84..1151
+
+# The DP kernels are f32 (or one 32-bit int per cell) multiply-adds and
+# maxima on the CUDA cores, so the card's f32 rate (F32_OPS_PER_S)
+# bounds their operations.  Arithmetic per DP cell (one residue or
+# nucleotide x one model position), counted from the recurrences: the
+# M, I, D updates, the row sum and the rescale; decoding adds the
+# backward pass's.
 OPS_PER_CELL = {"fwd_parser": 19, "domdec": 37, "fs3_parser": 23,
                 "fs3_domdec": 43, "msv_filter": 8, "ssv_capture": 4,
                 "vit_filter": 20, "vit_capture": 21}
@@ -216,6 +249,16 @@ def mask_tool(text: str) -> str:
     return re.sub(r"# (CPU time|output HMM file):.*", "", text)
 
 
+def masked(path) -> str:
+    return re.sub(r"# (CPU time|Mc/sec):.*", "", Path(path).read_text())
+
+
+def fs_masked(paths) -> tuple:
+    return (masked(paths[0]),
+            "".join(ln for ln in paths[2].read_text().splitlines(True)
+                    if not ln.startswith("#")))
+
+
 T_START = time.perf_counter()
 
 
@@ -230,7 +273,7 @@ def bound(kernel: str, cells: float, nbytes: float):
     read once, each output written once), against the published
     peaks."""
     by_ops = 1e3 * cells * OPS_PER_CELL[kernel.replace("_multi", "")] \
-        / CORE_OPS_PER_S
+        / F32_OPS_PER_S
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return max(by_ops, by_bytes), \
         "operations" if by_ops >= by_bytes else "bytes"
@@ -238,21 +281,6 @@ def bound(kernel: str, cells: float, nbytes: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over <reps> runs, by CUDA events, after
-    one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def once_ms(fn) -> float:
@@ -280,7 +308,15 @@ def exact(got, want) -> float:
                if g.numel() else 0.0 for g, w in zip(got, want))
 
 
-def one_batch(orfs, dev, pad=28):
+def max_err(got, want) -> float:
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def ints(values) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(values, np.int32)).to(DEV)
+
+
+def one_batch(orfs, dev=DEV, pad=28):
     """(lengths as numpy, dsq, lens): <orfs> as one padded batch on
     <dev>, built as the cascade builds its batches."""
     from bath_tpu_torch.device_pipeline import batches
@@ -289,186 +325,231 @@ def one_batch(orfs, dev, pad=28):
     return ln, dsq, lens
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        sys.exit(2)
-    sys.path.insert(0, str(ROOT))
-    from bath_tpu_torch import fixtures
-    from bath_tpu_torch.cli import bathsearch
-    from bath_tpu_torch.ops import domdec as dd
-    from bath_tpu_torch.ops import fs3
-    from bath_tpu_torch.ops import fs3_domdec as fdd
-    from bath_tpu_torch.ops import fwd
-    from bath_tpu_torch.ops import multimodel as mm
+def host_layout(orfs):
+    """<orfs> as the native host library's ORF extractor hands them
+    over (one flat stream)."""
+    from bath_tpu_torch.gencode import OrfList
     from bath_tpu_torch.ops import ssv
-    from bath_tpu_torch.ops import vit
+    flat, offs, lens = ssv.pack_stream(orfs)
+    out = OrfList(orfs)
+    out.flat, out.offs, out.lens = flat.astype(np.int32), offs, lens
+    return out
+
+
+class Run:
+    """What the phases hand on to each other and to the record: per
+    kernel entry its time (ms, plain ms, bound ms, bound by), its error
+    against its plain version, its launches on its main path's run and
+    further keys; fixtures and models made once."""
+
+    def __init__(self, phases):
+        self.phases = phases
+        self.card = ""
+        self.times: dict = {}
+        self.err: dict = {}
+        self.launches: dict = {}
+        self.extra: dict = {}
+        self.cache: dict = {}
+        self.host_build = None
+        self.built_numpy = None
+
+    def note_err(self, name: str, err: float) -> None:
+        self.err[name] = max(self.err.get(name, 0.0), err)
+
+    def once(self, key, make):
+        if key not in self.cache:
+            self.cache[key] = make()
+        return self.cache[key]
+
+    def fx(self):
+        """The 5 Mb search fixture with its M = 400 profile."""
+        from bath_tpu_torch import fixtures
+        return self.once("fx", lambda: fixtures.write_fixture(
+            M_SEARCH, GENOME_NT, N_EMBEDS, SEED))
+
+    def fs_fx(self):
+        """Its frameshift twin, the query calibrated for --fs."""
+        from bath_tpu_torch import fixtures
+        return self.once("fs_fx", lambda: fixtures.write_fixture(
+            M_SEARCH, GENOME_NT, N_EMBEDS, SEED, fs=True,
+            n_frameshift=N_FRAMESHIFT))
+
+    def om(self):
+        """The search profile of the fixture's model."""
+        from bath_tpu_torch import fixtures
+        from bath_tpu_torch.hmmfile import read_hmm
+        return self.once("om", lambda: fixtures.search_profile(
+            read_hmm(self.fx().hmm_path)))
+
+    def mq_fx(self, fs: bool):
+        """The multi-query fixtures (48 models calibrated in one pass on
+        the card: the build phase holds that calibration against the
+        host's)."""
+        from bath_tpu_torch import fixtures
+        return self.once(("mq_fx", fs), lambda: fixtures.write_multi_fixture(
+            MQ_MS, GENOME_NT, MQ_EMBEDDED, MQ_COPIES, SEED, fs=fs,
+            device=DEVICE))
+
+    def msa(self):
+        """(Stockholm file, alignment names) of the 48 models."""
+        from bath_tpu_torch import fixtures
+        return self.once("msa", lambda: fixtures.write_msa_fixture(
+            MQ_MS, MSA_NSEQ, SEED))
+
+    def join_host_build(self) -> None:
+        """Waits for the bathbuild --backend numpy child, if one runs."""
+        if self.host_build is None or self.built_numpy is not None:
+            return
+        self.built_numpy = host_result(self.host_build)
+        phase("bathbuild", backend="numpy", ended=True,
+              wall_s=f"{self.built_numpy[1]:.3f}", concurrent=True)
+
+
+def held(run: Run, name: str, got, want, M) -> tuple:
+    """An integer kernel's outputs, failed unless equal to its plain
+    version's."""
+    err = exact(got, want)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{name} kernel vs plain at M={M}: max |d| {err}")
+    run.note_err(name, err)
+    return got
+
+
+# ---------------------------------------------------------------------
+# parity: every kernel entry against its plain version on the card
+# ---------------------------------------------------------------------
+def query400():
+    """(hmm, query, Forward parameters) of an uncalibrated M = 400
+    model, the same in every phase."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fwd
+    hmm, q = fixtures.make_query(M_SEARCH, np.random.default_rng(SEED),
+                                 calibrate=False)
+    return hmm, q, fwd.fwd_params(fixtures.search_profile(hmm), DEV)
+
+
+def parity_single(run: Run, rng) -> None:
+    """The Forward gate and decoding at M_SEARCH and at a model past one
+    warp's reach (several warps per ORF)."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd
     from bath_tpu_torch.ops.kernels import loader
-
-    dev = torch.device(DEVICE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-
-    # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi exited {smi.returncode}: {smi.stderr[-500:]}")
-    card = smi.stdout.strip().splitlines()[0]
-    bathsearch.require_native()
-    phase("device", torch=torch.__version__, cuda=torch.version.cuda,
-          name=repr(kind), count=torch.cuda.device_count(),
-          native_lib="loaded")
-    print(card, flush=True)
-
-    # 1b. the host yardstick of phase 5e starts now, in a child process
-    # beside the kernel phases (it needs no card, the host has cores to
-    # spare, and nothing timed below runs before it has ended):
-    # bathbuild --backend numpy, the serial host calibration, of the
-    # 48-alignment fixture
-    BUILD.mkdir(parents=True, exist_ok=True)
-    sto, msa_names = fixtures.write_msa_fixture(MQ_MS, MSA_NSEQ, SEED)
-    built = {b: BUILD / f"built_{b}.bhmm" for b in ("numpy", "torch")}
-    host_build = host_tool("bathbuild", [built["numpy"], sto])
-    phase("bathbuild", backend="numpy", started="in a child process",
-          alignments=len(MQ_MS), nseq=MSA_NSEQ)
-
-    # 2. kernel build
-    t = time.perf_counter()
-    so = loader.build()
-    loader.lib()
-    phase("build", seconds=f"{time.perf_counter() - t:.1f}",
-          nvcc=" ".join(loader.NVCC_FLAGS),
-          sources=",".join(str(p.relative_to(ROOT))
-                           for p in loader.sources()),
-          library=so.relative_to(ROOT))
-
-    # 3. parity with the plain versions, on the card
-    rng = np.random.default_rng(SEED)
-    hmm, q = fixtures.make_query(M_SEARCH, rng, calibrate=False)
-    p400 = fwd.fwd_params(fixtures.search_profile(hmm), dev)
-    dsq, lens = fixtures.kernel_batch(q, *PARITY_FWD, rng)
-    dsq, lens = torch.from_numpy(dsq).to(dev), torch.from_numpy(lens).to(dev)
+    _, q, p400 = run.once("q400", query400)
+    dsq, lens = (torch.from_numpy(a).to(DEV)
+                 for a in fixtures.kernel_batch(q, *PARITY_FWD, rng))
     got = fwd.fwd_score(dsq, lens, p400)
-    want = fwd.fwd_score_ref(dsq, lens, p400)
-    fwd_err = float((got - want).abs().max())
-    if not torch.isfinite(got).all() or not fwd_err <= FWD_TOL:
-        fail(f"fwd kernel vs plain: max |d| {fwd_err} > {FWD_TOL}")
+    err = max_err(got, fwd.fwd_score_ref(dsq, lens, p400))
+    if not torch.isfinite(got).all() or not err <= FWD_TOL:
+        fail(f"fwd kernel vs plain: max |d| {err} > {FWD_TOL}")
+    run.note_err("fwd_parser", err)
     phase("parity", kernel="fwd_parser", M=M_SEARCH, B=PARITY_FWD[0],
-          L=f"1..{PARITY_FWD[1]}",
-          max_abs_err=fwd_err, tol=FWD_TOL,
+          L=f"1..{PARITY_FWD[1]}", max_abs_err=err, tol=FWD_TOL,
           best_score=f"{float(got.max()):.2f}")
-    dsq, lens = fixtures.kernel_batch(q, *PARITY_DOMDEC, rng)
-    dsq, lens = torch.from_numpy(dsq).to(dev), torch.from_numpy(lens).to(dev)
+    dsq, lens = (torch.from_numpy(a).to(DEV)
+                 for a in fixtures.kernel_batch(q, *PARITY_DOMDEC, rng))
     got = dd.domdec(dsq, lens, p400)
     want = dd.domdec_ref(dsq, lens, p400)
-    dd_err = max(float((a - b).abs().max()) for a, b in zip(got[:3],
-                                                            want[:3]))
-    if not dd_err <= DOMDEC_TOL or not torch.equal(got[3], want[3]):
-        fail(f"domdec kernel vs plain: max |d| {dd_err} > {DOMDEC_TOL} "
+    err = max(max_err(a, b) for a, b in zip(got[:3], want[:3]))
+    if not err <= DOMDEC_TOL or not torch.equal(got[3], want[3]):
+        fail(f"domdec kernel vs plain: max |d| {err} > {DOMDEC_TOL} "
              f"or ok differs ({got[3].sum()} vs {want[3].sum()})")
+    run.note_err("domdec", err)
     phase("parity", kernel="domdec", M=M_SEARCH, B=PARITY_DOMDEC[0],
-          L=f"1..{PARITY_DOMDEC[1]}", max_abs_err=dd_err, tol=DOMDEC_TOL,
+          L=f"1..{PARITY_DOMDEC[1]}", max_abs_err=err, tol=DOMDEC_TOL,
           ok=f"{int(got[3].sum())}/{PARITY_DOMDEC[0]}", ok_identical=True)
-    # a model past one warp's reach (several warps per ORF)
     hmm_w, q_w = fixtures.make_query(WIDE[0], rng, calibrate=False)
-    p_w = fwd.fwd_params(fixtures.search_profile(hmm_w), dev)
-    dsq, lens = fixtures.kernel_batch(q_w, WIDE[1], WIDE[2], rng)
-    dsq, lens = torch.from_numpy(dsq).to(dev), torch.from_numpy(lens).to(dev)
-    e1 = float((fwd.fwd_score(dsq, lens, p_w)
-                - fwd.fwd_score_ref(dsq, lens, p_w)).abs().max())
+    p_w = fwd.fwd_params(fixtures.search_profile(hmm_w), DEV)
+    dsq, lens = (torch.from_numpy(a).to(DEV)
+                 for a in fixtures.kernel_batch(q_w, WIDE[1], WIDE[2], rng))
+    e1 = max_err(fwd.fwd_score(dsq, lens, p_w),
+                 fwd.fwd_score_ref(dsq, lens, p_w))
     g, w = dd.domdec(dsq, lens, p_w), dd.domdec_ref(dsq, lens, p_w)
-    e2 = max(float((a - b).abs().max()) for a, b in zip(g[:3], w[:3]))
+    e2 = max(max_err(a, b) for a, b in zip(g[:3], w[:3]))
     if not (e1 <= FWD_TOL and e2 <= DOMDEC_TOL and torch.equal(g[3], w[3])):
         fail(f"M={WIDE[0]} parity: fwd {e1}, domdec {e2}")
     phase("parity", kernel="both", M=WIDE[0], layout=loader.layout(WIDE[0]),
           fwd_err=e1, domdec_err=e2)
 
-    # 3b. the --fs kernels against their plain versions: DNA windows of
-    # 0, 2, 3, 4 and up to 2500 nt with homologs (one in three
-    # frameshifted) and runs of N, at M_SEARCH and at a model that
-    # takes several warps per window
-    fs3_err = fs3dd_err = 0.0
+
+def parity_fs3(run: Run, rng, shape, shape_dd) -> None:
+    """The --fs kernels against their plain versions: DNA windows of 0,
+    2, 3, 4 and up to shape[1] nt with homologs (one in three
+    frameshifted) and runs of N, at M_SEARCH and at a model that takes
+    several warps per window."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fs3
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops.kernels import loader
     for M in (M_SEARCH, FS3_WIDE_M):
         hm, qm = fixtures.make_query(M, rng, calibrate=False, fs=True)
-        pm = fs3.fs3_params(fixtures.fs_search_profile(hm), dev)
-        dsq, lens = (torch.from_numpy(a).to(dev) for a in
-                     fixtures.fs_window_batch(qm, *PARITY_FS3, rng))
+        pm = fs3.fs3_params(fixtures.fs_search_profile(hm), DEV)
+        dsq, lens = (torch.from_numpy(a).to(DEV) for a in
+                     fixtures.fs_window_batch(qm, *shape, rng))
         got = fs3.fs3_score(dsq, lens, pm)
         want = fs3.fs3_score_ref(dsq, lens, pm)
         fin = torch.isfinite(want)
-        e1 = float((got - want)[fin].abs().max())
+        e1 = max_err(got[fin], want[fin])
         if not (torch.equal(fin, torch.isfinite(got)) and e1 <= FWD_TOL):
             fail(f"fs3 kernel vs plain at M={M}: max |d| {e1} > {FWD_TOL} "
                  "or the -inf windows differ")
-        dsq, lens = (torch.from_numpy(a).to(dev) for a in
-                     fixtures.fs_window_batch(qm, *PARITY_FS3DD, rng))
+        dsq, lens = (torch.from_numpy(a).to(DEV) for a in
+                     fixtures.fs_window_batch(qm, *shape_dd, rng))
         g = fdd.fs3_domdec(dsq, lens, pm, 100.0 / 103.0)
         w = fdd.fs3_domdec_ref(dsq, lens, pm, 100.0 / 103.0)
-        e2 = max(float((a - b).abs().max()) for a, b in zip(g[:3], w[:3]))
+        e2 = max(max_err(a, b) for a, b in zip(g[:3], w[:3]))
         if not (e2 <= DOMDEC_TOL and torch.equal(g[3], w[3])):
             fail(f"fs3_domdec kernel vs plain at M={M}: max |d| {e2} > "
                  f"{DOMDEC_TOL} or ok differs ({g[3].sum()} vs "
                  f"{w[3].sum()})")
-        fs3_err, fs3dd_err = max(fs3_err, e1), max(fs3dd_err, e2)
+        run.note_err("fs3_parser", e1)
+        run.note_err("fs3_domdec", e2)
         phase("parity", kernel="fs3_parser,fs3_domdec", M=M,
-              layout=loader.fs3_layout(M),
-              B=f"{PARITY_FS3[0]},{PARITY_FS3DD[0]}",
-              L=f"0..{PARITY_FS3[1]}", fs3_err=e1, fs3_tol=FWD_TOL,
+              layout=loader.fs3_layout(M), B=f"{shape[0]},{shape_dd[0]}",
+              L=f"0..{shape[1]}", fs3_err=e1, fs3_tol=FWD_TOL,
               fs3_domdec_err=e2, fs3_domdec_tol=DOMDEC_TOL,
-              ok=f"{int(g[3].sum())}/{PARITY_FS3DD[0]}", ok_identical=True,
+              ok=f"{int(g[3].sum())}/{shape_dd[0]}", ok_identical=True,
               best_score=f"{float(want[fin].max()):.2f}")
 
-    # 3c. the integer filters against their plain versions, exactly:
-    # ORFs of the search genome, its hot ORFs (int16 overflow; SSV slots
-    # overflowing at P = 1), ORFs of 0, 1, 2, 19-21 and 3 missing-data
-    # residues and, at M_SEARCH, one of LONG_ORF residues; INT_WIDE_M
-    # takes several warps per ORF
+
+def parity_int(run: Run, long_orf: int) -> None:
+    """The integer filters against their plain versions, exactly: ORFs
+    of the search genome, its hot ORFs (int16 overflow; SSV slots
+    overflowing at P = 1), ORFs of 0, 1, 2, 19-21 and 3 missing-data
+    residues and, at M_SEARCH, one of <long_orf> residues; INT_WIDE_M
+    takes several warps per ORF."""
+    from bath_tpu_torch import fixtures
     from bath_tpu_torch.hmmfile import read_hmm
-    fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED)
-    om = fixtures.search_profile(read_hmm(fx.hmm_path))
-    int_err = {k: 0.0 for k in ("msv_filter", "ssv_capture", "vit_filter",
-                                "vit_capture")}
-
-    def ints(values):
-        return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
-
-    def held(name, got, want, M):
-        err = exact(got, want)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"{name} kernel vs plain at M={M}: max |d| {err}")
-        int_err[name] = max(int_err[name], err)
-        return got
-
+    from bath_tpu_torch.ops import ssv, vit
+    from bath_tpu_torch.ops.kernels import loader
     for M in (M_SEARCH, INT_WIDE_M):
         if M == M_SEARCH:
-            src, om_m = fx, om
+            src, om_m = run.fx(), run.om()
         else:
             src = fixtures.write_fixture(M, 30_000, 4, M, calibrate=False)
             om_m = fixtures.search_profile(read_hmm(src.hmm_path))
         orfs = fixtures.filter_cases(src, PARITY_INT_N, SEED,
-                                     LONG_ORF if M == M_SEARCH else 1200)
-        flat, offs, lens = (torch.from_numpy(a).to(dev)
+                                     long_orf if M == M_SEARCH else 1200)
+        flat, offs, lens = (torch.from_numpy(a).to(DEV)
                             for a in ssv.pack_stream(orfs))
-        pm, pv = ssv.msv_params(om_m, dev), vit.vit_params(om_m, dev)
+        pm, pv = ssv.msv_params(om_m, DEV), vit.vit_params(om_m, DEV)
         ln = lens.cpu().numpy()
         tjb, move = ints(pm.tjb_for(ln)), ints(pv.move_for(ln))
         args = (flat, offs, lens)
-        movf = held("msv_filter", ssv.msv_ssv(*args, tjb, pm),
+        movf = held(run, "msv_filter", ssv.msv_ssv(*args, tjb, pm),
                     ssv.msv_ssv_ref(*args, tjb, pm), M)[2]
-        vs = held("vit_filter", vit.vit_ints(*args, move, pv),
+        vs = held(run, "vit_filter", vit.vit_ints(*args, move, pv),
                   vit.vit_ints_ref(*args, move, pv), M)
         nwin = {}
         for t in (SSV_THR, P1_THR):
             thr = ints(np.full(len(orfs), t))
-            nwin[t] = held("ssv_capture", ssv.ssv_capture(*args, tjb, thr, pm),
+            nwin[t] = held(run, "ssv_capture",
+                           ssv.ssv_capture(*args, tjb, thr, pm),
                            ssv.ssv_capture_ref(*args, tjb, thr, pm), M)[0]
         orow = {}
         for t in (VIT_THR, P1_THR):
             thr = ints(np.full(len(orfs), t))
-            orow[t] = held("vit_capture",
+            orow[t] = held(run, "vit_capture",
                            vit.vit_capture(*args, move, thr, pv),
                            vit.vit_capture_ref(*args, move, thr, pv), M)[1]
         branches = {"msv_overflow": int(movf.sum()),
@@ -484,15 +565,25 @@ def main() -> None:
               "vit_capture", M=M, layout=loader.layout(M), B=len(orfs),
               max_L=int(ln.max()), identical=True, **branches)
 
-    # 3d. MSV through the cascade (one flat stream, one launch) over
-    # every ORF of the search genome against the native host batch
-    from bath_tpu_torch.native import msv_filter_native_batch
+
+def cascade(run: Run):
+    """(TorchCascade of the search profile, every ORF of the genome)."""
+    from bath_tpu_torch import fixtures
     from bath_tpu_torch.device_pipeline import TorchCascade
-    cas = TorchCascade(om, device=dev, stats={})
-    all_orfs = fixtures.genome_orfs(fx.fasta_path)
+    return run.once("cascade", lambda: (
+        TorchCascade(run.om(), device=DEV, stats={}),
+        fixtures.genome_orfs(run.fx().fasta_path)))
+
+
+def parity_msv_native(run: Run) -> None:
+    """MSV through the cascade (one flat stream, one launch) over every
+    ORF of the search genome against the native host batch."""
+    from bath_tpu_torch.native import msv_filter_native_batch
+    from bath_tpu_torch.ops import ssv
+    cas, all_orfs = cascade(run)
     a_flat, a_offs, a_lens = ssv.pack_stream(all_orfs)
     got = cas.msv_scores(None, a_lens, flat=a_flat, offs=a_offs)
-    want = msv_filter_native_batch(all_orfs, om)
+    want = msv_filter_native_batch(all_orfs, run.om())
     if not np.array_equal(got, want):
         fail(f"device MSV differs from msv_filter_native_batch on "
              f"{int((got != want).sum())} of {len(all_orfs)} ORFs")
@@ -501,168 +592,189 @@ def main() -> None:
           residues=int(a_lens.sum()), inf=int(np.isinf(got).sum()),
           identical=True)
 
-    # 3e. the four multi-model entries at full width: 48 models of
-    # M = 60..1200 mixed in one batch per stage, items of up to 1250 aa
-    # and 3700 nt with copies of their model's protein.  Each entry,
-    # model by model, bit for bit against the single-model entry on the
-    # same rows (for the decoding pair: the kernels' own outputs bit
-    # for bit, the posteriors after the shared tensor-op combine within
-    # 1e-6, because torch.cumsum's summation order on the card depends
-    # on the batch's shape), and against its plain version on the items
-    # of a few models that span the widths and the warps per item.  4e
-    # holds every item of all 48 models against the plain versions at
-    # the multi-query drive's shapes.
-    def multi_case(fs, per_model, Lmax):
-        oms, d, ln, sl = fixtures.multi_kernel_batch(MQ_MS, per_model, Lmax,
-                                                     SEED, fs=fs)
-        params = [(fs3.fs3_params if fs else fwd.fwd_params)(om, dev)
-                  for om in oms]
-        pack = (mm.build_fs3_pack if fs else mm.build_fwd_pack)(params)
-        return (pack, torch.from_numpy(d).to(dev),
-                torch.from_numpy(ln).to(dev), sl)
 
-    def model_rows(sl):
-        return [(g, torch.from_numpy(np.nonzero(sl == g)[0]).to(dev))
-                for g in range(len(MQ_MS))]
+# the multi-model entries: helpers shared by the parity and timing
+# phases
+def multi_case(fs, per_model, Lmax):
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fs3, fwd
+    from bath_tpu_torch.ops import multimodel as mm
+    oms, d, ln, sl = fixtures.multi_kernel_batch(MQ_MS, per_model, Lmax,
+                                                 SEED, fs=fs)
+    params = [(fs3.fs3_params if fs else fwd.fwd_params)(om, DEV)
+              for om in oms]
+    pack = (mm.build_fs3_pack if fs else mm.build_fwd_pack)(params)
+    return (pack, torch.from_numpy(d).to(DEV),
+            torch.from_numpy(ln).to(DEV), sl)
 
-    def vs_plain(name, got, want):
-        """max |got - want| of a multi-model entry and its plain
-        version; fails past the single-model kernels' bounds: gates
-        FWD_TOL with the same -inf items, decoding DOMDEC_TOL on the
-        posteriors with `ok` identical."""
-        if isinstance(got, tuple):
-            err = max(float((a - b).abs().max())
-                      for a, b in zip(got[:3], want[:3]))
-            if not (err <= DOMDEC_TOL and torch.equal(got[3], want[3])):
-                fail(f"{name} vs plain: max |d| {err} > {DOMDEC_TOL} or ok "
-                     f"differs ({got[3].sum()} vs {want[3].sum()})")
-            return err
-        fin = torch.isfinite(want)
-        err = float((got - want)[fin].abs().max())
-        if not (torch.equal(fin, torch.isfinite(got)) and err <= FWD_TOL):
-            fail(f"{name} vs plain: max |d| {err} > {FWD_TOL} or the -inf "
-                 "items differ")
+
+def model_rows(sl):
+    return [(g, torch.from_numpy(np.nonzero(sl == g)[0]).to(DEV))
+            for g in range(len(MQ_MS))]
+
+
+def vs_plain(name, got, want):
+    """max |got - want| of a multi-model entry and its plain version;
+    fails past the single-model kernels' bounds: gates FWD_TOL with the
+    same -inf items, decoding DOMDEC_TOL on the posteriors with `ok`
+    identical."""
+    if isinstance(got, tuple):
+        err = max(max_err(a, b) for a, b in zip(got[:3], want[:3]))
+        if not (err <= DOMDEC_TOL and torch.equal(got[3], want[3])):
+            fail(f"{name} vs plain: max |d| {err} > {DOMDEC_TOL} or ok "
+                 f"differs ({got[3].sum()} vs {want[3].sum()})")
         return err
+    fin = torch.isfinite(want)
+    err = max_err(got[fin], want[fin])
+    if not (torch.equal(fin, torch.isfinite(got)) and err <= FWD_TOL):
+        fail(f"{name} vs plain: max |d| {err} > {FWD_TOL} or the -inf "
+             "items differ")
+    return err
 
-    def plain_subset(sl, models):
-        sub = np.nonzero(np.isin(sl, models))[0]
-        return sub, torch.from_numpy(sub).to(dev)
 
-    def gate_case(name, fs, shape, call, single, ref):
-        """Holds one gate entry on a batch: against the single-model
-        entry model by model, and against the plain version on the
-        items of PARITY_MQ_PLAIN; returns the error against the plain
-        version."""
-        pack, d, lt, sl = multi_case(fs, *shape)
-        got = call(pack, d, lt, sl)
-        sub, rs = plain_subset(sl, PARITY_MQ_PLAIN)
-        err = vs_plain(name, got[rs], ref(pack, d[rs].contiguous(),
-                                          lt[rs].contiguous(), sl[sub]))
-        for g, r in model_rows(sl):
-            one = single(d[r].contiguous(), lt[r].contiguous(),
-                         pack.params[g])
-            if not torch.equal(one, got[r]):
-                fail(f"{name} differs from the single-model entry at "
-                     f"M={MQ_MS[g]}")
-        phase("parity", kernel=name, models=len(MQ_MS),
-              M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
-              B=len(sl), L=f"{int(lt.min())}..{int(lt.max())}",
-              vs_plain=err, plain_items=len(sub),
-              plain_M=[MQ_MS[g] for g in PARITY_MQ_PLAIN], tol=FWD_TOL,
-              best_score=f"{float(got[torch.isfinite(got)].max()):.2f}",
-              single_model_entry="bit for bit")
-        return err
+def plain_subset(sl, models):
+    sub = np.nonzero(np.isin(sl, models))[0]
+    return sub, torch.from_numpy(sub).to(DEV)
 
-    def decoding_case(name, fs, shape, plain_models):
-        """The same for a decoding entry: the kernels' own outputs bit
-        for bit the single-model entry's, `ok` identical, posteriors
-        within 1e-6 of it."""
-        pack, d, lt, sl = multi_case(fs, *shape)
-        n3 = lt.cpu().numpy() // 3
-        dec = torch.from_numpy((n3 / (n3 + 3.0)).astype(np.float32)).to(dev)
-        sub, rs = plain_subset(sl, plain_models)
-        ds, ls = d[rs].contiguous(), lt[rs].contiguous()
-        if fs:
-            got = mm.fs3_domdec_pack_batch(pack, d, lt, sl, dec)
-            raw, _ = loader.launch_fs3_domdec_multi(d, lt, sl, pack, 1.0)
-            want = mm.fs3_domdec_pack_batch_ref(pack, ds, ls, sl[sub],
-                                                dec[rs])
-        else:
-            got = mm.domdec_pack_batch(pack, d, lt, sl)
-            raw, _ = loader.launch_domdec_multi(d, lt, sl, pack, 1.0)
-            want = mm.domdec_pack_batch_ref(pack, ds, ls, sl[sub])
-        err = vs_plain(name, tuple(t[rs] for t in got), want)
-        post_err = 0.0
-        for g, r in model_rows(sl):
-            args = (d[r].contiguous(), lt[r].contiguous(), pack.params[g])
-            one_raw = (loader.launch_fs3_domdec if fs
-                       else loader.launch_domdec)(*args, 1.0)
-            if not all(torch.equal(a, b[r]) for a, b in zip(one_raw, raw)):
-                fail(f"{name}'s kernel outputs differ from the single-model "
-                     f"entry's at M={MQ_MS[g]}")
-            one = fdd.fs3_domdec(*args, dec[r]) if fs else dd.domdec(*args)
-            if not torch.equal(one[3], got[3][r]):
-                fail(f"{name}: ok differs from the single-model entry's at "
-                     f"M={MQ_MS[g]}")
-            post_err = max(post_err, *(float((a - b[r]).abs().max())
-                                       for a, b in zip(one[:3], got[:3])))
-        if post_err > 1e-6:
-            fail(f"{name}: posteriors {post_err} from the single-model "
-                 "entry's")
-        phase("parity", kernel=name, models=len(MQ_MS),
-              M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
-              B=len(sl), L=f"{int(lt.min())}..{int(lt.max())}",
-              vs_plain=err, plain_items=len(sub),
-              plain_M=[MQ_MS[g] for g in plain_models], tol=DOMDEC_TOL,
-              ok=f"{int(got[3].sum())}/{len(sl)}",
-              single_model_entry="kernel outputs bit for bit",
-              posteriors_vs_single=post_err)
-        return err
 
-    mq_err = {
-        "fwd_parser_multi": gate_case(
-            "fwd_parser_multi", False, PARITY_MQ_FWD, mm.fwd_pack_scores,
-            fwd.fwd_score, mm.fwd_pack_scores_ref),
-        "fs3_parser_multi": gate_case(
-            "fs3_parser_multi", True, PARITY_MQ_FS3, mm.fs3_pack_scores,
-            fs3.fs3_score, mm.fs3_pack_scores_ref),
-        "domdec_multi": decoding_case(
-            "domdec_multi", False, PARITY_MQ_DOMDEC, PARITY_MQ_PLAIN),
-        "fs3_domdec_multi": decoding_case(
-            "fs3_domdec_multi", True, PARITY_MQ_FS3DD, PARITY_MQ_PLAIN_FS3DD),
-    }
+def gate_case(run, name, fs, shape, call, single, ref):
+    """Holds one gate entry on a batch: against the single-model entry
+    model by model, and against the plain version on the items of
+    PARITY_MQ_PLAIN."""
+    pack, d, lt, sl = multi_case(fs, *shape)
+    got = call(pack, d, lt, sl)
+    sub, rs = plain_subset(sl, PARITY_MQ_PLAIN)
+    err = vs_plain(name, got[rs], ref(pack, d[rs].contiguous(),
+                                      lt[rs].contiguous(), sl[sub]))
+    for g, r in model_rows(sl):
+        one = single(d[r].contiguous(), lt[r].contiguous(), pack.params[g])
+        if not torch.equal(one, got[r]):
+            fail(f"{name} differs from the single-model entry at "
+                 f"M={MQ_MS[g]}")
+    run.note_err(name, err)
+    phase("parity", kernel=name, models=len(MQ_MS),
+          M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
+          B=len(sl), L=f"{int(lt.min())}..{int(lt.max())}",
+          vs_plain=err, plain_items=len(sub),
+          plain_M=[MQ_MS[g] for g in PARITY_MQ_PLAIN], tol=FWD_TOL,
+          best_score=f"{float(got[torch.isfinite(got)].max()):.2f}",
+          single_model_entry="bit for bit")
 
-    # 3f. the child of phase 1b has to have ended before anything is
-    # timed
-    build_table_numpy, build_wall_numpy = host_result(host_build)
-    phase("bathbuild", backend="numpy", ended=True,
-          wall_s=f"{build_wall_numpy:.3f}", concurrent=True)
 
-    # 4. timing at the main path's shapes (ORFs of the search genome)
-    times = {}
+def decoding_case(run, name, fs, shape, plain_models):
+    """The same for a decoding entry: the kernels' own outputs bit for
+    bit the single-model entry's, `ok` identical, posteriors within 1e-6
+    of it (torch.cumsum's summation order on the card depends on the
+    batch's shape)."""
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops import multimodel as mm
+    from bath_tpu_torch.ops.kernels import loader
+    pack, d, lt, sl = multi_case(fs, *shape)
+    n3 = lt.cpu().numpy() // 3
+    dec = torch.from_numpy((n3 / (n3 + 3.0)).astype(np.float32)).to(DEV)
+    sub, rs = plain_subset(sl, plain_models)
+    ds, ls = d[rs].contiguous(), lt[rs].contiguous()
+    if fs:
+        got = mm.fs3_domdec_pack_batch(pack, d, lt, sl, dec)
+        raw, _ = loader.launch_fs3_domdec_multi(d, lt, sl, pack, 1.0)
+        want = mm.fs3_domdec_pack_batch_ref(pack, ds, ls, sl[sub], dec[rs])
+    else:
+        got = mm.domdec_pack_batch(pack, d, lt, sl)
+        raw, _ = loader.launch_domdec_multi(d, lt, sl, pack, 1.0)
+        want = mm.domdec_pack_batch_ref(pack, ds, ls, sl[sub])
+    err = vs_plain(name, tuple(t[rs] for t in got), want)
+    post_err = 0.0
+    for g, r in model_rows(sl):
+        args = (d[r].contiguous(), lt[r].contiguous(), pack.params[g])
+        one_raw = (loader.launch_fs3_domdec if fs
+                   else loader.launch_domdec)(*args, 1.0)
+        if not all(torch.equal(a, b[r]) for a, b in zip(one_raw, raw)):
+            fail(f"{name}'s kernel outputs differ from the single-model "
+                 f"entry's at M={MQ_MS[g]}")
+        one = fdd.fs3_domdec(*args, dec[r]) if fs else dd.domdec(*args)
+        if not torch.equal(one[3], got[3][r]):
+            fail(f"{name}: ok differs from the single-model entry's at "
+                 f"M={MQ_MS[g]}")
+        post_err = max(post_err, *(max_err(a, b[r])
+                                   for a, b in zip(one[:3], got[:3])))
+    if post_err > 1e-6:
+        fail(f"{name}: posteriors {post_err} from the single-model "
+             "entry's")
+    run.note_err(name, err)
+    phase("parity", kernel=name, models=len(MQ_MS),
+          M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
+          B=len(sl), L=f"{int(lt.min())}..{int(lt.max())}",
+          vs_plain=err, plain_items=len(sub),
+          plain_M=[MQ_MS[g] for g in plain_models], tol=DOMDEC_TOL,
+          ok=f"{int(got[3].sum())}/{len(sl)}",
+          single_model_entry="kernel outputs bit for bit",
+          posteriors_vs_single=post_err)
+
+
+def parity_multi(run: Run) -> None:
+    """The four f32 multi-model entries at full width: 48 models of
+    M = 60..1200 mixed in one batch per stage, items of up to 1250 aa
+    and 3700 nt with copies of their model's protein; the timing phase
+    holds every item of all 48 models against the plain versions at the
+    multi-query drive's shapes."""
+    from bath_tpu_torch.ops import fs3, fwd
+    from bath_tpu_torch.ops import multimodel as mm
+    gate_case(run, "fwd_parser_multi", False, PARITY_MQ_FWD,
+              mm.fwd_pack_scores, fwd.fwd_score, mm.fwd_pack_scores_ref)
+    gate_case(run, "fs3_parser_multi", True, PARITY_MQ_FS3,
+              mm.fs3_pack_scores, fs3.fs3_score, mm.fs3_pack_scores_ref)
+    decoding_case(run, "domdec_multi", False, PARITY_MQ_DOMDEC,
+                  PARITY_MQ_PLAIN)
+    decoding_case(run, "fs3_domdec_multi", True, PARITY_MQ_FS3DD,
+                  PARITY_MQ_PLAIN_FS3DD)
+
+
+def phase_parity(run: Run) -> None:
+    rng = np.random.default_rng(SEED + 7)
+    parity_single(run, rng)
+    parity_fs3(run, rng, PARITY_FS3, PARITY_FS3DD)
+    parity_int(run, LONG_ORF)
+    parity_msv_native(run)
+    parity_multi(run)
+
+
+# ---------------------------------------------------------------------
+# timing: the entries at the main paths' shapes
+# ---------------------------------------------------------------------
+def time_fwd_domdec(run: Run) -> None:
+    """The Forward gate and decoding on ORFs of the search genome."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd
+    from bath_tpu_torch.ops.kernels import loader
+    fx = run.fx()
     for M in TIME_FWD_M:
         hm, _ = fixtures.make_query(M, np.random.default_rng(M),
                                     calibrate=False)
-        pm = fwd.fwd_params(fixtures.search_profile(hm), dev)
+        pm = fwd.fwd_params(fixtures.search_profile(hm), DEV)
         ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_FWD_B,
-                                                   SEED), dev)
+                                                   SEED))
         k_ms = cuda_ms(lambda: fwd.fwd_score(d, lt, pm), 20)
         p_ms = once_ms(lambda: fwd.fwd_score_ref(d, lt, pm))
         cells = float(ln.sum()) * M
-        times[("fwd", M)] = (k_ms, p_ms, *bound(
+        t = (k_ms, p_ms, *bound(
             "fwd_parser", cells,
             nbytes(d, lt, *pm.padded(loader.layout(M)[2])) + 4 * len(ln)))
+        if M == TIME_FWD_M[0]:
+            run.times["fwd_parser"] = t
         phase("timing", kernel="fwd_parser", M=M, B=TIME_FWD_B,
               mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
               ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
               plain_gcups=f"{cells / p_ms / 1e6:.3f}")
+    _, _, p400 = run.once("q400", query400)
     ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_DOMDEC_B,
-                                               SEED, min_len=100), dev)
+                                               SEED, min_len=100))
     k_ms = cuda_ms(lambda: dd.domdec(d, lt, p400), 10)
     p_ms = once_ms(lambda: dd.domdec_ref(d, lt, p400))
     cells = float(ln.sum()) * M_SEARCH
-    times["domdec"] = (k_ms, p_ms, *bound(
+    run.times["domdec"] = (k_ms, p_ms, *bound(
         "domdec", cells,
         nbytes(d, lt, *p400.padded(loader.layout(M_SEARCH)[2]))
         + 4 * 3 * d.shape[0] * (d.shape[1] + 1) + len(ln)))
@@ -671,71 +783,86 @@ def main() -> None:
           ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           gcups=f"{cells / k_ms / 1e6:.2f}")
 
-    # 4b. the --fs kernels on windows of the fs3 gate's shape (2 *
-    # max_length * 3 nt) cut from the search genome; GCUPS count
-    # nucleotides x M
-    for M in TIME_FS3_M:
+
+def time_fs3(run: Run, Ms, decoding: bool) -> None:
+    """The fs3 gate on windows of its shape (2 * max_length * 3 nt) cut
+    from the search genome at each M of <Ms> (GCUPS count nucleotides x
+    M); with <decoding>, fs3 decoding on TIME_FS3DD_B of the last M's
+    windows.  The record takes M = TIME_FS3_M[1]."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fs3
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops.kernels import loader
+    fx = run.fx()
+    for M in Ms:
         hm, _ = fixtures.make_query(M, np.random.default_rng(M),
                                     calibrate=False, fs=True)
         hm.set_max_length()
-        pm = fs3.fs3_params(fixtures.fs_search_profile(hm), dev)
+        pm = fs3.fs3_params(fixtures.fs_search_profile(hm), DEV)
         wlen = 6 * hm.max_length
         ln, d, lt = one_batch(fixtures.sample_windows(
-            fx.fasta_path, TIME_FS3_B, wlen, SEED), dev, pad=17)
+            fx.fasta_path, TIME_FS3_B, wlen, SEED), pad=17)
         k_ms = cuda_ms(lambda: fs3.fs3_score(d, lt, pm), 5)
         p_ms = once_ms(lambda: fs3.fs3_score_ref(d, lt, pm))
         cells = float(ln.sum()) * M
-        times[("fs3", M)] = (k_ms, p_ms, *bound(
+        t = (k_ms, p_ms, *bound(
             "fs3_parser", cells,
             nbytes(d, lt, *pm.padded(loader.fs3_layout(M)[2])) + 4 * len(ln)))
+        if M == TIME_FS3_M[1]:
+            run.times["fs3_parser"] = t
         phase("timing", kernel="fs3_parser", M=M, B=TIME_FS3_B, L=wlen,
               layout=loader.fs3_layout(M), ms=f"{k_ms:.4f}",
               plain_ms=f"{p_ms:.2f}", us_per_row=f"{1e3 * k_ms / wlen:.3f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
               plain_gcups=f"{cells / p_ms / 1e6:.3f}")
-        if M == TIME_FS3_M[1]:
-            pdd, ddd, ldd, wdd = pm, d[:TIME_FS3DD_B], lt[:TIME_FS3DD_B], wlen
-    k_ms = cuda_ms(lambda: fdd.fs3_domdec(ddd, ldd, pdd, 100.0 / 103.0), 3)
-    p_ms = once_ms(lambda: fdd.fs3_domdec_ref(ddd, ldd, pdd,
-                                              100.0 / 103.0))
-    times["fs3_domdec"] = (k_ms, p_ms, *bound(
-        "fs3_domdec", float(TIME_FS3DD_B) * wdd * TIME_FS3_M[1],
-        nbytes(ddd, ldd, *pdd.padded(loader.fs3_layout(TIME_FS3_M[1])[2]))
-        + 4 * 3 * TIME_FS3DD_B * (wdd + 1) + TIME_FS3DD_B))
-    phase("timing", kernel="fs3_domdec", M=TIME_FS3_M[1], B=TIME_FS3DD_B,
-          L=wdd, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
-          gcups=f"{TIME_FS3DD_B * wdd * TIME_FS3_M[1] / k_ms / 1e6:.2f}")
+    if not decoding:
+        return
+    ddd, ldd = d[:TIME_FS3DD_B], lt[:TIME_FS3DD_B]
+    k_ms = cuda_ms(lambda: fdd.fs3_domdec(ddd, ldd, pm, 100.0 / 103.0), 3)
+    p_ms = once_ms(lambda: fdd.fs3_domdec_ref(ddd, ldd, pm, 100.0 / 103.0))
+    cells = float(TIME_FS3DD_B) * wlen * M
+    run.times["fs3_domdec"] = (k_ms, p_ms, *bound(
+        "fs3_domdec", cells,
+        nbytes(ddd, ldd, *pm.padded(loader.fs3_layout(M)[2]))
+        + 4 * 3 * TIME_FS3DD_B * (wlen + 1) + TIME_FS3DD_B))
+    phase("timing", kernel="fs3_domdec", M=M, B=TIME_FS3DD_B, L=wlen,
+          ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          gcups=f"{cells / k_ms / 1e6:.2f}")
 
-    # 4c. the integer filters: MSV over one flush of the search genome's
-    # ORFs (the flat stream flush_gates hands over), the ViterbiFilter
-    # and both captures over TIME_INT_B of them, at the default F1/F2
-    # thresholds on the null scores; beside each kernel its plain version
-    # and, for MSV and Viterbi, the native host library's OpenMP batch
-    # on the same ORFs in the flat layout its ORF extractor hands over
+
+def time_int(run: Run) -> None:
+    """The integer filters: MSV over one flush of the search genome's
+    ORFs (the flat stream flush_gates hands over), the ViterbiFilter and
+    both captures over TIME_INT_B of them, at the default F1/F2
+    thresholds on the null scores; beside each kernel its plain version
+    and, for MSV and Viterbi, the native host library's OpenMP batch on
+    the same ORFs in the flat layout its ORF extractor hands over.
+    Then the four held exactly on one flush, more ORFs than the card
+    has resident warps, so every warp's grid-stride loop takes further
+    ORFs."""
+    from bath_tpu_torch import fixtures
     from bath_tpu_torch.bg import Background
-    from bath_tpu_torch.gencode import OrfList
-    from bath_tpu_torch.native import vit_filter_score_batch
     from bath_tpu_torch.cli.bathsearch import CHUNK_ORFS
-
-    def host_layout(orfs):
-        flat, offs, lens = ssv.pack_stream(orfs)
-        out = OrfList(orfs)
-        out.flat, out.offs, out.lens = flat.astype(np.int32), offs, lens
-        return out
+    from bath_tpu_torch.native import (msv_filter_native_batch,
+                                       vit_filter_score_batch)
+    from bath_tpu_torch.ops import ssv, vit
+    from bath_tpu_torch.ops.kernels import loader
+    fx, om = run.fx(), run.om()
+    cas, all_orfs = cascade(run)
     pm, pv = cas.msv, cas.vit
     f_orfs = all_orfs[:CHUNK_ORFS]
     f_host = host_layout(f_orfs)
-    f_flat, f_offs, f_lens = (torch.from_numpy(a).to(dev)
+    f_flat, f_offs, f_lens = (torch.from_numpy(a).to(DEV)
                               for a in ssv.pack_stream(f_orfs))
     f_tjb = ints(pm.tjb_for(f_lens.cpu().numpy()))
     fa = (f_flat, f_offs, f_lens, f_tjb, pm)
     k_ms = cuda_ms(lambda: ssv.msv_ssv(*fa), 20)
     p_ms = once_ms(lambda: ssv.msv_ssv_ref(*fa))
-    held("msv_filter", ssv.msv_ssv(*fa), ssv.msv_ssv_ref(*fa), M_SEARCH)
+    held(run, "msv_filter", ssv.msv_ssv(*fa), ssv.msv_ssv_ref(*fa), M_SEARCH)
     h_ms = host_ms(lambda: msv_filter_native_batch(f_host, om))
     cells = float(f_lens.sum()) * M_SEARCH
     Mp400 = loader.layout(M_SEARCH)[2]
-    times["msv_filter"] = (k_ms, p_ms, *bound(
+    run.times["msv_filter"] = (k_ms, p_ms, *bound(
         "msv_filter", cells,
         nbytes(f_flat, f_offs, f_lens, f_tjb, pm.table(Mp400))
         + 4 * 3 * len(f_orfs)))
@@ -744,10 +871,10 @@ def main() -> None:
           max_L=int(f_lens.max()), ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           host_native_batch_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
           gcups=f"{cells / k_ms / 1e6:.2f}",
-          host_gcups=f"{cells / h_ms / 1e6:.2f}", card=repr(card))
+          host_gcups=f"{cells / h_ms / 1e6:.2f}", card=repr(run.card))
     v_orfs = fixtures.sample_orfs(fx.fasta_path, TIME_INT_B, SEED)
     v_host = host_layout(v_orfs)
-    v_flat, v_offs, v_lens = (torch.from_numpy(a).to(dev)
+    v_flat, v_offs, v_lens = (torch.from_numpy(a).to(DEV)
                               for a in ssv.pack_stream(v_orfs))
     vl = v_lens.cpu().numpy()
     got = cas.vit_scores(v_orfs, vl)
@@ -779,8 +906,8 @@ def main() -> None:
         k_ms = cuda_ms(k_fn, 20)
         p_ms = once_ms(p_fn)
         h_ms = host_ms(host) if host else None
-        out = held(name, k_fn(), p_fn(), M_SEARCH)
-        times[name] = (k_ms, p_ms, *bound(
+        out = held(run, name, k_fn(), p_fn(), M_SEARCH)
+        run.times[name] = (k_ms, p_ms, *bound(
             name, cells,
             nbytes(v_flat, v_offs, v_lens, move, v_thr,
                    (pv if name.startswith("vit") else pm).table(Mp400))
@@ -795,12 +922,8 @@ def main() -> None:
               else f"{h_ms:.2f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
               **({"events": events} if name != "vit_filter"
-                 else {"overflow": events}), card=repr(card))
-
-    # 4d. the grid holds at most one ORF per resident warp, and an SM
-    # holds at most 64 warps: one flush's ORFs outnumber them, so every
-    # warp's grid-stride loop takes further ORFs; held exactly there
-    resident = torch.cuda.get_device_properties(dev).multi_processor_count \
+                 else {"overflow": events}), card=repr(run.card))
+    resident = torch.cuda.get_device_properties(DEV).multi_processor_count \
         * 64
     if len(f_orfs) <= resident:
         fail(f"{len(f_orfs)} ORFs do not outnumber {resident} warps")
@@ -808,142 +931,176 @@ def main() -> None:
     f_sthr, f_vthr = (ints(np.full(len(f_orfs), t))
                       for t in (SSV_THR, VIT_THR))
     fo = (f_flat, f_offs, f_lens)
-    held("vit_filter", vit.vit_ints(*fo, f_move, pv),
+    held(run, "vit_filter", vit.vit_ints(*fo, f_move, pv),
          vit.vit_ints_ref(*fo, f_move, pv), M_SEARCH)
-    ev = held("ssv_capture", ssv.ssv_capture(*fo, f_tjb, f_sthr, pm),
+    ev = held(run, "ssv_capture", ssv.ssv_capture(*fo, f_tjb, f_sthr, pm),
               ssv.ssv_capture_ref(*fo, f_tjb, f_sthr, pm), M_SEARCH)[0]
-    kr = held("vit_capture", vit.vit_capture(*fo, f_move, f_vthr, pv),
+    kr = held(run, "vit_capture", vit.vit_capture(*fo, f_move, f_vthr, pv),
               vit.vit_capture_ref(*fo, f_move, f_vthr, pv), M_SEARCH)[0]
     phase("parity", kernel="msv_filter,ssv_capture,vit_filter,vit_capture",
           M=M_SEARCH, B=len(f_orfs), resident_warps_max=resident,
           ssvcap_events=int(ev.sum()), vitcap_events=int((kr != 0).sum()),
           identical=True)
 
-    # 4e. the multi-model entries at the multi-query drive's shapes:
-    # genome ORFs (Forward gate, decoding) and genome windows of 2 *
-    # max_length * 3 nt of each window's model (fs3 pair), their models
-    # drawn over all 48; beside each entry, one single-model launch per
-    # model over the same items, split by model beforehand
-    mq_rng = np.random.default_rng(SEED + 1)
-    mq_hmms = []
-    for M in MQ_MS:
-        hm, _ = fixtures.make_query(M, mq_rng, calibrate=False, fs=True)
-        hm.set_max_length()
-        mq_hmms.append(hm)
-    std_pack = mm.build_fwd_pack(
-        [fwd.fwd_params(fixtures.search_profile(h), dev) for h in mq_hmms])
-    fs_pack = mm.build_fs3_pack(
-        [fs3.fs3_params(fixtures.fs_search_profile(h), dev)
-         for h in mq_hmms])
-    Ms = np.asarray(MQ_MS, np.float64)
-    wlens = np.array([6 * h.max_length for h in mq_hmms])
-    windows = fixtures.sample_windows(fx.fasta_path, TIME_MQ_FS3_B,
-                                      int(wlens.max()), SEED)
-    fs_slot = mq_rng.integers(0, len(MQ_MS), TIME_MQ_FS3_B)
-    windows = [w[:wlens[g]] for w, g in zip(windows, fs_slot)]
-    dd_slot = np.resize(np.asarray(MQ_EMBEDDED), TIME_MQ_FS3DD_B)
-    dd_windows = [w[:wlens[g]] for w, g in zip(
-        fixtures.sample_windows(fx.fasta_path, TIME_MQ_FS3DD_B,
-                                int(wlens.max()), SEED + 2), dd_slot)]
 
-    plain_items = {}
+def mq_models(run: Run):
+    """The 48 multi-query models (uncalibrated, with max_length), their
+    two packs, and the drive-shaped fs3 window batches (windows of
+    2 * max_length * 3 nt of each window's model)."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fs3, fwd
+    from bath_tpu_torch.ops import multimodel as mm
 
-    def time_multi(name, pack, items, sl, pad, call, single, reps, extra=(),
-                   plain_models=range(len(MQ_MS))):
-        """Times one entry on <items> under the models <sl>, beside one
-        single-model launch per model, and holds its output against the
-        single-model entries' on all items and against the plain
-        version's on the items of <plain_models>, which it times."""
-        ln, d, lt = one_batch(items, dev, pad=pad)
-        # one_batch sorts by length: carry the slots along
-        order = np.argsort([len(o) for o in items], kind="stable")
-        sl = np.asarray(sl)[order]
-        split = [(r, pack.params[g], d[r].contiguous(), lt[r].contiguous())
-                 for g, r in model_rows(sl) if len(r)]
-        k_ms = cuda_ms(lambda: call(pack, d, lt, sl, *extra), reps)
-        s_ms = cuda_ms(lambda: [single(dg, lg, pg, *extra)
-                                for _, pg, dg, lg in split], reps)
-        out = call(pack, d, lt, sl, *extra)
-        outs = out if isinstance(out, tuple) else (out,)
-        # the single-model entries on the same items: the gates bit for
-        # bit, the decoders' posteriors within 1e-6 (torch.cumsum)
-        for r, pg, dg, lg in split:
-            one = single(dg, lg, pg, *extra)
-            one = one if isinstance(one, tuple) else (one,)
-            if not (torch.equal(one[-1], outs[-1][r]) and all(
-                    float((a - b[r]).abs().max()) <= 1e-6
-                    for a, b in zip(one[:-1], outs[:-1]))):
-                fail(f"{name} differs from the single-model entry on the "
-                     "timing batch")
-        sub, rs = plain_subset(sl, list(plain_models))
-        ds, ls = d[rs].contiguous(), lt[rs].contiguous()
-        want = []
-        p_ms = once_ms(lambda: want.append(
-            getattr(mm, call.__name__ + "_ref")(pack, ds, ls, sl[sub],
-                                                *extra)))
-        got = tuple(t[rs] for t in outs)
-        err = vs_plain(name, got if len(outs) > 1 else got[0], want[0])
-        plain_items[name] = len(sub)
-        mq_err[name] = max(mq_err[name], err)
-        cells = float((ln[order] * Ms[sl]).sum())
-        tabs = [t for c in pack.classes.values() for t in (c.etab, c.ttab)]
-        times[name] = (k_ms, p_ms, *bound(name, cells,
-                                          nbytes(d, lt, *tabs, *outs)))
-        phase("timing", kernel=name, models=len(split), B=len(items),
-              mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
-              launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
-              per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
-              plain_items=len(sub),
-              plain_models=len(set(sl[sub].tolist())), vs_plain=err,
-              tol=DOMDEC_TOL if len(outs) > 1 else FWD_TOL,
-              single_model_entry="agrees",
-              gcups=f"{cells / k_ms / 1e6:.2f}",
-              bound_ms=f"{times[name][2]:.5f}", bound_by=times[name][3],
-              card=repr(card))
+    def make():
+        rng = np.random.default_rng(SEED + 1)
+        hmms = []
+        for M in MQ_MS:
+            hm, _ = fixtures.make_query(M, rng, calibrate=False, fs=True)
+            hm.set_max_length()
+            hmms.append(hm)
+        std_pack = mm.build_fwd_pack(
+            [fwd.fwd_params(fixtures.search_profile(h), DEV) for h in hmms])
+        fs_pack = mm.build_fs3_pack(
+            [fs3.fs3_params(fixtures.fs_search_profile(h), DEV)
+             for h in hmms])
+        fasta = run.fx().fasta_path
+        wlens = np.array([6 * h.max_length for h in hmms])
+        windows = fixtures.sample_windows(fasta, TIME_MQ_FS3_B,
+                                          int(wlens.max()), SEED)
+        fs_slot = rng.integers(0, len(MQ_MS), TIME_MQ_FS3_B)
+        windows = [w[:wlens[g]] for w, g in zip(windows, fs_slot)]
+        dd_slot = np.resize(np.asarray(MQ_EMBEDDED), TIME_MQ_FS3DD_B)
+        dd_windows = [w[:wlens[g]] for w, g in zip(
+            fixtures.sample_windows(fasta, TIME_MQ_FS3DD_B, int(wlens.max()),
+                                    SEED + 2), dd_slot)]
+        return dict(hmms=hmms, std_pack=std_pack, fs_pack=fs_pack,
+                    windows=windows, fs_slot=fs_slot, dd_windows=dd_windows,
+                    dd_slot=dd_slot, rng=rng)
+    return run.once("mq_models", make)
 
-    time_multi("fwd_parser_multi", std_pack,
-               fixtures.sample_orfs(fx.fasta_path, TIME_MQ_FWD_B, SEED),
-               mq_rng.integers(0, len(MQ_MS), TIME_MQ_FWD_B), 28,
+
+def time_multi(run, name, pack, items, sl, pad, call, single, reps,
+               extra=(), plain_models=range(len(MQ_MS)), record=True):
+    """Times one multi-model entry on <items> under the models <sl>,
+    beside one single-model launch per model, and holds its output
+    against the single-model entries' on all items (the gates bit for
+    bit, the decoders' posteriors within 1e-6: torch.cumsum) and
+    against the plain version's on the items of <plain_models>, which it
+    times."""
+    from bath_tpu_torch.ops import multimodel as mm
+    ln, d, lt = one_batch(items, pad=pad)
+    # one_batch sorts by length: carry the slots along
+    order = np.argsort([len(o) for o in items], kind="stable")
+    sl = np.asarray(sl)[order]
+    split = [(r, pack.params[g], d[r].contiguous(), lt[r].contiguous())
+             for g, r in model_rows(sl) if len(r)]
+    k_ms = cuda_ms(lambda: call(pack, d, lt, sl, *extra), reps)
+    s_ms = cuda_ms(lambda: [single(dg, lg, pg, *extra)
+                            for _, pg, dg, lg in split], reps)
+    out = call(pack, d, lt, sl, *extra)
+    outs = out if isinstance(out, tuple) else (out,)
+    for r, pg, dg, lg in split:
+        one = single(dg, lg, pg, *extra)
+        one = one if isinstance(one, tuple) else (one,)
+        if not (torch.equal(one[-1], outs[-1][r]) and all(
+                max_err(a, b[r]) <= 1e-6 for a, b in zip(one[:-1],
+                                                          outs[:-1]))):
+            fail(f"{name} differs from the single-model entry on the "
+                 "timing batch")
+    sub, rs = plain_subset(sl, list(plain_models))
+    ds, ls = d[rs].contiguous(), lt[rs].contiguous()
+    want = []
+    p_ms = once_ms(lambda: want.append(
+        getattr(mm, call.__name__ + "_ref")(pack, ds, ls, sl[sub], *extra)))
+    got = tuple(t[rs] for t in outs)
+    err = vs_plain(name, got if len(outs) > 1 else got[0], want[0])
+    run.note_err(name, err)
+    cells = float((ln[order] * np.asarray(MQ_MS, np.float64)[sl]).sum())
+    tabs = [t for c in pack.classes.values() for t in (c.etab, c.ttab)]
+    t = (k_ms, p_ms, *bound(name, cells, nbytes(d, lt, *tabs, *outs)))
+    if record:
+        run.times[name] = t
+        run.extra.setdefault(name, {})["plain_items"] = len(sub)
+    phase("timing", kernel=name, models=len(split), B=len(items),
+          mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
+          launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
+          per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          plain_items=len(sub), plain_models=len(set(sl[sub].tolist())),
+          vs_plain=err, tol=DOMDEC_TOL if len(outs) > 1 else FWD_TOL,
+          single_model_entry="agrees", gcups=f"{cells / k_ms / 1e6:.2f}",
+          bound_ms=f"{t[2]:.5f}", bound_by=t[3], card=repr(run.card))
+
+
+def time_multi_fs3(run: Run, plain_fs3, plain_fs3dd, record=True) -> None:
+    """The fs3 pair of multi-model entries at the drive's shapes, their
+    plain versions on the items of the models <plain_fs3>,
+    <plain_fs3dd>."""
+    from bath_tpu_torch.ops import fs3
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops import multimodel as mm
+    m = mq_models(run)
+    time_multi(run, "fs3_parser_multi", m["fs_pack"], m["windows"],
+               m["fs_slot"], 17, mm.fs3_pack_scores, fs3.fs3_score, 3,
+               plain_models=plain_fs3, record=record)
+    time_multi(run, "fs3_domdec_multi", m["fs_pack"], m["dd_windows"],
+               m["dd_slot"], 17, mm.fs3_domdec_pack_batch, fdd.fs3_domdec,
+               2, extra=(100.0 / 103.0,), plain_models=plain_fs3dd,
+               record=record)
+
+
+def time_multi_all(run: Run) -> None:
+    """The four f32 multi-model entries at the multi-query drive's
+    shapes: genome ORFs (Forward gate, decoding) and genome windows
+    (fs3 pair), their models drawn over all 48."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd
+    from bath_tpu_torch.ops import multimodel as mm
+    m = mq_models(run)
+    fasta = run.fx().fasta_path
+    time_multi(run, "fwd_parser_multi", m["std_pack"],
+               fixtures.sample_orfs(fasta, TIME_MQ_FWD_B, SEED),
+               m["rng"].integers(0, len(MQ_MS), TIME_MQ_FWD_B), 28,
                mm.fwd_pack_scores, fwd.fwd_score, 10)
-    time_multi("domdec_multi", std_pack,
-               fixtures.sample_orfs(fx.fasta_path, TIME_MQ_DOMDEC_B, SEED,
+    time_multi(run, "domdec_multi", m["std_pack"],
+               fixtures.sample_orfs(fasta, TIME_MQ_DOMDEC_B, SEED,
                                     min_len=100),
-               mq_rng.integers(0, len(MQ_MS), TIME_MQ_DOMDEC_B), 28,
+               m["rng"].integers(0, len(MQ_MS), TIME_MQ_DOMDEC_B), 28,
                mm.domdec_pack_batch, dd.domdec, 5,
                plain_models=TIME_MQ_PLAIN_DOMDEC)
-    time_multi("fs3_parser_multi", fs_pack, windows, fs_slot, 17,
-               mm.fs3_pack_scores, fs3.fs3_score, 3,
-               plain_models=TIME_MQ_PLAIN_FS3)
-    time_multi("fs3_domdec_multi", fs_pack, dd_windows, dd_slot, 17,
-               mm.fs3_domdec_pack_batch, fdd.fs3_domdec, 2,
-               extra=(100.0 / 103.0,), plain_models=TIME_MQ_PLAIN_FS3DD)
+    time_multi_fs3(run, TIME_MQ_PLAIN_FS3, TIME_MQ_PLAIN_FS3DD)
 
-    # 4f. the two integer multi-model entries at the device
-    # calibration's shapes: the 48 models, each over the one shared
-    # batch of 200 x 200 aa (item b = model b // 200, sequence b % 200,
-    # read at a repeated offset).  Each equal to its plain version and,
-    # model by model, to the single-model entry and to the native host
-    # batch; timed beside one single-model launch per model and the host
-    # batches.
+
+def time_int_multi(run: Run) -> None:
+    """The two integer multi-model entries at the device calibration's
+    shapes: the 48 models, each over the one shared batch of 200 x 200
+    aa (item b = model b // 200, sequence b % 200, read at a repeated
+    offset).  Each equal to its plain version and, model by model, to
+    the single-model entry and to the native host batch; timed beside
+    one single-model launch per model and the host batches."""
     from bath_tpu_torch import evalues_device as ed
+    from bath_tpu_torch.bg import Background
     from bath_tpu_torch.evalues import CalibrateConfig
+    from bath_tpu_torch.native import (msv_filter_native_batch,
+                                       vit_filter_score_batch)
+    from bath_tpu_torch.ops import multimodel as mm
+    from bath_tpu_torch.ops import ssv, vit
     from bath_tpu_torch.oprofile import oprofile_convert
     from bath_tpu_torch.profile import profile_config
     ccfg = CalibrateConfig(fs=True)
     cal_draws = ed.shared_draws(ccfg, Background())
     cal_oms = [oprofile_convert(profile_config(h, Background(), L=ccfg.EvL))
-               for h in mq_hmms]
+               for h in mq_models(run)["hmms"]]
+    Ms = np.asarray(MQ_MS, np.float64)
 
-    cal_err: dict = {}
-
-    def int_multi(name, batch, make, build_pack, word_for, call, ref, single,
-                  scores, native):
+    def int_multi(name, batch, make, build_pack, word_for, call, ref,
+                  single, scores, native):
         N, L = batch.shape
-        params = [make(om_g, dev) for om_g in cal_oms]
+        params = [make(om_g, DEV) for om_g in cal_oms]
         pack = build_pack(params)
-        flat, offs, lens, slot = ed.shared_stream(batch, len(cal_oms), dev)
+        flat, offs, lens, slot = ed.shared_stream(batch, len(cal_oms), DEV)
         word = ed.per_model_words([word_for(p_g, L) for p_g in params], N,
-                                  dev)
+                                  DEV)
         args = (flat, offs, lens, word)
         got = call(pack, *args, slot)
         want = []
@@ -951,7 +1108,7 @@ def main() -> None:
         if not all(torch.equal(a, b) for a, b in zip(got, want[0])):
             fail(f"{name} differs from its plain version: max |d| "
                  f"{exact(got, want[0])}")
-        cal_err[name] = exact(got, want[0])
+        run.note_err(name, exact(got, want[0]))
         split = [(params[g], r, offs[r].contiguous(), lens[r].contiguous(),
                   word[r].contiguous()) for g, r in model_rows(slot)]
         host = host_layout(list(batch))
@@ -971,20 +1128,20 @@ def main() -> None:
         h_ms = host_ms(lambda: [native(host, om_g) for om_g in cal_oms])
         cells = float(N * L * Ms.sum())
         tabs = [t for c in pack.classes.values() for t in (c.tab, c.scal)]
-        times[name] = (k_ms, p_ms, *bound(name, cells,
-                                          nbytes(*args, *tabs, *got)))
-        plain_items[name] = len(slot)
+        run.times[name] = (k_ms, p_ms, *bound(name, cells,
+                                              nbytes(*args, *tabs, *got)))
+        run.extra.setdefault(name, {})["plain_items"] = len(slot)
         phase("timing", kernel=name, models=len(cal_oms),
               M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
               B=len(slot), batch=f"{N}x{L}", vs_plain="identical",
-              max_abs_err=cal_err[name],
+              max_abs_err=run.err[name],
               single_model_entry="bit for bit", native_host_batch="identical",
               launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
               per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
               host_native_batches_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
               gcups=f"{cells / k_ms / 1e6:.2f}",
-              bound_ms=f"{times[name][2]:.5f}", bound_by=times[name][3],
-              card=repr(card))
+              bound_ms=f"{run.times[name][2]:.5f}",
+              bound_by=run.times[name][3], card=repr(run.card))
 
     def msv_nats(raw, tjb_g, p_g):
         out_int, out_inf = (t.cpu().numpy()
@@ -1011,10 +1168,28 @@ def main() -> None:
               lambda h, om_g: vit_filter_score_batch(
                   h, np.arange(len(h)), om_g))
 
-    # 5. end to end: the port's CLI against the host path, in turns
-    # (numpy, torch, torch, numpy); --backend numpy is the port's own
-    # serial host drive.  The first torch run is the one whose kernel
-    # launches are counted.
+
+def phase_timing(run: Run) -> None:
+    time_fwd_domdec(run)
+    time_fs3(run, TIME_FS3_M, decoding=True)
+    time_int(run)
+    time_multi_all(run)
+    time_int_multi(run)
+
+
+# ---------------------------------------------------------------------
+# search: the port's CLI against its own host path
+# ---------------------------------------------------------------------
+def search_standard(run: Run) -> dict:
+    """The standard search in turns (numpy, torch, torch, numpy); the
+    port's --backend numpy is its own serial host drive.  The first
+    torch run is the one whose launches are counted.  Returns the
+    walls."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd
+    fx = run.fx()
     walls: dict = {"torch": [], "numpy": []}
 
     def search(backend, stats=None):
@@ -1039,9 +1214,7 @@ def main() -> None:
                 "domdec": dd.domdec.launches}
     search("torch")
     search("numpy")
-
-    def masked(path):
-        return re.sub(r"# (CPU time|Mc/sec):.*", "", path.read_text())
+    run.cache["out_numpy"] = out_n
     identical = masked(out_t) == masked(out_n)
     found_t = fixtures.embeds_found(str(tbl_t), fx)
     found_n = fixtures.embeds_found(str(tbl_n), fx)
@@ -1068,12 +1241,22 @@ def main() -> None:
         fail(f"a kernel of the path never launched: {launches}")
     if ok_share < MIN_OK_SHARE:
         fail(f"device ok share {ok_share} < {MIN_OK_SHARE}")
+    run.launches.update(launches)
+    return walls
 
-    # 5b. --fs and --fsonly on the frameshift twin of the genome: --fs
-    # in turns (numpy, torch, torch, numpy), --fsonly once each; the
-    # first torch --fs run is the one whose launches are counted
-    fs_fx = fixtures.write_fixture(M_SEARCH, GENOME_NT, N_EMBEDS, SEED,
-                                   fs=True, n_frameshift=N_FRAMESHIFT)
+
+def search_fs(run: Run) -> dict:
+    """--fs and --fsonly on the frameshift twin of the genome: --fs in
+    turns (numpy, torch, torch, numpy), --fsonly once each; the first
+    torch --fs run is the one whose launches are counted.  Returns the
+    walls."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fs3
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops import fwd
+    fs_fx = run.fs_fx()
     fs_walls: dict = {}
 
     def fs_search(backend, mode, stats=None):
@@ -1091,14 +1274,11 @@ def main() -> None:
             fail(f"{backend} bathsearch {mode} exited {rc}")
         return paths
 
-    def fs_masked(paths):
-        return (masked(paths[0]),
-                "".join(ln for ln in paths[2].read_text().splitlines(True)
-                        if not ln.startswith("#")))
-
+    wrappers = (fwd.fwd_score, dd.domdec, fs3.fs3_score, fdd.fs3_domdec)
     fs_n = fs_search("numpy", "--fs")
+    run.cache["fs_numpy"] = fs_n
     fs_stats: dict = {}
-    for f in (fwd.fwd_score, dd.domdec, fs3.fs3_score, fdd.fs3_domdec):
+    for f in wrappers:
         f.launches = 0
     fs_t = fs_search("torch", "--fs", fs_stats)
     # under --fs the host decodes the standard branch's F3 survivors
@@ -1112,7 +1292,7 @@ def main() -> None:
     fs_search("numpy", "--fs")
     only_n = fs_search("numpy", "--fsonly")
     only_stats: dict = {}
-    for f in (fwd.fwd_score, dd.domdec, fs3.fs3_score, fdd.fs3_domdec):
+    for f in wrappers:
         f.launches = 0
     only_t = fs_search("torch", "--fsonly", only_stats)
     only_launches = {"fwd_parser": fwd.fwd_score.launches,
@@ -1166,12 +1346,22 @@ def main() -> None:
              f"--fsonly {only_launches}")
     if fs_ok < MIN_OK_SHARE:
         fail(f"fs3 device ok share {fs_ok} < {MIN_OK_SHARE}")
+    run.launches["fs3_parser"] = fs_launches["fs3_parser"]
+    run.launches["fs3_domdec"] = fs_launches["fs3_domdec"]
+    return fs_walls
 
-    # 5c. the all-device cascade (BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1):
-    # standard twice against the numpy run of phase 5, --fs once against
-    # phase 5b's, then standard with LOOSE filter thresholds against a
-    # numpy run of its own; each run's launches are counted from 0, and
-    # the first run (the main path) must launch all four kernels
+
+def search_all_device(run: Run, walls, fs_walls) -> None:
+    """The all-device cascade (BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1):
+    standard twice against the numpy run of the standard search, --fs
+    once against the --fs one, then standard with LOOSE filter
+    thresholds against a numpy run of its own; each run's launches are
+    counted from 0, and the first run (the main path) must launch all
+    four kernels."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import ssv, vit
+    fx, fs_fx = run.fx(), run.fs_fx()
     int_fns = {"msv_filter": ssv.msv_ssv, "ssv_capture": ssv.ssv_capture,
                "vit_filter": vit.vit_ints, "vit_capture": vit.vit_capture}
     saved = {k: os.environ.get(k) for k in ALL_DEVICE}
@@ -1211,6 +1401,7 @@ def main() -> None:
                          fx.fasta_path])
     if rc != 0:
         fail(f"numpy bathsearch {LOOSE} exited {rc}")
+    out_n, fs_n = run.cache["out_numpy"], run.cache["fs_numpy"]
     ad_identical = {
         "standard": masked(ad0[0]) == masked(out_n),
         "standard_again": masked(ad1[0]) == masked(out_n),
@@ -1243,111 +1434,120 @@ def main() -> None:
     if min(int_launches.values()) <= 0:
         fail(f"an integer-filter kernel never launched in the all-device "
              f"search: {int_launches}")
+    run.launches.update(int_launches)
 
-    # 5d. the multi-query drive: the 48-model query file against a
-    # 5 Mb genome with MQ_COPIES copies of each of 12 of the models
-    # (under --fs the first copy of each frameshifted), --backend torch
-    # (one pass over the genome, the four multi-model kernels) against
-    # the port's --backend numpy (the serial per-query host drive), in
-    # turns; the first torch run of each mode is the one whose launches
-    # are counted.  Compared query by query: -o with its CPU-time lines
-    # masked, --tblout and --fstblout without their '#' lines.
-    def rows(path):
-        return "".join(ln for ln in path.read_text().splitlines(True)
-                       if not ln.startswith("#"))
 
-    def mq_drive(mode, turns, fixture):
-        walls: dict = {"torch": [], "numpy": [], "torch_host": []}
-        first: dict = {}
-        stats: dict = {}
-        host_stats: dict = {}
-        launches = None
-        fns = {"fwd_parser_multi": mm.fwd_pack_scores,
-               "domdec_multi": mm.domdec_pack_batch,
-               "fs3_parser_multi": mm.fs3_pack_scores,
-               "fs3_domdec_multi": mm.fs3_domdec_pack_batch}
-        for backend in turns:
-            stem = BUILD / (f"mq{''.join(mode).replace('-', '_')}_{backend}"
-                            f"{len(walls[backend])}")
-            paths = [stem.with_suffix(x) for x in (".out", ".tbl", ".fst")]
-            counted = backend == "torch" and launches is None
-            st = stats if counted else \
-                host_stats if backend == "torch_host" else {}
-            if counted:
-                for f in fns.values():
-                    f.launches = 0
-            if backend == "torch_host":
-                os.environ.update(dict.fromkeys(MQ_MIN_CELLS, "inf"))
-            t = time.perf_counter()
-            rc = bathsearch.run(
-                ["--backend", backend.split("_")[0], "--device", DEVICE,
-                 *mode, "-o", str(paths[0]), "--tblout", str(paths[1]),
-                 "--fstblout", str(paths[2]), fixture.hmm_path,
-                 fixture.fasta_path], stats=st)
-            torch.cuda.synchronize()
-            walls[backend].append(time.perf_counter() - t)
-            for k in MQ_MIN_CELLS:
-                os.environ.pop(k, None)
-            if counted:
-                launches = {k: f.launches for k, f in fns.items()}
-            if rc != 0:
-                fail(f"{backend} multi-query bathsearch {mode} exited {rc}")
-            first.setdefault(backend, paths)
-        t_out = masked(first["torch"][0]).split("//\n")
-        n_out = masked(first["numpy"][0]).split("//\n")
-        differ = [q for q, (a, b) in enumerate(zip(t_out, n_out)) if a != b]
-        identical = {
-            "out": not differ and len(t_out) == len(n_out) == len(MQ_MS) + 1,
-            "tblout": rows(first["torch"][1]) == rows(first["numpy"][1]),
-            "fstblout": rows(first["torch"][2]) == rows(first["numpy"][2])}
-        if "torch_host" in first:
-            identical["host_stages"] = masked(first["torch_host"][0]) \
-                == masked(first["numpy"][0])
-        found = fixtures.multi_embeds_found(str(first["torch"][1]), fixture)
-        tag = "e2e_multiquery" + "".join(mode).replace("--", "_")
-        for stage, items, cells, secs in stats["mq_stages"]:
-            phase(tag, flush_stage=stage, items=items, cells=cells,
-                  host_wall_s=f"{secs:.4f}")
-        phase(tag, genome_nt=GENOME_NT, models=len(MQ_MS),
-              M=f"{min(MQ_MS)}..{max(MQ_MS)}",
-              embedded_models=len(MQ_EMBEDDED), copies=MQ_COPIES,
-              found=f"{sum(found.values())}/{MQ_COPIES * len(MQ_EMBEDDED)}",
-              byte_identical=identical, queries_differing=differ,
-              walls_torch_s=",".join(f"{w:.3f}" for w in walls["torch"]),
-              walls_numpy_s=",".join(f"{w:.3f}" for w in walls["numpy"]),
-              walls_torch_host_stages_s=",".join(
-                  f"{w:.3f}" for w in walls["torch_host"]),
-              phase_s={k: round(v, 3)
-                       for k, v in stats["mq_phase_s"].items()},
-              phase_host_stages_s={
-                  k: round(v, 3)
-                  for k, v in host_stats.get("mq_phase_s", {}).items()},
-              **{k: (round(v, 4) if isinstance(v, float) else v)
-                 for k, v in stats.items()
-                 if k not in ("mq_stages", "mq_phase_s")},
-              launches=launches, card=repr(card))
-        if "torch_host" in turns and (not host_stats or any(
-                host_stats.get(f"{k}_items")
-                for k in ("fwd", "domdec", "fs3", "fs3domdec"))):
-            fail(f"multi-query {mode}: a stage reached the card with its "
-                 f"threshold out of reach: {host_stats}")
-        if not all(identical.values()):
-            fail(f"multi-query {mode} output differs from the numpy "
-                 f"backend: {identical}, queries {differ}")
-        if sum(found.values()) < 0.75 * MQ_COPIES * len(MQ_EMBEDDED):
-            fail(f"multi-query {mode}: only {found} embeds reported")
-        return launches, stats, first
+def phase_search(run: Run) -> None:
+    walls = search_standard(run)
+    fs_walls = search_fs(run)
+    search_all_device(run, walls, fs_walls)
 
-    # (the fixtures' 48 models are calibrated in one pass on the card:
-    # phase 5e holds that calibration against the host's)
-    mq_fx = fixtures.write_multi_fixture(MQ_MS, GENOME_NT, MQ_EMBEDDED,
-                                         MQ_COPIES, SEED, device=DEVICE)
-    mq_launches, mq_stats, _ = mq_drive([], MQ_TURNS, mq_fx)
-    mq_fs_fx = fixtures.write_multi_fixture(MQ_MS, GENOME_NT, MQ_EMBEDDED,
-                                            MQ_COPIES, SEED, fs=True,
-                                            device=DEVICE)
+
+# ---------------------------------------------------------------------
+# multiquery: the 48-model drive against the serial host drive
+# ---------------------------------------------------------------------
+def rows(path) -> str:
+    return "".join(ln for ln in Path(path).read_text().splitlines(True)
+                   if not ln.startswith("#"))
+
+
+def mq_drive(run: Run, mode, turns, fixture):
+    """The multi-query drive: --backend torch (one pass over the genome,
+    the four multi-model kernels) against the port's --backend numpy
+    (the serial per-query host drive), in turns; the first torch run is
+    the one whose launches are counted.  Compared query by query: -o
+    with its CPU-time lines masked, --tblout and --fstblout without
+    their '#' lines."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import multimodel as mm
+    walls: dict = {"torch": [], "numpy": [], "torch_host": []}
+    first: dict = {}
+    stats: dict = {}
+    host_stats: dict = {}
+    launches = None
+    fns = {"fwd_parser_multi": mm.fwd_pack_scores,
+           "domdec_multi": mm.domdec_pack_batch,
+           "fs3_parser_multi": mm.fs3_pack_scores,
+           "fs3_domdec_multi": mm.fs3_domdec_pack_batch}
+    for backend in turns:
+        stem = BUILD / (f"mq{''.join(mode).replace('-', '_')}_{backend}"
+                        f"{len(walls[backend])}")
+        paths = [stem.with_suffix(x) for x in (".out", ".tbl", ".fst")]
+        counted = backend == "torch" and launches is None
+        st = stats if counted else \
+            host_stats if backend == "torch_host" else {}
+        if counted:
+            for f in fns.values():
+                f.launches = 0
+        if backend == "torch_host":
+            os.environ.update(dict.fromkeys(MQ_MIN_CELLS, "inf"))
+        t = time.perf_counter()
+        rc = bathsearch.run(
+            ["--backend", backend.split("_")[0], "--device", DEVICE,
+             *mode, "-o", str(paths[0]), "--tblout", str(paths[1]),
+             "--fstblout", str(paths[2]), fixture.hmm_path,
+             fixture.fasta_path], stats=st)
+        torch.cuda.synchronize()
+        walls[backend].append(time.perf_counter() - t)
+        for k in MQ_MIN_CELLS:
+            os.environ.pop(k, None)
+        if counted:
+            launches = {k: f.launches for k, f in fns.items()}
+        if rc != 0:
+            fail(f"{backend} multi-query bathsearch {mode} exited {rc}")
+        first.setdefault(backend, paths)
+    t_out = masked(first["torch"][0]).split("//\n")
+    n_out = masked(first["numpy"][0]).split("//\n")
+    differ = [q for q, (a, b) in enumerate(zip(t_out, n_out)) if a != b]
+    identical = {
+        "out": not differ and len(t_out) == len(n_out) == len(MQ_MS) + 1,
+        "tblout": rows(first["torch"][1]) == rows(first["numpy"][1]),
+        "fstblout": rows(first["torch"][2]) == rows(first["numpy"][2])}
+    if "torch_host" in first:
+        identical["host_stages"] = masked(first["torch_host"][0]) \
+            == masked(first["numpy"][0])
+    found = fixtures.multi_embeds_found(str(first["torch"][1]), fixture)
+    tag = "e2e_multiquery" + "".join(mode).replace("--", "_")
+    for stage, items, cells, secs in stats["mq_stages"]:
+        phase(tag, flush_stage=stage, items=items, cells=cells,
+              host_wall_s=f"{secs:.4f}")
+    phase(tag, genome_nt=GENOME_NT, models=len(MQ_MS),
+          M=f"{min(MQ_MS)}..{max(MQ_MS)}",
+          embedded_models=len(MQ_EMBEDDED), copies=MQ_COPIES,
+          found=f"{sum(found.values())}/{MQ_COPIES * len(MQ_EMBEDDED)}",
+          byte_identical=identical, queries_differing=differ,
+          walls_torch_s=",".join(f"{w:.3f}" for w in walls["torch"]),
+          walls_numpy_s=",".join(f"{w:.3f}" for w in walls["numpy"]),
+          walls_torch_host_stages_s=",".join(
+              f"{w:.3f}" for w in walls["torch_host"]),
+          phase_s={k: round(v, 3) for k, v in stats["mq_phase_s"].items()},
+          phase_host_stages_s={
+              k: round(v, 3)
+              for k, v in host_stats.get("mq_phase_s", {}).items()},
+          **{k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in stats.items()
+             if k not in ("mq_stages", "mq_phase_s")},
+          launches=launches, card=repr(run.card))
+    if "torch_host" in turns and (not host_stats or any(
+            host_stats.get(f"{k}_items")
+            for k in ("fwd", "domdec", "fs3", "fs3domdec"))):
+        fail(f"multi-query {mode}: a stage reached the card with its "
+             f"threshold out of reach: {host_stats}")
+    if not all(identical.values()):
+        fail(f"multi-query {mode} output differs from the numpy "
+             f"backend: {identical}, queries {differ}")
+    if sum(found.values()) < 0.75 * MQ_COPIES * len(MQ_EMBEDDED):
+        fail(f"multi-query {mode}: only {found} embeds reported")
+    return launches, stats, first
+
+
+def phase_multiquery(run: Run) -> None:
+    from bath_tpu_torch import fixtures
+    mq_launches, mq_stats, _ = mq_drive(run, [], MQ_TURNS, run.mq_fx(False))
+    mq_fs_fx = run.mq_fx(True)
     mq_fs_launches, mq_fs_stats, mq_fs_paths = mq_drive(
-        ["--fs"], MQ_FS_TURNS, mq_fs_fx)
+        run, ["--fs"], MQ_FS_TURNS, mq_fs_fx)
     mq_shifts = fixtures.multi_frameshifts_found(
         str(mq_fs_paths["torch"][2]), mq_fs_fx)
     phase("e2e_multiquery_fs", frameshifts_found=f"{sum(mq_shifts.values())}"
@@ -1358,79 +1558,116 @@ def main() -> None:
     # the standard drive decodes on the device (domdec_multi); under
     # --fs the host decodes the standard branch with the fs windows, as
     # in the single-query drive, and the fs3 pair runs
-    mq_counts = {"fwd_parser_multi": mq_launches["fwd_parser_multi"],
-                 "domdec_multi": mq_launches["domdec_multi"],
-                 "fs3_parser_multi": mq_fs_launches["fs3_parser_multi"],
-                 "fs3_domdec_multi": mq_fs_launches["fs3_domdec_multi"]}
-    if min(mq_counts.values()) <= 0:
+    counts = {"fwd_parser_multi": mq_launches["fwd_parser_multi"],
+              "domdec_multi": mq_launches["domdec_multi"],
+              "fs3_parser_multi": mq_fs_launches["fs3_parser_multi"],
+              "fs3_domdec_multi": mq_fs_launches["fs3_domdec_multi"]}
+    if min(counts.values()) <= 0:
         fail(f"a multi-model kernel never launched in the multi-query "
-             f"drives: {mq_counts} (standard {mq_launches}, --fs "
+             f"drives: {counts} (standard {mq_launches}, --fs "
              f"{mq_fs_launches})")
     for st, key in ((mq_stats, "domdec"), (mq_fs_stats, "fs3domdec")):
         share = st[f"{key}_ok"] / max(1, st[f"{key}_items"])
         if share < MIN_OK_SHARE:
             fail(f"multi-query {key} ok share {share} < {MIN_OK_SHARE}")
+    run.launches.update(counts)
 
-    # 5e. bathbuild and bathconvert: --backend torch (host builds, then
-    # all 48 models calibrated in one device-batched pass), in this
-    # process, against --backend numpy (the serial host calibration):
-    # bathbuild's ran in the child process of phase 1b, bathconvert's
-    # runs here, just before the torch one.
-    # The files may differ in their DATE line and in the taus of the
-    # f32 gates' STATS lines (within TAU_TOL), nowhere else: the MSV and
-    # VITERBI lines come from the bit-exact integer entries, the FS5
-    # line from the same host parser.
-    from bath_tpu_torch.cli import bathbuild, bathconvert, bathfetch, \
-        bathstat
-    import contextlib
-    import io
+
+# ---------------------------------------------------------------------
+# build: bathbuild and bathconvert, torch against numpy
+# ---------------------------------------------------------------------
+def built_paths() -> dict:
+    return {b: BUILD / f"built_{b}.bhmm" for b in ("numpy", "torch")}
+
+
+def start_host_build(run: Run) -> None:
+    """bathbuild --backend numpy, the serial host calibration, of the
+    48-alignment fixture, in a child process beside the parity phase
+    (it needs no card, the host has cores to spare, and nothing timed
+    runs before it has ended)."""
+    sto, _ = run.msa()
+    run.host_build = host_tool("bathbuild", [built_paths()["numpy"], sto])
+    phase("bathbuild", backend="numpy", started="in a child process",
+          alignments=len(MQ_MS), nseq=MSA_NSEQ)
+
+
+def tool(main, argv, **kw):
+    """(stdout, wall) of one CLI call; the calibration entries' launch
+    counts start at 0."""
+    from bath_tpu_torch.ops import multimodel as mm
+    for f in (mm.msv_ssv_multi, mm.vit_ints_multi, mm.fwd_pack_scores,
+              mm.fs3_pack_scores):
+        f.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main([str(a) for a in argv], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if rc:
+        fail(f"{main.__module__} {argv} exited {rc}")
+    return mask_tool(out.getvalue()), wall
+
+
+def model_diff(a, b, allowed, what):
+    """The largest tau difference between two model files that may
+    differ only in their DATE lines and in the tau of the <allowed>
+    STATS lines; fails on any other difference or past TAU_TOL."""
+    la, lb = (["" if ln.startswith("DATE") else ln
+               for ln in Path(x).read_text().splitlines()] for x in (a, b))
+    if len(la) != len(lb):
+        fail(f"{what}: {len(la)} lines against {len(lb)}")
+    worst, n = 0.0, 0
+    for x, y in zip(la, lb):
+        if x == y:
+            continue
+        fx, fy = x.split(), y.split()
+        if not (x.startswith(allowed) and y.startswith(allowed)
+                and fx[:-2] == fy[:-2] and fx[-1] == fy[-1]):
+            fail(f"{what}: the files differ outside the f32 gates' "
+                 f"taus: {x!r} against {y!r}")
+        worst = max(worst, abs(float(fx[-2]) - float(fy[-2])))
+        n += 1
+    if worst > TAU_TOL:
+        fail(f"{what}: a tau differs by {worst} > {TAU_TOL}")
+    return worst, n
+
+
+def stats_lines(path, key) -> int:
+    return sum(ln.startswith(f"STATS LOCAL {key}")
+               for ln in Path(path).read_text().splitlines())
+
+
+def hit_set(tbl) -> set:
+    hits = set()
+    for ln in Path(tbl).read_text().splitlines():
+        if ln and not ln.startswith("#"):
+            cols = ln.split()
+            hits.add((cols[3], cols[9], cols[10]))
+    return hits
+
+
+def phase_build(run: Run) -> None:
+    """--backend torch (host builds, then all 48 models calibrated in
+    one device-batched pass), in this process, against --backend numpy
+    (the serial host calibration): bathbuild's ran in the child process
+    started before the parity phase, bathconvert's runs here, just
+    before the torch one.  The files may differ in their DATE line and
+    in the taus of the f32 gates' STATS lines (within TAU_TOL), nowhere
+    else: the MSV and VITERBI lines come from the bit-exact integer
+    entries, the FS5 line from the same host parser."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import (bathbuild, bathconvert, bathfetch,
+                                    bathsearch, bathstat)
+    from bath_tpu_torch.ops import multimodel as mm
+    sto, msa_names = run.msa()
+    built = built_paths()
+    run.join_host_build()
+    build_table_numpy, build_wall_numpy = run.built_numpy
     cal_fns = {"msv_filter_multi": mm.msv_ssv_multi,
                "vit_filter_multi": mm.vit_ints_multi,
                "fwd_parser_multi": mm.fwd_pack_scores,
                "fs3_parser_multi": mm.fs3_pack_scores}
-
-    def tool(main, argv, **kw):
-        """(stdout, wall) of one CLI call; the launch counts start at 0."""
-        for f in cal_fns.values():
-            f.launches = 0
-        out = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = main([str(a) for a in argv], **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        if rc:
-            fail(f"{main.__module__} {argv} exited {rc}")
-        return mask_tool(out.getvalue()), wall
-
-    def model_diff(a, b, allowed, what):
-        """The largest tau difference between two model files that may
-        differ only in their DATE lines and in the tau of the <allowed>
-        STATS lines; fails on any other difference or past TAU_TOL."""
-        la, lb = (["" if ln.startswith("DATE") else ln
-                   for ln in Path(x).read_text().splitlines()]
-                  for x in (a, b))
-        if len(la) != len(lb):
-            fail(f"{what}: {len(la)} lines against {len(lb)}")
-        worst, n = 0.0, 0
-        for x, y in zip(la, lb):
-            if x == y:
-                continue
-            fx, fy = x.split(), y.split()
-            if not (x.startswith(allowed) and y.startswith(allowed)
-                    and fx[:-2] == fy[:-2] and fx[-1] == fy[-1]):
-                fail(f"{what}: the files differ outside the f32 gates' "
-                     f"taus: {x!r} against {y!r}")
-            worst = max(worst, abs(float(fx[-2]) - float(fy[-2])))
-            n += 1
-        if worst > TAU_TOL:
-            fail(f"{what}: a tau differs by {worst} > {TAU_TOL}")
-        return worst, n
-
-    def stats_lines(path, key):
-        return sum(ln.startswith(f"STATS LOCAL {key}")
-                   for ln in Path(path).read_text().splitlines())
-
     build_stats: dict = {}
     build_table, build_wall = tool(
         bathbuild.main, ["--backend", "torch", "--device", DEVICE,
@@ -1452,7 +1689,7 @@ def main() -> None:
           max_tau_diff=f"{build_err:.4f}", tau_warn=TAU_WARN, tau_tol=TAU_TOL,
           within_warn=build_err <= TAU_WARN,
           tables_identical=build_table == build_table_numpy,
-          launches=build_launches, card=repr(card))
+          launches=build_launches, card=repr(run.card))
     if build_table != build_table_numpy:
         fail("bathbuild's tables differ between the backends")
     if stats_lines(built["torch"], "FS5") != len(MQ_MS) \
@@ -1463,6 +1700,8 @@ def main() -> None:
     if min(build_launches.values()) <= 0:
         fail(f"a kernel of the calibration never launched in bathbuild: "
              f"{build_launches}")
+    run.launches["msv_filter_multi"] = build_launches["msv_filter_multi"]
+    run.launches["vit_filter_multi"] = build_launches["vit_filter_multi"]
 
     # bathconvert on the numpy-built models without their frameshift
     # calibration: only the fs3 rows may differ
@@ -1480,14 +1719,12 @@ def main() -> None:
                                       F32_GATE_LINES[1:], "bathconvert")
     phase("bathconvert", models=len(MQ_MS),
           wall_numpy_s=f"{conv_wall_numpy:.3f}",
-          wall_numpy_concurrent=False,
-          wall_torch_s=f"{conv_wall:.3f}",
+          wall_numpy_concurrent=False, wall_torch_s=f"{conv_wall:.3f}",
           **{k: (round(v, 4) if isinstance(v, float) else v)
              for k, v in conv_stats.items()},
           fs3_lines_differing=conv_ndiff, max_tau_diff=f"{conv_err:.4f}",
-          tau_tol=TAU_TOL,
-          tables_identical=conv_table == conv_table_numpy,
-          launches=conv_launches, card=repr(card))
+          tau_tol=TAU_TOL, tables_identical=conv_table == conv_table_numpy,
+          launches=conv_launches, card=repr(run.card))
     if conv_table != conv_table_numpy:
         fail("bathconvert's tables differ between the backends")
     if stats_lines(conv["torch"], "FS3") != len(MQ_MS):
@@ -1528,14 +1765,6 @@ def main() -> None:
     # one bathsearch --fs of the multi-query genome (copies of 12 of the
     # proteins the alignments were emitted from) with either file: the
     # same hits
-    def hit_set(tbl):
-        hits = set()
-        for ln in Path(tbl).read_text().splitlines():
-            if ln and not ln.startswith("#"):
-                cols = ln.split()
-                hits.add((cols[3], cols[9], cols[10]))
-        return hits
-
     hits, search_walls = {}, {}
     for b in built:
         tbl = BUILD / f"built_{b}_search.tbl"
@@ -1543,7 +1772,7 @@ def main() -> None:
         rc = bathsearch.run(["--backend", "torch", "--device", DEVICE,
                              "--fs", "-o", str(tbl.with_suffix(".out")),
                              "--tblout", str(tbl), str(built[b]),
-                             mq_fs_fx.fasta_path])
+                             run.mq_fx(True).fasta_path])
         torch.cuda.synchronize()
         search_walls[b] = time.perf_counter() - t
         if rc != 0:
@@ -1562,55 +1791,421 @@ def main() -> None:
         fail(f"the built models find only {len(hits['torch'])} hits of "
              f"{len(MQ_EMBEDDED)} embedded proteins")
 
-    # 6. the record
-    csrc = "bath_tpu_torch/ops/kernels/csrc/"
 
-    def entry(name, src, replaces, n, err, t):
-        # no single PyTorch call computes any of these DPs
-        return {"name": name, "route": "cuda", "source": csrc + src,
-                "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
-                "bound_by": t[3], "library_ms": None}
+# ---------------------------------------------------------------------
+# ubench: the card's microbenchmarks (scripts/ubench_vpu.py's four)
+# ---------------------------------------------------------------------
+# Tolerances against the plain versions (tests/test_torch_ubench.py
+# gives the reasons): the chain and the scalar rows an ulp a step (the
+# kernels' FMA against the plain version's two roundings) that their
+# map does not grow, the gather none (it adds in step order, as the
+# plain version), the tensor-core entry an ulp of the largest sum a
+# step (ubench.onehot_mma_tol), the overlap one bf16 ulp of yacc.
+UB_TOL = {"ub_chain": 1e-6, "ub_onehot_gather": 0.0,
+          "ub_overlap": 2.0 ** -8, "ub_scalars": 1e-6}
+# After 512 steps every element of the chain sits at its map's fixed
+# point whatever x is, and yacc's columns stay equal from the script's
+# start: the entries are also held after 1-3 steps, where the chain
+# still follows x element by element, from a yacc start whose columns
+# differ (ubench.overlap_start).
+UB_SHORT_REPS = (1, 2, 3)
 
-    kernels = [
-        entry("fwd_parser", "fwd_parser.cu", "bath_tpu/ops/pallas/fwd.py:32",
-              launches["fwd_parser"], fwd_err, times[("fwd", TIME_FWD_M[0])]),
-        entry("domdec", "domdec.cu", "bath_tpu/ops/jaxk/kernels.py:988",
-              launches["domdec"], dd_err, times["domdec"]),
-        entry("fs3_parser", "fs3_parser.cu", "bath_tpu/ops/pallas/fs3.py:69",
-              fs_launches["fs3_parser"], fs3_err,
-              times[("fs3", TIME_FS3_M[1])]),
-        entry("fs3_domdec", "fs3_domdec.cu",
-              "bath_tpu/ops/jaxk/kernels.py:1235",
-              fs_launches["fs3_domdec"], fs3dd_err, times["fs3_domdec"]),
-    ]
-    for name, src, replaces in (
-            ("msv_filter", "msv_filter.cu", "bath_tpu/ops/pallas/ssv.py:30"),
-            ("ssv_capture", "ssv_capture.cu",
-             "bath_tpu/ops/jaxk/filters_mb.py:623"),
-            ("vit_filter", "vit_filter.cu", "bath_tpu/ops/pallas/vit.py:64"),
-            ("vit_capture", "vit_filter.cu",
-             "bath_tpu/ops/jaxk/filters_mb.py:304")):
-        kernels.append(entry(name, src, replaces, int_launches[name],
-                             int_err[name], times[name]))
-    for name, src, line in (("fwd_parser_multi", "fwd_parser.cu", 171),
-                            ("domdec_multi", "domdec.cu", 220),
-                            ("fs3_parser_multi", "fs3_parser.cu", 263),
-                            ("fs3_domdec_multi", "fs3_domdec.cu", 312)):
-        kernels.append(entry(name, src,
-                             f"bath_tpu/ops/jaxk/multimodel.py:{line}",
-                             mq_counts[name], mq_err[name], times[name]))
-        # its plain version was timed on this many of the timed items
-        kernels[-1]["plain_items"] = plain_items[name]
-    for name, src, line in (("msv_filter_multi", "msv_filter.cu", 160),
-                            ("vit_filter_multi", "vit_filter.cu", 175)):
-        kernels.append(entry(name, src, f"bath_tpu/evalues_device.py:{line}",
-                             build_launches[name], cal_err[name],
-                             times[name]))
-        kernels[-1]["plain_items"] = plain_items[name]
-    print(json.dumps({"kernels": kernels}), flush=True)
+
+def phase_ubench(run: Run) -> None:
+    """Each of the five entries against its plain version at the
+    script's shapes ([136, 1024], 512 steps), then the drive (launches
+    counted from 0) at [136, 1024] and [136, 4096]; beside the one-hot
+    and overlap entries one torch.matmul of one step's product, a
+    yardstick the port never calls."""
+    from bath_tpu_torch import ubench as ub
+    entries = {"ub_chain": ub.chain, "ub_onehot_gather": ub.onehot_gather,
+               "ub_onehot_mma": ub.onehot_mma, "ub_overlap": ub.overlap,
+               "ub_scalars": ub.scalars}
+    plain_ms = {}
+
+    def hold(entry, got, ref, case):
+        want = []
+        ms = once_ms(lambda: want.append(ref()))
+        err = max_err(got, want[0])
+        tol = ub.onehot_mma_tol(want[0]) if entry == "ub_onehot_mma" \
+            else UB_TOL[entry]
+        if not (torch.isfinite(got).all() and err <= tol):
+            fail(f"{entry} ({case}) vs plain: max |d| {err} > {tol}")
+        run.note_err(entry, err)
+        phase("parity", kernel=entry, case=case, max_abs_err=err, tol=tol,
+              plain_ms=f"{ms:.2f}")
+        return ms
+
+    x, = (a.to(DEV) for a in ub.inputs("chain"))
+    for nops in ub.CHAIN_NOPS:
+        plain_ms["ub_chain"] = hold("ub_chain", ub.chain(x, nops),
+                                    lambda: ub.chain_ref(x, nops),
+                                    f"nops={nops}")
+        for reps in UB_SHORT_REPS:
+            hold("ub_chain", ub.chain(x, nops, reps),
+                 lambda: ub.chain_ref(x, nops, reps),
+                 f"nops={nops} reps={reps}")
+    yard = {}
+    for n in ub.ONEHOT_N:
+        t, idx = (a.to(DEV) for a in ub.inputs("onehot", n=n))
+        gat, mma = ub.onehot_gather(t, idx), ub.onehot_mma(t, idx)
+        for name, got in (("ub_onehot_gather", gat), ("ub_onehot_mma", mma)):
+            plain_ms[name] = hold(name, got, lambda: ub.onehot_ref(t, idx),
+                                  f"n={n}")
+        err = max_err(mma, gat)
+        if err > ub.onehot_mma_tol(gat):
+            fail(f"onehot mma vs gather at n={n}: max |d| {err}")
+        oh = torch.zeros(n, ub.BT, dtype=torch.bfloat16, device=DEV)
+        oh[idx[0].long(), torch.arange(ub.BT, device=DEV)] = 1.0
+        yard["ub_onehot_mma"] = cuda_ms(lambda: torch.matmul(t, oh), 20)
+    g, x = (a.to(DEV) for a in ub.inputs("overlap"))
+    for mode in ub.OVERLAP_MODES:
+        plain_ms["ub_overlap"] = hold(
+            "ub_overlap", ub.overlap(g, x, mode),
+            lambda: ub.overlap_ref(g, x, mode), f"mode={mode}")
+    y0 = ub.overlap_start().to(DEV)
+    for reps in UB_SHORT_REPS:
+        got = {m: ub.overlap(g, x, m, reps, y0) for m in ub.OVERLAP_MODES}
+        want = {m: ub.overlap_ref(g, x, m, reps, y0)
+                for m in ub.OVERLAP_MODES}
+        # mode chain leaves yacc at its bf16 start: the chain's tolerance
+        for m in ub.OVERLAP_MODES:
+            tol = UB_TOL["ub_chain" if m == "chain" else "ub_overlap"]
+            err = max_err(got[m], want[m])
+            if not (torch.isfinite(got[m]).all() and err <= tol):
+                fail(f"ub_overlap (mode={m}, reps={reps}, yacc from "
+                     f"overlap_start) vs plain: max |d| {err} > {tol}")
+            run.note_err("ub_overlap", err)
+        # the chain half of mode both: both - dot is acc - x, whatever
+        # the bf16 ulp in which yacc may differ
+        err = max_err(got["both"] - got["dot"], want["both"] - want["dot"])
+        if err > UB_TOL["ub_chain"]:
+            fail(f"ub_overlap's chain beside the product (reps={reps}): "
+                 f"max |d| {err} > {UB_TOL['ub_chain']}")
+        phase("parity", kernel="ub_overlap", case=f"reps={reps} y0",
+              max_abs_err=max(max_err(got[m], want[m])
+                              for m in ub.OVERLAP_MODES),
+              chain_half_err=err)
+    y = torch.full((2 * ub.MT, ub.BT), 0.3, dtype=torch.bfloat16,
+                   device=DEV)
+    yard["ub_overlap"] = cuda_ms(lambda: torch.matmul(g, y), 20)
+    x, = (a.to(DEV) for a in ub.inputs("scalars"))
+    plain_ms["ub_scalars"] = hold("ub_scalars", ub.scalars(x),
+                                  lambda: ub.scalars_ref(x), "row 0")
+
+    for f in entries.values():
+        f.launches = 0
+    recs = ub.drive()
+    launches = {k: f.launches for k, f in entries.items()}
+    for r in recs:
+        phase("ubench", **{k: (f"{v:.5g}" if isinstance(v, float) else v)
+                           for k, v in r.items()}, card=repr(run.card))
+    if min(launches.values()) <= 0:
+        fail(f"a microbenchmark kernel never launched in the drive: "
+             f"{launches}")
+    run.launches.update(launches)
+
+    # the record: the script's shape, the widest table, both modes' sum
+    def pick(entry, r):
+        return (r["Bt"] == ub.BT and r["Mt"] == ub.MT and {
+            "ub_chain": r.get("nops") == ub.CHAIN_NOPS[-1],
+            "ub_onehot_gather": r.get("n") == ub.ONEHOT_N[-1]
+            and not r["mma"],
+            "ub_onehot_mma": r.get("n") == ub.ONEHOT_N[-1] and r["mma"],
+            "ub_overlap": r.get("mode") == "both",
+            "ub_scalars": True}[entry])
+
+    for entry in entries:
+        mine = [r for r in recs if "bt_" + entry == r["entry"]]
+        r, = [r for r in mine if pick(entry, r)]
+        run.times[entry] = (r["ms"], plain_ms[entry], r["bound_ms"],
+                            r["bound_by"])
+        run.extra[entry] = {"timed": {k: v for k, v in r.items()
+                                      if k not in ("entry", "bound_by")},
+                            "drive": [{k: v for k, v in q.items()
+                                       if k not in ("entry", "case")}
+                                      for q in mine]}
+        if entry in yard:
+            run.extra[entry]["torch_matmul_one_step_ms_yardstick"] = \
+                yard[entry]
+    phase("ubench_yardstick", note="torch.matmul of one step's product; "
+          "not called by the port",
+          onehot_n257_ms=f"{yard['ub_onehot_mma']:.5f}",
+          overlap_ms=f"{yard['ub_overlap']:.5f}")
+
+
+# ---------------------------------------------------------------------
+# mesh: the data-parallel gate step (J5)
+# ---------------------------------------------------------------------
+def phase_mesh(run: Run) -> None:
+    """The step over every card of the machine on one flush's shape:
+    MESH_B windows of MESH_LN nt of the frameshift fixture's genome and
+    the longest ORF of each window's six frames (La the longest of
+    those), under the fixture's own M_SEARCH model; its three outputs
+    bit for bit the three entries launched directly on the whole batch,
+    within tolerance of the plain versions (MSV exactly), its counters
+    exact; the same on two shares of one card; timed as a whole (host
+    copies and the counters' sync included), and on two or more cards
+    beside the whole batch and one card's share on one card."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.alphabet import dna
+    from bath_tpu_torch.hmmfile import read_hmm
+    from bath_tpu_torch.ops import fs3, fwd, ssv
+    from bath_tpu_torch.ops.kernels import loader
+    from bath_tpu_torch.parallel import mesh
+    from bath_tpu_torch.sequence import read_fasta
+    fx = run.fs_fx()
+    hm = read_hmm(fx.hmm_path)
+    om = fixtures.search_profile(hm)
+    fp, mp = fwd.fwd_params(om, DEV), ssv.msv_params(om, DEV)
+    p3 = fs3.fs3_params(fixtures.fs_search_profile(hm), DEV)
+    # windows at random, then MESH_HOMOLOGS over embedded copies (those
+    # on the plus strand score on these windows), so scores pass
+    genome = read_fasta(fx.fasta_path, dna())[0].dsq
+    over = [max(0, min(s - 200, len(genome) - MESH_LN))
+            for s, _ in fx.embeds[:MESH_HOMOLOGS]]
+    windows = fixtures.sample_windows(
+        fx.fasta_path, MESH_B - len(over), MESH_LN, SEED + 3) + [
+        np.asarray(genome[o:o + MESH_LN], np.int8) for o in over]
+    orfs = fixtures.longest_orfs(windows)
+    alens = np.array([len(o) for o in orfs], np.int32)
+    La = int(alens.max())
+    adsq = np.full((MESH_B, La), 28, np.int8)
+    for b, o in enumerate(orfs):
+        adsq[b, :len(o)] = o
+    batch = (adsq, alens, np.stack(windows).astype(np.int8),
+             np.full(MESH_B, MESH_LN, np.int32), mp.tjb_for(alens))
+    a, al, nd, nl, tj = (torch.from_numpy(np.ascontiguousarray(v)).to(DEV)
+                         for v in batch)
+    offs = torch.arange(MESH_B, dtype=torch.int64, device=DEV) * La
+
+    def direct(fwd_fn, msv_fn, fs3_fn):
+        raw = msv_fn(a.reshape(-1), offs, al, tj, mp)
+        return (fwd_fn(a, al, fp),
+                mesh.msv_nats(*ssv.msv_post(*raw, tj, mp), mp),
+                fs3_fn(nd, nl, p3))
+
+    want = direct(fwd.fwd_score, ssv.msv_ssv, fs3.fs3_score)
+    plain = []
+    p_ms = once_ms(lambda: plain.append(direct(
+        fwd.fwd_score_ref, ssv.msv_ssv_ref, fs3.fs3_score_ref)))
+    plain = plain[0]
+    errs = []
+    for k, tol in zip(("fwd", "msv", "fs3"), (FWD_TOL, 0.0, FWD_TOL)):
+        got, ref = want[len(errs)], plain[len(errs)]
+        fin = torch.isfinite(ref)
+        err = max_err(got[fin], ref[fin])
+        if not (torch.equal(fin, torch.isfinite(got)) and err <= tol):
+            fail(f"mesh step's {k} entry vs plain: max |d| {err} > {tol}")
+        errs.append(err)
+    n = torch.cuda.device_count()
+    wrappers = {"fwd_parser": fwd.fwd_score, "msv_filter": ssv.msv_ssv,
+                "fs3_parser": fs3.fs3_score}
+    for f in wrappers.values():
+        f.launches = 0
+    step = mesh.make_pipeline_step(mesh.make_mesh(n), fp, mp, p3)
+    out = step(*batch)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in wrappers.items()}
+    npass = int((want[0] > 0).sum() + (want[2] > 0).sum())
+    nres = int(alens.sum()) + MESH_B * MESH_LN
+    two = mesh.make_pipeline_step([DEV, DEV], fp, mp, p3)(*batch)
+    for tag, o in (("the mesh", out), ("two shares of one card", two)):
+        if not all(torch.equal(x, y) for x, y in zip(o[:3], want)):
+            fail(f"the step over {tag} differs from the entries launched "
+                 "on the whole batch")
+        if o[3].tolist() != [nres, npass]:
+            fail(f"the step over {tag} counts {o[3].tolist()}, not "
+                 f"{[nres, npass]}")
+    if npass == 0:
+        fail("no score of the mesh batch passes: the counters' check is "
+             "vacuous")
+    if min(launches.values()) < n:
+        fail(f"the step did not launch every kernel on every card: "
+             f"{launches} over {n}")
+    k_ms = cuda_ms(lambda: step(*batch), 10)
+    if n > 1:
+        # the same batch on one card, and one card's share of it alone:
+        # the step over n cards takes about the share's time if the
+        # cards work at once, and about n times it if they take turns
+        one = mesh.make_pipeline_step(mesh.make_mesh(1), fp, mp, p3)
+        share = tuple(v[:MESH_B // n] for v in batch)
+        one_ms = cuda_ms(lambda: one(*batch), 10)
+        share_ms = cuda_ms(lambda: one(*share), 10)
+        run.extra["mesh_step"] = {"one_card_ms": one_ms,
+                                  "one_share_alone_ms": share_ms}
+        phase("mesh", shard_invariance_across_cards=f"bit for bit over {n}",
+              step_ms=f"{k_ms:.4f}", one_card_ms=f"{one_ms:.4f}",
+              one_share_alone_ms=f"{share_ms:.4f}",
+              # 1 when the step takes one share's time, 0 when n times
+              cards_at_once=f"{(n - k_ms / share_ms) / (n - 1):.3f}")
+    M = M_SEARCH
+    parts = [
+        bound("fwd_parser", float(alens.sum()) * M,
+              nbytes(a, al, *fp.padded(loader.layout(M)[2])) + 4 * MESH_B),
+        bound("msv_filter", float(alens.sum()) * M,
+              nbytes(a, offs, al, tj, mp.table(loader.layout(M)[2]))
+              + 4 * 3 * MESH_B),
+        bound("fs3_parser", float(MESH_B * MESH_LN) * M,
+              nbytes(nd, nl, *p3.padded(loader.fs3_layout(M)[2]))
+              + 4 * MESH_B)]
+    run.times["mesh_step"] = (k_ms, p_ms, sum(p[0] for p in parts),
+                              max(parts)[1])
+    run.err["mesh_step"] = max(errs)
+    run.launches["mesh_step"] = sum(launches.values())
+    run.extra.setdefault("mesh_step", {}).update(
+        launches_by_kernel=launches, devices=n, B=MESH_B, La=La, Ln=MESH_LN,
+        M=M, nres=nres, npass=npass)
+    phase("mesh", devices=n, B=MESH_B, La=La, Ln=MESH_LN, M=M,
+          windows_over_copies=len(over),
+          bit_for_bit_vs_entries=True, two_shares_one_card="bit for bit",
+          counters=[nres, npass], vs_plain=[f"{e:.3g}" for e in errs],
+          launches=launches, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          bound_ms=f"{run.times['mesh_step'][2]:.5f}", card=repr(run.card))
+    if n < 2:
+        phase("mesh", shard_invariance_across_cards="not run: this machine "
+              "has 1 card")
+
+
+# ---------------------------------------------------------------------
+# deep: the shapes the default run cuts for its time
+# ---------------------------------------------------------------------
+def phase_deep(run: Run) -> None:
+    parity_int(run, DEEP_LONG_ORF)
+    parity_fs3(run, np.random.default_rng(SEED + 11), DEEP_PARITY_FS3,
+               DEEP_PARITY_FS3DD)
+    time_fs3(run, DEEP_TIME_FS3_M, decoding=False)
+    time_multi_fs3(run, DEEP_TIME_MQ_PLAIN_FS3, DEEP_TIME_MQ_PLAIN_FS3DD,
+                   record=False)
+
+
+# ---------------------------------------------------------------------
+# the record, the phases, main
+# ---------------------------------------------------------------------
+CSRC = "bath_tpu_torch/ops/kernels/csrc/"
+ENTRIES = (  # (name, source, the TPU kernel it replaces)
+    ("fwd_parser", CSRC + "fwd_parser.cu", "bath_tpu/ops/pallas/fwd.py:32"),
+    ("domdec", CSRC + "domdec.cu", "bath_tpu/ops/jaxk/kernels.py:988"),
+    ("fs3_parser", CSRC + "fs3_parser.cu", "bath_tpu/ops/pallas/fs3.py:69"),
+    ("fs3_domdec", CSRC + "fs3_domdec.cu",
+     "bath_tpu/ops/jaxk/kernels.py:1235"),
+    ("msv_filter", CSRC + "msv_filter.cu", "bath_tpu/ops/pallas/ssv.py:30"),
+    ("ssv_capture", CSRC + "ssv_capture.cu",
+     "bath_tpu/ops/jaxk/filters_mb.py:623"),
+    ("vit_filter", CSRC + "vit_filter.cu", "bath_tpu/ops/pallas/vit.py:64"),
+    ("vit_capture", CSRC + "vit_filter.cu",
+     "bath_tpu/ops/jaxk/filters_mb.py:304"),
+    ("fwd_parser_multi", CSRC + "fwd_parser.cu",
+     "bath_tpu/ops/jaxk/multimodel.py:171"),
+    ("domdec_multi", CSRC + "domdec.cu",
+     "bath_tpu/ops/jaxk/multimodel.py:220"),
+    ("fs3_parser_multi", CSRC + "fs3_parser.cu",
+     "bath_tpu/ops/jaxk/multimodel.py:263"),
+    ("fs3_domdec_multi", CSRC + "fs3_domdec.cu",
+     "bath_tpu/ops/jaxk/multimodel.py:312"),
+    ("msv_filter_multi", CSRC + "msv_filter.cu",
+     "bath_tpu/evalues_device.py:160"),
+    ("vit_filter_multi", CSRC + "vit_filter.cu",
+     "bath_tpu/evalues_device.py:175"),
+    ("ub_chain", CSRC + "ubench.cu", "scripts/ubench_vpu.py:68"),
+    ("ub_onehot_gather", CSRC + "ubench.cu", "scripts/ubench_vpu.py:101"),
+    ("ub_onehot_mma", CSRC + "ubench.cu", "scripts/ubench_vpu.py:101"),
+    ("ub_overlap", CSRC + "ubench.cu", "scripts/ubench_vpu.py:145"),
+    ("ub_scalars", CSRC + "ubench.cu", "scripts/ubench_vpu.py:183"),
+    ("mesh_step", "bath_tpu_torch/parallel/mesh.py",
+     "bath_tpu/parallel/mesh.py:53"),
+)
+
+PHASES = {"parity": phase_parity, "timing": phase_timing,
+          "ubench": phase_ubench, "mesh": phase_mesh,
+          "search": phase_search, "multiquery": phase_multiquery,
+          "build": phase_build, "deep": phase_deep}
+DEFAULT_PHASES = tuple(p for p in PHASES if p != "deep")
+
+
+def record(run: Run) -> list:
+    """The kernels' record: every entry whose phases ran (all of them in
+    the default run, or it fails).  No single PyTorch call computes any
+    of these functions: library_ms is null."""
+    kernels = []
+    for name, src, replaces in ENTRIES:
+        if not (name in run.times and name in run.err
+                and name in run.launches):
+            continue
+        t = run.times[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": run.launches[name],
+                        "max_abs_err": run.err[name], "ms": t[0],
+                        "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                        "library_ms": None, **run.extra.get(name, {})})
+    missing = sorted({e[0] for e in ENTRIES} - {k["name"] for k in kernels})
+    if set(DEFAULT_PHASES) <= set(run.phases) and missing:
+        fail(f"the record lacks entries: {missing}")
+    return kernels
+
+
+def parse_phases(argv) -> tuple:
+    ap = argparse.ArgumentParser(description="Smoke test of bath_tpu_torch "
+                                 "on one NVIDIA GPU.")
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
+                    help=f"comma list of {', '.join(PHASES)} or all "
+                    f"(default: every phase but deep)")
+    names = ap.parse_args(argv).phases.split(",")
+    if "all" in names:
+        return tuple(PHASES)
+    unknown = set(names) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    return tuple(p for p in PHASES if p in names)
+
+
+def setup(run: Run) -> None:
+    """The device and card lines, the bathbuild --backend numpy child
+    (when the build phase runs), the kernels' build."""
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops.kernels import loader
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run.card = card_line()
+    bathsearch.require_native()
+    phase("device", torch=torch.__version__, cuda=torch.version.cuda,
+          name=repr(torch.cuda.get_device_name(0)),
+          count=torch.cuda.device_count(), native_lib="loaded",
+          phases=",".join(run.phases))
+    print(run.card, flush=True)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    if "build" in run.phases:
+        start_host_build(run)
+    t = time.perf_counter()
+    so = loader.build()
+    loader.lib()
+    phase("nvcc", seconds=f"{time.perf_counter() - t:.1f}",
+          nvcc=" ".join(loader.NVCC_FLAGS),
+          sources=",".join(str(p.relative_to(ROOT))
+                           for p in loader.sources()),
+          library=so.relative_to(ROOT))
+
+
+def main(argv=None) -> None:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    run = Run(phases)
+    setup(run)
+    for name in phases:
+        if name != "parity":
+            # the bathbuild child has to have ended before anything is
+            # timed
+            run.join_host_build()
+        t = time.perf_counter()
+        PHASES[name](run)
+        print(f"[phase] {name} seconds={time.perf_counter() - t:.1f}",
+              flush=True)
+    print(json.dumps({"kernels": record(run)}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

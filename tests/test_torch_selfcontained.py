@@ -6,7 +6,8 @@ and no JAX, and its host code is a faithful copy of the reference's.
 - Dynamic: the port's CLIs (bathsearch single- and multi-query,
   standard and ``--fs``, ``--device cpu``, and its own ``--backend
   numpy``; bathbuild and bathconvert ``--backend torch --device cpu``,
-  bathstat, bathfetch), its
+  bathstat, bathfetch), the microbenchmarks (``ubench``) and the
+  sharded gate step (``parallel.mesh``) on CPU tensors, its
   fixtures and ``chip_smoke``'s module body run in a subprocess where
   ``bath_tpu``, ``jax`` and ``jaxlib`` are unimportable, and leave none
   of them in ``sys.modules``.
@@ -468,6 +469,32 @@ fs5 = sum(ln.startswith("STATS LOCAL FS5")
           for ln in open(sys.argv[1] + "/conv.bhmm"))
 print("RUN", rc, rc2, rc3, rc4, stats["cal_models"], fs5)
 ''', "RUN 0 0 0 0 2 2"),
+    "ubench": ('''
+from bath_tpu_torch import ubench as ub
+x, = ub.inputs("chain", 8, 32, 3)
+t, idx = ub.inputs("onehot", 8, 32, 3, n=17)
+g, y = ub.inputs("overlap", 8, 32, 3)
+outs = [ub.chain(x, 4, 3), ub.onehot_gather(t, idx), ub.onehot_mma(t, idx),
+        ub.overlap(g, y, "both", 3), ub.scalars(x[:1], 3)]
+print("RUN", [tuple(o.shape) for o in outs] == [(8, 32)] * 4 + [(1, 32)])
+''', "RUN True"),
+    "mesh": ('''
+import numpy as np
+from bath_tpu_torch.ops import fs3, fwd, ssv
+from bath_tpu_torch.parallel import mesh
+hmm, q = fixtures.make_query(40, np.random.default_rng(2), calibrate=False,
+                             fs=True)
+om = fixtures.search_profile(hmm)
+p = (fwd.fwd_params(om), ssv.msv_params(om),
+     fs3.fs3_params(fixtures.fs_search_profile(hmm)))
+rng = np.random.default_rng(3)
+batch = (rng.integers(0, 20, (4, 30)), np.full(4, 30), rng.integers(
+    0, 4, (4, 90)), np.full(4, 90), np.full(4, om.tjb_b))
+one, two = (mesh.make_pipeline_step(mesh.make_mesh(n, "cpu"), *p)(*batch)
+            for n in (1, 2))
+print("RUN", all(bool((a == b).all()) for a, b in zip(one, two)),
+      one[3].tolist()[0])
+''', "RUN True 480"),
     "chip_smoke-body": ('''
 import chip_smoke
 print("RUN", callable(chip_smoke.main))

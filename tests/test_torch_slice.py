@@ -14,8 +14,10 @@ test_torch_fs3_domdec.py (the integer filters, exactly, in
 test_torch_ssv.py and test_torch_vit.py).  The searches pin
 BATH_MSV_DEVICE/BATH_VIT_DEVICE to 0, the production default of a host
 with the native library (conftest.py sets 1 for the JAX package's
-tests), except the all-device cascade's, which set both to 1 and run
-the integer filters through the port too.
+tests); the all-device cascade's searches, which set both to 1 and run
+the integer filters through the port too, are in
+test_torch_slice_all_device.py (the longest of these searches, apart so
+that the test workers share them).
 """
 
 import math
@@ -298,55 +300,3 @@ def test_fs3_cascade_batches_and_scatter(fs_fx):
         assert np.abs(want[0][0].numpy() - b[:len(s) + 1]).max() < 1e-6
     assert stats["fs3_items"] == stats["fs3domdec_items"] == len(seqs)
     assert stats["fs3domdec_ok"] == int(ok.sum()) == len(seqs)
-
-
-ALL_DEVICE = {"BATH_MSV_DEVICE": "1", "BATH_VIT_DEVICE": "1"}
-# looser F1/F2 than the defaults: on these fixtures some ORFs then take
-# the Viterbi path and pass it, so the Viterbi capture runs too
-LOOSE = ["--F1", "0.1", "--F2", "0.05"]
-
-
-def fst_rows(path):
-    return "".join(ln for ln in path.read_text().splitlines(True)
-                   if not ln.startswith("#"))
-
-
-@pytest.mark.parametrize("mode", [[], ["--fs"]], ids=["standard", "fs"])
-def test_all_device_cascade_byte_identical_to_numpy(fx, fs_fx, tmp_path,
-                                                    monkeypatch, mode):
-    """BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1: MSV/SSV, the SSV capture,
-    the ViterbiFilter and its capture run through the port too, and the
-    output stays the host path's, byte for byte."""
-    fixture = fs_fx if mode else fx
-    fst_n, fst_t = tmp_path / "numpy.fst", tmp_path / "torch.fst"
-    want, _ = search(fixture, tmp_path, "bath_tpu.cli.bathsearch",
-                     ["--backend", "numpy", *LOOSE, *mode, "--fstblout",
-                      str(fst_n)])
-    for k, v in ALL_DEVICE.items():
-        monkeypatch.setenv(k, v)
-    out = tmp_path / "torch.out"
-    stats = {}
-    assert bathsearch.run(["--device", "cpu", *LOOSE, *mode, "-o",
-                           str(out), "--fstblout", str(fst_t),
-                           fixture.hmm_path, fixture.fasta_path],
-                          stats=stats) == 0
-    assert re.sub(r"# (CPU time|Mc/sec):.*", "", out.read_text()) == want
-    assert fst_rows(fst_t) == fst_rows(fst_n)
-    for stage in ("msv", "ssvcap", "vit", "vitcap"):
-        assert stats[f"{stage}_items"] > 0, stage
-    assert stats["msv_items"] > stats["vit_items"] > stats["vitcap_items"]
-    assert stats["ssvcap_overflow"] > 0
-
-
-def test_all_device_search_imports_no_jax(fx, tmp_path):
-    code = ("import sys\n"
-            "from bath_tpu_torch.cli.bathsearch import run\n"
-            "stats = {}\n"
-            f"rc = run(['--device', 'cpu', '-o', {str(tmp_path / 'o')!r},"
-            f" {fx.hmm_path!r}, {fx.fasta_path!r}], stats=stats)\n"
-            f"print(rc, {LOADED}, stats['vit_items'] > 0)\n")
-    env = dict(os.environ, **ALL_DEVICE)
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=600, cwd=ROOT, env=env)
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert r.stdout.split() == ["0", "False", "True"]

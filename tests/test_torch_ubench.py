@@ -1,0 +1,264 @@
+"""bath_tpu_torch.ubench against scripts/ubench_vpu.py.
+
+The script's four Pallas kernels run in interpret mode on the CPU at
+Mt, Bt, REPS = 16, 128, 4 (the kernels and their jitted ``run`` read
+those module globals at call time): its ``pl.pallas_call`` is replaced
+by one with ``interpret=True`` in the script's namespace only, and its
+``_time`` by a capture of ``(run, args)``.  Each captured ``run`` is
+called on the seeded inputs of ``ubench.inputs`` and compared with the
+port's plain version and with its wrapper on CPU tensors (which runs
+the plain version).  Tolerances, with the largest |d| measured here:
+
+- chain: 1e-6.  CUDA contracts ``v*v + 0.25`` into one FMA, XLA on the
+  CPU may or may not, PyTorch's plain version rounds twice: an ulp a
+  step, which the map (contracting towards its fixed point) does not
+  grow.  Measured: 1.5e-8 (nops 4), 3.0e-8 (nops 16).
+- onehot: 1e-5 here, where the plain version sums in step order like
+  the script's f32 ``acc`` and a one-hot product adds one exact table
+  entry a step.  Measured: 0.  On the card the gather is held exactly
+  and the tensor-core entry within ``ubench.onehot_mma_tol``, an ulp of
+  the largest |acc| a step: the tensor cores do not round each step's
+  add as an IEEE add does (H100: 2.4e-4 on sums up to ~150 at n = 17).
+- overlap: 2**-8, one bf16 ulp of yacc (which lies in [0.25, 0.5)) plus
+  the chain's ulps: the f32 product sums in another order, which may
+  round yacc to its other neighbour.  Measured: 6.0e-8 (chain), 0
+  (dot), 3.0e-8 (both).
+- scalars: exact here (the same two roundings a step on either side;
+  measured: 0); on the card 1e-6, as the chain: the kernel's FMA rounds
+  once (H100: 1.2e-7).
+
+The test marked ``cuda`` holds each of the five kernel entries against
+its plain version on the card at the script's shapes (and the mma and
+gather entries against each other), and the chain and overlap entries
+also after 1-3 steps: after 512 every element of the chain sits at its
+map's fixed point, and from the script's yacc start of 0.3 the columns
+stay equal, so only the short runs, from ``ubench.overlap_start``, show
+which element and which column each lane read.  It skips here, and JAX is imported
+only by the CPU tests' fixture, so the file also runs where there is no
+JAX.
+"""
+
+import functools
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bath_tpu_torch import ubench as ub
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(Mt=16, Bt=128, REPS=4)
+TOL = {"chain": 1e-6, "onehot": 1e-5, "overlap": 2.0 ** -8, "scalars": 0.0}
+
+
+@pytest.fixture(scope="module")
+def script():
+    """scripts/ubench_vpu.py with its Pallas calls in interpret mode and
+    its timer capturing, at the small shapes; {case: [(run, args)]} as
+    the script's bench functions hand them to ``_time``."""
+    import jax
+    from jax.experimental import pallas as pl
+    cache = jax.config.jax_compilation_cache_dir
+    spec = importlib.util.spec_from_file_location(
+        "ubench_vpu_interpret", os.path.join(ROOT, "scripts", "ubench_vpu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    jax.config.update("jax_compilation_cache_dir", cache)
+
+    class Interpret:                # the script's `pl`, interpret mode
+        def __getattr__(self, name):
+            return getattr(pl, name)
+        pallas_call = functools.partial(pl.pallas_call, interpret=True)
+
+    mod.pl = Interpret()
+    for k, v in SMALL.items():
+        setattr(mod, k, v)
+    calls = {}
+
+    def capture(case):
+        def _time(fn, *args, n=8):
+            calls.setdefault(case, []).append((fn, args))
+            return 1.0
+        return _time
+
+    for case, run in (("chain", lambda: [mod.bench_chain(k)
+                                         for k in ub.CHAIN_NOPS]),
+                      ("onehot", lambda: [mod.bench_onehot(n)
+                                          for n in ub.ONEHOT_N]),
+                      ("overlap", mod.bench_overlap),
+                      ("scalars", mod.bench_scalars)):
+        mod._time = capture(case)
+        run()
+    return calls
+
+
+def small(case, **kw):
+    return ub.inputs(case, SMALL["Mt"], SMALL["Bt"], SMALL["REPS"], seed=5,
+                     **kw)
+
+
+def jx(t):
+    import jax.numpy as jnp
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+def close(case, got, want):
+    want = torch.from_numpy(np.array(want, np.float32))
+    err = float((got - want).abs().max())
+    assert err <= TOL[case], (case, err)
+
+
+@pytest.mark.parametrize("k", range(len(ub.CHAIN_NOPS)))
+def test_chain_vs_script(script, k):
+    run, _ = script["chain"][k]
+    x, = small("chain")
+    nops, reps = ub.CHAIN_NOPS[k], SMALL["REPS"]
+    close("chain", ub.chain_ref(x, nops, reps), run(jx(x)))
+    assert torch.equal(ub.chain(x, nops, reps), ub.chain_ref(x, nops, reps))
+
+
+@pytest.mark.parametrize("k", range(len(ub.ONEHOT_N)))
+def test_onehot_vs_script(script, k):
+    run, _ = script["onehot"][k]
+    t, idx = small("onehot", n=ub.ONEHOT_N[k])
+    want = run(jx(t), jx(idx))
+    ref = ub.onehot_ref(t, idx)
+    close("onehot", ref, want)
+    for fn in (ub.onehot_gather, ub.onehot_mma):
+        assert torch.equal(fn(t, idx), ref)
+
+
+@pytest.mark.parametrize("k", range(len(ub.OVERLAP_MODES)))
+def test_overlap_vs_script(script, k):
+    run, _ = script["overlap"][k]        # the script times chain, dot, both
+    g, x = small("overlap")
+    mode = ub.OVERLAP_MODES[k]
+    ref = ub.overlap_ref(g, x, mode, SMALL["REPS"])
+    close("overlap", ref, run(jx(g), jx(x)))
+    assert torch.equal(ub.overlap(g, x, mode, SMALL["REPS"]), ref)
+    if mode != "chain":                  # yacc moved off its 0.3 start
+        assert float((ref - ub.overlap_ref(g, x, "chain",
+                                           SMALL["REPS"])).abs().max()) > 0.01
+
+
+def test_scalars_vs_script(script):
+    (run, _), = script["scalars"]
+    x, = small("scalars")
+    ref = ub.scalars_ref(x, SMALL["REPS"])
+    close("scalars", ref, run(jx(x)))
+    assert ref.shape == (1, SMALL["Bt"])
+    assert torch.equal(ub.scalars(x, SMALL["REPS"]), ref)
+
+
+def test_wrappers_check_inputs():
+    x, = small("chain")
+    with pytest.raises(ValueError):
+        ub.chain(x, 5)
+    with pytest.raises(ValueError):
+        ub.chain(x.double(), 4)
+    t, idx = small("onehot", n=17)
+    with pytest.raises(ValueError):
+        ub.onehot_mma(t.float(), idx)
+    g, x = small("overlap")
+    with pytest.raises(ValueError):
+        ub.overlap(g, x, "neither")
+    with pytest.raises(ValueError):
+        ub.overlap(g[:8, :8].contiguous(), x, "dot")
+
+
+def test_bounds_follow_the_work():
+    """The chain is bound by its f32 operations; the one-hot sum, which
+    either entry computes, by its bytes or one f32 add per element and
+    step, whichever is larger; the tensor-core entry's own product
+    (2 n Mt Bt REPS bf16 operations) is a separate figure, larger than
+    the function's bound; each at the published peaks."""
+    ms, by = ub.bound("chain", ub.MT, ub.BT, ub.REPS, nops=16)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * ub.MT * ub.BT * ub.REPS * 33 / 67e12)
+    ms, by = ub.bound("onehot", ub.MT, ub.BT, ub.REPS, n=257)
+    nbytes = 2 * ub.MT * 257 + 4 * ub.REPS * ub.BT + 4 * ub.MT * ub.BT
+    assert ms == pytest.approx(1e3 * max(ub.MT * ub.BT * ub.REPS / 67e12,
+                                         nbytes / 3.35e12))
+    tc = ub.tc_bound_ms(ub.MT, ub.BT, ub.REPS, 257)
+    assert tc == pytest.approx(1e3 * 2 * 257 * ub.MT * ub.BT * ub.REPS
+                               / 989e12) and tc > 10 * ms
+
+
+def test_overlap_start_shows_the_columns():
+    """From the script's start of 0.3 the output's columns are equal in
+    yacc (mode dot), so a check there cannot see which column of yacc a
+    product read; from ``overlap_start`` a step leaves them far apart,
+    and the wrapper takes the start on the CPU as its plain version.
+    At the card's shapes: one step is one [272, 272] x [272, 1024]
+    product here."""
+    g, x = ub.inputs("overlap")
+    x = torch.zeros_like(x)              # only yacc's part of the output
+    y0 = ub.overlap_start()
+    plain = ub.overlap_ref(g, x, "dot", 1)
+    assert float((plain - plain[:, :1]).abs().max()) == 0.0
+    assert torch.equal(ub.overlap_ref(g, x, "dot", 1, torch.full_like(
+        y0, 0.3)), plain)
+    got = ub.overlap(g, x, "dot", 1, y0)
+    assert torch.equal(got, ub.overlap_ref(g, x, "dot", 1, y0))
+    spread = got.amax(1) - got.amin(1)
+    assert float(spread.min()) > 16 * 2.0 ** -8
+    with pytest.raises(ValueError):
+        ub.overlap(g, x, "dot", 1, y0[:, :32].contiguous())
+
+
+def test_drive_refuses_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        ub.drive()
+
+
+@pytest.mark.cuda
+def test_ubench_kernels_vs_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    x, = (a.to(dev) for a in ub.inputs("chain"))
+    for nops in ub.CHAIN_NOPS:
+        before = ub.chain.launches
+        got = ub.chain(x, nops)
+        assert ub.chain.launches == before + 1
+        assert float((got - ub.chain_ref(x, nops)).abs().max()) <= 1e-6
+    for n in ub.ONEHOT_N:
+        t, idx = (a.to(dev) for a in ub.inputs("onehot", n=n))
+        ref = ub.onehot_ref(t, idx)
+        gat, mma = ub.onehot_gather(t, idx), ub.onehot_mma(t, idx)
+        assert torch.equal(gat, ref)
+        assert float((mma - ref).abs().max()) <= ub.onehot_mma_tol(ref)
+        assert float((mma - gat).abs().max()) <= ub.onehot_mma_tol(ref)
+    # after 1-3 steps the chain still follows x element by element (after
+    # 512 every element sits at the map's fixed point)
+    for nops in ub.CHAIN_NOPS:
+        for reps in (1, 2, 3):
+            got = ub.chain(x, nops, reps)
+            assert float((got - ub.chain_ref(x, nops, reps)).abs().max()) \
+                <= 1e-6
+    g, x = (a.to(dev) for a in ub.inputs("overlap"))
+    for mode in ub.OVERLAP_MODES:
+        got = ub.overlap(g, x, mode)
+        assert float((got - ub.overlap_ref(g, x, mode)).abs().max()) \
+            <= 2.0 ** -8
+    # from a start whose columns differ, so that the product's column
+    # mapping shows; mode chain leaves yacc at its start (the chain's
+    # tolerance), and both - dot is the chain half alone
+    y0 = ub.overlap_start().to(dev)
+    for reps in (1, 2, 3):
+        got = {m: ub.overlap(g, x, m, reps, y0) for m in ub.OVERLAP_MODES}
+        want = {m: ub.overlap_ref(g, x, m, reps, y0)
+                for m in ub.OVERLAP_MODES}
+        for m in ub.OVERLAP_MODES:
+            tol = 1e-6 if m == "chain" else 2.0 ** -8
+            assert float((got[m] - want[m]).abs().max()) <= tol, (m, reps)
+        half = (got["both"] - got["dot"]) - (want["both"] - want["dot"])
+        assert float(half.abs().max()) <= 1e-6, reps
+    x, = (a.to(dev) for a in ub.inputs("scalars"))
+    assert float((ub.scalars(x) - ub.scalars_ref(x)).abs().max()) <= 1e-6
