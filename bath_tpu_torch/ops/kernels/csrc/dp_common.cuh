@@ -6,8 +6,9 @@
 // P is odd, so the P-strided shared-memory reads of 32 threads hit 32
 // different banks.  W = 1 for M <= 32*33: the group is one warp, the
 // lane-neighbour exchange and the D->D scan are warp shuffles, and a
-// block holds several independent items.  W > 1 (longer models) puts
-// one item in a block and adds __syncthreads() exchanges.
+// block holds several independent items.  W > 1 (longer models) adds
+// exchanges through shared memory behind the group's own named barrier
+// (group_sync), so a block may hold several such groups.
 //
 // The D->D chain D[k] = tMD[k]*M[k-1] + tDD[k]*D[k-1] is a linear
 // recurrence along k: each thread reduces its run to an affine map
@@ -73,8 +74,15 @@ struct Group {
   int warp;   // this warp's index in the group
   int lane;
   int t;      // thread index in the group
+  int bar;    // the group's named barrier (W > 1): 0 when it is the block
   Exch x;
 };
+
+// Barrier of the W warps of a group (W > 1); other groups of the block
+// do not take part.
+__device__ __forceinline__ void group_sync(const Group& g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g.bar), "r"(32 * g.W) : "memory");
+}
 
 // Scan of the threads' maps in lane order (REV: from the highest lane
 // down).  Returns the composition of the maps of all threads before
@@ -102,7 +110,7 @@ __device__ __forceinline__ void group_scan(const Group& g, Aff x, Aff& excl,
     return;
   }
   if (g.lane == 0) g.x.agg[g.warp] = wtot;
-  __syncthreads();
+  group_sync(g);
   Aff pre = aff_identity(), tot = aff_identity();
   for (int s = 0; s < g.W; ++s) {
     const int w = REV ? g.W - 1 - s : s;
@@ -131,7 +139,7 @@ __device__ __forceinline__ void lane_before(const Group& g, float a, float b,
       g.x.bnd[3 * g.warp + 1] = b;
       g.x.bnd[3 * g.warp + 2] = c;
     }
-    __syncthreads();
+    group_sync(g);
   }
   pa = __shfl_up_sync(FULL, a, 1);
   pb = __shfl_up_sync(FULL, b, 1);
@@ -308,6 +316,7 @@ __device__ __forceinline__ bt::Group bt_group(int W, float* smem,
   g.warp = (threadIdx.x >> 5) % W;
   g.lane = threadIdx.x & 31;
   g.t = g.warp * 32 + g.lane;
+  g.bar = 0;
   float* base = smem + tab_floats;
   g.x.agg = reinterpret_cast<bt::Aff*>(base);
   g.x.bnd = base + 4 * W;
@@ -331,7 +340,10 @@ __device__ __forceinline__ bt::Group bt_group(int W, float* smem,
 // of a short run simply leaves warps idle.  P and the warps per item
 // are compile- and launch-time constants, so one launch takes models
 // of one padded width Mp; models of other widths go to further
-// launches (at most one per entry of the P ladder and per W).
+// launches (at most one per entry of the P ladder and per W).  The fs3
+// pair plans differently (fs3_common.cuh Fs3Slot): one launch for all
+// widths, each block row naming its class and the block running that
+// class's P, and decoding's items are a window's passes.
 struct BtItem {
   int model;
   int b;   // the item's row in the batch; < 0: this group has none

@@ -24,8 +24,15 @@
 // rings), so no row is ever copied.
 //
 // The emission table (338 packed codon rows x Mp lanes, 0.5 MB at
-// M = 400) does not fit in shared memory; each row's three codon rows
-// are read through L1/L2 (a thread's P lanes are consecutive floats).
+// M = 400) does not fit in shared memory.  A row's three codon rows
+// depend only on the window's nucleotides, known before the pass, so
+// they are fetched a row ahead of the row that reads them (Fs3Ring): one
+// thread of the group asks the copy engine for the next row's three
+// codon rows (cp.async.bulk, Mp floats each) into the other slot of a
+// two-slot ring in shared memory, and the group waits on that slot's
+// mbarrier only when it gets there.  The consumers read no nucleotide
+// and no global memory in the row; the producer reads its next
+// nucleotide a row before it needs it.
 
 #pragma once
 
@@ -36,6 +43,7 @@ namespace bt {
 constexpr int FS3_PLACE = 338;      // nucleotide >= 4 or before the window
 constexpr int FS3_DEGEN_C = 336;
 constexpr int FS3_DEGEN_QC1 = 337;
+constexpr int FS3_RING = 2;         // emission-row ring slots a group
 
 __device__ __forceinline__ int fs3_nt(int8_t r) {
   return r < 4 ? (int)r : FS3_PLACE;
@@ -57,10 +65,90 @@ __device__ __forceinline__ Codons fs3_codons(int x0, int x1, int x2, int x3) {
   return c;
 }
 
+// ---------------------------------------------------------------------
+// Copies from global to shared memory by the copy engine, completed on
+// an mbarrier (Hopper: cp.async.bulk, mbarrier expect_tx/try_wait).
+// ---------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1)
+               : "memory");
+}
+
+// The producer's arrival, announcing <bytes> to come on the barrier.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The emission rows of one pass, FS3_RING - 1 rows ahead: a ring of
+// FS3_RING slots of three codon rows [3][Mp] in shared memory, an
+// mbarrier a slot.  Row n of the pass (its n-th row in the pass's
+// order) lies in slot n % FS3_RING; the group's thread 0 fetches row
+// n + FS3_RING - 1 while the group computes row n, into the slot row
+// n - 1 held, which every thread of the group has read by then (the
+// row's scan or reduction needs every thread's values).  The three rows are a model's codon rows min()-clamped into
+// 0..337 (fs3_codons), so a fetch never reads past the table, also for
+// rows whose codons the recurrence does not read.
+struct Fs3Ring {
+  const float* etab;    // the model's codon odds [338][Mp] (global)
+  float* slots;         // [FS3_RING][3][Mp] (shared)
+  unsigned bar;         // shared address of slot 0's mbarrier; slot s +8s
+  int Mp;
+  bool producer;        // the group's thread 0
+
+  __device__ __forceinline__ void fetch(int n, const Codons& c) const {
+    const unsigned s = (unsigned)n % FS3_RING;
+    const unsigned bytes = (unsigned)Mp * sizeof(float);
+    const unsigned b = bar + 8 * s;
+    const unsigned dst = smem_addr(slots + 3 * s * Mp);
+    // the slot's earlier reads come before the engine's writes
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(b, 3 * bytes);
+    bulk_copy(dst, etab + (size_t)c.c2 * Mp, bytes, b);
+    bulk_copy(dst + bytes, etab + (size_t)c.c3 * Mp, bytes, b);
+    bulk_copy(dst + 2 * bytes, etab + (size_t)c.c4 * Mp, bytes, b);
+  }
+
+  // Waits for row n; the thread's lanes k0.. of its E2 row (E3, E4 at
+  // +Mp, +2Mp).
+  __device__ __forceinline__ const float* rows(int n, int k0) const {
+    const unsigned s = (unsigned)n % FS3_RING;
+    mbar_wait(bar + 8 * s, ((unsigned)n / FS3_RING) & 1);
+    return slots + 3 * s * Mp + k0;
+  }
+};
+
 template <int P, bool STORE>
 struct Fs3Forward {
   const Group& g;
-  const float* __restrict__ etab;   // [338][Mp] codon odds (global)
+  const Fs3Ring& ring;              // the codon rows, a row ahead
   const float* ttab;                // [NTR][Mp] transitions
   int Mp, k0;
   float pmove, ploop, emove, eloop;
@@ -70,11 +158,23 @@ struct Fs3Forward {
   float f1, f2, f3;
   // specials of rows i-1..i-3, unscaled (xB only i-1, i-2)
   float b1, b2, n1, n2, n3, j1, j2, j3, c1, c2, c3;
-  int h1, h2, h3;                   // nucleotides of rows i-1..i-3
+  // the producer: nucleotides x(r-1) (read a fetch early) and x(r-2..r-4)
+  // of the next row r it fetches
+  int nx, h1, h2, h3;
   double lacc, score;
 
   __device__ __forceinline__ float tr(int r, int j) const {
     return ttab[r * Mp + k0 + j];
+  }
+
+  // The producer fetches row r (the ring's row r - 2) and steps its
+  // nucleotides on to row r + 1.
+  __device__ __forceinline__ void fetch(int r, int len, const int8_t* seq) {
+    ring.fetch(r - 2, fs3_codons(nx, h1, h2, h3));
+    h3 = h2;
+    h2 = h1;
+    h1 = nx;
+    nx = r < len ? fs3_nt(seq[r]) : FS3_PLACE;
   }
 
   // Row i.  qa = Q(i-1), qb = Q(i-2) -> Q(i); na = N(i-1), nb = N(i-2),
@@ -84,19 +184,19 @@ struct Fs3Forward {
                                        float (&na)[P], float (&nb)[P],
                                        float (&nc)[P], float (&va)[P],
                                        float (&vb)[P]) {
-    const int x0 = fs3_nt(seq[i - 1]);
-    const Codons cd = fs3_codons(x0, h1, h2, h3);
-    const float* e2 = etab + (size_t)cd.c2 * Mp + k0;
-    const float* e3 = etab + (size_t)cd.c3 * Mp + k0;
-    const float* e4 = etab + (size_t)cd.c4 * Mp + k0;
+    if (ring.producer && i + FS3_RING - 1 <= len)
+      fetch(i + FS3_RING - 1, len, seq);
+    const float* e2 = ring.rows(i - 2, k0);
+    const float* e3 = e2 + Mp;
+    const float* e4 = e2 + 2 * Mp;
     const bool ge3 = i >= 3;
     float msv[P];
     float sumsv = 0.f;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const float sv = f2 * (b2 * tr(P_BM, j) + qb[j]);
-      float m = sv * __ldg(e2 + j);
-      if (ge3) m += f1 * va[j] * __ldg(e3 + j) + f2 * vb[j] * __ldg(e4 + j);
+      float m = sv * e2[j];
+      if (ge3) m += f1 * va[j] * e3[j] + f2 * vb[j] * e4[j];
       msv[j] = m;
       vb[j] = sv;
       sumsv += m;
@@ -169,9 +269,6 @@ struct Fs3Forward {
     c3 = c2;
     c2 = c1;
     c1 = xC;
-    h3 = h2;
-    h2 = h1;
-    h1 = x0;
   }
 };
 
@@ -181,14 +278,15 @@ struct Fs3Forward {
 // the row's rescale and the log scale through the row.  The gate
 // rescales every row by max(xE, 1).  Returns the score in nats (-inf
 // for len < 2) and the total log scale in `lsf`, both summed in
-// double.  Every thread of the group returns after the same rows.
+// double.  Every thread of the group returns after the same rows, and
+// every row fetched into <ring> has been waited for.
 template <int P, bool STORE>
-__device__ double fs3_forward_pass(const Group& g, const float* etab,
+__device__ double fs3_forward_pass(const Group& g, const Fs3Ring& ring,
                                    const float* ttab, int Mp,
                                    const int8_t* __restrict__ seq, int len,
                                    float pmove, float nj, double* spec,
                                    int ld, double& lsf) {
-  Fs3Forward<P, STORE> w{g, etab, ttab, Mp, g.t * P};
+  Fs3Forward<P, STORE> w{g, ring, ttab, Mp, g.t * P};
   w.pmove = pmove;
   w.ploop = 1.f - pmove;
   w.emove = nj > 0.f ? 0.5f : 1.f;
@@ -200,8 +298,12 @@ __device__ double fs3_forward_pass(const Group& g, const float* etab,
   w.b1 = w.b2 = pmove;
   w.n1 = w.n2 = 1.f;
   w.n3 = w.j1 = w.j2 = w.j3 = w.c1 = w.c2 = w.c3 = 0.f;
+  // row 2's codons end at x(1) after x(0); rows before 0 are FS3_PLACE
+  w.nx = len >= 2 ? fs3_nt(seq[1]) : FS3_PLACE;
   w.h1 = len >= 1 ? fs3_nt(seq[0]) : FS3_PLACE;
   w.h2 = w.h3 = FS3_PLACE;
+  if (ring.producer)
+    for (int r = 2; r <= len && r < 1 + FS3_RING; ++r) w.fetch(r, len, seq);
   w.lacc = 0.0;
   w.score = -INFINITY;
   if (STORE && g.t == 0) {
@@ -233,30 +335,141 @@ __device__ double fs3_forward_pass(const Group& g, const float* etab,
   return w.score;
 }
 
-}  // namespace bt
+// ---------------------------------------------------------------------
+// The launch plan (ops/multimodel.py fs3_plan): one int64 table that
+// the host builds and uploads in one copy.
+//   classes, FS3_CLS words each: the addresses of the class's stacked
+//     tables etab [g][338][Mp] and ttab [g][8][Mp], P, W, Mp, and G,
+//     the groups a block of the class holds;
+//   blocks, FS3_BLK words each: class, model (its index in the class's
+//     stacks), M, first item, item count;
+//   items: window rows b (the gate) or 2b + pass (decoding: pass 0 the
+//     Forward, 1 the Backward).
+// One launch takes every class: each block runs the P of its class
+// (BT_FS3_DISPATCH), its groups of W warps side by side, one item a group,
+// all of one model, whose transitions the block stages in shared memory
+// once.  The host orders the blocks by their longest window, longest
+// first, so the longest chains start first.
+// ---------------------------------------------------------------------
+constexpr int FS3_ROWS = 338;       // packed codon rows of a model
+constexpr int FS3_CLS = 8;          // int64 words of a class row
+constexpr int FS3_BLK = 5;          // of a block row
 
-// Host side: the launch shape of the fs3 kernels.  Four windows to a
-// block for W = 1 (the rings take ~10P registers a thread, so smaller
-// blocks pack an SM more fully); one window to a block for W > 1.  The
-// transition table goes to shared memory, ahead of the W > 1 exchange
-// scratch.
-static inline BtLaunch fs3_plan(int B, int Mp, int P) {
-  BtLaunch l;
-  l.W = Mp / (32 * P);
-  l.G = l.W == 1 ? 4 : 1;
-  l.threads = 32 * l.W * l.G;
-  l.blocks = (B + l.G - 1) / l.G;
-  l.tab_in_smem = true;
-  l.smem = (size_t)bt::NTR * Mp * sizeof(float) +
-           (size_t)l.W * (sizeof(bt::Aff) + 4 * sizeof(float));
-  return l;
+__host__ __device__ constexpr size_t fs3_table_bytes(int Mp) {
+  return (size_t)NTR * Mp * sizeof(float);
 }
 
-#define BT_DISPATCH_FS3_P(P, CALL)         \
-  switch (P) {                             \
-    case 3: CALL(3); break;                \
-    case 5: CALL(5); break;                \
-    case 9: CALL(9); break;                \
-    case 13: CALL(13); break;              \
-    default: return cudaErrorInvalidValue; \
+// Shared bytes of one group past the block's transitions, 128-byte
+// aligned: its emission ring (FS3_RING slots of three Mp-float rows),
+// the slots' mbarriers (16-byte aligned) and the W > 1 exchange scratch
+// (Exch).
+__host__ __device__ constexpr size_t fs3_bars_bytes() {
+  return (8 * FS3_RING + 15) / 16 * 16;
+}
+
+__host__ __device__ constexpr size_t fs3_group_bytes(int Mp, int W) {
+  return ((size_t)3 * FS3_RING * Mp * sizeof(float) + fs3_bars_bytes() +
+          (size_t)W * (sizeof(Aff) + 4 * sizeof(float)) + 127) / 128 * 128;
+}
+
+// What a group computes: its window b (< 0: none), its pass, the model.
+struct Fs3Slot {
+  Fs3Ring ring;         // the model's codon odds, fetched a row ahead
+  const float* ttab;    // its transitions [8][Mp] (shared)
+  int P, M, Mp;
+  int b, pass;
+  Group g;
+};
+
+// Every thread of the block calls it: reads the block's row of the plan,
+// stages the model's transitions in shared memory, carves the groups'
+// rings and scratch, sets up the rings' mbarriers and syncs the block;
+// after it no barrier spans the block, so a group without a window may
+// return.  <per>: items a window (1 the
+// gate, 2 decoding).
+__device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
+                                            int ncls, int nblk, int per,
+                                            char* smem) {
+  const long long* bk = plan + FS3_CLS * ncls + FS3_BLK * (long long)blockIdx.x;
+  const long long* c = plan + FS3_CLS * bk[0];
+  Fs3Slot s;
+  s.P = (int)c[2];
+  const int W = (int)c[3];
+  s.Mp = (int)c[4];
+  const int G = (int)c[5];
+  const int model = (int)bk[1];
+  s.M = (int)bk[2];
+  const int first = (int)bk[3], count = (int)bk[4];
+  s.ring.etab = reinterpret_cast<const float*>(c[0]) +
+                (size_t)model * FS3_ROWS * s.Mp;
+  s.ring.Mp = s.Mp;
+  const float* tg = reinterpret_cast<const float*>(c[1]) +
+                    (size_t)model * NTR * s.Mp;
+  float* tt = reinterpret_cast<float*>(smem);
+  for (int q = threadIdx.x; q < NTR * s.Mp; q += blockDim.x) tt[q] = tg[q];
+  s.ttab = tt;
+  const int gi = (threadIdx.x >> 5) / W;
+  Group& g = s.g;
+  g.W = W;
+  g.warp = (threadIdx.x >> 5) % W;
+  g.lane = threadIdx.x & 31;
+  g.t = g.warp * 32 + g.lane;
+  g.bar = 1 + gi;
+  float* ring = reinterpret_cast<float*>(
+      smem + fs3_table_bytes(s.Mp) + (size_t)gi * fs3_group_bytes(s.Mp, W));
+  s.ring.slots = ring;
+  s.ring.bar = smem_addr(ring + 3 * FS3_RING * s.Mp);
+  s.ring.producer = g.t == 0;
+  float* x = ring + 3 * FS3_RING * s.Mp + fs3_bars_bytes() / sizeof(float);
+  g.x.agg = reinterpret_cast<Aff*>(x);
+  g.x.bnd = x + 4 * W;
+  g.x.red = x + 7 * W;
+  s.b = -1;
+  s.pass = 0;
+  if (gi < G && gi < count) {
+    const int item = (int)plan[FS3_CLS * ncls + FS3_BLK * nblk + first + gi];
+    s.b = item / per;
+    s.pass = item % per;
+    if (g.t == 0) {
+      for (int q = 0; q < FS3_RING; ++q) mbar_init(s.ring.bar + 8 * q);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
   }
+  __syncthreads();
+  return s;
+}
+
+}  // namespace bt
+
+// Calls F<P>(args...) for the block's P (the plan's classes are checked
+// on the host, fs3_check).
+#define BT_FS3_DISPATCH(P, CALL)   \
+  switch (P) {                     \
+    case 3: CALL(3); break;        \
+    case 5: CALL(5); break;        \
+    case 9: CALL(9); break;        \
+    case 13: CALL(13); break;      \
+  }
+
+// Host side: checks a plan's classes (the host copy of the table) and
+// gives the launch's dynamic shared memory: the largest class's
+// transitions and groups.  Returns 0, or a cudaError_t.
+static inline int fs3_check(const long long* plan, int ncls, int warps,
+                            size_t& smem) {
+  int dev = 0, cap = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (ncls <= 0 || warps <= 0 || warps > 32) return cudaErrorInvalidValue;
+  smem = 0;
+  for (int i = 0; i < ncls; ++i) {
+    const long long* c = plan + bt::FS3_CLS * i;
+    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
+    if (!(P == 3 || P == 5 || P == 9 || P == 13) || W < 1 ||
+        Mp != 32 * P * W || G < 1 || G * W > warps || (W > 1 && G > 15))
+      return cudaErrorInvalidValue;
+    const size_t need = bt::fs3_table_bytes(Mp) +
+                        (size_t)G * bt::fs3_group_bytes(Mp, W);
+    smem = need > smem ? need : smem;
+  }
+  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
+}

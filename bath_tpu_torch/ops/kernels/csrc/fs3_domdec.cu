@@ -1,15 +1,18 @@
-// Fused fs3 Forward + Backward parser for frameshift domain decoding of
+// fs3 Forward and Backward parsers for frameshift domain decoding of
 // the DNA windows that pass the fs3 gate and arbitration.
 //
 // Replaces bath_tpu/ops/jaxk/kernels.py _fs3_domdec_impl (the jnp
 // kernel that the TPU runs for p7_BackwardParser_Frameshift_3Codons +
-// p7_DomainDecoding_Frameshift).  Per window: the fs3 Forward of
-// fs3_common.cuh with the host's sparse rescale cadence, storing the six
-// specials of every nucleotide row in f64, then the Backward parser,
-// storing its six specials per row the same way.  The stride-3 combine
-// into btot/etot/mocc, its exp(logw - logZ) weights and the cumsums run
-// as tensor ops after the kernel (ops/fs3_domdec.py finish), shared
-// with the plain version.
+// p7_DomainDecoding_Frameshift) and bath_tpu/ops/jaxk/multimodel.py
+// fs3_domdec_pack_batch (build_fs3_domdec_pack: window b under model
+// slot[b]; the TPU's lane packing is not carried over).  Per window: the
+// fs3 Forward of fs3_common.cuh with the host's sparse rescale cadence,
+// storing the six specials of every nucleotide row in f64, and the
+// Backward parser, storing its six specials per row the same way.  The
+// stride-3 combine into btot/etot/mocc, its exp(logw - logZ) weights and
+// the cumsums run as tensor ops after the kernel (ops/fs3_domdec.py
+// finish), shared with the plain version; the per-window dec_loop
+// enters only there.
 //
 // Backward row i (the mirror of the Forward, ref fwdback_fs.c :565):
 //   ivxb[k] = M(i+2)[k] E2(i+2) + M(i+3)[k] E3(i+3) + M(i+4)[k] E4(i+4)
@@ -20,29 +23,46 @@
 // with rows past the window zero.  Rescaling (xB outside [1e-4, 1e4])
 // is rare, so a rescale multiplies the rings in place.
 //
-// What bounds it on the H100: like the gate, a latency chain (2L + 1
-// dependent rows per window), each row with a group-wide reduction (xB)
-// and a group-wide scan, and three codon rows of odds read through
-// L1/L2 per row and pass.  One warp per window up to M = 416, as the
-// gate.  The backward keeps 7P ring floats a thread (M of four rows, I
-// of three) and rotates them by copies.
-//
-// The multi-model entry bt_fs3_domdec_multi replaces
-// bath_tpu/ops/jaxk/multimodel.py fs3_domdec_pack_batch
-// (build_fs3_domdec_pack): window b is decoded under model slot[b].  It
-// is this same kernel, item for item the same arithmetic; the TPU's lane
-// packing is not carried over.  The tables of the models of one padded
-// width Mp are stacked [G, 338, Mp] and [G, 8, Mp] with their lengths
-// Ms [G]; a block finds its model and its windows in a per-block table
-// (BtItem in dp_common.cuh); one launch per Mp.  The per-window dec_loop
-// enters only the combine (ops/fs3_domdec.py finish), not the kernel.
+// What bounds it on the H100: like the gate, a latency chain of
+// dependent rows, each with a group-wide reduction (xB) or scan, and
+// three codon rows of odds a row, fetched a row ahead into shared memory
+// (Fs3Ring in fs3_common.cuh; the Backward's codons end at rows i+2..i+4,
+// so its producer walks the window down).  The two passes
+// share no data (each writes its own specials), so a window takes two
+// groups of the same block, one a pass, which run at the same time: the
+// chain is L + 1 rows, not 2L + 1.  One launch takes every padded width
+// of a batch, blocks longest window first (the plan of fs3_common.cuh).
+// The backward keeps 7P ring floats a thread (M of four rows, I of
+// three) and rotates them by copies.
 
 #include "fs3_common.cuh"
 
 namespace bt {
 
+// The Backward's producer: the nucleotides x(r) .. x(r+3) of the next
+// row r it fetches (FS3_PLACE past the window: the recurrence never
+// reads those codons) and x(r-1), read a fetch early.  It walks the
+// window down; row r is the ring's row len - r.
+struct Fs3BackFetch {
+  const Fs3Ring& ring;
+  const int8_t* seq;
+  int len;
+  int y1, y2, y3, y4, ny;
+
+  __device__ __forceinline__ void fetch(int r) {
+    ring.fetch(len - r, Codons{fs3_codons(y2, y1, 0, 0).c2,
+                               fs3_codons(y3, y2, y1, 0).c3,
+                               fs3_codons(y4, y3, y2, y1).c4});
+    y4 = y3;
+    y3 = y2;
+    y2 = y1;
+    y1 = ny;
+    ny = r >= 2 ? fs3_nt(seq[r - 2]) : FS3_PLACE;
+  }
+};
+
 template <int P>
-__device__ void fs3_backward_pass(const Group& g, const float* __restrict__ etab,
+__device__ void fs3_backward_pass(const Group& g, const Fs3Ring& ring,
                                   const float* ttab, int M, int Mp,
                                   const int8_t* __restrict__ seq, int len,
                                   float pmove, float nj, double* spec,
@@ -59,30 +79,27 @@ __device__ void fs3_backward_pass(const Group& g, const float* __restrict__ etab
   // N/J/C of rows i+1..i+3
   float n1 = 0.f, n2 = 0.f, n3 = 0.f, jj1 = 0.f, jj2 = 0.f, jj3 = 0.f;
   float cc1 = 0.f, cc2 = 0.f, cc3 = 0.f;
-  // nucleotides of rows i+1..i+4 (rows past the window are never read)
-  int y1 = FS3_PLACE, y2 = FS3_PLACE, y3 = FS3_PLACE, y4 = FS3_PLACE;
+  Fs3BackFetch ahead{ring, seq, len, FS3_PLACE, FS3_PLACE, FS3_PLACE,
+                     FS3_PLACE, len >= 1 ? fs3_nt(seq[len - 1]) : FS3_PLACE};
+  if (ring.producer)
+    for (int r = len; r >= 0 && r > len + 1 - FS3_RING; --r) ahead.fetch(r);
   double lsb = 0.0;
   for (int i = len; i >= 0; --i) {
-    y4 = y3;
-    y3 = y2;
-    y2 = y1;
-    y1 = i < len ? fs3_nt(seq[i]) : FS3_PLACE;   // row i+1
+    if (ring.producer && i >= FS3_RING - 1) ahead.fetch(i - FS3_RING + 1);
     float ivxb[P];
     float part = 0.f;
     {
       // the codon of c nt ending at row i+c, for i+c <= len
-      const float* e2 = i + 2 <= len
-          ? etab + (size_t)fs3_codons(y2, y1, 0, 0).c2 * Mp + k0 : nullptr;
-      const float* e3 = i + 3 <= len
-          ? etab + (size_t)fs3_codons(y3, y2, y1, 0).c3 * Mp + k0 : nullptr;
-      const float* e4 = i + 4 <= len
-          ? etab + (size_t)fs3_codons(y4, y3, y2, y1).c4 * Mp + k0 : nullptr;
+      const float* er = ring.rows(len - i, k0);
+      const float* e2 = i + 2 <= len ? er : nullptr;
+      const float* e3 = i + 3 <= len ? er + Mp : nullptr;
+      const float* e4 = i + 4 <= len ? er + 2 * Mp : nullptr;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         float v = 0.f;
-        if (e2) v += m2[j] * __ldg(e2 + j);
-        if (e3) v += m3[j] * __ldg(e3 + j);
-        if (e4) v += m4[j] * __ldg(e4 + j);
+        if (e2) v += m2[j] * e2[j];
+        if (e3) v += m3[j] * e3[j];
+        if (e4) v += m4[j] * e4[j];
         ivxb[j] = v;
         part += ttab[P_BM * Mp + k0 + j] * v;
       }
@@ -96,7 +113,7 @@ __device__ void fs3_backward_pass(const Group& g, const float* __restrict__ etab
         g.x.red[g.warp] = part;
         g.x.bnd[3 * g.warp] = ivxb[0];
       }
-      __syncthreads();
+      group_sync(g);
       xB = 0.f;
       for (int w = 0; w < g.W; ++w) xB += g.x.red[w];
       if (g.lane == 31) nxt_iv = g.warp + 1 < g.W ? g.x.bnd[3 * (g.warp + 1)] : 0.f;
@@ -199,107 +216,76 @@ __device__ void fs3_backward_pass(const Group& g, const float* __restrict__ etab
 
 }  // namespace bt
 
+namespace bt {
+
+// The group's pass over its window: the Forward writes fspec and logz2,
+// the Backward bspec.
 template <int P>
-__global__ void fs3_domdec_kernel(const int8_t* __restrict__ dsq,
-                                  const int* __restrict__ lens, int B, int L,
-                                  const float* __restrict__ etab,
-                                  const float* __restrict__ ttab_g, int M,
-                                  int Mp, int W, float nj,
-                                  double* __restrict__ fspec,
-                                  double* __restrict__ bspec,
-                                  double* __restrict__ logz2, int erows,
-                                  const int* __restrict__ Ms,
-                                  const int* __restrict__ blk,
-                                  const int* __restrict__ order) {
-  extern __shared__ float smem[];
-  const BtItem it = bt_item(blk, order, B, W);
-  if (Ms != nullptr) M = Ms[it.model];
-  etab += (size_t)it.model * erows * Mp;
-  const float *unused, *ttab;
-  bt::load_tables(nullptr, ttab_g + (size_t)it.model * bt::NTR * Mp, 0, Mp,
-                  smem, true, unused, ttab);
-  const bt::Group g = bt_group(W, smem, (size_t)bt::NTR * Mp);
-  const int b = it.b;
-  if (b < 0) return;
+__device__ void fs3_decode(const Fs3Slot& s, const int8_t* __restrict__ dsq,
+                           const int* __restrict__ lens, int L, float nj,
+                           double* __restrict__ fspec,
+                           double* __restrict__ bspec,
+                           double* __restrict__ logz2) {
+  const int b = s.b;
   const int len = lens[b];
   const float pmove = (2.f + nj) / ((float)(len / 3) + 2.f + nj);
   const int ld = L + 1;
   const int8_t* seq = dsq + (size_t)b * L;
-  double lsf;
-  const double logz = bt::fs3_forward_pass<P, true>(
-      g, etab, ttab, Mp, seq, len, pmove, nj, fspec + (size_t)b * 6 * ld, ld,
-      lsf);
-  // the backward reuses the exchange scratch the forward last read
-  if (W > 1) __syncthreads(); else __syncwarp();
-  bt::fs3_backward_pass<P>(g, etab, ttab, M, Mp, seq, len, pmove, nj,
-                           bspec + (size_t)b * 6 * ld, ld);
-  if (g.t == 0) {
-    logz2[2 * b] = logz;
-    logz2[2 * b + 1] = lsf;
+  if (s.pass == 0) {
+    double lsf;
+    const double logz = fs3_forward_pass<P, true>(
+        s.g, s.ring, s.ttab, s.Mp, seq, len, pmove, nj,
+        fspec + (size_t)b * 6 * ld, ld, lsf);
+    if (s.g.t == 0) {
+      logz2[2 * b] = logz;
+      logz2[2 * b + 1] = lsf;
+    }
+  } else {
+    fs3_backward_pass<P>(s.g, s.ring, s.ttab, s.M, s.Mp, seq, len, pmove,
+                         nj, bspec + (size_t)b * 6 * ld, ld);
   }
 }
 
-// One launch of `blocks` blocks; Ms/blk/order null for a single model
-// (erows, the emission rows of one model of a stack, is then unused).
-static int fs3_domdec_launch(const BtLaunch& l, int blocks, const void* dsq,
-                             const void* lens, int B, int L, const void* etab,
-                             const void* ttab, int M, int Mp, int P, float nj,
-                             void* fspec, void* bspec, void* logz2, int erows,
-                             const void* Ms, const void* blk,
-                             const void* order, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define BT_LAUNCH_FS3DD(PP)                                                  \
-  {                                                                          \
-    cudaFuncSetAttribute(fs3_domdec_kernel<PP>,                              \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                         (int)l.smem);                                       \
-    fs3_domdec_kernel<PP><<<blocks, l.threads, l.smem, st>>>(                \
-        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
-        (const float*)ttab, M, Mp, l.W, nj, (double*)fspec, (double*)bspec,  \
-        (double*)logz2, erows, (const int*)Ms, (const int*)blk,              \
-        (const int*)order);                                                  \
-  }
-  BT_DISPATCH_FS3_P(P, BT_LAUNCH_FS3DD)
-#undef BT_LAUNCH_FS3DD
+}  // namespace bt
+
+__global__ void fs3_domdec_kernel(const int8_t* __restrict__ dsq,
+                                  const int* __restrict__ lens, int L,
+                                  float nj, double* __restrict__ fspec,
+                                  double* __restrict__ bspec,
+                                  double* __restrict__ logz2,
+                                  const long long* __restrict__ plan,
+                                  int ncls, int nblk) {
+  extern __shared__ float4 smem4[];
+  const bt::Fs3Slot s = bt::fs3_slot(plan, ncls, nblk, 2,
+                                     reinterpret_cast<char*>(smem4));
+  if (s.b < 0) return;
+#define BT_FS3_DECODE(PP) \
+  bt::fs3_decode<PP>(s, dsq, lens, L, nj, fspec, bspec, logz2)
+  BT_FS3_DISPATCH(s.P, BT_FS3_DECODE)
+#undef BT_FS3_DECODE
+}
+
+// dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; fspec and bspec
+// [B, 6, L+1] f64, zero-filled by the caller (rows past a window stay
+// 0): per row xB, xN, xJ, xC, xE after the row's rescale and the log
+// scale through the row; logz2 [B, 2] f64 = (logZ, total forward log
+// scale); written at the plan's windows.  plan_host and plan: the
+// plan's table (fs3_common.cuh) on the host and on the device, with ncls
+// classes and nblk blocks of `warps` warps, two items a window.
+// Returns the launch's cudaError_t.
+extern "C" int bt_fs3_domdec(const void* dsq, const void* lens, int L,
+                             float nj, void* fspec, void* bspec, void* logz2,
+                             const long long* plan_host, const void* plan,
+                             int ncls, int nblk, int warps, void* stream) {
+  if (nblk <= 0) return 0;
+  size_t smem;
+  const int err = fs3_check(plan_host, ncls, warps, smem);
+  if (err) return err;
+  cudaFuncSetAttribute(fs3_domdec_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  fs3_domdec_kernel<<<nblk, 32 * warps, smem,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,
+      (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();
-}
-
-// dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; etab [338, Mp],
-// ttab [8, Mp] (zero past the model, which has M positions); fspec and
-// bspec [B, 6, L+1] f64, zero-filled by the caller (rows past a window
-// stay 0): per row xB, xN, xJ, xC, xE after the row's rescale and the
-// log scale through the row; logz2 [B, 2] f64 = (logZ, total forward
-// log scale).  Returns the launch's cudaError_t.
-extern "C" int bt_fs3_domdec(const void* dsq, const void* lens, int B, int L,
-                             const void* etab, const void* ttab, int M,
-                             int Mp, int P, float nj, void* fspec,
-                             void* bspec, void* logz2, void* stream) {
-  if (B <= 0) return 0;
-  if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
-  const BtLaunch l = fs3_plan(B, Mp, P);
-  return fs3_domdec_launch(l, l.blocks, dsq, lens, B, L, etab, ttab, M, Mp, P,
-                           nj, fspec, bspec, logz2, 0, nullptr, nullptr,
-                           nullptr, stream);
-}
-
-// The multi-model entry: etab [G, erows, Mp], ttab [G, 8, Mp] and Ms [G]
-// int32 stack the models of padded width Mp; blk [nblocks, 3] int32 =
-// (model, first, count) per block and order [.] int32 the window rows
-// (BtItem); every block holds at most `per_block` windows, which must
-// be the plan's.  The outputs, shaped as bt_fs3_domdec's over the whole
-// batch, are written at the listed windows only.
-extern "C" int bt_fs3_domdec_multi(const void* dsq, const void* lens, int B,
-                                   int L, const void* etab, const void* ttab,
-                                   const void* Ms, int erows, int Mp, int P,
-                                   float nj, void* fspec, void* bspec,
-                                   void* logz2, const void* blk,
-                                   const void* order, int nblocks,
-                                   int per_block, void* stream) {
-  if (nblocks <= 0) return 0;
-  if (Mp % (32 * P) != 0) return cudaErrorInvalidValue;
-  const BtLaunch l = fs3_plan(B, Mp, P);
-  if (per_block != l.G) return cudaErrorInvalidValue;
-  return fs3_domdec_launch(l, nblocks, dsq, lens, B, L, etab, ttab, 0, Mp, P,
-                           nj, fspec, bspec, logz2, erows, Ms, blk, order,
-                           stream);
 }

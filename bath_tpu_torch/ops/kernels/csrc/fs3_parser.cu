@@ -10,106 +10,79 @@
 // jnp gate ops/jaxk/fs3_v4.py _fs3_v4_impl.  It does not carry their
 // dense M x M closure operators (W3, UT, U), which suit the MXU: the
 // D->D chain is the per-thread affine-map scan of dp_common.cuh.  It
-// stays in f32 (the jnp gate rounds emissions to bf16).
+// stays in f32 (the jnp gate rounds emissions to bf16).  It also
+// replaces bath_tpu/ops/jaxk/multimodel.py fs3_pack_scores
+// (build_fs3_pack), window b under model slot[b]; the TPU's lane
+// packing (compact T2/T3/T4 tables side by side, block-diagonal, a
+// residue offset per slot) is not carried over.
 //
 // What bounds it on the H100: each window is a latency chain of L
 // dependent nucleotide rows (up to 2 * max_length * 3, three times an
 // ORF's rows), each with one group-wide scan, and every row reads three
-// codon rows of a 338 x Mp emission table that lives in L1/L2, not in
-// shared memory.  The design answers with one warp per window for
-// M <= 416 (P <= 13 lanes a thread), four windows to a block, the
-// rings renamed rather than copied (fs3_common.cuh), and, past 416
-// positions, several warps of 13 lanes per window.
+// codon rows of a 338 x Mp emission table too large for shared memory
+// (0.5 MB at M = 400).  The design: one warp per window for M <= 416 (P <= 13
+// lanes a thread) and several warps of 13 lanes past that, the rings
+// renamed rather than copied, the codon rows fetched a row ahead into
+// shared memory by the copy engine (fs3_common.cuh); one launch for every
+// padded width of a batch (the plan of fs3_common.cuh: a block runs its
+// class's P and holds as many windows of one model as fit), its blocks
+// longest window first, so a batch takes about the time of its longest
+// chain and not the sum over its widths.
 //
-// The multi-model entry bt_fs3_parser_multi replaces
-// bath_tpu/ops/jaxk/multimodel.py fs3_pack_scores (build_fs3_pack):
-// window b is scored under model slot[b].  It is this same kernel, item
-// for item the same arithmetic; the TPU's lane packing (compact T2/T3/T4
-// tables side by side, block-diagonal, a residue offset per slot) is not
-// carried over.  The tables of the models of one padded width Mp are
-// stacked [G, 338, Mp] and [G, 8, Mp]; a block finds its model and its
-// windows in a per-block table (BtItem in dp_common.cuh) and stages that
-// model's transitions in shared memory; one launch per Mp.  The bound is
-// the single-model one, L dependent nucleotide rows per window.
+// One entry serves the single-model and the multi-model calls: a single
+// model is a plan of one class and one model.
 
 #include "fs3_common.cuh"
 
+namespace bt {
+
 template <int P>
-__global__ void fs3_parser_kernel(const int8_t* __restrict__ dsq,
-                                  const int* __restrict__ lens, int B, int L,
-                                  const float* __restrict__ etab,
-                                  const float* __restrict__ ttab_g, int Mp,
-                                  int W, float nj, float* __restrict__ out,
-                                  int erows, const int* __restrict__ blk,
-                                  const int* __restrict__ order) {
-  extern __shared__ float smem[];
-  const BtItem it = bt_item(blk, order, B, W);
-  etab += (size_t)it.model * erows * Mp;
-  const float *unused, *ttab;
-  bt::load_tables(nullptr, ttab_g + (size_t)it.model * bt::NTR * Mp, 0, Mp,
-                  smem, true, unused, ttab);
-  const bt::Group g = bt_group(W, smem, (size_t)bt::NTR * Mp);
-  const int b = it.b;
-  if (b < 0) return;
-  const int len = lens[b];
+__device__ void fs3_gate(const Fs3Slot& s, const int8_t* __restrict__ dsq,
+                         const int* __restrict__ lens, int L, float nj,
+                         float* __restrict__ out) {
+  const int len = lens[s.b];
   const float pmove = (2.f + nj) / ((float)(len / 3) + 2.f + nj);
   double lsf;
-  const double sc = bt::fs3_forward_pass<P, false>(
-      g, etab, ttab, Mp, dsq + (size_t)b * L, len, pmove, nj, nullptr, 0, lsf);
-  if (g.t == 0) out[b] = (float)sc;
+  const double sc = fs3_forward_pass<P, false>(
+      s.g, s.ring, s.ttab, s.Mp, dsq + (size_t)s.b * L, len, pmove, nj,
+      nullptr, 0, lsf);
+  if (s.g.t == 0) out[s.b] = (float)sc;
 }
 
-// One launch of `blocks` blocks; blk/order null for a single model
-// (erows, the emission rows of one model of a stack, is then unused).
-static int fs3_launch(const BtLaunch& l, int blocks, const void* dsq,
-                      const void* lens, int B, int L, const void* etab,
-                      const void* ttab, int Mp, int P, float nj, void* out,
-                      int erows, const void* blk, const void* order,
-                      void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define BT_LAUNCH_FS3(PP)                                                    \
-  {                                                                          \
-    cudaFuncSetAttribute(fs3_parser_kernel<PP>,                              \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                         (int)l.smem);                                       \
-    fs3_parser_kernel<PP><<<blocks, l.threads, l.smem, st>>>(                \
-        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
-        (const float*)ttab, Mp, l.W, nj, (float*)out, erows,                 \
-        (const int*)blk, (const int*)order);                                 \
-  }
-  BT_DISPATCH_FS3_P(P, BT_LAUNCH_FS3)
-#undef BT_LAUNCH_FS3
+}  // namespace bt
+
+__global__ void fs3_parser_kernel(const int8_t* __restrict__ dsq,
+                                  const int* __restrict__ lens, int L,
+                                  float nj, float* __restrict__ out,
+                                  const long long* __restrict__ plan,
+                                  int ncls, int nblk) {
+  extern __shared__ float4 smem4[];
+  const bt::Fs3Slot s = bt::fs3_slot(plan, ncls, nblk, 1,
+                                     reinterpret_cast<char*>(smem4));
+  if (s.b < 0) return;
+#define BT_FS3_GATE(PP) bt::fs3_gate<PP>(s, dsq, lens, L, nj, out)
+  BT_FS3_DISPATCH(s.P, BT_FS3_GATE)
+#undef BT_FS3_GATE
+}
+
+// dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; out [B] f32
+// nats, written at the plan's windows.  plan_host and plan: the plan's
+// table (fs3_common.cuh) on the host and on the device, with ncls
+// classes and nblk blocks of `warps` warps.  Returns the launch's
+// cudaError_t.
+extern "C" int bt_fs3_parser(const void* dsq, const void* lens, int L,
+                             float nj, void* out, const long long* plan_host,
+                             const void* plan, int ncls, int nblk, int warps,
+                             void* stream) {
+  if (nblk <= 0) return 0;
+  size_t smem;
+  const int err = fs3_check(plan_host, ncls, warps, smem);
+  if (err) return err;
+  cudaFuncSetAttribute(fs3_parser_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  fs3_parser_kernel<<<nblk, 32 * warps, smem,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)dsq, (const int*)lens, L, nj, (float*)out,
+      (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();
-}
-
-// dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; etab [338, Mp]
-// packed codon odds and ttab [8, Mp] transitions, zero past the model;
-// out [B] f32 nats.  Returns the launch's cudaError_t.
-extern "C" int bt_fs3_parser(const void* dsq, const void* lens, int B, int L,
-                             const void* etab, const void* ttab, int Mp,
-                             int P, float nj, void* out, void* stream) {
-  if (B <= 0) return 0;
-  if (Mp % (32 * P) != 0) return cudaErrorInvalidValue;
-  const BtLaunch l = fs3_plan(B, Mp, P);
-  return fs3_launch(l, l.blocks, dsq, lens, B, L, etab, ttab, Mp, P, nj, out,
-                    0, nullptr, nullptr, stream);
-}
-
-// The multi-model entry: etab [G, erows, Mp] and ttab [G, 8, Mp] stack
-// the tables of the models of padded width Mp; blk [nblocks, 3] int32 =
-// (model, first, count) per block and order [.] int32 the window rows
-// (BtItem); every block holds at most `per_block` windows, which must
-// be the plan's.  out [B] is written at the listed windows only.
-extern "C" int bt_fs3_parser_multi(const void* dsq, const void* lens, int B,
-                                   int L, const void* etab, const void* ttab,
-                                   int erows, int Mp, int P, float nj,
-                                   void* out, const void* blk,
-                                   const void* order, int nblocks,
-                                   int per_block, void* stream) {
-  if (nblocks <= 0) return 0;
-  if (Mp % (32 * P) != 0) return cudaErrorInvalidValue;
-  const BtLaunch l = fs3_plan(B, Mp, P);
-  if (per_block != l.G) return cudaErrorInvalidValue;
-  return fs3_launch(l, nblocks, dsq, lens, B, L, etab, ttab, Mp, P, nj, out,
-                    erows, blk, order, stream);
 }

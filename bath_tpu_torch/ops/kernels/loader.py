@@ -47,15 +47,12 @@ LANES_PER_THREAD = (3, 5, 9, 13, 17, 25, 33)
 FS3_LANES_PER_THREAD = (3, 5, 9, 13)
 
 
-# Items to a thread block (bt_plan and fs3_plan in csrc/): one-warp
+# Items to a thread block (bt_plan in csrc/dp_common.cuh): one-warp
 # items share a block and its copy of the tables; an item of several
-# warps has a block to itself.  The multi-model entries check it.
+# warps has a block to itself.  The multi-model entries check it.  (The
+# fs3 pair plans its blocks with ops/multimodel.py fs3_plan.)
 def items_per_block(W: int) -> int:
     return 8 if W == 1 else 1
-
-
-def fs3_items_per_block(W: int) -> int:
-    return 4 if W == 1 else 1
 
 _lib = None
 
@@ -154,21 +151,15 @@ def lib() -> ctypes.CDLL:
     so.bt_domdec.argtypes = [P, P, I, I, P, P, I, I, I, I, F, P, P, P, P,
                              P, P]
     so.bt_fs3_parser.restype = I
-    so.bt_fs3_parser.argtypes = [P, P, I, I, P, P, I, I, F, P, P]
+    so.bt_fs3_parser.argtypes = [P, P, I, F, P, P, P, I, I, I, P]
     so.bt_fs3_domdec.restype = I
-    so.bt_fs3_domdec.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P, P, P]
+    so.bt_fs3_domdec.argtypes = [P, P, I, F, P, P, P, P, P, I, I, I, P]
     so.bt_fwd_parser_multi.restype = I
     so.bt_fwd_parser_multi.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P,
                                        P, I, I, P]
     so.bt_domdec_multi.restype = I
     so.bt_domdec_multi.argtypes = [P, P, I, I, P, P, P, I, I, I, F, P, P, P,
                                    P, P, P, P, I, I, P]
-    so.bt_fs3_parser_multi.restype = I
-    so.bt_fs3_parser_multi.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P,
-                                       P, I, I, P]
-    so.bt_fs3_domdec_multi.restype = I
-    so.bt_fs3_domdec_multi.argtypes = [P, P, I, I, P, P, P, I, I, I, F, P,
-                                       P, P, P, P, I, I, P]
     so.bt_msv_filter.restype = I
     so.bt_msv_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, I,
                                  P, P]
@@ -291,19 +282,82 @@ def launch_domdec(dsq: torch.Tensor, lens: torch.Tensor,
     return inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]
 
 
+def _fs3_lens(dsq, lens) -> np.ndarray:
+    """The fs3 entries' input check, with one read back from the device:
+    contiguous tensors, residue codes in [0, DNA_CODES), lengths in
+    [0, L].  Returns the lengths on the host (the plan orders the
+    windows by them)."""
+    if dsq.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a {dsq.device} tensor")
+    if not (dsq.is_contiguous() and lens.is_contiguous()):
+        raise ValueError("dsq and lens must be contiguous")
+    parts = [lens.to(torch.int32)]
+    if dsq.numel():
+        parts.append(torch.stack(torch.aminmax(dsq)).to(torch.int32))
+    host = torch.cat(parts).cpu().numpy()
+    B = dsq.shape[0]
+    if dsq.numel():
+        lo, hi = host[B:]
+        if lo < 0 or hi >= DNA_CODES:
+            raise ValueError(f"residue codes must lie in [0, {DNA_CODES})")
+        if host[:B].min() < 0 or host[:B].max() > dsq.shape[1]:
+            raise ValueError("lens must lie in [0, L]")
+    return host[:B]
+
+
+class Fs3Launch:
+    """One launch of an fs3 entry on a checked and planned batch (``ops/
+    multimodel.py`` ``fs3_plan``, its table on the device).  Calling it
+    allocates the outputs and launches, with no check and no read back:
+    the kernel's own time is the call's."""
+
+    def __init__(self, dsq, lens, slot, pack, decoding: bool):
+        from ..multimodel import fs3_plan
+        ln = _fs3_lens(dsq, lens)
+        if pack.device != dsq.device:
+            raise ValueError(f"pack on {pack.device}, input on {dsq.device}")
+        self.dsq, self.lens, self.decoding = dsq, lens, decoding
+        self.plan = fs3_plan(ln, slot, pack, 2 if decoding else 1)
+        self.table = torch.from_numpy(self.plan.table).to(dsq.device)
+
+    @property
+    def launches(self) -> int:
+        return int(self.plan.nblk > 0)
+
+    def __call__(self, nj: float):
+        so = lib()
+        B, L = self.dsq.shape
+        dev = self.dsq.device
+        pl = self.plan
+        head = (self.dsq, self.lens, L, float(nj))
+        tail = (pl.table.ctypes.data, self.table, pl.ncls, pl.nblk, pl.warps)
+        if not self.decoding:
+            out = torch.empty(B, dtype=torch.float32, device=dev)
+            _launch("fs3_parser", so.bt_fs3_parser, *head, out, *tail)
+            return out
+        spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
+        logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
+        _launch("fs3_domdec", so.bt_fs3_domdec, *head, spec[0], spec[1],
+                logz2, *tail)
+        return spec[0], spec[1], logz2
+
+
+def prepare_fs3(dsq, lens, slot, pack, decoding: bool) -> Fs3Launch:
+    """The fs3 gate (or, with <decoding>, fs3 decoding) of window b under
+    model ``slot[b]`` of <pack> (``build_fs3_pack``), or of every window
+    under one model (<slot> None, <pack> its ``ProfileTensors``), as one
+    launch."""
+    from ..multimodel import OneModel
+    if slot is None:
+        slot, pack = np.zeros(dsq.shape[0], np.int64), OneModel(pack)
+    return Fs3Launch(dsq, lens, slot, pack, decoding)
+
+
 def launch_fs3(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
                nj: float) -> torch.Tensor:
     """fs3_parser.cu: fs3-Forward gate scores [B] f32 (nats) of DNA
     windows (residue codes 0..17)."""
-    _check_inputs(dsq, lens, DNA_CODES)
-    so = lib()
-    B, L = dsq.shape
-    P, _, Mp = fs3_layout(p.M)
-    etab, ttab = p.padded(Mp)
-    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
-    _launch("fs3_parser", so.bt_fs3_parser, dsq, lens, B, L, etab, ttab, Mp, P,
-            float(nj), out)
-    return out
+    return prepare_fs3(dsq, lens, None, p, False)(nj)
 
 
 def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
@@ -311,17 +365,7 @@ def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
     """fs3_domdec.cu: the forward and backward specials [B, 6, L+1] f64
     of every nucleotide row, and (logZ, total forward log scale) [B, 2]
     f64."""
-    _check_inputs(dsq, lens, DNA_CODES)
-    so = lib()
-    B, L = dsq.shape
-    P, _, Mp = fs3_layout(p.M)
-    etab, ttab = p.padded(Mp)
-    dev = dsq.device
-    spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
-    logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
-    _launch("fs3_domdec", so.bt_fs3_domdec, dsq, lens, B, L, etab, ttab, p.M,
-            Mp, P, float(nj), spec[0], spec[1], logz2)
-    return spec[0], spec[1], logz2
+    return prepare_fs3(dsq, lens, None, p, True)(nj)
 
 
 def _multi_plans(slot, pack, per_block, device):
@@ -384,35 +428,17 @@ def launch_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
 def launch_fs3_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
                      nj: float):
     """fs3_parser.cu, multi-model entry: (fs3 gate scores [B] f32 of
-    window b under model slot[b], the number of launches)."""
-    _check_inputs(dsq, lens, DNA_CODES)
-    so = lib()
-    B, L = dsq.shape
-    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
-    plans = _multi_plans(slot, pack, fs3_items_per_block, dsq.device)
-    for c, order, blk, nblocks, G in plans:
-        _launch("fs3_parser_multi", so.bt_fs3_parser_multi, dsq, lens, B, L,
-                c.etab, c.ttab, pack.Kp, c.Mp, c.P, float(nj), out, blk, order,
-                nblocks, G)
-    return out, len(plans)
+    window b under model slot[b], the number of launches: one)."""
+    run = prepare_fs3(dsq, lens, slot, pack, False)
+    return run(nj), run.launches
 
 
 def launch_fs3_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot,
                             pack, nj: float):
     """fs3_domdec.cu, multi-model entry: (launch_fs3_domdec's outputs
-    over the whole batch, the number of launches)."""
-    _check_inputs(dsq, lens, DNA_CODES)
-    so = lib()
-    B, L = dsq.shape
-    dev = dsq.device
-    spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
-    logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
-    plans = _multi_plans(slot, pack, fs3_items_per_block, dev)
-    for c, order, blk, nblocks, G in plans:
-        _launch("fs3_domdec_multi", so.bt_fs3_domdec_multi, dsq, lens, B, L,
-                c.etab, c.ttab, c.Ms, pack.Kp, c.Mp, c.P, float(nj), spec[0],
-                spec[1], logz2, blk, order, nblocks, G)
-    return (spec[0], spec[1], logz2), len(plans)
+    over the whole batch, the number of launches: one)."""
+    run = prepare_fs3(dsq, lens, slot, pack, True)
+    return run(nj), run.launches
 
 
 def launch_msv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,

@@ -12,13 +12,22 @@ block-diagonal emission table and stacked ``[G, Mg, Mg]`` closure
 operators; none of that is carried over.  Here a pack is the list of
 the models' own ``ProfileTensors`` and, for the CUDA kernels, their
 zero-padded tables stacked per padded width Mp (``ModelPack.classes``).
-A launch takes the models of one Mp, because the lanes per thread P and
-the warps per item W are compile- and launch-time constants of the
+There is no limit on the item length or on the number of models, and no
+batch ladder.
+
+Two launch plans.  The Forward gate, decoding and the integer filters
+launch once per padded width, because the lanes per thread P and the
+warps per item W are compile- and launch-time constants of their
 kernels; inside a launch the items are ordered by model and each
 model's run is cut into thread blocks of at most G items
 (``block_plan``), so a block holds items of one model only and shares
-one copy of that model's tables.  There is no limit on M, on the item
-length or on the number of models, and no batch ladder.
+one copy of that model's tables.  The fs3 pair takes every width of a
+call in one launch (``fs3_plan``): each block row names its class (P,
+W, Mp and where the class's stacks lie), its model and its items, the
+kernel runs that class's P, and the blocks go out longest window first,
+so a call takes about the time of its longest chain rather than the
+sum over its widths; decoding gives each window two items, one for its
+Forward and one for its Backward, which run at the same time.
 
 Each packed call launches the multi-model entry of its single-model
 kernel (``ops/kernels/csrc/{fwd_parser,domdec,fs3_parser,fs3_domdec}.cu``,
@@ -190,6 +199,132 @@ def block_plan(slot: np.ndarray, pack: ModelPack, per_block):
         plans.append((cls, order, np.asarray(blk, np.int32).reshape(-1, 3),
                       G))
     return plans
+
+
+# ---------------------------------------------------------------------
+# The fs3 pair's plan: every padded width in one launch
+# ---------------------------------------------------------------------
+FS3_ROWS = 338              # packed codon rows of a model's odds
+FS3_SMEM_BYTES = 232448     # shared memory a block may take on the H100
+FS3_CLS, FS3_BLK = 8, 5     # int64 words of a class row and a block row
+FS3_RING = 2                # emission-row ring slots a group
+
+
+def fs3_group_bytes(Mp: int, W: int) -> int:
+    """Shared bytes a group of W warps takes past its block's transition
+    table (``csrc/fs3_common.cuh`` ``fs3_group_bytes``), 128-byte
+    aligned: its emission ring (FS3_RING slots of three codon rows of
+    Mp floats), the slots' mbarriers and the W > 1 exchange scratch."""
+    bars = -(-8 * FS3_RING // 16) * 16
+    return -(-(12 * FS3_RING * Mp + bars + 32 * W) // 128) * 128
+
+
+def fs3_block_warps(Ws) -> int:
+    """Warps of every block of a launch whose classes take W warps a
+    group: at least four, and six when the widest class takes three, so
+    that groups of 1, 2 and 3 warps fill a block."""
+    w = max(Ws)
+    return 4 if w <= 2 else 6 if w == 3 else w
+
+
+@dataclass
+class Fs3Plan:
+    """One launch of an fs3 entry (``csrc/fs3_common.cuh``): ``table``
+    holds ``ncls`` class rows (the addresses of the class's stacked
+    ``etab``/``ttab``, P, W, Mp, G groups a block), ``nblk`` block rows
+    (class, model in the class's stacks, M, first item, count), then the
+    items (window rows b, or 2b + pass with two passes).  ``classes``:
+    (P, W, Mp, G, longest window) of each class."""
+    table: np.ndarray
+    ncls: int
+    nblk: int
+    warps: int
+    classes: list
+
+    @property
+    def blocks(self) -> np.ndarray:
+        at = FS3_CLS * self.ncls
+        return self.table[at:at + FS3_BLK * self.nblk].reshape(-1, FS3_BLK)
+
+    @property
+    def items(self) -> np.ndarray:
+        return self.table[FS3_CLS * self.ncls + FS3_BLK * self.nblk:]
+
+
+class OneModel:
+    """One model as ``fs3_plan`` reads a pack (``M``, ``slot_class``,
+    ``classes``), on its own padded tables: no stacked copy."""
+
+    def __init__(self, p):
+        from .kernels.loader import fs3_layout
+        P, W, Mp = fs3_layout(p.M)
+        etab, ttab = p.padded(Mp)
+        self.device = p.device
+        self.M = [p.M]
+        self.slot_class = (np.array([Mp]), np.array([0]))
+        self.classes = {Mp: SimpleNamespace(P=P, W=W, Mp=Mp, models=[0],
+                                            etab=etab, ttab=ttab)}
+
+
+def fs3_plan(lens, slot, pack, passes: int) -> Fs3Plan:
+    """The plan of one fs3 launch over a batch whose window b (length
+    ``lens[b]``) belongs to model ``slot[b]`` of <pack> (a ``ModelPack``
+    of ``build_fs3_pack`` or a ``OneModel``); <passes> items a window (1
+    the gate, 2 decoding: the Forward, then the Backward).  Each model's
+    items go longest window first (ties by row) into blocks of G, the
+    most groups of W warps that fit the block's warps and shared
+    memory; the blocks of all classes go longest window first (ties:
+    wider class, model, position), so the plan's order does not depend
+    on the batch's."""
+    lens = np.asarray(lens, np.int64)
+    slot = np.asarray(slot, np.int64)
+    if not len(slot):
+        return Fs3Plan(np.zeros(0, np.int64), 0, 0, 1, [])
+    mp_of, local_of = pack.slot_class
+    present = np.array([Mp for Mp in pack.classes
+                        if (mp_of[slot] == Mp).any()], np.int64)
+    cls = [pack.classes[Mp] for Mp in present]
+    warps = fs3_block_warps([c.W for c in cls])
+    rows_cls, classes, Gs, Mtab = [], [], [], []
+    for c in cls:
+        if c.etab.shape[-2] != FS3_ROWS:
+            raise ValueError(f"fs3 tables have {FS3_ROWS} codon rows, got "
+                             f"{c.etab.shape[-2]}")
+        G = min(warps // c.W, (FS3_SMEM_BYTES - 32 * c.Mp)
+                // fs3_group_bytes(c.Mp, c.W))
+        if G < 1:
+            raise ValueError(f"an fs3 model of {c.Mp} padded lanes does not "
+                             f"fit one block's shared memory")
+        rows_cls.append([c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W,
+                         c.Mp, G, 0, 0])
+        classes.append((c.P, c.W, c.Mp, G,
+                        int(lens[mp_of[slot] == c.Mp].max())))
+        Gs.append(G)
+        Mtab.append([pack.M[g] for g in c.models])
+    # the items, grouped by class and model, each model's longest first
+    b = np.repeat(np.arange(len(slot)), passes)
+    pas = np.tile(np.arange(passes), len(slot))
+    ci = np.searchsorted(present, mp_of[slot])[b]
+    m = local_of[slot][b]
+    ln = lens[b]
+    order = np.lexsort((pas, b, -ln, m, ci))
+    ci, m, ln = ci[order], m[order], ln[order]
+    item = (b * passes + pas)[order]
+    # each run of one model cut into blocks of its class's G
+    run = np.r_[True, (ci[1:] != ci[:-1]) | (m[1:] != m[:-1])]
+    q = np.arange(len(item)) - np.nonzero(run)[0][np.cumsum(run) - 1]
+    starts = np.nonzero(q % np.asarray(Gs)[ci] == 0)[0]
+    count = np.diff(np.r_[starts, len(item)])
+    bc, bm = ci[starts], m[starts]
+    by = np.lexsort((q[starts], bm, -present[bc], -ln[starts]))
+    first = np.cumsum(count[by]) - count[by]
+    at = np.repeat(starts[by] - first, count[by]) + np.arange(len(item))
+    off = np.cumsum([0] + [len(t) for t in Mtab])
+    Ms = np.asarray(sum(Mtab, []))[off[bc[by]] + bm[by]]
+    brows = np.stack([bc[by], bm[by], Ms, first, count[by]], 1)
+    table = np.concatenate([np.asarray(rows_cls, np.int64).reshape(-1),
+                            brows.reshape(-1), item[at]]).astype(np.int64)
+    return Fs3Plan(table, len(rows_cls), len(brows), warps, classes)
 
 
 def _check(pack: ModelPack, dsq, lens, slot) -> np.ndarray:
@@ -478,8 +613,8 @@ def fs3_domdec_pack_batch_ref(pack: ModelPack, dsq, lens, slot, dec_loop,
 # The four packed calls.  CUDA tensors launch the multi-model kernel
 # entries (or raise); CPU tensors run the plain versions.  <slot>: [B]
 # model slots, a numpy array or a tensor on any device: the launch plan
-# is built from it on the host.  Each wrapper counts its launches, one
-# per padded width present in the batch.
+# is built from it on the host.  Each wrapper counts its launches: one
+# per padded width present in the batch, one a call for the fs3 pair.
 # ---------------------------------------------------------------------
 def fwd_pack_scores(pack: ModelPack, dsq, lens, slot,
                     nj: float = 1.0) -> torch.Tensor:

@@ -14,7 +14,9 @@ phase but ``deep``; ``all`` adds ``deep``):
   that mix 48 models of M = 60..1200);
 - ``timing``: the same entries at the main paths' shapes, beside their
   plain versions, the host library's batches and one single-model
-  launch per model, each output held again;
+  launch per model, each output held again; the four fs3 entries' ``ms``
+  is the kernel's launch alone (checked and planned beforehand), their
+  wrappers' time printed beside it;
 - ``ubench``: the card's microbenchmarks (``bath_tpu_torch.ubench``,
   the counterparts of ``scripts/ubench_vpu.py``), each of the five
   entries against its plain version at the script's shapes, then the
@@ -788,7 +790,10 @@ def time_fs3(run: Run, Ms, decoding: bool) -> None:
     """The fs3 gate on windows of its shape (2 * max_length * 3 nt) cut
     from the search genome at each M of <Ms> (GCUPS count nucleotides x
     M); with <decoding>, fs3 decoding on TIME_FS3DD_B of the last M's
-    windows.  The record takes M = TIME_FS3_M[1]."""
+    windows.  ``ms`` is the kernel's launch alone (the batch checked and
+    planned beforehand, ``loader.prepare_fs3``), ``wrapper_ms`` the
+    wrapper's call, checks and plan included.  The record takes
+    M = TIME_FS3_M[1]."""
     from bath_tpu_torch import fixtures
     from bath_tpu_torch.ops import fs3
     from bath_tpu_torch.ops import fs3_domdec as fdd
@@ -802,7 +807,9 @@ def time_fs3(run: Run, Ms, decoding: bool) -> None:
         wlen = 6 * hm.max_length
         ln, d, lt = one_batch(fixtures.sample_windows(
             fx.fasta_path, TIME_FS3_B, wlen, SEED), pad=17)
-        k_ms = cuda_ms(lambda: fs3.fs3_score(d, lt, pm), 5)
+        launch = loader.prepare_fs3(d, lt, None, pm, False)
+        k_ms = cuda_ms(lambda: launch(1.0), 5)
+        w_ms = cuda_ms(lambda: fs3.fs3_score(d, lt, pm), 5)
         p_ms = once_ms(lambda: fs3.fs3_score_ref(d, lt, pm))
         cells = float(ln.sum()) * M
         t = (k_ms, p_ms, *bound(
@@ -810,24 +817,32 @@ def time_fs3(run: Run, Ms, decoding: bool) -> None:
             nbytes(d, lt, *pm.padded(loader.fs3_layout(M)[2])) + 4 * len(ln)))
         if M == TIME_FS3_M[1]:
             run.times["fs3_parser"] = t
+            run.extra["fs3_parser"] = {"wrapper_ms": w_ms}
         phase("timing", kernel="fs3_parser", M=M, B=TIME_FS3_B, L=wlen,
               layout=loader.fs3_layout(M), ms=f"{k_ms:.4f}",
-              plain_ms=f"{p_ms:.2f}", us_per_row=f"{1e3 * k_ms / wlen:.3f}",
+              wrapper_ms=f"{w_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              launches_per_call=launch.launches,
+              us_per_row=f"{1e3 * k_ms / int(ln.max()):.3f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
-              plain_gcups=f"{cells / p_ms / 1e6:.3f}")
+              plain_gcups=f"{cells / p_ms / 1e6:.3f}", card=repr(run.card))
     if not decoding:
         return
     ddd, ldd = d[:TIME_FS3DD_B], lt[:TIME_FS3DD_B]
-    k_ms = cuda_ms(lambda: fdd.fs3_domdec(ddd, ldd, pm, 100.0 / 103.0), 3)
+    launch = loader.prepare_fs3(ddd, ldd, None, pm, True)
+    k_ms = cuda_ms(lambda: launch(1.0), 3)
+    w_ms = cuda_ms(lambda: fdd.fs3_domdec(ddd, ldd, pm, 100.0 / 103.0), 3)
     p_ms = once_ms(lambda: fdd.fs3_domdec_ref(ddd, ldd, pm, 100.0 / 103.0))
     cells = float(TIME_FS3DD_B) * wlen * M
     run.times["fs3_domdec"] = (k_ms, p_ms, *bound(
         "fs3_domdec", cells,
         nbytes(ddd, ldd, *pm.padded(loader.fs3_layout(M)[2]))
         + 4 * 3 * TIME_FS3DD_B * (wlen + 1) + TIME_FS3DD_B))
+    run.extra["fs3_domdec"] = {"wrapper_ms": w_ms}
     phase("timing", kernel="fs3_domdec", M=M, B=TIME_FS3DD_B, L=wlen,
-          ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
-          gcups=f"{cells / k_ms / 1e6:.2f}")
+          ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          launches_per_call=launch.launches,
+          us_per_row=f"{1e3 * k_ms / int(ldd.max()):.3f}",
+          gcups=f"{cells / k_ms / 1e6:.2f}", card=repr(run.card))
 
 
 def time_int(run: Run) -> None:
@@ -980,21 +995,35 @@ def mq_models(run: Run):
 
 
 def time_multi(run, name, pack, items, sl, pad, call, single, reps,
-               extra=(), plain_models=range(len(MQ_MS)), record=True):
+               extra=(), plain_models=range(len(MQ_MS)), record=True,
+               fs3=None):
     """Times one multi-model entry on <items> under the models <sl>,
     beside one single-model launch per model, and holds its output
     against the single-model entries' on all items (the gates bit for
     bit, the decoders' posteriors within 1e-6: torch.cumsum) and
     against the plain version's on the items of <plain_models>, which it
-    times."""
+    times.  For the fs3 pair (<fs3>: decoding or not) ``ms`` is the
+    kernel's launch alone and ``wrapper_ms`` the wrapper's call; the
+    other entries' ``ms`` is the wrapper's."""
     from bath_tpu_torch.ops import multimodel as mm
+    from bath_tpu_torch.ops.kernels import loader
     ln, d, lt = one_batch(items, pad=pad)
     # one_batch sorts by length: carry the slots along
     order = np.argsort([len(o) for o in items], kind="stable")
     sl = np.asarray(sl)[order]
     split = [(r, pack.params[g], d[r].contiguous(), lt[r].contiguous())
              for g, r in model_rows(sl) if len(r)]
-    k_ms = cuda_ms(lambda: call(pack, d, lt, sl, *extra), reps)
+    w_ms = cuda_ms(lambda: call(pack, d, lt, sl, *extra), reps)
+    k_ms, per_call, fs3_keys = w_ms, len(pack.classes), {}
+    if fs3 is not None:
+        launch = loader.prepare_fs3(d, lt, sl, pack, fs3)
+        k_ms, per_call = cuda_ms(lambda: launch(1.0), reps), launch.launches
+        # each class's longest window and rows a microsecond of the
+        # longest chain
+        fs3_keys = dict(wrapper_ms=f"{w_ms:.4f}",
+                        class_max_L={Mp: L for _, _, Mp, _, L
+                                     in launch.plan.classes},
+                        us_per_row=f"{1e3 * k_ms / int(ln.max()):.3f}")
     s_ms = cuda_ms(lambda: [single(dg, lg, pg, *extra)
                             for _, pg, dg, lg in split], reps)
     out = call(pack, d, lt, sl, *extra)
@@ -1021,9 +1050,11 @@ def time_multi(run, name, pack, items, sl, pad, call, single, reps,
     if record:
         run.times[name] = t
         run.extra.setdefault(name, {})["plain_items"] = len(sub)
+        if fs3 is not None:
+            run.extra[name]["wrapper_ms"] = w_ms
     phase("timing", kernel=name, models=len(split), B=len(items),
           mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
-          launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
+          launches_per_call=per_call, ms=f"{k_ms:.4f}", **fs3_keys,
           per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           plain_items=len(sub), plain_models=len(set(sl[sub].tolist())),
           vs_plain=err, tol=DOMDEC_TOL if len(outs) > 1 else FWD_TOL,
@@ -1041,11 +1072,11 @@ def time_multi_fs3(run: Run, plain_fs3, plain_fs3dd, record=True) -> None:
     m = mq_models(run)
     time_multi(run, "fs3_parser_multi", m["fs_pack"], m["windows"],
                m["fs_slot"], 17, mm.fs3_pack_scores, fs3.fs3_score, 3,
-               plain_models=plain_fs3, record=record)
+               plain_models=plain_fs3, record=record, fs3=False)
     time_multi(run, "fs3_domdec_multi", m["fs_pack"], m["dd_windows"],
                m["dd_slot"], 17, mm.fs3_domdec_pack_batch, fdd.fs3_domdec,
                2, extra=(100.0 / 103.0,), plain_models=plain_fs3dd,
-               record=record)
+               record=record, fs3=True)
 
 
 def time_multi_all(run: Run) -> None:

@@ -11,7 +11,9 @@ the ViterbiFilter and its capture) exactly.  M = 1500 takes the layouts
 with several warps per ORF or DNA window.  The four multi-model entries
 (ops/multimodel.py) are held to their plain versions at the same bounds
 and, item for item, bit for bit to the single-model entries, on one
-batch that mixes seven models of five padded widths.  The two integer
+batch that mixes seven models of five padded widths; the fs3 pair also
+on six widths (one to three warps a window) in its one launch, and with
+the batch in ascending, descending and shuffled order.  The two integer
 multi-model entries (MSV/SSV and the ViterbiFilter with a model slot per
 item) are held exactly to their plain versions and to the single-model
 entries, and the device calibration built on them to the host's.
@@ -262,7 +264,7 @@ def test_multi_gate_vs_plain_and_single(kind):
     before = call.launches
     got = call(pack, dsq, lens, slot)
     torch.cuda.synchronize()
-    assert call.launches == before + len(pack.classes)
+    assert call.launches == before + (1 if fs else len(pack.classes))
     want = ref(pack, dsq, lens, slot)
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(got))
@@ -298,7 +300,7 @@ def test_multi_decoding_vs_plain_and_single(kind):
     before = call.launches
     got = call(pack, dsq, lens, slot, *extra)
     torch.cuda.synchronize()
-    assert call.launches == before + len(pack.classes)
+    assert call.launches == before + (1 if fs else len(pack.classes))
     want = ref(pack, dsq, lens, slot, *extra)
     assert torch.equal(got[3], want[3])
     for a, b in zip(got[:3], want[:3]):
@@ -312,6 +314,83 @@ def test_multi_decoding_vs_plain_and_single(kind):
         assert torch.equal(one[3], got[3][rows])
         for a, b in zip(one[:3], got[:3]):
             assert float((a - b[rows]).abs().max()) <= 1e-6, MULTI_MS[g]
+
+
+# fs3 models of six padded widths (96, 160, 288, 416, 832, 1248 lanes),
+# one, two and three warps a window among them
+FS3_CLASS_MS = (60, 150, 250, 400, 700, 1100)
+
+
+def fs3_class_case(per_model, Lmax):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(
+        FS3_CLASS_MS, per_model, Lmax, 91, fs=True)
+    pack = mm.build_fs3_pack([t3.fs3_params(om, "cuda") for om in oms])
+    assert len(pack.classes) == 6
+    assert {c.W for c in pack.classes.values()} == {1, 2, 3}
+    return (pack, torch.from_numpy(dsq).cuda(),
+            torch.from_numpy(lens).cuda(), slot)
+
+
+@pytest.mark.parametrize("kind", ["gate", "decoding"])
+def test_fs3_six_widths_in_one_launch(kind):
+    """One launch takes all six widths: against the plain version, and
+    its kernel outputs bit for bit the single-model entry's, model by
+    model.  Decoding runs each window's two passes in groups of their
+    own."""
+    from bath_tpu_torch.ops.kernels import loader
+    pack, dsq, lens, slot = fs3_class_case(3, 1800)
+    dec = kind == "decoding"
+    run = loader.prepare_fs3(dsq, lens, slot, pack, dec)
+    assert run.launches == 1 and run.plan.ncls == 6
+    assert len(run.plan.items) == (2 if dec else 1) * len(slot)
+    raw = run(1.0)
+    raw = raw if dec else (raw,)
+    torch.cuda.synchronize()
+    if dec:
+        n3 = lens.cpu().numpy() // 3
+        dl = torch.from_numpy((n3 / (n3 + 3.0)).astype(np.float32)).cuda()
+        got = mm.fs3_domdec_pack_batch(pack, dsq, lens, slot, dl)
+        want = mm.fs3_domdec_pack_batch_ref(pack, dsq, lens, slot, dl)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b).abs().max()) <= 1e-4
+    else:
+        got = mm.fs3_pack_scores(pack, dsq, lens, slot)
+        want = mm.fs3_pack_scores_ref(pack, dsq, lens, slot)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        assert float((got - want)[fin].abs().max()) <= 1e-3
+    single = loader.launch_fs3_domdec if dec else loader.launch_fs3
+    for g in range(len(FS3_CLASS_MS)):
+        rows = torch.from_numpy(np.nonzero(slot == g)[0]).cuda()
+        one = single(dsq[rows].contiguous(), lens[rows].contiguous(),
+                     pack.params[g], 1.0)
+        for a, b in zip(one if dec else (one,), raw):
+            assert torch.equal(a, b[rows]), FS3_CLASS_MS[g]
+
+
+@pytest.mark.parametrize("kind", ["gate", "decoding"])
+def test_fs3_batch_order_changes_no_bit(kind):
+    """The same windows in ascending, descending and shuffled order give
+    the same bits, window by window."""
+    from bath_tpu_torch.ops.kernels import loader
+    pack, dsq, lens, slot = fs3_class_case(2, 2600)
+    dec = kind == "decoding"
+    ln = lens.cpu().numpy()
+    rng = np.random.default_rng(5)
+    outs = []
+    for perm in (np.argsort(ln, kind="stable"),
+                 np.argsort(-ln, kind="stable"), rng.permutation(len(ln))):
+        p = torch.from_numpy(perm).cuda()
+        r = loader.prepare_fs3(dsq[p].contiguous(), lens[p].contiguous(),
+                               slot[perm], pack, dec)(1.0)
+        inv = torch.from_numpy(np.argsort(perm)).cuda()
+        outs.append([t[inv] for t in (r if dec else (r,))])
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
 
 
 def test_multi_entry_refuses_a_cpu_pack():

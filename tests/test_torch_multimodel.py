@@ -314,13 +314,28 @@ def test_fs3_domdec_pack_plain_equals_single_model_plain(own_packs):
 @pytest.mark.parametrize("kind", ["std", "fs"])
 def test_block_plan_gives_each_block_one_model(own_packs, kind):
     """Every item appears once, in a launch of its model's padded
-    width; each block's items share one model and number at most G."""
+    width; each block's items share one model and number at most G.
+    The fs3 pair plans its one launch with fs3_plan, whose blocks are
+    held the same way (tests/test_torch_fs3_plan.py holds the rest)."""
     pack = own_packs[kind == "fs"]
-    per_block = loader.fs3_items_per_block if kind == "fs" \
-        else loader.items_per_block
     rng = np.random.default_rng(31)
     slot = rng.integers(0, len(MS), 77)
     slot[:30] = 3                        # one model's run spans blocks
+    if kind == "fs":
+        plan = mm.fs3_plan(rng.integers(0, 900, 77), slot, pack, 1)
+        assert plan.ncls == len({pack.geometry[g][2] for g in set(slot)})
+        seen = []
+        for c, model, M, first, count in plan.blocks:
+            P, W, Mp, G = plan.classes[c][:4]
+            cls = pack.classes[Mp]
+            assert 1 <= count <= G
+            rows = plan.items[first:first + count]
+            assert {cls.models[model]} == set(slot[rows])
+            assert M == MS[cls.models[model]]
+            seen += list(rows)
+        assert sorted(seen) == list(range(len(slot)))
+        return
+    per_block = loader.items_per_block
     plans = mm.block_plan(slot, pack, per_block)
     assert len(plans) == len({pack.geometry[g][2] for g in set(slot)})
     seen = []
