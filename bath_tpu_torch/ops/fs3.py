@@ -234,7 +234,7 @@ def fs3_score(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
     if dsq.device.type == "cpu":
         return fs3_score_ref(dsq, lens, p, nj)
     from .kernels import loader
-    out = loader.launch_fs3(dsq, lens, p, nj)
+    out = loader.prepare_fs3(dsq, lens, None, p, False)(nj)
     fs3_score.launches += 1
     return out
 

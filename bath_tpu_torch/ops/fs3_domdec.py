@@ -187,7 +187,7 @@ def fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
     if dsq.device.type == "cpu":
         return fs3_domdec_ref(dsq, lens, p, dec_loop, nj)
     from .kernels import loader
-    fspec, bspec, logz2 = loader.launch_fs3_domdec(dsq, lens, p, nj)
+    fspec, bspec, logz2 = loader.prepare_fs3(dsq, lens, None, p, True)(nj)
     fs3_domdec.launches += 1
     return finish(fspec, bspec, lens, logz2[:, 0], logz2[:, 1], dec_loop)
 

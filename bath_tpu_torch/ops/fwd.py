@@ -223,7 +223,7 @@ def fwd_score(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
     if dsq.device.type == "cpu":
         return fwd_score_ref(dsq, lens, p, nj)
     from .kernels import loader
-    out = loader.launch_fwd(dsq, lens, p, nj)
+    out = loader.prepare_fwd(dsq, lens, None, p)(nj)
     fwd_score.launches += 1
     return out
 

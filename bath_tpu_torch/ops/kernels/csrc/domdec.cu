@@ -1,43 +1,52 @@
-// Fused Forward + Backward parser + domain decoding for F3 survivors.
+// Forward + Backward parser for domain decoding of the F3 survivors.
 //
 // Replaces bath_tpu/ops/jaxk/kernels.py _domdec_mb_impl (the jnp
-// kernel that the TPU runs for p7_BackwardParser + p7_DomainDecoding).
-// Per ORF: a forward pass that stores the six specials of every row
-// (forward_pass<P, true>, shared with the gate), then a backward pass
-// whose D->D chain is a suffix scan along k, which at each row emits
-// the posterior increments of domain begin (inc_b), end (inc_e) and
-// N/J/C occupancy (njr) already normalised by exp(logw - logZ).  The
-// cumsum over rows and the `ok` test run as tensor ops after the
-// kernel.
+// kernel that the TPU runs for p7_BackwardParser + p7_DomainDecoding)
+// and bath_tpu/ops/jaxk/multimodel.py domdec_pack_batch
+// (build_domdec_pack: item b decoded under model slot[b]; the TPU's lane
+// packing is not carried over).  Per ORF: the forward pass that stores
+// the six specials of every row (forward_pass<P, true>, shared with the
+// gate: xB, xN, xJ, xC, xE after the row's rescale and the log scale
+// through the row), and the backward pass, whose D->D chain is a suffix
+// scan along k, storing its own six specials of every row the same way.
+// The combine into the posterior increments of domain begin, end and
+// N/J/C occupancy, their exp(logw - logZ) weights, the cumsum over rows
+// and the `ok` test run as tensor ops after the kernel (ops/domdec.py
+// finish_passes).
 //
-// What bounds it on the H100: like the gate, a latency chain of 2L
-// dependent rows per ORF, each with a group-wide reduction (xB) and a
-// group-wide scan; the design is the gate's (one warp per ORF up to
-// M = 1056, many ORFs per SM), and the host-side cadence of the
-// rescaling (forward xE > 1e4, backward xB outside [1e-4, 1e4]) is
-// kept so the posteriors track the host kernel to ~1e-5.
-//
-// The multi-model entry bt_domdec_multi replaces
-// bath_tpu/ops/jaxk/multimodel.py domdec_pack_batch (build_domdec_pack):
-// item b is decoded under model slot[b].  It is this same kernel, item
-// for item the same arithmetic; the TPU's lane packing is not carried
-// over.  The tables of the models of one padded width Mp are stacked
-// [G, Kp, Mp] and [G, 8, Mp] with their lengths Ms [G]; a block finds
-// its model and its items in a per-block table (BtItem in
-// dp_common.cuh); one launch per Mp.  The bound is the single-model
-// one, 2L dependent rows per ORF.
+// What bounds it on the H100: a latency chain of dependent rows per
+// ORF, each with a group-wide reduction (xB) or scan; the host-side
+// cadence of the rescaling (forward xE > 1e4, backward xB outside
+// [1e-4, 1e4]) is kept so the posteriors track the host kernel to
+// ~1e-5.  The design:
+// - The two passes share no data (each writes its own specials), so an
+//   ORF takes two groups, one a pass, which run at the same time: the
+//   chain is L + 1 rows, not 2L + 1.
+// - One launch for every padded width of a call (plan.cuh; ops/
+//   multimodel.py domdec_plan), blocks longest ORF first, so a call
+//   takes about its longest chain and not the sum over its widths.  A
+//   single-model call is a plan of one class.
+// - Decoding sees small batches (the F3 survivors of a flush, ~100), so
+//   the plan gives a small batch's groups blocks of their own across the
+//   SMs, each warp with a scheduler to itself; a block stages its
+//   model's tables in shared memory (the class row says whether they
+//   fit).  Groups of W > 1 warps sync on a named barrier of their own.
 
 #include "dp_common.cuh"
+#include "plan.cuh"
 
 namespace bt {
 
+// The backward pass over one item's `len` residues, rows len down to 0.
+// Row j's M/I/D hold the backward values of the model states after
+// residue j; row j's xB reads row j+1's M (the emission of residue j+1).
+// Stores per row xB, xN, xJ, xC, xE after the row's rescale and the log
+// scale through the row (6 rows of stride ld).
 template <int P>
 __device__ void backward_pass(const Group& g, const float* etab,
                               const float* ttab, int M, int Mp,
                               const int8_t* __restrict__ seq, int len,
-                              float pmove, float nj, const double* spec,
-                              int ld, double logz, float* inc_b, float* inc_e,
-                              float* njr) {
+                              float pmove, float nj, double* spec, int ld) {
   const int k0 = g.t * P;
   const float ploop = 1.f - pmove;
   const float emove = nj > 0.f ? 0.5f : 1.f;
@@ -68,10 +77,16 @@ __device__ void backward_pass(const Group& g, const float* etab,
       iv[j] = 0.f;
     }
   }
-  float xNb = 0.f, xJb = 0.f, xCb = pmove, xEb = xE_L;
+  float xNb = 0.f, xJb = 0.f, xCb = pmove;
   double lsb = 0.0;
+  if (g.t == 0) {
+    double* r = spec + len;
+    r[0] = r[ld] = r[2 * ld] = r[5 * ld] = 0.0;
+    r[3 * ld] = pmove;
+    r[4 * ld] = xE_L;
+  }
   for (int q = 0; q < len; ++q) {
-    const int jrow = len - q;                 // output row, 1-based
+    const int jrow = len - q;                 // the row after this one
     const float* e = etab + (int)seq[jrow - 1] * Mp + k0;
     float part = 0.f;
 #pragma unroll
@@ -88,7 +103,7 @@ __device__ void backward_pass(const Group& g, const float* etab,
         g.x.red[g.warp] = part;
         g.x.bnd[3 * g.warp] = m[0];
       }
-      __syncthreads();
+      group_sync(g);
       xBn = 0.f;
       for (int w = 0; w < g.W; ++w) xBn += g.x.red[w];
       if (g.lane == 31) {
@@ -100,15 +115,6 @@ __device__ void backward_pass(const Group& g, const float* etab,
     } else if (g.lane == 31) {
       nms = 0.f;
     }
-    // decoding terms of row jrow from the forward specials
-    const double* fj = spec + jrow;           // forward row jrow
-    const double* fm = spec + jrow - 1;       // forward row jrow-1
-    const float term_e = (float)fj[4 * ld] * xEb;
-    const float w_e = (float)(fj[5 * ld] + lsb - logz);
-    const float njcp = ((float)fm[ld] * xNb + (float)fm[2 * ld] * xJb +
-                        (float)fm[3 * ld] * xCb) * ploop;
-    const float term_b = (float)fm[0] * xBn;
-    const float w_m = (float)(fm[5 * ld] + lsb - logz);
     const float xCn = xCb * ploop;
     const float xJn = xBn * pmove + xJb * ploop;
     const float xNn = xBn * pmove + xNb * ploop;
@@ -153,120 +159,152 @@ __device__ void backward_pass(const Group& g, const float* etab,
     xNb = xNn * sbi;
     xJb = xJn * sbi;
     xCb = xCn * sbi;
-    xEb = xEn * sbi;
     lsb += (double)logf(sb);
     if (g.t == 0) {
-      inc_e[jrow - 1] = term_e * expf(w_e);
-      inc_b[jrow - 1] = term_b * expf(w_m);
-      njr[jrow - 1] = njcp * expf(w_m);
+      double* r = spec + jrow - 1;
+      r[0] = xBn * sbi;
+      r[ld] = xNb;
+      r[2 * ld] = xJb;
+      r[3 * ld] = xCb;
+      r[4 * ld] = xEn * sbi;
+      r[5 * ld] = lsb;
     }
   }
 }
 
-}  // namespace bt
-
+// The group's pass over its ORF b: the Forward writes fspec and logz2,
+// the Backward bspec.
 template <int P>
-__global__ void domdec_kernel(const int8_t* __restrict__ dsq,
-                              const int* __restrict__ lens, int B, int L,
-                              const float* __restrict__ etab_g,
-                              const float* __restrict__ ttab_g, int Kp,
-                              int M, int Mp, int W, bool tab_in_smem, float nj,
-                              double* __restrict__ spec, float* __restrict__ inc_b,
-                              float* __restrict__ inc_e, float* __restrict__ njr,
-                              float* __restrict__ logz2,
-                              const int* __restrict__ Ms,
-                              const int* __restrict__ blk,
-                              const int* __restrict__ order) {
-  extern __shared__ float smem[];
-  const BtItem it = bt_item(blk, order, B, W);
-  if (Ms != nullptr) M = Ms[it.model];
-  const float *etab, *ttab;
-  bt::load_tables(etab_g + (size_t)it.model * Kp * Mp,
-                  ttab_g + (size_t)it.model * bt::NTR * Mp, Kp, Mp, smem,
-                  tab_in_smem, etab, ttab);
-  const size_t tab_floats = tab_in_smem ? (size_t)(Kp + bt::NTR) * Mp : 0;
-  const bt::Group g = bt_group(W, smem, tab_floats);
-  const int b = it.b;
-  if (b < 0) return;
+__device__ void decode_pass(const Group& g, const float* etab,
+                            const float* ttab, int M, int Mp, int b,
+                            int pass, const int8_t* __restrict__ dsq,
+                            const int* __restrict__ lens, int L, float nj,
+                            double* __restrict__ fspec,
+                            double* __restrict__ bspec,
+                            double* __restrict__ logz2) {
   const int len = lens[b];
   const float pmove = (2.f + nj) / ((float)len + 2.f + nj);
   const int ld = L + 1;
-  double* sp = spec + (size_t)b * 6 * ld;
   const int8_t* seq = dsq + (size_t)b * L;
-  double lsf;
-  const double logz = bt::forward_pass<P, true>(g, etab, ttab, Mp, seq, len,
-                                                pmove, nj, sp, ld, lsf);
-  // the backward reads rows the group's thread 0 wrote
-  if (W > 1) __syncthreads(); else __syncwarp();
-  bt::backward_pass<P>(g, etab, ttab, M, Mp, seq, len, pmove, nj, sp, ld,
-                       logz, inc_b + (size_t)b * L, inc_e + (size_t)b * L,
-                       njr + (size_t)b * L);
-  if (g.t == 0) {
-    logz2[2 * b] = (float)logz;
-    logz2[2 * b + 1] = (float)(logz - lsf);
+  if (pass == 0) {
+    double lsf;
+    const double logz = forward_pass<P, true>(
+        g, etab, ttab, Mp, seq, len, pmove, nj, fspec + (size_t)b * 6 * ld,
+        ld, lsf);
+    if (g.t == 0) {
+      logz2[2 * b] = logz;
+      logz2[2 * b + 1] = lsf;
+    }
+  } else {
+    backward_pass<P>(g, etab, ttab, M, Mp, seq, len, pmove, nj,
+                     bspec + (size_t)b * 6 * ld, ld);
   }
 }
 
-// One launch of `blocks` blocks; Ms/blk/order null for a single model.
-static int domdec_launch(const BtLaunch& l, int blocks, const void* dsq,
-                         const void* lens, int B, int L, const void* etab,
-                         const void* ttab, int Kp, int M, int Mp, int P,
-                         float nj, void* spec, void* inc_b, void* inc_e,
-                         void* njr, void* logz2, const void* Ms,
-                         const void* blk, const void* order, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define BT_LAUNCH_DD(PP)                                                     \
-  {                                                                          \
-    cudaFuncSetAttribute(domdec_kernel<PP>,                                  \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                         (int)l.smem);                                       \
-    domdec_kernel<PP><<<blocks, l.threads, l.smem, st>>>(                    \
-        (const int8_t*)dsq, (const int*)lens, B, L, (const float*)etab,      \
-        (const float*)ttab, Kp, M, Mp, l.W, l.tab_in_smem, nj,               \
-        (double*)spec, (float*)inc_b, (float*)inc_e, (float*)njr,            \
-        (float*)logz2, (const int*)Ms, (const int*)blk, (const int*)order);  \
+// Shared bytes of a block: the class's tables when they fit (the class
+// row's last word), then each group's exchange scratch (Exch).
+__host__ __device__ constexpr size_t dd_table_bytes(int Kp, int Mp) {
+  return (size_t)(Kp + NTR) * Mp * sizeof(float);
+}
+
+__host__ __device__ constexpr size_t dd_group_bytes(int W) {
+  return (size_t)W * (sizeof(Aff) + 4 * sizeof(float));
+}
+
+}  // namespace bt
+
+// The class row of the plan (plan.cuh): the addresses of the class's
+// stacked tables etab [g][Kp][Mp] and ttab [g][8][Mp] f32, P, W, Mp, G,
+// Kp, and whether a block stages the tables in shared memory.  The
+// items are 2b + pass: pass 0 the Forward, 1 the Backward.
+__global__ void domdec_kernel(const int8_t* __restrict__ dsq,
+                              const int* __restrict__ lens, int L, float nj,
+                              double* __restrict__ fspec,
+                              double* __restrict__ bspec,
+                              double* __restrict__ logz2,
+                              const long long* __restrict__ plan, int ncls,
+                              int nblk) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const PlanBlock pb = plan_block(plan, ncls, nblk);
+  const long long* c = pb.cls;
+  const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], Kp = (int)c[6];
+  const bool in_smem = c[7] != 0;
+  const float *etab, *ttab;
+  bt::load_tables(
+      reinterpret_cast<const float*>(c[0]) + (size_t)pb.model * Kp * Mp,
+      reinterpret_cast<const float*>(c[1]) + (size_t)pb.model * bt::NTR * Mp,
+      Kp, Mp, smem, in_smem, etab, ttab);
+  if (pb.item < 0) return;
+  const size_t at = (in_smem ? bt::dd_table_bytes(Kp, Mp) : 0) +
+                    pb.gi * bt::dd_group_bytes(W);
+  bt::Group g = bt_group(W, smem, at / sizeof(float));
+  g.bar = 1 + pb.gi;
+  const int b = pb.item / 2, pass = pb.item % 2;
+#define BT_DECODE(PP)                                                       \
+  bt::decode_pass<PP>(g, etab, ttab, pb.M, Mp, b, pass, dsq, lens, L, nj,   \
+                      fspec, bspec, logz2);                                 \
+  break;
+  switch (P) {  // the plan's classes are checked on the host (dd_check)
+    case 3: BT_DECODE(3)
+    case 5: BT_DECODE(5)
+    case 9: BT_DECODE(9)
+    case 13: BT_DECODE(13)
+    case 17: BT_DECODE(17)
+    case 25: BT_DECODE(25)
+    case 33: BT_DECODE(33)
   }
-  BT_DISPATCH_P(P, BT_LAUNCH_DD)
-#undef BT_LAUNCH_DD
+#undef BT_DECODE
+}
+
+// Checks a plan's classes (the host copy of the table) and gives the
+// launch's dynamic shared memory.  Returns 0, or a cudaError_t.
+static int dd_check(const long long* plan, int ncls, int warps,
+                    size_t& smem) {
+  int dev = 0, cap = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (ncls <= 0 || warps <= 0 || warps > 32) return cudaErrorInvalidValue;
+  smem = 0;
+  for (int i = 0; i < ncls; ++i) {
+    const long long* c = plan + PLAN_CLS * i;
+    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
+    const int Kp = (int)c[6];
+    if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
+          P == 33) ||
+        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
+        (W > 1 && G > 15) || Kp < 1)
+      return cudaErrorInvalidValue;
+    const size_t need = (c[7] ? bt::dd_table_bytes(Kp, Mp) : 0) +
+                        (size_t)G * bt::dd_group_bytes(W);
+    smem = need > smem ? need : smem;
+  }
+  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
+}
+
+// dsq [B, L] int8; lens [B] int32; fspec and bspec [B, 6, L+1] f64,
+// zero-filled by the caller (rows past an item stay 0): per row xB, xN,
+// xJ, xC, xE after the row's rescale and the log scale through the row,
+// of the forward and of the backward pass; logz2 [B, 2] f64 = (logZ,
+// total forward log scale); written at the plan's items.  plan_host and
+// plan: the plan's table (plan.cuh, the class row above) on the host
+// and on the device, with ncls classes and nblk blocks of `warps`
+// warps, two items an ORF.  One entry serves the single-model calls
+// (J1) and the multi-model ones (J3b).  Returns the launch's
+// cudaError_t.
+extern "C" int bt_domdec(const void* dsq, const void* lens, int L, float nj,
+                         void* fspec, void* bspec, void* logz2,
+                         const long long* plan_host, const void* plan,
+                         int ncls, int nblk, int warps, void* stream) {
+  if (nblk <= 0) return 0;
+  size_t smem;
+  const int err = dd_check(plan_host, ncls, warps, smem);
+  if (err) return err;
+  cudaFuncSetAttribute(domdec_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  domdec_kernel<<<nblk, 32 * warps, smem,
+                  reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,
+      (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();
-}
-
-// dsq [B, L] int8; lens [B] int32; etab [Kp, Mp], ttab [8, Mp] (zero
-// past the model, which has M positions); spec [B, 6, L+1] f64
-// scratch; inc_b, inc_e, njr [B, L] f32, zero-filled by the caller
-// (rows past an item's length stay 0); logz2 [B, 2] = (logZ, logZ minus
-// the total forward log scale).
-// Returns the launch's cudaError_t.
-extern "C" int bt_domdec(const void* dsq, const void* lens, int B, int L,
-                         const void* etab, const void* ttab, int Kp, int M,
-                         int Mp, int P, float nj, void* spec, void* inc_b,
-                         void* inc_e, void* njr, void* logz2, void* stream) {
-  if (B <= 0) return 0;
-  if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
-  const BtLaunch l = bt_plan(B, Kp, Mp, P, 100 * 1024);
-  return domdec_launch(l, l.blocks, dsq, lens, B, L, etab, ttab, Kp, M, Mp, P,
-                       nj, spec, inc_b, inc_e, njr, logz2, nullptr, nullptr,
-                       nullptr, stream);
-}
-
-// The multi-model entry: etab [G, Kp, Mp], ttab [G, 8, Mp] and Ms [G]
-// int32 stack the models of padded width Mp; blk [nblocks, 3] int32 =
-// (model, first, count) per block and order [.] int32 the item rows
-// (BtItem); every block holds at most `per_block` items, which must be
-// the plan's.  The outputs, shaped as bt_domdec's over the whole batch,
-// are written at the listed items only.
-extern "C" int bt_domdec_multi(const void* dsq, const void* lens, int B,
-                               int L, const void* etab, const void* ttab,
-                               const void* Ms, int Kp, int Mp, int P,
-                               float nj, void* spec, void* inc_b,
-                               void* inc_e, void* njr, void* logz2,
-                               const void* blk, const void* order,
-                               int nblocks, int per_block, void* stream) {
-  if (nblocks <= 0) return 0;
-  if (Mp % (32 * P) != 0) return cudaErrorInvalidValue;
-  const BtLaunch l = bt_plan(B, Kp, Mp, P, 100 * 1024);
-  if (per_block != l.G) return cudaErrorInvalidValue;
-  return domdec_launch(l, nblocks, dsq, lens, B, L, etab, ttab, Kp, 0, Mp, P,
-                       nj, spec, inc_b, inc_e, njr, logz2, Ms, blk, order,
-                       stream);
 }

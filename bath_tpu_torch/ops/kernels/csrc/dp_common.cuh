@@ -285,7 +285,7 @@ __device__ double forward_pass(const Group& g, const float* etab,
 
 }  // namespace bt
 
-// Host side: the block shape and shared memory of a launch.
+// Host side: the block shape and shared memory of a Forward-gate launch.
 struct BtLaunch {
   int W, G, threads, blocks;
   bool tab_in_smem;
@@ -340,10 +340,11 @@ __device__ __forceinline__ bt::Group bt_group(int W, float* smem,
 // of a short run simply leaves warps idle.  P and the warps per item
 // are compile- and launch-time constants, so one launch takes models
 // of one padded width Mp; models of other widths go to further
-// launches (at most one per entry of the P ladder and per W).  The fs3
-// pair plans differently (fs3_common.cuh Fs3Slot): one launch for all
-// widths, each block row naming its class and the block running that
-// class's P, and decoding's items are a window's passes.
+// launches (at most one per entry of the P ladder and per W).  This is
+// the Forward gate's plan.  Decoding and the fs3 pair plan differently
+// (plan.cuh): one launch for all widths, each block row naming its
+// class and the block running that class's P, and decoding's items are
+// an item's two passes.
 struct BtItem {
   int model;
   int b;   // the item's row in the batch; < 0: this group has none

@@ -37,6 +37,7 @@
 #pragma once
 
 #include "dp_common.cuh"
+#include "plan.cuh"
 
 namespace bt {
 
@@ -336,24 +337,13 @@ __device__ double fs3_forward_pass(const Group& g, const Fs3Ring& ring,
 }
 
 // ---------------------------------------------------------------------
-// The launch plan (ops/multimodel.py fs3_plan): one int64 table that
-// the host builds and uploads in one copy.
-//   classes, FS3_CLS words each: the addresses of the class's stacked
-//     tables etab [g][338][Mp] and ttab [g][8][Mp], P, W, Mp, and G,
-//     the groups a block of the class holds;
-//   blocks, FS3_BLK words each: class, model (its index in the class's
-//     stacks), M, first item, item count;
-//   items: window rows b (the gate) or 2b + pass (decoding: pass 0 the
-//     Forward, 1 the Backward).
-// One launch takes every class: each block runs the P of its class
-// (BT_FS3_DISPATCH), its groups of W warps side by side, one item a group,
-// all of one model, whose transitions the block stages in shared memory
-// once.  The host orders the blocks by their longest window, longest
-// first, so the longest chains start first.
+// The launch plan (plan.cuh; ops/multimodel.py fs3_plan).  A class row
+// holds the addresses of the class's stacked tables etab [g][338][Mp]
+// and ttab [g][8][Mp], P, W, Mp and G; the items are window rows b (the
+// gate) or 2b + pass (decoding: pass 0 the Forward, 1 the Backward).
+// Each block stages its model's transitions in shared memory once.
 // ---------------------------------------------------------------------
 constexpr int FS3_ROWS = 338;       // packed codon rows of a model
-constexpr int FS3_CLS = 8;          // int64 words of a class row
-constexpr int FS3_BLK = 5;          // of a block row
 
 __host__ __device__ constexpr size_t fs3_table_bytes(int Mp) {
   return (size_t)NTR * Mp * sizeof(float);
@@ -390,8 +380,8 @@ struct Fs3Slot {
 __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
                                             int ncls, int nblk, int per,
                                             char* smem) {
-  const long long* bk = plan + FS3_CLS * ncls + FS3_BLK * (long long)blockIdx.x;
-  const long long* c = plan + FS3_CLS * bk[0];
+  const long long* bk = plan + PLAN_CLS * ncls + PLAN_BLK * (long long)blockIdx.x;
+  const long long* c = plan + PLAN_CLS * bk[0];
   Fs3Slot s;
   s.P = (int)c[2];
   const int W = (int)c[3];
@@ -427,7 +417,7 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
   s.b = -1;
   s.pass = 0;
   if (gi < G && gi < count) {
-    const int item = (int)plan[FS3_CLS * ncls + FS3_BLK * nblk + first + gi];
+    const int item = (int)plan[PLAN_CLS * ncls + PLAN_BLK * nblk + first + gi];
     s.b = item / per;
     s.pass = item % per;
     if (g.t == 0) {
@@ -462,7 +452,7 @@ static inline int fs3_check(const long long* plan, int ncls, int warps,
   if (ncls <= 0 || warps <= 0 || warps > 32) return cudaErrorInvalidValue;
   smem = 0;
   for (int i = 0; i < ncls; ++i) {
-    const long long* c = plan + bt::FS3_CLS * i;
+    const long long* c = plan + PLAN_CLS * i;
     const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
     if (!(P == 3 || P == 5 || P == 9 || P == 13) || W < 1 ||
         Mp != 32 * P * W || G < 1 || G * W > warps || (W > 1 && G > 15))

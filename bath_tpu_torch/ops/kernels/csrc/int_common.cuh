@@ -5,23 +5,23 @@
 // their own offsets.  One item is computed by a group of W warps; its
 // model lanes k = 0..Mp-1 (lane k = model position k+1, lanes >= M are
 // padding) are split into contiguous runs of P lanes, one run per
-// thread, held in registers (loader.layout picks P and W, as for the
-// Forward kernels).  W = 1 for M <= 32*33: a block holds eight items,
-// one per warp, and the lane-neighbour exchange and the row maxima are
-// warp shuffles and reductions with no block barrier.  W > 1 (longer
-// models) puts one item in a block and adds __syncthreads() exchanges
-// through a small shared scratch.  Blocks stride over the items, so a
-// block loads its tables into shared memory once for many items.
+// thread, held in registers (loader.layout picks P and W).  Within a
+// warp the lane-neighbour exchange and the row maxima are warp shuffles
+// and reductions; W > 1 adds exchanges through a small shared scratch of
+// the group's behind a barrier of the group's own (group_sync).
 //
 // Every maximum over model lanes is masked to the M real lanes: the
 // host reference works on exactly M+1 positions.
 //
-// The multi-model entries (bt_msv_filter_multi, bt_vit_filter_multi) run
-// the same kernels with a per-block table: blk[x] = (model's index in
-// the stack of tables of this padded width, first, count) gives block x
-// the items order[first .. first+count), all of one model, whose table
-// it loads once and whose scalars it reads from one row of a small int
-// array (bi::Items, bi::block_items).
+// MSV and the SSV capture put eight one-warp items in a block, or one
+// item of W > 1 warps (their group is the block, barrier 0), and their
+// blocks stride over the items; their multi-model entry runs the same
+// kernel with a per-block table: blk[x] = (model's index in the stack
+// of tables of this padded width, first, count) gives block x the items
+// order[first .. first+count), all of one model, whose table it loads
+// once and whose scalars it reads from one row of a small int array
+// (bi::Items, bi::block_items).  The ViterbiFilter plans its one launch
+// for every width with plan.cuh (vit_filter.cu).
 
 #pragma once
 
@@ -38,17 +38,26 @@ struct Group {
   int warp;  // this warp's index in the group
   int lane;
   int t;     // thread index in the group
+  int bar;   // the group's named barrier (W > 1); 0 when it is the block
   int* x;    // shared scratch of 4*W ints (W > 1)
 };
 
+// A group that is the whole block (W > 1) or one warp of it.
 __device__ __forceinline__ Group make_group(int W, int* scratch) {
   Group g;
   g.W = W;
   g.warp = (threadIdx.x >> 5) % W;
   g.lane = threadIdx.x & 31;
   g.t = g.warp * 32 + g.lane;
+  g.bar = 0;
   g.x = scratch;
   return g;
+}
+
+// Barrier of the W warps of a group (W > 1); other groups of the block
+// do not take part.
+__device__ __forceinline__ void group_sync(const Group& g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g.bar), "r"(32 * g.W) : "memory");
 }
 
 __device__ __forceinline__ int sat16(int v) { return min(max(v, NEG), 32767); }
@@ -57,10 +66,10 @@ __device__ __forceinline__ int group_max(const Group& g, int v) {
   v = __reduce_max_sync(FULL, v);
   if (g.W == 1) return v;
   if (g.lane == 0) g.x[g.warp] = v;
-  __syncthreads();
+  group_sync(g);
   int r = g.x[0];
   for (int w = 1; w < g.W; ++w) r = max(r, g.x[w]);
-  __syncthreads();
+  group_sync(g);
   return r;
 }
 
@@ -68,10 +77,10 @@ __device__ __forceinline__ int group_min(const Group& g, int v) {
   v = __reduce_min_sync(FULL, v);
   if (g.W == 1) return v;
   if (g.lane == 0) g.x[g.warp] = v;
-  __syncthreads();
+  group_sync(g);
   int r = g.x[0];
   for (int w = 1; w < g.W; ++w) r = min(r, g.x[w]);
-  __syncthreads();
+  group_sync(g);
   return r;
 }
 
@@ -89,13 +98,13 @@ __device__ __forceinline__ void lane_before(const Group& g, int a, int b, int c,
       g.x[3 * g.warp + 1] = b;
       g.x[3 * g.warp + 2] = c;
     }
-    __syncthreads();
+    group_sync(g);
     if (g.lane == 0 && g.warp > 0) {
       pa = g.x[3 * (g.warp - 1)];
       pb = g.x[3 * (g.warp - 1) + 1];
       pc = g.x[3 * (g.warp - 1) + 2];
     }
-    __syncthreads();
+    group_sync(g);
   }
   if (g.t == 0) pa = pb = pc = fill;
 }
@@ -139,10 +148,10 @@ __device__ __forceinline__ MaxPlus group_scan_excl(const Group& g, MaxPlus x) {
     g.x[2 * g.warp] = inc.a;
     g.x[2 * g.warp + 1] = inc.b;
   }
-  __syncthreads();
+  group_sync(g);
   MaxPlus pre{0, NEG};
   for (int w = 0; w < g.warp; ++w) pre = mp_then(pre, MaxPlus{g.x[2 * w], g.x[2 * w + 1]});
-  __syncthreads();
+  group_sync(g);
   return mp_then(pre, ex);
 }
 
@@ -151,8 +160,8 @@ __device__ __forceinline__ MaxPlus group_scan_excl(const Group& g, MaxPlus x) {
 // over all B items.  Multi-model launch: the model and the run
 // [first, end) of `order` of this block's row of blk; each group takes
 // every G-th entry of the run.  With W > 1 a block is one group, so
-// every thread of a block makes the same trips and the block barriers
-// inside the group functions stay uniform.
+// every thread of a block makes the same trips and the barriers inside
+// the group functions stay uniform.
 struct Items {
   int model, first, end, step;
 };

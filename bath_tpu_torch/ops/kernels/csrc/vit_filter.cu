@@ -10,212 +10,329 @@
 // events (skip_until and the O(window) extensions).
 //
 // Replaces the TPU kernel bath_tpu/ops/pallas/vit.py _vit_kernel
-// (vit_ints_pallas, Pallas #3) and the production jnp kernels
+// (vit_ints_pallas, Pallas #3), the production jnp kernels
 // bath_tpu/ops/jaxk/filters_mb.py _vit_mb_impl and _vit_bath_mb_impl
-// (ref: impl_sse/vitfilter.c :39, :286).  The D->D chain
-// D[k] = max(part[k], sat(D[k-1] + tDD[k])), which the TPU closes with a
-// log-depth lane scan, is here a sequential run per thread reduced to
-// one (max, +) map, a warp-shuffle scan of the maps, and a replay of
-// the run from its carry (int_common.cuh: exact because every tDD <= 0).
+// (ref: impl_sse/vitfilter.c :39, :286), and the Viterbi half of
+// bath_tpu/evalues_device.py _dyn_kernels (the vmap of _vit_mb_impl over
+// models with base_w and the xE move/loop words as traced values).  The
+// D->D chain D[k] = max(part[k], sat(D[k-1] + tDD[k])), which the TPU
+// closes with a log-depth lane scan, is here a sequential run per thread
+// reduced to one (max, +) map, a warp-shuffle scan of the maps, and a
+// replay of the run from its carry (int_common.cuh: exact because every
+// tDD <= 0).
 //
 // What bounds it on the H100: a chain of dependent rows per ORF, each
-// with ~25 integer operations per model lane, one warp max, the map
-// scan (5 shuffle steps) and two lane exchanges.  Latency of that chain
-// bounds one ORF; the F2 stage sees only the bias survivors of a flush
-// (thousands), so the design keeps one warp per ORF, eight to a block,
-// the word tables in shared memory when they fit.
-//
-// The multi-model entry bt_vit_filter_multi replaces the Viterbi half of
-// bath_tpu/evalues_device.py _dyn_kernels (the vmap of _vit_mb_impl over
-// models with base_w and the xE move/loop words as traced values): item
-// b is filtered under model slot[b].  It is this same kernel (the score
-// entry), so the same arithmetic item for item; the models' tables of
-// one padded width Mp are stacked [G, Kp + 8, Mp], a block finds its
-// model and its items in a per-block table (bi::block_items) and reads
-// that model's M, base, emove and eloop from one row of scal [G, 4]; one
-// launch per Mp.  The same bound holds: the row chain of each item.
+// with ~25 integer operations and nine table words per model lane, one
+// group max, the map scan (5 shuffle steps) and two lane exchanges.
+// The design:
+// - One launch for every padded width of a call (plan.cuh; ops/
+//   multimodel.py vit_plan), blocks heaviest first (Mp x longest ORF),
+//   so a call takes about its heaviest chain and not the sum over its
+//   widths.  A single-model call is a plan of one class.
+// - Each block holds G groups of W warps, one ORF a group, all of one
+//   model, whose table it stages in shared memory once, as int16 words:
+//   37 x Mp x 2 bytes, 201 KB at Mp = 2720 (five warps of 17 lanes,
+//   loader.vit_layout), so every class the plan takes reads its table
+//   from shared memory (the plan refuses a model past 227 KB: M > 2720).
+//   The match words are stored warp-transposed (a warp's 32P lanes as P
+//   rows of 32), so lane j of the 32 threads is 32 neighbouring
+//   halfwords: no bank conflict, where int16 words at an odd stride P
+//   would meet two to a bank; the eight transition rows are stored as
+//   four rows of int16 pairs in one int: five reads a lane and row
+//   where there were nine.
+// - Groups of W > 1 warps sync on a named barrier of their own, so G
+//   such groups share a block and its copy of the table.
+// - The kernel is instantiated for the largest P of the launch (13, 17
+//   or 33), so a call of narrow models pays no wide model's registers;
+//   its block size is fixed per instance (vit_warps) and bounds the
+//   registers a thread may take.  One warp takes up to 33 lanes a
+//   thread (fewest instructions an item: the calibration's many equal
+//   items are throughput-bound), a longer model W warps of 17.
 
 #include "int_common.cuh"
+#include "plan.cuh"
 
-// transition rows of the table (ops/vit.py R_*)
+// transition rows of the table (ops/vit.py R_*), stored in shared memory
+// as the pairs (BM, MM), (IM, DM), (MDS, DDS), (MI, II)
 enum { R_BM = 0, R_MM, R_IM, R_DM, R_MDS, R_DDS, R_MI, R_II, NTR };
+constexpr int VIT_PAIRS = NTR / 2;
 
+// Warps of a block of the instance for lanes up to <pmax>
+// (ops/multimodel.py vit_block_warps).
+__host__ __device__ constexpr int vit_warps(int pmax) {
+  return pmax <= 13 ? 8 : pmax <= 17 ? 16 : 12;
+}
+
+__host__ __device__ constexpr int vit_instance(int pmax) {
+  return pmax <= 13 ? 13 : pmax <= 17 ? 17 : 33;
+}
+
+// Shared bytes of a block: the transition pairs [4][Mp] int, the match
+// words [Kp][Mp] int16 (16-byte aligned) and each group's scratch of 4W
+// ints (ops/multimodel.py vit_smem_bytes).
+__host__ __device__ constexpr size_t vit_table_bytes(int Kp, int Mp) {
+  return ((size_t)VIT_PAIRS * Mp * 4 + (size_t)Kp * Mp * 2 + 15) / 16 * 16;
+}
+
+__host__ __device__ constexpr size_t vit_smem_bytes(int Kp, int Mp, int G,
+                                                    int W) {
+  return vit_table_bytes(Kp, Mp) + (size_t)G * 16 * W;
+}
+
+namespace bi {
+
+__device__ __forceinline__ int lo16(int w) {
+  return (int)(int16_t)(uint16_t)(w & 0xffff);
+}
+
+__device__ __forceinline__ int hi16(int w) { return w >> 16; }
+
+// The table position x of a row in shared memory holds lane
+// lane_at(x, P): a warp's 32P lanes stored as P rows of 32, so that
+// thread t's lane j lies at 32j + t.
+__device__ __forceinline__ int lane_at(int x, int P) {
+  const int span = 32 * P;
+  const int w = x / span, r = x - w * span;
+  return w * span + (r & 31) * P + (r >> 5);
+}
+
+// One ORF b under one model, on the group <g>.  <ew>, <tw>: the match
+// words and transition pairs at this thread's lane 0 (lane j at +32j).
 template <int P, bool CAPTURE>
-__global__ void vit_filter_kernel(const int8_t* __restrict__ flat,
-                                  const int64_t* __restrict__ offs,
-                                  const int* __restrict__ lens,
-                                  const int* __restrict__ move,
-                                  const int* __restrict__ thresh, int B,
-                                  const int* __restrict__ tab_g, int Kp, int M,
-                                  int Mp, int W, bool in_smem, int base,
-                                  int emove, int eloop, int* __restrict__ out,
-                                  int16_t* __restrict__ karr,
-                                  const int* __restrict__ blk,
-                                  const int* __restrict__ order,
-                                  const int* __restrict__ scal) {
-  extern __shared__ int smem[];
-  const bi::Items it = bi::block_items(blk, B, W);
-  if (blk != nullptr) {  // this block's model: its scalars and its table
-    const int* s = scal + 4 * it.model;
-    M = s[0];
-    base = s[1];
-    emove = s[2];
-    eloop = s[3];
-  }
-  const int n_tab = (Kp + NTR) * Mp;
-  const int* rwv = bi::load_table(tab_g + (size_t)it.model * n_tab, n_tab, smem,
-                                  in_smem);
-  const int* tr = rwv + Kp * Mp;
-  const bi::Group g = bi::make_group(W, smem + (in_smem ? n_tab : 0));
+__device__ void vit_item(const Group& g, const int16_t* ew, const int* tw,
+                         int Mp, int M, int base, int emove, int eloop, int b,
+                         int B, const int8_t* __restrict__ flat,
+                         const int64_t* __restrict__ offs,
+                         const int* __restrict__ lens,
+                         const int* __restrict__ move,
+                         const int* __restrict__ thresh,
+                         int* __restrict__ out, int16_t* __restrict__ karr) {
   const int k0 = g.t * P;
   const int Q = max(2, (M + 7) / 8);
-  for (int q = it.first; q < it.end; q += it.step) {
-    const int b = blk != nullptr ? order[q] : q;
-    const int len = lens[b];
-    const int mv = move[b];
-    const int th = CAPTURE ? thresh[b] : 0;
-    const int8_t* seq = flat + offs[b];
-    int16_t* krow = CAPTURE ? karr + offs[b] : nullptr;
-    int dm[P], di[P], dd[P];
+  const int len = lens[b];
+  const int mv = move[b];
+  const int th = CAPTURE ? thresh[b] : 0;
+  const int8_t* seq = flat + offs[b];
+  int16_t* krow = CAPTURE ? karr + offs[b] : nullptr;
+  int dm[P], di[P], dd[P];
 #pragma unroll
-    for (int j = 0; j < P; ++j) dm[j] = di[j] = dd[j] = bi::NEG;
-    int xJ = bi::NEG, xC = bi::NEG, xB = base + mv;
-    int ovf = 0, score = 0, has = 0, ovfrow = 0;
-    for (int i = 0; i < len; ++i) {
-      const int* e = rwv + (int)seq[i] * Mp + k0;
-      int mp, ip, dpv;
-      bi::lane_before(g, dm[P - 1], di[P - 1], dd[P - 1], bi::NEG, mp, ip, dpv);
-      // M and I rows in place, high lane first (lane j reads j-1's old row)
-      int xE = bi::NEG;
+  for (int j = 0; j < P; ++j) dm[j] = di[j] = dd[j] = NEG;
+  int xJ = NEG, xC = NEG, xB = base + mv;
+  int ovf = 0, score = 0, has = 0, ovfrow = 0;
+  for (int i = 0; i < len; ++i) {
+    const int16_t* e = ew + (int)seq[i] * Mp;
+    int mp, ip, dpv;
+    lane_before(g, dm[P - 1], di[P - 1], dd[P - 1], NEG, mp, ip, dpv);
+    // M and I rows in place, high lane first (lane j reads j-1's old row)
+    int xE = NEG;
 #pragma unroll
-      for (int j = P - 1; j >= 0; --j) {
-        const int k = k0 + j;
-        int sv = bi::sat16(xB + tr[R_BM * Mp + k]);
-        sv = max(sv, bi::sat16((j ? dm[j - 1] : mp) + tr[R_MM * Mp + k]));
-        sv = max(sv, bi::sat16((j ? di[j - 1] : ip) + tr[R_IM * Mp + k]));
-        sv = max(sv, bi::sat16((j ? dd[j - 1] : dpv) + tr[R_DM * Mp + k]));
-        sv = bi::sat16(sv + e[j]);
-        di[j] = max(bi::sat16(dm[j] + tr[R_MI * Mp + k]),
-                    bi::sat16(di[j] + tr[R_II * Mp + k]));
-        dm[j] = sv;
-        if (k < M) xE = max(xE, sv);
-      }
-      xE = bi::group_max(g, xE);
-      const bool ovf2 = xE >= 32767;
-      if (CAPTURE) {
-        if (xE >= th && !ovf2) {  // the same on every thread of the group
-          int ord = 8 * Q;
-#pragma unroll
-          for (int j = 0; j < P; ++j) {
-            const int k = k0 + j;
-            if (k < M && dm[j] == xE) ord = min(ord, (k % Q) * 8 + k / Q);
-          }
-          ord = bi::group_min(g, ord);
-          if (g.t == 0) krow[i] = (int16_t)((ord % 8) * Q + ord / 8 + 1);
-        }
-        if (ovf2 && ovfrow == 0) ovfrow = i + 1;
-      }
-      // D row: part[k] = sat(M[k-1] + tMD[k]), closed along k by the map
-      // scan; the parts wait in dd
-      const int svprev = bi::lane_before(g, dm[P - 1], bi::NEG);
-      bi::MaxPlus run{0, bi::NEG};
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int k = k0 + j;
-        dd[j] = bi::sat16((j ? dm[j - 1] : svprev) + tr[R_MDS * Mp + k]);
-        run = bi::mp_then(run, bi::MaxPlus{tr[R_DDS * Mp + k], dd[j]});
-      }
-      int y = bi::group_scan_excl(g, run).b;
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        y = max(dd[j], bi::sat16(y + tr[R_DDS * Mp + k0 + j]));
-        dd[j] = y;
-      }
-      xC = max(xC, xE + emove);
-      xJ = max(xJ, xE + eloop);
-      xB = bi::sat16(max(xJ, base) + mv);
-      ovf |= ovf2;
-      if (i == len - 1) {
-        score = xC + mv;
-        has = xC > bi::NEG;
-      }
+    for (int j = P - 1; j >= 0; --j) {
+      const int k = k0 + j;
+      const int bm_mm = tw[32 * j];
+      const int im_dm = tw[Mp + 32 * j];
+      const int mi_ii = tw[3 * Mp + 32 * j];
+      int sv = sat16(xB + lo16(bm_mm));
+      sv = max(sv, sat16((j ? dm[j - 1] : mp) + hi16(bm_mm)));
+      sv = max(sv, sat16((j ? di[j - 1] : ip) + lo16(im_dm)));
+      sv = max(sv, sat16((j ? dd[j - 1] : dpv) + hi16(im_dm)));
+      sv = sat16(sv + (int)e[32 * j]);
+      di[j] = max(sat16(dm[j] + lo16(mi_ii)), sat16(di[j] + hi16(mi_ii)));
+      dm[j] = sv;
+      if (k < M) xE = max(xE, sv);
     }
-    if (g.t == 0) {
-      if (CAPTURE) {
-        out[b] = ovfrow;
-      } else {
-        out[b] = score;
-        out[B + b] = has;
-        out[2 * B + b] = ovf;
+    xE = group_max(g, xE);
+    const bool ovf2 = xE >= 32767;
+    if (CAPTURE) {
+      if (xE >= th && !ovf2) {  // the same on every thread of the group
+        int ord = 8 * Q;
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const int k = k0 + j;
+          if (k < M && dm[j] == xE) ord = min(ord, (k % Q) * 8 + k / Q);
+        }
+        ord = group_min(g, ord);
+        if (g.t == 0) krow[i] = (int16_t)((ord % 8) * Q + ord / 8 + 1);
       }
+      if (ovf2 && ovfrow == 0) ovfrow = i + 1;
+    }
+    // D row: part[k] = sat(M[k-1] + tMD[k]), closed along k by the map
+    // scan; the parts wait in dd
+    const int svprev = lane_before(g, dm[P - 1], NEG);
+    MaxPlus run{0, NEG};
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int md_dd = tw[2 * Mp + 32 * j];
+      dd[j] = sat16((j ? dm[j - 1] : svprev) + lo16(md_dd));
+      run = mp_then(run, MaxPlus{hi16(md_dd), dd[j]});
+    }
+    int y = group_scan_excl(g, run).b;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      y = max(dd[j], sat16(y + hi16(tw[2 * Mp + 32 * j])));
+      dd[j] = y;
+    }
+    xC = max(xC, xE + emove);
+    xJ = max(xJ, xE + eloop);
+    xB = sat16(max(xJ, base) + mv);
+    ovf |= ovf2;
+    if (i == len - 1) {
+      score = xC + mv;
+      has = xC > NEG;
+    }
+  }
+  if (g.t == 0) {
+    if (CAPTURE) {
+      out[b] = ovfrow;
+    } else {
+      out[b] = score;
+      out[B + b] = has;
+      out[2 * B + b] = ovf;
     }
   }
 }
 
-// One launch: blk, order and scal null for a single model (the grid is
-// the plan's); else `nblocks` blocks, one per row of blk, each of at
-// most `per_block` items, which must be the plan's.
+}  // namespace bi
+
+// The class row of the plan (plan.cuh): the address of the class's
+// stacked tables [g][Kp + 8][Mp] int16 (ops/vit.py VitParams.table), the
+// address of its scalars [g][4] int (M, base, emove, eloop), P, W, Mp,
+// G, Kp.
+template <int PMAX, bool CAPTURE>
+__global__ void __launch_bounds__(32 * vit_warps(PMAX))
+    vit_filter_kernel(const int8_t* __restrict__ flat,
+                      const int64_t* __restrict__ offs,
+                      const int* __restrict__ lens,
+                      const int* __restrict__ move,
+                      const int* __restrict__ thresh, int B,
+                      int* __restrict__ out, int16_t* __restrict__ karr,
+                      const long long* __restrict__ plan, int ncls,
+                      int nblk) {
+  extern __shared__ int4 smem4[];
+  const PlanBlock pb = plan_block(plan, ncls, nblk);
+  const long long* c = pb.cls;
+  const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], Kp = (int)c[6];
+  const int16_t* tg = reinterpret_cast<const int16_t*>(c[0]) +
+                      (size_t)pb.model * (Kp + NTR) * Mp;
+  const int* s = reinterpret_cast<const int*>(c[1]) + 4 * pb.model;
+  int* trp = reinterpret_cast<int*>(smem4);
+  int16_t* rwv = reinterpret_cast<int16_t*>(trp + VIT_PAIRS * Mp);
+  for (int x = threadIdx.x; x < Mp; x += blockDim.x) {
+    const int k = bi::lane_at(x, P);
+#pragma unroll
+    for (int q = 0; q < VIT_PAIRS; ++q)
+      trp[q * Mp + x] =
+          (int)((unsigned)(uint16_t)tg[(Kp + 2 * q) * Mp + k] |
+                ((unsigned)(uint16_t)tg[(Kp + 2 * q + 1) * Mp + k] << 16));
+    for (int r = 0; r < Kp; ++r) rwv[r * Mp + x] = tg[r * Mp + k];
+  }
+  __syncthreads();
+  if (pb.item < 0) return;
+  bi::Group g = bi::make_group(
+      W, reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) +
+                                vit_table_bytes(Kp, Mp)) +
+             4 * W * pb.gi);
+  g.bar = 1 + pb.gi;
+  const int at = g.warp * 32 * P + g.lane;
+  const int M = pb.M, base = s[1], emove = s[2], eloop = s[3];
+#define BI_VIT_ITEM(PP)                                                   \
+  if constexpr (PP <= PMAX)                                               \
+    bi::vit_item<PP, CAPTURE>(g, rwv + at, trp + at, Mp, M, base, emove,  \
+                              eloop, pb.item, B, flat, offs, lens, move,  \
+                              thresh, out, karr);                         \
+  break;
+  switch (P) {
+    case 3: BI_VIT_ITEM(3)
+    case 5: BI_VIT_ITEM(5)
+    case 9: BI_VIT_ITEM(9)
+    case 13: BI_VIT_ITEM(13)
+    case 17: BI_VIT_ITEM(17)
+    case 25: BI_VIT_ITEM(25)
+    case 33: BI_VIT_ITEM(33)
+  }
+#undef BI_VIT_ITEM
+}
+
+// Checks a plan's classes (the host copy of the table) and gives the
+// instance (vit_instance of the largest P) and the launch's dynamic
+// shared memory.  Returns 0, or a cudaError_t.
+static int vit_check(const long long* plan, int ncls, int warps, int& inst,
+                     size_t& smem) {
+  int dev = 0, cap = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (ncls <= 0 || warps <= 0) return cudaErrorInvalidValue;
+  int pmax = 0;
+  smem = 0;
+  for (int i = 0; i < ncls; ++i) {
+    const long long* c = plan + PLAN_CLS * i;
+    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
+    const int Kp = (int)c[6];
+    if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
+          P == 33) ||
+        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
+        (W > 1 && G > 15) || Kp < 1)
+      return cudaErrorInvalidValue;
+    const size_t need = vit_smem_bytes(Kp, Mp, G, W);
+    smem = need > smem ? need : smem;
+    pmax = P > pmax ? P : pmax;
+  }
+  inst = vit_instance(pmax);
+  if (warps > vit_warps(inst)) return cudaErrorInvalidValue;
+  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
+}
+
+template <int PMAX, bool CAPTURE>
+static void vit_launch_instance(const void* flat, const void* offs,
+                                const void* lens, const void* move,
+                                const void* thresh, int B, void* out,
+                                void* karr, const void* plan, int ncls,
+                                int nblk, int warps, size_t smem,
+                                cudaStream_t st) {
+  cudaFuncSetAttribute(vit_filter_kernel<PMAX, CAPTURE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  vit_filter_kernel<PMAX, CAPTURE><<<nblk, 32 * warps, smem, st>>>(
+      (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,
+      (const int*)move, (const int*)thresh, B, (int*)out, (int16_t*)karr,
+      (const long long*)plan, ncls, nblk);
+}
+
 template <bool CAPTURE>
 static int vit_launch(const void* flat, const void* offs, const void* lens,
-                      const void* move, const void* thresh, int B,
-                      const void* tab, int Kp, int M, int Mp, int P, int base,
-                      int emove, int eloop, void* out, void* karr,
-                      const void* blk, const void* order, const void* scal,
-                      int nblocks, int per_block, void* stream) {
-  if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
+                      const void* move, const void* thresh, int B, void* out,
+                      void* karr, const long long* plan_host, const void* plan,
+                      int ncls, int nblk, int warps, void* stream) {
+  if (nblk <= 0) return 0;
+  int inst;
+  size_t smem;
+  const int err = vit_check(plan_host, ncls, warps, inst, smem);
+  if (err) return err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t tab_bytes = (size_t)(Kp + NTR) * Mp * sizeof(int);
-#define BI_LAUNCH_VIT(PP)                                                    \
-  {                                                                          \
-    const BiLaunch l =                                                       \
-        bi_plan(vit_filter_kernel<PP, CAPTURE>, B, Mp, PP, tab_bytes);       \
-    if (blk != nullptr && per_block != l.G) return cudaErrorInvalidValue;    \
-    vit_filter_kernel<PP, CAPTURE>                                           \
-        <<<blk != nullptr ? nblocks : l.blocks, l.threads, l.smem, st>>>(    \
-            (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,     \
-            (const int*)move, (const int*)thresh, B, (const int*)tab, Kp, M, \
-            Mp, l.W, l.in_smem, base, emove, eloop, (int*)out,               \
-            (int16_t*)karr, (const int*)blk, (const int*)order,              \
-            (const int*)scal);                                               \
-  }
-  BI_DISPATCH_P(P, BI_LAUNCH_VIT)
-#undef BI_LAUNCH_VIT
+  if (inst == 13)
+    vit_launch_instance<13, CAPTURE>(flat, offs, lens, move, thresh, B, out,
+                                     karr, plan, ncls, nblk, warps, smem, st);
+  else if (inst == 17)
+    vit_launch_instance<17, CAPTURE>(flat, offs, lens, move, thresh, B, out,
+                                     karr, plan, ncls, nblk, warps, smem, st);
+  else
+    vit_launch_instance<33, CAPTURE>(flat, offs, lens, move, thresh, B, out,
+                                     karr, plan, ncls, nblk, warps, smem, st);
   return (int)cudaGetLastError();
 }
 
 // flat [N] int8 residues; offs [B] int64, lens and move [B] int32 per
-// ORF; tab [Kp + 8, Mp] int32: the match words rwv [Kp, Mp], then the
-// eight transition rows (ops/vit.py R_*), -32768 past the model;
-// out [3, B] int32: score_int, has, ovf.  Returns the launch's
-// cudaError_t.
+// ORF; out [3, B] int32: score_int, has, ovf, written at the plan's
+// items.  plan_host and plan: the plan's table (plan.cuh, the class row
+// above) on the host and on the device, with ncls classes and nblk
+// blocks of `warps` warps.  One entry serves the single-model calls
+// (#3) and the multi-model ones (the device calibration): a single
+// model is a plan of one class.  Returns the launch's cudaError_t.
 extern "C" int bt_vit_filter(const void* flat, const void* offs,
                              const void* lens, const void* move, int B,
-                             const void* tab, int Kp, int M, int Mp, int P,
-                             int base, int emove, int eloop, void* out,
+                             void* out, const long long* plan_host,
+                             const void* plan, int ncls, int nblk, int warps,
                              void* stream) {
-  if (B <= 0) return 0;
-  return vit_launch<false>(flat, offs, lens, move, nullptr, B, tab, Kp, M, Mp,
-                           P, base, emove, eloop, out, nullptr, nullptr,
-                           nullptr, nullptr, 0, 0, stream);
-}
-
-// The multi-model entry of bt_vit_filter: tab [G, Kp + 8, Mp] stacks the
-// tables of the models of padded width Mp and scal [G, 4] int32 holds
-// each one's M, base, emove, eloop; blk [nblocks, 3] int32 = (model,
-// first, count) per block and order [.] int32 the item rows
-// (bi::block_items).  out [3, B] is written at the listed items only.
-extern "C" int bt_vit_filter_multi(const void* flat, const void* offs,
-                                   const void* lens, const void* move, int B,
-                                   const void* tab, const void* scal, int Kp,
-                                   int Mp, int P, void* out, const void* blk,
-                                   const void* order, int nblocks,
-                                   int per_block, void* stream) {
-  if (nblocks <= 0) return 0;
-  if (blk == nullptr || order == nullptr || scal == nullptr)
-    return cudaErrorInvalidValue;
-  return vit_launch<false>(flat, offs, lens, move, nullptr, B, tab, Kp, 0, Mp,
-                           P, 0, 0, 0, out, nullptr, blk, order, scal, nblocks,
-                           per_block, stream);
+  return vit_launch<false>(flat, offs, lens, move, nullptr, B, out, nullptr,
+                           plan_host, plan, ncls, nblk, warps, stream);
 }
 
 // As bt_vit_filter, with thresh [B] int32 per ORF; out [B] int32: the
@@ -224,12 +341,10 @@ extern "C" int bt_vit_filter_multi(const void* flat, const void* offs,
 // crossing row.  Returns the launch's cudaError_t.
 extern "C" int bt_vit_capture(const void* flat, const void* offs,
                               const void* lens, const void* move,
-                              const void* thresh, int B, const void* tab,
-                              int Kp, int M, int Mp, int P, int base,
-                              int emove, int eloop, void* out, void* karr,
+                              const void* thresh, int B, void* out,
+                              void* karr, const long long* plan_host,
+                              const void* plan, int ncls, int nblk, int warps,
                               void* stream) {
-  if (B <= 0) return 0;
-  return vit_launch<true>(flat, offs, lens, move, thresh, B, tab, Kp, M, Mp,
-                          P, base, emove, eloop, out, karr, nullptr, nullptr,
-                          nullptr, 0, 0, stream);
+  return vit_launch<true>(flat, offs, lens, move, thresh, B, out, karr,
+                          plan_host, plan, ncls, nblk, warps, stream);
 }

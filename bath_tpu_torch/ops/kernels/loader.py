@@ -10,10 +10,12 @@ bound with ctypes.  Each C entry returns the launch's
 device the loader raises: it never returns None and no caller falls
 back to the plain versions.
 
-The wrappers allocate outputs with ``torch.empty``/``zeros`` on the
-input's device and launch (``_launch``) with that device selected, on
-its current stream, so the kernels of several cards run at once; they
-do not synchronise.
+Each entry is launched through a ``prepare_*`` function, which checks
+the inputs with one read back from the device and builds the launch
+plan once; the ``Launch`` it returns allocates outputs with
+``torch.empty``/``zeros`` on the input's device and launches
+(``_launch``) with that device selected, on its current stream, so the
+kernels of several cards run at once; it does not synchronise.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ import numpy as np
 import torch
 
 from ..fs3 import DNA_CODES
-from ..fwd import ProfileTensors
 from ..ssv import SSVB_NCAP
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,12 +46,18 @@ LANES_PER_THREAD = (3, 5, 9, 13, 17, 25, 33)
 # The fs3 kernels keep ~10 rows of P floats a thread in their rings, so
 # they stop at P = 13 and put W warps of 13 lanes on a longer model.
 FS3_LANES_PER_THREAD = (3, 5, 9, 13)
+# The ViterbiFilter (csrc/vit_filter.cu) takes the whole ladder in one
+# warp, then W warps of VIT_WIDE_LANES: its int16 tables fit a block's
+# shared memory up to M = 2720 (W = 5), where warps of 33 lanes would
+# stop at 2112.
+VIT_WIDE_LANES = 17
 
 
-# Items to a thread block (bt_plan in csrc/dp_common.cuh): one-warp
-# items share a block and its copy of the tables; an item of several
-# warps has a block to itself.  The multi-model entries check it.  (The
-# fs3 pair plans its blocks with ops/multimodel.py fs3_plan.)
+# Items to a thread block of the Forward gate and MSV (bt_plan in
+# csrc/dp_common.cuh, bi_plan in csrc/int_common.cuh): one-warp items
+# share a block and its copy of the tables; an item of several warps has
+# a block to itself.  The multi-model entries check it.  (The other
+# entries plan their blocks with ops/multimodel.py _plan.)
 def items_per_block(W: int) -> int:
     return 8 if W == 1 else 1
 
@@ -73,6 +80,12 @@ def layout(M: int, lanes=LANES_PER_THREAD) -> tuple[int, int, int]:
 
 def fs3_layout(M: int) -> tuple[int, int, int]:
     return layout(M, FS3_LANES_PER_THREAD)
+
+
+def vit_layout(M: int) -> tuple[int, int, int]:
+    if M <= 32 * LANES_PER_THREAD[-1]:
+        return layout(M)
+    return layout(M, (VIT_WIDE_LANES,))
 
 
 def _nvcc() -> str:
@@ -148,8 +161,7 @@ def lib() -> ctypes.CDLL:
     so.bt_fwd_parser.restype = I
     so.bt_fwd_parser.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P]
     so.bt_domdec.restype = I
-    so.bt_domdec.argtypes = [P, P, I, I, P, P, I, I, I, I, F, P, P, P, P,
-                             P, P]
+    so.bt_domdec.argtypes = [P, P, I, F, P, P, P, P, P, I, I, I, P]
     so.bt_fs3_parser.restype = I
     so.bt_fs3_parser.argtypes = [P, P, I, F, P, P, P, I, I, I, P]
     so.bt_fs3_domdec.restype = I
@@ -157,27 +169,19 @@ def lib() -> ctypes.CDLL:
     so.bt_fwd_parser_multi.restype = I
     so.bt_fwd_parser_multi.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P,
                                        P, I, I, P]
-    so.bt_domdec_multi.restype = I
-    so.bt_domdec_multi.argtypes = [P, P, I, I, P, P, P, I, I, I, F, P, P, P,
-                                   P, P, P, P, I, I, P]
     so.bt_msv_filter.restype = I
     so.bt_msv_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, I,
                                  P, P]
     so.bt_msv_filter_multi.restype = I
     so.bt_msv_filter_multi.argtypes = [P, P, P, P, I, P, P, I, I, I, P, P, P,
                                        I, I, P]
-    so.bt_vit_filter_multi.restype = I
-    so.bt_vit_filter_multi.argtypes = [P, P, P, P, I, P, P, I, I, I, P, P, P,
-                                       I, I, P]
     so.bt_ssv_capture.restype = I
     so.bt_ssv_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
                                   P, P, P]
     so.bt_vit_filter.restype = I
-    so.bt_vit_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, P,
-                                 P]
+    so.bt_vit_filter.argtypes = [P, P, P, P, I, P, P, P, I, I, I, P]
     so.bt_vit_capture.restype = I
-    so.bt_vit_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
-                                  P, P, P]
+    so.bt_vit_capture.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, I, P]
     so.bt_ub_chain.restype = I
     so.bt_ub_chain.argtypes = [P, P, I, I, I, P]
     for name in ("bt_ub_onehot_gather", "bt_ub_onehot_mma"):
@@ -196,25 +200,34 @@ def _check(err: int, name: str) -> None:
         raise CudaKernelError(f"{name} launch failed: cudaError {err}")
 
 
-def _check_inputs(dsq, lens, codes: int):
-    """<codes>: the number of residue codes the kernel takes."""
+def _batch_lens(dsq, lens, codes: int) -> np.ndarray:
+    """The padded-batch entries' input check, with one read back from
+    the device: contiguous tensors, residue codes in [0, <codes>),
+    lengths in [0, L].  Returns the lengths on the host (the plans order
+    the items by them)."""
     if dsq.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dsq.device} tensor")
     if not (dsq.is_contiguous() and lens.is_contiguous()):
         raise ValueError("dsq and lens must be contiguous")
+    parts = [lens.to(torch.int32)]
     if dsq.numel():
-        lo, hi = (int(v) for v in torch.aminmax(dsq))
+        parts.append(torch.stack(torch.aminmax(dsq)).to(torch.int32))
+    host = torch.cat(parts).cpu().numpy()
+    B = dsq.shape[0]
+    if dsq.numel():
+        lo, hi = host[B:]
         if lo < 0 or hi >= codes:
             raise ValueError(f"residue codes must lie in [0, {codes})")
-        lo, hi = (int(v) for v in torch.aminmax(lens))
-        if lo < 0 or hi > dsq.shape[1]:
+        if host[:B].min() < 0 or host[:B].max() > dsq.shape[1]:
             raise ValueError("lens must lie in [0, L]")
+    return host[:B]
 
 
-def _check_stream(flat, offs, lens, p, *per_item):
-    """The integer filters' input: contiguous tensors on the device of
-    the parameters <p>, residue codes in [0, p.Kp) and every item inside
-    <flat>."""
+def _stream_lens(flat, offs, lens, p, *per_item) -> np.ndarray:
+    """The integer filters' input check, with one read back from the
+    device: contiguous tensors on the device of the parameters <p>,
+    residue codes in [0, p.Kp) and every item inside <flat>.  Returns
+    the lengths on the host."""
     if flat.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a {flat.device} tensor")
     if p.device != flat.device:
@@ -223,14 +236,21 @@ def _check_stream(flat, offs, lens, p, *per_item):
     if not all(t.is_contiguous() for t in (flat, offs, lens, *per_item)):
         raise ValueError("the stream and per-item tensors must be "
                          "contiguous")
+    B = lens.numel()
+    parts = [lens.to(torch.int64)]
     if flat.numel():
-        lo, hi = (int(v) for v in torch.aminmax(flat))
-        if lo < 0 or hi >= p.Kp:
+        parts.append(torch.stack(torch.aminmax(flat)).to(torch.int64))
+    if B:
+        parts.append(torch.stack([offs.min(), (offs + lens).max()]))
+    host = torch.cat(parts).cpu().numpy()
+    rest = host[B:]
+    if flat.numel():
+        if rest[0] < 0 or rest[1] >= p.Kp:
             raise ValueError(f"residue codes must lie in [0, {p.Kp})")
-    if lens.numel():
-        if int(lens.min()) < 0 or int(offs.min()) < 0 \
-                or int((offs + lens).max()) > flat.numel():
-            raise ValueError("every item must lie inside flat")
+        rest = rest[2:]
+    if B and (host[:B].min() < 0 or rest[0] < 0 or rest[1] > flat.numel()):
+        raise ValueError("every item must lie inside flat")
+    return host[:B]
 
 
 def _launch(name: str, entry, *args) -> None:
@@ -250,122 +270,32 @@ def _launch(name: str, entry, *args) -> None:
     _check(err, name)
 
 
-def launch_fwd(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
-               nj: float) -> torch.Tensor:
-    """fwd_parser.cu: Forward-gate scores [B] f32 (nats)."""
-    _check_inputs(dsq, lens, p.Kp)
-    so = lib()
-    B, L = dsq.shape
-    P, _, Mp = layout(p.M)
-    etab, ttab = p.padded(Mp)
-    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
-    _launch("fwd_parser", so.bt_fwd_parser, dsq, lens, B, L, etab, ttab, p.Kp,
-            Mp, P, float(nj), out)
-    return out
+def sms(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_domdec(dsq: torch.Tensor, lens: torch.Tensor,
-                  p: ProfileTensors, nj: float):
-    """domdec.cu: normalised increments (inc_b, inc_e, njr) [B, L], and
-    logZ and logZ minus the total forward log scale, [B] each."""
-    _check_inputs(dsq, lens, p.Kp)
-    so = lib()
-    B, L = dsq.shape
-    P, _, Mp = layout(p.M)
-    etab, ttab = p.padded(Mp)
-    dev = dsq.device
-    spec = torch.empty(B, 6, L + 1, dtype=torch.float64, device=dev)
-    inc = torch.zeros(3, B, L, dtype=torch.float32, device=dev)
-    logz2 = torch.empty(B, 2, dtype=torch.float32, device=dev)
-    _launch("domdec", so.bt_domdec, dsq, lens, B, L, etab, ttab, p.Kp, p.M, Mp,
-            P, float(nj), spec, inc[0], inc[1], inc[2], logz2)
-    return inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]
+class Launch:
+    """One call of a kernel entry on a checked (and planned) batch: the
+    prepare_* functions check the inputs and build the plan once, with
+    one read back from the device; calling the object allocates the
+    outputs and launches, with no check and no read back, so the
+    kernel's own time is the call's.  ``launches``: kernel launches a
+    call; ``plan``: the one-launch plan (``ops/multimodel.py``
+    ``LaunchPlan``) of the entries that take one."""
+
+    def __init__(self, call, launches: int, plan=None):
+        self._call, self.launches, self.plan = call, launches, plan
+
+    def __call__(self, *args):
+        return self._call(*args)
 
 
-def _fs3_lens(dsq, lens) -> np.ndarray:
-    """The fs3 entries' input check, with one read back from the device:
-    contiguous tensors, residue codes in [0, DNA_CODES), lengths in
-    [0, L].  Returns the lengths on the host (the plan orders the
-    windows by them)."""
-    if dsq.device.type != "cuda":
-        raise ValueError(f"CUDA kernel given a {dsq.device} tensor")
-    if not (dsq.is_contiguous() and lens.is_contiguous()):
-        raise ValueError("dsq and lens must be contiguous")
-    parts = [lens.to(torch.int32)]
-    if dsq.numel():
-        parts.append(torch.stack(torch.aminmax(dsq)).to(torch.int32))
-    host = torch.cat(parts).cpu().numpy()
-    B = dsq.shape[0]
-    if dsq.numel():
-        lo, hi = host[B:]
-        if lo < 0 or hi >= DNA_CODES:
-            raise ValueError(f"residue codes must lie in [0, {DNA_CODES})")
-        if host[:B].min() < 0 or host[:B].max() > dsq.shape[1]:
-            raise ValueError("lens must lie in [0, L]")
-    return host[:B]
-
-
-class Fs3Launch:
-    """One launch of an fs3 entry on a checked and planned batch (``ops/
-    multimodel.py`` ``fs3_plan``, its table on the device).  Calling it
-    allocates the outputs and launches, with no check and no read back:
-    the kernel's own time is the call's."""
-
-    def __init__(self, dsq, lens, slot, pack, decoding: bool):
-        from ..multimodel import fs3_plan
-        ln = _fs3_lens(dsq, lens)
-        if pack.device != dsq.device:
-            raise ValueError(f"pack on {pack.device}, input on {dsq.device}")
-        self.dsq, self.lens, self.decoding = dsq, lens, decoding
-        self.plan = fs3_plan(ln, slot, pack, 2 if decoding else 1)
-        self.table = torch.from_numpy(self.plan.table).to(dsq.device)
-
-    @property
-    def launches(self) -> int:
-        return int(self.plan.nblk > 0)
-
-    def __call__(self, nj: float):
-        so = lib()
-        B, L = self.dsq.shape
-        dev = self.dsq.device
-        pl = self.plan
-        head = (self.dsq, self.lens, L, float(nj))
-        tail = (pl.table.ctypes.data, self.table, pl.ncls, pl.nblk, pl.warps)
-        if not self.decoding:
-            out = torch.empty(B, dtype=torch.float32, device=dev)
-            _launch("fs3_parser", so.bt_fs3_parser, *head, out, *tail)
-            return out
-        spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
-        logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
-        _launch("fs3_domdec", so.bt_fs3_domdec, *head, spec[0], spec[1],
-                logz2, *tail)
-        return spec[0], spec[1], logz2
-
-
-def prepare_fs3(dsq, lens, slot, pack, decoding: bool) -> Fs3Launch:
-    """The fs3 gate (or, with <decoding>, fs3 decoding) of window b under
-    model ``slot[b]`` of <pack> (``build_fs3_pack``), or of every window
-    under one model (<slot> None, <pack> its ``ProfileTensors``), as one
-    launch."""
-    from ..multimodel import OneModel
-    if slot is None:
-        slot, pack = np.zeros(dsq.shape[0], np.int64), OneModel(pack)
-    return Fs3Launch(dsq, lens, slot, pack, decoding)
-
-
-def launch_fs3(dsq: torch.Tensor, lens: torch.Tensor, p: ProfileTensors,
-               nj: float) -> torch.Tensor:
-    """fs3_parser.cu: fs3-Forward gate scores [B] f32 (nats) of DNA
-    windows (residue codes 0..17)."""
-    return prepare_fs3(dsq, lens, None, p, False)(nj)
-
-
-def launch_fs3_domdec(dsq: torch.Tensor, lens: torch.Tensor,
-                      p: ProfileTensors, nj: float):
-    """fs3_domdec.cu: the forward and backward specials [B, 6, L+1] f64
-    of every nucleotide row, and (logZ, total forward log scale) [B, 2]
-    f64."""
-    return prepare_fs3(dsq, lens, None, p, True)(nj)
+def _planned(plan, device) -> tuple:
+    """The plan's trailing arguments of a one-launch entry: its table on
+    the host and on the device, classes, blocks, warps a block."""
+    table = torch.from_numpy(plan.table).to(device)
+    return (plan.table.ctypes.data, table, plan.ncls, plan.nblk, plan.warps)
 
 
 def _multi_plans(slot, pack, per_block, device):
@@ -390,153 +320,184 @@ def _multi_plans(slot, pack, per_block, device):
     return out
 
 
-def launch_fwd_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
-                     nj: float):
-    """fwd_parser.cu, multi-model entry: (Forward-gate scores [B] f32
-    of item b under model slot[b], the number of launches)."""
-    _check_inputs(dsq, lens, pack.Kp)
-    so = lib()
-    B, L = dsq.shape
-    out = torch.empty(B, dtype=torch.float32, device=dsq.device)
-    plans = _multi_plans(slot, pack, items_per_block, dsq.device)
-    for c, order, blk, nblocks, G in plans:
-        _launch("fwd_parser_multi", so.bt_fwd_parser_multi, dsq, lens, B, L,
-                c.etab, c.ttab, pack.Kp, c.Mp, c.P, float(nj), out, blk, order,
-                nblocks, G)
-    return out, len(plans)
-
-
-def launch_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
-                        nj: float):
-    """domdec.cu, multi-model entry: (launch_domdec's outputs over the
-    whole batch, the number of launches)."""
-    _check_inputs(dsq, lens, pack.Kp)
+def prepare_fwd(dsq, lens, slot, p) -> Launch:
+    """fwd_parser.cu: the Forward gate of item b under model ``slot[b]``
+    of <p> (``build_fwd_pack``), or of every item under one model
+    (<slot> None, <p> its ``ProfileTensors``); a call (nj) gives the
+    scores [B] f32 (nats), one launch per padded width."""
+    _batch_lens(dsq, lens, p.Kp)
     so = lib()
     B, L = dsq.shape
     dev = dsq.device
-    spec = torch.empty(B, 6, L + 1, dtype=torch.float64, device=dev)
-    inc = torch.zeros(3, B, L, dtype=torch.float32, device=dev)
-    logz2 = torch.empty(B, 2, dtype=torch.float32, device=dev)
-    plans = _multi_plans(slot, pack, items_per_block, dev)
-    for c, order, blk, nblocks, G in plans:
-        _launch("domdec_multi", so.bt_domdec_multi, dsq, lens, B, L, c.etab,
-                c.ttab, c.Ms, pack.Kp, c.Mp, c.P, float(nj), spec, inc[0],
-                inc[1], inc[2], logz2, blk, order, nblocks, G)
-    return (inc[0], inc[1], inc[2], logz2[:, 0], logz2[:, 1]), len(plans)
+    if slot is None:
+        P, _, Mp = layout(p.M)
+        etab, ttab = p.padded(Mp)
+        if p.device != dev:
+            raise ValueError(f"parameters on {p.device}, input on {dev}")
+
+        def one(nj):
+            out = torch.empty(B, dtype=torch.float32, device=dev)
+            _launch("fwd_parser", so.bt_fwd_parser, dsq, lens, B, L, etab,
+                    ttab, p.Kp, Mp, P, float(nj), out)
+            return out
+        return Launch(one, 1)
+    plans = _multi_plans(slot, p, items_per_block, dev)
+
+    def many(nj):
+        out = torch.empty(B, dtype=torch.float32, device=dev)
+        for c, order, blk, nblocks, G in plans:
+            _launch("fwd_parser_multi", so.bt_fwd_parser_multi, dsq, lens, B,
+                    L, c.etab, c.ttab, p.Kp, c.Mp, c.P, float(nj), out, blk,
+                    order, nblocks, G)
+        return out
+    return Launch(many, len(plans))
 
 
-def launch_fs3_multi(dsq: torch.Tensor, lens: torch.Tensor, slot, pack,
-                     nj: float):
-    """fs3_parser.cu, multi-model entry: (fs3 gate scores [B] f32 of
-    window b under model slot[b], the number of launches: one)."""
-    run = prepare_fs3(dsq, lens, slot, pack, False)
-    return run(nj), run.launches
+def prepare_domdec(dsq, lens, slot, pack) -> Launch:
+    """domdec.cu: decoding of ORF b under model ``slot[b]`` of <pack>
+    (``build_domdec_pack``), or of every ORF under one model (<slot>
+    None, <pack> its ``ProfileTensors``), as one launch; a call (nj)
+    gives the forward and backward specials [B, 6, L+1] f64 of every row
+    and (logZ, total forward log scale) [B, 2] f64
+    (``ops/domdec.py`` ``finish_passes`` takes them)."""
+    from ..multimodel import OneModel, domdec_plan
+    if slot is None:
+        slot, pack = np.zeros(dsq.shape[0], np.int64), \
+            OneModel(pack, layout)
+    ln = _batch_lens(dsq, lens, pack.Kp)
+    dev = dsq.device
+    if pack.device != dev:
+        raise ValueError(f"pack on {pack.device}, input on {dev}")
+    plan = domdec_plan(ln, slot, pack, sms(dev))
+    tail = _planned(plan, dev)
+    so = lib()
+    B, L = dsq.shape
+
+    def run(nj):
+        spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
+        logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
+        _launch("domdec", so.bt_domdec, dsq, lens, L, float(nj), spec[0],
+                spec[1], logz2, *tail)
+        return spec[0], spec[1], logz2
+    return Launch(run, int(plan.nblk > 0), plan)
 
 
-def launch_fs3_domdec_multi(dsq: torch.Tensor, lens: torch.Tensor, slot,
-                            pack, nj: float):
-    """fs3_domdec.cu, multi-model entry: (launch_fs3_domdec's outputs
-    over the whole batch, the number of launches: one)."""
-    run = prepare_fs3(dsq, lens, slot, pack, True)
-    return run(nj), run.launches
+def prepare_fs3(dsq, lens, slot, pack, decoding: bool) -> Launch:
+    """The fs3 gate (or, with <decoding>, fs3 decoding) of window b under
+    model ``slot[b]`` of <pack> (``build_fs3_pack``), or of every window
+    under one model (<slot> None, <pack> its ``ProfileTensors``), as one
+    launch (``ops/multimodel.py`` ``fs3_plan``).  A call (nj) gives
+    fs3_parser.cu's gate scores [B] f32 (nats) of DNA windows (residue
+    codes 0..17), or fs3_domdec.cu's forward and backward specials
+    [B, 6, L+1] f64 of every nucleotide row and (logZ, total forward
+    log scale) [B, 2] f64."""
+    from ..multimodel import OneModel, fs3_plan
+    if slot is None:
+        slot, pack = np.zeros(dsq.shape[0], np.int64), OneModel(pack)
+    ln = _batch_lens(dsq, lens, DNA_CODES)
+    dev = dsq.device
+    if pack.device != dev:
+        raise ValueError(f"pack on {pack.device}, input on {dev}")
+    plan = fs3_plan(ln, slot, pack, 2 if decoding else 1)
+    tail = _planned(plan, dev)
+    so = lib()
+    B, L = dsq.shape
+
+    def run(nj):
+        head = (dsq, lens, L, float(nj))
+        if not decoding:
+            out = torch.empty(B, dtype=torch.float32, device=dev)
+            _launch("fs3_parser", so.bt_fs3_parser, *head, out, *tail)
+            return out
+        spec = torch.zeros(2, B, 6, L + 1, dtype=torch.float64, device=dev)
+        logz2 = torch.empty(B, 2, dtype=torch.float64, device=dev)
+        _launch("fs3_domdec", so.bt_fs3_domdec, *head, spec[0], spec[1],
+                logz2, *tail)
+        return spec[0], spec[1], logz2
+    return Launch(run, int(plan.nblk > 0), plan)
 
 
-def launch_msv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
-               tjb: torch.Tensor, p):
-    """msv_filter.cu: (xEu, xJm, movf) [B] int32 of every ORF of the
-    stream (``ops/ssv.py`` ``MSVParams`` <p>)."""
-    _check_stream(flat, offs, lens, p, tjb)
+def prepare_msv(flat, offs, lens, tjb, slot, p) -> Launch:
+    """msv_filter.cu: the fused SSV+MSV filter of every ORF of the
+    stream under model ``slot[b]`` of <p> (``build_msv_pack``), or under
+    one model (<slot> None, <p> its ``MSVParams``); a call gives (xEu,
+    xJm, movf) [3, B] int32, one launch per padded width."""
+    _stream_lens(flat, offs, lens, p, tjb)
     so = lib()
     B = lens.numel()
-    P, _, Mp = layout(p.M)
-    tab = p.table(Mp)
-    out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
-    _launch("msv_filter", so.bt_msv_filter, flat, offs, lens, tjb, B, tab,
-            p.Kp, p.M, Mp, P, p.base, p.tec, p.tbm, p.bias, out)
-    return out[0], out[1], out[2]
+    dev = flat.device
+    if slot is None:
+        P, _, Mp = layout(p.M)
+        tab = p.table(Mp)
+
+        def one():
+            out = torch.empty(3, B, dtype=torch.int32, device=dev)
+            _launch("msv_filter", so.bt_msv_filter, flat, offs, lens, tjb, B,
+                    tab, p.Kp, p.M, Mp, P, p.base, p.tec, p.tbm, p.bias, out)
+            return out
+        return Launch(one, 1)
+    plans = _multi_plans(slot, p, items_per_block, dev)
+
+    def many():
+        out = torch.empty(3, B, dtype=torch.int32, device=dev)
+        for c, order, blk, nblocks, G in plans:
+            _launch("msv_filter_multi", so.bt_msv_filter_multi, flat, offs,
+                    lens, tjb, B, c.tab, c.scal, p.Kp, c.Mp, c.P, out, blk,
+                    order, nblocks, G)
+        return out
+    return Launch(many, len(plans))
 
 
-def _launch_int_multi(entry: str, flat, offs, lens, per_item, slot, pack):
-    """One launch of a multi-model integer filter entry per padded
-    width: ([3, B] int32, the number of launches)."""
-    _check_stream(flat, offs, lens, pack, per_item)
-    fn = getattr(lib(), f"bt_{entry}")
-    B = lens.numel()
-    out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
-    plans = _multi_plans(slot, pack, items_per_block, flat.device)
-    for c, order, blk, nblocks, G in plans:
-        _launch(entry, fn, flat, offs, lens, per_item, B, c.tab, c.scal,
-                pack.Kp, c.Mp, c.P, out, blk, order, nblocks, G)
-    return out, len(plans)
-
-
-def launch_msv_multi(flat: torch.Tensor, offs: torch.Tensor,
-                     lens: torch.Tensor, tjb: torch.Tensor, slot, pack):
-    """msv_filter.cu, multi-model entry: ((xEu, xJm, movf) [B] int32 of
-    item b under model slot[b], the number of launches)."""
-    out, n = _launch_int_multi("msv_filter_multi", flat, offs, lens, tjb,
-                               slot, pack)
-    return (out[0], out[1], out[2]), n
-
-
-def launch_vit_multi(flat: torch.Tensor, offs: torch.Tensor,
-                     lens: torch.Tensor, move: torch.Tensor, slot, pack):
-    """vit_filter.cu, multi-model entry: ((score_int [B] int32, has,
-    ovf [B] bool) of item b under model slot[b], the number of
-    launches)."""
-    out, n = _launch_int_multi("vit_filter_multi", flat, offs, lens, move,
-                               slot, pack)
-    return (out[0], out[1] != 0, out[2] != 0), n
-
-
-def launch_ssv_capture(flat: torch.Tensor, offs: torch.Tensor,
-                       lens: torch.Tensor, tjb: torch.Tensor,
-                       thresh: torch.Tensor, p):
-    """ssv_capture.cu: (nwin [B], wi, wk, wsc [B, SSVB_NCAP]) int32."""
-    _check_stream(flat, offs, lens, p, tjb, thresh)
+def prepare_ssv_capture(flat, offs, lens, tjb, thresh, p) -> Launch:
+    """ssv_capture.cu: a call gives (nwin [B], wi, wk, wsc [B,
+    SSVB_NCAP]) int32 (``ops/ssv.py`` ``MSVParams`` <p>)."""
+    _stream_lens(flat, offs, lens, p, tjb, thresh)
     so = lib()
     B = lens.numel()
     P, _, Mp = layout(p.M)
     tab = p.table(Mp)
     dev = flat.device
-    nwin = torch.empty(B, dtype=torch.int32, device=dev)
-    caps = torch.zeros(3, B, SSVB_NCAP, dtype=torch.int32, device=dev)
-    _launch("ssv_capture", so.bt_ssv_capture, flat, offs, lens, tjb, thresh, B,
-            tab, p.Kp, p.M, Mp, P, p.base, p.tbm, p.bias, nwin, caps)
-    return nwin, caps[0], caps[1], caps[2]
+
+    def run():
+        nwin = torch.empty(B, dtype=torch.int32, device=dev)
+        caps = torch.zeros(3, B, SSVB_NCAP, dtype=torch.int32, device=dev)
+        _launch("ssv_capture", so.bt_ssv_capture, flat, offs, lens, tjb,
+                thresh, B, tab, p.Kp, p.M, Mp, P, p.base, p.tbm, p.bias,
+                nwin, caps)
+        return nwin, caps[0], caps[1], caps[2]
+    return Launch(run, 1)
 
 
-def launch_vit(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
-               move: torch.Tensor, p):
-    """vit_filter.cu: (score_int [B] int32, has [B] bool, ovf [B] bool)
-    (``ops/vit.py`` ``VitParams`` <p>)."""
-    _check_stream(flat, offs, lens, p, move)
-    so = lib()
-    B = lens.numel()
-    P, _, Mp = layout(p.M)
-    tab = p.table(Mp)
-    out = torch.empty(3, B, dtype=torch.int32, device=flat.device)
-    _launch("vit_filter", so.bt_vit_filter, flat, offs, lens, move, B, tab,
-            p.Kp, p.M, Mp, P, p.base, p.emove, p.eloop, out)
-    return out[0], out[1] != 0, out[2] != 0
-
-
-def launch_vit_capture(flat: torch.Tensor, offs: torch.Tensor,
-                       lens: torch.Tensor, move: torch.Tensor,
-                       thresh: torch.Tensor, p):
-    """vit_filter.cu (capture): (karr [N] int16 in the layout of
-    <flat>, ovfrow [B] int32)."""
-    _check_stream(flat, offs, lens, p, move, thresh)
-    so = lib()
-    B = lens.numel()
-    P, _, Mp = layout(p.M)
-    tab = p.table(Mp)
+def prepare_vit(flat, offs, lens, move, slot, pack, thresh=None) -> Launch:
+    """vit_filter.cu: the ViterbiFilter (or, with <thresh>, its capture)
+    of every ORF of the stream under model ``slot[b]`` of <pack>
+    (``build_vit_pack``), or under one model (<slot> None, <pack> its
+    ``VitParams``), as one launch (``ops/multimodel.py`` ``vit_plan``).
+    A call gives (score_int, has, ovf) [3, B] int32, or with <thresh>
+    (karr [N] int16 in the layout of <flat>, ovfrow [B] int32)."""
+    from ..multimodel import vit_plan
+    if slot is None:
+        slot, pack = np.zeros(lens.numel(), np.int64), pack.as_pack()
+    extra = () if thresh is None else (thresh,)
+    ln = _stream_lens(flat, offs, lens, pack, move, *extra)
     dev = flat.device
-    ovfrow = torch.empty(B, dtype=torch.int32, device=dev)
-    karr = torch.zeros(flat.numel(), dtype=torch.int16, device=dev)
-    _launch("vit_capture", so.bt_vit_capture, flat, offs, lens, move, thresh,
-            B, tab, p.Kp, p.M, Mp, P, p.base, p.emove, p.eloop, ovfrow, karr)
-    return karr, ovfrow
+    plan = vit_plan(ln, slot, pack, sms(dev))
+    tail = _planned(plan, dev)
+    so = lib()
+    B = lens.numel()
+
+    def run():
+        if thresh is None:
+            out = torch.empty(3, B, dtype=torch.int32, device=dev)
+            _launch("vit_filter", so.bt_vit_filter, flat, offs, lens, move, B,
+                    out, *tail)
+            return out
+        ovfrow = torch.empty(B, dtype=torch.int32, device=dev)
+        karr = torch.zeros(flat.numel(), dtype=torch.int16, device=dev)
+        _launch("vit_capture", so.bt_vit_capture, flat, offs, lens, move,
+                thresh, B, ovfrow, karr, *tail)
+        return karr, ovfrow
+    return Launch(run, int(plan.nblk > 0), plan)
 
 
 # ---------------------------------------------------------------------

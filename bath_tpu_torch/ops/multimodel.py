@@ -15,25 +15,27 @@ zero-padded tables stacked per padded width Mp (``ModelPack.classes``).
 There is no limit on the item length or on the number of models, and no
 batch ladder.
 
-Two launch plans.  The Forward gate, decoding and the integer filters
-launch once per padded width, because the lanes per thread P and the
-warps per item W are compile- and launch-time constants of their
-kernels; inside a launch the items are ordered by model and each
-model's run is cut into thread blocks of at most G items
-(``block_plan``), so a block holds items of one model only and shares
-one copy of that model's tables.  The fs3 pair takes every width of a
-call in one launch (``fs3_plan``): each block row names its class (P,
-W, Mp and where the class's stacks lie), its model and its items, the
-kernel runs that class's P, and the blocks go out longest window first,
-so a call takes about the time of its longest chain rather than the
-sum over its widths; decoding gives each window two items, one for its
-Forward and one for its Backward, which run at the same time.
+Two launch plans.  The Forward gate and MSV launch once per padded
+width, because the lanes per thread P and the warps per item W are
+compile- and launch-time constants of their kernels; inside a launch
+the items are ordered by model and each model's run is cut into thread
+blocks of at most G items (``block_plan``), so a block holds items of
+one model only and shares one copy of that model's tables.  The fs3
+pair, decoding and the ViterbiFilter take every width of a call in one
+launch (``fs3_plan``, ``domdec_plan``, ``vit_plan``, on ``_plan``):
+each block row names its class (P, W, Mp and where the class's stacks
+lie), its model and its items, the kernel runs that class's P, and the
+blocks go out heaviest first, so a call takes about the time of its
+longest chain rather than the sum over its widths; the two decoders
+give each item two, one for its Forward and one for its Backward,
+which run at the same time.
 
 Each packed call launches the multi-model entry of its single-model
 kernel (``ops/kernels/csrc/{fwd_parser,domdec,fs3_parser,fs3_domdec}.cu``,
-the same ``__global__`` kernel, so the same arithmetic item for item)
-for CUDA tensors, and runs its plain PyTorch version (``*_ref``: the
-single-model plain version over each model's items) for CPU tensors.
+the same ``__global__`` kernel, so the same arithmetic item for item;
+the one-launch kernels have one entry for both) for CUDA tensors, and
+runs its plain PyTorch version (``*_ref``: the single-model plain
+version over each model's items) for CPU tensors.
 
 The integer filters with a model axis (``build_msv_pack``/
 ``msv_ssv_multi``, ``build_vit_pack``/``vit_ints_multi``) are the
@@ -41,10 +43,11 @@ counterpart of ``bath_tpu/evalues_device.py`` ``_dyn_kernels``: the
 [model, batch] MSV and ViterbiFilter kernels vmapped over models with
 each model's quantisation scalars as traced values.  Here they are the
 multi-model entries of ``csrc/msv_filter.cu`` and ``csrc/vit_filter.cu``
-under the same per-block plan, the models' scalars in a small int array
-beside the stacked tables (``IntPack``).  Items travel as in
-``ops/ssv.py``, one int8 stream read at per-item offsets, so the models
-of a calibration share one copy of the simulated batch: offsets repeat.
+(MSV under ``block_plan``, the ViterbiFilter under ``vit_plan``), the
+models' scalars in a small int array beside the stacked tables
+(``IntPack``).  Items travel as in ``ops/ssv.py``, one int8 stream read
+at per-item offsets, so the models of a calibration share one copy of
+the simulated batch: offsets repeat.
 """
 
 from __future__ import annotations
@@ -56,8 +59,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .domdec import domdec_params_from_jax, domdec_ref
-from .domdec import finish as domdec_finish
+from .domdec import domdec_params_from_jax, domdec_ref, finish_passes
 from .fs3 import fs3_params_from_jax, fs3_score_ref
 from .fs3_domdec import finish as fs3_domdec_finish
 from .fs3_domdec import fs3_domdec_ref
@@ -138,17 +140,18 @@ class IntClass:
     W: int
     Mp: int
     models: list
-    tab: torch.Tensor           # [g, rows, Mp] int32 kernel tables
+    tab: torch.Tensor           # [g, rows, Mp] kernel tables (int32 for
+                                # MSV, int16 for the ViterbiFilter)
     scal: torch.Tensor          # [g, k] int32: M, then the pack's scalars
 
 
 class IntPack(ModelPack):
     """G models for a multi-model integer filter: ``params[g]`` is the
     ``MSVParams`` or ``VitParams`` of slot g, <scalars> the names of the
-    per-model scalar bytes or words the kernel reads beside M."""
+    per-model scalar bytes or words the kernel reads beside M, <layout>
+    the kernel's (P, W, Mp) of a model length."""
 
-    def __init__(self, params: list, scalars: tuple):
-        from .kernels.loader import layout
+    def __init__(self, params: list, scalars: tuple, layout):
         super().__init__(params, layout)
         self.scalars = tuple(scalars)
 
@@ -202,11 +205,12 @@ def block_plan(slot: np.ndarray, pack: ModelPack, per_block):
 
 
 # ---------------------------------------------------------------------
-# The fs3 pair's plan: every padded width in one launch
+# One launch for every padded width (csrc/plan.cuh): the plans of the
+# fs3 pair, of decoding and of the ViterbiFilter
 # ---------------------------------------------------------------------
+PLAN_CLS, PLAN_BLK = 8, 5   # int64 words of a class row and a block row
+SMEM_BYTES = 232448         # shared memory a block may take on the H100
 FS3_ROWS = 338              # packed codon rows of a model's odds
-FS3_SMEM_BYTES = 232448     # shared memory a block may take on the H100
-FS3_CLS, FS3_BLK = 8, 5     # int64 words of a class row and a block row
 FS3_RING = 2                # emission-row ring slots a group
 
 
@@ -227,14 +231,45 @@ def fs3_block_warps(Ws) -> int:
     return 4 if w <= 2 else 6 if w == 3 else w
 
 
+def dd_block_warps(Ws) -> int:
+    """Warps of every block of a decoding launch: eight, six when the
+    widest class takes three warps a group, else the widest W."""
+    w = max(Ws)
+    return 8 if 8 % w == 0 else 6 if w == 3 else w
+
+
+def dd_table_bytes(Kp: int, Mp: int) -> int:
+    """A decoding model's f32 tables (``csrc/domdec.cu``)."""
+    return (Kp + 8) * Mp * 4
+
+
+DD_GROUP_BYTES = 32         # a decoding group's exchange scratch a warp
+
+
+def vit_block_warps(Ps) -> int:
+    """Warps of every block of a ViterbiFilter launch: fixed by the
+    kernel's instance, the largest P of the launch (``csrc/
+    vit_filter.cu`` ``vit_warps``)."""
+    p = max(Ps)
+    return 8 if p <= 13 else 16 if p <= 17 else 12
+
+
+def vit_smem_bytes(Kp: int, Mp: int, G: int, W: int) -> int:
+    """Shared bytes of a ViterbiFilter block (``csrc/vit_filter.cu``
+    ``vit_smem_bytes``): the model's int16 table (the transitions as
+    pairs in one int) 16-byte aligned, and each group's scratch."""
+    return -(-(16 * Mp + 2 * Kp * Mp) // 16) * 16 + 16 * G * W
+
+
 @dataclass
-class Fs3Plan:
-    """One launch of an fs3 entry (``csrc/fs3_common.cuh``): ``table``
-    holds ``ncls`` class rows (the addresses of the class's stacked
-    ``etab``/``ttab``, P, W, Mp, G groups a block), ``nblk`` block rows
-    (class, model in the class's stacks, M, first item, count), then the
-    items (window rows b, or 2b + pass with two passes).  ``classes``:
-    (P, W, Mp, G, longest window) of each class."""
+class LaunchPlan:
+    """One launch of a kernel that takes every padded width of a call
+    (``csrc/plan.cuh``): ``table`` holds ``ncls`` class rows (the
+    addresses of the class's stacked tables, P, W, Mp, G groups a block
+    and two words of the kernel's own), ``nblk`` block rows (class,
+    model in the class's stacks, M, first item, count), then the items
+    (rows b, or passes * b + pass).  ``warps``: a block's.  ``classes``:
+    (P, W, Mp, G, longest item) of each class."""
     table: np.ndarray
     ncls: int
     nblk: int
@@ -243,64 +278,64 @@ class Fs3Plan:
 
     @property
     def blocks(self) -> np.ndarray:
-        at = FS3_CLS * self.ncls
-        return self.table[at:at + FS3_BLK * self.nblk].reshape(-1, FS3_BLK)
+        at = PLAN_CLS * self.ncls
+        return self.table[at:at + PLAN_BLK * self.nblk].reshape(-1, PLAN_BLK)
 
     @property
     def items(self) -> np.ndarray:
-        return self.table[FS3_CLS * self.ncls + FS3_BLK * self.nblk:]
+        return self.table[PLAN_CLS * self.ncls + PLAN_BLK * self.nblk:]
 
 
 class OneModel:
-    """One model as ``fs3_plan`` reads a pack (``M``, ``slot_class``,
-    ``classes``), on its own padded tables: no stacked copy."""
+    """One model as a plan reads a pack (``M``, ``Kp``, ``slot_class``,
+    ``classes``), on its own padded tables: no stacked copy.  <layout>:
+    the kernels' (P, W, Mp) of a model length, the fs3 pair's
+    (``loader.fs3_layout``) unless given (decoding: ``loader.layout``)."""
 
-    def __init__(self, p):
-        from .kernels.loader import fs3_layout
-        P, W, Mp = fs3_layout(p.M)
+    def __init__(self, p, layout=None):
+        from .kernels import loader
+        P, W, Mp = (layout or loader.fs3_layout)(p.M)
         etab, ttab = p.padded(Mp)
         self.device = p.device
         self.M = [p.M]
+        self.Kp = p.Kp
         self.slot_class = (np.array([Mp]), np.array([0]))
         self.classes = {Mp: SimpleNamespace(P=P, W=W, Mp=Mp, models=[0],
                                             etab=etab, ttab=ttab)}
 
 
-def fs3_plan(lens, slot, pack, passes: int) -> Fs3Plan:
-    """The plan of one fs3 launch over a batch whose window b (length
-    ``lens[b]``) belongs to model ``slot[b]`` of <pack> (a ``ModelPack``
-    of ``build_fs3_pack`` or a ``OneModel``); <passes> items a window (1
-    the gate, 2 decoding: the Forward, then the Backward).  Each model's
-    items go longest window first (ties by row) into blocks of G, the
-    most groups of W warps that fit the block's warps and shared
-    memory; the blocks of all classes go longest window first (ties:
-    wider class, model, position), so the plan's order does not depend
-    on the batch's."""
+def _plan(lens, slot, pack, passes: int, warps_of, class_row,
+          by_cells: bool = False, sms: int = 0) -> LaunchPlan:
+    """The plan of one launch over a batch whose item b (length
+    ``lens[b]``) belongs to model ``slot[b]`` of <pack>; <passes> items
+    an entry of the batch.  ``warps_of(classes)`` gives a block's warps,
+    ``class_row(class, warps)`` a class's row, G at word 5.  Each
+    model's items go longest first (ties by row) into blocks of G; the
+    blocks of all classes go heaviest first: by their longest item, or
+    with <by_cells> by Mp x their longest item (ties: wider class, model,
+    position), so the plan's order does not depend on the batch's.  With
+    <sms> (the card's SMs), a batch of fewer items than four an SM gets
+    blocks of at most ceil(items / sms) groups, so that its groups spread
+    over the card, each warp with a scheduler to itself."""
     lens = np.asarray(lens, np.int64)
     slot = np.asarray(slot, np.int64)
     if not len(slot):
-        return Fs3Plan(np.zeros(0, np.int64), 0, 0, 1, [])
+        return LaunchPlan(np.zeros(0, np.int64), 0, 0, 1, [])
     mp_of, local_of = pack.slot_class
     present = np.array([Mp for Mp in pack.classes
                         if (mp_of[slot] == Mp).any()], np.int64)
     cls = [pack.classes[Mp] for Mp in present]
-    warps = fs3_block_warps([c.W for c in cls])
-    rows_cls, classes, Gs, Mtab = [], [], [], []
-    for c in cls:
-        if c.etab.shape[-2] != FS3_ROWS:
-            raise ValueError(f"fs3 tables have {FS3_ROWS} codon rows, got "
-                             f"{c.etab.shape[-2]}")
-        G = min(warps // c.W, (FS3_SMEM_BYTES - 32 * c.Mp)
-                // fs3_group_bytes(c.Mp, c.W))
-        if G < 1:
-            raise ValueError(f"an fs3 model of {c.Mp} padded lanes does not "
-                             f"fit one block's shared memory")
-        rows_cls.append([c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W,
-                         c.Mp, G, 0, 0])
-        classes.append((c.P, c.W, c.Mp, G,
-                        int(lens[mp_of[slot] == c.Mp].max())))
-        Gs.append(G)
-        Mtab.append([pack.M[g] for g in c.models])
+    warps = warps_of(cls)
+    rows_cls = [list(class_row(c, warps)) for c in cls]
+    if sms and passes * len(slot) < 4 * sms:
+        cap = -(-passes * len(slot) // sms)
+        for r in rows_cls:
+            r[5] = min(r[5], cap)
+        warps = max(r[5] * c.W for r, c in zip(rows_cls, cls))
+    Gs = [r[5] for r in rows_cls]
+    classes = [(c.P, c.W, c.Mp, G, int(lens[mp_of[slot] == c.Mp].max()))
+               for c, G in zip(cls, Gs)]
+    Mtab = [[pack.M[g] for g in c.models] for c in cls]
     # the items, grouped by class and model, each model's longest first
     b = np.repeat(np.arange(len(slot)), passes)
     pas = np.tile(np.arange(passes), len(slot))
@@ -316,7 +351,8 @@ def fs3_plan(lens, slot, pack, passes: int) -> Fs3Plan:
     starts = np.nonzero(q % np.asarray(Gs)[ci] == 0)[0]
     count = np.diff(np.r_[starts, len(item)])
     bc, bm = ci[starts], m[starts]
-    by = np.lexsort((q[starts], bm, -present[bc], -ln[starts]))
+    weight = ln[starts] * (present[bc] if by_cells else 1)
+    by = np.lexsort((q[starts], bm, -present[bc], -weight))
     first = np.cumsum(count[by]) - count[by]
     at = np.repeat(starts[by] - first, count[by]) + np.arange(len(item))
     off = np.cumsum([0] + [len(t) for t in Mtab])
@@ -324,7 +360,72 @@ def fs3_plan(lens, slot, pack, passes: int) -> Fs3Plan:
     brows = np.stack([bc[by], bm[by], Ms, first, count[by]], 1)
     table = np.concatenate([np.asarray(rows_cls, np.int64).reshape(-1),
                             brows.reshape(-1), item[at]]).astype(np.int64)
-    return Fs3Plan(table, len(rows_cls), len(brows), warps, classes)
+    return LaunchPlan(table, len(rows_cls), len(brows), warps, classes)
+
+
+def fs3_plan(lens, slot, pack, passes: int) -> LaunchPlan:
+    """The plan of one fs3 launch (``csrc/fs3_common.cuh``) over a batch
+    whose window b belongs to model ``slot[b]`` of <pack> (a
+    ``ModelPack`` of ``build_fs3_pack`` or a ``OneModel``); <passes>
+    items a window (1 the gate, 2 decoding: the Forward, then the
+    Backward).  A block holds the most groups of W warps that fit its
+    warps and shared memory; blocks go longest window first."""
+
+    def class_row(c, warps):
+        if c.etab.shape[-2] != FS3_ROWS:
+            raise ValueError(f"fs3 tables have {FS3_ROWS} codon rows, got "
+                             f"{c.etab.shape[-2]}")
+        G = min(warps // c.W, (SMEM_BYTES - 32 * c.Mp)
+                // fs3_group_bytes(c.Mp, c.W))
+        if G < 1:
+            raise ValueError(f"an fs3 model of {c.Mp} padded lanes does not "
+                             f"fit one block's shared memory")
+        return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G, 0,
+                0]
+
+    return _plan(lens, slot, pack, passes,
+                 lambda cls: fs3_block_warps([c.W for c in cls]), class_row)
+
+
+def domdec_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
+    """The plan of one decoding launch (``csrc/domdec.cu``) over a batch
+    whose ORF b belongs to model ``slot[b]`` of <pack> (a ``ModelPack``
+    of ``build_domdec_pack`` or a ``OneModel``): two items an ORF, its
+    Forward and its Backward, blocks longest ORF first, a small batch
+    spread over <sms> SMs.  A block stages its model's tables in shared
+    memory where they fit (the class row's last word)."""
+
+    def class_row(c, warps):
+        G = warps // c.W
+        tab = dd_table_bytes(pack.Kp, c.Mp)
+        fits = tab + G * DD_GROUP_BYTES * c.W <= SMEM_BYTES
+        return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G,
+                pack.Kp, int(fits)]
+
+    return _plan(lens, slot, pack, 2,
+                 lambda cls: dd_block_warps([c.W for c in cls]), class_row,
+                 sms=sms)
+
+
+def vit_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
+    """The plan of one ViterbiFilter launch (``csrc/vit_filter.cu``) over
+    a stream whose item b belongs to model ``slot[b]`` of <pack> (an
+    ``IntPack`` of ``build_vit_pack``): blocks heaviest first (Mp x
+    longest item), a small batch spread over <sms> SMs.  A block holds
+    its model's int16 table in shared memory; a model whose table does
+    not fit is refused (no block reads its table from global memory)."""
+
+    def class_row(c, warps):
+        G = warps // c.W
+        if vit_smem_bytes(pack.Kp, c.Mp, G, c.W) > SMEM_BYTES:
+            raise ValueError(f"a ViterbiFilter model of {c.Mp} padded lanes "
+                             f"does not fit one block's shared memory")
+        return [c.tab.data_ptr(), c.scal.data_ptr(), c.P, c.W, c.Mp, G,
+                pack.Kp, 0]
+
+    return _plan(lens, slot, pack, 1,
+                 lambda cls: vit_block_warps([c.P for c in cls]), class_row,
+                 by_cells=True, sms=sms)
 
 
 def _check(pack: ModelPack, dsq, lens, slot) -> np.ndarray:
@@ -393,12 +494,14 @@ VIT_SCALARS = ("base", "emove", "eloop")
 
 def build_msv_pack(params: list) -> IntPack:
     """<params>: ``ops.ssv.msv_params`` of each model, slot order."""
-    return IntPack(params, MSV_SCALARS)
+    from .kernels.loader import layout
+    return IntPack(params, MSV_SCALARS, layout)
 
 
 def build_vit_pack(params: list) -> IntPack:
     """<params>: ``ops.vit.vit_params`` of each model, slot order."""
-    return IntPack(params, VIT_SCALARS)
+    from .kernels.loader import vit_layout
+    return IntPack(params, VIT_SCALARS, vit_layout)
 
 
 # ---------------------------------------------------------------------
@@ -610,11 +713,12 @@ def fs3_domdec_pack_batch_ref(pack: ModelPack, dsq, lens, slot, dec_loop,
 
 
 # ---------------------------------------------------------------------
-# The four packed calls.  CUDA tensors launch the multi-model kernel
-# entries (or raise); CPU tensors run the plain versions.  <slot>: [B]
-# model slots, a numpy array or a tensor on any device: the launch plan
-# is built from it on the host.  Each wrapper counts its launches: one
-# per padded width present in the batch, one a call for the fs3 pair.
+# The packed calls.  CUDA tensors launch the multi-model kernel entries
+# (or raise); CPU tensors run the plain versions.  <slot>: [B] model
+# slots, a numpy array or a tensor on any device: the launch plan is
+# built from it on the host.  Each wrapper counts its launches: one per
+# padded width present in the batch for the Forward gate and MSV, one a
+# call for the rest.
 # ---------------------------------------------------------------------
 def fwd_pack_scores(pack: ModelPack, dsq, lens, slot,
                     nj: float = 1.0) -> torch.Tensor:
@@ -623,8 +727,9 @@ def fwd_pack_scores(pack: ModelPack, dsq, lens, slot,
         return fwd_pack_scores_ref(pack, dsq, lens, slot, nj)
     slot = _check(pack, dsq, lens, slot)
     from .kernels import loader
-    out, n = loader.launch_fwd_multi(dsq, lens, slot, pack, nj)
-    fwd_pack_scores.launches += n
+    run = loader.prepare_fwd(dsq, lens, slot, pack)
+    out = run(nj)
+    fwd_pack_scores.launches += run.launches
     return out
 
 
@@ -635,10 +740,10 @@ def domdec_pack_batch(pack: ModelPack, dsq, lens, slot, nj: float = 1.0):
         return domdec_pack_batch_ref(pack, dsq, lens, slot, nj)
     slot = _check(pack, dsq, lens, slot)
     from .kernels import loader
-    (inc_b, inc_e, njr, logz, log_xc), n = loader.launch_domdec_multi(
-        dsq, lens, slot, pack, nj)
-    domdec_pack_batch.launches += n
-    return domdec_finish(inc_b, inc_e, njr, lens, logz, log_xc)
+    run = loader.prepare_domdec(dsq, lens, slot, pack)
+    fspec, bspec, logz2 = run(nj)
+    domdec_pack_batch.launches += run.launches
+    return finish_passes(fspec, bspec, lens, logz2, nj)
 
 
 def fs3_pack_scores(pack: ModelPack, dsq, lens, slot,
@@ -649,8 +754,9 @@ def fs3_pack_scores(pack: ModelPack, dsq, lens, slot,
         return fs3_pack_scores_ref(pack, dsq, lens, slot, nj)
     slot = _check(pack, dsq, lens, slot)
     from .kernels import loader
-    out, n = loader.launch_fs3_multi(dsq, lens, slot, pack, nj)
-    fs3_pack_scores.launches += n
+    run = loader.prepare_fs3(dsq, lens, slot, pack, False)
+    out = run(nj)
+    fs3_pack_scores.launches += run.launches
     return out
 
 
@@ -663,9 +769,9 @@ def fs3_domdec_pack_batch(pack: ModelPack, dsq, lens, slot, dec_loop,
                                          nj)
     slot = _check(pack, dsq, lens, slot)
     from .kernels import loader
-    (fspec, bspec, logz2), n = loader.launch_fs3_domdec_multi(
-        dsq, lens, slot, pack, nj)
-    fs3_domdec_pack_batch.launches += n
+    run = loader.prepare_fs3(dsq, lens, slot, pack, True)
+    fspec, bspec, logz2 = run(nj)
+    fs3_domdec_pack_batch.launches += run.launches
     return fs3_domdec_finish(fspec, bspec, lens, logz2[:, 0], logz2[:, 1],
                              _dec_loops(dec_loop, dsq.shape[0], dsq.device))
 
@@ -679,9 +785,10 @@ def msv_ssv_multi(pack: IntPack, flat, offs, lens, tjb, slot):
         return msv_ssv_multi_ref(pack, flat, offs, lens, tjb, slot)
     slot = _check_stream_slots(pack, flat, offs, lens, tjb, slot)
     from .kernels import loader
-    out, n = loader.launch_msv_multi(flat, offs, lens, tjb, slot, pack)
-    msv_ssv_multi.launches += n
-    return out
+    run = loader.prepare_msv(flat, offs, lens, tjb, slot, pack)
+    out = run()
+    msv_ssv_multi.launches += run.launches
+    return out[0], out[1], out[2]
 
 
 def vit_ints_multi(pack: IntPack, flat, offs, lens, move, slot):
@@ -692,9 +799,10 @@ def vit_ints_multi(pack: IntPack, flat, offs, lens, move, slot):
         return vit_ints_multi_ref(pack, flat, offs, lens, move, slot)
     slot = _check_stream_slots(pack, flat, offs, lens, move, slot)
     from .kernels import loader
-    out, n = loader.launch_vit_multi(flat, offs, lens, move, slot, pack)
-    vit_ints_multi.launches += n
-    return out
+    run = loader.prepare_vit(flat, offs, lens, move, slot, pack)
+    out = run()
+    vit_ints_multi.launches += run.launches
+    return out[0], out[1] != 0, out[2] != 0
 
 
 # CUDA launches through each wrapper

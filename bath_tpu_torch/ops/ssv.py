@@ -315,9 +315,9 @@ def msv_ssv(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     if flat.device.type == "cpu":
         return msv_ssv_ref(flat, offs, lens, tjb, p)
     from .kernels import loader
-    out = loader.launch_msv(flat, offs, lens, tjb, p)
+    out = loader.prepare_msv(flat, offs, lens, tjb, None, p)()
     msv_ssv.launches += 1
-    return out
+    return out[0], out[1], out[2]
 
 
 msv_ssv.launches = 0        # CUDA launches through this wrapper
@@ -331,7 +331,7 @@ def ssv_capture(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     if flat.device.type == "cpu":
         return ssv_capture_ref(flat, offs, lens, tjb, thresh, p)
     from .kernels import loader
-    out = loader.launch_ssv_capture(flat, offs, lens, tjb, thresh, p)
+    out = loader.prepare_ssv_capture(flat, offs, lens, tjb, thresh, p)()
     ssv_capture.launches += 1
     return out
 

@@ -73,6 +73,12 @@ class VitParams:
         if (tr[R_DDS] > 0).any():
             raise ValueError("a positive D->D transition word: the "
                              "Viterbi kernels' D->D scan needs tDD <= 0")
+        # the kernel's table holds int16 words
+        for name, words in (("match", rwv), ("transition", tr)):
+            if np.size(words) and (np.min(words) < NEG
+                                   or np.max(words) > 32767):
+                raise ValueError(f"a {name} word out of int16 range: the "
+                                 f"ViterbiFilter's table holds int16 words")
         self.Kp, self.M = rwv.shape
         self.rwv = torch.from_numpy(
             np.ascontiguousarray(rwv, np.int32)).to(device)
@@ -84,6 +90,7 @@ class VitParams:
         self.eloop = int(eloop)
         self._move: dict[int, int] = {}
         self._table: dict = {}
+        self._pack = None
 
     @classmethod
     def from_arrays(cls, rwv, tr, base, emove, eloop, scale=1.0,
@@ -118,16 +125,24 @@ class VitParams:
         return vals[inv.reshape(-1)]
 
     def table(self, Mp: int) -> torch.Tensor:
-        """[Kp + 8, Mp] int32 kernel table: the match words, then the
+        """[Kp + 8, Mp] int16 kernel table: the match words, then the
         transition rows; -32768 past the model."""
         key = (Mp, self.device)
         if key not in self._table:
-            t = torch.full((self.Kp + 8, Mp), NEG, dtype=torch.int32,
+            t = torch.full((self.Kp + 8, Mp), NEG, dtype=torch.int16,
                            device=self.device)
-            t[:self.Kp, :self.M] = self.rwv
-            t[self.Kp:, :self.M] = self.tr
+            t[:self.Kp, :self.M] = self.rwv.to(torch.int16)
+            t[self.Kp:, :self.M] = self.tr.to(torch.int16)
             self._table[key] = t
         return self._table[key]
+
+    def as_pack(self):
+        """This model alone as a ViterbiFilter pack (``ops.multimodel.
+        build_vit_pack``), what the kernel's plan reads; built once."""
+        if self._pack is None:
+            from .multimodel import build_vit_pack
+            self._pack = build_vit_pack([self])
+        return self._pack
 
 
 def vit_params(om, device="cpu") -> VitParams:
@@ -262,9 +277,9 @@ def vit_ints(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     if flat.device.type == "cpu":
         return vit_ints_ref(flat, offs, lens, move, p)
     from .kernels import loader
-    out = loader.launch_vit(flat, offs, lens, move, p)
+    out = loader.prepare_vit(flat, offs, lens, move, None, p)()
     vit_ints.launches += 1
-    return out
+    return out[0], out[1] != 0, out[2] != 0
 
 
 vit_ints.launches = 0       # CUDA launches through this wrapper
@@ -278,7 +293,7 @@ def vit_capture(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     if flat.device.type == "cpu":
         return vit_capture_ref(flat, offs, lens, move, thresh, p)
     from .kernels import loader
-    out = loader.launch_vit_capture(flat, offs, lens, move, thresh, p)
+    out = loader.prepare_vit(flat, offs, lens, move, None, p, thresh)()
     vit_capture.launches += 1
     return out
 

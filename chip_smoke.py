@@ -14,9 +14,9 @@ phase but ``deep``; ``all`` adds ``deep``):
   that mix 48 models of M = 60..1200);
 - ``timing``: the same entries at the main paths' shapes, beside their
   plain versions, the host library's batches and one single-model
-  launch per model, each output held again; the four fs3 entries' ``ms``
-  is the kernel's launch alone (checked and planned beforehand), their
-  wrappers' time printed beside it;
+  launch per model, each output held again; every entry's ``ms`` is the
+  kernel's launch alone (checked and planned beforehand by
+  ``loader.prepare_*``), its wrapper's time (``wrapper_ms``) beside it;
 - ``ubench``: the card's microbenchmarks (``bath_tpu_torch.ubench``,
   the counterparts of ``scripts/ubench_vpu.py``), each of the five
   entries against its plain version at the script's shapes, then the
@@ -564,7 +564,8 @@ def parity_int(run: Run, long_orf: int) -> None:
             fail(f"integer-filter parity cases at M={M} miss a branch: "
                  f"{branches}")
         phase("parity", kernel="msv_filter,ssv_capture,vit_filter,"
-              "vit_capture", M=M, layout=loader.layout(M), B=len(orfs),
+              "vit_capture", M=M, layout=loader.layout(M),
+              vit_layout=loader.vit_layout(M), B=len(orfs),
               max_L=int(ln.max()), identical=True, **branches)
 
 
@@ -679,18 +680,19 @@ def decoding_case(run, name, fs, shape, plain_models):
     ds, ls = d[rs].contiguous(), lt[rs].contiguous()
     if fs:
         got = mm.fs3_domdec_pack_batch(pack, d, lt, sl, dec)
-        raw, _ = loader.launch_fs3_domdec_multi(d, lt, sl, pack, 1.0)
+        raw = loader.prepare_fs3(d, lt, sl, pack, True)(1.0)
         want = mm.fs3_domdec_pack_batch_ref(pack, ds, ls, sl[sub], dec[rs])
     else:
         got = mm.domdec_pack_batch(pack, d, lt, sl)
-        raw, _ = loader.launch_domdec_multi(d, lt, sl, pack, 1.0)
+        raw = loader.prepare_domdec(d, lt, sl, pack)(1.0)
         want = mm.domdec_pack_batch_ref(pack, ds, ls, sl[sub])
     err = vs_plain(name, tuple(t[rs] for t in got), want)
     post_err = 0.0
     for g, r in model_rows(sl):
         args = (d[r].contiguous(), lt[r].contiguous(), pack.params[g])
-        one_raw = (loader.launch_fs3_domdec if fs
-                   else loader.launch_domdec)(*args, 1.0)
+        one_raw = (loader.prepare_fs3(args[0], args[1], None, args[2], True)
+                   if fs else loader.prepare_domdec(args[0], args[1], None,
+                                                    args[2]))(1.0)
         if not all(torch.equal(a, b[r]) for a, b in zip(one_raw, raw)):
             fail(f"{name}'s kernel outputs differ from the single-model "
                  f"entry's at M={MQ_MS[g]}")
@@ -757,7 +759,9 @@ def time_fwd_domdec(run: Run) -> None:
         pm = fwd.fwd_params(fixtures.search_profile(hm), DEV)
         ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_FWD_B,
                                                    SEED))
-        k_ms = cuda_ms(lambda: fwd.fwd_score(d, lt, pm), 20)
+        launch = loader.prepare_fwd(d, lt, None, pm)
+        k_ms = cuda_ms(lambda: launch(1.0), 20)
+        w_ms = cuda_ms(lambda: fwd.fwd_score(d, lt, pm), 20)
         p_ms = once_ms(lambda: fwd.fwd_score_ref(d, lt, pm))
         cells = float(ln.sum()) * M
         t = (k_ms, p_ms, *bound(
@@ -765,25 +769,33 @@ def time_fwd_domdec(run: Run) -> None:
             nbytes(d, lt, *pm.padded(loader.layout(M)[2])) + 4 * len(ln)))
         if M == TIME_FWD_M[0]:
             run.times["fwd_parser"] = t
+            run.extra["fwd_parser"] = {"wrapper_ms": w_ms}
         phase("timing", kernel="fwd_parser", M=M, B=TIME_FWD_B,
               mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
-              ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
+              plain_ms=f"{p_ms:.2f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
               plain_gcups=f"{cells / p_ms / 1e6:.3f}")
     _, _, p400 = run.once("q400", query400)
     ln, d, lt = one_batch(fixtures.sample_orfs(fx.fasta_path, TIME_DOMDEC_B,
                                                SEED, min_len=100))
-    k_ms = cuda_ms(lambda: dd.domdec(d, lt, p400), 10)
+    launch = loader.prepare_domdec(d, lt, None, p400)
+    k_ms = cuda_ms(lambda: launch(1.0), 10)
+    w_ms = cuda_ms(lambda: dd.domdec(d, lt, p400), 10)
     p_ms = once_ms(lambda: dd.domdec_ref(d, lt, p400))
     cells = float(ln.sum()) * M_SEARCH
     run.times["domdec"] = (k_ms, p_ms, *bound(
         "domdec", cells,
         nbytes(d, lt, *p400.padded(loader.layout(M_SEARCH)[2]))
         + 4 * 3 * d.shape[0] * (d.shape[1] + 1) + len(ln)))
+    run.extra["domdec"] = {"wrapper_ms": w_ms}
     phase("timing", kernel="domdec", M=M_SEARCH, B=TIME_DOMDEC_B, min_L=100,
           mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
-          ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
-          gcups=f"{cells / k_ms / 1e6:.2f}")
+          ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          launches_per_call=launch.launches, blocks=launch.plan.nblk,
+          block_warps=launch.plan.warps,
+          us_per_row=f"{1e3 * k_ms / int(ln.max()):.3f}",
+          gcups=f"{cells / k_ms / 1e6:.2f}", card=repr(run.card))
 
 
 def time_fs3(run: Run, Ms, decoding: bool) -> None:
@@ -871,7 +883,9 @@ def time_int(run: Run) -> None:
                               for a in ssv.pack_stream(f_orfs))
     f_tjb = ints(pm.tjb_for(f_lens.cpu().numpy()))
     fa = (f_flat, f_offs, f_lens, f_tjb, pm)
-    k_ms = cuda_ms(lambda: ssv.msv_ssv(*fa), 20)
+    launch = loader.prepare_msv(f_flat, f_offs, f_lens, f_tjb, None, pm)
+    k_ms = cuda_ms(launch, 20)
+    w_ms = cuda_ms(lambda: ssv.msv_ssv(*fa), 20)
     p_ms = once_ms(lambda: ssv.msv_ssv_ref(*fa))
     held(run, "msv_filter", ssv.msv_ssv(*fa), ssv.msv_ssv_ref(*fa), M_SEARCH)
     h_ms = host_ms(lambda: msv_filter_native_batch(f_host, om))
@@ -881,9 +895,11 @@ def time_int(run: Run) -> None:
         "msv_filter", cells,
         nbytes(f_flat, f_offs, f_lens, f_tjb, pm.table(Mp400))
         + 4 * 3 * len(f_orfs)))
+    run.extra["msv_filter"] = {"wrapper_ms": w_ms}
     phase("timing", kernel="msv_filter", M=M_SEARCH, B=len(f_orfs),
           layout="flat", mean_L=f"{float(f_lens.float().mean()):.1f}",
-          max_L=int(f_lens.max()), ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+          max_L=int(f_lens.max()), ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
+          plain_ms=f"{p_ms:.2f}",
           host_native_batch_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
           gcups=f"{cells / k_ms / 1e6:.2f}",
           host_gcups=f"{cells / h_ms / 1e6:.2f}", card=repr(run.card))
@@ -909,16 +925,21 @@ def time_int(run: Run) -> None:
     move, v_thr = (ints(a) for a in cas.vit_thresholds(vl, nulls, F2))
     va = (v_flat, v_offs, v_lens)
     cells = float(vl.sum()) * M_SEARCH
-    for name, k_fn, p_fn, host in (
-            ("vit_filter", lambda: vit.vit_ints(*va, move, pv),
+    for name, launch, k_fn, p_fn, host in (
+            ("vit_filter", loader.prepare_vit(*va, move, None, pv),
+             lambda: vit.vit_ints(*va, move, pv),
              lambda: vit.vit_ints_ref(*va, move, pv),
              lambda: vit_filter_score_batch(v_host, np.arange(TIME_INT_B),
                                             om)),
-            ("ssv_capture", lambda: ssv.ssv_capture(*va, tjb, s_thr, pm),
+            ("ssv_capture",
+             loader.prepare_ssv_capture(*va, tjb, s_thr, pm),
+             lambda: ssv.ssv_capture(*va, tjb, s_thr, pm),
              lambda: ssv.ssv_capture_ref(*va, tjb, s_thr, pm), None),
-            ("vit_capture", lambda: vit.vit_capture(*va, move, v_thr, pv),
+            ("vit_capture", loader.prepare_vit(*va, move, None, pv, v_thr),
+             lambda: vit.vit_capture(*va, move, v_thr, pv),
              lambda: vit.vit_capture_ref(*va, move, v_thr, pv), None)):
-        k_ms = cuda_ms(k_fn, 20)
+        k_ms = cuda_ms(launch, 20)
+        w_ms = cuda_ms(k_fn, 20)
         p_ms = once_ms(p_fn)
         h_ms = host_ms(host) if host else None
         out = held(run, name, k_fn(), p_fn(), M_SEARCH)
@@ -927,12 +948,16 @@ def time_int(run: Run) -> None:
             nbytes(v_flat, v_offs, v_lens, move, v_thr,
                    (pv if name.startswith("vit") else pm).table(Mp400))
             + nbytes(*out)))
+        run.extra[name] = {"wrapper_ms": w_ms}
         events = {"ssv_capture": lambda: int(out[0].sum()),
                   "vit_capture": lambda: int((out[0] != 0).sum()),
                   "vit_filter": lambda: int(out[2].sum())}[name]()
+        plan = {} if launch.plan is None else dict(
+            blocks=launch.plan.nblk, block_warps=launch.plan.warps)
         phase("timing", kernel=name, M=M_SEARCH, B=TIME_INT_B,
               mean_L=f"{vl.mean():.1f}", max_L=int(vl.max()),
-              ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
+              ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}", **plan,
+              plain_ms=f"{p_ms:.2f}",
               host_native_batch_ms="not timed" if h_ms is None
               else f"{h_ms:.2f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
@@ -994,19 +1019,17 @@ def mq_models(run: Run):
     return run.once("mq_models", make)
 
 
-def time_multi(run, name, pack, items, sl, pad, call, single, reps,
-               extra=(), plain_models=range(len(MQ_MS)), record=True,
-               fs3=None):
+def time_multi(run, name, pack, items, sl, pad, call, single, prepare,
+               reps, extra=(), plain_models=range(len(MQ_MS)), record=True):
     """Times one multi-model entry on <items> under the models <sl>,
     beside one single-model launch per model, and holds its output
     against the single-model entries' on all items (the gates bit for
     bit, the decoders' posteriors within 1e-6: torch.cumsum) and
     against the plain version's on the items of <plain_models>, which it
-    times.  For the fs3 pair (<fs3>: decoding or not) ``ms`` is the
-    kernel's launch alone and ``wrapper_ms`` the wrapper's call; the
-    other entries' ``ms`` is the wrapper's."""
+    times.  ``ms`` is the kernel's launch alone (<prepare>(dsq, lens,
+    slots) checks and plans beforehand), ``wrapper_ms`` the wrapper's
+    call."""
     from bath_tpu_torch.ops import multimodel as mm
-    from bath_tpu_torch.ops.kernels import loader
     ln, d, lt = one_batch(items, pad=pad)
     # one_batch sorts by length: carry the slots along
     order = np.argsort([len(o) for o in items], kind="stable")
@@ -1014,16 +1037,16 @@ def time_multi(run, name, pack, items, sl, pad, call, single, reps,
     split = [(r, pack.params[g], d[r].contiguous(), lt[r].contiguous())
              for g, r in model_rows(sl) if len(r)]
     w_ms = cuda_ms(lambda: call(pack, d, lt, sl, *extra), reps)
-    k_ms, per_call, fs3_keys = w_ms, len(pack.classes), {}
-    if fs3 is not None:
-        launch = loader.prepare_fs3(d, lt, sl, pack, fs3)
-        k_ms, per_call = cuda_ms(lambda: launch(1.0), reps), launch.launches
-        # each class's longest window and rows a microsecond of the
+    launch = prepare(d, lt, sl)
+    k_ms = cuda_ms(lambda: launch(1.0), reps)
+    plan_keys = {}
+    if launch.plan is not None:
+        # each class's longest item and rows a microsecond of the
         # longest chain
-        fs3_keys = dict(wrapper_ms=f"{w_ms:.4f}",
-                        class_max_L={Mp: L for _, _, Mp, _, L
-                                     in launch.plan.classes},
-                        us_per_row=f"{1e3 * k_ms / int(ln.max()):.3f}")
+        plan_keys = dict(class_max_L={Mp: L for _, _, Mp, _, L
+                                      in launch.plan.classes},
+                         blocks=launch.plan.nblk,
+                         us_per_row=f"{1e3 * k_ms / int(ln.max()):.3f}")
     s_ms = cuda_ms(lambda: [single(dg, lg, pg, *extra)
                             for _, pg, dg, lg in split], reps)
     out = call(pack, d, lt, sl, *extra)
@@ -1049,12 +1072,11 @@ def time_multi(run, name, pack, items, sl, pad, call, single, reps,
     t = (k_ms, p_ms, *bound(name, cells, nbytes(d, lt, *tabs, *outs)))
     if record:
         run.times[name] = t
-        run.extra.setdefault(name, {})["plain_items"] = len(sub)
-        if fs3 is not None:
-            run.extra[name]["wrapper_ms"] = w_ms
+        run.extra[name] = {"plain_items": len(sub), "wrapper_ms": w_ms}
     phase("timing", kernel=name, models=len(split), B=len(items),
           mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
-          launches_per_call=per_call, ms=f"{k_ms:.4f}", **fs3_keys,
+          launches_per_call=launch.launches, ms=f"{k_ms:.4f}",
+          wrapper_ms=f"{w_ms:.4f}", **plan_keys,
           per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           plain_items=len(sub), plain_models=len(set(sl[sub].tolist())),
           vs_plain=err, tol=DOMDEC_TOL if len(outs) > 1 else FWD_TOL,
@@ -1069,14 +1091,18 @@ def time_multi_fs3(run: Run, plain_fs3, plain_fs3dd, record=True) -> None:
     from bath_tpu_torch.ops import fs3
     from bath_tpu_torch.ops import fs3_domdec as fdd
     from bath_tpu_torch.ops import multimodel as mm
+    from bath_tpu_torch.ops.kernels import loader
     m = mq_models(run)
-    time_multi(run, "fs3_parser_multi", m["fs_pack"], m["windows"],
-               m["fs_slot"], 17, mm.fs3_pack_scores, fs3.fs3_score, 3,
-               plain_models=plain_fs3, record=record, fs3=False)
-    time_multi(run, "fs3_domdec_multi", m["fs_pack"], m["dd_windows"],
-               m["dd_slot"], 17, mm.fs3_domdec_pack_batch, fdd.fs3_domdec,
-               2, extra=(100.0 / 103.0,), plain_models=plain_fs3dd,
-               record=record, fs3=True)
+    pk = m["fs_pack"]
+    time_multi(run, "fs3_parser_multi", pk, m["windows"], m["fs_slot"], 17,
+               mm.fs3_pack_scores, fs3.fs3_score,
+               lambda d, lt, sl: loader.prepare_fs3(d, lt, sl, pk, False), 3,
+               plain_models=plain_fs3, record=record)
+    time_multi(run, "fs3_domdec_multi", pk, m["dd_windows"], m["dd_slot"], 17,
+               mm.fs3_domdec_pack_batch, fdd.fs3_domdec,
+               lambda d, lt, sl: loader.prepare_fs3(d, lt, sl, pk, True), 2,
+               extra=(100.0 / 103.0,), plain_models=plain_fs3dd,
+               record=record)
 
 
 def time_multi_all(run: Run) -> None:
@@ -1087,17 +1113,21 @@ def time_multi_all(run: Run) -> None:
     from bath_tpu_torch.ops import domdec as dd
     from bath_tpu_torch.ops import fwd
     from bath_tpu_torch.ops import multimodel as mm
+    from bath_tpu_torch.ops.kernels import loader
     m = mq_models(run)
+    pk = m["std_pack"]
     fasta = run.fx().fasta_path
-    time_multi(run, "fwd_parser_multi", m["std_pack"],
+    time_multi(run, "fwd_parser_multi", pk,
                fixtures.sample_orfs(fasta, TIME_MQ_FWD_B, SEED),
                m["rng"].integers(0, len(MQ_MS), TIME_MQ_FWD_B), 28,
-               mm.fwd_pack_scores, fwd.fwd_score, 10)
-    time_multi(run, "domdec_multi", m["std_pack"],
+               mm.fwd_pack_scores, fwd.fwd_score,
+               lambda d, lt, sl: loader.prepare_fwd(d, lt, sl, pk), 10)
+    time_multi(run, "domdec_multi", pk,
                fixtures.sample_orfs(fasta, TIME_MQ_DOMDEC_B, SEED,
                                     min_len=100),
                m["rng"].integers(0, len(MQ_MS), TIME_MQ_DOMDEC_B), 28,
-               mm.domdec_pack_batch, dd.domdec, 5,
+               mm.domdec_pack_batch, dd.domdec,
+               lambda d, lt, sl: loader.prepare_domdec(d, lt, sl, pk), 5,
                plain_models=TIME_MQ_PLAIN_DOMDEC)
     time_multi_fs3(run, TIME_MQ_PLAIN_FS3, TIME_MQ_PLAIN_FS3DD)
 
@@ -1116,6 +1146,7 @@ def time_int_multi(run: Run) -> None:
                                        vit_filter_score_batch)
     from bath_tpu_torch.ops import multimodel as mm
     from bath_tpu_torch.ops import ssv, vit
+    from bath_tpu_torch.ops.kernels import loader
     from bath_tpu_torch.oprofile import oprofile_convert
     from bath_tpu_torch.profile import profile_config
     ccfg = CalibrateConfig(fs=True)
@@ -1125,7 +1156,7 @@ def time_int_multi(run: Run) -> None:
     Ms = np.asarray(MQ_MS, np.float64)
 
     def int_multi(name, batch, make, build_pack, word_for, call, ref,
-                  single, scores, native):
+                  single, prepare, scores, native):
         N, L = batch.shape
         params = [make(om_g, DEV) for om_g in cal_oms]
         pack = build_pack(params)
@@ -1153,7 +1184,9 @@ def time_int_multi(run: Run) -> None:
                                   .astype(np.float32)):
                 fail(f"{name} differs from the native host batch at "
                      f"M={MQ_MS[g]}")
-        k_ms = cuda_ms(lambda: call(pack, *args, slot), 10)
+        launch = prepare(*args, slot, pack)
+        k_ms = cuda_ms(launch, 10)
+        w_ms = cuda_ms(lambda: call(pack, *args, slot), 10)
         s_ms = cuda_ms(lambda: [single(flat, o_g, l_g, w_g, p_g)
                                 for p_g, _, o_g, l_g, w_g in split], 5)
         h_ms = host_ms(lambda: [native(host, om_g) for om_g in cal_oms])
@@ -1161,13 +1194,16 @@ def time_int_multi(run: Run) -> None:
         tabs = [t for c in pack.classes.values() for t in (c.tab, c.scal)]
         run.times[name] = (k_ms, p_ms, *bound(name, cells,
                                               nbytes(*args, *tabs, *got)))
-        run.extra.setdefault(name, {})["plain_items"] = len(slot)
+        run.extra[name] = {"plain_items": len(slot), "wrapper_ms": w_ms}
+        plan = {} if launch.plan is None else dict(
+            blocks=launch.plan.nblk, block_warps=launch.plan.warps)
         phase("timing", kernel=name, models=len(cal_oms),
               M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
               B=len(slot), batch=f"{N}x{L}", vs_plain="identical",
               max_abs_err=run.err[name],
               single_model_entry="bit for bit", native_host_batch="identical",
-              launches_per_call=len(pack.classes), ms=f"{k_ms:.4f}",
+              launches_per_call=launch.launches, ms=f"{k_ms:.4f}",
+              wrapper_ms=f"{w_ms:.4f}", **plan,
               per_model_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.2f}",
               host_native_batches_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
               gcups=f"{cells / k_ms / 1e6:.2f}",
@@ -1190,12 +1226,12 @@ def time_int_multi(run: Run) -> None:
 
     int_multi("msv_filter_multi", cal_draws.msv, ssv.msv_params,
               mm.build_msv_pack, lambda p_g, L: p_g.tjb_for([L])[0],
-              mm.msv_ssv_multi, mm.msv_ssv_multi_ref, ssv.msv_ssv, msv_nats,
-              msv_filter_native_batch)
+              mm.msv_ssv_multi, mm.msv_ssv_multi_ref, ssv.msv_ssv,
+              loader.prepare_msv, msv_nats, msv_filter_native_batch)
     int_multi("vit_filter_multi", cal_draws.vit, vit.vit_params,
               mm.build_vit_pack, lambda p_g, L: p_g.move_for([L])[0],
               mm.vit_ints_multi, mm.vit_ints_multi_ref, vit.vit_ints,
-              vit_nats,
+              loader.prepare_vit, vit_nats,
               lambda h, om_g: vit_filter_score_batch(
                   h, np.arange(len(h)), om_g))
 

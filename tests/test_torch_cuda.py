@@ -13,7 +13,8 @@ with several warps per ORF or DNA window.  The four multi-model entries
 and, item for item, bit for bit to the single-model entries, on one
 batch that mixes seven models of five padded widths; the fs3 pair also
 on six widths (one to three warps a window) in its one launch, and with
-the batch in ascending, descending and shuffled order.  The two integer
+the batch in ascending, descending and shuffled order, and so are the
+ViterbiFilter (eight widths) and decoding (nine) in theirs.  The two integer
 multi-model entries (MSV/SSV and the ViterbiFilter with a model slot per
 item) are held exactly to their plain versions and to the single-model
 entries, and the device calibration built on them to the host's.
@@ -251,7 +252,7 @@ def multi_case(fs, per_model, Lmax):
 
 def per_model_rows(slot):
     return [(g, torch.from_numpy(np.nonzero(slot == g)[0]).cuda())
-            for g in range(len(MULTI_MS))]
+            for g in np.unique(slot).tolist()]
 
 
 @pytest.mark.parametrize("kind", ["fwd", "fs3"])
@@ -290,17 +291,17 @@ def test_multi_decoding_vs_plain_and_single(kind):
     if fs:
         call, extra = mm.fs3_domdec_pack_batch, (dec,)
         ref, single = mm.fs3_domdec_pack_batch_ref, td3.fs3_domdec
-        raw, _ = loader.launch_fs3_domdec_multi(dsq, lens, slot, pack, 1.0)
-        raw_single = loader.launch_fs3_domdec
+        prepare = lambda d, ln, sl, pk: loader.prepare_fs3(  # noqa: E731
+            d, ln, sl, pk, True)
     else:
         call, extra = mm.domdec_pack_batch, ()
         ref, single = mm.domdec_pack_batch_ref, td.domdec
-        raw, _ = loader.launch_domdec_multi(dsq, lens, slot, pack, 1.0)
-        raw_single = loader.launch_domdec
+        prepare = loader.prepare_domdec
+    raw = prepare(dsq, lens, slot, pack)(1.0)
     before = call.launches
     got = call(pack, dsq, lens, slot, *extra)
     torch.cuda.synchronize()
-    assert call.launches == before + (1 if fs else len(pack.classes))
+    assert call.launches == before + 1
     want = ref(pack, dsq, lens, slot, *extra)
     assert torch.equal(got[3], want[3])
     for a, b in zip(got[:3], want[:3]):
@@ -308,7 +309,7 @@ def test_multi_decoding_vs_plain_and_single(kind):
     for g, rows in per_model_rows(slot):
         args = (dsq[rows].contiguous(), lens[rows].contiguous(),
                 pack.params[g])
-        for a, b in zip(raw_single(*args, 1.0), raw):
+        for a, b in zip(prepare(args[0], args[1], None, args[2])(1.0), raw):
             assert torch.equal(a, b[rows]), MULTI_MS[g]
         one = single(*args, *[e[rows] for e in extra])
         assert torch.equal(one[3], got[3][rows])
@@ -362,11 +363,11 @@ def test_fs3_six_widths_in_one_launch(kind):
         fin = torch.isfinite(want)
         assert torch.equal(fin, torch.isfinite(got))
         assert float((got - want)[fin].abs().max()) <= 1e-3
-    single = loader.launch_fs3_domdec if dec else loader.launch_fs3
     for g in range(len(FS3_CLASS_MS)):
         rows = torch.from_numpy(np.nonzero(slot == g)[0]).cuda()
-        one = single(dsq[rows].contiguous(), lens[rows].contiguous(),
-                     pack.params[g], 1.0)
+        one = loader.prepare_fs3(dsq[rows].contiguous(),
+                                 lens[rows].contiguous(), None,
+                                 pack.params[g], dec)(1.0)
         for a, b in zip(one if dec else (one,), raw):
             assert torch.equal(a, b[rows]), FS3_CLASS_MS[g]
 
@@ -391,6 +392,89 @@ def test_fs3_batch_order_changes_no_bit(kind):
     torch.cuda.synchronize()
     for o in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
+
+
+# the ViterbiFilter's eight padded widths (96 .. 800 lanes in one warp,
+# then two and three warps of 17 lanes) and decoding's nine (96 .. 1056
+# in one warp, then two and three warps of 33 lanes, read from global
+# memory), each in one launch
+VIT_CLASS_MS = (60, 150, 250, 400, 520, 700, 1080, 1100)
+DD_CLASS_MS = (60, 150, 250, 400, 520, 700, 1000, 1100, 2500)
+ORDERS = ("ascending", "descending", "shuffled")
+
+
+def permuted(lens, how):
+    rng = np.random.default_rng(5)
+    return {"ascending": np.argsort(lens, kind="stable"),
+            "descending": np.argsort(-lens, kind="stable"),
+            "shuffled": rng.permutation(len(lens))}[how]
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_vit_all_widths_in_one_launch(order):
+    """One launch takes every width: exactly the plain version and,
+    model by model, the single-model entry, in any order of the
+    batch."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(VIT_CLASS_MS, 5, 600,
+                                                       19)
+    perm = permuted(lens, order)
+    flat, offs, ln = ts.pack_stream([dsq[b, :lens[b]] for b in perm])
+    slot = slot[perm]
+    params = [tv.vit_params(om, "cuda") for om in oms]
+    pack = mm.build_vit_pack(params)
+    assert len(pack.classes) == 8
+    word = torch.from_numpy(np.array([params[g].move_for([n])[0]
+                                      for g, n in zip(slot, ln)],
+                                     np.int32)).cuda()
+    flat, offs, ln_t = (torch.from_numpy(a).cuda() for a in (flat, offs, ln))
+    run = loader.prepare_vit(flat, offs, ln_t, word, slot, pack)
+    assert run.launches == 1 and run.plan.ncls == 8
+    got = run()
+    torch.cuda.synchronize()
+    want = mm.vit_ints_multi_ref(pack, flat, offs, ln_t, word, slot)
+    assert torch.equal(got, torch.stack([t.to(torch.int32) for t in want]))
+    for g, rows in per_model_rows(slot):
+        one = tv.vit_ints(flat, offs[rows].contiguous(),
+                          ln_t[rows].contiguous(), word[rows].contiguous(),
+                          params[g])
+        for a, b in zip(one, (got[0], got[1] != 0, got[2] != 0)):
+            assert torch.equal(a, b[rows]), VIT_CLASS_MS[g]
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_domdec_all_widths_in_one_launch(order):
+    """One launch takes every width, each ORF's Forward and Backward in
+    groups of their own: within 1e-4 of the plain version with the same
+    `ok`, its kernel outputs bit for bit the single-model entry's, model
+    by model, in any order of the batch."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(DD_CLASS_MS, 2, 900,
+                                                       23)
+    perm = permuted(lens, order)
+    dsq, lens, slot = dsq[perm], lens[perm], slot[perm]
+    pack = mm.build_domdec_pack([tf.fwd_params(om, "cuda") for om in oms])
+    assert len(pack.classes) == 9
+    d, ln = torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+    run = loader.prepare_domdec(d, ln, slot, pack)
+    assert run.launches == 1 and run.plan.ncls == 9
+    raw = run(1.0)
+    got = td.finish_passes(*raw[:2], ln, raw[2])
+    torch.cuda.synchronize()
+    want = mm.domdec_pack_batch_ref(pack, d, ln, slot)
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert float((a - b).abs().max()) <= 1e-4
+    for g, rows in per_model_rows(slot):
+        one = loader.prepare_domdec(d[rows].contiguous(),
+                                    ln[rows].contiguous(), None,
+                                    pack.params[g])(1.0)
+        for a, b in zip(one, raw):
+            assert torch.equal(a, b[rows]), DD_CLASS_MS[g]
 
 
 def test_multi_entry_refuses_a_cpu_pack():
@@ -474,7 +558,9 @@ def test_int_multi_vs_plain_and_single(kind):
     before = call.launches
     got = call(pack, flat, offs, ln_t, word, slot)
     torch.cuda.synchronize()
-    assert call.launches == before + len(pack.classes) == before + 5
+    # MSV launches once per padded width, the ViterbiFilter once a call
+    assert len(pack.classes) == 5
+    assert call.launches == before + (5 if kind == "msv" else 1)
     for a, b in zip(got, ref(pack, flat, offs, ln_t, word, slot)):
         assert torch.equal(a, b)
     for g, rows in per_model_rows(slot):

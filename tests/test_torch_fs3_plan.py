@@ -43,7 +43,7 @@ def batch(rng, n=61):
 def blocks_of(plan):
     """[(class row, block row, items)] in launch order."""
     items = plan.items
-    return [(plan.table[mm.FS3_CLS * c:mm.FS3_CLS * (c + 1)], (c, m, M, f, n),
+    return [(plan.table[mm.PLAN_CLS * c:mm.PLAN_CLS * (c + 1)], (c, m, M, f, n),
              items[f:f + n]) for c, m, M, f, n in plan.blocks]
 
 
@@ -101,11 +101,11 @@ def test_class_descriptors_match_fs3_layout(pack):
     for c, (P, W, Mp, G, longest) in enumerate(plan.classes):
         assert (P, W, Mp) == loader.fs3_layout(
             MS[pack.classes[Mp].models[0]])
-        row = plan.table[mm.FS3_CLS * c:mm.FS3_CLS * (c + 1)]
+        row = plan.table[mm.PLAN_CLS * c:mm.PLAN_CLS * (c + 1)]
         assert list(row[2:6]) == [P, W, Mp, G]
         assert longest == lens[mp_rows(pack, slot, Mp)].max()
         need = 32 * Mp + G * mm.fs3_group_bytes(Mp, W)
-        assert need <= mm.FS3_SMEM_BYTES
+        assert need <= mm.SMEM_BYTES
     assert plan.warps == 6      # groups of 1, 2 and 3 warps fill a block
 
 
@@ -144,7 +144,7 @@ def plan_by_loops(lens, slot, pack, passes):
     rows_cls, blocks = [], []
     for ci, Mp in enumerate(present):
         c = pack.classes[Mp]
-        G = min(warps // c.W, (mm.FS3_SMEM_BYTES - 32 * Mp)
+        G = min(warps // c.W, (mm.SMEM_BYTES - 32 * Mp)
                 // mm.fs3_group_bytes(Mp, c.W))
         rows_cls.append([c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, Mp,
                          G, 0, 0])
