@@ -7,7 +7,7 @@ p7_Tau :537, p7_fs_Tau_3codons :608).  Each simulation is a batch of
 random sequences of one length, and the per-model RNG reset makes every
 model draw the same ones.  So the whole model set is calibrated in one
 pass: item b = (model ``b // N``, sequence ``b % N``), one launch per
-stage and padded model width (the fs3 gate: one launch per stage).
+stage for every padded model width.
 
 * MSV mu / Viterbi mu: the bit-exact u8/int16 filter kernels with a
   model slot per item (``ops.multimodel.msv_ssv_multi``,

@@ -31,6 +31,9 @@
 //   SMs, each warp with a scheduler to itself; a block stages its
 //   model's tables in shared memory (the class row says whether they
 //   fit).  Groups of W > 1 warps sync on a named barrier of their own.
+// - A block of more warps than the kernel's registers let launch (255 a
+//   thread: past eight warps of 33 lanes an ORF, M = 8448) takes a wide
+//   instance capped at 64 registers a thread, up to a block's 32 warps.
 
 #include "dp_common.cuh"
 #include "plan.cuh"
@@ -201,43 +204,31 @@ __device__ void decode_pass(const Group& g, const float* etab,
   }
 }
 
-// Shared bytes of a block: the class's tables when they fit (the class
-// row's last word), then each group's exchange scratch (Exch).
-__host__ __device__ constexpr size_t dd_table_bytes(int Kp, int Mp) {
-  return (size_t)(Kp + NTR) * Mp * sizeof(float);
-}
-
-__host__ __device__ constexpr size_t dd_group_bytes(int W) {
-  return (size_t)W * (sizeof(Aff) + 4 * sizeof(float));
-}
-
 }  // namespace bt
 
 // The class row of the plan (plan.cuh): the addresses of the class's
 // stacked tables etab [g][Kp][Mp] and ttab [g][8][Mp] f32, P, W, Mp, G,
-// Kp, and whether a block stages the tables in shared memory.  The
-// items are 2b + pass: pass 0 the Forward, 1 the Backward.
-__global__ void domdec_kernel(const int8_t* __restrict__ dsq,
-                              const int* __restrict__ lens, int L, float nj,
-                              double* __restrict__ fspec,
-                              double* __restrict__ bspec,
-                              double* __restrict__ logz2,
-                              const long long* __restrict__ plan, int ncls,
-                              int nblk) {
+// Kp, and where a block keeps the tables (bt::Stage).  The items are
+// 2b + pass: pass 0 the Forward, 1 the Backward.
+__device__ __forceinline__ void domdec_block(
+    const int8_t* __restrict__ dsq, const int* __restrict__ lens, int L,
+    float nj, double* __restrict__ fspec, double* __restrict__ bspec,
+    double* __restrict__ logz2, const long long* __restrict__ plan, int ncls,
+    int nblk) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const PlanBlock pb = plan_block(plan, ncls, nblk);
   const long long* c = pb.cls;
   const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], Kp = (int)c[6];
-  const bool in_smem = c[7] != 0;
+  const int stage = (int)c[7];
   const float *etab, *ttab;
   bt::load_tables(
       reinterpret_cast<const float*>(c[0]) + (size_t)pb.model * Kp * Mp,
       reinterpret_cast<const float*>(c[1]) + (size_t)pb.model * bt::NTR * Mp,
-      Kp, Mp, smem, in_smem, etab, ttab);
+      Kp, Mp, smem, stage, etab, ttab);
   if (pb.item < 0) return;
-  const size_t at = (in_smem ? bt::dd_table_bytes(Kp, Mp) : 0) +
-                    pb.gi * bt::dd_group_bytes(W);
+  const size_t at = bt::staged_bytes(Kp, Mp, stage) +
+                    pb.gi * bt::group_bytes(W);
   bt::Group g = bt_group(W, smem, at / sizeof(float));
   g.bar = 1 + pb.gi;
   const int b = pb.item / 2, pass = pb.item % 2;
@@ -245,7 +236,7 @@ __global__ void domdec_kernel(const int8_t* __restrict__ dsq,
   bt::decode_pass<PP>(g, etab, ttab, pb.M, Mp, b, pass, dsq, lens, L, nj,   \
                       fspec, bspec, logz2);                                 \
   break;
-  switch (P) {  // the plan's classes are checked on the host (dd_check)
+  switch (P) {  // the plan's classes are checked on the host (bt_plan_check)
     case 3: BT_DECODE(3)
     case 5: BT_DECODE(5)
     case 9: BT_DECODE(9)
@@ -257,30 +248,23 @@ __global__ void domdec_kernel(const int8_t* __restrict__ dsq,
 #undef BT_DECODE
 }
 
-// Checks a plan's classes (the host copy of the table) and gives the
-// launch's dynamic shared memory.  Returns 0, or a cudaError_t.
-static int dd_check(const long long* plan, int ncls, int warps,
-                    size_t& smem) {
-  int dev = 0, cap = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (ncls <= 0 || warps <= 0 || warps > 32) return cudaErrorInvalidValue;
-  smem = 0;
-  for (int i = 0; i < ncls; ++i) {
-    const long long* c = plan + PLAN_CLS * i;
-    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
-    const int Kp = (int)c[6];
-    if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
-          P == 33) ||
-        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
-        (W > 1 && G > 15) || Kp < 1)
-      return cudaErrorInvalidValue;
-    const size_t need = (c[7] ? bt::dd_table_bytes(Kp, Mp) : 0) +
-                        (size_t)G * bt::dd_group_bytes(W);
-    smem = need > smem ? need : smem;
-  }
-  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
+#define DOMDEC_ARGS                                                        \
+  const int8_t *__restrict__ dsq, const int *__restrict__ lens, int L,     \
+      float nj, double *__restrict__ fspec, double *__restrict__ bspec,    \
+      double *__restrict__ logz2, const long long *__restrict__ plan,      \
+      int ncls, int nblk
+
+__global__ void domdec_kernel(DOMDEC_ARGS) {
+  domdec_block(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls, nblk);
 }
+
+// A block of more warps than domdec_kernel's registers let launch (a
+// class of more than eight warps an ORF, past M = 8448; up to 32): the
+// same code at most 64 registers a thread.
+__global__ void __launch_bounds__(1024) domdec_wide_kernel(DOMDEC_ARGS) {
+  domdec_block(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls, nblk);
+}
+#undef DOMDEC_ARGS
 
 // dsq [B, L] int8; lens [B] int32; fspec and bspec [B, 6, L+1] f64,
 // zero-filled by the caller (rows past an item stay 0): per row xB, xN,
@@ -297,13 +281,24 @@ extern "C" int bt_domdec(const void* dsq, const void* lens, int L, float nj,
                          const long long* plan_host, const void* plan,
                          int ncls, int nblk, int warps, void* stream) {
   if (nblk <= 0) return 0;
+  int pmax;
   size_t smem;
-  const int err = dd_check(plan_host, ncls, warps, smem);
+  const int err = bt_plan_check(plan_host, ncls, warps, pmax, smem);
   if (err) return err;
-  cudaFuncSetAttribute(domdec_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  domdec_kernel<<<nblk, 32 * warps, smem,
-                  reinterpret_cast<cudaStream_t>(stream)>>>(
+  static int most[64];  // domdec_kernel's most threads a block, per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& m = most[dev & 63];
+  if (!m) {
+    cudaFuncAttributes a;
+    m = cudaFuncGetAttributes(&a, domdec_kernel) == cudaSuccess
+            ? a.maxThreadsPerBlock
+            : -1;
+  }
+  const auto kernel = 32 * warps <= m ? domdec_kernel : domdec_wide_kernel;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,
       (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();

@@ -23,6 +23,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "plan.cuh"
+
 namespace bt {
 
 // transition rows, bath_tpu/constants.py P_* order
@@ -155,25 +157,41 @@ __device__ __forceinline__ void lane_before(const Group& g, float a, float b,
   }
 }
 
-// Copies the padded tables ([Kp][Mp] odds, [NTR][Mp] transitions) into
-// shared memory when `smem` holds them; every thread of the block calls
-// it, then the block syncs.  Returns the tables to read.
+// Where a block of a Forward-gate or decoding class keeps its model's
+// tables (the class row's word 7, ops/multimodel.py f32_class_row):
+// both in shared memory, only the transitions (the odds then come from
+// L2), or neither.
+enum Stage { STAGE_NONE = 0, STAGE_ALL = 1, STAGE_TRANS = 2 };
+
+__host__ __device__ constexpr size_t staged_bytes(int Kp, int Mp, int stage) {
+  return stage == STAGE_ALL     ? (size_t)(Kp + NTR) * Mp * sizeof(float)
+         : stage == STAGE_TRANS ? (size_t)NTR * Mp * sizeof(float)
+                                : 0;
+}
+
+// A group's exchange scratch (Exch), past the staged tables.
+__host__ __device__ constexpr size_t group_bytes(int W) {
+  return (size_t)W * (sizeof(Aff) + 4 * sizeof(float));
+}
+
+// Stages the padded tables ([Kp][Mp] odds, [NTR][Mp] transitions) in
+// shared memory as <stage> says; every thread of the block calls it,
+// and the block syncs when anything was staged.  Returns the tables to
+// read.
 __device__ __forceinline__ void load_tables(const float* __restrict__ etab_g,
                                             const float* __restrict__ ttab_g,
                                             int Kp, int Mp, float* smem,
-                                            bool in_smem, const float*& etab,
+                                            int stage, const float*& etab,
                                             const float*& ttab) {
-  if (in_smem) {
-    const int ne = Kp * Mp, nt = NTR * Mp;
-    for (int q = threadIdx.x; q < ne; q += blockDim.x) smem[q] = etab_g[q];
-    for (int q = threadIdx.x; q < nt; q += blockDim.x) smem[ne + q] = ttab_g[q];
-    __syncthreads();
-    etab = smem;
-    ttab = smem + ne;
-  } else {
-    etab = etab_g;
-    ttab = ttab_g;
-  }
+  etab = etab_g;
+  ttab = ttab_g;
+  if (stage == STAGE_NONE) return;
+  const int ne = stage == STAGE_ALL ? Kp * Mp : 0, nt = NTR * Mp;
+  for (int q = threadIdx.x; q < ne; q += blockDim.x) smem[q] = etab_g[q];
+  for (int q = threadIdx.x; q < nt; q += blockDim.x) smem[ne + q] = ttab_g[q];
+  __syncthreads();
+  if (stage == STAGE_ALL) etab = smem;
+  ttab = smem + ne;
 }
 
 // Transition row r at lane k; lanes at or past Mp read 0.
@@ -285,97 +303,47 @@ __device__ double forward_pass(const Group& g, const float* etab,
 
 }  // namespace bt
 
-// Host side: the block shape and shared memory of a Forward-gate launch.
-struct BtLaunch {
-  int W, G, threads, blocks;
-  bool tab_in_smem;
-  size_t smem;
-};
-
-// Tables go to shared memory when they fit in `tab_cap` bytes; the
-// rest of the block's shared memory is the W > 1 exchange scratch.
-static inline BtLaunch bt_plan(int B, int Kp, int Mp, int P, size_t tab_cap) {
-  BtLaunch l;
-  l.W = Mp / (32 * P);
-  l.G = l.W == 1 ? 8 : 1;
-  l.threads = 32 * l.W * l.G;
-  l.blocks = (B + l.G - 1) / l.G;
-  const size_t tab = (size_t)(Kp + bt::NTR) * Mp * sizeof(float);
-  l.tab_in_smem = tab <= tab_cap;
-  const size_t exch = (size_t)l.W * (sizeof(bt::Aff) + 4 * sizeof(float));
-  l.smem = (l.tab_in_smem ? tab : 0) + exch;
-  return l;
-}
-
-// Carves the exchange scratch out of the dynamic shared memory, past
-// the tables.
+// Carves a group's exchange scratch out of the dynamic shared memory,
+// <at_floats> floats in (past the staged tables and the groups before
+// it).
 __device__ __forceinline__ bt::Group bt_group(int W, float* smem,
-                                              size_t tab_floats) {
+                                              size_t at_floats) {
   bt::Group g;
   g.W = W;
   g.warp = (threadIdx.x >> 5) % W;
   g.lane = threadIdx.x & 31;
   g.t = g.warp * 32 + g.lane;
   g.bar = 0;
-  float* base = smem + tab_floats;
+  float* base = smem + at_floats;
   g.x.agg = reinterpret_cast<bt::Aff*>(base);
   g.x.bnd = base + 4 * W;
   g.x.red = base + 7 * W;
   return g;
 }
 
-// Which item, and which model of a stack of tables, a group of warps
-// computes.
-//
-// A single-model launch passes blk == nullptr: block x takes items
-// x*G .. x*G+G-1 of the batch in place, under model 0 (the only tables).
-// A multi-model launch scores item b under model slot[b].  The kernels
-// share one copy of a model's tables among the items of a block (in
-// shared memory where they fit), so a block must hold items of one
-// model only.  The caller therefore orders the items of a launch by
-// model and cuts each model's run into blocks of at most G items
-// (ops/multimodel.py block_plan): blk[3x .. 3x+2] = (model, first,
-// count) gives block x the items order[first .. first+count) and table
-// `model` of the stack.  Nothing is padded and no item moves: a block
-// of a short run simply leaves warps idle.  P and the warps per item
-// are compile- and launch-time constants, so one launch takes models
-// of one padded width Mp; models of other widths go to further
-// launches (at most one per entry of the P ladder and per W).  This is
-// the Forward gate's plan.  Decoding and the fs3 pair plan differently
-// (plan.cuh): one launch for all widths, each block row naming its
-// class and the block running that class's P, and decoding's items are
-// an item's two passes.
-struct BtItem {
-  int model;
-  int b;   // the item's row in the batch; < 0: this group has none
-};
-
-__device__ __forceinline__ BtItem bt_item(const int* __restrict__ blk,
-                                          const int* __restrict__ order,
-                                          int B, int W) {
-  const int G = blockDim.x / (32 * W);
-  const int gi = (threadIdx.x >> 5) / W;
-  BtItem it;
-  if (blk == nullptr) {
-    const int b = blockIdx.x * G + gi;
-    it.model = 0;
-    it.b = b < B ? b : -1;
-  } else {
-    const int* e = blk + 3 * blockIdx.x;
-    it.model = e[0];
-    it.b = gi < e[2] ? order[e[1] + gi] : -1;
+// Host side: checks the classes of a Forward-gate or decoding plan (the
+// host copy of the table; plan.cuh, the class row: the stacked tables'
+// addresses, P, W, Mp, G, Kp, stage) and gives the launch's largest P
+// and dynamic shared memory.  Returns 0, or a cudaError_t.
+static inline int bt_plan_check(const long long* plan, int ncls, int warps,
+                                int& pmax, size_t& smem) {
+  const int cap = plan_smem_optin();
+  if (ncls <= 0 || warps <= 0 || warps > 32) return cudaErrorInvalidValue;
+  pmax = 0;
+  smem = 0;
+  for (int i = 0; i < ncls; ++i) {
+    const long long* c = plan + PLAN_CLS * i;
+    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
+    const int Kp = (int)c[6], stage = (int)c[7];
+    if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
+          P == 33) ||
+        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
+        (W > 1 && G > 15) || Kp < 1 || stage < 0 || stage > 2)
+      return cudaErrorInvalidValue;
+    const size_t need = bt::staged_bytes(Kp, Mp, stage) +
+                        (size_t)G * bt::group_bytes(W);
+    smem = need > smem ? need : smem;
+    pmax = P > pmax ? P : pmax;
   }
-  return it;
+  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
 }
-
-#define BT_DISPATCH_P(P, CALL)        \
-  switch (P) {                        \
-    case 3: CALL(3); break;           \
-    case 5: CALL(5); break;           \
-    case 9: CALL(9); break;           \
-    case 13: CALL(13); break;         \
-    case 17: CALL(17); break;         \
-    case 25: CALL(25); break;         \
-    case 33: CALL(33); break;         \
-    default: return cudaErrorInvalidValue; \
-  }

@@ -32,7 +32,14 @@
 // two-slot ring in shared memory, and the group waits on that slot's
 // mbarrier only when it gets there.  The consumers read no nucleotide
 // and no global memory in the row; the producer reads its next
-// nucleotide a row before it needs it.
+// nucleotide a row before it needs it.  The direct loads are the other
+// path (the class row's word 6): every thread keeps the producer's
+// nucleotides and reads its lanes of the row's three codon rows straight
+// from global memory (L2).  They serve a launch of narrow classes only
+// (P <= 5, where the ring's handshake costs more than it hides) and a
+// model past eight warps (M = 3328), whose instance caps its registers;
+// past M = 3744, where a group's ring does not fit a block, its
+// transitions stay in global memory too (word 7).
 
 #pragma once
 
@@ -122,7 +129,7 @@ struct Fs3Ring {
   float* slots;         // [FS3_RING][3][Mp] (shared)
   unsigned bar;         // shared address of slot 0's mbarrier; slot s +8s
   int Mp;
-  bool producer;        // the group's thread 0
+  bool producer;        // the group's thread 0, or every thread (direct)
 
   __device__ __forceinline__ void fetch(int n, const Codons& c) const {
     const unsigned s = (unsigned)n % FS3_RING;
@@ -144,9 +151,29 @@ struct Fs3Ring {
     mbar_wait(bar + 8 * s, ((unsigned)n / FS3_RING) & 1);
     return slots + 3 * s * Mp + k0;
   }
+
+  // The thread's lanes k0.. of the E2, E3 and E4 rows of the row whose
+  // codons are <c>: from the ring (row n) or, DIRECT, from etab.
+  template <bool DIRECT>
+  __device__ __forceinline__ void rows3(int n, const Codons& c, int k0,
+                                        const float*& e2, const float*& e3,
+                                        const float*& e4) const {
+    if (DIRECT) {
+      e2 = etab + (size_t)c.c2 * Mp + k0;
+      e3 = etab + (size_t)c.c3 * Mp + k0;
+      e4 = etab + (size_t)c.c4 * Mp + k0;
+    } else {
+      e2 = rows(n, k0);
+      e3 = e2 + Mp;
+      e4 = e2 + 2 * Mp;
+    }
+  }
 };
 
-template <int P, bool STORE>
+// The direct loads keep one row's codons ahead, as the ring does.
+static_assert(FS3_RING == 2, "Fs3Forward::qn holds one row ahead");
+
+template <int P, bool STORE, bool DIRECT>
 struct Fs3Forward {
   const Group& g;
   const Fs3Ring& ring;              // the codon rows, a row ahead
@@ -160,8 +187,9 @@ struct Fs3Forward {
   // specials of rows i-1..i-3, unscaled (xB only i-1, i-2)
   float b1, b2, n1, n2, n3, j1, j2, j3, c1, c2, c3;
   // the producer: nucleotides x(r-1) (read a fetch early) and x(r-2..r-4)
-  // of the next row r it fetches
+  // of the next row r it fetches; direct: that row's codons
   int nx, h1, h2, h3;
+  Codons qn;
   double lacc, score;
 
   __device__ __forceinline__ float tr(int r, int j) const {
@@ -171,7 +199,11 @@ struct Fs3Forward {
   // The producer fetches row r (the ring's row r - 2) and steps its
   // nucleotides on to row r + 1.
   __device__ __forceinline__ void fetch(int r, int len, const int8_t* seq) {
-    ring.fetch(r - 2, fs3_codons(nx, h1, h2, h3));
+    const Codons c = fs3_codons(nx, h1, h2, h3);
+    if (DIRECT)
+      qn = c;
+    else
+      ring.fetch(r - 2, c);
     h3 = h2;
     h2 = h1;
     h1 = nx;
@@ -185,11 +217,11 @@ struct Fs3Forward {
                                        float (&na)[P], float (&nb)[P],
                                        float (&nc)[P], float (&va)[P],
                                        float (&vb)[P]) {
+    const Codons cur = qn;
     if (ring.producer && i + FS3_RING - 1 <= len)
       fetch(i + FS3_RING - 1, len, seq);
-    const float* e2 = ring.rows(i - 2, k0);
-    const float* e3 = e2 + Mp;
-    const float* e4 = e2 + 2 * Mp;
+    const float *e2, *e3, *e4;
+    ring.rows3<DIRECT>(i - 2, cur, k0, e2, e3, e4);
     const bool ge3 = i >= 3;
     float msv[P];
     float sumsv = 0.f;
@@ -281,13 +313,13 @@ struct Fs3Forward {
 // for len < 2) and the total log scale in `lsf`, both summed in
 // double.  Every thread of the group returns after the same rows, and
 // every row fetched into <ring> has been waited for.
-template <int P, bool STORE>
+template <int P, bool STORE, bool DIRECT>
 __device__ double fs3_forward_pass(const Group& g, const Fs3Ring& ring,
                                    const float* ttab, int Mp,
                                    const int8_t* __restrict__ seq, int len,
                                    float pmove, float nj, double* spec,
                                    int ld, double& lsf) {
-  Fs3Forward<P, STORE> w{g, ring, ttab, Mp, g.t * P};
+  Fs3Forward<P, STORE, DIRECT> w{g, ring, ttab, Mp, g.t * P};
   w.pmove = pmove;
   w.ploop = 1.f - pmove;
   w.emove = nj > 0.f ? 0.5f : 1.f;
@@ -303,6 +335,7 @@ __device__ double fs3_forward_pass(const Group& g, const Fs3Ring& ring,
   w.nx = len >= 2 ? fs3_nt(seq[1]) : FS3_PLACE;
   w.h1 = len >= 1 ? fs3_nt(seq[0]) : FS3_PLACE;
   w.h2 = w.h3 = FS3_PLACE;
+  w.qn = Codons{0, 0, 0};
   if (ring.producer)
     for (int r = 2; r <= len && r < 1 + FS3_RING; ++r) w.fetch(r, len, seq);
   w.lacc = 0.0;
@@ -339,9 +372,11 @@ __device__ double fs3_forward_pass(const Group& g, const Fs3Ring& ring,
 // ---------------------------------------------------------------------
 // The launch plan (plan.cuh; ops/multimodel.py fs3_plan).  A class row
 // holds the addresses of the class's stacked tables etab [g][338][Mp]
-// and ttab [g][8][Mp], P, W, Mp and G; the items are window rows b (the
-// gate) or 2b + pass (decoding: pass 0 the Forward, 1 the Backward).
-// Each block stages its model's transitions in shared memory once.
+// and ttab [g][8][Mp], P, W, Mp and G, whether its groups take the
+// direct loads (word 6) and whether its transitions stay in global
+// memory (word 7); the items are window rows b (the gate) or 2b + pass
+// (decoding: pass 0 the Forward, 1 the Backward).  Each block stages its
+// model's transitions in shared memory once, unless word 7 says not.
 // ---------------------------------------------------------------------
 constexpr int FS3_ROWS = 338;       // packed codon rows of a model
 
@@ -352,13 +387,16 @@ __host__ __device__ constexpr size_t fs3_table_bytes(int Mp) {
 // Shared bytes of one group past the block's transitions, 128-byte
 // aligned: its emission ring (FS3_RING slots of three Mp-float rows),
 // the slots' mbarriers (16-byte aligned) and the W > 1 exchange scratch
-// (Exch).
+// (Exch); with the direct loads, the scratch alone.
 __host__ __device__ constexpr size_t fs3_bars_bytes() {
   return (8 * FS3_RING + 15) / 16 * 16;
 }
 
-__host__ __device__ constexpr size_t fs3_group_bytes(int Mp, int W) {
-  return ((size_t)3 * FS3_RING * Mp * sizeof(float) + fs3_bars_bytes() +
+__host__ __device__ constexpr size_t fs3_group_bytes(int Mp, int W,
+                                                    bool direct = false) {
+  return ((direct ? 0
+                  : (size_t)3 * FS3_RING * Mp * sizeof(float) +
+                        fs3_bars_bytes()) +
           (size_t)W * (sizeof(Aff) + 4 * sizeof(float)) + 127) / 128 * 128;
 }
 
@@ -375,11 +413,16 @@ struct Fs3Slot {
 // stages the model's transitions in shared memory, carves the groups'
 // rings and scratch, sets up the rings' mbarriers and syncs the block;
 // after it no barrier spans the block, so a group without a window may
-// return.  <per>: items a window (1 the
-// gate, 2 decoding).
+// return.  <per>: items a window (1 the gate, 2 decoding).  MODE, the
+// launch's (fs3_mode): 0 the ring, 1 the direct loads, 2 and 3 the
+// direct loads with the transitions of a class whose word 7 says so
+// left in global memory; below 2 they are staged and read as shared
+// memory.
+template <int MODE>
 __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
                                             int ncls, int nblk, int per,
                                             char* smem) {
+  constexpr bool direct = MODE >= 1;
   const long long* bk = plan + PLAN_CLS * ncls + PLAN_BLK * (long long)blockIdx.x;
   const long long* c = plan + PLAN_CLS * bk[0];
   Fs3Slot s;
@@ -393,11 +436,15 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
   s.ring.etab = reinterpret_cast<const float*>(c[0]) +
                 (size_t)model * FS3_ROWS * s.Mp;
   s.ring.Mp = s.Mp;
+  const bool tglobal = MODE >= 2 && c[7] != 0;
   const float* tg = reinterpret_cast<const float*>(c[1]) +
                     (size_t)model * NTR * s.Mp;
-  float* tt = reinterpret_cast<float*>(smem);
-  for (int q = threadIdx.x; q < NTR * s.Mp; q += blockDim.x) tt[q] = tg[q];
-  s.ttab = tt;
+  s.ttab = tg;
+  if (!tglobal) {
+    float* tt = reinterpret_cast<float*>(smem);
+    for (int q = threadIdx.x; q < NTR * s.Mp; q += blockDim.x) tt[q] = tg[q];
+    s.ttab = tt;
+  }
   const int gi = (threadIdx.x >> 5) / W;
   Group& g = s.g;
   g.W = W;
@@ -406,11 +453,14 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
   g.t = g.warp * 32 + g.lane;
   g.bar = 1 + gi;
   float* ring = reinterpret_cast<float*>(
-      smem + fs3_table_bytes(s.Mp) + (size_t)gi * fs3_group_bytes(s.Mp, W));
+      smem + (tglobal ? 0 : fs3_table_bytes(s.Mp)) +
+      (size_t)gi * fs3_group_bytes(s.Mp, W, direct));
   s.ring.slots = ring;
   s.ring.bar = smem_addr(ring + 3 * FS3_RING * s.Mp);
-  s.ring.producer = g.t == 0;
-  float* x = ring + 3 * FS3_RING * s.Mp + fs3_bars_bytes() / sizeof(float);
+  s.ring.producer = direct || g.t == 0;
+  float* x = direct ? ring
+                    : ring + 3 * FS3_RING * s.Mp +
+                          fs3_bars_bytes() / sizeof(float);
   g.x.agg = reinterpret_cast<Aff*>(x);
   g.x.bnd = x + 4 * W;
   g.x.red = x + 7 * W;
@@ -420,7 +470,7 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
     const int item = (int)plan[PLAN_CLS * ncls + PLAN_BLK * nblk + first + gi];
     s.b = item / per;
     s.pass = item % per;
-    if (g.t == 0) {
+    if (g.t == 0 && !direct) {
       for (int q = 0; q < FS3_RING; ++q) mbar_init(s.ring.bar + 8 * q);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
@@ -441,14 +491,32 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
     case 13: CALL(13); break;      \
   }
 
+// The kernel instance of a plan of blocks of <warps> warps (the host
+// copy of the table): 0 for the ring, 1 for the direct loads (the plan
+// gives every class word 6 when one has it), 2 when a class also leaves
+// its transitions in global memory or a block takes more than eight
+// warps, 3 past sixteen.  Instances 0 and 1 take up to 255 registers a
+// thread, so eight warps a block; 2 and 3 cap their registers
+// (fs3_threads), so that a block of up to 16 or 32 warps launches.
+__host__ __device__ constexpr int fs3_threads(int mode) {
+  return mode == 3 ? 1024 : mode == 2 ? 512 : 256;
+}
+
+static inline int fs3_mode(const long long* plan, int ncls, int warps) {
+  bool direct = false, tglobal = false;
+  for (int i = 0; i < ncls; ++i) {
+    direct = direct || plan[PLAN_CLS * i + 6] != 0;
+    tglobal = tglobal || plan[PLAN_CLS * i + 7] != 0;
+  }
+  return warps > 16 ? 3 : warps > 8 || tglobal ? 2 : direct ? 1 : 0;
+}
+
 // Host side: checks a plan's classes (the host copy of the table) and
 // gives the launch's dynamic shared memory: the largest class's
 // transitions and groups.  Returns 0, or a cudaError_t.
 static inline int fs3_check(const long long* plan, int ncls, int warps,
                             size_t& smem) {
-  int dev = 0, cap = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int cap = plan_smem_optin();
   if (ncls <= 0 || warps <= 0 || warps > 32) return cudaErrorInvalidValue;
   smem = 0;
   for (int i = 0; i < ncls; ++i) {
@@ -457,8 +525,8 @@ static inline int fs3_check(const long long* plan, int ncls, int warps,
     if (!(P == 3 || P == 5 || P == 9 || P == 13) || W < 1 ||
         Mp != 32 * P * W || G < 1 || G * W > warps || (W > 1 && G > 15))
       return cudaErrorInvalidValue;
-    const size_t need = bt::fs3_table_bytes(Mp) +
-                        (size_t)G * bt::fs3_group_bytes(Mp, W);
+    const size_t need = (c[7] ? 0 : bt::fs3_table_bytes(Mp)) +
+                        (size_t)G * bt::fs3_group_bytes(Mp, W, c[6] != 0);
     smem = need > smem ? need : smem;
   }
   return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;

@@ -43,16 +43,21 @@ namespace bt {
 // row r it fetches (FS3_PLACE past the window: the recurrence never
 // reads those codons) and x(r-1), read a fetch early.  It walks the
 // window down; row r is the ring's row len - r.
+template <bool DIRECT>
 struct Fs3BackFetch {
   const Fs3Ring& ring;
   const int8_t* seq;
   int len;
   int y1, y2, y3, y4, ny;
+  Codons qn;            // direct loads: the next row's codons
 
   __device__ __forceinline__ void fetch(int r) {
-    ring.fetch(len - r, Codons{fs3_codons(y2, y1, 0, 0).c2,
-                               fs3_codons(y3, y2, y1, 0).c3,
-                               fs3_codons(y4, y3, y2, y1).c4});
+    const Codons c{fs3_codons(y2, y1, 0, 0).c2, fs3_codons(y3, y2, y1, 0).c3,
+                   fs3_codons(y4, y3, y2, y1).c4};
+    if (DIRECT)
+      qn = c;
+    else
+      ring.fetch(len - r, c);
     y4 = y3;
     y3 = y2;
     y2 = y1;
@@ -61,7 +66,7 @@ struct Fs3BackFetch {
   }
 };
 
-template <int P>
+template <int P, bool DIRECT>
 __device__ void fs3_backward_pass(const Group& g, const Fs3Ring& ring,
                                   const float* ttab, int M, int Mp,
                                   const int8_t* __restrict__ seq, int len,
@@ -79,21 +84,30 @@ __device__ void fs3_backward_pass(const Group& g, const Fs3Ring& ring,
   // N/J/C of rows i+1..i+3
   float n1 = 0.f, n2 = 0.f, n3 = 0.f, jj1 = 0.f, jj2 = 0.f, jj3 = 0.f;
   float cc1 = 0.f, cc2 = 0.f, cc3 = 0.f;
-  Fs3BackFetch ahead{ring, seq, len, FS3_PLACE, FS3_PLACE, FS3_PLACE,
-                     FS3_PLACE, len >= 1 ? fs3_nt(seq[len - 1]) : FS3_PLACE};
+  Fs3BackFetch<DIRECT> ahead{ring,
+                     seq,
+                     len,
+                     FS3_PLACE,
+                     FS3_PLACE,
+                     FS3_PLACE,
+                     FS3_PLACE,
+                     len >= 1 ? fs3_nt(seq[len - 1]) : FS3_PLACE,
+                     Codons{0, 0, 0}};
   if (ring.producer)
     for (int r = len; r >= 0 && r > len + 1 - FS3_RING; --r) ahead.fetch(r);
   double lsb = 0.0;
   for (int i = len; i >= 0; --i) {
+    const Codons cur = ahead.qn;
     if (ring.producer && i >= FS3_RING - 1) ahead.fetch(i - FS3_RING + 1);
     float ivxb[P];
     float part = 0.f;
     {
       // the codon of c nt ending at row i+c, for i+c <= len
-      const float* er = ring.rows(len - i, k0);
-      const float* e2 = i + 2 <= len ? er : nullptr;
-      const float* e3 = i + 3 <= len ? er + Mp : nullptr;
-      const float* e4 = i + 4 <= len ? er + 2 * Mp : nullptr;
+      const float *r2, *r3, *r4;
+      ring.rows3<DIRECT>(len - i, cur, k0, r2, r3, r4);
+      const float* e2 = i + 2 <= len ? r2 : nullptr;
+      const float* e3 = i + 3 <= len ? r3 : nullptr;
+      const float* e4 = i + 4 <= len ? r4 : nullptr;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         float v = 0.f;
@@ -220,7 +234,7 @@ namespace bt {
 
 // The group's pass over its window: the Forward writes fspec and logz2,
 // the Backward bspec.
-template <int P>
+template <int P, bool DIRECT>
 __device__ void fs3_decode(const Fs3Slot& s, const int8_t* __restrict__ dsq,
                            const int* __restrict__ lens, int L, float nj,
                            double* __restrict__ fspec,
@@ -233,7 +247,7 @@ __device__ void fs3_decode(const Fs3Slot& s, const int8_t* __restrict__ dsq,
   const int8_t* seq = dsq + (size_t)b * L;
   if (s.pass == 0) {
     double lsf;
-    const double logz = fs3_forward_pass<P, true>(
+    const double logz = fs3_forward_pass<P, true, DIRECT>(
         s.g, s.ring, s.ttab, s.Mp, seq, len, pmove, nj,
         fspec + (size_t)b * 6 * ld, ld, lsf);
     if (s.g.t == 0) {
@@ -241,13 +255,32 @@ __device__ void fs3_decode(const Fs3Slot& s, const int8_t* __restrict__ dsq,
       logz2[2 * b + 1] = lsf;
     }
   } else {
-    fs3_backward_pass<P>(s.g, s.ring, s.ttab, s.M, s.Mp, seq, len, pmove,
-                         nj, bspec + (size_t)b * 6 * ld, ld);
+    fs3_backward_pass<P, DIRECT>(s.g, s.ring, s.ttab, s.M, s.Mp, seq, len,
+                                 pmove, nj, bspec + (size_t)b * 6 * ld, ld);
   }
 }
 
 }  // namespace bt
 
+template <int MODE>
+__device__ __forceinline__ void fs3_domdec_block(
+    const int8_t* __restrict__ dsq, const int* __restrict__ lens, int L,
+    float nj, double* __restrict__ fspec, double* __restrict__ bspec,
+    double* __restrict__ logz2, const long long* __restrict__ plan, int ncls,
+    int nblk) {
+  extern __shared__ float4 smem4[];
+  const bt::Fs3Slot s = bt::fs3_slot<MODE>(plan, ncls, nblk, 2,
+                                           reinterpret_cast<char*>(smem4));
+  if (s.b < 0) return;
+#define BT_FS3_DECODE(PP) \
+  bt::fs3_decode<PP, (MODE >= 1)>(s, dsq, lens, L, nj, fspec, bspec, logz2)
+  BT_FS3_DISPATCH(s.P, BT_FS3_DECODE)
+#undef BT_FS3_DECODE
+}
+
+// The ring and direct instances (MODE 0, 1) take the registers they
+// need; the wide ones (2, 3) are capped for blocks of 16 or 32 warps.
+template <int MODE>
 __global__ void fs3_domdec_kernel(const int8_t* __restrict__ dsq,
                                   const int* __restrict__ lens, int L,
                                   float nj, double* __restrict__ fspec,
@@ -255,14 +288,21 @@ __global__ void fs3_domdec_kernel(const int8_t* __restrict__ dsq,
                                   double* __restrict__ logz2,
                                   const long long* __restrict__ plan,
                                   int ncls, int nblk) {
-  extern __shared__ float4 smem4[];
-  const bt::Fs3Slot s = bt::fs3_slot(plan, ncls, nblk, 2,
-                                     reinterpret_cast<char*>(smem4));
-  if (s.b < 0) return;
-#define BT_FS3_DECODE(PP) \
-  bt::fs3_decode<PP>(s, dsq, lens, L, nj, fspec, bspec, logz2)
-  BT_FS3_DISPATCH(s.P, BT_FS3_DECODE)
-#undef BT_FS3_DECODE
+  fs3_domdec_block<MODE>(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls,
+                         nblk);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(fs3_threads(MODE))
+    fs3_domdec_wide_kernel(const int8_t* __restrict__ dsq,
+                           const int* __restrict__ lens, int L, float nj,
+                           double* __restrict__ fspec,
+                           double* __restrict__ bspec,
+                           double* __restrict__ logz2,
+                           const long long* __restrict__ plan, int ncls,
+                           int nblk) {
+  fs3_domdec_block<MODE>(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls,
+                         nblk);
 }
 
 // dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; fspec and bspec
@@ -281,10 +321,14 @@ extern "C" int bt_fs3_domdec(const void* dsq, const void* lens, int L,
   size_t smem;
   const int err = fs3_check(plan_host, ncls, warps, smem);
   if (err) return err;
-  cudaFuncSetAttribute(fs3_domdec_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  fs3_domdec_kernel<<<nblk, 32 * warps, smem,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
+  const int mode = fs3_mode(plan_host, ncls, warps);
+  auto kernel = mode == 0   ? fs3_domdec_kernel<0>
+                : mode == 1 ? fs3_domdec_kernel<1>
+                : mode == 2 ? fs3_domdec_wide_kernel<2>
+                            : fs3_domdec_wide_kernel<3>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,
       (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();

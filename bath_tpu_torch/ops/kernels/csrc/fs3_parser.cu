@@ -36,14 +36,14 @@
 
 namespace bt {
 
-template <int P>
+template <int P, bool DIRECT>
 __device__ void fs3_gate(const Fs3Slot& s, const int8_t* __restrict__ dsq,
                          const int* __restrict__ lens, int L, float nj,
                          float* __restrict__ out) {
   const int len = lens[s.b];
   const float pmove = (2.f + nj) / ((float)(len / 3) + 2.f + nj);
   double lsf;
-  const double sc = fs3_forward_pass<P, false>(
+  const double sc = fs3_forward_pass<P, false, DIRECT>(
       s.g, s.ring, s.ttab, s.Mp, dsq + (size_t)s.b * L, len, pmove, nj,
       nullptr, 0, lsf);
   if (s.g.t == 0) out[s.b] = (float)sc;
@@ -51,18 +51,40 @@ __device__ void fs3_gate(const Fs3Slot& s, const int8_t* __restrict__ dsq,
 
 }  // namespace bt
 
+template <int MODE>
+__device__ __forceinline__ void fs3_parser_block(
+    const int8_t* __restrict__ dsq, const int* __restrict__ lens, int L,
+    float nj, float* __restrict__ out, const long long* __restrict__ plan,
+    int ncls, int nblk) {
+  extern __shared__ float4 smem4[];
+  const bt::Fs3Slot s = bt::fs3_slot<MODE>(plan, ncls, nblk, 1,
+                                           reinterpret_cast<char*>(smem4));
+  if (s.b < 0) return;
+#define BT_FS3_GATE(PP) \
+  bt::fs3_gate<PP, (MODE >= 1)>(s, dsq, lens, L, nj, out)
+  BT_FS3_DISPATCH(s.P, BT_FS3_GATE)
+#undef BT_FS3_GATE
+}
+
+// The ring and direct instances (MODE 0, 1) take the registers they
+// need; the wide ones (2, 3) are capped for blocks of 16 or 32 warps.
+template <int MODE>
 __global__ void fs3_parser_kernel(const int8_t* __restrict__ dsq,
                                   const int* __restrict__ lens, int L,
                                   float nj, float* __restrict__ out,
                                   const long long* __restrict__ plan,
                                   int ncls, int nblk) {
-  extern __shared__ float4 smem4[];
-  const bt::Fs3Slot s = bt::fs3_slot(plan, ncls, nblk, 1,
-                                     reinterpret_cast<char*>(smem4));
-  if (s.b < 0) return;
-#define BT_FS3_GATE(PP) bt::fs3_gate<PP>(s, dsq, lens, L, nj, out)
-  BT_FS3_DISPATCH(s.P, BT_FS3_GATE)
-#undef BT_FS3_GATE
+  fs3_parser_block<MODE>(dsq, lens, L, nj, out, plan, ncls, nblk);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(fs3_threads(MODE))
+    fs3_parser_wide_kernel(const int8_t* __restrict__ dsq,
+                           const int* __restrict__ lens, int L, float nj,
+                           float* __restrict__ out,
+                           const long long* __restrict__ plan, int ncls,
+                           int nblk) {
+  fs3_parser_block<MODE>(dsq, lens, L, nj, out, plan, ncls, nblk);
 }
 
 // dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; out [B] f32
@@ -78,10 +100,14 @@ extern "C" int bt_fs3_parser(const void* dsq, const void* lens, int L,
   size_t smem;
   const int err = fs3_check(plan_host, ncls, warps, smem);
   if (err) return err;
-  cudaFuncSetAttribute(fs3_parser_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  fs3_parser_kernel<<<nblk, 32 * warps, smem,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
+  const int mode = fs3_mode(plan_host, ncls, warps);
+  auto kernel = mode == 0   ? fs3_parser_kernel<0>
+                : mode == 1 ? fs3_parser_kernel<1>
+                : mode == 2 ? fs3_parser_wide_kernel<2>
+                            : fs3_parser_wide_kernel<3>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       (const int8_t*)dsq, (const int*)lens, L, nj, (float*)out,
       (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();

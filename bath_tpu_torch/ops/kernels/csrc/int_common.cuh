@@ -13,15 +13,13 @@
 // Every maximum over model lanes is masked to the M real lanes: the
 // host reference works on exactly M+1 positions.
 //
-// MSV and the SSV capture put eight one-warp items in a block, or one
-// item of W > 1 warps (their group is the block, barrier 0), and their
-// blocks stride over the items; their multi-model entry runs the same
-// kernel with a per-block table: blk[x] = (model's index in the stack
-// of tables of this padded width, first, count) gives block x the items
-// order[first .. first+count), all of one model, whose table it loads
-// once and whose scalars it reads from one row of a small int array
-// (bi::Items, bi::block_items).  The ViterbiFilter plans its one launch
-// for every width with plan.cuh (vit_filter.cu).
+// The tables are int16 words stored warp-transposed (lane_at): a warp's
+// 32P lanes as P rows of 32, so that lane j of the warp's 32 threads is
+// 32 neighbouring halfwords, free of bank conflicts.  MSV and the
+// ViterbiFilter plan their one launch for every width with plan.cuh
+// (msv_filter.cu, vit_filter.cu); the SSV capture puts eight one-warp
+// items in a block, or one item of W > 1 warps (its group is the block,
+// barrier 0), and its blocks stride over the items (bi_plan).
 
 #pragma once
 
@@ -155,47 +153,24 @@ __device__ __forceinline__ MaxPlus group_scan_excl(const Group& g, MaxPlus x) {
   return mp_then(pre, ex);
 }
 
-// The items of a block's groups.  Single-model launch (blk null): model
-// 0, the items b = first, first + step, ... < end with blocks striding
-// over all B items.  Multi-model launch: the model and the run
-// [first, end) of `order` of this block's row of blk; each group takes
-// every G-th entry of the run.  With W > 1 a block is one group, so
-// every thread of a block makes the same trips and the barriers inside
-// the group functions stay uniform.
-struct Items {
-  int model, first, end, step;
-};
-
-__device__ __forceinline__ Items block_items(const int* __restrict__ blk,
-                                             int B, int W) {
-  const int G = blockDim.x / (32 * W);
-  const int gi = (threadIdx.x >> 5) / W;
-  Items it;
-  if (blk == nullptr) {
-    it.model = 0;
-    it.first = blockIdx.x * G + gi;
-    it.end = B;
-    it.step = gridDim.x * G;
-  } else {
-    const int* e = blk + 3 * blockIdx.x;
-    it.model = e[0];
-    it.first = e[1] + gi;
-    it.end = e[1] + e[2];
-    it.step = G;
-  }
-  return it;
+// The table position x of a row holds lane lane_at(x, P): a warp's 32P
+// lanes stored as P rows of 32, so that thread t's lane j lies at
+// 32j + t (ops/multimodel.py warp_lanes).
+__device__ __forceinline__ int lane_at(int x, int P) {
+  const int span = 32 * P;
+  const int w = x / span, r = x - w * span;
+  return w * span + (r & 31) * P + (r >> 5);
 }
 
-// Copies an int table of n entries into shared memory when `in_smem`;
-// every thread of the block calls it, then the block syncs.  Returns the
-// table to read.
-__device__ __forceinline__ const int* load_table(const int* __restrict__ tab_g,
-                                                 int n, int* smem,
-                                                 bool in_smem) {
-  if (!in_smem) return tab_g;
-  for (int q = threadIdx.x; q < n; q += blockDim.x) smem[q] = tab_g[q];
+// Copies <bytes> (a multiple of 16) from <src> into shared memory at
+// <dst> in 16-byte words; every thread of the block calls it, then the
+// block syncs.
+__device__ __forceinline__ void stage_words(const void* __restrict__ src,
+                                            size_t bytes, void* dst) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  int4* d = reinterpret_cast<int4*>(dst);
+  for (size_t q = threadIdx.x; q < bytes / 16; q += blockDim.x) d[q] = s[q];
   __syncthreads();
-  return smem;
 }
 
 }  // namespace bi
@@ -207,9 +182,10 @@ struct BiLaunch {
   size_t smem;
 };
 
-// Tables of `tab_bytes` go to shared memory when they fit in 100 KB; the
-// rest of the block's shared memory is the W > 1 scratch.  The grid is
-// as many blocks as the card holds at once, at most one item per warp.
+// The SSV capture's launch: tables of `tab_bytes` go to shared memory
+// when they fit in 100 KB; the rest of the block's shared memory is the
+// W > 1 scratch.  The grid is as many blocks as the card holds at once,
+// at most one item per warp.
 template <typename K>
 static inline BiLaunch bi_plan(K kernel, int B, int Mp, int P,
                                size_t tab_bytes) {

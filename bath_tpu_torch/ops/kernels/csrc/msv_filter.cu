@@ -11,164 +11,277 @@
 // one residue stream, so it needs neither their length buckets nor the
 // stream packing that worked around per-launch TPU latency.  Its
 // maxima cover the M real model lanes only (Pallas #2 lets its
-// 128-lane padding into xEu).
+// 128-lane padding into xEu).  It also replaces the MSV half of
+// bath_tpu/evalues_device.py _dyn_kernels (the vmap of _ssv_msv_mb_impl
+// over models with base/tec/tbm/bias as traced values): item b under
+// model slot[b].  One entry serves both: a single model is a class of
+// one.
 //
 // What bounds it on the H100: a flush is ~65k short ORFs (mean ~40
-// residues), each a chain of dependent rows of ~10 byte operations per
-// model lane and one warp-wide max (xE feeds the next row's xB).  Integer
-// ALU throughput and the row latency bound it; the table (SSV byte and MSV
-// cost packed in one int per lane) lives in shared memory, read with an
-// odd stride P per thread, free of bank conflicts.  The design answers
-// with one warp per ORF, eight to a block, blocks striding over the
-// ORFs so the table is loaded once per block.
-//
-// The multi-model entry bt_msv_filter_multi replaces the MSV half of
-// bath_tpu/evalues_device.py _dyn_kernels (the vmap of _ssv_msv_mb_impl
-// over models with base/tec/tbm/bias as traced values): item b is
-// filtered under model slot[b].  It is this same kernel, so the same
-// arithmetic item for item; the models' tables of one padded width Mp
-// are stacked [G, Kp, Mp], a block finds its model and its items in a
-// per-block table (bi::block_items) and reads that model's M, base, tec,
-// tbm and bias from one row of scal [G, 5]; one launch per Mp.  Items
-// are read at their own offsets, so the models of a calibration share
-// one copy of the simulated batch (offsets repeat).  The same bound
-// holds: integer ALU throughput and the row chain.
+// residues), a calibration 48 x 200 equal ones of 200; each a chain of
+// dependent rows of ~10 byte operations per model lane and one
+// group-wide max (xE feeds the next row's xB).  Such calls are
+// throughput-bound: integer issue and the row latency.  The design:
+// - Each lane's table word is an int16 (the SSV byte in bits 0-7, the
+//   MSV cost in bits 8-15; ops/ssv.py MSVParams.table), stored
+//   warp-transposed (int_common.cuh lane_at) so that a warp reads 32
+//   neighbouring halfwords, and a block stages its model's table in
+//   shared memory once: 29 x Mp x 2 bytes, 221 KB at Mp = 3808 (seven
+//   warps of 17 lanes, loader.msv_layout).  A longer model reads its
+//   table from L2 (the class row's stage word).
+// - A multi-model call is one launch for every padded width (plan.cuh;
+//   ops/multimodel.py msv_plan): blocks heaviest first (Mp x longest
+//   item), G groups of W warps a block, one ORF a group, all of one
+//   model; groups of W > 1 warps sync on a named barrier of their own.
+// - A single-model call (a flush) builds no per-item plan: its one class
+//   has no block rows, and the blocks stride over the items in batch
+//   order, as many as the card holds at once.
+// - The kernel is instantiated for the largest P of the launch (13 or
+//   33; and 33 with 32-warp blocks for a model past 12 warps an ORF),
+//   and apart for a launch with a class whose table stays in global
+//   memory, so that every other launch reads its tables as shared
+//   memory (32-bit addresses, fewer registers).
 
 #include "int_common.cuh"
+#include "plan.cuh"
 
+// Warps of a block of the instance for lanes up to <pmax> and groups of
+// up to <wmax> warps (ops/multimodel.py msv_block_warps).
+__host__ __device__ constexpr int msv_warps(int pmax, int wmax) {
+  return pmax <= 13 ? 8 : wmax <= 12 ? 12 : 32;
+}
+
+namespace bi {
+
+// One ORF b under one model, on the group <g>.  <ew>: the table words
+// at this thread's lane 0 (lane j at +32j; row r at +r*Mp).
 template <int P>
-__global__ void msv_filter_kernel(const int8_t* __restrict__ flat,
-                                  const int64_t* __restrict__ offs,
-                                  const int* __restrict__ lens,
-                                  const int* __restrict__ tjb, int B,
-                                  const int* __restrict__ tab_g, int Kp, int M,
-                                  int Mp, int W, bool in_smem, int base,
-                                  int tec, int tbm, int bias,
-                                  int* __restrict__ out,
-                                  const int* __restrict__ blk,
-                                  const int* __restrict__ order,
-                                  const int* __restrict__ scal) {
-  extern __shared__ int smem[];
-  const bi::Items it = bi::block_items(blk, B, W);
-  if (blk != nullptr) {  // this block's model: its scalars and its table
-    const int* s = scal + 5 * it.model;
-    M = s[0];
-    base = s[1];
-    tec = s[2];
-    tbm = s[3];
-    bias = s[4];
-  }
-  const int* tab = bi::load_table(tab_g + (size_t)it.model * Kp * Mp, Kp * Mp,
-                                  smem, in_smem);
-  const bi::Group g = bi::make_group(W, smem + (in_smem ? Kp * Mp : 0));
+__device__ void msv_item(const Group& g, const uint16_t* ew, int Mp, int M,
+                         int base, int tec, int tbm, int bias, int b, int B,
+                         const int8_t* __restrict__ flat,
+                         const int64_t* __restrict__ offs,
+                         const int* __restrict__ lens,
+                         const int* __restrict__ tjb, int* __restrict__ out) {
   const int k0 = g.t * P;
-  for (int q = it.first; q < it.end; q += it.step) {
-    const int b = blk != nullptr ? order[q] : q;
-    const int len = lens[b];
-    const int tjbm = (tjb[b] + tbm) & 0xFF;
-    const int8_t* seq = flat + offs[b];
-    int d[P], dp[P];
+  const int len = lens[b];
+  const int tjbm = (tjb[b] + tbm) & 0xFF;
+  const int8_t* seq = flat + offs[b];
+  int d[P], dp[P];
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      d[j] = -128;
-      dp[j] = 0;
-    }
-    int umax = 0, xJ = 0, movf = 0;
-    int xB = max(0, base - tjbm);
-    for (int i = 0; i < len; ++i) {
-      const int* e = tab + (int)seq[i] * Mp + k0;
-      // the previous row's SSV and MSV cells at lane k0-1, in one word
-      const int pv = bi::lane_before(g, (d[P - 1] & 0xFF) | (dp[P - 1] << 8),
-                                     0x80);
-      const int dprev = ((pv & 0xFF) ^ 0x80) - 0x80;
-      const int mprev = pv >> 8;
-      int xE = 0;
-      // in place, high lane first: lane j reads lane j-1's old cells
+  for (int j = 0; j < P; ++j) {
+    d[j] = -128;
+    dp[j] = 0;
+  }
+  int umax = 0, xJ = 0, movf = 0;
+  int xB = max(0, base - tjbm);
+  for (int i = 0; i < len; ++i) {
+    const uint16_t* e = ew + (int)seq[i] * Mp;
+    // the previous row's SSV and MSV cells at lane k0-1, in one word
+    const int pv =
+        lane_before(g, (d[P - 1] & 0xFF) | (dp[P - 1] << 8), 0x80);
+    const int dprev = ((pv & 0xFF) ^ 0x80) - 0x80;
+    const int mprev = pv >> 8;
+    int xE = 0;
+    // in place, high lane first: lane j reads lane j-1's old cells
 #pragma unroll
-      for (int j = P - 1; j >= 0; --j) {
-        const int ent = e[j];
-        const int s = ((ent & 0xFF) ^ 0x80) - 0x80;
-        const int r = ent >> 8;
-        const int nd = min(max((j ? d[j - 1] : dprev) - s, -128), 127);
-        int sv = max(j ? dp[j - 1] : mprev, xB);
-        sv = max(min(sv + bias, 255) - r, 0);
-        d[j] = nd;
-        dp[j] = sv;
-        if (k0 + j < M) {
-          umax = max(umax, nd & 0xFF);
-          xE = max(xE, sv);
-        }
+    for (int j = P - 1; j >= 0; --j) {
+      const int ent = e[32 * j];
+      const int s = ((ent & 0xFF) ^ 0x80) - 0x80;
+      const int r = ent >> 8;
+      const int nd = min(max((j ? d[j - 1] : dprev) - s, -128), 127);
+      int sv = max(j ? dp[j - 1] : mprev, xB);
+      sv = max(min(sv + bias, 255) - r, 0);
+      d[j] = nd;
+      dp[j] = sv;
+      if (k0 + j < M) {
+        umax = max(umax, nd & 0xFF);
+        xE = max(xE, sv);
       }
-      xE = bi::group_max(g, xE);
-      movf |= xE + bias >= 255;
-      xJ = max(xJ, max(0, xE - tec));
-      xB = max(0, max(base, xJ) - tjbm);
     }
-    umax = bi::group_max(g, umax);
-    if (g.t == 0) {
-      out[b] = umax;
-      out[B + b] = xJ;
-      out[2 * B + b] = movf;
-    }
+    xE = group_max(g, xE);
+    movf |= xE + bias >= 255;
+    xJ = max(xJ, max(0, xE - tec));
+    xB = max(0, max(base, xJ) - tjbm);
+  }
+  umax = group_max(g, umax);
+  if (g.t == 0) {
+    out[b] = umax;
+    out[B + b] = xJ;
+    out[2 * B + b] = movf;
   }
 }
 
-// One launch: blk, order and scal null for a single model (the grid is
-// the plan's); else `nblocks` blocks, one per row of blk, each of at
-// most `per_block` items, which must be the plan's.
-static int msv_launch(const void* flat, const void* offs, const void* lens,
-                      const void* tjb, int B, const void* tab, int Kp, int M,
-                      int Mp, int P, int base, int tec, int tbm, int bias,
-                      void* out, const void* blk, const void* order,
-                      const void* scal, int nblocks, int per_block,
-                      void* stream) {
-  if (Mp % (32 * P) != 0 || M > Mp) return cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t tab_bytes = (size_t)Kp * Mp * sizeof(int);
-#define BI_LAUNCH_MSV(PP)                                                    \
-  {                                                                          \
-    const BiLaunch l = bi_plan(msv_filter_kernel<PP>, B, Mp, PP, tab_bytes); \
-    if (blk != nullptr && per_block != l.G) return cudaErrorInvalidValue;    \
-    msv_filter_kernel<PP>                                                    \
-        <<<blk != nullptr ? nblocks : l.blocks, l.threads, l.smem, st>>>(    \
-            (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,     \
-            (const int*)tjb, B, (const int*)tab, Kp, M, Mp, l.W, l.in_smem,  \
-            base, tec, tbm, bias, (int*)out, (const int*)blk,                \
-            (const int*)order, (const int*)scal);                            \
+}  // namespace bi
+
+// The class row of the plan (plan.cuh): the address of the class's
+// stacked tables [g][Kp][Mp] int16 (warp-transposed), the address of its
+// scalars [g][5] int (M, base, tec, tbm, bias), P, W, Mp, G, Kp, and
+// whether a block stages the table in shared memory (every class of the
+// launch does unless GLOBAL).  With nblk == 0 the plan is one class and
+// no block rows: block x's groups take the items x*G + gi, stepping by
+// the grid's groups, under model 0.
+template <int PMAX, int WARPS, bool GLOBAL>
+__global__ void __launch_bounds__(32 * WARPS)
+    msv_filter_kernel(const int8_t* __restrict__ flat,
+                      const int64_t* __restrict__ offs,
+                      const int* __restrict__ lens,
+                      const int* __restrict__ tjb, int B,
+                      int* __restrict__ out,
+                      const long long* __restrict__ plan, int ncls,
+                      int nblk) {
+  extern __shared__ int4 smem4[];
+  const long long* c = plan;
+  int model = 0, first, end, step;
+  const int W0 = (int)plan[3];
+  int gi = (threadIdx.x >> 5) / W0;
+  if (nblk > 0) {
+    const PlanBlock pb = plan_block(plan, ncls, nblk);
+    c = pb.cls;
+    model = pb.model;
+    gi = pb.gi;
+    first = pb.first + gi;
+    end = pb.first + pb.count;
+    step = (int)c[5];
+  } else {
+    const int G = (int)c[5];
+    first = blockIdx.x * G + gi;
+    end = B;
+    step = gridDim.x * G;
   }
-  BI_DISPATCH_P(P, BI_LAUNCH_MSV)
-#undef BI_LAUNCH_MSV
-  return (int)cudaGetLastError();
+  const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
+  const int Kp = (int)c[6];
+  const bool staged = !GLOBAL || c[7] != 0;
+  const uint16_t* tg = reinterpret_cast<const uint16_t*>(c[0]) +
+                       (size_t)model * Kp * Mp;
+  const int* s = reinterpret_cast<const int*>(c[1]) + 5 * model;
+  const size_t tab_bytes = (size_t)Kp * Mp * sizeof(uint16_t);
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem4);
+  if (staged)
+    bi::stage_words(tg, tab_bytes, smem4);
+  else
+    tab = tg;
+  if (gi >= G) return;
+  bi::Group g = bi::make_group(
+      W, reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) +
+                                (staged ? tab_bytes : 0)) +
+             4 * W * gi);
+  g.bar = 1 + gi;
+  const uint16_t* ew = tab + g.warp * 32 * P + g.lane;
+  const int M = s[0], base = s[1], tec = s[2], tbm = s[3], bias = s[4];
+  const long long* items = plan + PLAN_CLS * ncls + PLAN_BLK * nblk;
+#define BI_MSV_ITEMS(PP)                                                  \
+  if constexpr (PP <= PMAX)                                               \
+    for (int q = first; q < end; q += step)                               \
+      bi::msv_item<PP>(g, ew, Mp, M, base, tec, tbm, bias,                \
+                       nblk > 0 ? (int)items[q] : q, B, flat, offs, lens, \
+                       tjb, out);                                         \
+  break;
+  switch (P) {  // the plan's classes are checked on the host (msv_check)
+    case 3: BI_MSV_ITEMS(3)
+    case 5: BI_MSV_ITEMS(5)
+    case 9: BI_MSV_ITEMS(9)
+    case 13: BI_MSV_ITEMS(13)
+    case 17: BI_MSV_ITEMS(17)
+    case 25: BI_MSV_ITEMS(25)
+    case 33: BI_MSV_ITEMS(33)
+  }
+#undef BI_MSV_ITEMS
 }
 
-// flat [N] int8 residues; offs [B] int64, lens [B] int32, tjb [B] int32
-// per ORF; tab [Kp, Mp] int32 (SSV byte in bits 0-7, MSV cost in bits
-// 8-15; 127/255 past the model); out [3, B] int32: xEu, xJm, movf.
+// Checks a plan's classes (the host copy of the table) and gives the
+// launch's largest P and W and dynamic shared memory.  Returns 0, or a
+// cudaError_t.
+static int msv_check(const long long* plan, int ncls, int nblk, int warps,
+                     int& pmax, int& wmax, bool& global, size_t& smem) {
+  const int cap = plan_smem_optin();
+  if (ncls <= 0 || (nblk == 0 && ncls != 1)) return cudaErrorInvalidValue;
+  pmax = wmax = 0;
+  global = false;
+  smem = 0;
+  for (int i = 0; i < ncls; ++i) {
+    const long long* c = plan + PLAN_CLS * i;
+    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
+    const int Kp = (int)c[6];
+    if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
+          P == 33) ||
+        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
+        (W > 1 && G > 15) || Kp < 1)
+      return cudaErrorInvalidValue;
+    const size_t need =
+        (c[7] ? (size_t)Kp * Mp * sizeof(uint16_t) : 0) + (size_t)G * 16 * W;
+    smem = need > smem ? need : smem;
+    pmax = P > pmax ? P : pmax;
+    wmax = W > wmax ? W : wmax;
+    global = global || c[7] == 0;
+  }
+  if (warps > msv_warps(pmax, wmax)) return cudaErrorInvalidValue;
+  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
+}
+
+using MsvKernel = void (*)(const int8_t*, const int64_t*, const int*,
+                           const int*, int, int*, const long long*, int, int);
+
+// The instance of a checked plan: by the launch's largest P and W, and
+// whether a class reads its table from global memory (a table past
+// shared memory takes 4 x 1056 lanes or more: P = 33).
+static MsvKernel msv_kernel(int pmax, int wmax, bool global) {
+  const int inst = msv_warps(pmax, wmax);
+  if (inst == 8 && !global) return msv_filter_kernel<13, 8, false>;
+  if (inst == 12 && !global) return msv_filter_kernel<33, 12, false>;
+  if (inst == 12) return msv_filter_kernel<33, 12, true>;
+  if (inst == 32 && global) return msv_filter_kernel<33, 32, true>;
+  return nullptr;
+}
+
+// The blocks a single-model launch of <plan_host> (one class, no block
+// rows, blocks of `warps` warps) keeps on the card at once, its blocks
+// striding over the items: the SMs times the blocks an SM holds.  The
+// host asks once a parameter set (loader.prepare_msv).  Returns 0 on a
+// plan that does not check.
+extern "C" int bt_msv_grid(const long long* plan_host, int warps) {
+  int pmax, wmax;
+  bool global;
+  size_t smem;
+  if (msv_check(plan_host, 1, 0, warps, pmax, wmax, global, smem)) return 0;
+  const MsvKernel kernel = msv_kernel(pmax, wmax, global);
+  if (!kernel) return 0;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  int dev = 0, sms = 1, per = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, 32 * warps,
+                                                smem);
+  return sms * (per > 0 ? per : 1);
+}
+
+// flat [N] int8 residues; offs [B] int64, lens and tjb [B] int32 per
+// ORF; out [3, B] int32: xEu, xJm, movf, written at the plan's items.
+// plan_host and plan: the plan's table (plan.cuh, the class row above)
+// on the host and on the device, with ncls classes and nblk blocks of
+// at most `warps` warps (the instance's, msv_warps, or fewer for a small
+// batch spread over the SMs); nblk == 0 for one class whose `grid`
+// blocks stride over all B items (a single-model call; bt_msv_grid).
 // Returns the launch's cudaError_t.
 extern "C" int bt_msv_filter(const void* flat, const void* offs,
                              const void* lens, const void* tjb, int B,
-                             const void* tab, int Kp, int M, int Mp, int P,
-                             int base, int tec, int tbm, int bias, void* out,
-                             void* stream) {
+                             void* out, const long long* plan_host,
+                             const void* plan, int ncls, int nblk, int warps,
+                             int grid, void* stream) {
   if (B <= 0) return 0;
-  return msv_launch(flat, offs, lens, tjb, B, tab, Kp, M, Mp, P, base, tec,
-                    tbm, bias, out, nullptr, nullptr, nullptr, 0, 0, stream);
-}
-
-// The multi-model entry: tab [G, Kp, Mp] stacks the tables of the models
-// of padded width Mp and scal [G, 5] int32 holds each one's M, base,
-// tec, tbm, bias; blk [nblocks, 3] int32 = (model, first, count) per
-// block and order [.] int32 the item rows (bi::block_items).  out
-// [3, B] is written at the listed items only.
-extern "C" int bt_msv_filter_multi(const void* flat, const void* offs,
-                                   const void* lens, const void* tjb, int B,
-                                   const void* tab, const void* scal, int Kp,
-                                   int Mp, int P, void* out, const void* blk,
-                                   const void* order, int nblocks,
-                                   int per_block, void* stream) {
-  if (nblocks <= 0) return 0;
-  if (blk == nullptr || order == nullptr || scal == nullptr)
+  int pmax, wmax;
+  bool global;
+  size_t smem;
+  const int err =
+      msv_check(plan_host, ncls, nblk, warps, pmax, wmax, global, smem);
+  if (err) return err;
+  const MsvKernel kernel = msv_kernel(pmax, wmax, global);
+  if (!kernel || grid < 1 || (nblk > 0 && grid != nblk))
     return cudaErrorInvalidValue;
-  return msv_launch(flat, offs, lens, tjb, B, tab, Kp, 0, Mp, P, 0, 0, 0, 0,
-                    out, blk, order, scal, nblocks, per_block, stream);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<grid, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,
+      (const int*)tjb, B, (int*)out, (const long long*)plan, ncls, nblk);
+  return (int)cudaGetLastError();
 }

@@ -14,6 +14,8 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+
 constexpr int PLAN_CLS = 8;         // int64 words of a class row
 constexpr int PLAN_BLK = 5;         // of a block row
 
@@ -42,4 +44,16 @@ __device__ __forceinline__ PlanBlock plan_block(
                ? (int)plan[PLAN_CLS * ncls + PLAN_BLK * nblk + p.first + p.gi]
                : -1;
   return p;
+}
+
+// The dynamic shared memory a block may take on the current device,
+// asked once a device (the plan checks run at every launch).
+static inline int plan_smem_optin() {
+  static int cap[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = cap[dev & 63];
+  if (!c)
+    cudaDeviceGetAttribute(&c, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return c;
 }

@@ -32,14 +32,17 @@
 // - Each block holds G groups of W warps, one ORF a group, all of one
 //   model, whose table it stages in shared memory once, as int16 words:
 //   37 x Mp x 2 bytes, 201 KB at Mp = 2720 (five warps of 17 lanes,
-//   loader.vit_layout), so every class the plan takes reads its table
-//   from shared memory (the plan refuses a model past 227 KB: M > 2720).
-//   The match words are stored warp-transposed (a warp's 32P lanes as P
-//   rows of 32), so lane j of the 32 threads is 32 neighbouring
-//   halfwords: no bank conflict, where int16 words at an odd stride P
-//   would meet two to a bank; the eight transition rows are stored as
-//   four rows of int16 pairs in one int: five reads a lane and row
-//   where there were nine.
+//   loader.vit_layout).  The match words are stored warp-transposed (a
+//   warp's 32P lanes as P rows of 32), so lane j of the 32 threads is 32
+//   neighbouring halfwords: no bank conflict, where int16 words at an
+//   odd stride P would meet two to a bank; the eight transition rows are
+//   stored as four rows of int16 pairs in one int: five reads a lane and
+//   row where there were nine.  A model past M = 2720, whose table does
+//   not fit the 227 KB a block may take, reads the same layout from a
+//   copy in global memory that its pack holds (ops/multimodel.py
+//   vit_global_tables; the class row's word 7), through L2, in a kernel
+//   instance of its own, so that every other launch reads its tables as
+//   shared memory (32-bit addresses, fewer registers).
 // - Groups of W > 1 warps sync on a named barrier of their own, so G
 //   such groups share a block and its copy of the table.
 // - The kernel is instantiated for the largest P of the launch (13, 17
@@ -86,15 +89,6 @@ __device__ __forceinline__ int lo16(int w) {
 }
 
 __device__ __forceinline__ int hi16(int w) { return w >> 16; }
-
-// The table position x of a row in shared memory holds lane
-// lane_at(x, P): a warp's 32P lanes stored as P rows of 32, so that
-// thread t's lane j lies at 32j + t.
-__device__ __forceinline__ int lane_at(int x, int P) {
-  const int span = 32 * P;
-  const int w = x / span, r = x - w * span;
-  return w * span + (r & 31) * P + (r >> 5);
-}
 
 // One ORF b under one model, on the group <g>.  <ew>, <tw>: the match
 // words and transition pairs at this thread's lane 0 (lane j at +32j).
@@ -196,8 +190,10 @@ __device__ void vit_item(const Group& g, const int16_t* ew, const int* tw,
 // The class row of the plan (plan.cuh): the address of the class's
 // stacked tables [g][Kp + 8][Mp] int16 (ops/vit.py VitParams.table), the
 // address of its scalars [g][4] int (M, base, emove, eloop), P, W, Mp,
-// G, Kp.
-template <int PMAX, bool CAPTURE>
+// G, Kp, and 0, or the address of the tables in the kernel's layout
+// ([g] blocks of vit_table_bytes: the transition pairs, then the match
+// words) for a class whose blocks read them from global memory.
+template <int PMAX, bool CAPTURE, bool GLOBAL>
 __global__ void __launch_bounds__(32 * vit_warps(PMAX))
     vit_filter_kernel(const int8_t* __restrict__ flat,
                       const int64_t* __restrict__ offs,
@@ -214,22 +210,33 @@ __global__ void __launch_bounds__(32 * vit_warps(PMAX))
   const int16_t* tg = reinterpret_cast<const int16_t*>(c[0]) +
                       (size_t)pb.model * (Kp + NTR) * Mp;
   const int* s = reinterpret_cast<const int*>(c[1]) + 4 * pb.model;
-  int* trp = reinterpret_cast<int*>(smem4);
-  int16_t* rwv = reinterpret_cast<int16_t*>(trp + VIT_PAIRS * Mp);
-  for (int x = threadIdx.x; x < Mp; x += blockDim.x) {
-    const int k = bi::lane_at(x, P);
+  const bool from_global = GLOBAL && c[7] != 0;
+  const int* trp;
+  const int16_t* rwv;
+  if (from_global) {
+    trp = reinterpret_cast<const int*>(
+        reinterpret_cast<const char*>(c[7]) +
+        (size_t)pb.model * vit_table_bytes(Kp, Mp));
+  } else {
+    int* st = reinterpret_cast<int*>(smem4);
+    int16_t* sw = reinterpret_cast<int16_t*>(st + VIT_PAIRS * Mp);
+    for (int x = threadIdx.x; x < Mp; x += blockDim.x) {
+      const int k = bi::lane_at(x, P);
 #pragma unroll
-    for (int q = 0; q < VIT_PAIRS; ++q)
-      trp[q * Mp + x] =
-          (int)((unsigned)(uint16_t)tg[(Kp + 2 * q) * Mp + k] |
-                ((unsigned)(uint16_t)tg[(Kp + 2 * q + 1) * Mp + k] << 16));
-    for (int r = 0; r < Kp; ++r) rwv[r * Mp + x] = tg[r * Mp + k];
+      for (int q = 0; q < VIT_PAIRS; ++q)
+        st[q * Mp + x] =
+            (int)((unsigned)(uint16_t)tg[(Kp + 2 * q) * Mp + k] |
+                  ((unsigned)(uint16_t)tg[(Kp + 2 * q + 1) * Mp + k] << 16));
+      for (int r = 0; r < Kp; ++r) sw[r * Mp + x] = tg[r * Mp + k];
+    }
+    __syncthreads();
+    trp = st;
   }
-  __syncthreads();
+  rwv = reinterpret_cast<const int16_t*>(trp + VIT_PAIRS * Mp);
   if (pb.item < 0) return;
   bi::Group g = bi::make_group(
       W, reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) +
-                                vit_table_bytes(Kp, Mp)) +
+                                (from_global ? 0 : vit_table_bytes(Kp, Mp))) +
              4 * W * pb.gi);
   g.bar = 1 + pb.gi;
   const int at = g.warp * 32 * P + g.lane;
@@ -256,12 +263,11 @@ __global__ void __launch_bounds__(32 * vit_warps(PMAX))
 // instance (vit_instance of the largest P) and the launch's dynamic
 // shared memory.  Returns 0, or a cudaError_t.
 static int vit_check(const long long* plan, int ncls, int warps, int& inst,
-                     size_t& smem) {
-  int dev = 0, cap = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+                     bool& global, size_t& smem) {
+  const int cap = plan_smem_optin();
   if (ncls <= 0 || warps <= 0) return cudaErrorInvalidValue;
   int pmax = 0;
+  global = false;
   smem = 0;
   for (int i = 0; i < ncls; ++i) {
     const long long* c = plan + PLAN_CLS * i;
@@ -272,25 +278,27 @@ static int vit_check(const long long* plan, int ncls, int warps, int& inst,
         W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
         (W > 1 && G > 15) || Kp < 1)
       return cudaErrorInvalidValue;
-    const size_t need = vit_smem_bytes(Kp, Mp, G, W);
+    const size_t need = c[7] ? (size_t)G * 16 * W
+                             : vit_smem_bytes(Kp, Mp, G, W);
     smem = need > smem ? need : smem;
     pmax = P > pmax ? P : pmax;
+    global = global || c[7] != 0;
   }
   inst = vit_instance(pmax);
   if (warps > vit_warps(inst)) return cudaErrorInvalidValue;
   return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
 }
 
-template <int PMAX, bool CAPTURE>
+template <int PMAX, bool CAPTURE, bool GLOBAL>
 static void vit_launch_instance(const void* flat, const void* offs,
                                 const void* lens, const void* move,
                                 const void* thresh, int B, void* out,
                                 void* karr, const void* plan, int ncls,
                                 int nblk, int warps, size_t smem,
                                 cudaStream_t st) {
-  cudaFuncSetAttribute(vit_filter_kernel<PMAX, CAPTURE>,
+  cudaFuncSetAttribute(vit_filter_kernel<PMAX, CAPTURE, GLOBAL>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  vit_filter_kernel<PMAX, CAPTURE><<<nblk, 32 * warps, smem, st>>>(
+  vit_filter_kernel<PMAX, CAPTURE, GLOBAL><<<nblk, 32 * warps, smem, st>>>(
       (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,
       (const int*)move, (const int*)thresh, B, (int*)out, (int16_t*)karr,
       (const long long*)plan, ncls, nblk);
@@ -303,19 +311,33 @@ static int vit_launch(const void* flat, const void* offs, const void* lens,
                       int ncls, int nblk, int warps, void* stream) {
   if (nblk <= 0) return 0;
   int inst;
+  bool global;
   size_t smem;
-  const int err = vit_check(plan_host, ncls, warps, inst, smem);
+  const int err = vit_check(plan_host, ncls, warps, inst, global, smem);
   if (err) return err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  // a table past shared memory takes six warps of 17 lanes or more
+  if (global && inst == 13) return cudaErrorInvalidValue;
   if (inst == 13)
-    vit_launch_instance<13, CAPTURE>(flat, offs, lens, move, thresh, B, out,
-                                     karr, plan, ncls, nblk, warps, smem, st);
+    vit_launch_instance<13, CAPTURE, false>(flat, offs, lens, move, thresh,
+                                            B, out, karr, plan, ncls, nblk,
+                                            warps, smem, st);
+  else if (inst == 17 && !global)
+    vit_launch_instance<17, CAPTURE, false>(flat, offs, lens, move, thresh,
+                                            B, out, karr, plan, ncls, nblk,
+                                            warps, smem, st);
   else if (inst == 17)
-    vit_launch_instance<17, CAPTURE>(flat, offs, lens, move, thresh, B, out,
-                                     karr, plan, ncls, nblk, warps, smem, st);
+    vit_launch_instance<17, CAPTURE, true>(flat, offs, lens, move, thresh,
+                                           B, out, karr, plan, ncls, nblk,
+                                           warps, smem, st);
+  else if (!global)
+    vit_launch_instance<33, CAPTURE, false>(flat, offs, lens, move, thresh,
+                                            B, out, karr, plan, ncls, nblk,
+                                            warps, smem, st);
   else
-    vit_launch_instance<33, CAPTURE>(flat, offs, lens, move, thresh, B, out,
-                                     karr, plan, ncls, nblk, warps, smem, st);
+    vit_launch_instance<33, CAPTURE, true>(flat, offs, lens, move, thresh,
+                                           B, out, karr, plan, ncls, nblk,
+                                           warps, smem, st);
   return (int)cudaGetLastError();
 }
 

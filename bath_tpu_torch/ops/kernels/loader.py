@@ -46,20 +46,18 @@ LANES_PER_THREAD = (3, 5, 9, 13, 17, 25, 33)
 # The fs3 kernels keep ~10 rows of P floats a thread in their rings, so
 # they stop at P = 13 and put W warps of 13 lanes on a longer model.
 FS3_LANES_PER_THREAD = (3, 5, 9, 13)
-# The ViterbiFilter (csrc/vit_filter.cu) takes the whole ladder in one
-# warp, then W warps of VIT_WIDE_LANES: its int16 tables fit a block's
-# shared memory up to M = 2720 (W = 5), where warps of 33 lanes would
-# stop at 2112.
+# The ViterbiFilter (csrc/vit_filter.cu), MSV and the Forward gate take
+# the whole ladder in one warp, then W warps of VIT_WIDE_LANES: the
+# ViterbiFilter's int16 tables fit a block's shared memory up to
+# M = 2720 (W = 5), MSV's to M = 3808 (W = 7), where warps of 33 lanes
+# would stop at 2112 and 3168; and a call bound by its longest chain
+# runs faster past M = 1056 on three warps of 17 lanes than on two of 33
+# (PERF.md, the lane-ladder sweeps).  Decoding and the SSV capture
+# keep warps of 33 lanes past one warp (layout).
 VIT_WIDE_LANES = 17
+# A group's warps share one block, at most 32 warps.
+MAX_GROUP_WARPS = 32
 
-
-# Items to a thread block of the Forward gate and MSV (bt_plan in
-# csrc/dp_common.cuh, bi_plan in csrc/int_common.cuh): one-warp items
-# share a block and its copy of the tables; an item of several warps has
-# a block to itself.  The multi-model entries check it.  (The other
-# entries plan their blocks with ops/multimodel.py _plan.)
-def items_per_block(W: int) -> int:
-    return 8 if W == 1 else 1
 
 _lib = None
 
@@ -86,6 +84,18 @@ def vit_layout(M: int) -> tuple[int, int, int]:
     if M <= 32 * LANES_PER_THREAD[-1]:
         return layout(M)
     return layout(M, (VIT_WIDE_LANES,))
+
+
+def wide_layout(M: int) -> tuple[int, int, int]:
+    """MSV's and the Forward gate's ladder: the ViterbiFilter's up to a
+    block of MAX_GROUP_WARPS warps of 17 lanes (M = 17408), then warps
+    of 33 lanes, to a block of them (M = 33792)."""
+    if M <= 32 * VIT_WIDE_LANES * MAX_GROUP_WARPS:
+        return vit_layout(M)
+    return layout(M)
+
+
+msv_layout = fwd_layout = wide_layout
 
 
 def _nvcc() -> str:
@@ -159,22 +169,17 @@ def lib() -> ctypes.CDLL:
     so = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.bt_fwd_parser.restype = I
-    so.bt_fwd_parser.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P]
+    so.bt_fwd_parser.argtypes = [P, P, I, I, F, P, P, P, I, I, I, P]
     so.bt_domdec.restype = I
     so.bt_domdec.argtypes = [P, P, I, F, P, P, P, P, P, I, I, I, P]
     so.bt_fs3_parser.restype = I
     so.bt_fs3_parser.argtypes = [P, P, I, F, P, P, P, I, I, I, P]
     so.bt_fs3_domdec.restype = I
     so.bt_fs3_domdec.argtypes = [P, P, I, F, P, P, P, P, P, I, I, I, P]
-    so.bt_fwd_parser_multi.restype = I
-    so.bt_fwd_parser_multi.argtypes = [P, P, I, I, P, P, I, I, I, F, P, P,
-                                       P, I, I, P]
     so.bt_msv_filter.restype = I
-    so.bt_msv_filter.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I, I,
-                                 P, P]
-    so.bt_msv_filter_multi.restype = I
-    so.bt_msv_filter_multi.argtypes = [P, P, P, P, I, P, P, I, I, I, P, P, P,
-                                       I, I, P]
+    so.bt_msv_filter.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, P]
+    so.bt_msv_grid.restype = I
+    so.bt_msv_grid.argtypes = [P, I]
     so.bt_ssv_capture.restype = I
     so.bt_ssv_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
                                   P, P, P]
@@ -298,59 +303,46 @@ def _planned(plan, device) -> tuple:
     return (plan.table.ctypes.data, table, plan.ncls, plan.nblk, plan.warps)
 
 
-def _multi_plans(slot, pack, per_block, device):
-    """The launches of a multi-model batch (``ops.multimodel.
-    block_plan``) with their ``order`` and ``blk`` tables on the
-    device, sent in one copy: [(SizeClass, order, blk, nblocks, G)]."""
-    from ..multimodel import block_plan
-    if pack.device != device:
-        raise ValueError(f"pack on {pack.device}, input on {device}")
-    plans = block_plan(slot, pack, per_block)
-    if not plans:
-        return []
-    parts = [a.reshape(-1) for _, order, blk, _ in plans for a in (order, blk)]
-    flat = torch.from_numpy(np.concatenate(parts)).to(device)
-    out, at = [], 0
-    for cls, order, blk, G in plans:
-        o = flat[at:at + order.size]
-        at += order.size
-        b = flat[at:at + blk.size]
-        at += blk.size
-        out.append((cls, o, b, len(blk), G))
-    return out
+def _single(p, key, make, most=None) -> tuple:
+    """A single-model call's plan (``ops/multimodel.py`` ``single_plan``),
+    its trailing launch arguments (``_planned``) and, with <most>,
+    ``most(plan)`` (MSV: the blocks the card holds at once), made once
+    per parameter set <p> and <key> (its last word the device): the call
+    then uploads and asks nothing."""
+    cache = p.__dict__.setdefault("_single_plans", {})
+    if key not in cache:
+        plan = make()
+        cache[key] = (plan, _planned(plan, key[-1]), most and most(plan))
+    return cache[key]
 
 
 def prepare_fwd(dsq, lens, slot, p) -> Launch:
     """fwd_parser.cu: the Forward gate of item b under model ``slot[b]``
-    of <p> (``build_fwd_pack``), or of every item under one model
-    (<slot> None, <p> its ``ProfileTensors``); a call (nj) gives the
-    scores [B] f32 (nats), one launch per padded width."""
-    _batch_lens(dsq, lens, p.Kp)
+    of <p> (``build_fwd_pack``, taken under ``fwd_layout``), or of every
+    item under one model (<slot> None, <p> its ``ProfileTensors``: a
+    plan of its one class, built once), as one launch
+    (``ops/multimodel.py`` ``fwd_plan``); a call (nj) gives the scores
+    [B] f32 (nats)."""
+    from ..multimodel import OneModel, fwd_plan
+    ln = _batch_lens(dsq, lens, p.Kp)
+    dev = dsq.device
+    if p.device != dev:
+        raise ValueError(f"parameters on {p.device}, input on {dev}")
+    if slot is None:
+        plan, tail, _ = _single(p, ("fwd", dev), lambda: fwd_plan(
+            None, None, OneModel(p, fwd_layout)))
+    else:
+        plan = fwd_plan(ln, slot, p.with_layout(fwd_layout), sms(dev))
+        tail = _planned(plan, dev)
     so = lib()
     B, L = dsq.shape
-    dev = dsq.device
-    if slot is None:
-        P, _, Mp = layout(p.M)
-        etab, ttab = p.padded(Mp)
-        if p.device != dev:
-            raise ValueError(f"parameters on {p.device}, input on {dev}")
 
-        def one(nj):
-            out = torch.empty(B, dtype=torch.float32, device=dev)
-            _launch("fwd_parser", so.bt_fwd_parser, dsq, lens, B, L, etab,
-                    ttab, p.Kp, Mp, P, float(nj), out)
-            return out
-        return Launch(one, 1)
-    plans = _multi_plans(slot, p, items_per_block, dev)
-
-    def many(nj):
+    def run(nj):
         out = torch.empty(B, dtype=torch.float32, device=dev)
-        for c, order, blk, nblocks, G in plans:
-            _launch("fwd_parser_multi", so.bt_fwd_parser_multi, dsq, lens, B,
-                    L, c.etab, c.ttab, p.Kp, c.Mp, c.P, float(nj), out, blk,
-                    order, nblocks, G)
+        _launch("fwd_parser", so.bt_fwd_parser, dsq, lens, B, L, float(nj),
+                out, *tail)
         return out
-    return Launch(many, len(plans))
+    return Launch(run, int(B > 0 and plan.ncls > 0), plan)
 
 
 def prepare_domdec(dsq, lens, slot, pack) -> Launch:
@@ -420,32 +412,32 @@ def prepare_fs3(dsq, lens, slot, pack, decoding: bool) -> Launch:
 def prepare_msv(flat, offs, lens, tjb, slot, p) -> Launch:
     """msv_filter.cu: the fused SSV+MSV filter of every ORF of the
     stream under model ``slot[b]`` of <p> (``build_msv_pack``), or under
-    one model (<slot> None, <p> its ``MSVParams``); a call gives (xEu,
-    xJm, movf) [3, B] int32, one launch per padded width."""
-    _stream_lens(flat, offs, lens, p, tjb)
+    one model (<slot> None, <p> its ``MSVParams``: a plan of its one
+    class and the blocks the card holds at once, built once, the blocks
+    striding over the items), as one launch (``ops/multimodel.py``
+    ``msv_plan``); a call gives (xEu, xJm, movf) [3, B] int32."""
+    from ..multimodel import msv_plan
+    ln = _stream_lens(flat, offs, lens, p, tjb)
+    dev = flat.device
     so = lib()
     B = lens.numel()
-    dev = flat.device
     if slot is None:
-        P, _, Mp = layout(p.M)
-        tab = p.table(Mp)
+        def most(plan):
+            with torch.cuda.device(dev):
+                return so.bt_msv_grid(plan.table.ctypes.data, plan.warps)
+        plan, tail, most = _single(
+            p, ("msv", dev), lambda: msv_plan(None, None, p.as_pack()), most)
+        tail = (*tail, min(-(-B // int(plan.table[5])), most))
+    else:
+        plan = msv_plan(ln, slot, p, sms(dev))
+        tail = (*_planned(plan, dev), plan.nblk)
 
-        def one():
-            out = torch.empty(3, B, dtype=torch.int32, device=dev)
-            _launch("msv_filter", so.bt_msv_filter, flat, offs, lens, tjb, B,
-                    tab, p.Kp, p.M, Mp, P, p.base, p.tec, p.tbm, p.bias, out)
-            return out
-        return Launch(one, 1)
-    plans = _multi_plans(slot, p, items_per_block, dev)
-
-    def many():
+    def run():
         out = torch.empty(3, B, dtype=torch.int32, device=dev)
-        for c, order, blk, nblocks, G in plans:
-            _launch("msv_filter_multi", so.bt_msv_filter_multi, flat, offs,
-                    lens, tjb, B, c.tab, c.scal, p.Kp, c.Mp, c.P, out, blk,
-                    order, nblocks, G)
+        _launch("msv_filter", so.bt_msv_filter, flat, offs, lens, tjb, B,
+                out, *tail)
         return out
-    return Launch(many, len(plans))
+    return Launch(run, int(B > 0 and plan.ncls > 0), plan)
 
 
 def prepare_ssv_capture(flat, offs, lens, tjb, thresh, p) -> Launch:
@@ -455,7 +447,7 @@ def prepare_ssv_capture(flat, offs, lens, tjb, thresh, p) -> Launch:
     so = lib()
     B = lens.numel()
     P, _, Mp = layout(p.M)
-    tab = p.table(Mp)
+    tab = p.kernel_table(Mp, P)
     dev = flat.device
 
     def run():

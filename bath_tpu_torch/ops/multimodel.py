@@ -15,39 +15,37 @@ zero-padded tables stacked per padded width Mp (``ModelPack.classes``).
 There is no limit on the item length or on the number of models, and no
 batch ladder.
 
-Two launch plans.  The Forward gate and MSV launch once per padded
-width, because the lanes per thread P and the warps per item W are
-compile- and launch-time constants of their kernels; inside a launch
-the items are ordered by model and each model's run is cut into thread
-blocks of at most G items (``block_plan``), so a block holds items of
-one model only and shares one copy of that model's tables.  The fs3
-pair, decoding and the ViterbiFilter take every width of a call in one
-launch (``fs3_plan``, ``domdec_plan``, ``vit_plan``, on ``_plan``):
-each block row names its class (P, W, Mp and where the class's stacks
-lie), its model and its items, the kernel runs that class's P, and the
-blocks go out heaviest first, so a call takes about the time of its
-longest chain rather than the sum over its widths; the two decoders
-give each item two, one for its Forward and one for its Backward,
-which run at the same time.
+One launch plan.  Every kernel takes every padded width of a call in
+one launch (``fwd_plan``, ``domdec_plan``, ``fs3_plan``, ``msv_plan``,
+``vit_plan``, on ``_plan``): each block row names its class (P, W, Mp
+and where the class's stacks lie), its model and its items, the kernel
+runs that class's P, and the blocks go out heaviest first, so a call
+takes about the time of its longest chain rather than the sum over its
+widths; the two decoders give each item two, one for its Forward and
+one for its Backward, which run at the same time.  A block holds items
+of one model only and shares one copy of that model's tables.  A
+single-model call of the Forward gate or MSV takes a plan of its one
+class and no block rows (``single_plan``): its blocks take the items in
+batch order, so the host builds no per-item table.
 
-Each packed call launches the multi-model entry of its single-model
-kernel (``ops/kernels/csrc/{fwd_parser,domdec,fs3_parser,fs3_domdec}.cu``,
-the same ``__global__`` kernel, so the same arithmetic item for item;
-the one-launch kernels have one entry for both) for CUDA tensors, and
-runs its plain PyTorch version (``*_ref``: the single-model plain
-version over each model's items) for CPU tensors.
+Each packed call launches its kernel's one C entry
+(``ops/kernels/csrc/{fwd_parser,domdec,fs3_parser,fs3_domdec}.cu``, the
+entry and ``__global__`` kernel of the single-model calls too, so the
+same arithmetic item for item) for CUDA tensors, and runs its plain
+PyTorch version (``*_ref``: the single-model plain version over each
+model's items) for CPU tensors.
 
 The integer filters with a model axis (``build_msv_pack``/
 ``msv_ssv_multi``, ``build_vit_pack``/``vit_ints_multi``) are the
 counterpart of ``bath_tpu/evalues_device.py`` ``_dyn_kernels``: the
 [model, batch] MSV and ViterbiFilter kernels vmapped over models with
 each model's quantisation scalars as traced values.  Here they are the
-multi-model entries of ``csrc/msv_filter.cu`` and ``csrc/vit_filter.cu``
-(MSV under ``block_plan``, the ViterbiFilter under ``vit_plan``), the
-models' scalars in a small int array beside the stacked tables
-(``IntPack``).  Items travel as in ``ops/ssv.py``, one int8 stream read
-at per-item offsets, so the models of a calibration share one copy of
-the simulated batch: offsets repeat.
+entries of ``csrc/msv_filter.cu`` and ``csrc/vit_filter.cu``
+(``msv_plan``, ``vit_plan``), the models' scalars in a small int array
+beside the stacked tables (``IntPack``).  Items travel as in
+``ops/ssv.py``, one int8 stream read at per-item offsets, so the models
+of a calibration share one copy of the simulated batch: offsets
+repeat.
 """
 
 from __future__ import annotations
@@ -90,6 +88,8 @@ class ModelPack:
     def __init__(self, params: list, layout):
         if not params:
             raise ValueError("a pack needs at least one model")
+        self.layout = layout
+        self._relaid: dict = {}
         self.params = list(params)
         self.device = params[0].device
         self.Kp = params[0].Kp
@@ -122,6 +122,16 @@ class ModelPack:
             torch.tensor([self.M[g] for g in models], dtype=torch.int32,
                          device=self.device))
 
+    def with_layout(self, layout) -> "ModelPack":
+        """These models under another (P, W, Mp) ladder, with stacks of
+        their own, made once a ladder (the Forward gate's
+        ``loader.fwd_layout`` on decoding's pack); itself for its own."""
+        if layout is self.layout:
+            return self
+        if layout not in self._relaid:
+            self._relaid[layout] = ModelPack(self.params, layout)
+        return self._relaid[layout]
+
     @functools.cached_property
     def slot_class(self) -> tuple[np.ndarray, np.ndarray]:
         """([G] Mp of each slot, [G] its index in that class's stack)."""
@@ -140,9 +150,12 @@ class IntClass:
     W: int
     Mp: int
     models: list
-    tab: torch.Tensor           # [g, rows, Mp] kernel tables (int32 for
-                                # MSV, int16 for the ViterbiFilter)
+    tab: torch.Tensor           # [g, rows, Mp] int16 kernel tables
+                                # (``kernel_table``)
     scal: torch.Tensor          # [g, k] int32: M, then the pack's scalars
+    glob: torch.Tensor = None   # the ViterbiFilter's tables in its kernel's
+                                # layout, for a class read from global
+                                # memory (``vit_global_tables``)
 
 
 class IntPack(ModelPack):
@@ -158,7 +171,7 @@ class IntPack(ModelPack):
     def _stack(self, P: int, W: int, Mp: int, models: list):
         return IntClass(
             P, W, Mp, models,
-            torch.stack([self.params[g].table(Mp) for g in models])
+            torch.stack([self.params[g].kernel_table(Mp, P) for g in models])
             .contiguous(),
             torch.tensor([[getattr(self.params[g], k)
                            for k in ("M",) + self.scalars] for g in models],
@@ -174,53 +187,29 @@ class IntPack(ModelPack):
             for k in self.scalars})
 
 
-def block_plan(slot: np.ndarray, pack: ModelPack, per_block):
-    """The launches of a batch whose item b belongs to model ``slot[b]``:
-    [(SizeClass, order [n] int32, blk [nblocks, 3] int32, G), ...], one
-    per padded width present.  ``order`` lists the class's item rows
-    sorted by model; ``blk[x] = (model's index in the class's stack,
-    first, count)`` gives block x the rows ``order[first:first+count]``,
-    all of one model, with count <= G = ``per_block(W)``."""
-    slot = np.asarray(slot, np.int64)
-    mp_of, local_of = pack.slot_class
-    item_mp = mp_of[slot]
-    plans = []
-    for Mp, cls in pack.classes.items():
-        rows = np.nonzero(item_mp == Mp)[0]
-        if not len(rows):
-            continue
-        local = local_of[slot[rows]]
-        by_model = np.argsort(local, kind="stable")
-        order = rows[by_model].astype(np.int32)
-        local = local[by_model]
-        G = per_block(cls.W)
-        # the runs of equal model, each cut into blocks of G
-        starts = np.nonzero(np.r_[True, local[1:] != local[:-1]])[0]
-        ends = np.r_[starts[1:], len(local)]
-        blk = [(local[s], f, min(G, e - f))
-               for s, e in zip(starts, ends) for f in range(s, e, G)]
-        plans.append((cls, order, np.asarray(blk, np.int32).reshape(-1, 3),
-                      G))
-    return plans
-
-
 # ---------------------------------------------------------------------
-# One launch for every padded width (csrc/plan.cuh): the plans of the
-# fs3 pair, of decoding and of the ViterbiFilter
+# One launch for every padded width (csrc/plan.cuh): the plans of every
+# kernel
 # ---------------------------------------------------------------------
 PLAN_CLS, PLAN_BLK = 8, 5   # int64 words of a class row and a block row
 SMEM_BYTES = 232448         # shared memory a block may take on the H100
 FS3_ROWS = 338              # packed codon rows of a model's odds
 FS3_RING = 2                # emission-row ring slots a group
+FS3_RING_WARPS = 8          # a ring block's warps at most: the ring
+                            # instances take up to 255 registers a thread
+FS3_DIRECT_P = 5            # a launch of classes of at most this many
+                            # lanes a thread takes the direct loads
+                            # (PERF.md, the fs3 loads' sweep)
 
 
-def fs3_group_bytes(Mp: int, W: int) -> int:
+def fs3_group_bytes(Mp: int, W: int, direct: bool = False) -> int:
     """Shared bytes a group of W warps takes past its block's transition
     table (``csrc/fs3_common.cuh`` ``fs3_group_bytes``), 128-byte
     aligned: its emission ring (FS3_RING slots of three codon rows of
-    Mp floats), the slots' mbarriers and the W > 1 exchange scratch."""
-    bars = -(-8 * FS3_RING // 16) * 16
-    return -(-(12 * FS3_RING * Mp + bars + 32 * W) // 128) * 128
+    Mp floats), the slots' mbarriers and the W > 1 exchange scratch;
+    with the direct loads, the scratch alone."""
+    ring = 0 if direct else 12 * FS3_RING * Mp + -(-8 * FS3_RING // 16) * 16
+    return -(-(ring + 32 * W) // 128) * 128
 
 
 def fs3_block_warps(Ws) -> int:
@@ -232,18 +221,51 @@ def fs3_block_warps(Ws) -> int:
 
 
 def dd_block_warps(Ws) -> int:
-    """Warps of every block of a decoding launch: eight, six when the
-    widest class takes three warps a group, else the widest W."""
+    """Warps of every block of a Forward-gate or decoding launch: eight,
+    six when the widest class takes three warps a group, else the widest
+    W, at most a block's 32."""
     w = max(Ws)
+    if w > 32:
+        raise ValueError(f"a model of {w} warps an item takes more warps "
+                         f"than a block holds")
     return 8 if 8 % w == 0 else 6 if w == 3 else w
 
 
+# where a block of a Forward-gate or decoding class keeps its model's f32
+# tables (csrc/dp_common.cuh Stage): neither, both, the transitions only
+STAGE_NONE, STAGE_ALL, STAGE_TRANS = 0, 1, 2
+# the Forward gate's class whose tables do not fit a block: its
+# transitions staged, its odds read from L2 (PERF.md, the wide-layout sweep)
+FWD_WIDE_STAGE = STAGE_TRANS
+
+
 def dd_table_bytes(Kp: int, Mp: int) -> int:
-    """A decoding model's f32 tables (``csrc/domdec.cu``)."""
+    """A gate or decoding model's f32 tables (``csrc/dp_common.cuh``)."""
     return (Kp + 8) * Mp * 4
 
 
-DD_GROUP_BYTES = 32         # a decoding group's exchange scratch a warp
+def staged_bytes(Kp: int, Mp: int, stage: int) -> int:
+    """Shared bytes of a block's staged f32 tables (``csrc/dp_common.cuh``
+    ``staged_bytes``)."""
+    return {STAGE_NONE: 0, STAGE_ALL: dd_table_bytes(Kp, Mp),
+            STAGE_TRANS: 8 * Mp * 4}[stage]
+
+
+DD_GROUP_BYTES = 32         # a gate or decoding group's exchange scratch
+                            # a warp
+
+
+def f32_class_row(c, G: int, Kp: int, wide: int) -> list:
+    """The class row of the Forward gate and decoding (``csrc/
+    dp_common.cuh``): the stacks' addresses, P, W, Mp, G, Kp and where a
+    block keeps its tables: both in shared memory where they fit, else
+    <wide> (STAGE_TRANS or STAGE_NONE; STAGE_NONE where even the
+    transitions do not fit)."""
+    scratch = G * DD_GROUP_BYTES * c.W
+    stage = next(st for st in (STAGE_ALL, wide, STAGE_NONE)
+                 if staged_bytes(Kp, c.Mp, st) + scratch <= SMEM_BYTES)
+    return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G, Kp,
+            stage]
 
 
 def vit_block_warps(Ps) -> int:
@@ -258,7 +280,53 @@ def vit_smem_bytes(Kp: int, Mp: int, G: int, W: int) -> int:
     """Shared bytes of a ViterbiFilter block (``csrc/vit_filter.cu``
     ``vit_smem_bytes``): the model's int16 table (the transitions as
     pairs in one int) 16-byte aligned, and each group's scratch."""
-    return -(-(16 * Mp + 2 * Kp * Mp) // 16) * 16 + 16 * G * W
+    return vit_table_bytes(Kp, Mp) + 16 * G * W
+
+
+def vit_table_bytes(Kp: int, Mp: int) -> int:
+    return -(-(16 * Mp + 2 * Kp * Mp) // 16) * 16
+
+
+def msv_block_warps(Ps, Ws) -> int:
+    """Warps of every block of an MSV launch: fixed by the kernel's
+    instance (``csrc/msv_filter.cu`` ``msv_warps``): eight up to 13
+    lanes a thread, else twelve, or 32 for a model of more than twelve
+    warps an ORF."""
+    return 8 if max(Ps) <= 13 else 12 if max(Ws) <= 12 else 32
+
+
+def warp_lanes(Mp: int, P: int) -> np.ndarray:
+    """[Mp] the model lane at each position of a warp-transposed table
+    row (``csrc/int_common.cuh`` ``lane_at``): a warp's 32P lanes as P
+    rows of 32, so that thread t's lane j lies at 32j + t."""
+    x = np.arange(Mp)
+    span = 32 * P
+    r = x % span
+    return x - r + (r & 31) * P + (r >> 5)
+
+
+def vit_global_tables(c, Kp: int) -> torch.Tensor:
+    """The ViterbiFilter class <c>'s tables in the layout its kernel
+    stages (``csrc/vit_filter.cu``): per model vit_table_bytes, the four
+    transition pairs [4][Mp] int32 (the even row in the low half), then
+    the match words [Kp][Mp] int16, each row warp-transposed; built once
+    a class, for a class whose blocks read them from global memory."""
+    if c.glob is None:
+        perm = torch.from_numpy(warp_lanes(c.Mp, c.P)).to(c.tab.device)
+        t = c.tab[:, :, perm]
+        u = t[:, Kp:].to(torch.int64) & 0xFFFF
+        pairs = u[:, 0::2] | (u[:, 1::2] << 16)
+        pairs = torch.where(pairs >= 1 << 31, pairs - (1 << 32), pairs)
+        g = len(c.models)
+        out = torch.zeros(g, vit_table_bytes(Kp, c.Mp), dtype=torch.uint8,
+                          device=c.tab.device)
+        n = 16 * c.Mp
+        out[:, :n] = pairs.to(torch.int32).contiguous().view(torch.uint8) \
+            .reshape(g, n)
+        out[:, n:n + 2 * Kp * c.Mp] = t[:, :Kp].contiguous() \
+            .view(torch.uint8).reshape(g, -1)
+        c.glob = out
+    return c.glob
 
 
 @dataclass
@@ -363,13 +431,35 @@ def _plan(lens, slot, pack, passes: int, warps_of, class_row,
     return LaunchPlan(table, len(rows_cls), len(brows), warps, classes)
 
 
+def single_plan(pack, warps_of, class_row) -> LaunchPlan:
+    """The plan of a single-model call of the Forward gate or MSV: the
+    one class of <pack> (a ``OneModel`` or a pack of one model) and no
+    block rows, so that the kernel's blocks take the items in batch
+    order and the host builds no per-item table."""
+    (c,) = pack.classes.values()
+    warps = warps_of([c])
+    row = list(class_row(c, warps))
+    return LaunchPlan(np.asarray(row, np.int64), 1, 0, warps,
+                      [(c.P, c.W, c.Mp, row[5], None)])
+
+
 def fs3_plan(lens, slot, pack, passes: int) -> LaunchPlan:
     """The plan of one fs3 launch (``csrc/fs3_common.cuh``) over a batch
     whose window b belongs to model ``slot[b]`` of <pack> (a
     ``ModelPack`` of ``build_fs3_pack`` or a ``OneModel``); <passes>
     items a window (1 the gate, 2 decoding: the Forward, then the
     Backward).  A block holds the most groups of W warps that fit its
-    warps and shared memory; blocks go longest window first."""
+    warps and shared memory; blocks go longest window first.  A class
+    of more than FS3_RING_WARPS warps a window (past M = 3328) takes the
+    direct loads (the codon rows read from global memory by every
+    thread, class row word 6) in a kernel instance whose registers are
+    capped, and one whose group's emission ring does not fit a block
+    either (past M = 3744) leaves its transitions in global memory too
+    (word 7).  A launch whose classes all take at most FS3_DIRECT_P
+    lanes a thread takes the direct loads too: the ring's handshake
+    costs more there than the loads it hides.  The kernel runs one load
+    path a launch, so a launch with one class on the direct loads has
+    every class on them (word 6)."""
 
     def class_row(c, warps):
         if c.etab.shape[-2] != FS3_ROWS:
@@ -377,14 +467,19 @@ def fs3_plan(lens, slot, pack, passes: int) -> LaunchPlan:
                              f"{c.etab.shape[-2]}")
         G = min(warps // c.W, (SMEM_BYTES - 32 * c.Mp)
                 // fs3_group_bytes(c.Mp, c.W))
-        if G < 1:
-            raise ValueError(f"an fs3 model of {c.Mp} padded lanes does not "
-                             f"fit one block's shared memory")
-        return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G, 0,
-                0]
+        if G >= 1 and c.W <= FS3_RING_WARPS:
+            return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G,
+                    0, 0]
+        return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp,
+                min(warps // c.W, 15), 1, int(G < 1)]
 
-    return _plan(lens, slot, pack, passes,
+    plan = _plan(lens, slot, pack, passes,
                  lambda cls: fs3_block_warps([c.W for c in cls]), class_row)
+    rows = plan.table[:PLAN_CLS * plan.ncls].reshape(-1, PLAN_CLS)
+    narrow = rows[:, 2].max(initial=0) <= FS3_DIRECT_P
+    if plan.ncls and (rows[:, 6].any() or narrow):
+        rows[:, 6] = 1
+    return plan
 
 
 def domdec_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
@@ -393,17 +488,59 @@ def domdec_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
     of ``build_domdec_pack`` or a ``OneModel``): two items an ORF, its
     Forward and its Backward, blocks longest ORF first, a small batch
     spread over <sms> SMs.  A block stages its model's tables in shared
-    memory where they fit (the class row's last word)."""
+    memory where they fit (the class row's last word), else neither."""
+    return _plan(lens, slot, pack, 2,
+                 lambda cls: dd_block_warps([c.W for c in cls]),
+                 lambda c, warps: f32_class_row(c, warps // c.W, pack.Kp,
+                                                STAGE_NONE),
+                 sms=sms)
+
+
+def fwd_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
+    """The plan of one Forward-gate launch (``csrc/fwd_parser.cu``) over
+    a batch whose ORF b belongs to model ``slot[b]`` of <pack> (a
+    ``ModelPack`` of ``build_fwd_pack``): decoding's plan with one item
+    an ORF, blocks heaviest first (Mp x longest ORF), a small batch
+    spread over <sms> SMs.  A block stages its model's tables in shared
+    memory where they fit, else FWD_WIDE_STAGE; lens None gives a
+    single-model call's plan (``single_plan``)."""
+
+    def warps_of(cls):
+        return dd_block_warps([c.W for c in cls])
 
     def class_row(c, warps):
-        G = warps // c.W
-        tab = dd_table_bytes(pack.Kp, c.Mp)
-        fits = tab + G * DD_GROUP_BYTES * c.W <= SMEM_BYTES
-        return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G,
+        return f32_class_row(c, warps // c.W, pack.Kp, FWD_WIDE_STAGE)
+
+    if lens is None:
+        return single_plan(pack, warps_of, class_row)
+    return _plan(lens, slot, pack, 1, warps_of, class_row, by_cells=True,
+                 sms=sms)
+
+
+def msv_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
+    """The plan of one MSV launch (``csrc/msv_filter.cu``) over a stream
+    whose item b belongs to model ``slot[b]`` of <pack> (an ``IntPack``
+    of ``build_msv_pack``): blocks heaviest first (Mp x longest item), a
+    small batch spread over <sms> SMs.  A block stages its model's int16
+    table in shared memory where it fits (the class row's last word),
+    else reads it from global memory; lens None gives a single-model
+    call's plan (``single_plan``)."""
+
+    def warps_of(cls):
+        return msv_block_warps([c.P for c in cls], [c.W for c in cls])
+
+    def class_row(c, warps):
+        G = warps // c.W if c.W == 1 else min(warps // c.W, 15)
+        if G < 1:
+            raise ValueError(f"an MSV model of {c.Mp} padded lanes takes "
+                             f"more warps than a block holds")
+        fits = 2 * pack.Kp * c.Mp + 16 * G * c.W <= SMEM_BYTES
+        return [c.tab.data_ptr(), c.scal.data_ptr(), c.P, c.W, c.Mp, G,
                 pack.Kp, int(fits)]
 
-    return _plan(lens, slot, pack, 2,
-                 lambda cls: dd_block_warps([c.W for c in cls]), class_row,
+    if lens is None:
+        return single_plan(pack, warps_of, class_row)
+    return _plan(lens, slot, pack, 1, warps_of, class_row, by_cells=True,
                  sms=sms)
 
 
@@ -412,16 +549,21 @@ def vit_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
     a stream whose item b belongs to model ``slot[b]`` of <pack> (an
     ``IntPack`` of ``build_vit_pack``): blocks heaviest first (Mp x
     longest item), a small batch spread over <sms> SMs.  A block holds
-    its model's int16 table in shared memory; a model whose table does
-    not fit is refused (no block reads its table from global memory)."""
+    its model's int16 table in shared memory where it fits; a class
+    whose table does not (past M = 2720) reads a copy in the kernel's
+    layout from global memory (``vit_global_tables``; the class row's
+    word 7 holds its address)."""
 
     def class_row(c, warps):
         G = warps // c.W
-        if vit_smem_bytes(pack.Kp, c.Mp, G, c.W) > SMEM_BYTES:
+        if G < 1:
             raise ValueError(f"a ViterbiFilter model of {c.Mp} padded lanes "
-                             f"does not fit one block's shared memory")
+                             f"takes more warps than a block holds")
+        glob = 0
+        if vit_smem_bytes(pack.Kp, c.Mp, G, c.W) > SMEM_BYTES:
+            glob = vit_global_tables(c, pack.Kp).data_ptr()
         return [c.tab.data_ptr(), c.scal.data_ptr(), c.P, c.W, c.Mp, G,
-                pack.Kp, 0]
+                pack.Kp, glob]
 
     return _plan(lens, slot, pack, 1,
                  lambda cls: vit_block_warps([c.P for c in cls]), class_row,
@@ -465,7 +607,9 @@ def _per_model(slot: np.ndarray):
 # The four packs
 # ---------------------------------------------------------------------
 def build_fwd_pack(params: list) -> ModelPack:
-    """<params>: ``ops.fwd.fwd_params`` of each model, slot order."""
+    """<params>: ``ops.fwd.fwd_params`` of each model, slot order.  The
+    pack's own ladder is decoding's (``loader.layout``); the Forward
+    gate takes it under ``loader.fwd_layout`` (``with_layout``)."""
     from .kernels.loader import layout
     return ModelPack(params, layout)
 
@@ -494,8 +638,8 @@ VIT_SCALARS = ("base", "emove", "eloop")
 
 def build_msv_pack(params: list) -> IntPack:
     """<params>: ``ops.ssv.msv_params`` of each model, slot order."""
-    from .kernels.loader import layout
-    return IntPack(params, MSV_SCALARS, layout)
+    from .kernels.loader import msv_layout
+    return IntPack(params, MSV_SCALARS, msv_layout)
 
 
 def build_vit_pack(params: list) -> IntPack:
@@ -713,12 +857,10 @@ def fs3_domdec_pack_batch_ref(pack: ModelPack, dsq, lens, slot, dec_loop,
 
 
 # ---------------------------------------------------------------------
-# The packed calls.  CUDA tensors launch the multi-model kernel entries
-# (or raise); CPU tensors run the plain versions.  <slot>: [B] model
-# slots, a numpy array or a tensor on any device: the launch plan is
-# built from it on the host.  Each wrapper counts its launches: one per
-# padded width present in the batch for the Forward gate and MSV, one a
-# call for the rest.
+# The packed calls.  CUDA tensors launch the kernel entries (or raise);
+# CPU tensors run the plain versions.  <slot>: [B] model slots, a numpy
+# array or a tensor on any device: the launch plan is built from it on
+# the host.  Each wrapper counts its launches: one a call.
 # ---------------------------------------------------------------------
 def fwd_pack_scores(pack: ModelPack, dsq, lens, slot,
                     nj: float = 1.0) -> torch.Tensor:

@@ -43,6 +43,14 @@ class MSVParams:
         self._om = om
 
     def _set(self, sbv, rbv, base, tec, tbm, bias, scale, device):
+        # the kernels' table holds each lane's two bytes in an int16 word
+        for name, words, lo, hi in (("SSV", sbv, -128, 127),
+                                    ("MSV", rbv, 0, 255)):
+            if np.size(words) and (np.min(words) < lo
+                                   or np.max(words) > hi):
+                raise ValueError(f"an {name} byte outside [{lo}, {hi}]: "
+                                 f"the MSV kernels' table holds int16 "
+                                 f"words of two bytes")
         self.Kp, self.M = sbv.shape
         self.sbv = torch.from_numpy(
             np.ascontiguousarray(sbv, np.int32)).to(device)
@@ -54,6 +62,7 @@ class MSVParams:
         self._om = None
         self._tjb: dict[int, int] = {}
         self._table: dict = {}
+        self._pack = None
 
     @classmethod
     def from_arrays(cls, sbv, rbv, base, tec, tbm, bias, scale=1.0,
@@ -101,9 +110,10 @@ class MSVParams:
         return vals[inv.reshape(-1)]
 
     def table(self, Mp: int) -> torch.Tensor:
-        """[Kp, Mp] int32 kernel table: the SSV byte in bits 0-7
-        (signed) and the MSV cost in bits 8-15; past the model the dead
-        costs 127 and 255 (``MSVExactMB``'s padding)."""
+        """[Kp, Mp] int16 words: the SSV byte in bits 0-7 (signed) and
+        the MSV cost in bits 8-15 (the word's bit pattern, read as
+        uint16); past the model the dead costs 127 and 255
+        (``MSVExactMB``'s padding)."""
         key = (Mp, self.device)
         if key not in self._table:
             s = torch.full((self.Kp, Mp), 127, dtype=torch.int32,
@@ -111,8 +121,30 @@ class MSVParams:
             r = torch.full_like(s, 255)
             s[:, :self.M] = self.sbv
             r[:, :self.M] = self.rbv
-            self._table[key] = ((s & 0xFF) | (r << 8)).contiguous()
+            w = (s & 0xFF) | (r << 8)
+            self._table[key] = torch.where(w >= 1 << 15, w - (1 << 16), w) \
+                .to(torch.int16).contiguous()
         return self._table[key]
+
+    def kernel_table(self, Mp: int, P: int) -> torch.Tensor:
+        """``table(Mp)`` with each row warp-transposed for P lanes a
+        thread (``ops.multimodel.warp_lanes``): what the MSV and SSV
+        capture kernels read."""
+        key = (Mp, P, self.device)
+        if key not in self._table:
+            from .multimodel import warp_lanes
+            lanes = torch.from_numpy(warp_lanes(Mp, P)).to(self.device)
+            self._table[key] = self.table(Mp)[:, lanes].contiguous()
+        return self._table[key]
+
+    def as_pack(self):
+        """This model alone as an MSV pack (``ops.multimodel.
+        build_msv_pack``), what a single-model call's plan reads; built
+        once."""
+        if self._pack is None:
+            from .multimodel import build_msv_pack
+            self._pack = build_msv_pack([self])
+        return self._pack
 
 
 def msv_params(om, device="cpu") -> MSVParams:

@@ -136,6 +136,11 @@ class VitParams:
             self._table[key] = t
         return self._table[key]
 
+    def kernel_table(self, Mp: int, P: int) -> torch.Tensor:
+        """What a ViterbiFilter pack stacks: ``table(Mp)`` (the kernel
+        warp-transposes it as it stages it, for any P)."""
+        return self.table(Mp)
+
     def as_pack(self):
         """This model alone as a ViterbiFilter pack (``ops.multimodel.
         build_vit_pack``), what the kernel's plan reads; built once."""

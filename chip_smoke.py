@@ -11,7 +11,10 @@ phase but ``deep``; ``all`` adds ``deep``):
   (the integer filters exactly, and MSV also against the native host
   library over every ORF of the search genome; the six multi-model
   entries also bit for bit against the single-model entries, on batches
-  that mix 48 models of M = 60..1200);
+  that mix 48 models of M = 60..1200); then one model past each former
+  limit of a block's shared memory (the ViterbiFilter and its capture
+  at M = 3000, the fs3 gate and fs3 decoding at M = 4000, MSV and the
+  Forward gate at M = 4200) against its plain version on a few items;
 - ``timing``: the same entries at the main paths' shapes, beside their
   plain versions, the host library's batches and one single-model
   launch per model, each output held again; every entry's ``ms`` is the
@@ -116,6 +119,14 @@ MIN_FS_FOUND = 12
 # INT_WIDE_M; capture thresholds (bytes, words) crossed by the hot ORFs
 # only, then P = 1 (every row crosses)
 PARITY_INT_N = 512
+# one model past each former limit of a block's shared memory, and the
+# (items, longest) of its parity batch
+LONG_VIT_M, LONG_FS3_M, LONG_GATE_M = 3000, 4000, 4200
+# MSV and the gate past a narrow instance's block of registers: 23 warps
+# of 17 lanes, 19 of 33 (loader.fwd_layout)
+LONG_BLOCK_MS = (12000, 20000)
+LONG_ITEMS = (6, 700)
+LONG_FS3_ITEMS = (4, 900)
 LONG_ORF = 2_000
 INT_WIDE_M = 1500
 SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
@@ -470,8 +481,9 @@ def parity_single(run: Run, rng) -> None:
     e2 = max(max_err(a, b) for a, b in zip(g[:3], w[:3]))
     if not (e1 <= FWD_TOL and e2 <= DOMDEC_TOL and torch.equal(g[3], w[3])):
         fail(f"M={WIDE[0]} parity: fwd {e1}, domdec {e2}")
-    phase("parity", kernel="both", M=WIDE[0], layout=loader.layout(WIDE[0]),
-          fwd_err=e1, domdec_err=e2)
+    phase("parity", kernel="both", M=WIDE[0],
+          fwd_layout=loader.fwd_layout(WIDE[0]),
+          domdec_layout=loader.layout(WIDE[0]), fwd_err=e1, domdec_err=e2)
 
 
 def parity_fs3(run: Run, rng, shape, shape_dd) -> None:
@@ -564,7 +576,7 @@ def parity_int(run: Run, long_orf: int) -> None:
             fail(f"integer-filter parity cases at M={M} miss a branch: "
                  f"{branches}")
         phase("parity", kernel="msv_filter,ssv_capture,vit_filter,"
-              "vit_capture", M=M, layout=loader.layout(M),
+              "vit_capture", M=M, layout=loader.msv_layout(M),
               vit_layout=loader.vit_layout(M), B=len(orfs),
               max_L=int(ln.max()), identical=True, **branches)
 
@@ -734,6 +746,77 @@ def parity_multi(run: Run) -> None:
                   PARITY_MQ_PLAIN_FS3DD)
 
 
+def parity_long(run: Run) -> None:
+    """The classes past a block's shared memory against their plain
+    versions: the ViterbiFilter and its capture at LONG_VIT_M (its int16
+    table read from global memory), the fs3 gate and decoding at
+    LONG_FS3_M (the direct loads), MSV and the Forward gate at
+    LONG_GATE_M (MSV's table from global memory, the gate's odds from
+    L2) and at LONG_BLOCK_MS (blocks of more warps than the narrow
+    instances' registers allow), each through its single-model wrapper
+    on a few items."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fs3, fwd, ssv, vit
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops.kernels import loader
+    rng = np.random.default_rng(SEED + 13)
+    hm, q = fixtures.make_query(LONG_FS3_M, rng, calibrate=False, fs=True)
+    p3 = fs3.fs3_params(fixtures.fs_search_profile(hm), DEV)
+    d, lt = (torch.from_numpy(a).to(DEV) for a in
+             fixtures.fs_window_batch(q, *LONG_FS3_ITEMS, rng))
+    row = loader.prepare_fs3(d, lt, None, p3, False).plan.table
+    e1 = vs_plain("fs3_parser", fs3.fs3_score(d, lt, p3),
+                  fs3.fs3_score_ref(d, lt, p3))
+    e2 = vs_plain("fs3_domdec", fdd.fs3_domdec(d, lt, p3, 100.0 / 103.0),
+                  fdd.fs3_domdec_ref(d, lt, p3, 100.0 / 103.0))
+    run.note_err("fs3_parser", e1)
+    run.note_err("fs3_domdec", e2)
+    phase("parity", kernel="fs3_parser,fs3_domdec", M=LONG_FS3_M,
+          layout=loader.fs3_layout(LONG_FS3_M), direct_loads=int(row[6]),
+          transitions_global=int(row[7]), B=LONG_FS3_ITEMS[0],
+          L=f"0..{LONG_FS3_ITEMS[1]}", fs3_err=e1, fs3_domdec_err=e2)
+    for M in (LONG_VIT_M, LONG_GATE_M, *LONG_BLOCK_MS):
+        hm, q = fixtures.make_query(M, rng, calibrate=False)
+        om = fixtures.search_profile(hm)
+        dsq, lens = fixtures.kernel_batch(q, *LONG_ITEMS, rng)
+        flat, offs, ln = (torch.from_numpy(a).to(DEV) for a in
+                          ssv.pack_stream([r[:n] for r, n in zip(dsq,
+                                                                  lens)]))
+        if M == LONG_VIT_M:
+            pv = vit.vit_params(om, DEV)
+            move = ints(pv.move_for(lens))
+            glob = loader.prepare_vit(flat, offs, ln, move, None,
+                                      pv).plan.table[7] != 0
+            held(run, "vit_filter", vit.vit_ints(flat, offs, ln, move, pv),
+                 vit.vit_ints_ref(flat, offs, ln, move, pv), M)
+            for t in (VIT_THR, P1_THR):
+                thr = ints(np.full(len(lens), t))
+                held(run, "vit_capture",
+                     vit.vit_capture(flat, offs, ln, move, thr, pv),
+                     vit.vit_capture_ref(flat, offs, ln, move, thr, pv), M)
+            phase("parity", kernel="vit_filter,vit_capture", M=M,
+                  vit_layout=loader.vit_layout(M), table_global=bool(glob),
+                  B=len(lens), max_L=int(lens.max()), identical=True)
+            continue
+        pm = ssv.msv_params(om, DEV)
+        tjb = ints(pm.tjb_for(lens))
+        staged = loader.prepare_msv(flat, offs, ln, tjb, None,
+                                    pm).plan.table[7]
+        held(run, "msv_filter", ssv.msv_ssv(flat, offs, ln, tjb, pm),
+             ssv.msv_ssv_ref(flat, offs, ln, tjb, pm), M)
+        pf = fwd.fwd_params(om, DEV)
+        d, lt = torch.from_numpy(dsq).to(DEV), torch.from_numpy(lens).to(DEV)
+        fplan = loader.prepare_fwd(d, lt, None, pf).plan
+        e = vs_plain("fwd_parser", fwd.fwd_score(d, lt, pf),
+                     fwd.fwd_score_ref(d, lt, pf))
+        run.note_err("fwd_parser", e)
+        phase("parity", kernel="msv_filter,fwd_parser", M=M,
+              layout=loader.msv_layout(M), msv_table_staged=int(staged),
+              fwd_stage=int(fplan.table[7]), block_warps=fplan.warps,
+              B=len(lens), max_L=int(lens.max()),
+              msv_identical=True, fwd_err=e, fwd_tol=FWD_TOL)
+
+
 def phase_parity(run: Run) -> None:
     rng = np.random.default_rng(SEED + 7)
     parity_single(run, rng)
@@ -741,6 +824,7 @@ def phase_parity(run: Run) -> None:
     parity_int(run, LONG_ORF)
     parity_msv_native(run)
     parity_multi(run)
+    parity_long(run)
 
 
 # ---------------------------------------------------------------------
@@ -772,6 +856,8 @@ def time_fwd_domdec(run: Run) -> None:
             run.extra["fwd_parser"] = {"wrapper_ms": w_ms}
         phase("timing", kernel="fwd_parser", M=M, B=TIME_FWD_B,
               mean_L=f"{ln.mean():.1f}", max_L=int(ln.max()),
+              launches_per_call=launch.launches,
+              block_warps=launch.plan.warps,
               ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
               plain_ms=f"{p_ms:.2f}",
               gcups=f"{cells / k_ms / 1e6:.2f}",
@@ -897,7 +983,9 @@ def time_int(run: Run) -> None:
         + 4 * 3 * len(f_orfs)))
     run.extra["msv_filter"] = {"wrapper_ms": w_ms}
     phase("timing", kernel="msv_filter", M=M_SEARCH, B=len(f_orfs),
-          layout="flat", mean_L=f"{float(f_lens.float().mean()):.1f}",
+          layout="flat", launches_per_call=launch.launches,
+          block_warps=launch.plan.warps,
+          mean_L=f"{float(f_lens.float().mean()):.1f}",
           max_L=int(f_lens.max()), ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
           plain_ms=f"{p_ms:.2f}",
           host_native_batch_ms=f"{h_ms:.2f}", host_cores=os.cpu_count(),
@@ -1196,7 +1284,8 @@ def time_int_multi(run: Run) -> None:
                                               nbytes(*args, *tabs, *got)))
         run.extra[name] = {"plain_items": len(slot), "wrapper_ms": w_ms}
         plan = {} if launch.plan is None else dict(
-            blocks=launch.plan.nblk, block_warps=launch.plan.warps)
+            blocks=launch.plan.nblk, block_warps=launch.plan.warps,
+            us_per_row=f"{1e3 * k_ms / L:.3f}")
         phase("timing", kernel=name, models=len(cal_oms),
               M=f"{min(MQ_MS)}..{max(MQ_MS)}", widths=sorted(pack.classes),
               B=len(slot), batch=f"{N}x{L}", vs_plain="identical",

@@ -14,10 +14,17 @@ and, item for item, bit for bit to the single-model entries, on one
 batch that mixes seven models of five padded widths; the fs3 pair also
 on six widths (one to three warps a window) in its one launch, and with
 the batch in ascending, descending and shuffled order, and so are the
-ViterbiFilter (eight widths) and decoding (nine) in theirs.  The two integer
+ViterbiFilter (eight widths) and decoding (nine) in theirs, and the
+Forward gate (nine) and MSV (eight) in theirs.  The two integer
 multi-model entries (MSV/SSV and the ViterbiFilter with a model slot per
 item) are held exactly to their plain versions and to the single-model
-entries, and the device calibration built on them to the host's.
+entries, and the device calibration built on them to the host's.  The
+classes past shared memory (the ViterbiFilter and its capture at
+M = 3000, the fs3 pair at M = 4000, MSV and the Forward gate at
+M = 4200) are held to their plain versions, and the choices that change
+no arithmetic (the gate's wide classes with or without their
+transitions staged, the fs3 pair's direct loads against its ring) bit
+for bit to each other.
 """
 
 import re
@@ -265,7 +272,7 @@ def test_multi_gate_vs_plain_and_single(kind):
     before = call.launches
     got = call(pack, dsq, lens, slot)
     torch.cuda.synchronize()
-    assert call.launches == before + (1 if fs else len(pack.classes))
+    assert call.launches == before + 1
     want = ref(pack, dsq, lens, slot)
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(got))
@@ -558,9 +565,9 @@ def test_int_multi_vs_plain_and_single(kind):
     before = call.launches
     got = call(pack, flat, offs, ln_t, word, slot)
     torch.cuda.synchronize()
-    # MSV launches once per padded width, the ViterbiFilter once a call
+    # one launch a call for every padded width
     assert len(pack.classes) == 5
-    assert call.launches == before + (5 if kind == "msv" else 1)
+    assert call.launches == before + 1
     for a, b in zip(got, ref(pack, flat, offs, ln_t, word, slot)):
         assert torch.equal(a, b)
     for g, rows in per_model_rows(slot):
@@ -598,3 +605,244 @@ def test_device_calibration_on_card_matches_host():
             assert a.evparam[k] == b.evparam[k], (a.M, k)
         for k in (C.EV_FTAU, C.EV_FTAUFS3):
             assert abs(a.evparam[k] - b.evparam[k]) <= 0.02, (a.M, k)
+
+
+# the Forward gate's and MSV's widths: one warp of 3 .. 33 lanes, two
+# warps of 33 (Mp 2112: the gate's transitions staged, its odds from L2)
+GATE_CLASS_MS = (60, 150, 250, 400, 520, 700, 1000, 1100, 1500)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_fwd_all_widths_in_one_launch(order, monkeypatch):
+    """One launch takes every width: within 1e-3 nats of the plain
+    version and, model by model, bit for bit the single-model entry, in
+    any order of the batch; the wide classes read their odds from L2
+    with or without their transitions staged, bit for bit alike."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(GATE_CLASS_MS, 5, 700,
+                                                       29)
+    perm = permuted(lens, order)
+    dsq, lens, slot = dsq[perm], lens[perm], slot[perm]
+    pack = mm.build_fwd_pack([tf.fwd_params(om, "cuda") for om in oms])
+    assert len(pack.classes) == 8
+    d, ln = torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+    run = loader.prepare_fwd(d, ln, slot, pack)
+    assert run.launches == 1 and run.plan.ncls == 8
+    got = run(1.0)
+    monkeypatch.setattr(mm, "FWD_WIDE_STAGE", mm.STAGE_NONE)
+    none = loader.prepare_fwd(d, ln, slot, pack)(1.0)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(got, none)
+    want = mm.fwd_pack_scores_ref(pack, d, ln, slot)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert float((got - want)[fin].abs().max()) <= 1e-3
+    for g, rows in per_model_rows(slot):
+        one = tf.fwd_score(d[rows].contiguous(), ln[rows].contiguous(),
+                           pack.params[g])
+        assert torch.equal(one, got[rows]), GATE_CLASS_MS[g]
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_msv_all_widths_in_one_launch(order):
+    """One launch takes every width, exactly the plain version and,
+    model by model, the single-model entry, in any order of the batch."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    oms, dsq, lens, slot = fixtures.multi_kernel_batch(GATE_CLASS_MS, 5, 600,
+                                                       31)
+    perm = permuted(lens, order)
+    flat, offs, ln = ts.pack_stream([dsq[b, :lens[b]] for b in perm])
+    slot = slot[perm]
+    params = [ts.msv_params(om, "cuda") for om in oms]
+    pack = mm.build_msv_pack(params)
+    assert len(pack.classes) == 8
+    word = torch.from_numpy(np.array([params[g].tjb_for([n])[0]
+                                      for g, n in zip(slot, ln)],
+                                     np.int32)).cuda()
+    flat, offs, ln_t = (torch.from_numpy(a).cuda() for a in (flat, offs, ln))
+    run = loader.prepare_msv(flat, offs, ln_t, word, slot, pack)
+    assert run.launches == 1 and run.plan.ncls == 8
+    got = run()
+    torch.cuda.synchronize()
+    want = mm.msv_ssv_multi_ref(pack, flat, offs, ln_t, word, slot)
+    assert torch.equal(got, torch.stack(want))
+    for g, rows in per_model_rows(slot):
+        one = ts.msv_ssv(flat, offs[rows].contiguous(),
+                         ln_t[rows].contiguous(), word[rows].contiguous(),
+                         params[g])
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[rows]), GATE_CLASS_MS[g]
+
+
+LONG_MS = {"vit": 3000, "fs3": 4000, "msv": 4200, "fwd": 4200}
+
+
+@pytest.mark.parametrize("kind", ["vit", "fs3", "msv", "fwd"])
+def test_models_past_shared_memory_vs_plain(kind):
+    """The classes whose tables do not fit a block's shared memory:
+    the ViterbiFilter and its capture (M = 3000), the fs3 gate and fs3
+    decoding (4000), MSV and the Forward gate (4200), through the
+    single-model wrappers and a pack of the long model with a short one,
+    against their plain versions: the integer filters exactly, the gates
+    within 1e-3 nats, decoding within 1e-4."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M = LONG_MS[kind]
+    rng = np.random.default_rng(M)
+    hmm, q = fixtures.make_query(M, rng, calibrate=False, fs=kind == "fs3")
+    if kind == "fs3":
+        p = t3.fs3_params(fixtures.fs_search_profile(hmm), "cuda")
+        dsq, lens = (torch.from_numpy(a).cuda()
+                     for a in fixtures.fs_window_batch(q, 6, 900, rng))
+        plan = loader.prepare_fs3(dsq, lens, None, p, False).plan
+        assert list(plan.table[6:8]) == [1, 1]
+        got = t3.fs3_score(dsq, lens, p)
+        want = t3.fs3_score_ref(dsq, lens, p)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        assert float((got - want)[fin].abs().max()) <= 1e-3
+        got = td3.fs3_domdec(dsq, lens, p, 100.0 / 103.0)
+        want = td3.fs3_domdec_ref(dsq, lens, p, 100.0 / 103.0)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b).abs().max()) <= 1e-4
+        return
+    om = fixtures.search_profile(hmm)
+    dsq, lens = fixtures.kernel_batch(q, 6, 700, rng)
+    if kind == "fwd":
+        p = tf.fwd_params(om, "cuda")
+        d, ln = torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+        assert loader.prepare_fwd(d, ln, None, p).plan.table[7] == \
+            mm.FWD_WIDE_STAGE
+        got = tf.fwd_score(d, ln, p)
+        assert float((got - tf.fwd_score_ref(d, ln, p)).abs().max()) <= 1e-3
+        short = tf.fwd_params(fixtures.search_profile(
+            fixtures.make_query(90, rng, calibrate=False)[0]), "cuda")
+        pack = mm.build_fwd_pack([p, short])
+        slot = np.array([0, 1, 0, 1, 0, 0])
+        both = mm.fwd_pack_scores(pack, d, ln, slot)
+        assert torch.equal(both[torch.from_numpy(slot == 0).cuda()],
+                           got[torch.from_numpy(slot == 0).cuda()])
+        return
+    flat, offs, ln = (torch.from_numpy(a).cuda() for a in ts.pack_stream(
+        [row[:n] for row, n in zip(dsq, lens)]))
+    if kind == "msv":
+        p = ts.msv_params(om, "cuda")
+        tjb = torch.from_numpy(p.tjb_for(ln.cpu().numpy())).cuda()
+        assert loader.prepare_msv(flat, offs, ln, tjb, None,
+                                  p).plan.table[7] == 0
+        got = ts.msv_ssv(flat, offs, ln, tjb, p)
+        for a, b in zip(got, ts.msv_ssv_ref(flat, offs, ln, tjb, p)):
+            assert torch.equal(a, b)
+        return
+    p = tv.vit_params(om, "cuda")
+    move = torch.from_numpy(p.move_for(ln.cpu().numpy())).cuda()
+    run = loader.prepare_vit(flat, offs, ln, move, None, p)
+    assert run.plan.table[7] != 0
+    got = tv.vit_ints(flat, offs, ln, move, p)
+    for a, b in zip(got, tv.vit_ints_ref(flat, offs, ln, move, p)):
+        assert torch.equal(a, b)
+    for t in (1000, -(1 << 30)):
+        thr = torch.full_like(move, t)
+        got = tv.vit_capture(flat, offs, ln, move, thr, p)
+        for a, b in zip(got, tv.vit_capture_ref(flat, offs, ln, move, thr,
+                                                p)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["gate", "decoding"])
+def test_fs3_direct_loads_equal_the_ring(kind, monkeypatch):
+    """The fs3 pair's direct loads (each thread reads its codon rows from
+    global memory) give the ring's outputs bit for bit: the same
+    arithmetic on the same values, on six widths."""
+    from bath_tpu_torch.ops.kernels import loader
+    pack, dsq, lens, slot = fs3_class_case(3, 1200)
+    runs = []
+    for most in (0, 13):      # no class direct, every class direct
+        monkeypatch.setattr(mm, "FS3_DIRECT_P", most)
+        runs.append(loader.prepare_fs3(dsq, lens, slot, pack,
+                                       kind == "decoding"))
+    monkeypatch.undo()
+    ring, direct = runs
+    for run, word in ((ring, 0), (direct, 1)):
+        rows = run.plan.table[:mm.PLAN_CLS * run.plan.ncls]
+        assert (rows.reshape(-1, mm.PLAN_CLS)[:, 6] == word).all()
+    a, b = ring(1.0), direct(1.0)
+    torch.cuda.synchronize()
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "msv", "domdec"])
+@pytest.mark.parametrize("M", [7500, 12000, 20000])
+def test_long_models_past_a_block_of_registers(kind, M):
+    """The Forward gate and MSV on a model of 14, 23 (warps of 17 lanes)
+    and 19 warps of 33 lanes an ORF (loader.fwd_layout, msv_layout), and
+    decoding on 8, 12 and 19 warps of 33 (loader.layout): blocks of more
+    warps than the narrow instances' registers allow, which launch on
+    the wide ones.  The gate and MSV through the single-model wrapper
+    and in one launch with a model of one warp of 33 lanes (M = 900),
+    against the plain versions (MSV exactly, the gate within 1e-3
+    nats), and the packed call bit for bit the single-model one;
+    decoding through its wrapper, within 1e-4 and with the same `ok`."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(M)
+    oms, qs = [], []
+    for m in (M, 900):
+        hmm, q = fixtures.make_query(m, rng, calibrate=False)
+        oms.append(fixtures.search_profile(hmm))
+        qs.append(q)
+    dsq, lens = fixtures.kernel_batch(qs[0], 6, 300, rng)
+    slot = np.array([0, 1, 0, 1, 0, 0])
+    if kind == "domdec":
+        p = tf.fwd_params(oms[0], "cuda")
+        d, ln = torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+        got = td.domdec(d, ln, p)
+        want = td.domdec_ref(d, ln, p)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b).abs().max()) <= 1e-4
+        return
+    if kind == "fwd":
+        ps = [tf.fwd_params(om, "cuda") for om in oms]
+        d, ln = torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+        assert loader.prepare_fwd(d, ln, None, ps[0]).plan.warps == \
+            loader.fwd_layout(M)[1]
+        got = tf.fwd_score(d, ln, ps[0])
+        assert float((got - tf.fwd_score_ref(d, ln, ps[0])).abs().max()) \
+            <= 1e-3
+        pack = mm.build_fwd_pack(ps)
+        both = mm.fwd_pack_scores(pack, d, ln, slot)
+        want = mm.fwd_pack_scores_ref(pack, d, ln, slot)
+        assert float((both - want).abs().max()) <= 1e-3
+        on0 = torch.from_numpy(slot == 0).cuda()
+        assert torch.equal(both[on0], got[on0])
+        return
+    flat, offs, ln = (torch.from_numpy(a).cuda() for a in ts.pack_stream(
+        [row[:n] for row, n in zip(dsq, lens)]))
+    ps = [ts.msv_params(om, "cuda") for om in oms]
+    tjb = torch.from_numpy(ps[0].tjb_for(ln.cpu().numpy())).cuda()
+    got = ts.msv_ssv(flat, offs, ln, tjb, ps[0])
+    for a, b in zip(got, ts.msv_ssv_ref(flat, offs, ln, tjb, ps[0])):
+        assert torch.equal(a, b)
+    pack = mm.build_msv_pack(ps)
+    word = torch.from_numpy(np.array([ps[g].tjb_for([int(n)])[0]
+                                      for g, n in zip(slot, lens)],
+                                     np.int32)).cuda()
+    both = mm.msv_ssv_multi(pack, flat, offs, ln, word, slot)
+    for a, b in zip(both, mm.msv_ssv_multi_ref(pack, flat, offs, ln, word,
+                                               slot)):
+        assert torch.equal(a, b)
+    on0 = torch.from_numpy(slot == 0).cuda()
+    for a, b in zip(both, got):
+        assert torch.equal(a[on0], b[on0])
+

@@ -148,6 +148,9 @@ def plan_by_loops(lens, slot, pack, passes):
                 // mm.fs3_group_bytes(Mp, c.W))
         rows_cls.append([c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, Mp,
                          G, 0, 0])
+        # a launch of narrow classes only takes the direct loads
+        if max(pack.classes[m].P for m in present) <= mm.FS3_DIRECT_P:
+            rows_cls[-1][6] = 1
         rows = np.nonzero(item_mp == Mp)[0]
         for m in np.unique(item_local[rows]):
             r = rows[item_local[rows] == m]
@@ -197,13 +200,59 @@ def test_one_model_and_empty_plans():
     assert (empty.ncls, empty.nblk, len(empty.table)) == (0, 0, 0)
 
 
-def test_a_model_past_shared_memory_is_refused():
-    """A block holds the model's transitions and one group's ring: up to
-    M = 3744 (nine warps of 13 lanes), and no further."""
+def test_a_model_past_shared_memory_is_refused(monkeypatch):
+    """No model length is refused (the name is from when M > 3744 was):
+    a block holds the model's transitions and one group's ring, and a
+    ring instance takes up to eight warps of 255 registers (M = 3328);
+    past that the class takes the direct loads (the class row's word 6)
+    in an instance whose registers are capped, with its transitions
+    staged up to M = 3744 (nine warps) and in global memory past it
+    (word 7), where the ring does not fit; a group then needs only its
+    exchange scratch."""
     rng = np.random.default_rng(9)
+    for M, W, words in ((3328, 8, [0, 0]), (3744, 9, [1, 0]),
+                        (3745, 10, [1, 1]), (4000, 10, [1, 1])):
+        plan = mm.fs3_plan(np.array([10, 20]), np.zeros(2, int),
+                           mm.OneModel(profile(M, rng)), 2)
+        assert plan.classes[0][:4] == (13, W, 416 * W, 1)
+        assert plan.warps == W and list(plan.table[6:8]) == words
+        ring = 32 * 416 * W + mm.fs3_group_bytes(416 * W, W)
+        assert (ring > mm.SMEM_BYTES) == bool(words[1])
+    assert mm.fs3_group_bytes(4160, 10, direct=True) == 384
+    # the A/B script's comparison: the direct loads with the
+    # transitions staged, in a class that fits (FS3_DIRECT_P raised)
+    monkeypatch.setattr(mm, "FS3_DIRECT_P", 13)
     plan = mm.fs3_plan(np.array([10]), np.zeros(1, int),
-                       mm.OneModel(profile(3744, rng)), 1)
-    assert plan.classes[0][:4] == (13, 9, 3744, 1) and plan.warps == 9
-    with pytest.raises(ValueError, match="shared memory"):
-        mm.fs3_plan(np.array([10]), np.zeros(1, int),
-                    mm.OneModel(profile(3745, rng)), 1)
+                       mm.OneModel(profile(409, rng)), 1)
+    monkeypatch.undo()
+    assert plan.classes[0][:4] == (13, 1, 416, 4)
+    assert list(plan.table[6:8]) == [1, 0]
+    # one load path a launch: with a long model, every class direct
+    mixed = mm.build_fs3_pack([profile(409, rng), profile(4000, rng)])
+    plan = mm.fs3_plan(np.array([10, 20]), np.array([0, 1]), mixed, 1)
+    rows = plan.table[:2 * mm.PLAN_CLS].reshape(2, mm.PLAN_CLS)
+    assert rows[:, 6].tolist() == [1, 1] and rows[:, 7].tolist() == [0, 1]
+
+
+def test_narrow_launches_take_the_direct_loads(pack, monkeypatch):
+    """A launch whose classes all take at most five lanes a thread reads
+    its codon rows directly (the ring's handshake costs more there: the
+    sweep in PERF.md), unless FS3_DIRECT_P is lowered (the A/B script's
+    forced ring); one class of more lanes puts the launch on the ring."""
+    rng = np.random.default_rng(12)
+    for M, word in ((60, 1), (134, 1), (161, 0), (409, 0)):
+        one = mm.OneModel(profile(M, rng))
+        plan = mm.fs3_plan(np.array([30]), np.zeros(1, int), one, 1)
+        assert plan.table[6] == word, M
+        with monkeypatch.context() as m:
+            m.setattr(mm, "FS3_DIRECT_P", 0)
+            forced = mm.fs3_plan(np.array([30]), np.zeros(1, int), one, 1)
+        assert forced.table[6] == 0
+    narrow = [g for g, M in enumerate(MS) if M <= 160]
+    wide = [g for g, M in enumerate(MS) if M > 160]
+    plan = mm.fs3_plan(np.full(4, 30), np.array(narrow[:2] * 2), pack, 1)
+    assert plan.ncls == 2
+    assert all(plan.table[mm.PLAN_CLS * c + 6] == 1 for c in range(2))
+    plan = mm.fs3_plan(np.full(2, 30), np.array([narrow[0], wide[0]]), pack,
+                       1)
+    assert all(plan.table[mm.PLAN_CLS * c + 6] == 0 for c in range(plan.ncls))

@@ -35,7 +35,6 @@ from bath_tpu_torch.ops import fs3_domdec as td3
 from bath_tpu_torch.ops import fwd as tf
 from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops.fwd import ProfileTensors
-from bath_tpu_torch.ops.kernels import loader
 
 MS = (24, 57, 63, 100, 126)
 # the reference's size classes, scaled: M <= Mg - 1
@@ -313,43 +312,28 @@ def test_fs3_domdec_pack_plain_equals_single_model_plain(own_packs):
 
 @pytest.mark.parametrize("kind", ["std", "fs"])
 def test_block_plan_gives_each_block_one_model(own_packs, kind):
-    """Every item appears once, in a launch of its model's padded
-    width; each block's items share one model and number at most G.
-    The fs3 pair plans its one launch with fs3_plan, whose blocks are
-    held the same way (tests/test_torch_fs3_plan.py holds the rest)."""
+    """Every item appears once, in one launch for every padded width
+    (the Forward gate's fwd_plan, the fs3 pair's fs3_plan); each block's
+    items share one model and number at most its class's G.
+    tests/test_torch_fwd_plan.py and test_torch_fs3_plan.py hold the
+    rest."""
     pack = own_packs[kind == "fs"]
     rng = np.random.default_rng(31)
     slot = rng.integers(0, len(MS), 77)
     slot[:30] = 3                        # one model's run spans blocks
-    if kind == "fs":
-        plan = mm.fs3_plan(rng.integers(0, 900, 77), slot, pack, 1)
-        assert plan.ncls == len({pack.geometry[g][2] for g in set(slot)})
-        seen = []
-        for c, model, M, first, count in plan.blocks:
-            P, W, Mp, G = plan.classes[c][:4]
-            cls = pack.classes[Mp]
-            assert 1 <= count <= G
-            rows = plan.items[first:first + count]
-            assert {cls.models[model]} == set(slot[rows])
-            assert M == MS[cls.models[model]]
-            seen += list(rows)
-        assert sorted(seen) == list(range(len(slot)))
-        return
-    per_block = loader.items_per_block
-    plans = mm.block_plan(slot, pack, per_block)
-    assert len(plans) == len({pack.geometry[g][2] for g in set(slot)})
+    lens = rng.integers(0, 900, 77)
+    plan = (mm.fs3_plan(lens, slot, pack, 1) if kind == "fs"
+            else mm.fwd_plan(lens, slot, pack))
+    assert plan.ncls == len({pack.geometry[g][2] for g in set(slot)})
     seen = []
-    for cls, order, blk, G in plans:
-        assert G == per_block(cls.W)
-        assert cls.etab.shape == (len(cls.models), pack.Kp, cls.Mp)
-        assert cls.ttab.shape == (len(cls.models), 8, cls.Mp)
-        assert blk[:, 2].sum() == len(order)
-        for model, first, count in blk:
-            assert 1 <= count <= G
-            rows = order[first:first + count]
-            assert {cls.models[model]} == set(slot[rows])
-            assert int(cls.Ms[model]) == MS[cls.models[model]]
-            seen += list(rows)
+    for c, model, M, first, count in plan.blocks:
+        P, W, Mp, G = plan.classes[c][:4]
+        cls = pack.classes[Mp]
+        assert 1 <= count <= G
+        rows = plan.items[first:first + count]
+        assert {cls.models[model]} == set(slot[rows])
+        assert M == MS[cls.models[model]]
+        seen += list(rows)
     assert sorted(seen) == list(range(len(slot)))
 
 

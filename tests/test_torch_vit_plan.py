@@ -1,7 +1,7 @@
 """The ViterbiFilter's launch plan (bath_tpu_torch/ops/multimodel.py
 vit_plan) and its int16 tables: every padded width of a call in one
 launch, blocks heaviest first (Mp x longest ORF), every model's table in
-shared memory.
+shared memory where it fits and read from global memory past it.
 
 The plan is host code, so it is held here on the CPU, on packs of random
 words (the plan reads only their shapes and addresses) with models of
@@ -195,15 +195,35 @@ def test_one_model_and_empty_plans():
 
 
 def test_a_model_past_shared_memory_is_refused():
-    """A block holds its model's table as int16 words: up to M = 2720
-    (five warps of 17 lanes, 201 KB), and no further (six: 241 KB)."""
+    """No model length is refused (the name is from when M > 2720 was):
+    a block holds its model's table as int16 words up to M = 2720 (five
+    warps of 17 lanes, 201 KB); past it (six: 241 KB) the class reads a
+    copy of the table in the kernel's layout from global memory, whose
+    address is the class row's word 7."""
     rng = np.random.default_rng(9)
     p = vit_model(2720, rng)
     plan = mm.vit_plan(np.array([10]), np.zeros(1, int), p.as_pack())
     assert plan.classes[0][:4] == (17, 5, 2720, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        mm.vit_plan(np.array([10]), np.zeros(1, int),
-                    vit_model(2721, rng).as_pack())
+    assert plan.table[7] == 0
+    for M in (2721, 3000):
+        pk = vit_model(M, rng).as_pack()
+        plan = mm.vit_plan(np.array([10, 30]), np.zeros(2, int), pk)
+        (c,) = pk.classes.values()
+        assert plan.classes[0][:4] == (17, 6, 3264, 2)
+        assert mm.vit_smem_bytes(KP, 3264, 2, 6) > mm.SMEM_BYTES
+        assert plan.table[7] == c.glob.data_ptr() != 0
+        assert c.glob.shape == (1, mm.vit_table_bytes(KP, 3264))
+    # the copy is the layout the kernel stages: transition pairs, then
+    # the match words, each row warp-transposed
+    tab = c.tab[0].to(torch.int64).numpy() & 0xFFFF
+    lanes = mm.warp_lanes(3264, 17)
+    words = c.glob[0].numpy()
+    pairs = words[:16 * 3264].view(np.uint32).reshape(4, 3264)
+    for q in range(4):
+        assert np.array_equal(pairs[q] & 0xFFFF, tab[KP + 2 * q, lanes])
+        assert np.array_equal(pairs[q] >> 16, tab[KP + 2 * q + 1, lanes])
+    match = words[16 * 3264:16 * 3264 + 2 * KP * 3264].view(np.uint16)
+    assert np.array_equal(match.reshape(KP, 3264), tab[:KP, lanes])
 
 
 def int32_table(p, Mp):
