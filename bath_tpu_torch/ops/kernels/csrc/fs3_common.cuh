@@ -39,7 +39,12 @@
 // (P <= 5, where the ring's handshake costs more than it hides) and a
 // model past eight warps (M = 3328), whose instance caps its registers;
 // past M = 3744, where a group's ring does not fit a block, its
-// transitions stay in global memory too (word 7).
+// transitions stay in global memory too (word 7).  A model past 32
+// warps of 13 lanes (M = 13312) is segmented (dp_common.cuh): a group of
+// 16 warps walks each row in S segments on the direct loads, the rings'
+// rows waiting in the block's slot of the class's scratch (plan.cuh
+// seg_take) between segments
+// (fs3_forward_pass_seg, fs3_domdec.cu fs3_backward_pass_seg).
 
 #pragma once
 
@@ -369,14 +374,170 @@ __device__ double fs3_forward_pass(const Group& g, const Fs3Ring& ring,
   return w.score;
 }
 
+// fs3_forward_pass for a segmented group (the direct loads): each row
+// in S segments of 32 W P lanes.  The rings' rows wait in <slot>, seven
+// rows of a segment (rows v of segment s, lane j of thread t at ((7 s +
+// v) P + j) 32 W + t): Q(r) in row r % 2, sv(r) in row 2 + r % 2, N(r)
+// in row 4 + r % 3, zero before the window; a row reads Q(i-2), sv(i-1),
+// sv(i-2) and N(i-3) and writes Q(i), sv(i) and N(i) in their places.
+// The rows are stored unscaled, as the registers hold them.  The D chain
+// enters a segment at the carry the last one's scan total gives, and
+// Q(i) takes the previous segment's last lane of M(i), I(i) and D(i)
+// through <cx>; xE sums the segments' totals.
+template <int P, bool STORE>
+__device__ double fs3_forward_pass_seg(const Group& g, const Fs3Ring& ring,
+                                       const float* ttab, int Mp, int S,
+                                       const int8_t* __restrict__ seq,
+                                       int len, float pmove, float nj,
+                                       double* spec, int ld, double& lsf,
+                                       float* slot, float* cx) {
+  const int NT = 32 * g.W, SEG = NT * P;
+  const float ploop = 1.f - pmove;
+  const float emove = nj > 0.f ? 0.5f : 1.f;
+  const float eloop = nj > 0.f ? 0.5f : 0.f;
+  float f1 = 1.f, f2 = 1.f, f3 = 1.f;
+  float b1 = pmove, b2 = pmove, n1 = 1.f, n2 = 1.f, n3 = 0.f;
+  float j1 = 0.f, j2 = 0.f, j3 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+  // the nucleotides of the next row whose codons are taken: x(r-1) and
+  // x(r-2..r-4); row 2's codons end at x(1) after x(0)
+  int nx = len >= 2 ? fs3_nt(seq[1]) : FS3_PLACE;
+  int h1 = len >= 1 ? fs3_nt(seq[0]) : FS3_PLACE;
+  int h2 = FS3_PLACE, h3 = FS3_PLACE;
+  double lacc = 0.0, score = -INFINITY;
+  if (STORE && g.t == 0) {
+    for (int r = 0; r < 2; ++r) {
+      spec[r] = pmove;
+      spec[ld + r] = 1.0;
+      spec[2 * ld + r] = spec[3 * ld + r] = spec[4 * ld + r] = 0.0;
+      spec[5 * ld + r] = 0.0;
+    }
+  }
+  for (size_t q = g.t; q < (size_t)7 * S * SEG; q += NT) slot[q] = 0.f;
+  for (int i = 2; i <= len; ++i) {
+    const Codons cur = fs3_codons(nx, h1, h2, h3);
+    h3 = h2;
+    h2 = h1;
+    h1 = nx;
+    nx = i < len ? fs3_nt(seq[i]) : FS3_PLACE;
+    const bool ge3 = i >= 3;
+    const int vq = i & 1, va_ = 2 + ((i - 1) & 1), vb_ = 2 + (i & 1),
+              vn = 4 + i % 3;
+    float xE = 0.f, dcarry = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const int k0 = s * SEG + g.t * P;
+      float* st = slot + (size_t)s * 7 * SEG + g.t;
+      float qb[P], va[P], vb[P], nc[P], msv[P], d[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        qb[j] = st[vq * SEG + j * NT];
+        va[j] = st[va_ * SEG + j * NT];
+        vb[j] = st[vb_ * SEG + j * NT];
+        nc[j] = st[vn * SEG + j * NT];
+      }
+      const float *e2, *e3, *e4;
+      ring.rows3<true>(0, cur, k0, e2, e3, e4);
+      float sumsv = 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float sv = f2 * (b2 * ttab[P_BM * Mp + k0 + j] + qb[j]);
+        float m = sv * e2[j];
+        if (ge3) m += f1 * va[j] * e3[j] + f2 * vb[j] * e4[j];
+        msv[j] = m;
+        vb[j] = sv;
+        sumsv += m;
+      }
+      float coef = 1.f, val = 0.f, sc = 1.f, se = 0.f;
+#pragma unroll
+      for (int j = 1; j < P; ++j) {
+        const float tdd = ttab[P_DD * Mp + k0 + j];
+        val = ttab[P_MD * Mp + k0 + j] * msv[j - 1] + tdd * val;
+        coef *= tdd;
+        sc += coef;
+        se += val;
+      }
+      const float tddn = trv(ttab, Mp, P_DD, k0 + P);
+      const float tmdn = trv(ttab, Mp, P_MD, k0 + P);
+      Aff loc{tddn * coef, tmdn * msv[P - 1] + tddn * val, sc, se + sumsv};
+      Aff ex, tot;
+      group_scan<false>(g, loc, ex, tot);
+      d[0] = fmaf(ex.a, dcarry, ex.b);
+#pragma unroll
+      for (int j = 1; j < P; ++j)
+        d[j] = ttab[P_MD * Mp + k0 + j] * msv[j - 1] +
+               ttab[P_DD * Mp + k0 + j] * d[j - 1];
+      xE += fmaf(tot.c, dcarry, tot.e);
+      dcarry = fmaf(tot.a, dcarry, tot.b);
+      // Q(i) reads lane k-1 of M(i), I(i) = f3 N(i-3), D(i)
+      float mp, ip, dp;
+      lane_before_seg(g, msv[P - 1], f3 * nc[P - 1], d[P - 1], s, cx, mp, ip,
+                      dp);
+#pragma unroll
+      for (int j = P - 1; j >= 0; --j) {
+        const float mm = j ? msv[j - 1] : mp;
+        const float ii = j ? f3 * nc[j - 1] : ip;
+        const float dd = j ? d[j - 1] : dp;
+        qb[j] = mm * ttab[P_MM * Mp + k0 + j] + ii * ttab[P_IM * Mp + k0 + j] +
+                dd * ttab[P_DM * Mp + k0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        nc[j] = msv[j] * ttab[P_MI * Mp + k0 + j] +
+                f3 * nc[j] * ttab[P_II * Mp + k0 + j];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        st[vq * SEG + j * NT] = qb[j];
+        st[vb_ * SEG + j * NT] = vb[j];
+        st[vn * SEG + j * NT] = nc[j];
+      }
+    }
+    // specials; before row 3 the N/J/C rows read are the initial ones
+    const float xN = ge3 ? f3 * n3 * ploop : 1.f;
+    const float xJ = (ge3 ? f3 * j3 * ploop : 0.f) + xE * eloop;
+    const float xC = (ge3 ? f3 * c3 * ploop : 0.f) + xE * emove;
+    const float xB = (xN + xJ) * pmove;
+    const float sc = STORE ? (xE > 1.0e4f ? xE : 1.f) : fmaxf(xE, 1.f);
+    const float sinv = 1.f / sc;
+    lacc += (double)logf(sc);
+    if (i == len)
+      score = lacc + (double)logf(sinv * (xC + (f1 * c1 + f2 * c2) * ploop) *
+                                  pmove);
+    if (STORE && g.t == 0) {
+      double* r = spec + i;
+      r[0] = xB * sinv;
+      r[ld] = xN * sinv;
+      r[2 * ld] = xJ * sinv;
+      r[3 * ld] = xC * sinv;
+      r[4 * ld] = xE * sinv;
+      r[5 * ld] = lacc;
+    }
+    f3 = f2 * sinv;
+    f2 = f1 * sinv;
+    f1 = sinv;
+    b2 = b1;
+    b1 = xB;
+    n3 = n2;
+    n2 = n1;
+    n1 = xN;
+    j3 = j2;
+    j2 = j1;
+    j1 = xJ;
+    c3 = c2;
+    c2 = c1;
+    c1 = xC;
+  }
+  lsf = lacc;
+  return score;
+}
+
 // ---------------------------------------------------------------------
 // The launch plan (plan.cuh; ops/multimodel.py fs3_plan).  A class row
 // holds the addresses of the class's stacked tables etab [g][338][Mp]
 // and ttab [g][8][Mp], P, W, Mp and G, whether its groups take the
-// direct loads (word 6) and whether its transitions stay in global
-// memory (word 7); the items are window rows b (the gate) or 2b + pass
-// (decoding: pass 0 the Forward, 1 the Backward).  Each block stages its
-// model's transitions in shared memory once, unless word 7 says not.
+// direct loads (word 6), whether its transitions stay in global memory
+// (word 7), the segments S and a segmented class's scratch (words 8,
+// 9); the items are window rows b (the gate) or 2b + pass (decoding:
+// pass 0 the Forward, 1 the Backward).  Each block stages its model's
+// transitions in shared memory once, unless word 7 says not.
 // ---------------------------------------------------------------------
 constexpr int FS3_ROWS = 338;       // packed codon rows of a model
 
@@ -400,14 +561,33 @@ __host__ __device__ constexpr size_t fs3_group_bytes(int Mp, int W,
           (size_t)W * (sizeof(Aff) + 4 * sizeof(float)) + 127) / 128 * 128;
 }
 
-// What a group computes: its window b (< 0: none), its pass, the model.
+// What a group computes: its window b (< 0: none), its pass, the model;
+// a segmented group's segments, slot of the scratch (its index sid, of
+// the scratch of class row cls) and carries.
 struct Fs3Slot {
   Fs3Ring ring;         // the model's codon odds, fetched a row ahead
   const float* ttab;    // its transitions [8][Mp] (shared)
   int P, M, Mp;
   int b, pass;
   Group g;
+  int S;
+  float* slot;
+  int sid;
+  const long long* cls;
+  float* cx;
 };
+
+// Floats a model lane of a segmented group keeps in its slot: the
+// Forward's seven ring rows, the Backward's eight (fs3_domdec.cu); a
+// decoding item's slot takes the larger.
+constexpr int FS3_SEG_ROWS_GATE = 7, FS3_SEG_ROWS_DECODING = 8;
+
+// Bytes of a segmented group's slot (plan.cuh) of a class of Mp padded
+// lanes; <per>: items a window (1 the gate, 2 decoding).
+__host__ __device__ constexpr size_t fs3_seg_slot_bytes(int per, int Mp) {
+  return (size_t)(per == 2 ? FS3_SEG_ROWS_DECODING : FS3_SEG_ROWS_GATE) *
+         Mp * sizeof(float);
+}
 
 // Every thread of the block calls it: reads the block's row of the plan,
 // stages the model's transitions in shared memory, carves the groups'
@@ -417,7 +597,9 @@ struct Fs3Slot {
 // launch's (fs3_mode): 0 the ring, 1 the direct loads, 2 and 3 the
 // direct loads with the transitions of a class whose word 7 says so
 // left in global memory; below 2 they are staged and read as shared
-// memory.
+// memory; 4 those of 2 and the segmented walk (blocks of the segmented
+// group's 16 warps), whose segmented block takes a slot of its class's
+// scratch (plan.cuh seg_take) and frees it at its end (seg_free).
 template <int MODE>
 __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
                                             int ncls, int nblk, int per,
@@ -464,6 +646,11 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
   g.x.agg = reinterpret_cast<Aff*>(x);
   g.x.bnd = x + 4 * W;
   g.x.red = x + 7 * W;
+  s.S = MODE >= 4 ? (int)c[8] : 1;
+  s.slot = nullptr;
+  s.sid = 0;
+  s.cls = c;
+  s.cx = x + 8 * W;
   s.b = -1;
   s.pass = 0;
   if (gi < G && gi < count) {
@@ -476,6 +663,10 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
     }
   }
   __syncthreads();
+  if (MODE >= 4 && s.S > 1)
+    s.slot = reinterpret_cast<float*>(
+        seg_take(c, fs3_seg_slot_bytes(per, s.Mp),
+                 reinterpret_cast<int*>(s.cx), s.sid));
   return s;
 }
 
@@ -495,20 +686,24 @@ __device__ __forceinline__ Fs3Slot fs3_slot(const long long* __restrict__ plan,
 // copy of the table): 0 for the ring, 1 for the direct loads (the plan
 // gives every class word 6 when one has it), 2 when a class also leaves
 // its transitions in global memory or a block takes more than eight
-// warps, 3 past sixteen.  Instances 0 and 1 take up to 255 registers a
-// thread, so eight warps a block; 2 and 3 cap their registers
-// (fs3_threads), so that a block of up to 16 or 32 warps launches.
+// warps, 3 past sixteen; with a segmented class 4 (blocks of its group's
+// 16 warps; the plan segments any class of more beside it).  Instances
+// 0 and 1 take up to 255 registers a thread, so eight warps a block; the
+// others cap their registers (fs3_threads), so that a block of up to 16
+// or 32 warps launches.
 __host__ __device__ constexpr int fs3_threads(int mode) {
-  return mode == 3 ? 1024 : mode == 2 ? 512 : 256;
+  return mode == 3 ? 1024 : mode == 2 || mode == 4 ? 512 : 256;
 }
 
 static inline int fs3_mode(const long long* plan, int ncls, int warps) {
-  bool direct = false, tglobal = false;
+  bool direct = false, tglobal = false, seg = false;
   for (int i = 0; i < ncls; ++i) {
     direct = direct || plan[PLAN_CLS * i + 6] != 0;
     tglobal = tglobal || plan[PLAN_CLS * i + 7] != 0;
+    seg = seg || plan[PLAN_CLS * i + 8] > 1;
   }
-  return warps > 16 ? 3 : warps > 8 || tglobal ? 2 : direct ? 1 : 0;
+  return seg ? 4
+             : warps > 16 ? 3 : warps > 8 || tglobal ? 2 : direct ? 1 : 0;
 }
 
 // Host side: checks a plan's classes (the host copy of the table) and
@@ -522,11 +717,16 @@ static inline int fs3_check(const long long* plan, int ncls, int warps,
   for (int i = 0; i < ncls; ++i) {
     const long long* c = plan + PLAN_CLS * i;
     const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
-    if (!(P == 3 || P == 5 || P == 9 || P == 13) || W < 1 ||
-        Mp != 32 * P * W || G < 1 || G * W > warps || (W > 1 && G > 15))
+    const int S = (int)c[8];
+    if (!(P == 3 || P == 5 || P == 9 || P == 13) || W < 1 || S < 1 ||
+        Mp != 32 * P * W * S || G < 1 || G * W > warps ||
+        (W > 1 && G > 15) ||
+        (S > 1 && (W < 2 || G != 1 || c[9] == 0 || !c[6] || !c[7] ||
+                   warps > 16)))
       return cudaErrorInvalidValue;
     const size_t need = (c[7] ? 0 : bt::fs3_table_bytes(Mp)) +
-                        (size_t)G * bt::fs3_group_bytes(Mp, W, c[6] != 0);
+                        (size_t)G * bt::fs3_group_bytes(Mp, W, c[6] != 0) +
+                        (S > 1 ? bt::SEG_CARRY * sizeof(float) : 0);
     smem = need > smem ? need : smem;
   }
   return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;

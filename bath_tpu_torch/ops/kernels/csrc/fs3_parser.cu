@@ -30,22 +30,33 @@
 // chain and not the sum over its widths.
 //
 // One entry serves the single-model and the multi-model calls: a single
-// model is a plan of one class and one model.
+// model is a plan of one class and one model.  A model past 32 warps of
+// 13 lanes walks each row in segments (fs3_forward_pass_seg), in an
+// instance of its own (MODE 4).
 
 #include "fs3_common.cuh"
 
 namespace bt {
 
-template <int P, bool DIRECT>
+template <int P, bool DIRECT, bool SEG = false>
 __device__ void fs3_gate(const Fs3Slot& s, const int8_t* __restrict__ dsq,
                          const int* __restrict__ lens, int L, float nj,
                          float* __restrict__ out) {
   const int len = lens[s.b];
   const float pmove = (2.f + nj) / ((float)(len / 3) + 2.f + nj);
-  double lsf;
-  const double sc = fs3_forward_pass<P, false, DIRECT>(
-      s.g, s.ring, s.ttab, s.Mp, dsq + (size_t)s.b * L, len, pmove, nj,
-      nullptr, 0, lsf);
+  double lsf, sc;
+  if constexpr (SEG) {
+    if (s.S > 1) {
+      sc = fs3_forward_pass_seg<P, false>(s.g, s.ring, s.ttab, s.Mp, s.S,
+                                          dsq + (size_t)s.b * L, len, pmove,
+                                          nj, nullptr, 0, lsf, s.slot, s.cx);
+      if (s.g.t == 0) out[s.b] = (float)sc;
+      return;
+    }
+  }
+  sc = fs3_forward_pass<P, false, DIRECT>(s.g, s.ring, s.ttab, s.Mp,
+                                          dsq + (size_t)s.b * L, len, pmove,
+                                          nj, nullptr, 0, lsf);
   if (s.g.t == 0) out[s.b] = (float)sc;
 }
 
@@ -61,13 +72,14 @@ __device__ __forceinline__ void fs3_parser_block(
                                            reinterpret_cast<char*>(smem4));
   if (s.b < 0) return;
 #define BT_FS3_GATE(PP) \
-  bt::fs3_gate<PP, (MODE >= 1)>(s, dsq, lens, L, nj, out)
+  bt::fs3_gate<PP, (MODE >= 1), (MODE >= 4)>(s, dsq, lens, L, nj, out)
   BT_FS3_DISPATCH(s.P, BT_FS3_GATE)
 #undef BT_FS3_GATE
+  if (MODE >= 4 && s.S > 1) seg_free(s.cls, s.sid);
 }
 
 // The ring and direct instances (MODE 0, 1) take the registers they
-// need; the wide ones (2, 3) are capped for blocks of 16 or 32 warps.
+// need; the others are capped for blocks of 16 or 32 warps.
 template <int MODE>
 __global__ void fs3_parser_kernel(const int8_t* __restrict__ dsq,
                                   const int* __restrict__ lens, int L,
@@ -104,11 +116,18 @@ extern "C" int bt_fs3_parser(const void* dsq, const void* lens, int L,
   auto kernel = mode == 0   ? fs3_parser_kernel<0>
                 : mode == 1 ? fs3_parser_kernel<1>
                 : mode == 2 ? fs3_parser_wide_kernel<2>
-                            : fs3_parser_wide_kernel<3>;
+                : mode == 3 ? fs3_parser_wide_kernel<3>
+                            : fs3_parser_wide_kernel<4>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       (const int8_t*)dsq, (const int*)lens, L, nj, (float*)out,
       (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();
+}
+
+// Bytes of a segmented class's scratch of n slots (plan.cuh), for a
+// class of Mp padded lanes; -1 for n < 1.
+extern "C" long long bt_fs3_parser_seg_bytes(int Mp, int n) {
+  return seg_scratch_bytes(bt::fs3_seg_slot_bytes(1, Mp), n);
 }

@@ -44,6 +44,11 @@
 //   registers let launch (asked of the card once an instance) takes a
 //   wide instance capped at 64 registers a thread; a group takes at
 //   most a block's 32 warps (loader.fwd_layout: M = 33792).
+// - A longer model takes a group of 16 warps that walks each row in S
+//   segments (dp_common.cuh forward_pass_seg), in an instance of its own
+//   (blocks of 512 threads, 128 registers a thread), which takes the
+//   launch's other classes too; beside a class of more than 16 warps, the
+//   same code capped as the wide instance.
 
 #include "dp_common.cuh"
 
@@ -53,12 +58,13 @@ __host__ __device__ constexpr int fwd_instance(int pmax) {
 
 // The class row of the plan (plan.cuh): the addresses of the class's
 // stacked tables etab [g][Kp][Mp] and ttab [g][8][Mp] f32, P, W, Mp, G,
-// Kp, and where a block keeps the tables (bt::Stage).  The items are
-// the batch rows b.  With nblk == 0 the plan is one class and no block
-// rows: block x's groups take the items x*G + gi under model 0.  SM:
-// every class of the launch stages both tables (2), its transitions at
-// least (1), or not even those (0).
-template <int PMAX, int SM>
+// Kp, where a block keeps the tables (bt::Stage), the segments S and a
+// segmented class's scratch.  The items are the batch rows b.  With
+// nblk == 0 the plan is one class and no block rows: block x's groups
+// take the items x*G + gi under model 0.  SM: every class of the launch
+// stages both tables (2), its transitions at least (1), or not even
+// those (0).  SEG: the instance of a launch with a segmented class.
+template <int PMAX, int SM, bool SEG = false>
 __device__ __forceinline__ void fwd_parser_block(
     const int8_t* __restrict__ dsq, const int* __restrict__ lens, int B,
     int L, float nj, float* __restrict__ out,
@@ -96,10 +102,25 @@ __device__ __forceinline__ void fwd_parser_block(
   const float pmove = (2.f + nj) / ((float)len + 2.f + nj);
   const int8_t* seq = dsq + (size_t)b * L;
   double lsf, sc = 0.0;
-#define BT_GATE(PP)                                                         \
-  if constexpr (PP <= PMAX)                                                 \
-    sc = bt::forward_pass<PP, false>(g, etab, ttab, Mp, seq, len, pmove, nj, \
-                                     nullptr, 0, lsf);                      \
+  const int S = SEG ? (int)c[8] : 1;
+  // a segmented class: one group a block, which takes a slot of the
+  // class's scratch, its carries past the group's scratch
+  float* cx = reinterpret_cast<float*>(g.x.agg) + 8 * W;
+  float* slot = nullptr;
+  int sid = 0;
+  if (SEG && S > 1)
+    slot = reinterpret_cast<float*>(seg_take(
+        c, bt::dp_seg_slot_bytes(Mp), reinterpret_cast<int*>(cx), sid));
+#define BT_GATE(PP)                                                          \
+  if constexpr (PP <= PMAX) {                                                \
+    if (SEG && S > 1)                                                        \
+      sc = bt::forward_pass_seg<PP, false>(g, etab, ttab, Mp, S, seq, len,   \
+                                           pmove, nj, nullptr, 0, lsf, slot, \
+                                           cx);                              \
+    else                                                                     \
+      sc = bt::forward_pass<PP, false>(g, etab, ttab, Mp, seq, len, pmove,   \
+                                       nj, nullptr, 0, lsf);                 \
+  }                                                                          \
   break;
   switch (P) {  // the plan's classes are checked on the host (bt_plan_check)
     case 3: BT_GATE(3)
@@ -112,6 +133,7 @@ __device__ __forceinline__ void fwd_parser_block(
   }
 #undef BT_GATE
   if (g.t == 0) out[b] = (float)sc;
+  if (SEG && S > 1) seg_free(c, sid);
 }
 
 #define FWD_ARGS                                                          \
@@ -129,6 +151,13 @@ __global__ void fwd_parser_kernel(FWD_ARGS) {
 // through generic addresses, at most 64 registers a thread.
 __global__ void __launch_bounds__(1024) fwd_parser_wide_kernel(FWD_ARGS) {
   fwd_parser_block<33, 0>(dsq, lens, B, L, nj, out, plan, ncls, nblk);
+}
+
+// A launch with a segmented class (a model past 32 warps of 33 lanes):
+// blocks of its group's 16 warps (the plan segments any class of more
+// warps beside it).
+__global__ void __launch_bounds__(512) fwd_parser_seg_kernel(FWD_ARGS) {
+  fwd_parser_block<33, 0, true>(dsq, lens, B, L, nj, out, plan, ncls, nblk);
 }
 #undef FWD_ARGS
 
@@ -174,9 +203,11 @@ extern "C" int bt_fwd_parser(const void* dsq, const void* lens, int B, int L,
   if (B <= 0) return 0;
   if (nblk == 0 && ncls != 1) return cudaErrorInvalidValue;
   int pmax;
+  bool seg;
   size_t smem;
-  const int err = bt_plan_check(plan_host, ncls, warps, pmax, smem);
+  const int err = bt_plan_check(plan_host, ncls, warps, pmax, seg, smem);
   if (err) return err;
+  if (seg && nblk == 0) return cudaErrorInvalidValue;
   const int G = (int)plan_host[5];
   const int grid = nblk > 0 ? nblk : (B + G - 1) / G;
   int sm = 2;
@@ -188,7 +219,8 @@ extern "C" int bt_fwd_parser(const void* dsq, const void* lens, int B, int L,
   // a class stages nothing past ~7000 lanes (P = 17 or 33), so no
   // P = 13 instance stages nothing
   const FwdKernel k =
-      inst == 13 ? (sm == 2   ? fwd_pick<13, 2>(warps)
+      seg          ? fwd_parser_seg_kernel
+      : inst == 13 ? (sm == 2   ? fwd_pick<13, 2>(warps)
                     : sm == 1 ? fwd_pick<13, 1>(warps)
                               : fwd_parser_wide_kernel)
       : inst == 17 ? (sm == 2   ? fwd_pick<17, 2>(warps)
@@ -203,4 +235,10 @@ extern "C" int bt_fwd_parser(const void* dsq, const void* lens, int B, int L,
       (const int8_t*)dsq, (const int*)lens, B, L, nj, (float*)out,
       (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();
+}
+
+// Bytes of a segmented class's scratch of n slots (plan.cuh), for a
+// class of Mp padded lanes; -1 for n < 1.
+extern "C" long long bt_fwd_parser_seg_bytes(int Mp, int n) {
+  return seg_scratch_bytes(bt::dp_seg_slot_bytes(Mp), n);
 }

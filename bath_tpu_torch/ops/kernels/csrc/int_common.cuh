@@ -17,9 +17,19 @@
 // 32P lanes as P rows of 32, so that lane j of the warp's 32 threads is
 // 32 neighbouring halfwords, free of bank conflicts.  MSV and the
 // ViterbiFilter plan their one launch for every width with plan.cuh
-// (msv_filter.cu, vit_filter.cu); the SSV capture puts eight one-warp
-// items in a block, or one item of W > 1 warps (its group is the block,
-// barrier 0), and its blocks stride over the items (bi_plan).
+// (msv_filter.cu, vit_filter.cu), and so does the SSV capture on MSV's
+// plan (ssv_capture.cu).
+//
+// Segments.  A model past a block's warps (the class row's word 8,
+// S > 1) takes a group of W = 16 warps, the only one of its block, that
+// walks each row in S segments of 32 W P lanes, in order; between
+// segments a thread's P lanes of each state row wait in the block's slot
+// of its class's scratch (word 9; plan.cuh seg_take), segment s, row v,
+// lane j of thread t at ((s * NV + v) * P + j) * 32 W + t.  What a segment
+// takes from the one before it: the last lane's values
+// (lane_before_seg, through a carry in shared memory) and the D chain's
+// carry (group_scan_seg); what needs the whole row (its maxima) comes
+// after the last segment.
 
 #pragma once
 
@@ -113,6 +123,66 @@ __device__ __forceinline__ int lane_before(const Group& g, int a, int fill) {
   return pa;
 }
 
+// lane_before for a segmented group (W > 1) at segment <s>: thread 0
+// takes the previous segment's last lane, which that segment's last
+// thread left in <cx> after the exchange, and <fill> in segment 0.
+__device__ __forceinline__ void lane_before_seg(const Group& g, int a, int b,
+                                                int c, int fill, int s,
+                                                int* cx, int& pa, int& pb,
+                                                int& pc) {
+  pa = __shfl_up_sync(FULL, a, 1);
+  pb = __shfl_up_sync(FULL, b, 1);
+  pc = __shfl_up_sync(FULL, c, 1);
+  if (g.lane == 31) {
+    g.x[3 * g.warp] = a;
+    g.x[3 * g.warp + 1] = b;
+    g.x[3 * g.warp + 2] = c;
+  }
+  group_sync(g);
+  if (g.lane == 0) {
+    if (g.warp > 0) {
+      pa = g.x[3 * (g.warp - 1)];
+      pb = g.x[3 * (g.warp - 1) + 1];
+      pc = g.x[3 * (g.warp - 1) + 2];
+    } else if (s == 0) {
+      pa = pb = pc = fill;
+    } else {
+      pa = cx[0];
+      pb = cx[1];
+      pc = cx[2];
+    }
+  }
+  group_sync(g);
+  if (g.t == 32 * g.W - 1) {
+    cx[0] = a;
+    cx[1] = b;
+    cx[2] = c;
+  }
+}
+
+__device__ __forceinline__ int lane_before_seg(const Group& g, int a,
+                                               int fill, int s, int* cx) {
+  int pa, pb, pc;
+  lane_before_seg(g, a, 0, 0, fill, s, cx, pa, pb, pc);
+  return pa;
+}
+
+// Whether <pred> holds on any thread of the group: a warp vote, or for
+// W > 1 a reduction on the group's barrier.
+__device__ __forceinline__ bool group_any(const Group& g, bool pred) {
+  if (g.W == 1) return __any_sync(FULL, pred);
+  unsigned r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.u32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, %2, %3, p;\n\t"
+      "selp.u32 %0, 1, 0, q;\n\t}"
+      : "=r"(r)
+      : "r"((unsigned)pred), "r"(g.bar), "r"(32 * g.W)
+      : "memory");
+  return r != 0;
+}
+
 // A (max, +) map of the D->D chain: y -> max(b, sat16(y + a)).  With
 // every a <= 0, saturation only clamps from below, and maps compose
 // exactly when a is summed unsaturated (clamped at A_FLOOR, far below
@@ -153,6 +223,39 @@ __device__ __forceinline__ MaxPlus group_scan_excl(const Group& g, MaxPlus x) {
   return mp_then(pre, ex);
 }
 
+// group_scan_excl for a segmented group (W > 1): also the composition
+// of the whole group's maps, the same on every thread.
+__device__ __forceinline__ MaxPlus group_scan_seg(const Group& g, MaxPlus x,
+                                                  MaxPlus& total) {
+  MaxPlus inc = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    MaxPlus o{__shfl_up_sync(FULL, inc.a, d), __shfl_up_sync(FULL, inc.b, d)};
+    if (g.lane >= d) inc = mp_then(o, inc);
+  }
+  MaxPlus ex{__shfl_up_sync(FULL, inc.a, 1), __shfl_up_sync(FULL, inc.b, 1)};
+  if (g.lane == 0) ex = MaxPlus{0, NEG};
+  if (g.lane == 31) {
+    g.x[2 * g.warp] = inc.a;
+    g.x[2 * g.warp + 1] = inc.b;
+  }
+  group_sync(g);
+  MaxPlus pre{0, NEG}, tot{0, NEG};
+  for (int w = 0; w < g.W; ++w) {
+    const MaxPlus v{g.x[2 * w], g.x[2 * w + 1]};
+    if (w < g.warp) pre = mp_then(pre, v);
+    tot = mp_then(tot, v);
+  }
+  group_sync(g);
+  total = tot;
+  return mp_then(pre, ex);
+}
+
+// The map applied to y
+__device__ __forceinline__ int mp_apply(const MaxPlus& m, int y) {
+  return max(m.b, sat16(y + m.a));
+}
+
 // The table position x of a row holds lane lane_at(x, P): a warp's 32P
 // lanes stored as P rows of 32, so that thread t's lane j lies at
 // 32j + t (ops/multimodel.py warp_lanes).
@@ -174,47 +277,3 @@ __device__ __forceinline__ void stage_words(const void* __restrict__ src,
 }
 
 }  // namespace bi
-
-// Host side: the block shape, shared memory and grid of a launch.
-struct BiLaunch {
-  int W, G, threads, blocks;
-  bool in_smem;
-  size_t smem;
-};
-
-// The SSV capture's launch: tables of `tab_bytes` go to shared memory
-// when they fit in 100 KB; the rest of the block's shared memory is the
-// W > 1 scratch.  The grid is as many blocks as the card holds at once,
-// at most one item per warp.
-template <typename K>
-static inline BiLaunch bi_plan(K kernel, int B, int Mp, int P,
-                               size_t tab_bytes) {
-  BiLaunch l;
-  l.W = Mp / (32 * P);
-  l.G = l.W == 1 ? 8 : 1;
-  l.threads = 32 * l.W * l.G;
-  l.in_smem = tab_bytes <= 100 * 1024;
-  l.smem = (l.in_smem ? tab_bytes : 0) + 4 * sizeof(int) * l.W;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)l.smem);
-  int dev = 0, sms = 1, per = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, l.threads,
-                                                l.smem);
-  const int need = (B + l.G - 1) / l.G;
-  l.blocks = need < sms * (per > 0 ? per : 1) ? need : sms * (per > 0 ? per : 1);
-  return l;
-}
-
-#define BI_DISPATCH_P(P, CALL)        \
-  switch (P) {                        \
-    case 3: CALL(3); break;           \
-    case 5: CALL(5); break;           \
-    case 9: CALL(9); break;           \
-    case 13: CALL(13); break;         \
-    case 17: CALL(17); break;         \
-    case 25: CALL(25); break;         \
-    case 33: CALL(33); break;         \
-    default: return cudaErrorInvalidValue; \
-  }

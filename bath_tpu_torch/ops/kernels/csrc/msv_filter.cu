@@ -41,15 +41,15 @@
 //   and apart for a launch with a class whose table stays in global
 //   memory, so that every other launch reads its tables as shared
 //   memory (32-bit addresses, fewer registers).
+// - A model past a block of 32 warps of 33 lanes is segmented (int_common
+//   .cuh): its group of 16 warps walks each row in S segments, a lane's
+//   two bytes waiting in the block's slot of the class's scratch between
+//   them (plan.cuh seg_take), in an instance of its own (blocks of 16
+//   warps; the plan segments any class of more beside it), which also
+//   takes the launch's other classes.
 
 #include "int_common.cuh"
-#include "plan.cuh"
-
-// Warps of a block of the instance for lanes up to <pmax> and groups of
-// up to <wmax> warps (ops/multimodel.py msv_block_warps).
-__host__ __device__ constexpr int msv_warps(int pmax, int wmax) {
-  return pmax <= 13 ? 8 : wmax <= 12 ? 12 : 32;
-}
+#include "int_plan.cuh"
 
 namespace bi {
 
@@ -111,16 +111,89 @@ __device__ void msv_item(const Group& g, const uint16_t* ew, int Mp, int M,
   }
 }
 
+// msv_item for a segmented group: each row in S segments of 32 W P
+// lanes; between them a lane's SSV and MSV bytes wait in one uint16 word
+// of <slot> (segment s, lane j of thread t at (s P + j) 32 W + t).  The
+// row's maximum (xE) is taken once, after the last segment.  <tab>: the
+// table words of lane 0.
+template <int P>
+__device__ void msv_item_seg(const Group& g, const uint16_t* tab, int Mp,
+                             int M, int S, int base, int tec, int tbm,
+                             int bias, int b, int B,
+                             const int8_t* __restrict__ flat,
+                             const int64_t* __restrict__ offs,
+                             const int* __restrict__ lens,
+                             const int* __restrict__ tjb,
+                             int* __restrict__ out, uint16_t* slot, int* cx) {
+  const int NT = 32 * g.W, SEG = NT * P;
+  const int len = lens[b];
+  const int tjbm = (tjb[b] + tbm) & 0xFF;
+  const int8_t* seq = flat + offs[b];
+  int umax = 0, xJ = 0, movf = 0;
+  int xB = max(0, base - tjbm);
+  for (int i = 0; i < len; ++i) {
+    const int res = (int)seq[i];
+    int xE = 0;
+    for (int s = 0; s < S; ++s) {
+      const int k0 = s * SEG + g.t * P;
+      const uint16_t* e =
+          tab + (size_t)res * Mp + (s * g.W + g.warp) * 32 * P + g.lane;
+      uint16_t* st = slot + (size_t)s * SEG + g.t;
+      int d[P], dp[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int w = i ? (int)st[j * NT] : 0x0080;
+        d[j] = ((w & 0xFF) ^ 0x80) - 0x80;
+        dp[j] = w >> 8;
+      }
+      int pv, u1, u2;
+      lane_before_seg(g, (d[P - 1] & 0xFF) | (dp[P - 1] << 8), 0, 0, 0x80, s,
+                      cx, pv, u1, u2);
+      const int dprev = ((pv & 0xFF) ^ 0x80) - 0x80;
+      const int mprev = pv >> 8;
+#pragma unroll
+      for (int j = P - 1; j >= 0; --j) {
+        const int ent = e[32 * j];
+        const int sb = ((ent & 0xFF) ^ 0x80) - 0x80;
+        const int r = ent >> 8;
+        const int nd = min(max((j ? d[j - 1] : dprev) - sb, -128), 127);
+        int sv = max(j ? dp[j - 1] : mprev, xB);
+        sv = max(min(sv + bias, 255) - r, 0);
+        d[j] = nd;
+        dp[j] = sv;
+        if (k0 + j < M) {
+          umax = max(umax, nd & 0xFF);
+          xE = max(xE, sv);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        st[j * NT] = (uint16_t)((d[j] & 0xFF) | (dp[j] << 8));
+    }
+    xE = group_max(g, xE);
+    movf |= xE + bias >= 255;
+    xJ = max(xJ, max(0, xE - tec));
+    xB = max(0, max(base, xJ) - tjbm);
+  }
+  umax = group_max(g, umax);
+  if (g.t == 0) {
+    out[b] = umax;
+    out[B + b] = xJ;
+    out[2 * B + b] = movf;
+  }
+}
+
 }  // namespace bi
 
 // The class row of the plan (plan.cuh): the address of the class's
 // stacked tables [g][Kp][Mp] int16 (warp-transposed), the address of its
-// scalars [g][5] int (M, base, tec, tbm, bias), P, W, Mp, G, Kp, and
+// scalars [g][5] int (M, base, tec, tbm, bias), P, W, Mp, G, Kp,
 // whether a block stages the table in shared memory (every class of the
-// launch does unless GLOBAL).  With nblk == 0 the plan is one class and
-// no block rows: block x's groups take the items x*G + gi, stepping by
-// the grid's groups, under model 0.
-template <int PMAX, int WARPS, bool GLOBAL>
+// launch does unless GLOBAL), the segments S and the address of a
+// segmented class's scratch (SEG).  With nblk == 0 the plan is one class
+// and no block rows: block x's groups take the items x*G + gi, stepping
+// by the grid's groups, under model 0.
+template <int PMAX, int WARPS, bool GLOBAL, bool SEG = false>
 __global__ void __launch_bounds__(32 * WARPS)
     msv_filter_kernel(const int8_t* __restrict__ flat,
                       const int64_t* __restrict__ offs,
@@ -169,12 +242,27 @@ __global__ void __launch_bounds__(32 * WARPS)
   const uint16_t* ew = tab + g.warp * 32 * P + g.lane;
   const int M = s[0], base = s[1], tec = s[2], tbm = s[3], bias = s[4];
   const long long* items = plan + PLAN_CLS * ncls + PLAN_BLK * nblk;
+  const int S = SEG ? (int)c[8] : 1;
+  // a segmented class: one group a block, which takes a slot of the
+  // class's scratch, its carry past the group's scratch
+  int* cx = g.x + 4 * W;
+  uint16_t* slot = nullptr;
+  int sid = 0;
+  if (SEG && S > 1)
+    slot = reinterpret_cast<uint16_t*>(
+        seg_take(c, msv_seg_slot_bytes(Mp), cx, sid));
 #define BI_MSV_ITEMS(PP)                                                  \
-  if constexpr (PP <= PMAX)                                               \
-    for (int q = first; q < end; q += step)                               \
-      bi::msv_item<PP>(g, ew, Mp, M, base, tec, tbm, bias,                \
-                       nblk > 0 ? (int)items[q] : q, B, flat, offs, lens, \
-                       tjb, out);                                         \
+  if constexpr (PP <= PMAX) {                                             \
+    if (SEG && S > 1)                                                     \
+      bi::msv_item_seg<PP>(g, tab, Mp, M, S, base, tec, tbm, bias,        \
+                           (int)items[first], B, flat, offs, lens, tjb,   \
+                           out, slot, cx);                                \
+    else                                                                  \
+      for (int q = first; q < end; q += step)                             \
+        bi::msv_item<PP>(g, ew, Mp, M, base, tec, tbm, bias,              \
+                         nblk > 0 ? (int)items[q] : q, B, flat, offs,     \
+                         lens, tjb, out);                                 \
+  }                                                                       \
   break;
   switch (P) {  // the plan's classes are checked on the host (msv_check)
     case 3: BI_MSV_ITEMS(3)
@@ -186,36 +274,7 @@ __global__ void __launch_bounds__(32 * WARPS)
     case 33: BI_MSV_ITEMS(33)
   }
 #undef BI_MSV_ITEMS
-}
-
-// Checks a plan's classes (the host copy of the table) and gives the
-// launch's largest P and W and dynamic shared memory.  Returns 0, or a
-// cudaError_t.
-static int msv_check(const long long* plan, int ncls, int nblk, int warps,
-                     int& pmax, int& wmax, bool& global, size_t& smem) {
-  const int cap = plan_smem_optin();
-  if (ncls <= 0 || (nblk == 0 && ncls != 1)) return cudaErrorInvalidValue;
-  pmax = wmax = 0;
-  global = false;
-  smem = 0;
-  for (int i = 0; i < ncls; ++i) {
-    const long long* c = plan + PLAN_CLS * i;
-    const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
-    const int Kp = (int)c[6];
-    if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
-          P == 33) ||
-        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
-        (W > 1 && G > 15) || Kp < 1)
-      return cudaErrorInvalidValue;
-    const size_t need =
-        (c[7] ? (size_t)Kp * Mp * sizeof(uint16_t) : 0) + (size_t)G * 16 * W;
-    smem = need > smem ? need : smem;
-    pmax = P > pmax ? P : pmax;
-    wmax = W > wmax ? W : wmax;
-    global = global || c[7] == 0;
-  }
-  if (warps > msv_warps(pmax, wmax)) return cudaErrorInvalidValue;
-  return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
+  if (SEG && S > 1) seg_free(c, sid);
 }
 
 using MsvKernel = void (*)(const int8_t*, const int64_t*, const int*,
@@ -223,9 +282,12 @@ using MsvKernel = void (*)(const int8_t*, const int64_t*, const int*,
 
 // The instance of a checked plan: by the launch's largest P and W, and
 // whether a class reads its table from global memory (a table past
-// shared memory takes 4 x 1056 lanes or more: P = 33).
-static MsvKernel msv_kernel(int pmax, int wmax, bool global) {
+// shared memory takes 4 x 1056 lanes or more: P = 33), or is segmented
+// (a group of 16 warps that reads its table from global memory, in
+// blocks of 16 warps).
+static MsvKernel msv_kernel(int pmax, int wmax, bool global, bool seg) {
   const int inst = msv_warps(pmax, wmax);
+  if (seg) return msv_filter_kernel<33, 16, true, true>;
   if (inst == 8 && !global) return msv_filter_kernel<13, 8, false>;
   if (inst == 12 && !global) return msv_filter_kernel<33, 12, false>;
   if (inst == 12) return msv_filter_kernel<33, 12, true>;
@@ -240,10 +302,11 @@ static MsvKernel msv_kernel(int pmax, int wmax, bool global) {
 // plan that does not check.
 extern "C" int bt_msv_grid(const long long* plan_host, int warps) {
   int pmax, wmax;
-  bool global;
+  bool global, seg;
   size_t smem;
-  if (msv_check(plan_host, 1, 0, warps, pmax, wmax, global, smem)) return 0;
-  const MsvKernel kernel = msv_kernel(pmax, wmax, global);
+  if (msv_check(plan_host, 1, 0, warps, pmax, wmax, global, seg, smem))
+    return 0;
+  const MsvKernel kernel = msv_kernel(pmax, wmax, global, seg);
   if (!kernel) return 0;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -270,12 +333,12 @@ extern "C" int bt_msv_filter(const void* flat, const void* offs,
                              int grid, void* stream) {
   if (B <= 0) return 0;
   int pmax, wmax;
-  bool global;
+  bool global, seg;
   size_t smem;
   const int err =
-      msv_check(plan_host, ncls, nblk, warps, pmax, wmax, global, smem);
+      msv_check(plan_host, ncls, nblk, warps, pmax, wmax, global, seg, smem);
   if (err) return err;
-  const MsvKernel kernel = msv_kernel(pmax, wmax, global);
+  const MsvKernel kernel = msv_kernel(pmax, wmax, global, seg);
   if (!kernel || grid < 1 || (nblk > 0 && grid != nblk))
     return cudaErrorInvalidValue;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -284,4 +347,10 @@ extern "C" int bt_msv_filter(const void* flat, const void* offs,
       (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,
       (const int*)tjb, B, (int*)out, (const long long*)plan, ncls, nblk);
   return (int)cudaGetLastError();
+}
+
+// Bytes of a segmented class's scratch of n slots (plan.cuh), for a
+// class of Mp padded lanes; -1 for n < 1.
+extern "C" long long bt_msv_filter_seg_bytes(int Mp, int n) {
+  return seg_scratch_bytes(msv_seg_slot_bytes(Mp), n);
 }

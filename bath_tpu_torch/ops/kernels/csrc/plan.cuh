@@ -3,8 +3,10 @@
 // vit_plan): one int64 table that the host builds and uploads in one
 // copy.
 //   classes, PLAN_CLS words each: the addresses of the class's stacked
-//     tables, P, W, Mp, G (the groups a block of the class holds) and
-//     two words of the kernel's own;
+//     tables, P, W, Mp, G (the groups a block of the class holds), two
+//     words of the kernel's own, the segments S a group walks each row
+//     in (1: the row at once; int_common.cuh, dp_common.cuh) and the
+//     address of a segmented class's scratch (seg_take below);
 //   blocks, PLAN_BLK words each: class, model (its index in the class's
 //     stacks), M, first item, item count;
 //   items: item rows (b, or passes * b + pass).
@@ -16,7 +18,7 @@
 
 #include <cuda_runtime.h>
 
-constexpr int PLAN_CLS = 8;         // int64 words of a class row
+constexpr int PLAN_CLS = 10;        // int64 words of a class row
 constexpr int PLAN_BLK = 5;         // of a block row
 
 // What the block's row of the plan says.
@@ -56,4 +58,55 @@ static inline int plan_smem_optin() {
   if (!c)
     cudaDeviceGetAttribute(&c, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return c;
+}
+
+// A segmented class's scratch (class row word 9): the count n of its
+// slots, a flag a slot (0: free), and from seg_header_bytes(n) on the
+// slots, each of the bytes its kernel's segments keep (the kernels'
+// *_seg_slot_bytes).  A segmented block takes a free slot when it
+// starts (seg_take) and frees it when it ends (seg_free), so that the
+// scratch needs a slot for each segmented block the card holds at once,
+// not one an item; with fewer, a block waits for one.  The host sizes
+// the scratch with the kernels' bt_*_seg_bytes and writes the header.
+__host__ __device__ constexpr size_t seg_header_bytes(int n) {
+  return ((size_t)4 * (n + 1) + 255) / 256 * 256;
+}
+
+static inline long long seg_scratch_bytes(size_t slot_bytes, int n) {
+  return n < 1 ? -1 : (long long)(seg_header_bytes(n) + slot_bytes * n);
+}
+
+// Every thread of a segmented block calls it: thread 0 takes a free slot
+// of the class <c>'s scratch and passes its index <id> through the
+// shared word <word>, which no thread touches until this returns.  Gives
+// the slot's address.
+__device__ __forceinline__ char* seg_take(const long long* c,
+                                          size_t slot_bytes, int* word,
+                                          int& id) {
+  int* head = reinterpret_cast<int*>(c[9]);
+  const int n = head[0];
+  if (threadIdx.x == 0) {
+    const int start = blockIdx.x % n;
+    int i = start;
+    while (atomicCAS(head + 1 + i, 0, 1) != 0) {
+      i = i + 1 == n ? 0 : i + 1;
+      if (i == start) __nanosleep(1000);
+    }
+    __threadfence();
+    *word = i;
+  }
+  __syncthreads();
+  id = *word;
+  __syncthreads();
+  return reinterpret_cast<char*>(head) + seg_header_bytes(n) +
+         (size_t)id * slot_bytes;
+}
+
+// Every thread of the block calls it once it is done with slot <id>.
+__device__ __forceinline__ void seg_free(const long long* c, int id) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicExch(reinterpret_cast<int*>(c[9]) + 1 + id, 0);
+  }
 }

@@ -51,6 +51,14 @@
 //   registers a thread may take.  One warp takes up to 33 lanes a
 //   thread (fewest instructions an item: the calibration's many equal
 //   items are throughput-bound), a longer model W warps of 17.
+// - A model past 16 warps of 17 lanes (M = 8704) takes a group of 16
+//   warps, which walks each row in S segments (int_common.cuh): a lane's
+//   M, I and D words wait in the block's slot of the class's scratch
+//   (plan.cuh seg_take) between segments, the
+//   row's maximum and a capture's striped order are taken after the last
+//   one.  It runs an instance of its own, blocks of 16 warps, which also
+//   takes the launch's other classes (and a launch of 13-16 warps of 17
+//   lanes beside a warp of 33, which no other instance holds).
 
 #include "int_common.cuh"
 #include "plan.cuh"
@@ -60,10 +68,16 @@
 enum { R_BM = 0, R_MM, R_IM, R_DM, R_MDS, R_DDS, R_MI, R_II, NTR };
 constexpr int VIT_PAIRS = NTR / 2;
 
+// Bytes of a segmented group's slot (plan.cuh) of a class of Mp padded
+// lanes: the int16 M, I and D rows (vit_item_seg).
+__host__ __device__ constexpr size_t vit_seg_slot_bytes(int Mp) {
+  return (size_t)3 * Mp * sizeof(int16_t);
+}
+
 // Warps of a block of the instance for lanes up to <pmax>
-// (ops/multimodel.py vit_block_warps).
-__host__ __device__ constexpr int vit_warps(int pmax) {
-  return pmax <= 13 ? 8 : pmax <= 17 ? 16 : 12;
+// (ops/multimodel.py vit_block_warps), or 16 for the segmented one.
+__host__ __device__ constexpr int vit_warps(int pmax, bool seg = false) {
+  return seg ? 16 : pmax <= 13 ? 8 : pmax <= 17 ? 16 : 12;
 }
 
 __host__ __device__ constexpr int vit_instance(int pmax) {
@@ -185,6 +199,130 @@ __device__ void vit_item(const Group& g, const int16_t* ew, const int* tw,
   }
 }
 
+// vit_item for a segmented group: each row in S segments of 32 W P
+// lanes; between them a lane's M, I and D words wait in <slot> (rows v
+// = 0, 1, 2 of segment s, lane j of thread t at ((3 s + v) P + j) 32 W
+// + t).  A segment takes the previous segment's last lane of the
+// previous row (cx[0..2]) and of this row's M (cx[3]), and the D chain's
+// carry; xE and a capture's striped order come after the last segment.
+// <rwv>, <trp>: the match words and transition pairs of lane 0.
+template <int P, bool CAPTURE>
+__device__ void vit_item_seg(const Group& g, const int16_t* rwv,
+                             const int* trp, int Mp, int M, int S, int base,
+                             int emove, int eloop, int b, int B,
+                             const int8_t* __restrict__ flat,
+                             const int64_t* __restrict__ offs,
+                             const int* __restrict__ lens,
+                             const int* __restrict__ move,
+                             const int* __restrict__ thresh,
+                             int* __restrict__ out,
+                             int16_t* __restrict__ karr, int16_t* slot,
+                             int* cx) {
+  const int NT = 32 * g.W, SEG = NT * P;
+  const int Q = max(2, (M + 7) / 8);
+  const int len = lens[b];
+  const int mv = move[b];
+  const int th = CAPTURE ? thresh[b] : 0;
+  const int8_t* seq = flat + offs[b];
+  int16_t* krow = CAPTURE ? karr + offs[b] : nullptr;
+  int xJ = NEG, xC = NEG, xB = base + mv;
+  int ovf = 0, score = 0, has = 0, ovfrow = 0;
+  for (int i = 0; i < len; ++i) {
+    const int res = (int)seq[i];
+    int xE = NEG, dcarry = NEG;
+    for (int s = 0; s < S; ++s) {
+      const int k0 = s * SEG + g.t * P;
+      const int at = (s * g.W + g.warp) * 32 * P + g.lane;
+      const int16_t* e = rwv + at + (size_t)res * Mp;
+      const int* tw = trp + at;
+      int16_t* st = slot + (size_t)s * 3 * SEG + g.t;
+      int dm[P], di[P], dd[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        dm[j] = i ? (int)st[j * NT] : NEG;
+        di[j] = i ? (int)st[SEG + j * NT] : NEG;
+        dd[j] = i ? (int)st[2 * SEG + j * NT] : NEG;
+      }
+      int mp, ip, dpv;
+      lane_before_seg(g, dm[P - 1], di[P - 1], dd[P - 1], NEG, s, cx, mp, ip,
+                      dpv);
+#pragma unroll
+      for (int j = P - 1; j >= 0; --j) {
+        const int k = k0 + j;
+        const int bm_mm = tw[32 * j];
+        const int im_dm = tw[Mp + 32 * j];
+        const int mi_ii = tw[3 * Mp + 32 * j];
+        int sv = sat16(xB + lo16(bm_mm));
+        sv = max(sv, sat16((j ? dm[j - 1] : mp) + hi16(bm_mm)));
+        sv = max(sv, sat16((j ? di[j - 1] : ip) + lo16(im_dm)));
+        sv = max(sv, sat16((j ? dd[j - 1] : dpv) + hi16(im_dm)));
+        sv = sat16(sv + (int)e[32 * j]);
+        di[j] = max(sat16(dm[j] + lo16(mi_ii)), sat16(di[j] + hi16(mi_ii)));
+        dm[j] = sv;
+        if (k < M) xE = max(xE, sv);
+      }
+      const int svprev = lane_before_seg(g, dm[P - 1], NEG, s, cx + 3);
+      MaxPlus run{0, NEG};
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int md_dd = tw[2 * Mp + 32 * j];
+        dd[j] = sat16((j ? dm[j - 1] : svprev) + lo16(md_dd));
+        run = mp_then(run, MaxPlus{hi16(md_dd), dd[j]});
+      }
+      MaxPlus tot;
+      int y = mp_apply(group_scan_seg(g, run, tot), dcarry);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        y = max(dd[j], sat16(y + hi16(tw[2 * Mp + 32 * j])));
+        dd[j] = y;
+      }
+      dcarry = mp_apply(tot, dcarry);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        st[j * NT] = (int16_t)dm[j];
+        st[SEG + j * NT] = (int16_t)di[j];
+        st[2 * SEG + j * NT] = (int16_t)dd[j];
+      }
+    }
+    xE = group_max(g, xE);
+    const bool ovf2 = xE >= 32767;
+    if (CAPTURE) {
+      if (xE >= th && !ovf2) {  // the same on every thread of the group
+        int ord = 8 * Q;
+        for (int s = 0; s < S; ++s) {
+          const int16_t* st = slot + (size_t)s * 3 * SEG + g.t;
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            const int k = s * SEG + g.t * P + j;
+            if (k < M && (int)st[j * NT] == xE)
+              ord = min(ord, (k % Q) * 8 + k / Q);
+          }
+        }
+        ord = group_min(g, ord);
+        if (g.t == 0) krow[i] = (int16_t)((ord % 8) * Q + ord / 8 + 1);
+      }
+      if (ovf2 && ovfrow == 0) ovfrow = i + 1;
+    }
+    xC = max(xC, xE + emove);
+    xJ = max(xJ, xE + eloop);
+    xB = sat16(max(xJ, base) + mv);
+    ovf |= ovf2;
+    if (i == len - 1) {
+      score = xC + mv;
+      has = xC > NEG;
+    }
+  }
+  if (g.t == 0) {
+    if (CAPTURE) {
+      out[b] = ovfrow;
+    } else {
+      out[b] = score;
+      out[B + b] = has;
+      out[2 * B + b] = ovf;
+    }
+  }
+}
+
 }  // namespace bi
 
 // The class row of the plan (plan.cuh): the address of the class's
@@ -192,9 +330,10 @@ __device__ void vit_item(const Group& g, const int16_t* ew, const int* tw,
 // address of its scalars [g][4] int (M, base, emove, eloop), P, W, Mp,
 // G, Kp, and 0, or the address of the tables in the kernel's layout
 // ([g] blocks of vit_table_bytes: the transition pairs, then the match
-// words) for a class whose blocks read them from global memory.
-template <int PMAX, bool CAPTURE, bool GLOBAL>
-__global__ void __launch_bounds__(32 * vit_warps(PMAX))
+// words) for a class whose blocks read them from global memory, the
+// segments S and the address of a segmented class's scratch (SEG).
+template <int PMAX, bool CAPTURE, bool GLOBAL, bool SEG = false>
+__global__ void __launch_bounds__(32 * vit_warps(PMAX, SEG))
     vit_filter_kernel(const int8_t* __restrict__ flat,
                       const int64_t* __restrict__ offs,
                       const int* __restrict__ lens,
@@ -241,11 +380,26 @@ __global__ void __launch_bounds__(32 * vit_warps(PMAX))
   g.bar = 1 + pb.gi;
   const int at = g.warp * 32 * P + g.lane;
   const int M = pb.M, base = s[1], emove = s[2], eloop = s[3];
+  const int S = SEG ? (int)c[8] : 1;
+  // a segmented class: one group a block, which takes a slot of the
+  // class's scratch, its carries past the group's scratch
+  int* cx = g.x + 4 * W;
+  int16_t* slot = nullptr;
+  int sid = 0;
+  if (SEG && S > 1)
+    slot = reinterpret_cast<int16_t*>(
+        seg_take(c, vit_seg_slot_bytes(Mp), cx, sid));
 #define BI_VIT_ITEM(PP)                                                   \
-  if constexpr (PP <= PMAX)                                               \
-    bi::vit_item<PP, CAPTURE>(g, rwv + at, trp + at, Mp, M, base, emove,  \
-                              eloop, pb.item, B, flat, offs, lens, move,  \
-                              thresh, out, karr);                         \
+  if constexpr (PP <= PMAX) {                                             \
+    if (SEG && S > 1)                                                     \
+      bi::vit_item_seg<PP, CAPTURE>(g, rwv, trp, Mp, M, S, base, emove,   \
+                                    eloop, pb.item, B, flat, offs, lens,  \
+                                    move, thresh, out, karr, slot, cx);   \
+    else                                                                  \
+      bi::vit_item<PP, CAPTURE>(g, rwv + at, trp + at, Mp, M, base,       \
+                                emove, eloop, pb.item, B, flat, offs,     \
+                                lens, move, thresh, out, karr);           \
+  }                                                                       \
   break;
   switch (P) {
     case 3: BI_VIT_ITEM(3)
@@ -257,48 +411,56 @@ __global__ void __launch_bounds__(32 * vit_warps(PMAX))
     case 33: BI_VIT_ITEM(33)
   }
 #undef BI_VIT_ITEM
+  if (SEG && S > 1) seg_free(c, sid);
 }
 
 // Checks a plan's classes (the host copy of the table) and gives the
-// instance (vit_instance of the largest P) and the launch's dynamic
-// shared memory.  Returns 0, or a cudaError_t.
+// instance (vit_instance of the largest P), whether the launch takes
+// the segmented one (a segmented class, or blocks of more warps than
+// that instance's), and the launch's dynamic shared memory.  Returns 0,
+// or a cudaError_t.
 static int vit_check(const long long* plan, int ncls, int warps, int& inst,
-                     bool& global, size_t& smem) {
+                     bool& global, bool& seg, size_t& smem) {
   const int cap = plan_smem_optin();
   if (ncls <= 0 || warps <= 0) return cudaErrorInvalidValue;
   int pmax = 0;
-  global = false;
+  global = seg = false;
   smem = 0;
   for (int i = 0; i < ncls; ++i) {
     const long long* c = plan + PLAN_CLS * i;
     const int P = (int)c[2], W = (int)c[3], Mp = (int)c[4], G = (int)c[5];
-    const int Kp = (int)c[6];
+    const int Kp = (int)c[6], S = (int)c[8];
     if (!(P == 3 || P == 5 || P == 9 || P == 13 || P == 17 || P == 25 ||
           P == 33) ||
-        W < 1 || Mp != 32 * P * W || G < 1 || G * W > warps ||
-        (W > 1 && G > 15) || Kp < 1)
+        W < 1 || S < 1 || Mp != 32 * P * W * S || G < 1 || G * W > warps ||
+        (W > 1 && G > 15) || Kp < 1 ||
+        (S > 1 && (W < 2 || G != 1 || c[9] == 0 || c[7] == 0)))
       return cudaErrorInvalidValue;
-    const size_t need = c[7] ? (size_t)G * 16 * W
-                             : vit_smem_bytes(Kp, Mp, G, W);
+    const size_t need = (c[7] ? (size_t)G * 16 * W
+                              : vit_smem_bytes(Kp, Mp, G, W)) +
+                        (S > 1 ? 32 : 0);
     smem = need > smem ? need : smem;
     pmax = P > pmax ? P : pmax;
     global = global || c[7] != 0;
+    seg = seg || S > 1;
   }
   inst = vit_instance(pmax);
-  if (warps > vit_warps(inst)) return cudaErrorInvalidValue;
+  seg = seg || warps > vit_warps(inst);
+  if (warps > vit_warps(inst, seg)) return cudaErrorInvalidValue;
   return smem <= (size_t)cap ? 0 : cudaErrorInvalidValue;
 }
 
-template <int PMAX, bool CAPTURE, bool GLOBAL>
+template <int PMAX, bool CAPTURE, bool GLOBAL, bool SEG = false>
 static void vit_launch_instance(const void* flat, const void* offs,
                                 const void* lens, const void* move,
                                 const void* thresh, int B, void* out,
                                 void* karr, const void* plan, int ncls,
                                 int nblk, int warps, size_t smem,
                                 cudaStream_t st) {
-  cudaFuncSetAttribute(vit_filter_kernel<PMAX, CAPTURE, GLOBAL>,
+  cudaFuncSetAttribute(vit_filter_kernel<PMAX, CAPTURE, GLOBAL, SEG>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  vit_filter_kernel<PMAX, CAPTURE, GLOBAL><<<nblk, 32 * warps, smem, st>>>(
+  vit_filter_kernel<PMAX, CAPTURE, GLOBAL, SEG>
+      <<<nblk, 32 * warps, smem, st>>>(
       (const int8_t*)flat, (const int64_t*)offs, (const int*)lens,
       (const int*)move, (const int*)thresh, B, (int*)out, (int16_t*)karr,
       (const long long*)plan, ncls, nblk);
@@ -311,14 +473,20 @@ static int vit_launch(const void* flat, const void* offs, const void* lens,
                       int ncls, int nblk, int warps, void* stream) {
   if (nblk <= 0) return 0;
   int inst;
-  bool global;
+  bool global, seg;
   size_t smem;
-  const int err = vit_check(plan_host, ncls, warps, inst, global, smem);
+  const int err = vit_check(plan_host, ncls, warps, inst, global, seg, smem);
   if (err) return err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  // a segmented group reads its tables from global memory; the instance
+  // takes every P of the launch
+  if (seg)
+    vit_launch_instance<33, CAPTURE, true, true>(flat, offs, lens, move,
+                                                 thresh, B, out, karr, plan,
+                                                 ncls, nblk, warps, smem, st);
   // a table past shared memory takes six warps of 17 lanes or more
-  if (global && inst == 13) return cudaErrorInvalidValue;
-  if (inst == 13)
+  else if (global && inst == 13) return cudaErrorInvalidValue;
+  else if (inst == 13)
     vit_launch_instance<13, CAPTURE, false>(flat, offs, lens, move, thresh,
                                             B, out, karr, plan, ncls, nblk,
                                             warps, smem, st);
@@ -369,4 +537,11 @@ extern "C" int bt_vit_capture(const void* flat, const void* offs,
                               void* stream) {
   return vit_launch<true>(flat, offs, lens, move, thresh, B, out, karr,
                           plan_host, plan, ncls, nblk, warps, stream);
+}
+
+// Bytes of a segmented class's scratch of n slots (plan.cuh), for a
+// class of Mp padded lanes (the filter's and the capture's); -1 for
+// n < 1.
+extern "C" long long bt_vit_filter_seg_bytes(int Mp, int n) {
+  return seg_scratch_bytes(vit_seg_slot_bytes(Mp), n);
 }

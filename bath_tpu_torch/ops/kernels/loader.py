@@ -21,6 +21,7 @@ kernels of several cards run at once; it does not synchronise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,11 +53,25 @@ FS3_LANES_PER_THREAD = (3, 5, 9, 13)
 # M = 2720 (W = 5), MSV's to M = 3808 (W = 7), where warps of 33 lanes
 # would stop at 2112 and 3168; and a call bound by its longest chain
 # runs faster past M = 1056 on three warps of 17 lanes than on two of 33
-# (PERF.md, the lane-ladder sweeps).  Decoding and the SSV capture
-# keep warps of 33 lanes past one warp (layout).
+# (PERF.md, the lane-ladder sweeps).  Decoding keeps warps of 33 lanes
+# past one warp (layout).
 VIT_WIDE_LANES = 17
+# The ViterbiFilter's 17-lane instance runs blocks of 16 warps.
+VIT_BLOCK_WARPS = 16
 # A group's warps share one block, at most 32 warps.
 MAX_GROUP_WARPS = 32
+# A model past a block's warps takes a group of SEG_WARPS warps (a block
+# of 512 threads, so up to 128 registers a thread) that walks each row in
+# S segments of 32 * W * P lanes (segmented), at most SEG_LANES lanes a
+# thread (the ViterbiFilter's VIT_SEG_LANES, the fs3 pair's
+# FS3_SEG_LANES): a thread's state of a segment stays in registers.
+SEG_WARPS = 16
+SEG_LANES = (3, 5, 9, 13)
+VIT_SEG_LANES = (3, 5, 9, 13, 17)
+FS3_SEG_LANES = (3, 5, 9)
+# threads an SM holds (sm_90): a segmented class's scratch takes a slot
+# for each of its blocks the card holds at once (_planned)
+SM_THREADS = 2048
 
 
 _lib = None
@@ -66,32 +81,79 @@ class CudaKernelError(RuntimeError):
     pass
 
 
-def layout(M: int, lanes=LANES_PER_THREAD) -> tuple[int, int, int]:
-    """(P, W, Mp): lanes per thread, warps per item, padded lanes."""
+def layout(M: int, lanes=LANES_PER_THREAD,
+           seg_lanes=SEG_LANES) -> tuple[int, int, int]:
+    """(P, W, Mp): lanes per thread, warps per item, padded lanes; past
+    a block of MAX_GROUP_WARPS warps, the segmented group's on
+    <seg_lanes>."""
     for P in lanes:
         if 32 * P >= M:
             return P, 1, 32 * P
     P = lanes[-1]
     W = -(-M // (32 * P))
-    return P, W, 32 * P * W
+    if W <= MAX_GROUP_WARPS:
+        return P, W, 32 * P * W
+    return segmented(M, seg_lanes)
+
+
+def segmented(M: int, lanes) -> tuple[int, int, int]:
+    """(P, W, Mp) of a model past a block of warps: SEG_WARPS warps a
+    group, which walks each row in S = Mp / (32 W P) segments; S is the
+    fewest that the widest P of <lanes> allows, P then the fewest lanes
+    that cover M in S segments."""
+    span = 32 * SEG_WARPS
+    S = -(-M // (span * lanes[-1]))
+    P = next(p for p in lanes if span * p * S >= M)
+    return P, SEG_WARPS, span * P * S
+
+
+@functools.cache
+def segmented_beside(layout_of, lanes):
+    """<layout_of> in a launch with a segmented class, whose blocks
+    hold SEG_WARPS warps: a model past SEG_WARPS warps is segmented too,
+    on <lanes> (made once a ladder, so that a pack relaid on it is made
+    once: ``ModelPack.with_layout``)."""
+    def of(M: int) -> tuple[int, int, int]:
+        P, W, Mp = layout_of(M)
+        return (P, W, Mp) if W <= SEG_WARPS else segmented(M, lanes)
+    return of
+
+
+def segments(P: int, W: int, Mp: int) -> int:
+    """S, the segments a group of W warps of P lanes walks a row of Mp
+    padded lanes in (1: the row fits the group at once)."""
+    return Mp // (32 * P * W)
 
 
 def fs3_layout(M: int) -> tuple[int, int, int]:
-    return layout(M, FS3_LANES_PER_THREAD)
+    return layout(M, FS3_LANES_PER_THREAD, FS3_SEG_LANES)
+
+
+def _wide17(M: int) -> tuple[int, int, int]:
+    """The whole ladder in one warp, then warps of VIT_WIDE_LANES."""
+    if M <= 32 * LANES_PER_THREAD[-1]:
+        return layout(M)
+    W = -(-M // (32 * VIT_WIDE_LANES))
+    return VIT_WIDE_LANES, W, 32 * VIT_WIDE_LANES * W
 
 
 def vit_layout(M: int) -> tuple[int, int, int]:
-    if M <= 32 * LANES_PER_THREAD[-1]:
-        return layout(M)
-    return layout(M, (VIT_WIDE_LANES,))
+    """The ViterbiFilter's: warps of 17 lanes past one warp, up to its
+    instance's VIT_BLOCK_WARPS (M = 8704); a longer model takes the
+    segmented group, at most 17 lanes a thread."""
+    P, W, Mp = _wide17(M)
+    if W <= VIT_BLOCK_WARPS:
+        return P, W, Mp
+    return segmented(M, VIT_SEG_LANES)
 
 
 def wide_layout(M: int) -> tuple[int, int, int]:
     """MSV's and the Forward gate's ladder: the ViterbiFilter's up to a
     block of MAX_GROUP_WARPS warps of 17 lanes (M = 17408), then warps
-    of 33 lanes, to a block of them (M = 33792)."""
+    of 33 lanes, to a block of them (M = 33792), then the segmented
+    group."""
     if M <= 32 * VIT_WIDE_LANES * MAX_GROUP_WARPS:
-        return vit_layout(M)
+        return _wide17(M)
     return layout(M)
 
 
@@ -181,12 +243,16 @@ def lib() -> ctypes.CDLL:
     so.bt_msv_grid.restype = I
     so.bt_msv_grid.argtypes = [P, I]
     so.bt_ssv_capture.restype = I
-    so.bt_ssv_capture.argtypes = [P, P, P, P, P, I, P, I, I, I, I, I, I, I,
-                                  P, P, P]
+    so.bt_ssv_capture.argtypes = [P, P, P, P, P, I, P, P, P, I, I, P, P, I,
+                                  P]
     so.bt_vit_filter.restype = I
     so.bt_vit_filter.argtypes = [P, P, P, P, I, P, P, P, I, I, I, P]
     so.bt_vit_capture.restype = I
     so.bt_vit_capture.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, I, P]
+    for name in SEG_ENTRIES:
+        f = getattr(so, f"bt_{name}_seg_bytes")
+        f.restype = ctypes.c_longlong
+        f.argtypes = [I, I]
     so.bt_ub_chain.restype = I
     so.bt_ub_chain.argtypes = [P, P, I, I, I, P]
     for name in ("bt_ub_onehot_gather", "bt_ub_onehot_mma"):
@@ -296,23 +362,56 @@ class Launch:
         return self._call(*args)
 
 
-def _planned(plan, device) -> tuple:
+# the entries with a segmented instance, each with its bt_*_seg_bytes
+SEG_ENTRIES = ("fwd_parser", "domdec", "fs3_parser", "fs3_domdec",
+               "msv_filter", "ssv_capture", "vit_filter")
+
+
+def _planned(plan, device, entry: str) -> tuple:
     """The plan's trailing arguments of a one-launch entry: its table on
-    the host and on the device, classes, blocks, warps a block."""
+    the host and on the device, classes, blocks, warps a block.  Each
+    segmented class gets its scratch on <device> (``csrc/plan.cuh``
+    ``seg_take``), its address in the class row's word 9: a slot for
+    each of its blocks the card holds at once, of the bytes the kernel
+    of <entry> says (``bt_<entry>_seg_bytes``), and a header of the slot
+    count and a free flag a slot; the plan holds it
+    (``LaunchPlan.buffers``)."""
+    from ..multimodel import PLAN_CLS
+    plan.buffers = []
+    if plan.scratch:
+        held = sms(device) * (SM_THREADS // (32 * plan.warps))
+        seg_bytes = getattr(lib(), f"bt_{entry}_seg_bytes")
+    for c, blocks in plan.scratch:
+        n = min(blocks or held, held)
+        buf = torch.empty(seg_bytes(int(plan.table[PLAN_CLS * c + 4]), n),
+                          dtype=torch.uint8, device=device)
+        head = buf[:4 * (n + 1)].view(torch.int32)
+        head.zero_()
+        head[0] = n
+        plan.buffers.append(buf)
+        plan.table[PLAN_CLS * c + 9] = buf.data_ptr()
     table = torch.from_numpy(plan.table).to(device)
     return (plan.table.ctypes.data, table, plan.ncls, plan.nblk, plan.warps)
+
+
+def one_segment(M: int, layout_of) -> bool:
+    """Whether a model of M positions takes one segment (S = 1) under
+    <layout_of>: a single-model call then takes its class row alone
+    (``single_plan``), a segmented one a per-item plan."""
+    return segments(*layout_of(M)) == 1
 
 
 def _single(p, key, make, most=None) -> tuple:
     """A single-model call's plan (``ops/multimodel.py`` ``single_plan``),
     its trailing launch arguments (``_planned``) and, with <most>,
     ``most(plan)`` (MSV: the blocks the card holds at once), made once
-    per parameter set <p> and <key> (its last word the device): the call
+    per parameter set <p> and <key> (the entry, the device): the call
     then uploads and asks nothing."""
     cache = p.__dict__.setdefault("_single_plans", {})
     if key not in cache:
         plan = make()
-        cache[key] = (plan, _planned(plan, key[-1]), most and most(plan))
+        cache[key] = (plan, _planned(plan, key[-1], key[0]),
+                      most and most(plan))
     return cache[key]
 
 
@@ -328,12 +427,16 @@ def prepare_fwd(dsq, lens, slot, p) -> Launch:
     dev = dsq.device
     if p.device != dev:
         raise ValueError(f"parameters on {p.device}, input on {dev}")
-    if slot is None:
-        plan, tail, _ = _single(p, ("fwd", dev), lambda: fwd_plan(
+    if slot is None and one_segment(p.M, fwd_layout):
+        plan, tail, _ = _single(p, ("fwd_parser", dev), lambda: fwd_plan(
             None, None, OneModel(p, fwd_layout)))
     else:
-        plan = fwd_plan(ln, slot, p.with_layout(fwd_layout), sms(dev))
-        tail = _planned(plan, dev)
+        pack = OneModel(p, fwd_layout) if slot is None \
+            else p.with_layout(fwd_layout)
+        if slot is None:
+            slot = np.zeros(len(ln), np.int64)
+        plan = fwd_plan(ln, slot, pack, sms(dev))
+        tail = _planned(plan, dev, "fwd_parser")
     so = lib()
     B, L = dsq.shape
 
@@ -361,7 +464,7 @@ def prepare_domdec(dsq, lens, slot, pack) -> Launch:
     if pack.device != dev:
         raise ValueError(f"pack on {pack.device}, input on {dev}")
     plan = domdec_plan(ln, slot, pack, sms(dev))
-    tail = _planned(plan, dev)
+    tail = _planned(plan, dev, "domdec")
     so = lib()
     B, L = dsq.shape
 
@@ -391,7 +494,7 @@ def prepare_fs3(dsq, lens, slot, pack, decoding: bool) -> Launch:
     if pack.device != dev:
         raise ValueError(f"pack on {pack.device}, input on {dev}")
     plan = fs3_plan(ln, slot, pack, 2 if decoding else 1)
-    tail = _planned(plan, dev)
+    tail = _planned(plan, dev, "fs3_domdec" if decoding else "fs3_parser")
     so = lib()
     B, L = dsq.shape
 
@@ -421,16 +524,19 @@ def prepare_msv(flat, offs, lens, tjb, slot, p) -> Launch:
     dev = flat.device
     so = lib()
     B = lens.numel()
-    if slot is None:
+    if slot is None and one_segment(p.M, msv_layout):
         def most(plan):
             with torch.cuda.device(dev):
                 return so.bt_msv_grid(plan.table.ctypes.data, plan.warps)
         plan, tail, most = _single(
-            p, ("msv", dev), lambda: msv_plan(None, None, p.as_pack()), most)
+            p, ("msv_filter", dev), lambda: msv_plan(None, None, p.as_pack()),
+            most)
         tail = (*tail, min(-(-B // int(plan.table[5])), most))
     else:
+        if slot is None:
+            slot, p = np.zeros(B, np.int64), p.as_pack()
         plan = msv_plan(ln, slot, p, sms(dev))
-        tail = (*_planned(plan, dev), plan.nblk)
+        tail = (*_planned(plan, dev, "msv_filter"), plan.nblk)
 
     def run():
         out = torch.empty(3, B, dtype=torch.int32, device=dev)
@@ -441,23 +547,31 @@ def prepare_msv(flat, offs, lens, tjb, slot, p) -> Launch:
 
 
 def prepare_ssv_capture(flat, offs, lens, tjb, thresh, p) -> Launch:
-    """ssv_capture.cu: a call gives (nwin [B], wi, wk, wsc [B,
-    SSVB_NCAP]) int32 (``ops/ssv.py`` ``MSVParams`` <p>)."""
+    """ssv_capture.cu: the SSV capture of every ORF of the stream under
+    the one model of <p> (``ops/ssv.py`` ``MSVParams``), as one launch on
+    MSV's table and class row (``ops/multimodel.py`` ``ssv_plan``, made
+    once a parameter set, with a segmented model's scratch), the ORFs
+    longest first by a sort on the card (``ssv_order``, started before
+    the check's read back) and dealt round the blocks (``ssv_blocks``);
+    a call gives (nwin [B], wi, wk, wsc [B, SSVB_NCAP]) int32."""
+    from ..multimodel import ssv_blocks, ssv_order, ssv_plan
+    order = ssv_order(lens)
     _stream_lens(flat, offs, lens, p, tjb, thresh)
-    so = lib()
-    B = lens.numel()
-    P, _, Mp = layout(p.M)
-    tab = p.kernel_table(Mp, P)
     dev = flat.device
+    B = lens.numel()
+    plan, tail, _ = _single(p, ("ssv_capture", dev),
+                            lambda: ssv_plan(p.as_pack()))
+    groups, blocks = ssv_blocks(B, int(plan.table[5]), sms(dev))
+    so = lib()
 
     def run():
         nwin = torch.empty(B, dtype=torch.int32, device=dev)
         caps = torch.zeros(3, B, SSVB_NCAP, dtype=torch.int32, device=dev)
         _launch("ssv_capture", so.bt_ssv_capture, flat, offs, lens, tjb,
-                thresh, B, tab, p.Kp, p.M, Mp, P, p.base, p.tbm, p.bias,
-                nwin, caps)
+                thresh, B, nwin, caps, order, groups, blocks, tail[0],
+                tail[1], tail[4])
         return nwin, caps[0], caps[1], caps[2]
-    return Launch(run, 1)
+    return Launch(run, int(B > 0), plan)
 
 
 def prepare_vit(flat, offs, lens, move, slot, pack, thresh=None) -> Launch:
@@ -474,7 +588,7 @@ def prepare_vit(flat, offs, lens, move, slot, pack, thresh=None) -> Launch:
     ln = _stream_lens(flat, offs, lens, pack, move, *extra)
     dev = flat.device
     plan = vit_plan(ln, slot, pack, sms(dev))
-    tail = _planned(plan, dev)
+    tail = _planned(plan, dev, "vit_filter")
     so = lib()
     B = lens.numel()
 

@@ -125,12 +125,16 @@ class ModelPack:
     def with_layout(self, layout) -> "ModelPack":
         """These models under another (P, W, Mp) ladder, with stacks of
         their own, made once a ladder (the Forward gate's
-        ``loader.fwd_layout`` on decoding's pack); itself for its own."""
+        ``loader.fwd_layout`` on decoding's pack, a launch's beside a
+        segmented class: ``_beside_segmented``); itself for its own."""
         if layout is self.layout:
             return self
         if layout not in self._relaid:
-            self._relaid[layout] = ModelPack(self.params, layout)
+            self._relaid[layout] = self._relay(layout)
         return self._relaid[layout]
+
+    def _relay(self, layout) -> "ModelPack":
+        return ModelPack(self.params, layout)
 
     @functools.cached_property
     def slot_class(self) -> tuple[np.ndarray, np.ndarray]:
@@ -168,6 +172,9 @@ class IntPack(ModelPack):
         super().__init__(params, layout)
         self.scalars = tuple(scalars)
 
+    def _relay(self, layout) -> "IntPack":
+        return IntPack(self.params, self.scalars, layout)
+
     def _stack(self, P: int, W: int, Mp: int, models: list):
         return IntClass(
             P, W, Mp, models,
@@ -191,7 +198,7 @@ class IntPack(ModelPack):
 # One launch for every padded width (csrc/plan.cuh): the plans of every
 # kernel
 # ---------------------------------------------------------------------
-PLAN_CLS, PLAN_BLK = 8, 5   # int64 words of a class row and a block row
+PLAN_CLS, PLAN_BLK = 10, 5  # int64 words of a class row and a block row
 SMEM_BYTES = 232448         # shared memory a block may take on the H100
 FS3_ROWS = 338              # packed codon rows of a model's odds
 FS3_RING = 2                # emission-row ring slots a group
@@ -223,11 +230,8 @@ def fs3_block_warps(Ws) -> int:
 def dd_block_warps(Ws) -> int:
     """Warps of every block of a Forward-gate or decoding launch: eight,
     six when the widest class takes three warps a group, else the widest
-    W, at most a block's 32."""
+    W (at most a block's 32: a longer model is segmented)."""
     w = max(Ws)
-    if w > 32:
-        raise ValueError(f"a model of {w} warps an item takes more warps "
-                         f"than a block holds")
     return 8 if 8 % w == 0 else 6 if w == 3 else w
 
 
@@ -260,7 +264,10 @@ def f32_class_row(c, G: int, Kp: int, wide: int) -> list:
     dp_common.cuh``): the stacks' addresses, P, W, Mp, G, Kp and where a
     block keeps its tables: both in shared memory where they fit, else
     <wide> (STAGE_TRANS or STAGE_NONE; STAGE_NONE where even the
-    transitions do not fit)."""
+    transitions do not fit).  Groups of several warps take at most 15
+    a block (one named barrier each)."""
+    if c.W > 1:
+        G = min(G, 15)
     scratch = G * DD_GROUP_BYTES * c.W
     stage = next(st for st in (STAGE_ALL, wide, STAGE_NONE)
                  if staged_bytes(Kp, c.Mp, st) + scratch <= SMEM_BYTES)
@@ -268,12 +275,18 @@ def f32_class_row(c, G: int, Kp: int, wide: int) -> list:
             stage]
 
 
-def vit_block_warps(Ps) -> int:
+def vit_block_warps(Ps, Ws=(), Ss=()) -> int:
     """Warps of every block of a ViterbiFilter launch: fixed by the
     kernel's instance, the largest P of the launch (``csrc/
-    vit_filter.cu`` ``vit_warps``)."""
+    vit_filter.cu`` ``vit_warps``), or 16 (the instance of the
+    segmented group) for a launch with a segmented class or a group of
+    more warps than that instance's blocks (a model of 13-16 warps of 17
+    lanes beside one of a warp of 33)."""
     p = max(Ps)
-    return 8 if p <= 13 else 16 if p <= 17 else 12
+    warps = 8 if p <= 13 else 16 if p <= 17 else 12
+    if max(Ss, default=1) > 1 or max(Ws, default=0) > warps:
+        return 16
+    return warps
 
 
 def vit_smem_bytes(Kp: int, Mp: int, G: int, W: int) -> int:
@@ -287,11 +300,14 @@ def vit_table_bytes(Kp: int, Mp: int) -> int:
     return -(-(16 * Mp + 2 * Kp * Mp) // 16) * 16
 
 
-def msv_block_warps(Ps, Ws) -> int:
+def msv_block_warps(Ps, Ws, Ss=()) -> int:
     """Warps of every block of an MSV launch: fixed by the kernel's
     instance (``csrc/msv_filter.cu`` ``msv_warps``): eight up to 13
     lanes a thread, else twelve, or 32 for a model of more than twelve
-    warps an ORF."""
+    warps an ORF; with a segmented class (S > 1), the segmented group's
+    16 (no class beside it takes more: ``_beside_segmented``)."""
+    if max(Ss, default=1) > 1:
+        return 16
     return 8 if max(Ps) <= 13 else 12 if max(Ws) <= 12 else 32
 
 
@@ -333,16 +349,22 @@ def vit_global_tables(c, Kp: int) -> torch.Tensor:
 class LaunchPlan:
     """One launch of a kernel that takes every padded width of a call
     (``csrc/plan.cuh``): ``table`` holds ``ncls`` class rows (the
-    addresses of the class's stacked tables, P, W, Mp, G groups a block
-    and two words of the kernel's own), ``nblk`` block rows (class,
-    model in the class's stacks, M, first item, count), then the items
-    (rows b, or passes * b + pass).  ``warps``: a block's.  ``classes``:
-    (P, W, Mp, G, longest item) of each class."""
+    addresses of the class's stacked tables, P, W, Mp, G groups a block,
+    two words of the kernel's own, the segments S a group walks a row
+    in and the address of a segmented class's scratch), ``nblk`` block
+    rows (class, model in the class's stacks, M, first item, count),
+    then the items (rows b, or passes * b + pass).  ``warps``: a
+    block's.  ``classes``: (P, W, Mp, G, longest item) of each class.
+    ``scratch``: (class, its blocks, or None for a single-model plan) of
+    each segmented class, whose scratch the loader sizes and allocates
+    (``loader._planned``)."""
     table: np.ndarray
     ncls: int
     nblk: int
     warps: int
     classes: list
+    scratch: list = ()          # (class, blocks) of each segmented class
+    buffers: list = ()          # its scratch on the device (the loader's)
 
     @property
     def blocks(self) -> np.ndarray:
@@ -372,19 +394,39 @@ class OneModel:
                                             etab=etab, ttab=ttab)}
 
 
+def _beside_segmented(pack, slot, lanes):
+    """<pack> as a launch of the models ``slot`` names takes it: where
+    one of them is segmented, on a ladder that segments any model past
+    the segmented group's SEG_WARPS warps too, on <lanes>
+    (``loader.segmented_beside``): the segmented instance's blocks hold
+    no wider group."""
+    from .kernels import loader
+    if not isinstance(pack, ModelPack) or not len(slot):
+        return pack
+    geo = [pack.geometry[g] for g in np.unique(slot)]
+    if all(loader.segments(*x) == 1 for x in geo) or \
+            all(x[1] <= loader.SEG_WARPS for x in geo):
+        return pack
+    return pack.with_layout(loader.segmented_beside(pack.layout, lanes))
+
+
 def _plan(lens, slot, pack, passes: int, warps_of, class_row,
           by_cells: bool = False, sms: int = 0) -> LaunchPlan:
     """The plan of one launch over a batch whose item b (length
     ``lens[b]``) belongs to model ``slot[b]`` of <pack>; <passes> items
     an entry of the batch.  ``warps_of(classes)`` gives a block's warps,
-    ``class_row(class, warps)`` a class's row, G at word 5.  Each
-    model's items go longest first (ties by row) into blocks of G; the
-    blocks of all classes go heaviest first: by their longest item, or
-    with <by_cells> by Mp x their longest item (ties: wider class, model,
-    position), so the plan's order does not depend on the batch's.  With
-    <sms> (the card's SMs), a batch of fewer items than four an SM gets
-    blocks of at most ceil(items / sms) groups, so that its groups spread
-    over the card, each warp with a scheduler to itself."""
+    ``class_row(class, warps)`` a class's first eight words, G at word
+    5; word 8 is the class's segments S (``loader.segments``) and word 9
+    the address of its scratch, which the loader fills (``_planned``).
+    Each model's items go longest first (ties by row) into blocks of G;
+    the blocks of all classes go heaviest first: segmented classes
+    first, then by their longest item, or with <by_cells> by Mp x their
+    longest item (ties: wider class, model, position), so the plan's
+    order does not depend on the batch's.  With <sms> (the card's SMs),
+    a batch of fewer items than four an SM gets blocks of at most
+    ceil(items / sms) groups, so that its groups spread over the card,
+    each warp with a scheduler to itself.  Each segmented class's blocks
+    are counted in ``LaunchPlan.scratch``."""
     lens = np.asarray(lens, np.int64)
     slot = np.asarray(slot, np.int64)
     if not len(slot):
@@ -394,7 +436,11 @@ def _plan(lens, slot, pack, passes: int, warps_of, class_row,
                         if (mp_of[slot] == Mp).any()], np.int64)
     cls = [pack.classes[Mp] for Mp in present]
     warps = warps_of(cls)
-    rows_cls = [list(class_row(c, warps)) for c in cls]
+    rows_cls = [list(class_row(c, warps))
+                + [c.Mp // (32 * c.P * c.W), 0] for c in cls]
+    for r in rows_cls:
+        if r[8] > 1:            # a segmented group is a block's only one
+            r[5] = 1
     if sms and passes * len(slot) < 4 * sms:
         cap = -(-passes * len(slot) // sms)
         for r in rows_cls:
@@ -403,6 +449,9 @@ def _plan(lens, slot, pack, passes: int, warps_of, class_row,
     Gs = [r[5] for r in rows_cls]
     classes = [(c.P, c.W, c.Mp, G, int(lens[mp_of[slot] == c.Mp].max()))
                for c, G in zip(cls, Gs)]
+    if slot.min() == slot.max():
+        return _one_model_plan(lens, int(slot[0]), pack, passes, rows_cls[0],
+                               warps, classes)
     Mtab = [[pack.M[g] for g in c.models] for c in cls]
     # the items, grouped by class and model, each model's longest first
     b = np.repeat(np.arange(len(slot)), passes)
@@ -420,7 +469,8 @@ def _plan(lens, slot, pack, passes: int, warps_of, class_row,
     count = np.diff(np.r_[starts, len(item)])
     bc, bm = ci[starts], m[starts]
     weight = ln[starts] * (present[bc] if by_cells else 1)
-    by = np.lexsort((q[starts], bm, -present[bc], -weight))
+    seg = np.asarray([r[8] > 1 for r in rows_cls])[bc]
+    by = np.lexsort((q[starts], bm, -present[bc], -weight, ~seg))
     first = np.cumsum(count[by]) - count[by]
     at = np.repeat(starts[by] - first, count[by]) + np.arange(len(item))
     off = np.cumsum([0] + [len(t) for t in Mtab])
@@ -428,19 +478,46 @@ def _plan(lens, slot, pack, passes: int, warps_of, class_row,
     brows = np.stack([bc[by], bm[by], Ms, first, count[by]], 1)
     table = np.concatenate([np.asarray(rows_cls, np.int64).reshape(-1),
                             brows.reshape(-1), item[at]]).astype(np.int64)
-    return LaunchPlan(table, len(rows_cls), len(brows), warps, classes)
+    scratch = [(c, int((brows[:, 0] == c).sum()))
+               for c, row in enumerate(rows_cls) if row[8] > 1]
+    return LaunchPlan(table, len(rows_cls), len(brows), warps, classes,
+                      scratch)
+
+
+def _one_model_plan(lens, g, pack, passes: int, row: list, warps: int,
+                    classes: list) -> LaunchPlan:
+    """_plan's plan of a batch whose items all belong to model <g> (of
+    class row <row>): the same table, the items longest first (ties by
+    row) in blocks of G, which is heaviest first, without the sorts
+    over classes and models (a single-model call's plan, made at every
+    call from the host lengths)."""
+    order = np.argsort(-lens, kind="stable")
+    item = (order[:, None] * passes + np.arange(passes)).reshape(-1)
+    first = np.arange(0, len(item), row[5])
+    count = np.diff(np.r_[first, len(item)])
+    brows = np.stack([np.zeros_like(first),
+                      np.full_like(first, pack.slot_class[1][g]),
+                      np.full_like(first, pack.M[g]), first, count], 1)
+    table = np.concatenate([np.asarray(row, np.int64), brows.reshape(-1),
+                            item]).astype(np.int64)
+    scratch = [(0, len(brows))] if row[8] > 1 else []
+    return LaunchPlan(table, 1, len(brows), warps, classes, scratch)
 
 
 def single_plan(pack, warps_of, class_row) -> LaunchPlan:
-    """The plan of a single-model call of the Forward gate or MSV: the
-    one class of <pack> (a ``OneModel`` or a pack of one model) and no
-    block rows, so that the kernel's blocks take the items in batch
-    order and the host builds no per-item table."""
+    """The plan of a single-model call of the Forward gate, MSV or the
+    SSV capture: the one class of <pack> (a ``OneModel`` or a pack of one
+    model) and no block rows, so that the host builds no per-item table:
+    the gate's and MSV's blocks take the items in batch order (a
+    segmented model takes a per-item plan there), the SSV capture's in
+    an order sorted on the card (``ssv_order``; a segmented model's
+    scratch then has a slot for each block the card holds at once)."""
     (c,) = pack.classes.values()
     warps = warps_of([c])
-    row = list(class_row(c, warps))
+    row = list(class_row(c, warps)) + [c.Mp // (32 * c.P * c.W), 0]
     return LaunchPlan(np.asarray(row, np.int64), 1, 0, warps,
-                      [(c.P, c.W, c.Mp, row[5], None)])
+                      [(c.P, c.W, c.Mp, row[5], None)],
+                      [(0, None)] if row[8] > 1 else [])
 
 
 def fs3_plan(lens, slot, pack, passes: int) -> LaunchPlan:
@@ -459,7 +536,10 @@ def fs3_plan(lens, slot, pack, passes: int) -> LaunchPlan:
     lanes a thread takes the direct loads too: the ring's handshake
     costs more there than the loads it hides.  The kernel runs one load
     path a launch, so a launch with one class on the direct loads has
-    every class on them (word 6)."""
+    every class on them (word 6).  A model past 32 warps of 13 lanes is
+    segmented (the direct loads, its transitions in global memory), and
+    so, in a launch with it, is a model past 16 warps
+    (``_beside_segmented``)."""
 
     def class_row(c, warps):
         if c.etab.shape[-2] != FS3_ROWS:
@@ -467,14 +547,18 @@ def fs3_plan(lens, slot, pack, passes: int) -> LaunchPlan:
                              f"{c.etab.shape[-2]}")
         G = min(warps // c.W, (SMEM_BYTES - 32 * c.Mp)
                 // fs3_group_bytes(c.Mp, c.W))
+        if c.W > 1:
+            G = min(G, 15)
         if G >= 1 and c.W <= FS3_RING_WARPS:
             return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp, G,
                     0, 0]
         return [c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, c.Mp,
                 min(warps // c.W, 15), 1, int(G < 1)]
 
-    plan = _plan(lens, slot, pack, passes,
-                 lambda cls: fs3_block_warps([c.W for c in cls]), class_row)
+    from .kernels.loader import FS3_SEG_LANES
+    plan = _plan(lens, slot, _beside_segmented(pack, slot, FS3_SEG_LANES),
+                 passes, lambda cls: fs3_block_warps([c.W for c in cls]),
+                 class_row)
     rows = plan.table[:PLAN_CLS * plan.ncls].reshape(-1, PLAN_CLS)
     narrow = rows[:, 2].max(initial=0) <= FS3_DIRECT_P
     if plan.ncls and (rows[:, 6].any() or narrow):
@@ -489,7 +573,8 @@ def domdec_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
     Forward and its Backward, blocks longest ORF first, a small batch
     spread over <sms> SMs.  A block stages its model's tables in shared
     memory where they fit (the class row's last word), else neither."""
-    return _plan(lens, slot, pack, 2,
+    from .kernels.loader import SEG_LANES
+    return _plan(lens, slot, _beside_segmented(pack, slot, SEG_LANES), 2,
                  lambda cls: dd_block_warps([c.W for c in cls]),
                  lambda c, warps: f32_class_row(c, warps // c.W, pack.Kp,
                                                 STAGE_NONE),
@@ -513,8 +598,9 @@ def fwd_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
 
     if lens is None:
         return single_plan(pack, warps_of, class_row)
-    return _plan(lens, slot, pack, 1, warps_of, class_row, by_cells=True,
-                 sms=sms)
+    from .kernels.loader import SEG_LANES
+    return _plan(lens, slot, _beside_segmented(pack, slot, SEG_LANES), 1,
+                 warps_of, class_row, by_cells=True, sms=sms)
 
 
 def msv_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
@@ -522,26 +608,55 @@ def msv_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
     whose item b belongs to model ``slot[b]`` of <pack> (an ``IntPack``
     of ``build_msv_pack``): blocks heaviest first (Mp x longest item), a
     small batch spread over <sms> SMs.  A block stages its model's int16
-    table in shared memory where it fits (the class row's last word),
-    else reads it from global memory; lens None gives a single-model
-    call's plan (``single_plan``)."""
+    table in shared memory where it fits (the class row's word 7), else
+    reads it from global memory; lens None gives a single-model call's
+    plan (``single_plan``), which the SSV capture takes too
+    (``ssv_plan``)."""
 
     def warps_of(cls):
-        return msv_block_warps([c.P for c in cls], [c.W for c in cls])
+        return msv_block_warps([c.P for c in cls], [c.W for c in cls],
+                               [c.Mp // (32 * c.P * c.W) for c in cls])
 
     def class_row(c, warps):
         G = warps // c.W if c.W == 1 else min(warps // c.W, 15)
-        if G < 1:
-            raise ValueError(f"an MSV model of {c.Mp} padded lanes takes "
-                             f"more warps than a block holds")
         fits = 2 * pack.Kp * c.Mp + 16 * G * c.W <= SMEM_BYTES
         return [c.tab.data_ptr(), c.scal.data_ptr(), c.P, c.W, c.Mp, G,
                 pack.Kp, int(fits)]
 
     if lens is None:
         return single_plan(pack, warps_of, class_row)
-    return _plan(lens, slot, pack, 1, warps_of, class_row, by_cells=True,
-                 sms=sms)
+    from .kernels.loader import SEG_LANES
+    return _plan(lens, slot, _beside_segmented(pack, slot, SEG_LANES), 1,
+                 warps_of, class_row, by_cells=True, sms=sms)
+
+
+def ssv_plan(pack) -> LaunchPlan:
+    """The plan of an SSV capture launch (``csrc/ssv_capture.cu``) under
+    the one model of <pack>, its MSV pack (``MSVParams.as_pack``): MSV's
+    class row alone, made once a parameter set.  The ORFs go longest
+    first (``ssv_order``, sorted on the card), dealt round the blocks
+    (``ssv_blocks``)."""
+    return msv_plan(None, None, pack)
+
+
+def ssv_order(lens: torch.Tensor) -> torch.Tensor:
+    """The ORFs longest first, ties by row: what the SSV capture's
+    blocks take, one sort on the lengths' device (no read-back)."""
+    return torch.argsort(lens, descending=True, stable=True)
+
+
+def ssv_blocks(B: int, G: int, sms: int = 0) -> tuple[int, int]:
+    """(groups a block, blocks) of an SSV capture launch over B ORFs:
+    the class row's G, or for fewer ORFs than four an SM, ceil(B / sms)
+    so that they spread over the card.  Block k's group g takes the ORF
+    of rank g * blocks + k: the ranks dealt round the blocks, so that
+    each of the longest ORFs starts on a block and an SM of its own,
+    where the shorter ORFs beside it end early; block k's first ORF is
+    the k-th longest, so the blocks go heaviest first (PERF.md, the J6
+    sweep)."""
+    if sms and B < 4 * sms:
+        G = min(G, -(-B // sms))
+    return G, -(-B // G)
 
 
 def vit_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
@@ -552,13 +667,11 @@ def vit_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
     its model's int16 table in shared memory where it fits; a class
     whose table does not (past M = 2720) reads a copy in the kernel's
     layout from global memory (``vit_global_tables``; the class row's
-    word 7 holds its address)."""
+    word 7 holds its address).  A model past 16 warps of 17 lanes takes
+    the segmented group of 16 warps (``loader.vit_layout``)."""
 
     def class_row(c, warps):
-        G = warps // c.W
-        if G < 1:
-            raise ValueError(f"a ViterbiFilter model of {c.Mp} padded lanes "
-                             f"takes more warps than a block holds")
+        G = warps // c.W if c.W == 1 else min(warps // c.W, 15)
         glob = 0
         if vit_smem_bytes(pack.Kp, c.Mp, G, c.W) > SMEM_BYTES:
             glob = vit_global_tables(c, pack.Kp).data_ptr()
@@ -566,7 +679,9 @@ def vit_plan(lens, slot, pack, sms: int = 0) -> LaunchPlan:
                 pack.Kp, glob]
 
     return _plan(lens, slot, pack, 1,
-                 lambda cls: vit_block_warps([c.P for c in cls]), class_row,
+                 lambda cls: vit_block_warps(
+                     [c.P for c in cls], [c.W for c in cls],
+                     [c.Mp // (32 * c.P * c.W) for c in cls]), class_row,
                  by_cells=True, sms=sms)
 
 

@@ -363,8 +363,9 @@ def ssv_capture(flat: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     if flat.device.type == "cpu":
         return ssv_capture_ref(flat, offs, lens, tjb, thresh, p)
     from .kernels import loader
-    out = loader.prepare_ssv_capture(flat, offs, lens, tjb, thresh, p)()
-    ssv_capture.launches += 1
+    run = loader.prepare_ssv_capture(flat, offs, lens, tjb, thresh, p)
+    out = run()
+    ssv_capture.launches += run.launches
     return out
 
 

@@ -15,6 +15,12 @@ phase but ``deep``; ``all`` adds ``deep``):
   limit of a block's shared memory (the ViterbiFilter and its capture
   at M = 3000, the fs3 gate and fs3 decoding at M = 4000, MSV and the
   Forward gate at M = 4200) against its plain version on a few items;
+  then every family at M = 40000 and just past a block's warps, where
+  the segments begin (the ViterbiFilter at 9000, the fs3 pair at 14000,
+  the gate, decoding and MSV at 34000; the SSV capture at 23000, on 22
+  warps of 33 lanes), each row walked in segments, and the gate, the
+  ViterbiFilter and MSV in one launch of an M = 400 and an M = 40000
+  model;
 - ``timing``: the same entries at the main paths' shapes, beside their
   plain versions, the host library's batches and one single-model
   launch per model, each output held again; every entry's ``ms`` is the
@@ -32,7 +38,8 @@ phase but ``deep``; ``all`` adds ``deep``):
   through the port's CLI, standard, then ``--fs`` and ``--fsonly`` on
   its frameshift twin (16 of its 40 embeds carry a 1-nt indel), then
   the all-device cascade (``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``),
-  standard and ``--fs``;
+  standard and ``--fs``, and the all-device cascade with an M = 9000
+  model against a seeded genome with two copies of it;
 - ``multiquery``: a 48-model query file against a 5 Mb genome that
   holds copies of 12 of the models, standard and ``--fs``;
 - ``build``: ``bathbuild`` of a 48-alignment Stockholm file and
@@ -127,6 +134,20 @@ LONG_VIT_M, LONG_FS3_M, LONG_GATE_M = 3000, 4000, 4200
 LONG_BLOCK_MS = (12000, 20000)
 LONG_ITEMS = (6, 700)
 LONG_FS3_ITEMS = (4, 900)
+# past a block's warps, each row walked in segments (loader.segmented):
+# every family at SEG_M and just past a block's warps (the
+# ViterbiFilter's 16 warps of 17 lanes, the fs3 pair's 32 of 13, the
+# gate, decoding and MSV's 32 of 33; the SSV capture past 21 of 33), and
+# the gate, the ViterbiFilter and MSV in one launch of an M = 400 and an
+# M = SEG_M model
+SEG_M = 40_000
+SEG_PAST = {"vit": 9000, "fs3": 14_000, "ssv": 23_000, "dd": 34_000}
+SEG_CAP_THR = (150, 1000)   # SSV capture bytes, ViterbiFilter words
+# the all-device search with a long model: an M = SEG_SEARCH_M profile
+# against a seeded genome with two copies, at the LOOSE thresholds
+# (so that the ViterbiFilter's capture has input)
+SEG_SEARCH_M = 9000
+SEG_SEARCH = (400_000, 2)   # (genome nt, copies)
 LONG_ORF = 2_000
 INT_WIDE_M = 1500
 SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
@@ -817,6 +838,153 @@ def parity_long(run: Run) -> None:
               msv_identical=True, fwd_err=e, fwd_tol=FWD_TOL)
 
 
+def seg_model(M, fs=False):
+    """(profile, query residues) of an uncalibrated model of M positions
+    (the fs3 profile with <fs>), made once."""
+    from bath_tpu_torch import fixtures
+    hmm, q = fixtures.make_query(M, np.random.default_rng(SEED + M + fs),
+                                 calibrate=False, fs=fs)
+    return (fixtures.fs_search_profile(hmm) if fs
+            else fixtures.search_profile(hmm)), q
+
+
+def seg_family(run: Run, fam: str, M: int, rng) -> dict:
+    """One family at M through its single-model wrappers against the
+    plain versions on a few short items: the integer filters bit for
+    bit (the captures at a threshold and at P = 1), the f32 kernels
+    within FWD_TOL and DOMDEC_TOL with the same `ok`.  Returns what the
+    phase line prints."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fs3, fwd, ssv, vit
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    from bath_tpu_torch.ops.kernels import loader
+    if fam == "fs3":
+        om, q = run.once(("seg", M, True), lambda: seg_model(M, True))
+        p3 = fs3.fs3_params(om, DEV)
+        d, lt = (torch.from_numpy(a).to(DEV) for a in
+                 fixtures.fs_window_batch(q, *LONG_FS3_ITEMS, rng))
+        e1 = vs_plain("fs3_parser", fs3.fs3_score(d, lt, p3),
+                      fs3.fs3_score_ref(d, lt, p3))
+        e2 = vs_plain("fs3_domdec", fdd.fs3_domdec(d, lt, p3, 100.0 / 103.0),
+                      fdd.fs3_domdec_ref(d, lt, p3, 100.0 / 103.0))
+        run.note_err("fs3_parser", e1)
+        run.note_err("fs3_domdec", e2)
+        return dict(layout=loader.fs3_layout(M), fs3_err=e1,
+                    fs3_domdec_err=e2)
+    om, q = run.once(("seg", M, False), lambda: seg_model(M))
+    dsq, lens = fixtures.kernel_batch(q, *LONG_ITEMS, rng)
+    d, lt = torch.from_numpy(dsq).to(DEV), torch.from_numpy(lens).to(DEV)
+    flat, offs, ln = (torch.from_numpy(a).to(DEV) for a in ssv.pack_stream(
+        [r[:n] for r, n in zip(dsq, lens)]))
+    if fam == "vit":
+        pv = vit.vit_params(om, DEV)
+        move = ints(pv.move_for(lens))
+        held(run, "vit_filter", vit.vit_ints(flat, offs, ln, move, pv),
+             vit.vit_ints_ref(flat, offs, ln, move, pv), M)
+        for t in (SEG_CAP_THR[1], P1_THR):
+            thr = ints(np.full(len(lens), t))
+            held(run, "vit_capture",
+                 vit.vit_capture(flat, offs, ln, move, thr, pv),
+                 vit.vit_capture_ref(flat, offs, ln, move, thr, pv), M)
+        return dict(layout=loader.vit_layout(M), identical=True)
+    pm = ssv.msv_params(om, DEV)
+    tjb = ints(pm.tjb_for(lens))
+    if fam == "ssv":
+        for t in (SEG_CAP_THR[0], P1_THR):
+            thr = ints(np.full(len(lens), t))
+            got = held(run, "ssv_capture",
+                       ssv.ssv_capture(flat, offs, ln, tjb, thr, pm),
+                       ssv.ssv_capture_ref(flat, offs, ln, tjb, thr, pm), M)
+        events = int((got[0] > 16).sum())
+        if events == 0:
+            fail(f"the SSV capture at M={M} and P = 1 passed no ORF past "
+                 "16 events")
+        return dict(layout=loader.msv_layout(M), identical=True,
+                    orfs_past_16_events=events)
+    held(run, "msv_filter", ssv.msv_ssv(flat, offs, ln, tjb, pm),
+         ssv.msv_ssv_ref(flat, offs, ln, tjb, pm), M)
+    pf = fwd.fwd_params(om, DEV)
+    e1 = vs_plain("fwd_parser", fwd.fwd_score(d, lt, pf),
+                  fwd.fwd_score_ref(d, lt, pf))
+    e2 = vs_plain("domdec", dd.domdec(d, lt, pf), dd.domdec_ref(d, lt, pf))
+    run.note_err("fwd_parser", e1)
+    run.note_err("domdec", e2)
+    return dict(msv_layout=loader.msv_layout(M), msv_identical=True,
+                fwd_layout=loader.fwd_layout(M), fwd_err=e1,
+                domdec_layout=loader.layout(M), domdec_err=e2)
+
+
+def seg_mixed(run: Run, rng) -> dict:
+    """The gate, the ViterbiFilter and MSV in one launch of a pack of an
+    M = 400 and an M = SEG_M model (the device calibration's path,
+    bathbuild's J4): against the plain versions, and bit for bit the
+    single-model wrapper on each model's items."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.ops import fwd, ssv, vit
+    from bath_tpu_torch.ops import multimodel as mm
+    (om, q), (om4, _) = (run.once(("seg", M, False), lambda M=M: seg_model(M))
+                         for M in (SEG_M, M_SEARCH))
+    dsq, lens = fixtures.kernel_batch(q, *LONG_ITEMS, rng)
+    slot = np.arange(len(lens)) % 2
+    d, lt = torch.from_numpy(dsq).to(DEV), torch.from_numpy(lens).to(DEV)
+    flat, offs, ln = (torch.from_numpy(a).to(DEV) for a in ssv.pack_stream(
+        [r[:n] for r, n in zip(dsq, lens)]))
+    oms = (om, om4)
+    pf = [fwd.fwd_params(o, DEV) for o in oms]
+    got = mm.fwd_pack_scores(mm.build_fwd_pack(pf), d, lt, slot)
+    err = vs_plain("fwd_parser_multi", got, mm.fwd_pack_scores_ref(
+        mm.build_fwd_pack(pf), d, lt, slot))
+    run.note_err("fwd_parser_multi", err)
+    for name, make, build, word, call, ref, single in (
+            ("msv_filter_multi", ssv.msv_params, mm.build_msv_pack,
+             lambda p, n: p.tjb_for([n])[0], mm.msv_ssv_multi,
+             mm.msv_ssv_multi_ref, ssv.msv_ssv),
+            ("vit_filter_multi", vit.vit_params, mm.build_vit_pack,
+             lambda p, n: p.move_for([n])[0], mm.vit_ints_multi,
+             mm.vit_ints_multi_ref, vit.vit_ints)):
+        ps = [make(o, DEV) for o in oms]
+        w = ints([word(ps[g], int(n)) for g, n in zip(slot, lens)])
+        pack = build(ps)
+        out = held(run, name, call(pack, flat, offs, ln, w, slot),
+                   ref(pack, flat, offs, ln, w, slot), SEG_M)
+        on = torch.from_numpy(slot == 0).to(DEV)
+        one = single(flat, offs, ln, w, ps[0])
+        if not all(torch.equal(a[on], b[on]) for a, b in zip(out, one)):
+            fail(f"{name} in one launch with M = {M_SEARCH} differs from the "
+                 f"single-model entry at M = {SEG_M}")
+    one = fwd.fwd_score(d, lt, pf[0])
+    on = torch.from_numpy(slot == 0).to(DEV)
+    if not torch.equal(one[on], got[on]):
+        fail(f"the gate in one launch with M = {M_SEARCH} differs from the "
+             f"single-model entry at M = {SEG_M}")
+    return dict(fwd_err=err, msv_identical=True, vit_identical=True,
+                single_model_entry="bit for bit")
+
+
+def parity_segmented(run: Run) -> None:
+    """Every family at SEG_M and just past a block's warps (SEG_PAST),
+    then the one-launch mix; each case's seconds printed."""
+    from bath_tpu_torch.ops.kernels import loader
+    rng = np.random.default_rng(SEED + 17)
+    cases = [(f, SEG_M) for f in ("dd", "vit", "ssv", "fs3")] + \
+        sorted((f, M) for f, M in SEG_PAST.items())
+    for fam, M in cases:
+        t = time.perf_counter()
+        info = seg_family(run, fam, M, rng)
+        lay = (loader.fs3_layout if fam == "fs3" else loader.vit_layout
+               if fam == "vit" else loader.msv_layout if fam == "ssv"
+               else loader.layout)(M)
+        phase("parity", case="segmented", family=fam, M=M,
+              segments=loader.segments(*lay), B=LONG_ITEMS[0], **info,
+              seconds=f"{time.perf_counter() - t:.1f}")
+    t = time.perf_counter()
+    info = seg_mixed(run, rng)
+    phase("parity", case="one launch of M = 400 and 40000",
+          kernels="fwd_parser,msv_filter,vit_filter", **info,
+          seconds=f"{time.perf_counter() - t:.1f}")
+
+
 def phase_parity(run: Run) -> None:
     rng = np.random.default_rng(SEED + 7)
     parity_single(run, rng)
@@ -825,6 +993,7 @@ def phase_parity(run: Run) -> None:
     parity_msv_native(run)
     parity_multi(run)
     parity_long(run)
+    parity_segmented(run)
 
 
 # ---------------------------------------------------------------------
@@ -958,6 +1127,7 @@ def time_int(run: Run) -> None:
     from bath_tpu_torch.cli.bathsearch import CHUNK_ORFS
     from bath_tpu_torch.native import (msv_filter_native_batch,
                                        vit_filter_score_batch)
+    from bath_tpu_torch.ops import multimodel as mm
     from bath_tpu_torch.ops import ssv, vit
     from bath_tpu_torch.ops.kernels import loader
     fx, om = run.fx(), run.om()
@@ -1042,6 +1212,13 @@ def time_int(run: Run) -> None:
                   "vit_filter": lambda: int(out[2].sum())}[name]()
         plan = {} if launch.plan is None else dict(
             blocks=launch.plan.nblk, block_warps=launch.plan.warps)
+        if name == "ssv_capture":
+            # one class row, its ORFs dealt round the blocks
+            plan["blocks"] = mm.ssv_blocks(
+                TIME_INT_B, int(launch.plan.table[5]), loader.sms(DEV))[1]
+            plan["us_per_row"] = f"{1e3 * k_ms / int(vl.max()):.4f}"
+            run.extra[name].update(us_per_row=1e3 * k_ms / int(vl.max()),
+                                   max_L=int(vl.max()))
         phase("timing", kernel=name, M=M_SEARCH, B=TIME_INT_B,
               mean_L=f"{vl.mean():.1f}", max_L=int(vl.max()),
               ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}", **plan,
@@ -1593,10 +1770,75 @@ def search_all_device(run: Run, walls, fs_walls) -> None:
     run.launches.update(int_launches)
 
 
+def search_long_model(run: Run) -> None:
+    """The all-device search (BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1) with
+    a model of SEG_SEARCH_M positions (past the ViterbiFilter's 16 warps
+    of 17 lanes) against a seeded genome that carries SEG_SEARCH[1] copies
+    of it (one across the first window boundary), at the LOOSE
+    thresholds, byte-identical to --backend numpy; fails if a copy is
+    missed or the ViterbiFilter, the captures, the gate or decoding did
+    not launch."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd, ssv, vit
+    t0 = time.perf_counter()
+    fx = fixtures.write_fixture(SEG_SEARCH_M, *SEG_SEARCH, SEED)
+    fns = {"msv_filter": ssv.msv_ssv, "ssv_capture": ssv.ssv_capture,
+           "vit_filter": vit.vit_ints, "vit_capture": vit.vit_capture,
+           "fwd_parser": fwd.fwd_score, "domdec": dd.domdec}
+    outs, walls = {}, {}
+    for backend in ("torch", "numpy"):
+        saved = {k: os.environ.get(k) for k in ALL_DEVICE}
+        if backend == "torch":
+            os.environ.update(ALL_DEVICE)
+        for f in fns.values():
+            f.launches = 0
+        outs[backend] = [BUILD / f"long_{backend}.{x}" for x in ("out", "tbl")]
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", backend, "--device", DEVICE,
+                             *LOOSE, "-o", str(outs[backend][0]),
+                             "--tblout", str(outs[backend][1]), fx.hmm_path,
+                             fx.fasta_path])
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - t
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if rc != 0:
+            fail(f"bathsearch --backend {backend} with M={SEG_SEARCH_M} "
+                 f"exited {rc}")
+        if backend == "torch":
+            launches = {k: f.launches for k, f in fns.items()}
+    identical = masked(outs["torch"][0]) == masked(outs["numpy"][0])
+    found = fixtures.embeds_found(str(outs["torch"][1]), fx)
+    phase("e2e_long_model", M=SEG_SEARCH_M, genome_nt=SEG_SEARCH[0],
+          copies=SEG_SEARCH[1], found_torch=found,
+          found_numpy=fixtures.embeds_found(str(outs["numpy"][1]), fx),
+          byte_identical=identical, thresholds=" ".join(LOOSE),
+          wall_torch_s=f"{walls['torch']:.3f}",
+          wall_numpy_s=f"{walls['numpy']:.3f}", launches=launches,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    if not identical:
+        fail(f"the all-device search with M={SEG_SEARCH_M} differs from "
+             "the numpy backend")
+    if found < SEG_SEARCH[1]:
+        fail(f"the all-device search with M={SEG_SEARCH_M} found "
+             f"{found}/{SEG_SEARCH[1]} copies")
+    missing = [k for k in ("vit_filter", "ssv_capture", "vit_capture",
+                           "fwd_parser", "domdec") if launches[k] <= 0]
+    if missing:
+        fail(f"the all-device search with M={SEG_SEARCH_M} never launched "
+             f"{missing}: {launches}")
+
+
 def phase_search(run: Run) -> None:
     walls = search_standard(run)
     fs_walls = search_fs(run)
     search_all_device(run, walls, fs_walls)
+    search_long_model(run)
 
 
 # ---------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """SASS instruction counts of MSV's per-lane byte work on sm_90a: four
 model lanes as four scalar ints (the kernel's way, csrc/msv_filter.cu)
 against four lanes packed in one 32-bit word with CUDA's byte SIMD
-intrinsics (__vsubss4, __vmaxu4, __vaddus4, __vsubus4).
+intrinsics (__vsubss4, __vmaxu4, __vaddus4, __vsubus4); with
+``--ssv-row``, the SSV capture's row loop instead.
 
-    python3 scripts/torch_simd_sass.py [--out FILE]
+    python3 scripts/torch_simd_sass.py [--out FILE] [--ssv-row DIR ...]
 
 Writes two small kernels to build/simd_sass/, compiles them with nvcc
 for sm_90a and disassembles them with cuobjdump -sass.  Each kernel
@@ -12,8 +13,15 @@ four lanes (the SSV saturating difference, the MSV cell with its xB
 floor, bias and cost, and the two running maxima) and stores its
 outputs; only the arithmetic between the loads and the stores differs.
 Prints one JSON line: per kernel the count of SASS instructions that are
-neither memory, control nor moves, and the opcodes behind it.  Needs
-nvcc and cuobjdump ($CUDA_HOME or /usr/local/cuda); no GPU.
+neither memory, control nor moves, and the opcodes behind it.
+
+``--ssv-row DIR ...`` compiles each checkout's
+``bath_tpu_torch/ops/kernels/csrc/ssv_capture.cu`` and counts, in the
+instance of 13 lanes a thread (M = 400), the instructions of the
+innermost loop (the row loop; a crossing row's block and, in a
+checkout that reads residues ahead, the refill every 16 rows included),
+by kind: memory, shuffles and votes, barriers, control, the rest.
+Needs nvcc and cuobjdump ($CUDA_HOME or /usr/local/cuda); no GPU.
 """
 
 import argparse
@@ -88,11 +96,78 @@ def count(sass: str) -> dict:
             for k, v in out.items()}
 
 
+KINDS = (("memory", re.compile(r"^(LD|ST|LDG|LDS|STG|STS|ATOM|RED)")),
+         ("shuffle_vote", re.compile(r"^(SHFL|VOTE|REDUX|MATCH)")),
+         ("barrier", re.compile(r"^(BAR|WARPSYNC)")),
+         ("control", re.compile(r"^(BRA|BSSY|BSYNC|EXIT|CALL|RET|NOP)")))
+
+
+def row_loop(sass: str, kernel: re.Pattern) -> dict:
+    """The row loop of the first function whose name matches <kernel>:
+    its instructions by kind (the smallest region between a backward
+    branch and its target that holds a shuffle)."""
+    fn, lines = None, []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            if fn:
+                break
+            fn = m.group(1) if kernel.search(m.group(1)) else None
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z0-9_.]+)(.*)", line)
+        if fn and m:
+            lines.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for at, op, rest in lines:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < at:
+            lo = int(t.group(1), 16)
+            # a row exchanges its lane neighbour: the table's staging
+            # loop has no shuffle
+            if any(o.startswith("SHFL") for a, o, _ in lines
+                   if lo <= a <= at):
+                loops.append((at - lo, lo, at))
+    _, lo, hi = min(loops)
+    body = [op for a, op, _ in lines if lo <= a <= hi]
+    kinds = collections.Counter()
+    for op in body:
+        kinds[next((k for k, r in KINDS if r.match(op)), "other")] += 1
+    return {"function": fn, "instructions": len(body), **kinds}
+
+
+def ssv_rows(home: str, trees) -> dict:
+    out = {}
+    for tree in trees:
+        src = Path(tree) / "bath_tpu_torch/ops/kernels/csrc/ssv_capture.cu"
+        work = HERE / "build" / "simd_sass" / Path(tree).resolve().name
+        work.mkdir(parents=True, exist_ok=True)
+        cubin = work / "ssv_capture.cubin"
+        subprocess.run([os.path.join(home, "bin", "nvcc"), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-cubin", "-o", str(cubin), str(src)], check=True)
+        sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"),
+                               "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True).stdout
+        out[str(tree)] = row_loop(sass,
+                                  re.compile(r"ssv_capture_kernelILi13E"))
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="")
+    ap.add_argument("--ssv-row", nargs="+", default=[])
     args = ap.parse_args(argv)
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    if args.ssv_row:
+        line = json.dumps({"target": "sm_90a", "ssv_capture_row":
+                           ssv_rows(home, args.ssv_row)})
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        return
     work = HERE / "build" / "simd_sass"
     work.mkdir(parents=True, exist_ok=True)
     (work / "lanes.cu").write_text(SRC)

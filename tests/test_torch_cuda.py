@@ -27,6 +27,7 @@ transitions staged, the fs3 pair's direct loads against its ring) bit
 for bit to each other.
 """
 
+import functools
 import re
 
 import numpy as np
@@ -780,28 +781,61 @@ def test_fs3_direct_loads_equal_the_ring(kind, monkeypatch):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("kind", ["fwd", "msv", "domdec"])
-@pytest.mark.parametrize("M", [7500, 12000, 20000])
+@functools.lru_cache(maxsize=None)
+def long_model(M, fs=False):
+    """(profile, query residues) of an uncalibrated model of M positions
+    (the fs3 profile with <fs>), made once."""
+    hmm, q = fixtures.make_query(M, np.random.default_rng(M + fs),
+                                 calibrate=False, fs=fs)
+    return (fixtures.fs_search_profile(hmm) if fs
+            else fixtures.search_profile(hmm)), q
+
+
+LONG_KINDS = ["fwd", "msv", "domdec", "vit", "ssv", "fs3"]
+
+
+@pytest.mark.parametrize("kind", LONG_KINDS)
+@pytest.mark.parametrize("M", [7500, 12000, 20000, 40000])
 def test_long_models_past_a_block_of_registers(kind, M):
-    """The Forward gate and MSV on a model of 14, 23 (warps of 17 lanes)
-    and 19 warps of 33 lanes an ORF (loader.fwd_layout, msv_layout), and
-    decoding on 8, 12 and 19 warps of 33 (loader.layout): blocks of more
-    warps than the narrow instances' registers allow, which launch on
-    the wide ones.  The gate and MSV through the single-model wrapper
-    and in one launch with a model of one warp of 33 lanes (M = 900),
-    against the plain versions (MSV exactly, the gate within 1e-3
-    nats), and the packed call bit for bit the single-model one;
-    decoding through its wrapper, within 1e-4 and with the same `ok`."""
+    """Every kernel family on models past a narrow instance's block of
+    registers and past a block's warps: the Forward gate and MSV on 14,
+    23 (warps of 17 lanes) and 19 warps of 33 lanes an ORF
+    (loader.fwd_layout, msv_layout), decoding on 8, 12 and 19 warps of
+    33 (loader.layout), the ViterbiFilter on 14 warps of 17 and then two
+    and three segments of 16 warps (loader.vit_layout), the SSV capture
+    on MSV's, the fs3 pair on 19 and 29 warps of 13 and five segments
+    (loader.fs3_layout); at M = 40000 each family walks its rows in five
+    to nine segments of 16 warps (loader.segmented).  The gate, MSV and the
+    ViterbiFilter through the single-model wrapper and in one launch with
+    a model of one warp of 33 lanes (M = 900), against the plain
+    versions (the integer filters exactly, the gates within 1e-3 nats),
+    the packed call bit for bit the single-model one; decoding and the
+    fs3 pair through their wrappers, within 1e-4 and 1e-3 and with the
+    same `ok`; the SSV capture and the ViterbiFilter's capture at a
+    threshold and at P = 1 (every row crosses: more than 16 events)."""
     from bath_tpu_torch.ops.kernels import loader
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(M)
-    oms, qs = [], []
-    for m in (M, 900):
-        hmm, q = fixtures.make_query(m, rng, calibrate=False)
-        oms.append(fixtures.search_profile(hmm))
-        qs.append(q)
-    dsq, lens = fixtures.kernel_batch(qs[0], 6, 300, rng)
+    rng = np.random.default_rng(M + 1)
+    if kind == "fs3":
+        om, q = long_model(M, fs=True)
+        p = t3.fs3_params(om, "cuda")
+        d, ln = (torch.from_numpy(a).cuda()
+                 for a in fixtures.fs_window_batch(q, 4, 600, rng))
+        got = t3.fs3_score(d, ln, p)
+        want = t3.fs3_score_ref(d, ln, p)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        assert float((got[fin] - want[fin]).abs().max()) <= 1e-3
+        got = td3.fs3_domdec(d, ln, p, 100.0 / 103.0)
+        want = td3.fs3_domdec_ref(d, ln, p, 100.0 / 103.0)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b).abs().max()) <= 1e-4
+        return
+    om, q = long_model(M)
+    oms = [om, long_model(900)[0]]
+    dsq, lens = fixtures.kernel_batch(q, 6, 300, rng)
     slot = np.array([0, 1, 0, 1, 0, 0])
     if kind == "domdec":
         p = tf.fwd_params(oms[0], "cuda")
@@ -829,6 +863,41 @@ def test_long_models_past_a_block_of_registers(kind, M):
         return
     flat, offs, ln = (torch.from_numpy(a).cuda() for a in ts.pack_stream(
         [row[:n] for row, n in zip(dsq, lens)]))
+    on0 = torch.from_numpy(slot == 0).cuda()
+    if kind == "ssv":
+        p = ts.msv_params(oms[0], "cuda")
+        tjb = torch.from_numpy(p.tjb_for(ln.cpu().numpy())).cuda()
+        for t in (150, -(1 << 30)):
+            thr = torch.full_like(tjb, t)
+            got = ts.ssv_capture(flat, offs, ln, tjb, thr, p)
+            want = ts.ssv_capture_ref(flat, offs, ln, tjb, thr, p)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        assert bool((got[0] > ts.SSVB_NCAP).any())
+        return
+    if kind == "vit":
+        ps = [tv.vit_params(om, "cuda") for om in oms]
+        move = torch.from_numpy(ps[0].move_for(ln.cpu().numpy())).cuda()
+        got = tv.vit_ints(flat, offs, ln, move, ps[0])
+        for a, b in zip(got, tv.vit_ints_ref(flat, offs, ln, move, ps[0])):
+            assert torch.equal(a, b)
+        for t in (1000, -(1 << 30)):
+            thr = torch.full_like(move, t)
+            cap = tv.vit_capture(flat, offs, ln, move, thr, ps[0])
+            for a, b in zip(cap, tv.vit_capture_ref(flat, offs, ln, move, thr,
+                                                    ps[0])):
+                assert torch.equal(a, b)
+        pack = mm.build_vit_pack(ps)
+        word = torch.from_numpy(np.array([ps[g].move_for([int(n)])[0]
+                                          for g, n in zip(slot, lens)],
+                                         np.int32)).cuda()
+        both = mm.vit_ints_multi(pack, flat, offs, ln, word, slot)
+        for a, b in zip(both, mm.vit_ints_multi_ref(pack, flat, offs, ln,
+                                                    word, slot)):
+            assert torch.equal(a, b)
+        for a, b in zip(both, got):
+            assert torch.equal(a[on0], b[on0])
+        return
     ps = [ts.msv_params(om, "cuda") for om in oms]
     tjb = torch.from_numpy(ps[0].tjb_for(ln.cpu().numpy())).cuda()
     got = ts.msv_ssv(flat, offs, ln, tjb, ps[0])
@@ -842,7 +911,112 @@ def test_long_models_past_a_block_of_registers(kind, M):
     for a, b in zip(both, mm.msv_ssv_multi_ref(pack, flat, offs, ln, word,
                                                slot)):
         assert torch.equal(a, b)
-    on0 = torch.from_numpy(slot == 0).cuda()
     for a, b in zip(both, got):
         assert torch.equal(a[on0], b[on0])
+
+
+# a model past 16 warps (and inside 32) under each family's ladder
+WIDE_M = {"fwd": 12000, "domdec": 20000, "msv": 20000, "fs3": 8000}
+
+
+@pytest.mark.parametrize("kind", sorted(WIDE_M))
+def test_a_wide_model_beside_a_segmented_one(kind):
+    """One launch of an M = 40000 model, a model past 16 warps (which the
+    plan segments too: the segmented instance's blocks hold 16 warps)
+    and an M = 900 one, against the plain versions: MSV bit for bit, the
+    gates within 1e-3 nats, decoding within 1e-4 with the same `ok`."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    fs = kind == "fs3"
+    oms = [long_model(M, fs=fs)[0] for M in (40000, WIDE_M[kind], 900)]
+    q = long_model(WIDE_M[kind], fs=fs)[1]
+    slot = np.array([0, 1, 2, 1, 0, 2, 1])
+    if fs:
+        pack = mm.build_fs3_pack([t3.fs3_params(om, "cuda") for om in oms])
+        d, ln = (torch.from_numpy(a).cuda()
+                 for a in fixtures.fs_window_batch(q, len(slot), 600, rng))
+        run = loader.prepare_fs3(d, ln, slot, pack, False)
+        assert run.plan.warps == loader.SEG_WARPS
+        got = mm.fs3_pack_scores(pack, d, ln, slot)
+        want = mm.fs3_pack_scores_ref(pack, d, ln, slot)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        assert float((got[fin] - want[fin]).abs().max()) <= 1e-3
+        got = mm.fs3_domdec_pack_batch(pack, d, ln, slot, 100.0 / 103.0)
+        want = mm.fs3_domdec_pack_batch_ref(pack, d, ln, slot,
+                                            100.0 / 103.0)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b).abs().max()) <= 1e-4
+        return
+    dsq, lens = fixtures.kernel_batch(q, len(slot), 300, rng)
+    if kind in ("fwd", "domdec"):
+        pack = mm.build_fwd_pack([tf.fwd_params(om, "cuda") for om in oms])
+        d, ln = torch.from_numpy(dsq).cuda(), torch.from_numpy(lens).cuda()
+        if kind == "fwd":
+            gate = pack.with_layout(loader.fwd_layout)
+            assert loader.prepare_fwd(d, ln, slot, gate).plan.warps == \
+                loader.SEG_WARPS
+            got = mm.fwd_pack_scores(gate, d, ln, slot)
+            want = mm.fwd_pack_scores_ref(gate, d, ln, slot)
+            assert float((got - want).abs().max()) <= 1e-3
+            return
+        assert loader.prepare_domdec(d, ln, slot, pack).plan.warps == \
+            loader.SEG_WARPS
+        got = mm.domdec_pack_batch(pack, d, ln, slot)
+        want = mm.domdec_pack_batch_ref(pack, d, ln, slot)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b).abs().max()) <= 1e-4
+        return
+    ps = [ts.msv_params(om, "cuda") for om in oms]
+    flat, offs, ln = (torch.from_numpy(a).cuda() for a in ts.pack_stream(
+        [row[:n] for row, n in zip(dsq, lens)]))
+    pack = mm.build_msv_pack(ps)
+    word = torch.from_numpy(np.array([ps[g].tjb_for([int(n)])[0]
+                                      for g, n in zip(slot, lens)],
+                                     np.int32)).cuda()
+    assert loader.prepare_msv(flat, offs, ln, word, slot, pack).plan.warps \
+        == loader.SEG_WARPS
+    both = mm.msv_ssv_multi(pack, flat, offs, ln, word, slot)
+    for a, b in zip(both, mm.msv_ssv_multi_ref(pack, flat, offs, ln, word,
+                                               slot)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["msv", "ssv"])
+def test_segmented_blocks_take_turns_at_the_slots(kind):
+    """More segmented blocks than the card holds at once (1200 ORFs of an
+    M = 40000 model, one block each): the scratch has a slot for each
+    block the card holds (loader._planned), which the blocks take and
+    free in turn; MSV and the SSV capture (at P = 1: every row crosses)
+    equal their plain versions bit for bit."""
+    from bath_tpu_torch.ops.kernels import loader
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    om, q = long_model(40000)
+    p = ts.msv_params(om, "cuda")
+    dsq, lens = fixtures.kernel_batch(q, 1200, 40, rng)
+    flat, offs, ln = (torch.from_numpy(a).cuda() for a in ts.pack_stream(
+        [row[:n] for row, n in zip(dsq, lens)]))
+    tjb = torch.from_numpy(p.tjb_for(ln.cpu().numpy())).cuda()
+    if kind == "msv":
+        run = loader.prepare_msv(flat, offs, ln, tjb, None, p)
+        got = run()
+        want = ts.msv_ssv_ref(flat, offs, ln, tjb, p)
+    else:
+        thr = torch.full_like(tjb, -(1 << 30))
+        run = loader.prepare_ssv_capture(flat, offs, ln, tjb, thr, p)
+        got = run()
+        want = ts.ssv_capture_ref(flat, offs, ln, tjb, thr, p)
+    (buf,) = run.plan.buffers
+    n = int(buf[:4].view(torch.int32)[0])
+    assert n == loader.sms(flat.device) * (
+        loader.SM_THREADS // (32 * loader.SEG_WARPS)) < 1200
+    assert int(buf[4:4 * (n + 1)].view(torch.int32).abs().sum()) == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 

@@ -203,7 +203,7 @@ def plan_by_loops(lens, slot, pack, sms):
         if sms and 2 * len(slot) < 4 * sms:
             G = min(G, -(-2 * len(slot) // sms))
         rows_cls.append([c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, Mp,
-                         G, pack.Kp, int(fits)])
+                         G, pack.Kp, int(fits), 1, 0])
         rows = np.nonzero(item_mp == Mp)[0]
         for m in np.unique(item_local[rows]):
             r = rows[item_local[rows] == m]

@@ -147,7 +147,7 @@ def plan_by_loops(lens, slot, pack, passes):
         G = min(warps // c.W, (mm.SMEM_BYTES - 32 * Mp)
                 // mm.fs3_group_bytes(Mp, c.W))
         rows_cls.append([c.etab.data_ptr(), c.ttab.data_ptr(), c.P, c.W, Mp,
-                         G, 0, 0])
+                         G, 0, 0, 1, 0])
         # a launch of narrow classes only takes the direct loads
         if max(pack.classes[m].P for m in present) <= mm.FS3_DIRECT_P:
             rows_cls[-1][6] = 1

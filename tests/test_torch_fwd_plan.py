@@ -71,7 +71,7 @@ def test_every_item_once_each_block_one_model(pack):
         assert rows[c][0] == cls.etab.data_ptr()
         assert rows[c][1] == cls.ttab.data_ptr()
     # one launch: a block's warps hold every class's groups
-    assert all(G * W <= plan.warps for _, _, _, W, _, G, _, _ in rows)
+    assert all(G * W <= plan.warps for _, _, _, W, _, G, _, _, _, _ in rows)
     assert plan.warps == mm.dd_block_warps([cls.W for cls in
                                             pack.classes.values()])
 
@@ -116,7 +116,7 @@ def test_tables_staged_up_to_227_kb(pack, monkeypatch):
     for wide in (mm.STAGE_TRANS, mm.STAGE_NONE):
         monkeypatch.setattr(mm, "FWD_WIDE_STAGE", wide)
         plan = mm.fwd_plan(lens, slot, pack)
-        for _, _, P, W, Mp, G, Kp, stage in rows_of(plan):
+        for _, _, P, W, Mp, G, Kp, stage, _, _ in rows_of(plan):
             need = mm.dd_table_bytes(Kp, Mp) + G * 32 * W
             if Mp <= 1056:
                 assert stage == mm.STAGE_ALL and need <= mm.SMEM_BYTES
@@ -153,7 +153,7 @@ def test_one_model_and_empty_plans():
     assert (plan.ncls, plan.nblk, plan.warps) == (1, 0, 8)
     assert list(plan.table) == [p.padded(Mp)[0].data_ptr(),
                                 p.padded(Mp)[1].data_ptr(), P, W, Mp, 1, KP,
-                                mm.FWD_WIDE_STAGE]
+                                mm.FWD_WIDE_STAGE, 1, 0]
     empty = mm.fwd_plan(np.zeros(0, int), np.zeros(0, int), one)
     assert (empty.ncls, empty.nblk, len(empty.table)) == (0, 0, 0)
 
@@ -231,7 +231,7 @@ def test_a_long_model_takes_one_block_of_its_warps(M, want):
     one block of its W warps (the kernel launches it on the wide
     instance where the registers ask for it), up to 32 warps: the
     ladder's warps of 17 lanes, then of 33 past M = 17408.  A model past
-    32 warps of 33 lanes is refused with a ValueError."""
+    32 warps of 33 lanes takes a segmented group of 16 warps."""
     rng = np.random.default_rng(M)
     pack = mm.build_fwd_pack([profile(M, rng), profile(900, rng)])
     gate = pack.with_layout(loader.fwd_layout)
@@ -245,6 +245,8 @@ def test_a_long_model_takes_one_block_of_its_warps(M, want):
         [33, 1, want[1], mm.STAGE_ALL]
     if M == 20000:
         huge = mm.build_fwd_pack([profile(33793, rng)])
-        with pytest.raises(ValueError, match="more warps than a block"):
-            mm.fwd_plan(np.array([5]), np.zeros(1, int),
-                        huge.with_layout(loader.fwd_layout))
+        plan = mm.fwd_plan(np.array([5]), np.zeros(1, int),
+                           huge.with_layout(loader.fwd_layout))
+        assert plan.warps == 16
+        assert rows_of(plan)[0][[2, 3, 4, 5, 7, 8]].tolist() == \
+            [13, 16, 39936, 1, mm.STAGE_NONE, 6]

@@ -107,7 +107,8 @@ def test_plan_invariants(pack):
     assert plan.ncls == len(MS) - 1 and plan.warps == 12
     heads = []
     for c, m, M, first, count in plan.blocks:
-        _, _, P, W, Mp, G, Kp, staged = rows[c]
+        _, _, P, W, Mp, G, Kp, staged, S, scratch = rows[c]
+        assert (S, scratch) == (1, 0)
         cls = pack.classes[Mp]
         assert rows[c][0] == cls.tab.data_ptr()
         assert rows[c][1] == cls.scal.data_ptr()
@@ -155,7 +156,7 @@ def test_a_single_model_call_builds_no_per_item_table():
     p = msv_model(400, rng)
     plan = mm.msv_plan(None, None, p.as_pack())
     assert (plan.ncls, plan.nblk, len(plan.table)) == (1, 0, mm.PLAN_CLS)
-    assert plan.table.tolist()[2:] == [13, 1, 416, 8, KP, 1]
+    assert plan.table.tolist()[2:] == [13, 1, 416, 8, KP, 1, 1, 0]
     assert plan.table[0] == p.as_pack().classes[416].tab.data_ptr()
     assert p.as_pack() is p.as_pack()
     # loader caches it on the parameters: one upload, none per call
@@ -174,8 +175,9 @@ def test_a_single_model_call_builds_no_per_item_table():
                                      (33792, (33, 32, 33792))])
 def test_the_ladder_runs_to_a_block_of_32_warps(M, want):
     """Warps of 17 lanes up to a block of 32 (M = 17408), warps of 33
-    beyond, up to 32 again (M = 33792); one model past that is refused
-    with a ValueError, not a failed launch."""
+    beyond, up to 32 again (M = 33792); one model past that takes a
+    segmented group of 16 warps (six segments of 13 lanes a thread),
+    neither a ValueError nor a failed launch."""
     assert loader.msv_layout(M) == want
     assert loader.fwd_layout(M) == want
     rng = np.random.default_rng(M)
@@ -184,6 +186,9 @@ def test_the_ladder_runs_to_a_block_of_32_warps(M, want):
     assert plan.warps == 32
     assert rows_of(plan)[0][[2, 3, 4, 5, 7]].tolist() == [*want, 1, 0]
     if M == 33792:
-        with pytest.raises(ValueError, match="more warps than a block"):
-            mm.msv_plan(np.array([7]), np.zeros(1, int),
-                        mm.build_msv_pack([msv_model(M + 1, rng)]))
+        assert loader.msv_layout(M + 1) == (13, 16, 39936)
+        plan = mm.msv_plan(np.array([7]), np.zeros(1, int),
+                           mm.build_msv_pack([msv_model(M + 1, rng)]))
+        assert plan.warps == 16
+        assert rows_of(plan)[0][[2, 3, 4, 5, 7, 8]].tolist() == \
+            [13, 16, 39936, 1, 0, 6]

@@ -132,7 +132,7 @@ def plan_by_loops(lens, slot, pack, sms=0):
     for ci, Mp in enumerate(present):
         c = pack.classes[Mp]
         rows_cls.append([c.tab.data_ptr(), c.scal.data_ptr(), c.P, c.W, Mp,
-                         Gs[Mp], pack.Kp, 0])
+                         Gs[Mp], pack.Kp, 0, 1, 0])
         rows = np.nonzero(item_mp == Mp)[0]
         for m in np.unique(item_local[rows]):
             r = rows[item_local[rows] == m]
