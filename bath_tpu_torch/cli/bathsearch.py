@@ -20,7 +20,12 @@ A query file with more than one HMM runs the multi-query drive
 (``multiquery.py``): one pass over the target, host filters per query
 over shared ORFs, and every device stage batched across all queries
 by the multi-model kernels (``ops/multimodel.py``).
-``BATH_MULTIQUERY=0`` forces the serial per-query loop.
+``BATH_MULTIQUERY=0`` forces the serial per-query loop, and so does
+``--splice``.
+``--splice`` adds the JAX package's splice post-pass on the host
+(``splice/``): the windows that the SSV and Viterbi captures found, and
+the Forward gate passed, seed the splice graph beside the reported
+hits; ``--exontblout`` writes the exon table.
 Its output is byte-identical to ``--backend numpy``, the package's own
 serial host drive (every stage in the host kernels).  ``--device``
 defaults to ``cuda``, and a missing CUDA device is an error; the CPU is
@@ -302,8 +307,6 @@ def _unported(args, backend: str) -> str | None:
         return not_ported("--hosts", 5)
     if int(args.cpu or 0) > 1:
         return not_ported("--cpu N>1", 5)
-    if args.splice:
-        return not_ported("--splice", 6)
     return None
 
 
@@ -365,8 +368,20 @@ def run(argv=None, stats=None) -> int:
         print("Either <hmmfile> or <seqdb> may be '-' (stdin), "
               "but not both", file=sys.stderr)
         return 1
+    # option incompatibilities (ref: bathsearch.c option table
+    # :75-76, :81, :156)
+    if args.fs and args.splice:
+        print("Failed to parse command line: Option --fs is "
+              "incompatible with option --splice", file=sys.stderr)
+        return 1
+    if getattr(args, "fsonly", False) and args.splice:
+        print("Failed to parse command line: Option --fsonly is "
+              "incompatible with option --splice", file=sys.stderr)
+        return 1
     for opt in ("exontblout", "min_intron", "max_intron"):
-        if f"--{opt}" in rest:
+        if getattr(args, opt, None) not in (None, False) \
+                and not args.splice \
+                and f"--{opt}" in (argv or sys.argv[1:]):
             print(f"Failed to parse command line: Option --{opt} "
                   "requires (or has no effect without) option "
                   "--splice", file=sys.stderr)
@@ -387,6 +402,8 @@ def run(argv=None, stats=None) -> int:
     ofp = open(args.outfile, "w") if args.outfile else sys.stdout
     tblfp = open(args.tblout, "w") if args.tblout else None
     fstblfp = open(args.fstblout, "w") if args.fstblout else None
+    extblfp = open(args.exontblout, "w") if args.exontblout \
+        else None
     textw = 0 if args.notextw else args.textw
     gcode = GeneticCode.create(args.ct)
     if args.aug_only:
@@ -397,7 +414,7 @@ def run(argv=None, stats=None) -> int:
     output_header(ofp, args)
 
     def finish():
-        for fp in (tblfp, fstblfp):
+        for fp in (tblfp, fstblfp, extblfp):
             if fp:
                 fp.write(tabular_tail("bathsearch", args.queryfile,
                                       args.dbfile,
@@ -411,9 +428,12 @@ def run(argv=None, stats=None) -> int:
     # Multi-query drive: one pass over the target, device gate batches
     # across models (multiquery.py).  Byte-identical to the serial
     # per-query loop; engaged for the torch backend when several HMMs
-    # share one query file.  BATH_MULTIQUERY=0 forces the serial loop.
+    # share one query file and the splice post-pass, which needs the
+    # per-query stream, is off.  BATH_MULTIQUERY=0 forces the serial
+    # loop.
     queries = load_queries(args.queryfile, args)
-    if on_device and os.environ.get("BATH_MULTIQUERY", "1") != "0":
+    if on_device and not args.splice \
+            and os.environ.get("BATH_MULTIQUERY", "1") != "0":
         hmms = []
         for hmm in queries:
             check_query(hmm, args)
@@ -519,6 +539,45 @@ def run(argv=None, stats=None) -> int:
         th.sort_by_sortkey()
         pli.Z = 1.0
         th.threshold(pli)
+
+        t_splice = time.time()
+        # --splice post-pass (ref: bathsearch.c :925-947)
+        if args.splice and th.N:
+            from ..splice.pipeline import splice_hits
+            from ..splice.splice import SpliceConfig
+            gm_tr = profile_config_fs(hmm, bg, gcode, 1, 100,
+                                      C.P7_UNILOCAL)
+            gm_tr.evparam = hmm.evparam.copy()
+            from ..sequence import LazySeqLookup
+            from ..alphabet import dna as dna_abc
+            seq_lookup = LazySeqLookup(args.dbfile, dna_abc())
+            pli.qname = hmm.name
+            scfg = SpliceConfig(min_intron=args.min_intron,
+                                max_intron=args.max_intron,
+                                E=pli.E,
+                                T=None if pli.by_E else pli.T,
+                                F1=pli.F1, F2=pli.F2, F3=pli.F3,
+                                do_null2=pli.do_null2,
+                                do_biasfilter=pli.do_biasfilter)
+            # seed recovery (ref: bathsearch.c :930-933)
+            from ..splice.seeds import (get_seed_hits,
+                                        remove_duplicate_windows)
+            th.sort_by_seqidx_and_alipos()
+            ws = remove_duplicate_windows(hit_windows, th, pli.F3)
+            seeds = get_seed_hits(ws, th, gm_fs5, seq_lookup, pli.F3,
+                                  args.max_intron)
+            splice_hits(th, seeds, om, gm, gm_tr, bg, gcode,
+                        seq_lookup, res_cnt, scfg)
+            for h in th.unsrt:
+                if h.seqidx in id_lengths:
+                    h.target_len = id_lengths[h.seqidx]
+            th.sort_by_seqidx_and_alipos()
+            th.remove_duplicates(pli.use_bit_cutoffs)
+            th.sort_by_sortkey()
+        if stats is not None and args.splice:
+            stats["splice_s"] = stats.get("splice_s", 0.0) \
+                + time.time() - t_splice
+
         pli.n_output = pli.pos_output = 0
         for h in th.hit:
             if h.flags & (IS_REPORTED | IS_INCLUDED):
@@ -535,6 +594,10 @@ def run(argv=None, stats=None) -> int:
         if fstblfp:
             fstblfp.write(th.tabular_frameshifts_text(
                 hmm.name, hmm.acc, pli, nquery == 1))
+        if extblfp:
+            extblfp.write(th.tabular_exons_text(
+                hmm.name, hmm.acc, pli, nquery == 1,
+                node_info=args.nodeinfo))
         ofp.write(statistics_text(pli, time.time() - t0))
         ofp.write("//\n")
     return finish()

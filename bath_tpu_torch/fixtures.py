@@ -25,7 +25,9 @@ several seeded models and a genome with copies of some of them.
 ``write_msa_fixture`` makes the input of ``bathbuild`` (one Stockholm
 file of alignments emitted from seeded models) and
 ``write_convert_input`` the input of ``bathconvert`` (a model file
-stripped of its frameshift calibration).
+stripped of its frameshift calibration).  ``write_splice_fixture``
+makes the input of ``--splice``: a genome whose copies of the query
+are genes split into exons by GT...AG introns.
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ FIXTURE_DIR = Path(__file__).resolve().parents[1] / "build" / \
 NT = "ACGT"
 SUBST_RATE = 0.30
 LINKER = 12                  # residues between the copies of a 2-domain ORF
+INTRONS = (60, 2000)         # nt, the range of a spliced gene's introns
+SHORT_EXON = 15              # residues of gene 0's first exon
+CLOSE_GAP = 2000             # nt between the last two spliced genes
 
 
 @dataclass
@@ -645,6 +650,133 @@ def longest_orfs(windows) -> list[np.ndarray]:
                 for o in extract_orfs(gcode, d, minlen=1, is_revcomp=rev)]
         out.append(np.asarray(max(orfs, key=len), np.int8))
     return out
+
+
+@dataclass
+class SpliceFixture:
+    hmm_path: str
+    fasta_path: str
+    # per gene: {"strand": "+" or "-", "exons": [[first, last], ...]
+    # 1-based plus-strand nt coordinates in the gene's own 5'->3'
+    # order, "phases": the codon phase (0, 1, 2) of each intron}
+    genes: list
+
+
+def make_spliced_genome(q: np.ndarray, genome_len: int, n_genes: int,
+                        rng: np.random.Generator):
+    """(DNA string, genes as in ``SpliceFixture.genes``) of a random
+    genome carrying <n_genes> mutated copies of the protein <q>, gene g
+    split into 2 + g % 3 exons by GT...AG introns of INTRONS nt.
+    Intron j of gene g falls at codon phase (g + j) % 3, so split
+    codons of every phase occur; odd genes lie on the minus strand.
+    Gene 0's first exon is SHORT_EXON residues long, too short to be a
+    hit of its own.  Genes are spaced genome_len // n_genes apart,
+    except the last, which follows the one before it on the same strand
+    CLOSE_GAP nt after its end (two close genes on one sequence)."""
+    codons = _codons()
+    seq = np.frombuffer(NT.encode(), np.uint8)[
+        rng.integers(0, 4, genome_len)]
+    M = len(q)
+    spacing = genome_len // n_genes
+    genes, prev_end = [], 0
+    for g in range(n_genes):
+        n_ex = 2 + g % 3
+        bounds = np.linspace(0, M, n_ex + 1).round().astype(int)
+        bounds[1:-1] += rng.integers(-M // (4 * n_ex), M // (4 * n_ex) + 1,
+                                     n_ex - 1)
+        if g == 0:
+            bounds[1] = SHORT_EXON
+        phases = [(g + j) % 3 for j in range(n_ex - 1)]
+        cds = "".join(codons[int(a)][rng.integers(len(codons[int(a)]))]
+                      for a in _mutate(q, rng))
+        cuts = [0] + [3 * int(b) + p for b, p in zip(bounds[1:-1], phases)] \
+            + [len(cds)]
+        parts, spans, pos = [], [], 0
+        for j in range(n_ex):
+            if j:
+                n = int(rng.integers(*INTRONS))
+                body = "".join(NT[int(x)] for x in rng.integers(0, 4, n - 4))
+                parts.append("GT" + body + "AG")
+                pos += n
+            exon = cds[cuts[j]:cuts[j + 1]]
+            spans.append((pos, pos + len(exon)))
+            parts.append(exon)
+            pos += len(exon)
+        dna = "".join(parts)
+        minus = g % 2 == 1
+        if g == n_genes - 1 and n_genes > 1:
+            minus = genes[-1]["strand"] == "-"
+            start = prev_end + CLOSE_GAP
+        else:
+            start = spacing * g + (spacing - len(dna)) // 2
+        if minus:
+            dna = dna.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+            spans = [(len(dna) - e, len(dna) - b) for b, e in spans]
+        if start + len(dna) > genome_len:
+            raise ValueError(f"genome of {genome_len} nt too short for "
+                             f"{n_genes} genes")
+        seq[start:start + len(dna)] = np.frombuffer(dna.encode(), np.uint8)
+        genes.append({"strand": "-" if minus else "+",
+                      "exons": [[start + b + 1, start + e] for b, e in spans],
+                      "phases": phases})
+        prev_end = start + len(dna)
+    return seq.tobytes().decode(), genes
+
+
+def write_splice_fixture(M: int, genome_len: int, n_genes: int, seed: int,
+                         directory: Path | None = None) -> SpliceFixture:
+    """The spliced-gene fixture for these parameters
+    (``make_spliced_genome``), written on first use as
+    ``write_fixture``.  A search of it should pass a ``--max_intron``
+    below genome_len // n_genes, the spacing of its genes, or it may
+    chain exons of two genes into one hit."""
+    d = Path(directory or FIXTURE_DIR)
+    d.mkdir(parents=True, exist_ok=True)
+    stem = d / f"splice-M{M}-L{genome_len}-G{n_genes}-s{seed}"
+    meta = stem.with_suffix(".json")
+    hmm_path, fa_path = stem.with_suffix(".bhmm"), stem.with_suffix(".fa")
+    if meta.exists():
+        return SpliceFixture(str(hmm_path), str(fa_path),
+                             json.loads(meta.read_text()))
+    rng = np.random.default_rng(seed)
+    hmm, q = make_query(M, rng)
+    dna, genes = make_spliced_genome(q, genome_len, n_genes, rng)
+    buf = io.StringIO()
+    write_hmm(buf, hmm)
+    _write_atomic(hmm_path, buf.getvalue())
+    body = "\n".join(dna[i:i + 80] for i in range(0, len(dna), 80))
+    _write_atomic(fa_path, f">genome{seed}\n{body}\n")
+    _write_atomic(meta, json.dumps(genes))
+    return SpliceFixture(str(hmm_path), str(fa_path), genes)
+
+
+def exon_hits(exontblout_path: str) -> list:
+    """[[(lo, hi), ...], ...]: the exons' nt spans of each reported hit
+    of an ``--exontblout`` table, in table order."""
+    hits: dict = {}
+    with open(exontblout_path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            cols = line.split()
+            a, b = int(cols[14]), int(cols[15])
+            hits.setdefault(cols[0], []).append((min(a, b), max(a, b)))
+    return list(hits.values())
+
+
+def spliced_found(exontblout_path: str, fx: SpliceFixture) -> int:
+    """Genes reported as one hit that holds all their exons: a hit with
+    as many exons as the gene, each overlapping its own exon of the
+    gene, read from an ``--exontblout`` table."""
+    hits = [sorted(spans) for spans in exon_hits(exontblout_path)]
+    found = 0
+    for gene in fx.genes:
+        want = sorted((min(e), max(e)) for e in gene["exons"])
+        found += any(len(h) == len(want)
+                     and all(a <= y and b >= x
+                             for (a, b), (x, y) in zip(h, want))
+                     for h in hits)
+    return found
 
 
 def frameshifts_found(fstblout_path: str, fx: Fixture) -> int:

@@ -38,8 +38,10 @@ phase but ``deep``; ``all`` adds ``deep``):
   through the port's CLI, standard, then ``--fs`` and ``--fsonly`` on
   its frameshift twin (16 of its 40 embeds carry a 1-nt indel), then
   the all-device cascade (``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``),
-  standard and ``--fs``, and the all-device cascade with an M = 9000
-  model against a seeded genome with two copies of it;
+  standard and ``--fs``, the all-device cascade with an M = 9000
+  model against a seeded genome with two copies of it, and ``--splice``
+  against a seeded 5 Mb genome with 16 genes of 2-4 exons, with the
+  default cascade and the all-device one;
 - ``multiquery``: a 48-model query file against a 5 Mb genome that
   holds copies of 12 of the models, standard and ``--fs``;
 - ``build``: ``bathbuild`` of a 48-alignment Stockholm file and
@@ -148,6 +150,11 @@ SEG_CAP_THR = (150, 1000)   # SSV capture bytes, ViterbiFilter words
 # (so that the ViterbiFilter's capture has input)
 SEG_SEARCH_M = 9000
 SEG_SEARCH = (400_000, 2)   # (genome nt, copies)
+SPLICE_GENES = 16           # spaced 312 kb apart, past --max_intron
+# bath_tpu --backend numpy --splice's own count of whole genes on this
+# fixture on the CPU: 14 of 16 (the last two genes, 2 kb apart, come
+# out as one hit and a piece)
+SPLICE_MIN_FOUND = 14
 LONG_ORF = 2_000
 INT_WIDE_M = 1500
 SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
@@ -1834,11 +1841,97 @@ def search_long_model(run: Run) -> None:
              f"{missing}: {launches}")
 
 
+def table(path) -> str:
+    """A tabular output without its run-dependent lines."""
+    return "".join(ln for ln in Path(path).read_text().splitlines(True)
+                   if not ln.startswith(("# Option settings:", "# Date:",
+                                         "# Current dir:")))
+
+
+def search_splice(run: Run) -> None:
+    """--splice on a seeded 5 Mb genome holding SPLICE_GENES genes of
+    2-4 exons (``fixtures.write_splice_fixture``) against the M = 400
+    profile, at the default --min_intron and --max_intron, in turns:
+    numpy, torch, torch on the all-device cascade, numpy.  The seeds of
+    the splice graph are the windows of the captures that the Forward
+    gate passed.  Fails unless -o, --tblout and --exontblout equal the
+    numpy run's, a hit has two exons or more, at least SPLICE_MIN_FOUND
+    genes come out whole, the gate and decoding launched in both torch
+    runs and the four integer entries in the all-device one."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fwd, ssv, vit
+    t0 = time.perf_counter()
+    fx = fixtures.write_splice_fixture(M_SEARCH, GENOME_NT, SPLICE_GENES,
+                                       SEED)
+    fns = {"fwd_parser": fwd.fwd_score, "domdec": dd.domdec,
+           "msv_filter": ssv.msv_ssv, "ssv_capture": ssv.ssv_capture,
+           "vit_filter": vit.vit_ints, "vit_capture": vit.vit_capture}
+    outs, walls, splice_s, launches = {}, {}, {}, {}
+    turns = {"numpy0": "numpy", "torch": "torch", "all_device": "torch",
+             "numpy1": "numpy"}
+    for turn, backend in turns.items():
+        env = ALL_DEVICE if turn == "all_device" else \
+            {k: "0" for k in ALL_DEVICE}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        paths = [BUILD / f"splice_{turn}.{x}" for x in ("out", "tbl", "ex")]
+        stats: dict = {}
+        for f in fns.values():
+            f.launches = 0
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", backend, "--device", DEVICE,
+                             "--splice", "-o", str(paths[0]), "--tblout",
+                             str(paths[1]), "--exontblout", str(paths[2]),
+                             fx.hmm_path, fx.fasta_path], stats=stats)
+        torch.cuda.synchronize()
+        walls[turn] = time.perf_counter() - t
+        launches[turn] = {k: f.launches for k, f in fns.items()}
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if rc != 0:
+            fail(f"bathsearch --splice ({turn}) exited {rc}")
+        outs[turn] = (masked(paths[0]), table(paths[1]), table(paths[2]))
+        splice_s[turn] = stats["splice_s"]
+    identical = {turn: outs[turn] == outs["numpy0"]
+                 for turn in ("torch", "all_device", "numpy1")}
+    exons = [len(s) for s in fixtures.exon_hits(BUILD / "splice_torch.ex")]
+    found = fixtures.spliced_found(BUILD / "splice_torch.ex", fx)
+    phase("e2e_splice", genome_nt=GENOME_NT, M=M_SEARCH,
+          genes=SPLICE_GENES, found_torch=found,
+          found_numpy=fixtures.spliced_found(BUILD / "splice_numpy0.ex", fx),
+          min_found=SPLICE_MIN_FOUND, byte_identical=identical,
+          hits=len(exons), exons_per_hit=",".join(map(str, exons)),
+          walls_s=",".join(f"{k}:{w:.4f}" for k, w in walls.items()),
+          splice_pass_s=",".join(f"{k}:{v:.4f}"
+                                 for k, v in splice_s.items()),
+          launches_torch=launches["torch"],
+          launches_all_device=launches["all_device"],
+          seconds=f"{time.perf_counter() - t0:.1f}", card=repr(run.card))
+    if not all(identical.values()):
+        fail(f"--splice output differs from the numpy backend: {identical}")
+    if not exons or max(exons) < 2:
+        fail(f"--splice reported no hit of two exons or more: {exons}")
+    if found < SPLICE_MIN_FOUND:
+        fail(f"--splice found {found}/{SPLICE_GENES} genes whole, below "
+             f"{SPLICE_MIN_FOUND}")
+    missing = [(turn, k) for turn in ("torch", "all_device")
+               for k in fns if launches[turn][k] <= 0
+               and (turn == "all_device" or k in ("fwd_parser", "domdec"))]
+    if missing:
+        fail(f"a kernel of the --splice path never launched: {missing}")
+
+
 def phase_search(run: Run) -> None:
     walls = search_standard(run)
     fs_walls = search_fs(run)
     search_all_device(run, walls, fs_walls)
     search_long_model(run)
+    search_splice(run)
 
 
 # ---------------------------------------------------------------------

@@ -33,6 +33,7 @@ from bath_tpu_torch.ops.reference import filters as flt
 from bath_tpu_torch.oprofile import oprofile_convert
 from bath_tpu_torch.profile import profile_config
 from bath_tpu_torch.rng import Randomness
+from torch_threads import one_torch_thread  # noqa: F401
 
 MS = (40, 90, 130)
 SMALL = dict(EmL=60, EvL=60, EmN=24, EvN=24, EfN=24, EfL=40)

@@ -18,12 +18,11 @@ FORWARD line (the same host parser) are equal as text.
 
 import io
 import re
-import time
 from contextlib import redirect_stdout
 
 import pytest
 
-from bath_tpu import native as jnat
+import jax_native
 from bath_tpu.cli import bathbuild as jb
 from bath_tpu.cli import bathconvert as jc
 from bath_tpu.cli import bathfetch as jf
@@ -33,6 +32,7 @@ from bath_tpu_torch.cli import bathbuild as tb
 from bath_tpu_torch.cli import bathconvert as tc
 from bath_tpu_torch.cli import bathfetch as tfetch
 from bath_tpu_torch.cli import bathstat as tstat
+from torch_threads import one_torch_thread  # noqa: F401
 
 MS = (40, 90, 130)
 F32_GATE = ("STATS LOCAL FORWARD", "STATS LOCAL FS3 FORWARD")
@@ -43,17 +43,9 @@ TAU_TOL = 0.02
 def jax_native_library():
     """The JAX package's CLIs run their host stages in its native library
     when it loads and in Python when it does not, and the two print
-    taus that differ in the last digit.  That library is built in place
-    on first use (``~/.cache/bath_tpu``), so with a fresh HOME another
-    test process may still be writing it when this one first asks, and
-    bath_tpu keeps the failed load for the process: ask again until it
-    loads, so that both packages run the same host code."""
-    deadline = time.monotonic() + 180
-    while jnat.get_lib() is None:
-        assert time.monotonic() < deadline, \
-            "bath_tpu's native library does not load"
-        jnat._TRIED = False
-        time.sleep(2)
+    taus that differ in the last digit: load it, so that both packages
+    run the same host code."""
+    jax_native.load()
 
 
 def model_lines(path):

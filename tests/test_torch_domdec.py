@@ -17,6 +17,7 @@ from bath_tpu.ops.reference import fwdback as fb
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.ops import domdec as td
 from bath_tpu_torch.ops import fwd as tf
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 5e-4
 

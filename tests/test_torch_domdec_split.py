@@ -22,6 +22,7 @@ from bath_tpu_torch.ops import domdec as td
 from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops.fwd import ProfileTensors
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 5e-4                  # tests/test_torch_domdec.py's, against the JAX kernel
 SPLIT_TOL = 1e-5            # the split against the fused plain version

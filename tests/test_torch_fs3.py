@@ -29,6 +29,7 @@ from bath_tpu_torch import fixtures
 from bath_tpu_torch.ops import fs3 as t3
 from bath_tpu_torch.ops.fwd import ProfileTensors
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = 0.01
 BF16_TOL = 0.05

@@ -21,6 +21,7 @@ from bath_tpu.pipeline_fs import fs_domdec_margin
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.ops import fs3 as t3
 from bath_tpu_torch.ops import fs3_domdec as td3
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

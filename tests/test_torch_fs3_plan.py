@@ -15,6 +15,7 @@ import torch
 from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops.fwd import ProfileTensors
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 # padded widths 96, 160, 288, 416, 832 and 1248: W = 1, 2 and 3
 MS = (60, 150, 250, 400, 700, 1100, 90, 1000)

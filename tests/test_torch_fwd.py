@@ -19,6 +19,7 @@ from bath_tpu.ops.pallas.fwd import fwd_params_pallas, fwd_score_pallas
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.ops import fwd as tf
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -21,14 +21,13 @@ M = 40000.  The kernels themselves are held on the card
 registers``, ``chip_smoke.py`` ``parity``).
 """
 
-import time
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from bath_tpu import native as jnat
+import jax_native
 from bath_tpu.ops.reference import filters as flt
 from bath_tpu.ops.reference import fwdback
 from bath_tpu_torch import constants as C
@@ -39,6 +38,7 @@ from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops import ssv as ts
 from bath_tpu_torch.ops import vit as tv
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 LONG = 40_000
 KP = 29
@@ -394,14 +394,8 @@ def test_a_wide_model_beside_a_segmented_one_is_segmented_too(kind):
 @pytest.fixture(scope="module")
 def host_native():
     """bath_tpu's native library, which the host reference filters run
-    in (another test process may still be building it: ask until it
-    loads)."""
-    deadline = time.monotonic() + 180
-    while jnat.get_lib() is None:
-        assert time.monotonic() < deadline, \
-            "bath_tpu's native library does not load"
-        jnat._TRIED = False
-        time.sleep(2)
+    in."""
+    jax_native.load()
 
 
 def homolog_orfs(q, rng, n=6, length=320):

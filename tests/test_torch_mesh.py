@@ -33,6 +33,7 @@ from bath_tpu_torch.ops import fwd as tf
 from bath_tpu_torch.ops import ssv as ts
 from bath_tpu_torch.ops.fwd import ProfileTensors
 from bath_tpu_torch.parallel import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, LA, LN = 16, 60, 180
 FWD_TOL, FS3_TOL = 0.01, 0.05

@@ -35,6 +35,7 @@ from bath_tpu_torch.ops import fs3_domdec as td3
 from bath_tpu_torch.ops import fwd as tf
 from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops.fwd import ProfileTensors
+from torch_threads import one_torch_thread  # noqa: F401
 
 MS = (24, 57, 63, 100, 126)
 # the reference's size classes, scaled: M <= Mg - 1

@@ -31,6 +31,7 @@ from bath_tpu_torch.device_pipeline import TorchCascade
 from bath_tpu_torch.hmmfile import read_hmms
 from bath_tpu_torch.multiquery import PackedGates, QState
 from bath_tpu_torch.sequence import Sequence
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MS = [120, 45, 90, 64]

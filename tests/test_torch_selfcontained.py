@@ -31,6 +31,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = os.path.join(ROOT, "bath_tpu"), os.path.join(ROOT,
                                                          "bath_tpu_torch")
@@ -41,7 +43,9 @@ prior msa builder evalues scorematrix gencode sequence profile oprofile
 scoredata phasestats ops/reference/__init__ ops/reference/filters
 ops/reference/fwdback ops/reference/fwdback_fs native/__init__ domaindef
 ensemble tracealign alidisplay tophits pipeline pipeline_fs
-cli/_io emit ssi cli/bathstat cli/bathfetch""".split()
+cli/_io emit ssi cli/bathstat cli/bathfetch splice/__init__ splice/graph
+splice/viterbi_spliced splice/splice splice/seeds splice/align
+splice/pipeline""".split()
 
 # the reference's comments point into a checkout of the C sources by an
 # absolute path; the copies keep the path inside that checkout
@@ -66,6 +70,11 @@ LINES = {
     },
     "cli/bathstat": {'"(bath_tpu_torch)")': "names its own package"},
     "cli/bathfetch": {'"(bath_tpu_torch)")': "names its own package"},
+    "splice/splice": {
+        "Design notes: the graph logic is host-side": "named the TPU",
+        "reference and the native host library).  Internal exons are":
+            "named Pallas",
+    },
     "ops/reference/filters": {
         "(ops.ssv.ssv_capture).\"\"\"": "named the jnp capture kernel",
         "event kernel (ops.vit.vit_capture).  Returns":
@@ -366,6 +375,42 @@ def test_copied_function_is_the_same_code(ref_mod, port_mod, name, drop,
     assert not diff, "\n".join(diff)
 
 
+def statements(fn, first):
+    """The statements of <fn> (a definition), in whichever block of it
+    holds them, from the one whose source opens with <first> on."""
+    for node in ast.walk(fn):
+        for field in ("body", "orelse"):
+            stmts = getattr(node, field, None)
+            if not isinstance(stmts, list):
+                continue
+            for i, s in enumerate(stmts):
+                if ast.unparse(s).startswith(first):
+                    return stmts[i:]
+    raise AssertionError(f"no statement opens with {first!r}")
+
+
+# Blocks of the CLI's run copied from the reference's run: (the opening
+# of their first statement, their number of statements, an id)
+BLOCKS = [
+    ("if args.fs and args.splice:", 3, "splice-refusals"),
+    ("if args.splice and th.N:", 1, "splice-post-pass"),
+]
+
+
+@pytest.mark.parametrize("first,n,name", BLOCKS, ids=[b[2] for b in BLOCKS])
+def test_copied_block_is_the_same_code(first, n, name):
+    """Comments aside, the port's block is the reference's."""
+    blocks = [[ast.unparse(s) for s in statements(
+        definition(read(base, "cli/bathsearch"), "run"), first)[:n]]
+        for base in (REF, PORT)]
+    assert len(blocks[0]) == n
+    diff = list(difflib.unified_diff(
+        "\n".join(blocks[0]).splitlines(), "\n".join(blocks[1]).splitlines(),
+        f"bath_tpu/cli/bathsearch.py:run:{name}",
+        f"bath_tpu_torch/cli/bathsearch.py:run:{name}", lineterm="", n=0))
+    assert not diff, "\n".join(diff)
+
+
 # ---------------------------------------------------------------------
 # No import of the reference or of JAX
 # ---------------------------------------------------------------------
@@ -450,6 +495,17 @@ CASES = {
     "cli-multi-fs": (SEARCH.format(
         args='"--device", "cpu", "--fs"', fixture="mq_fs",
         check='stats["fs3_items"] > 0'), "RUN 0 2 True"),
+    "cli-splice": ('''
+from bath_tpu_torch.cli import bathsearch
+sfx = fixtures.write_splice_fixture(120, 40_000, 3, 4, directory=sys.argv[1])
+stats = {}
+rc = bathsearch.run(["--device", "cpu", "--splice", "--max_intron", "5000",
+                     "-o", sys.argv[1] + "/out", "--exontblout",
+                     sys.argv[1] + "/ex", sfx.hmm_path, sfx.fasta_path],
+                    stats=stats)
+print("RUN", rc, fixtures.spliced_found(sys.argv[1] + "/ex", sfx) > 0,
+      stats["fwd_items"] > 0 and "splice_s" in stats)
+''', "RUN 0 True True"),
     "cli-numpy-backend": (SEARCH.format(
         args='"--backend", "numpy"', fixture="mq", check="stats == {}"),
         "RUN 0 2 True"),

@@ -38,6 +38,7 @@ from bath_tpu_torch import fixtures
 from bath_tpu_torch.cli import bathsearch
 from bath_tpu_torch.device_pipeline import TorchCascade, batches
 from bath_tpu_torch.ops import fwd as tf
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -224,7 +225,6 @@ def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     pytest.param(["--cpu", "2"], 5, id="extra2-5"),
     pytest.param(["--mesh", "2"], 5, id="extra3-5"),
-    pytest.param(["--splice"], 6, id="extra4-6"),
     pytest.param(["--hosts", "2"], 5, id="hosts-5"),
     pytest.param(["--backend", "numpy", "--cpu", "2"], 5, id="numpy-cpu-5"),
     pytest.param(["--backend", "jax"], None, id="backend-jax")])

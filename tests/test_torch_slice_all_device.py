@@ -15,6 +15,7 @@ import pytest
 
 from bath_tpu_torch.cli import bathsearch
 from test_torch_slice import LOADED, ROOT, fs_fx, fx, search  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ALL_DEVICE = {"BATH_MSV_DEVICE": "1", "BATH_VIT_DEVICE": "1"}
 # looser F1/F2 than the defaults: on these fixtures some ORFs then take

@@ -20,6 +20,7 @@ from bath_tpu.hmmfile import read_hmm
 from bath_tpu.ops.reference import filters as flt
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.ops import ssv as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 LONG = 16_500
 

@@ -17,6 +17,7 @@ import torch
 from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops import ssv as ts
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 KP = 29
 

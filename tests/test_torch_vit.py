@@ -21,6 +21,7 @@ from bath_tpu.ops.reference import filters as flt
 from bath_tpu_torch import fixtures
 from bath_tpu_torch.ops import ssv as ts
 from bath_tpu_torch.ops import vit as tv
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEG = -(1 << 30)
 

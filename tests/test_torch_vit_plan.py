@@ -16,6 +16,7 @@ import torch
 from bath_tpu_torch.ops import multimodel as mm
 from bath_tpu_torch.ops import vit as tv
 from bath_tpu_torch.ops.kernels import loader
+from torch_threads import one_torch_thread  # noqa: F401
 
 KP = 29
 # padded widths 96, 160, 288, 416, 800 (one warp of 3 .. 25 lanes), 1088
