@@ -26,6 +26,16 @@ by the multi-model kernels (``ops/multimodel.py``).
 (``splice/``): the windows that the SSV and Viterbi captures found, and
 the Forward gate passed, seed the splice graph beside the reported
 hits; ``--exontblout`` writes the exon table.
+``--cpu N`` (N > 1, default ``$HMMER_NCPU``) runs N worker processes
+over the target windows, each with the host pipeline: under
+``--backend numpy`` the windows go to the workers in stream order;
+under ``--backend torch`` (the hybrid) the workers take windows while
+they have room and this process takes the overflow into the device
+cascade, and the results are merged in stream order.  With several
+HMMs in the query file ``--cpu N`` runs the multi-query drive on either
+backend, its queries split into N slices, one to a worker.  The pools
+start their workers from a fresh server process
+(``parallel/pool.py``), never by forking this one.
 Its output is byte-identical to ``--backend numpy``, the package's own
 serial host drive (every stage in the host kernels).  ``--device``
 defaults to ``cuda``, and a missing CUDA device is an error; the CPU is
@@ -33,8 +43,10 @@ used only when ``--device cpu`` is given, which runs the kernels' plain
 PyTorch versions.  Modes whose device stages are not ported yet are
 refused with the ROADMAP.md item that ports them.
 
-``build_parser``, ``make_pipeline``, ``output_header`` and
-``load_queries`` are the JAX package's own, copied.
+``build_parser``, ``make_pipeline``, ``output_header``,
+``load_queries`` and ``_pool_task`` are the JAX package's own, copied,
+and so are the statements of the hybrid (``_hybrid``) and of the window
+pool (``_window_pool``).
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ import argparse
 import os
 import sys
 import time
+from collections import deque
+from concurrent.futures import wait
 
 import torch
 
@@ -52,8 +66,10 @@ from ..device_pipeline import (ChunkEntry, TorchCascade, flush_downstream,
                                flush_gates, not_ported)
 from ..gencode import GeneticCode, extract_orfs
 from ..hmmfile import read_hmms
+from ..native import set_native_threads
 from ..oprofile import oprofile_convert
 from ..ops.reference.fwdback_fs import fs_oprofile_convert
+from ..parallel.pool import by_name, imap, ready, stop_servers, worker_pool
 from ..pipeline import Pipeline, pipeline_bath, statistics_text
 from ..profile import profile_config, profile_config_fs
 from ..scoredata import score_data_create
@@ -63,6 +79,58 @@ from ..tophits import IS_INCLUDED, IS_REPORTED, TopHits, tabular_tail
 # ORFs per gate flush: the host filters run per chunk, and every flush's
 # F3 candidates and survivors go to the device together
 CHUNK_ORFS = 65536
+
+
+# ---------------------------------------------------------------------
+# Multi-worker host path (ref: bathsearch.c thread_loop/pipeline_thread
+# :1118-1291 — the pthread work queue over target blocks).  Workers are
+# processes that receive the per-query profile state once, when they
+# start (parallel/pool.py); results stream back in window order, so
+# output is byte-identical to the serial path for any worker count (the
+# reference's determinism contract, tested by i2-search-variation.sh).
+# ---------------------------------------------------------------------
+_WCTX: dict | None = None
+
+_PLI_COUNTERS = ("n_past_msv", "n_past_bias", "n_past_vit",
+                 "n_past_fwd", "n_output", "pos_past_msv",
+                 "pos_past_bias", "pos_past_vit", "pos_past_fwd",
+                 "pos_output")
+
+
+def _pool_task(spec):
+    """One window, both strands, in a worker."""
+    tid, window, seqid, nres_at = spec
+    c = _WCTX
+    pli = c["pli"]
+    # serial-stream residue count as of this window: the early domain
+    # keep-filter reads pli.Z = nres/max_length at domain-definition
+    # time (ref p7_pipeline.c:1230-1249); the worker's copy of the
+    # counter is frozen when it starts, so restore the serial value per
+    # window
+    pli.nres = nres_at
+    before = [getattr(pli, f) for f in _PLI_COUNTERS]
+    th = TopHits()
+    hws: list = []
+    if pli.strands != C.STRAND_BOTTOMONLY:
+        orfs = extract_orfs(c["gcode"], window.dsq,
+                            minlen=c["minlen"],
+                            require_initiator=c["require_init"])
+        pipeline_bath(pli, c["om"], c["gm"], c["om_fs3"], c["om_fs5"],
+                      c["gm_fs5"], c["data"], c["bg"], th, seqid,
+                      window, orfs, c["gcode"], hws, C.NOCOMPLEMENT,
+                      c["fs_funcs"])
+    if pli.strands != C.STRAND_TOPONLY:
+        rc = window.reverse_complement()
+        orfs = extract_orfs(c["gcode"], rc.dsq, minlen=c["minlen"],
+                            is_revcomp=True,
+                            require_initiator=c["require_init"])
+        pipeline_bath(pli, c["om"], c["gm"], c["om_fs3"], c["om_fs5"],
+                      c["gm_fs5"], c["data"], c["bg"], th, seqid,
+                      rc, orfs, c["gcode"], hws, C.COMPLEMENT,
+                      c["fs_funcs"])
+    deltas = {f: getattr(pli, f) - b
+              for f, b in zip(_PLI_COUNTERS, before)}
+    return tid, th.unsrt, hws, deltas
 
 
 def backend_parser() -> argparse.ArgumentParser:
@@ -166,11 +234,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", type=int,
                    default=int(_os.environ.get("HMMER_NCPU", 0)),
                    help="number of parallel workers over target "
-                        "windows; 0/1 = serial (N > 1 is not ported "
-                        "yet)")
+                        "windows; 0/1 = serial")
     # --backend and --device are read by backend_parser before this
     # one; the multi-device modes below are parsed so that run() can
-    # refuse them by name (ROADMAP.md, "Still to port", item 5)
+    # refuse them by name (ROADMAP.md, "Still to port", items 5c and
+    # 5d)
     p.add_argument("--mesh", type=int, default=0,
                    help="shard device gate batches over N devices "
                         "(not ported yet)")
@@ -302,11 +370,9 @@ def _unported(args, backend: str) -> str | None:
                 "bath_tpu.cli.bathsearch); this package runs --backend "
                 "torch or numpy")
     if args.mesh and args.mesh > 1:
-        return not_ported("--mesh", 5)
+        return not_ported("--mesh", "5c")
     if args.hosts and args.hosts > 1:
-        return not_ported("--hosts", 5)
-    if int(args.cpu or 0) > 1:
-        return not_ported("--cpu N>1", 5)
+        return not_ported("--hosts", "5d")
     return None
 
 
@@ -427,12 +493,14 @@ def run(argv=None, stats=None) -> int:
 
     # Multi-query drive: one pass over the target, device gate batches
     # across models (multiquery.py).  Byte-identical to the serial
-    # per-query loop; engaged for the torch backend when several HMMs
-    # share one query file and the splice post-pass, which needs the
-    # per-query stream, is off.  BATH_MULTIQUERY=0 forces the serial
-    # loop.
+    # per-query loop; engaged when several HMMs share one query file
+    # and the splice post-pass, which needs the per-query stream, is
+    # off: for the torch backend always, for numpy when --cpu N asks
+    # for workers (the query-sharded pool).  BATH_MULTIQUERY=0 forces
+    # the serial loop.
     queries = load_queries(args.queryfile, args)
-    if on_device and not args.splice \
+    ncpu = max(0, int(args.cpu or 0))
+    if (on_device or ncpu > 1) and not args.splice \
             and os.environ.get("BATH_MULTIQUERY", "1") != "0":
         hmms = []
         for hmm in queries:
@@ -481,44 +549,59 @@ def run(argv=None, stats=None) -> int:
             ofp.write("Description: %s\n" % hmm.desc)
         cascade = TorchCascade(om, om_fs3, device=device, stats=stats) \
             if on_device else None
+        if ncpu > 1:
+            wctx = dict(pli=pli, om=om, gm=gm, om_fs3=om_fs3,
+                        om_fs5=om_fs5, gm_fs5=gm_fs5, data=data, bg=bg,
+                        gcode=gcode, minlen=args.minlen,
+                        require_init=require_init, fs_funcs=fs_funcs)
+            specs = ((tid, *spec) for tid, spec in enumerate(
+                _windows(args, pli, om, id_lengths)))
+            if cascade is None:
+                _window_pool(ncpu, wctx, specs, th, hit_windows, stats)
+            else:
+                _hybrid(args, ncpu, wctx, cascade, specs, th,
+                        hit_windows, stats)
+        else:
+            def down_flush(chunk):
+                staged = flush_gates(chunk, cascade, pli, om, data, bg,
+                                     hit_windows)
+                flush_downstream(staged, cascade, pli, om, gm, om_fs3,
+                                 om_fs5, gm_fs5, data, bg, th, gcode,
+                                 hit_windows, use_device=True)
 
-        def down_flush(chunk):
-            staged = flush_gates(chunk, cascade, pli, om, data, bg,
-                                 hit_windows)
-            flush_downstream(staged, cascade, pli, om, gm, om_fs3, om_fs5,
-                             gm_fs5, data, bg, th, gcode, hit_windows,
-                             use_device=True)
-
-        chunk: list = []
-        pending_orfs = 0
-        for tid, (window, seqid, nres_at) in enumerate(
-                _windows(args, pli, om, id_lengths)):
-            for comp in (C.NOCOMPLEMENT, C.COMPLEMENT):
-                if comp == C.NOCOMPLEMENT \
-                        and pli.strands == C.STRAND_BOTTOMONLY:
-                    continue
-                if comp == C.COMPLEMENT and pli.strands == C.STRAND_TOPONLY:
-                    continue
-                w = window if comp == C.NOCOMPLEMENT \
-                    else window.reverse_complement()
-                orfs = extract_orfs(gcode, w.dsq, minlen=args.minlen,
-                                    is_revcomp=comp == C.COMPLEMENT,
-                                    require_initiator=require_init)
-                if cascade is None:
-                    # the serial host drive: every stage of this
-                    # (window, strand) in the host kernels
-                    pipeline_bath(pli, om, gm, om_fs3, om_fs5, gm_fs5,
-                                  data, bg, th, seqid, w, orfs, gcode,
-                                  hit_windows, comp, fs_funcs)
-                    continue
-                chunk.append(ChunkEntry(w, seqid, comp, orfs, tid=tid,
-                                        nres_at=nres_at))
-                pending_orfs += len(orfs)
-            if pending_orfs >= CHUNK_ORFS:
+            chunk: list = []
+            pending_orfs = 0
+            for tid, (window, seqid, nres_at) in enumerate(
+                    _windows(args, pli, om, id_lengths)):
+                for comp in (C.NOCOMPLEMENT, C.COMPLEMENT):
+                    if comp == C.NOCOMPLEMENT \
+                            and pli.strands == C.STRAND_BOTTOMONLY:
+                        continue
+                    if comp == C.COMPLEMENT \
+                            and pli.strands == C.STRAND_TOPONLY:
+                        continue
+                    w = window if comp == C.NOCOMPLEMENT \
+                        else window.reverse_complement()
+                    orfs = extract_orfs(
+                        gcode, w.dsq, minlen=args.minlen,
+                        is_revcomp=comp == C.COMPLEMENT,
+                        require_initiator=require_init)
+                    if cascade is None:
+                        # the serial host drive: every stage of this
+                        # (window, strand) in the host kernels
+                        pipeline_bath(pli, om, gm, om_fs3, om_fs5,
+                                      gm_fs5, data, bg, th, seqid, w,
+                                      orfs, gcode, hit_windows, comp,
+                                      fs_funcs)
+                        continue
+                    chunk.append(ChunkEntry(w, seqid, comp, orfs,
+                                            tid=tid, nres_at=nres_at))
+                    pending_orfs += len(orfs)
+                if pending_orfs >= CHUNK_ORFS:
+                    down_flush(chunk)
+                    pending_orfs = 0
+            if chunk:
                 down_flush(chunk)
-                pending_orfs = 0
-        if chunk:
-            down_flush(chunk)
 
         # E-values from the global residue count (ref: bathsearch.c
         # :869-884), then the serial path's sort/dedup/threshold
@@ -640,12 +723,190 @@ def _windows(args, pli, om, id_lengths):
             pli.nseqs += 1
 
 
+def _window_pool(ncpu, wctx, specs, th, hit_windows, stats):
+    """``--backend numpy --cpu N`` (ref: the JAX package's forked
+    worker pool, thread_loop): N workers, one window each at a time;
+    the results are taken in window order, so output is byte-identical
+    to serial.  <stats> gets the pool's start and its workers' reports
+    (``ready`` and ``report`` in ``parallel/pool.py``)."""
+    pli = wctx["pli"]
+    # N workers share the machine: cap each worker's OpenMP team so
+    # the native batch kernels don't oversubscribe
+    _wthreads = max(1, (os.cpu_count() or 1) // ncpu)
+    task = by_name(_pool_task)
+    with worker_pool(ncpu, task.__module__, "_WCTX", wctx,
+                     initializer=set_native_threads,
+                     initargs=(_wthreads,), stats=stats) as pool:
+        ready([pool], stats)
+        for _tid, hits, hws, deltas in imap(pool, task, specs,
+                                            depth=4 * ncpu):
+            th.unsrt.extend(hits)
+            hit_windows.extend(hws)
+            for f, v in deltas.items():
+                setattr(pli, f, getattr(pli, f) + v)
+
+
+def _hybrid(args, ncpu, wctx, cascade, spec_iter, th, hit_windows,
+            stats):
+    """``--backend torch --cpu N`` (ref: bathsearch.c thread_loop
+    :1118-1291, and the JAX package's hybrid): N workers run the host
+    pipeline per window, and this process takes the windows they have
+    no room for into the chunked device cascade.  Worker and device
+    results arrive in any order; they are merged in stream (tid) order,
+    so bytes equal the serial loop whatever the split.  <stats> gets
+    the split, ``hybrid_pool`` and ``hybrid_main`` windows, the pool's
+    start and its workers' reports (``parallel/pool.py``)."""
+    pli, om, gm, om_fs3, om_fs5, gm_fs5, data, bg, gcode = (
+        wctx[k] for k in ("pli", "om", "gm", "om_fs3", "om_fs5",
+                          "gm_fs5", "data", "bg", "gcode"))
+    require_init = wctx["require_init"]
+    results: list = []
+    # N full workers (the reference's thread_loop also keeps its reader
+    # thread out of the count, bathsearch.c:183); the cascade main is a
+    # bonus consumer that only takes windows the saturated workers
+    # cannot
+    nworkers = max(1, ncpu)
+    _wthreads = max(1, (os.cpu_count() or 1) // nworkers)
+    # main's own OpenMP share; the caller's team size comes back when
+    # the hybrid ends
+    threads = set_native_threads(_wthreads)
+    # small chunks: the main must return to the submission loop between
+    # windows or the saturated workers starve during a batched flush;
+    # every flush's downstream goes to the device, as in the serial
+    # torch drive
+    CHUNK_ORFS = 4096
+    chunk: list = []
+    staged: list = []
+    pending_orfs = 0
+
+    def _down_flush():
+        flush_downstream(staged, cascade, pli, om, gm,
+                         om_fs3, om_fs5, gm_fs5, data, bg,
+                         th, gcode, hit_windows,
+                         use_device=True)
+        for e in staged:
+            results.append(
+                (e.tid, list(e.hits.unsrt),
+                 hit_windows[e.win_start:e.win_end]))
+        staged.clear()
+
+    def _take(spec):
+        """Main-side window: into the device cascade chunk."""
+        nonlocal pending_orfs
+        _tid, window, seqid_for_hits, nres_at = spec
+        if pli.strands != C.STRAND_BOTTOMONLY:
+            orfs = extract_orfs(
+                gcode, window.dsq, minlen=args.minlen,
+                require_initiator=require_init)
+            chunk.append(ChunkEntry(window, seqid_for_hits,
+                                    C.NOCOMPLEMENT, orfs,
+                                    tid=_tid,
+                                    nres_at=nres_at))
+            pending_orfs += len(orfs)
+        if pli.strands != C.STRAND_TOPONLY:
+            rc = window.reverse_complement()
+            orfs = extract_orfs(
+                gcode, rc.dsq, minlen=args.minlen,
+                is_revcomp=True,
+                require_initiator=require_init)
+            chunk.append(ChunkEntry(rc, seqid_for_hits,
+                                    C.COMPLEMENT, orfs,
+                                    tid=_tid,
+                                    nres_at=nres_at))
+            pending_orfs += len(orfs)
+        if pending_orfs >= CHUNK_ORFS:
+            staged.extend(flush_gates(chunk, cascade, pli,
+                                      om, data, bg,
+                                      hit_windows))
+            pending_orfs = 0
+            _down_flush()
+
+    def _collect(res):
+        _tid, hits, hws, deltas = res
+        results.append((_tid, hits, hws))
+        for f, v in deltas.items():
+            setattr(pli, f, getattr(pli, f) + v)
+
+    pend: deque = deque()
+    MAXQ = int(os.environ.get("BATH_HYBRID_MAXQ",
+                              3 * nworkers))
+    n_main = n_pool = 0
+    # Main-compute policy (BATH_HYBRID_MAIN=auto|0|1): the cascade main
+    # only takes windows when the host has a core to spare (nworkers <
+    # cores); --cpu <cores> therefore matches the pool, --cpu with
+    # headroom (or =1 forced) adds the device stream
+    hmain = os.environ.get("BATH_HYBRID_MAIN", "auto")
+    take_ok = (nworkers < (os.cpu_count() or 1)
+               if hmain == "auto" else hmain != "0")
+    done_stream = False
+    final_done = False
+    task = by_name(_pool_task)
+    try:
+        with worker_pool(nworkers, task.__module__, "_WCTX", wctx,
+                         initializer=set_native_threads,
+                         initargs=(_wthreads,), stats=stats) as pool:
+            ready([pool], stats)
+            while True:
+                while pend and pend[0].done():
+                    _collect(pend.popleft().result())
+                if not done_stream:
+                    spec = next(spec_iter, None)
+                    if spec is None:
+                        done_stream = True
+                    elif len(pend) < MAXQ:
+                        # keep the workers saturated first
+                        pend.append(pool.submit(task, spec))
+                        n_pool += 1
+                    elif take_ok:
+                        # overflow: the device cascade's share
+                        _take(spec)
+                        n_main += 1
+                    else:
+                        # host saturated: hold the spec until a worker
+                        # slot frees
+                        while len(pend) >= MAXQ:
+                            wait([pend[0]], 0.02)
+                            while pend and pend[0].done():
+                                _collect(pend.popleft().result())
+                        pend.append(pool.submit(task, spec))
+                        n_pool += 1
+                    continue
+                if not final_done:
+                    if chunk:
+                        staged.extend(flush_gates(
+                            chunk, cascade, pli, om, data,
+                            bg, hit_windows))
+                    _down_flush()
+                    final_done = True
+                if not pend:
+                    break
+                wait([pend[0]], 0.05)
+    finally:
+        set_native_threads(threads)
+    if os.environ.get("BATH_DEVICE_STATS"):
+        print(f"# hybrid split: {n_pool} windows -> workers, "
+              f"{n_main} -> device cascade main",
+              file=sys.stderr)
+    if stats is not None:
+        stats["hybrid_pool"] = stats.get("hybrid_pool", 0) + n_pool
+        stats["hybrid_main"] = stats.get("hybrid_main", 0) + n_main
+    # worker/device results interleave by completion; rebuild the
+    # serial stream (tid) order.  sort is stable, so a tid's entries
+    # (forward then revcomp) keep their order.
+    results.sort(key=lambda r: r[0])
+    th.unsrt = [h for _, hs, _ in results for h in hs]
+    hit_windows[:] = [w for _, _, hws in results for w in hws]
+
+
 def main():
     try:
         sys.exit(run())
     except (NotImplementedError, ValueError, KeyError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        # the pools' server outlives them (parallel/pool.py)
+        stop_servers()
 
 
 if __name__ == "__main__":

@@ -73,7 +73,7 @@ DOMDEC_CELLS = 1 << 24
 FS3DOMDEC_CELLS = 1 << 22
 
 
-def not_ported(what: str, item: int) -> str:
+def not_ported(what: str, item) -> str:
     """The refusal of a stage or mode that a later slice ports."""
     return (f"{what} is not ported to bath_tpu_torch yet (ROADMAP.md, "
             f"'Still to port', item {item})")

@@ -24,11 +24,20 @@ as in the JAX package's ``multiquery.py`` (whose ``QState``,
   match the serial per-query loop (``tests/test_torch_multiquery.py``
   asserts it against the numpy backends of both packages).
 
+``--cpu N`` (N > 1) runs the JAX package's query-sharded pool (its
+``_mq_pool_init``, ``_mq_pool_task`` and ``_balance_slices`` are copied
+too): the queries are cut into N contiguous slices balanced by M, each
+slice is one worker's for the whole drive, and every flush's chunk goes
+to every worker, which runs ``flush_multi`` on the host for its slice.
+The workers keep every stage off the device, as the JAX package's do,
+and start from a fresh server process (``parallel/pool.py``), never by
+forking this one.
+
 Not carried over from the JAX package: its lane packs and size classes
 (a model of any length and an item of any length go to the device), its
 watchdog and surrender path (a CUDA error propagates, as in
-``TorchCascade``), the compile cache, mesh sharding, and the
-query-sharded fork pool (``--cpu N>1`` is refused, ROADMAP item 5).
+``TorchCascade``), the compile cache and mesh sharding (``--mesh`` is
+refused, ROADMAP item 5c).
 
 Window-boundary note: the serial loop reads windows with per-query
 overlap (om->max_length*3, bathsearch.c:1099); the shared stream uses
@@ -46,6 +55,7 @@ pins one overlap for every drive.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -62,6 +72,7 @@ from .oprofile import oprofile_convert
 from .ops import multimodel as mm
 from .ops.fs3 import DNA_PAD, fs3_params
 from .ops.fwd import PAD_RESIDUE, fwd_params
+from .parallel.pool import ready, worker_pool
 from .pipeline import (DEVICE_GATE_BAND, pipeline_fwd_stage,
                        pipeline_gate_plan, pipeline_gates,
                        statistics_text)
@@ -677,11 +688,77 @@ def flush_multi(chunk: list[MQEntry], queries: list[QState],
     chunk.clear()
 
 
+# ---------------------------------------------------------------------
+# Query-sharded pool (bathsearch --cpu N on a multi-HMM query file).
+# The per-query work of a flush — host gates, Forward stage, fs branch —
+# is independent across queries, so N workers each take a contiguous
+# query slice (balanced by sum-of-M) and run flush_multi for the SAME
+# chunk on their own QStates; hits and counter deltas return to the
+# canonical QStates in query order, so bytes equal the serial drive.
+# The shared window stream and ORF extraction still happen ONCE.
+# Device stages are disabled inside workers (the packed batching is
+# cross-query, which a query-sharded pool forgoes).  Slice i is worker
+# i's for the whole drive: a worker holds its slice's QStates alone.
+# ---------------------------------------------------------------------
+_MQCTX = None
+
+_MQ_COUNTERS = ("n_past_msv", "n_past_bias", "n_past_vit",
+                "n_past_fwd", "n_output", "pos_past_msv",
+                "pos_past_bias", "pos_past_vit", "pos_past_fwd",
+                "pos_output")
+
+
+def _mq_pool_init(wthreads):
+    from .native import set_native_threads
+    set_native_threads(wthreads)
+    for k in _DEV_MIN_ENV:             # never device-dispatch in a worker
+        os.environ[_DEV_MIN_ENV[k]] = "inf"
+
+
+def _mq_pool_task(task):
+    chunk, lo, hi = task
+    c = _MQCTX
+    queries = c["queries"][lo:hi]
+    before_n = [len(q.th.unsrt) for q in queries]
+    before_c = [{f: getattr(q.pli, f) for f in _MQ_COUNTERS}
+                for q in queries]
+    flush_multi(list(chunk), queries, c["pg"], c["gcode"],
+                c["fs_mode"], minlen=c["minlen"],
+                require_init=c["require_init"],
+                ctx_pinned=c["ctx_pinned"])
+    out = []
+    for q, bn, cb in zip(queries, before_n, before_c):
+        out.append((q.qi, q.th.unsrt[bn:],
+                    {f: getattr(q.pli, f) - cb[f]
+                     for f in _MQ_COUNTERS}))
+    return out
+
+
+def _balance_slices(weights, n):
+    """Contiguous [lo, hi) query slices with ~equal total weight."""
+    total = float(sum(weights)) or 1.0
+    bounds = [0]
+    acc = 0.0
+    target = total / n
+    for i, w in enumerate(weights):
+        acc += w
+        if acc >= target * len(bounds) and len(bounds) < n:
+            bounds.append(i + 1)
+    while len(bounds) < n + 1:
+        bounds.append(len(weights))
+    bounds[-1] = len(weights)
+    return [(bounds[i], bounds[i + 1]) for i in range(n)
+            if bounds[i] < bounds[i + 1]]
+
+
 def run_multiquery(args, hmms, gcode, require_init, ofp, tblfp,
                    fstblfp, device="cuda", stats=None) -> None:
     """The multi-query drive: shared window stream + packed device
     gates; per-query output buffered and written in query order.
-    <device>, <stats>: as PackedGates takes them."""
+    <device>, <stats>: as PackedGates takes them.  With ``args.cpu`` >
+    1 every flush runs in the query-sharded pool; <stats> then gets its
+    start and its workers' reports (``parallel/pool.py``) and no device
+    stage."""
     t_start = time.time()
     queries = [QState(h, args, gcode, qi)
                for qi, h in enumerate(hmms)]
@@ -705,61 +782,92 @@ def run_multiquery(args, hmms, gcode, require_init, ofp, tblfp,
     pending = 0
     tid = 0
 
+    ncpu = max(0, int(getattr(args, "cpu", 0) or 0))
+    pools: list = []
+    slices = _balance_slices([q.hmm.M for q in queries], ncpu) \
+        if ncpu > 1 else []
+    wthreads = max(1, (os.cpu_count() or 1) // max(1, ncpu))
+
     def _flush():
+        if pools:
+            tasks = [pool.submit(_mq_pool_task, (chunk, 0, hi - lo))
+                     for pool, (lo, hi) in zip(pools, slices)]
+            for t in tasks:
+                for qi, hits, deltas in t.result():
+                    queries[qi].th.unsrt.extend(hits)
+                    qp = queries[qi].pli
+                    for f, v in deltas.items():
+                        setattr(qp, f, getattr(qp, f) + v)
+            chunk.clear()
+            return
         flush_multi(chunk, queries, pg, gcode, fs_mode,
                     minlen=args.minlen, require_init=require_init,
                     ctx_pinned=ctx_pinned)
 
-    for window, is_last in read_windows(args.dbfile, context=context,
-                                        block_length=block_length):
-        if not db_started:
-            if window.name == args.restrictdb_stkey:
-                db_started = True
-            else:
+    with contextlib.ExitStack() as stack:
+        # one single-worker pool a slice: slice i goes to the same
+        # worker at every flush, which holds its slice's QStates alone
+        # (a worker's context is pickled once, when it starts)
+        for lo, hi in slices:
+            part = queries[lo:hi]
+            pools.append(stack.enter_context(worker_pool(
+                1, __name__, "_MQCTX",
+                dict(queries=part, pg=PackedGates(part, device=device),
+                     gcode=gcode, fs_mode=fs_mode, minlen=args.minlen,
+                     require_init=require_init, ctx_pinned=ctx_pinned),
+                initializer=_mq_pool_init, initargs=(wthreads,),
+                stats=stats)))
+        ready(pools, pg.stats)
+        for window, is_last in read_windows(args.dbfile, context=context,
+                                            block_length=block_length):
+            if not db_started:
+                if window.name == args.restrictdb_stkey:
+                    db_started = True
+                else:
+                    continue
+            if args.restrictdb_n > 0 and db_seqs_done >= args.restrictdb_n:
+                break
+            if is_last:
+                db_seqs_done += 1
+            if window.n < 15:
+                if is_last:
+                    id_lengths[window.idx] = window.start + window.n - 1
+                    nseqs += 1
+                    seqidx += 1
                 continue
-        if args.restrictdb_n > 0 and db_seqs_done >= args.restrictdb_n:
-            break
-        if is_last:
-            db_seqs_done += 1
-        if window.n < 15:
+            window.L = window.n
+            seqid_for_hits = nseqs
+            # serial nres semantics: both strands counted BEFORE the
+            # window is processed (cli window_specs increments then
+            # yields), so both entries carry the post-increment value
+            if strands != C.STRAND_BOTTOMONLY:
+                nres += window.W
+            if strands != C.STRAND_TOPONLY:
+                nres += window.W
+            if strands != C.STRAND_BOTTOMONLY:
+                orfs = extract_orfs(gcode, window.dsq, minlen=args.minlen,
+                                    require_initiator=require_init)
+                chunk.append(MQEntry(window, seqid_for_hits,
+                                     C.NOCOMPLEMENT, orfs, tid, nres))
+                pending += len(orfs)
+            if strands != C.STRAND_TOPONLY:
+                rc = window.reverse_complement()
+                orfs = extract_orfs(gcode, rc.dsq, minlen=args.minlen,
+                                    is_revcomp=True,
+                                    require_initiator=require_init)
+                chunk.append(MQEntry(rc, seqid_for_hits, C.COMPLEMENT,
+                                     orfs, tid, nres))
+                pending += len(orfs)
+            tid += 1
             if is_last:
                 id_lengths[window.idx] = window.start + window.n - 1
                 nseqs += 1
                 seqidx += 1
-            continue
-        window.L = window.n
-        seqid_for_hits = nseqs
-        # serial nres semantics: both strands counted BEFORE the
-        # window is processed (cli window_specs increments then
-        # yields), so both entries carry the post-increment value
-        if strands != C.STRAND_BOTTOMONLY:
-            nres += window.W
-        if strands != C.STRAND_TOPONLY:
-            nres += window.W
-        if strands != C.STRAND_BOTTOMONLY:
-            orfs = extract_orfs(gcode, window.dsq, minlen=args.minlen,
-                                require_initiator=require_init)
-            chunk.append(MQEntry(window, seqid_for_hits,
-                                 C.NOCOMPLEMENT, orfs, tid, nres))
-            pending += len(orfs)
-        if strands != C.STRAND_TOPONLY:
-            rc = window.reverse_complement()
-            orfs = extract_orfs(gcode, rc.dsq, minlen=args.minlen,
-                                is_revcomp=True,
-                                require_initiator=require_init)
-            chunk.append(MQEntry(rc, seqid_for_hits, C.COMPLEMENT,
-                                 orfs, tid, nres))
-            pending += len(orfs)
-        tid += 1
-        if is_last:
-            id_lengths[window.idx] = window.start + window.n - 1
-            nseqs += 1
-            seqidx += 1
-        if pending >= CHUNK_ORFS:
+            if pending >= CHUNK_ORFS:
+                _flush()
+                pending = 0
+        if chunk:
             _flush()
-            pending = 0
-    if chunk:
-        _flush()
 
     # per-query E-values / merge / output, in query order
     # (ref: bathsearch.c:869-921 + output block :960-968)

@@ -592,7 +592,7 @@ def f32_seq_sum(arr) -> float:
     return float(acc)
 
 
-def set_native_threads(n: int) -> None:
+def set_native_threads(n: int) -> int | None:
     """Cap the OpenMP team used by the batch kernels (forked workers
     divide the cores among themselves; no-op without the library)."""
     lib = get_lib()
@@ -602,7 +602,9 @@ def set_native_threads(n: int) -> None:
         lib.bio_set_threads.restype = None
         lib.bio_set_threads.argtypes = [ctypes.c_int]
         lib._setthreads_bound = True
+    before = lib.omp_get_max_threads()  # the team size it replaces
     lib.bio_set_threads(max(1, int(n)))
+    return before
 
 
 def cluster_components_native(iv, jv, kv, mv, min_overlap,

@@ -39,11 +39,15 @@ phase but ``deep``; ``all`` adds ``deep``):
   its frameshift twin (16 of its 40 embeds carry a 1-nt indel), then
   the all-device cascade (``BATH_MSV_DEVICE=1 BATH_VIT_DEVICE=1``),
   standard and ``--fs``, the all-device cascade with an M = 9000
-  model against a seeded genome with two copies of it, and ``--splice``
+  model against a seeded genome with two copies of it, ``--splice``
   against a seeded 5 Mb genome with 16 genes of 2-4 exons, with the
-  default cascade and the all-device one;
+  default cascade and the all-device one, and then ``--cpu 4`` in this
+  process (the hybrid of workers and the card, standard and ``--fs``,
+  the numpy window pool, and a two-model ``--splice`` file through the
+  hybrid), each held to the serial numpy run;
 - ``multiquery``: a 48-model query file against a 5 Mb genome that
-  holds copies of 12 of the models, standard and ``--fs``;
+  holds copies of 12 of the models, standard and ``--fs``, serial and
+  with ``--cpu 8`` (the query-sharded pool, every stage on the host);
 - ``build``: ``bathbuild`` of a 48-alignment Stockholm file and
   ``bathconvert`` of the built models stripped of their frameshift
   calibration, ``--backend torch`` (one device-batched calibration)
@@ -81,6 +85,7 @@ writes goes under ``build/`` next to this file.  It imports nothing of
 import argparse
 import atexit
 import contextlib
+import faulthandler
 import io
 import json
 import os
@@ -99,6 +104,7 @@ sys.path.insert(0, str(ROOT))
 # the card's published peaks and the timer, shared with the ubench phase
 from bath_tpu_torch.ubench import (  # noqa: E402
     F32_OPS_PER_S, HBM_BYTES_PER_S, card_line, cuda_ms)
+from bath_tpu_torch.parallel.pool import stop_servers  # noqa: E402
 
 DEVICE = "cuda"
 DEV = torch.device(DEVICE)
@@ -156,6 +162,17 @@ SPLICE_GENES = 16           # spaced 312 kb apart, past --max_intron
 # out as one hit and a piece)
 SPLICE_MIN_FOUND = 14
 LONG_ORF = 2_000
+# --cpu: workers of the single-query searches (half of an eight-core
+# host, so the hybrid's own process takes windows too) and of the
+# multi-query drives (every core); a run that has not ended by
+# CPU_RUN_LIMIT_S fails with every thread's stack.  The hybrid runs
+# with one window queued a worker (BATH_HYBRID_MAXQ; the default of
+# three a worker left the CLI's process 1 of the 20 windows of the 5 Mb
+# genome, which held no F3 candidate): it takes every window the
+# workers have no room for into the card's cascade
+CPU_WORKERS, MQ_CPU_WORKERS = 4, 8
+HYBRID_MAXQ = {"BATH_HYBRID_MAXQ": str(CPU_WORKERS)}
+CPU_RUN_LIMIT_S = 300
 INT_WIDE_M = 1500
 SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
 TIME_INT_B = 4096           # ORFs of the Viterbi set and the captures
@@ -202,9 +219,16 @@ TIME_MQ_PLAIN_FS3DD = (1, 29)
 # threshold out of reach, so the host runs the f32 stages on the same
 # items (what the card's stages are weighed against).  The standard
 # drive takes such a turn; the --fs drive, whose host fs3 stages take
-# longest, leaves its time to the build path
-MQ_TURNS = ("numpy", "torch", "torch_host")
-MQ_FS_TURNS = ("numpy", "torch")
+# longest, leaves its time to the build path.  "_cpu": the query-sharded
+# pool (--cpu MQ_CPU_WORKERS).  Each turn is held to the first one: the
+# serial numpy drive, and under --fs the numpy pool (which the CPU tests
+# hold to the serial loop; the serial --fs turn took 82 s)
+MQ_TURNS = ("numpy", "torch", "torch_host", "torch_cpu")
+MQ_FS_TURNS = ("numpy_cpu", "torch", "torch_cpu")
+# the --fs drive's queries that the serial numpy loop also runs, alone,
+# as a reference independent of the multi-query drive's shared stream
+# (the narrowest model, two embedded ones, the widest)
+MQ_FS_SERIAL = (0, 1, 29, 47)
 MQ_MIN_CELLS = ("BATH_MQ_FWD_MIN_CELLS", "BATH_MQ_DD_MIN_CELLS",
                 "BATH_MQ_FS3_MIN_CELLS", "BATH_MQ_FSDD_MIN_CELLS")
 
@@ -245,10 +269,35 @@ CHILDREN: list = []             # child processes still to be reaped
 
 
 def stop_children() -> None:
+    """Ends the child processes, and the server and resource tracker
+    that the --cpu pools of this process started."""
     for proc in CHILDREN:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    stop_servers()
+
+
+def descendants() -> list:
+    """(pid, state, command line) of every process that descends from
+    this one."""
+    kids: dict = {}
+    for d in Path("/proc").iterdir():
+        try:
+            stat = (d / "stat").read_text() if d.name.isdigit() else ""
+            cmd = (d / "cmdline").read_bytes()
+        except OSError:
+            continue
+        if stat:
+            state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+            kids.setdefault(int(ppid), []).append(
+                (int(d.name), state, cmd.replace(b"\0", b" ").decode()[:200]))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for kid in kids.get(todo.pop(), []):
+            out.append(kid)
+            todo.append(kid[0])
+    return out
 
 
 atexit.register(stop_children)
@@ -1926,12 +1975,163 @@ def search_splice(run: Run) -> None:
         fail(f"a kernel of the --splice path never launched: {missing}")
 
 
+@contextlib.contextmanager
+def hang_limit(what: str):
+    """Fails the run, with every thread's stack, if <what> has not
+    ended within CPU_RUN_LIMIT_S (a pool that hangs would otherwise eat
+    the run's time limit)."""
+    print(f"[hang_limit] {what} limit_s={CPU_RUN_LIMIT_S}", flush=True)
+    faulthandler.dump_traceback_later(CPU_RUN_LIMIT_S, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def cpu_search(argv, stats, tag, env=None):
+    """(wall, rc) of one ``--cpu`` search in this process, under
+    hang_limit, with <env> set for it."""
+    from bath_tpu_torch.cli import bathsearch
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        with hang_limit(tag):
+            t = time.perf_counter()
+            rc = bathsearch.run(argv, stats=stats)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, rc
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def search_cpu(run: Run, walls, fs_walls) -> None:
+    """--cpu CPU_WORKERS in this process, after every earlier search
+    (ORF extraction has run its OpenMP teams here, and the card's
+    context is held): the 5 Mb x M = 400 search standard on the hybrid
+    (workers beside the device cascade of this process) and on the
+    numpy window pool, --fs on the hybrid, and a two-model query file
+    (the splice model, then the M = 400 model) with --splice through
+    the hybrid, whose second query's pool starts after the first
+    query's teams and uploads.  Each is held byte for byte to the serial
+    numpy run of the same search; each torch run's share of this
+    process must have gone through its kernels (HYBRID_MAXQ)."""
+    from bath_tpu_torch import fixtures
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fs3, fwd
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    t0 = time.perf_counter()
+    fx, fs_fx = run.fx(), run.fs_fx()
+    sfx = fixtures.write_splice_fixture(M_SEARCH, GENOME_NT, SPLICE_GENES,
+                                        SEED)
+    two = BUILD / "splice_two.bhmm"
+    two.write_text(Path(sfx.hmm_path).read_text()
+                   + Path(fx.hmm_path).read_text())
+    fns = {"fwd_parser": fwd.fwd_score, "domdec": dd.domdec,
+           "fs3_parser": fs3.fs3_score, "fs3_domdec": fdd.fs3_domdec}
+    cpu = ["--cpu", str(CPU_WORKERS)]
+    splice = ["--splice"]
+    # (backend, options, query, target, serial numpy outputs, kernels
+    # that must launch)
+    std_serial = (BUILD / "e2e_numpy0.out", BUILD / "e2e_numpy0.tbl")
+    cases = {
+        "standard_torch": ("torch", [], fx, None, std_serial,
+                           ("fwd_parser", "domdec")),
+        "standard_numpy": ("numpy", [], fx, None, std_serial, ()),
+        "fs_torch": ("torch", ["--fs"], fs_fx, None,
+                     tuple(run.cache["fs_numpy"][:2]),
+                     ("fs3_parser", "fs3_domdec")),
+        "splice_two_torch": ("torch", splice, sfx, str(two), None,
+                             ("fwd_parser",)),
+    }
+    # the serial numpy run of the two-model --splice file
+    serial_two = [BUILD / f"splice_two_numpy.{x}" for x in ("out", "tbl",
+                                                            "ex")]
+    t = time.perf_counter()
+    rc = bathsearch.run(["--backend", "numpy", *splice, "-o",
+                         str(serial_two[0]), "--tblout", str(serial_two[1]),
+                         "--exontblout", str(serial_two[2]), str(two),
+                         sfx.fasta_path])
+    wall_two_serial = time.perf_counter() - t
+    if rc != 0:
+        fail(f"bathsearch --splice on two models exited {rc}")
+    bad = []
+    for name, (backend, opts, f, query, serial, need) in cases.items():
+        paths = [BUILD / f"cpu_{name}.{x}" for x in ("out", "tbl", "ex")]
+        argv = ["--backend", backend, "--device", DEVICE, *cpu, *opts,
+                "-o", str(paths[0]), "--tblout", str(paths[1])]
+        if opts == splice:
+            argv += ["--exontblout", str(paths[2])]
+        stats: dict = {}
+        for fn in fns.values():
+            fn.launches = 0
+        wall, rc = cpu_search(argv + [query or f.hmm_path, f.fasta_path],
+                              stats, f"cpu_{name}",
+                              HYBRID_MAXQ if backend == "torch" else None)
+        launches = {k: fn.launches for k, fn in fns.items()}
+        if rc != 0:
+            fail(f"bathsearch --cpu ({name}) exited {rc}")
+        if serial is None:
+            identical = (masked(paths[0]) == masked(serial_two[0])
+                         and table(paths[1]) == table(serial_two[1])
+                         and table(paths[2]) == table(serial_two[2]))
+            serial_walls = {"numpy": [wall_two_serial]}
+        else:
+            identical = (masked(paths[0]) == masked(serial[0])
+                         and rows(paths[1]) == rows(serial[1]))
+            w = fs_walls if opts else walls
+            serial_walls = {b: w[(b, "--fs")] if opts else w[b]
+                            for b in ("torch", "numpy")}
+        phase("e2e_cpu", run=name, cpu=CPU_WORKERS,
+              host_cores=os.cpu_count(),
+              byte_identical=identical, wall_s=f"{wall:.4f}",
+              **{f"serial_{b}_walls_s": ",".join(f"{x:.4f}" for x in ws)
+                 for b, ws in serial_walls.items()},
+              hybrid_pool=stats.get("hybrid_pool"),
+              hybrid_main=stats.get("hybrid_main"),
+              pools=stats.get("pools"),
+              pool_start_s=f"{stats.get('pool_start_s', 0.0):.4f}",
+              pool_spawn_s=f"{stats.get('pool_spawn_s', 0.0):.4f}",
+              pool_init_s=f"{stats.get('pool_init_s', 0.0):.4f}",
+              worker_cuda=stats.get("worker_cuda"),
+              worker_launches=stats.get("worker_launches"),
+              cascade_s={k: round(stats[k], 4) for k in
+                         ("fwd_s", "domdec_s", "fs3_s", "fs3domdec_s")
+                         if stats.get(k)},
+              launches=launches, card=repr(run.card))
+        if not identical:
+            bad.append(f"{name}: output differs from serial numpy")
+        if stats.get("worker_cuda") != 0 or stats.get("worker_launches"):
+            bad.append(f"{name}: a worker made a CUDA context or launched "
+                       f"a kernel, or did not report: {stats}")
+        if backend == "torch":
+            if not (stats.get("hybrid_main", 0) > 0
+                    and stats.get("hybrid_pool", 0) > 0):
+                bad.append(f"{name}: the hybrid split "
+                           f"{stats.get('hybrid_pool')} -> workers, "
+                           f"{stats.get('hybrid_main')} -> main")
+            if any(launches[k] <= 0 for k in need):
+                bad.append(f"{name}: a kernel of the main's share never "
+                           f"launched: {launches}")
+        elif stats.get("pools") != 1:
+            bad.append(f"{name}: no window pool ran: {stats}")
+    phase("e2e_cpu", seconds=f"{time.perf_counter() - t0:.1f}",
+          serial_two_model_splice_numpy_s=f"{wall_two_serial:.4f}")
+    if bad:
+        fail("--cpu: " + "; ".join(bad))
+
+
 def phase_search(run: Run) -> None:
     walls = search_standard(run)
     fs_walls = search_fs(run)
     search_all_device(run, walls, fs_walls)
     search_long_model(run)
     search_splice(run)
+    search_cpu(run, walls, fs_walls)
 
 
 # ---------------------------------------------------------------------
@@ -1946,58 +2146,78 @@ def mq_drive(run: Run, mode, turns, fixture):
     """The multi-query drive: --backend torch (one pass over the genome,
     the four multi-model kernels) against the port's --backend numpy
     (the serial per-query host drive), in turns; the first torch run is
-    the one whose launches are counted.  Compared query by query: -o
-    with its CPU-time lines masked, --tblout and --fstblout without
-    their '#' lines."""
+    the one whose launches are counted.  A turn whose name ends in
+    ``_cpu`` runs the query-sharded pool (--cpu MQ_CPU_WORKERS) in this
+    process, after every earlier phase, under hang_limit: its workers
+    keep every stage on the host, and none of the four entries may
+    launch, in this process or in a worker (each worker reports its own
+    counts).  Every turn is compared with the first turn's output, query
+    by query: -o with its CPU-time lines masked, --tblout and --fstblout
+    without their '#' lines."""
     from bath_tpu_torch import fixtures
     from bath_tpu_torch.cli import bathsearch
     from bath_tpu_torch.ops import multimodel as mm
-    walls: dict = {"torch": [], "numpy": [], "torch_host": []}
+    walls: dict = {t: [] for t in turns}
     first: dict = {}
     stats: dict = {}
     host_stats: dict = {}
+    cpu_stats: dict = {}
     launches = None
+    cpu_launches: dict = {}
     fns = {"fwd_parser_multi": mm.fwd_pack_scores,
            "domdec_multi": mm.domdec_pack_batch,
            "fs3_parser_multi": mm.fs3_pack_scores,
            "fs3_domdec_multi": mm.fs3_domdec_pack_batch}
-    for backend in turns:
-        stem = BUILD / (f"mq{''.join(mode).replace('-', '_')}_{backend}"
-                        f"{len(walls[backend])}")
+    for turn in turns:
+        stem = BUILD / (f"mq{''.join(mode).replace('-', '_')}_{turn}"
+                        f"{len(walls[turn])}")
         paths = [stem.with_suffix(x) for x in (".out", ".tbl", ".fst")]
-        counted = backend == "torch" and launches is None
-        st = stats if counted else \
-            host_stats if backend == "torch_host" else {}
-        if counted:
+        counted = turn == "torch" and launches is None
+        pooled = turn.endswith("_cpu")
+        st = stats if counted else host_stats if turn == "torch_host" \
+            else cpu_stats.setdefault(turn, {}) if pooled else {}
+        if counted or pooled:
             for f in fns.values():
                 f.launches = 0
-        if backend == "torch_host":
+        if turn == "torch_host":
             os.environ.update(dict.fromkeys(MQ_MIN_CELLS, "inf"))
-        t = time.perf_counter()
-        rc = bathsearch.run(
-            ["--backend", backend.split("_")[0], "--device", DEVICE,
-             *mode, "-o", str(paths[0]), "--tblout", str(paths[1]),
-             "--fstblout", str(paths[2]), fixture.hmm_path,
-             fixture.fasta_path], stats=st)
-        torch.cuda.synchronize()
-        walls[backend].append(time.perf_counter() - t)
+        argv = ["--backend", turn.split("_")[0], "--device", DEVICE, *mode,
+                *(["--cpu", str(MQ_CPU_WORKERS)] if pooled else []),
+                "-o", str(paths[0]), "--tblout", str(paths[1]),
+                "--fstblout", str(paths[2]), fixture.hmm_path,
+                fixture.fasta_path]
+        if pooled:
+            wall, rc = cpu_search(argv, st, stem.name)
+        else:
+            t = time.perf_counter()
+            rc = bathsearch.run(argv, stats=st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        walls[turn].append(wall)
         for k in MQ_MIN_CELLS:
             os.environ.pop(k, None)
         if counted:
             launches = {k: f.launches for k, f in fns.items()}
+        if pooled:
+            cpu_launches[turn] = {k: f.launches for k, f in fns.items()}
         if rc != 0:
-            fail(f"{backend} multi-query bathsearch {mode} exited {rc}")
-        first.setdefault(backend, paths)
-    t_out = masked(first["torch"][0]).split("//\n")
-    n_out = masked(first["numpy"][0]).split("//\n")
-    differ = [q for q, (a, b) in enumerate(zip(t_out, n_out)) if a != b]
-    identical = {
-        "out": not differ and len(t_out) == len(n_out) == len(MQ_MS) + 1,
-        "tblout": rows(first["torch"][1]) == rows(first["numpy"][1]),
-        "fstblout": rows(first["torch"][2]) == rows(first["numpy"][2])}
-    if "torch_host" in first:
-        identical["host_stages"] = masked(first["torch_host"][0]) \
-            == masked(first["numpy"][0])
+            fail(f"{turn} multi-query bathsearch {mode} exited {rc}")
+        first.setdefault(turn, paths)
+    ref = turns[0]
+    n_out = masked(first[ref][0]).split("//\n")
+    identical: dict = {}
+    differ: dict = {}
+    for turn, paths in first.items():
+        if turn == ref:
+            continue
+        t_out = masked(paths[0]).split("//\n")
+        differ[turn] = [q for q, (a, b) in enumerate(zip(t_out, n_out))
+                        if a != b]
+        identical[turn] = {
+            "out": not differ[turn]
+            and len(t_out) == len(n_out) == len(MQ_MS) + 1,
+            "tblout": rows(paths[1]) == rows(first[ref][1]),
+            "fstblout": rows(paths[2]) == rows(first[ref][2])}
     found = fixtures.multi_embeds_found(str(first["torch"][1]), fixture)
     tag = "e2e_multiquery" + "".join(mode).replace("--", "_")
     for stage, items, cells, secs in stats["mq_stages"]:
@@ -2007,11 +2227,17 @@ def mq_drive(run: Run, mode, turns, fixture):
           M=f"{min(MQ_MS)}..{max(MQ_MS)}",
           embedded_models=len(MQ_EMBEDDED), copies=MQ_COPIES,
           found=f"{sum(found.values())}/{MQ_COPIES * len(MQ_EMBEDDED)}",
-          byte_identical=identical, queries_differing=differ,
-          walls_torch_s=",".join(f"{w:.3f}" for w in walls["torch"]),
-          walls_numpy_s=",".join(f"{w:.3f}" for w in walls["numpy"]),
-          walls_torch_host_stages_s=",".join(
-              f"{w:.3f}" for w in walls["torch_host"]),
+          compared_with=ref, byte_identical=identical,
+          queries_differing=differ,
+          **{f"walls_{t}_s": ",".join(f"{w:.3f}" for w in walls[t])
+             for t in turns},
+          host_cores=os.cpu_count(), cpu_workers=MQ_CPU_WORKERS,
+          **{k: {t: round(st.get(k, 0.0), 4) for t, st in cpu_stats.items()}
+             for k in ("pool_start_s", "pool_spawn_s", "pool_init_s")},
+          pools={t: st.get("pools") for t, st in cpu_stats.items()},
+          cpu_launches=cpu_launches,
+          **{k: {t: st.get(k) for t, st in cpu_stats.items()}
+             for k in ("worker_cuda", "worker_launches")},
           phase_s={k: round(v, 3) for k, v in stats["mq_phase_s"].items()},
           phase_host_stages_s={
               k: round(v, 3)
@@ -2025,12 +2251,65 @@ def mq_drive(run: Run, mode, turns, fixture):
             for k in ("fwd", "domdec", "fs3", "fs3domdec"))):
         fail(f"multi-query {mode}: a stage reached the card with its "
              f"threshold out of reach: {host_stats}")
-    if not all(identical.values()):
-        fail(f"multi-query {mode} output differs from the numpy "
-             f"backend: {identical}, queries {differ}")
+    if not all(all(v.values()) for v in identical.values()):
+        fail(f"multi-query {mode} output differs from {ref}: {identical}, "
+             f"queries {differ}")
+    if any(any(v.values()) for v in cpu_launches.values()) or any(
+            st.get("pools", 0) < 2 or st.get("fwd_items")
+            or st.get("worker_cuda") != 0 or st.get("worker_launches")
+            for st in cpu_stats.values()):
+        fail(f"multi-query {mode} --cpu: a stage of the pool's run reached "
+             f"the card (in this process or in a worker), or no pool ran: "
+             f"{cpu_launches}, {cpu_stats}")
     if sum(found.values()) < 0.75 * MQ_COPIES * len(MQ_EMBEDDED):
         fail(f"multi-query {mode}: only {found} embeds reported")
     return launches, stats, first
+
+
+def query_parts(paths, names) -> dict:
+    """Each query of <names>: its block of -o (from its "Query:" line,
+    CPU-time lines masked) and its rows of --tblout and --fstblout."""
+    blocks = {}
+    for block in masked(paths[0]).split("//\n"):
+        at = block.find("Query:")
+        if at >= 0:
+            blocks[block[at:].split()[1]] = block[at:]
+    tables = [rows(p).splitlines(True) for p in paths[1:3]]
+    return {q: (blocks.get(q), *("".join(ln for ln in t if q in ln.split())
+                                 for t in tables))
+            for q in names}
+
+
+def mq_fs_serial(fixture, paths) -> None:
+    """The queries MQ_FS_SERIAL of the --fs drive through the port's
+    serial numpy loop, from a query file of their own, held per query
+    to the torch turn's output (a reference that shares no code of the
+    multi-query drive's stream and pools)."""
+    from bath_tpu_torch.cli import bathsearch
+    records = [r for r in Path(fixture.hmm_path).read_text().split("//\n")
+               if r.strip()]
+    pick = [records[i] + "//\n" for i in MQ_FS_SERIAL]
+    names = [re.search(r"^NAME\s+(\S+)", r, re.M).group(1) for r in pick]
+    query = BUILD / "mq_fs_serial.bhmm"
+    query.write_text("".join(pick))
+    out = [BUILD / f"mq_fs_serial.{x}" for x in ("out", "tbl", "fst")]
+    t = time.perf_counter()
+    rc = bathsearch.run(["--backend", "numpy", "--cpu", "0", "--fs", "-o",
+                         str(out[0]), "--tblout", str(out[1]), "--fstblout",
+                         str(out[2]), str(query), fixture.fasta_path])
+    wall = time.perf_counter() - t
+    if rc != 0:
+        fail(f"serial numpy --fs on {names} exited {rc}")
+    want, got = query_parts(out, names), query_parts(paths, names)
+    same = {q: [a == b for a, b in zip(want[q], got[q])] for q in names}
+    phase("e2e_multiquery_fs", serial_numpy_queries=names,
+          serial_numpy_s=f"{wall:.4f}", byte_identical_to_torch=same,
+          tbl_rows={q: want[q][1].count("\n") for q in names},
+          fst_rows={q: want[q][2].count("\n") for q in names})
+    if not all(want[q][0] for q in names) \
+            or not all(all(v) for v in same.values()):
+        fail(f"multi-query --fs: the torch drive differs from the serial "
+             f"numpy loop on {same}")
 
 
 def phase_multiquery(run: Run) -> None:
@@ -2039,6 +2318,7 @@ def phase_multiquery(run: Run) -> None:
     mq_fs_fx = run.mq_fx(True)
     mq_fs_launches, mq_fs_stats, mq_fs_paths = mq_drive(
         run, ["--fs"], MQ_FS_TURNS, mq_fs_fx)
+    mq_fs_serial(mq_fs_fx, mq_fs_paths["torch"])
     mq_shifts = fixtures.multi_frameshifts_found(
         str(mq_fs_paths["torch"][2]), mq_fs_fx)
     phase("e2e_multiquery_fs", frameshifts_found=f"{sum(mq_shifts.values())}"
@@ -2694,6 +2974,10 @@ def main(argv=None) -> None:
         PHASES[name](run)
         print(f"[phase] {name} seconds={time.perf_counter() - t:.1f}",
               flush=True)
+    stop_children()
+    left = [p for p in descendants() if p[1] != "Z"]
+    if left:
+        fail(f"processes still running after every phase: {left}")
     print(json.dumps({"kernels": record(run)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ and no JAX, and its host code is a faithful copy of the reference's.
   import of ``bath_tpu`` or ``jax``.
 - Dynamic: the port's CLIs (bathsearch single- and multi-query,
   standard and ``--fs``, ``--device cpu``, and its own ``--backend
-  numpy``; bathbuild and bathconvert ``--backend torch --device cpu``,
+  numpy``, also under ``--cpu 2`` on both backends; bathbuild and bathconvert ``--backend torch --device cpu``,
   bathstat, bathfetch), the microbenchmarks (``ubench``) and the
   sharded gate step (``parallel.mesh``) on CPU tensors, its
   fixtures and ``chip_smoke``'s module body run in a subprocess where
@@ -63,6 +63,14 @@ LINES = {
         "native/src/bathio.cpp)": "names its own package",
     },
     "emit": {"hmmemit program).": "one word of the docstring"},
+    "native/__init__": {
+        "def set_native_threads(n: int) -> int | None:":
+            "returns the team size it replaces, for the hybrid of "
+            "--cpu N to give back to its caller",
+        "before = lib.omp_get_max_threads()  # the team size it replaces":
+            "the same",
+        "return before": "the same",
+    },
     "ssi": {
         "Keys are sorted bytewise (the reference binary-searches).  "
         "This module": "named the other package",
@@ -330,6 +338,7 @@ FUNCTIONS = [
      [("DeviceCascade", "TorchCascade")]),
     ("device_pipeline", "device_pipeline", "flush_downstream", never,
      [("DeviceCascade", "TorchCascade")]),
+    ("cli/bathsearch", "cli/bathsearch", "_pool_task", never, []),
     ("multiquery", "multiquery", "QState", lane_pack_state, []),
     ("multiquery", "multiquery", "MQEntry", never, []),
     ("multiquery", "multiquery", "_CombinedOrfs", never, []),
@@ -339,6 +348,13 @@ FUNCTIONS = [
     ("multiquery", "multiquery", "_entry_views", never, []),
     ("multiquery", "multiquery", "flush_multi", phase_marks,
      FLUSH_MULTI),
+    # the port's thresholds are read from the environment at every flush
+    ("multiquery", "multiquery", "_mq_pool_init", never,
+     [('for k in _DEV_MIN:                 # never device-dispatch in a '
+       'worker\n        _DEV_MIN[k] = float("inf")',
+       'for k in _DEV_MIN_ENV:\n        os.environ[_DEV_MIN_ENV[k]] = "inf"')]),
+    ("multiquery", "multiquery", "_mq_pool_task", never, []),
+    ("multiquery", "multiquery", "_balance_slices", never, []),
     ("cli/bathbuild", "cli/bathbuild", "_build_task", never, []),
     ("cli/bathbuild", "cli/bathbuild", "build_parser", backend_options,
      [("(TPU-native bath_tpu)", "(bath_tpu_torch)")]),
@@ -408,6 +424,90 @@ def test_copied_block_is_the_same_code(first, n, name):
         "\n".join(blocks[0]).splitlines(), "\n".join(blocks[1]).splitlines(),
         f"bath_tpu/cli/bathsearch.py:run:{name}",
         f"bath_tpu_torch/cli/bathsearch.py:run:{name}", lineterm="", n=0))
+    assert not diff, "\n".join(diff)
+
+
+# Statements of the reference's run that the port's --cpu pools keep:
+# (the opening of the reference's first statement, their number, the
+# port's function, the opening there, an id).  The port's pools are
+# concurrent.futures executors started by parallel/pool.py (submit,
+# done, result, and wait() for AsyncResult.wait), its window pool reads
+# the windows through pool.imap in order, the hybrid sends every
+# flush's downstream to the device (no volume gates: the reference's
+# DEV_MIN, FS_MIN_CELLS and _maybe_down are dropped, and its
+# BATH_CHUNK_ORFS default is a constant) and gives its caller's OpenMP
+# team size back (POOL_SUBS, made in the reference's statements); the
+# guard for the multi-host merge (results is None without --hosts) is
+# dropped.
+POOL_SUBS = [
+    ("_WCTX = dict(", "wctx = dict("),
+    ("pool.apply_async(_pool_task, (spec,))", "pool.submit(task, spec)"),
+    (".ready()", ".done()"),
+    (".get()", ".result()"),
+    ("pend[0].wait(0.02)", "wait([pend[0]], 0.02)"),
+    ("pend[0].wait(0.05)", "wait([pend[0]], 0.05)"),
+    ("pool.imap(_pool_task, shard(window_specs()), chunksize=1)",
+     "imap(pool, task, specs, depth=4 * ncpu)"),
+    ("set_native_threads(_wthreads)",
+     "threads = set_native_threads(_wthreads)"),
+    ("int(os.environ.get('BATH_CHUNK_ORFS', 4096))", "4096"),
+    ("def _down_flush(use_device):", "def _down_flush():"),
+    ("use_device=use_device)", "use_device=True)"),
+    ("_maybe_down(final=True)", "_down_flush()"),
+    ("_maybe_down()", "_down_flush()"),
+]
+POOL_BLOCKS = [
+    ("_WCTX = dict(", 1, "run", "wctx = dict(", "worker-context"),
+    ("nworkers = max(1, ncpu)", 7, "_hybrid", None, "hybrid-settings"),
+    ("def _down_flush(use_device):", 3, "_hybrid", "def _down_flush():",
+     "hybrid-main-share"),
+    ("pend: deque = deque()", 7, "_hybrid", None, "hybrid-policy"),
+    ("while True:", 1, "_hybrid", None, "hybrid-loop"),
+    ("if os.environ.get('BATH_DEVICE_STATS'):", 1, "_hybrid", None,
+     "hybrid-split-line"),
+    ("results.sort(key=lambda r: r[0])", 3, "_hybrid", None, "hybrid-merge"),
+    ("_wthreads = max(1, (os.cpu_count() or 1) // ncpu)", 1, "_window_pool",
+     None, "pool-threads"),
+    ("for _tid, hits, hws, deltas in", 1, "_window_pool", None,
+     "pool-in-window-order"),
+]
+
+
+def results_guard(stmt):
+    return isinstance(stmt, ast.If) \
+        and ast.unparse(stmt.test) == "results is not None"
+
+
+def volume_gate(stmt):
+    """The reference hybrid's volume gates, which the port drops."""
+    names = [t.id for t in getattr(stmt, "targets", ())
+             if isinstance(t, ast.Name)]
+    return bool({"DEV_MIN", "FS_MIN_CELLS"} & set(names)) \
+        or getattr(stmt, "name", None) == "_maybe_down"
+
+
+@pytest.mark.parametrize("first,n,fn,port_first,name", POOL_BLOCKS,
+                         ids=[b[4] for b in POOL_BLOCKS])
+def test_copied_pool_statements_are_the_same_code(first, n, fn, port_first,
+                                                  name):
+    """Comments, docstrings and the listed changes aside, the port's
+    hybrid and window pool are the reference's statements."""
+    texts = []
+    for base, where, opening in ((REF, "run", first),
+                                 (PORT, fn, port_first or first)):
+        stmts = [s for s in statements(
+            definition(read(base, "cli/bathsearch"), where), opening)
+            if base != REF or not volume_gate(s)][:n]
+        assert len(stmts) == n
+        text = "\n".join(ast.unparse(Normalise(results_guard).visit(s))
+                         for s in stmts)
+        if base == REF:
+            for a, b in POOL_SUBS:
+                text = text.replace(a, b)
+        texts.append(text.splitlines())
+    diff = list(difflib.unified_diff(
+        texts[0], texts[1], f"bath_tpu/cli/bathsearch.py:run:{name}",
+        f"bath_tpu_torch/cli/bathsearch.py:{fn}:{name}", lineterm="", n=0))
     assert not diff, "\n".join(diff)
 
 
@@ -506,6 +606,20 @@ rc = bathsearch.run(["--device", "cpu", "--splice", "--max_intron", "5000",
 print("RUN", rc, fixtures.spliced_found(sys.argv[1] + "/ex", sfx) > 0,
       stats["fwd_items"] > 0 and "splice_s" in stats)
 ''', "RUN 0 True True"),
+    "cli-cpu": ('''
+import os
+from bath_tpu_torch.cli import bathsearch
+os.environ.update(BATH_HYBRID_MAIN="1", BATH_HYBRID_MAXQ="1")
+stats, mq_stats = {}, {}
+rc = bathsearch.run(["--device", "cpu", "--cpu", "2", "--block_length",
+                     "8000", "-o", sys.argv[1] + "/out", fx.hmm_path,
+                     fx.fasta_path], stats=stats)
+rc2 = bathsearch.run(["--backend", "numpy", "--cpu", "2", "-o",
+                      sys.argv[1] + "/mq", mq.hmm_path, mq.fasta_path],
+                     stats=mq_stats)
+print("RUN", rc, rc2, stats["hybrid_main"] > 0, stats["hybrid_pool"] > 0,
+      stats["pools"], mq_stats["pools"])
+''', "RUN 0 0 True True 1 2"),
     "cli-numpy-backend": (SEARCH.format(
         args='"--backend", "numpy"', fixture="mq", check="stats == {}"),
         "RUN 0 2 True"),
