@@ -40,13 +40,25 @@ Its output is byte-identical to ``--backend numpy``, the package's own
 serial host drive (every stage in the host kernels).  ``--device``
 defaults to ``cuda``, and a missing CUDA device is an error; the CPU is
 used only when ``--device cpu`` is given, which runs the kernels' plain
-PyTorch versions.  Modes whose device stages are not ported yet are
-refused with the ROADMAP.md item that ports them.
+PyTorch versions.
+``--mesh N`` (``--backend torch``) splits every device stage of the
+cascade and of the multi-query drive over N devices of this process
+(``parallel/mesh.py``: for ``--device cuda``, cards (rank * N + i) %
+count; for ``cuda:K``, K..K+N-1; fewer cards is an error); ``--backend
+numpy`` ignores it.  ``--hosts N --host-id i --coordinator host:port``
+(or ``BATH_NPROCS``, ``BATH_PROC_ID``, ``BATH_COORDINATOR``) runs rank i
+of N processes in a ``torch.distributed`` group (``parallel/hosts.py``):
+every rank walks the whole window stream and searches the windows with
+tid % N == i, the ranks' hits, hit windows and counters are gathered and
+merged in stream order, and only rank 0 writes; a multi-HMM file takes
+the serial per-query loop, and ``--cpu N`` the window pool or the
+chunked cascade, not the hybrid.
 
 ``build_parser``, ``make_pipeline``, ``output_header``,
 ``load_queries`` and ``_pool_task`` are the JAX package's own, copied,
-and so are the statements of the hybrid (``_hybrid``) and of the window
-pool (``_window_pool``).
+and so are the statements of the hybrid (``_hybrid``), of the window
+pool (``_window_pool``) and of ``--hosts`` (rank 0's outputs, ``shard``
+and the merge).
 """
 
 from __future__ import annotations
@@ -63,12 +75,16 @@ import torch
 from .. import constants as C
 from ..bg import Background
 from ..device_pipeline import (ChunkEntry, TorchCascade, flush_downstream,
-                               flush_gates, not_ported)
+                               flush_gates)
 from ..gencode import GeneticCode, extract_orfs
 from ..hmmfile import read_hmms
 from ..native import set_native_threads
 from ..oprofile import oprofile_convert
 from ..ops.reference.fwdback_fs import fs_oprofile_convert
+from ..parallel import hosts
+from ..parallel.hosts import (allgather_results, maybe_init_from_args,
+                              psum_counters, ranks_from_args)
+from ..parallel.mesh import mesh_devices
 from ..parallel.pool import by_name, imap, ready, stop_servers, worker_pool
 from ..pipeline import Pipeline, pipeline_bath, statistics_text
 from ..profile import profile_config, profile_config_fs
@@ -236,20 +252,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of parallel workers over target "
                         "windows; 0/1 = serial")
     # --backend and --device are read by backend_parser before this
-    # one; the multi-device modes below are parsed so that run() can
-    # refuse them by name (ROADMAP.md, "Still to port", items 5c and
-    # 5d)
+    # one
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard device gate batches over N devices "
-                        "(not ported yet)")
+                   help="with --backend torch: shard the device stages "
+                        "over N devices of this process (profiles on "
+                        "each; output is identical for any N)")
     p.add_argument("--hosts", type=int,
                    default=int(_os.environ.get("BATH_NPROCS", 0)),
-                   help="total process count of a multi-process "
-                        "data-parallel run (not ported yet)")
+                   help="total process count of a torch.distributed "
+                        "data-parallel run: windows are sharded "
+                        "tid %% hosts == host-id, hits/stats are "
+                        "all-gathered and merged in stream order, so "
+                        "output is byte-identical for any host count "
+                        "(run one process per host)")
     p.add_argument("--host-id", type=int, default=-1,
-                   help="this process's rank (0..hosts-1)")
+                   help="this process's rank (0..hosts-1); host 0 "
+                        "writes the output")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of rank 0's coordinator")
+                   help="host:port of rank 0's torch.distributed "
+                        "store (default localhost:9377)")
     return p
 
 
@@ -363,19 +384,6 @@ def load_queries(path, args):
         hfp.close()
 
 
-def _unported(args, backend: str) -> str | None:
-    """The first requested mode this package cannot run yet."""
-    if backend == "jax":
-        return ("--backend jax is the JAX package's (python -m "
-                "bath_tpu.cli.bathsearch); this package runs --backend "
-                "torch or numpy")
-    if args.mesh and args.mesh > 1:
-        return not_ported("--mesh", "5c")
-    if args.hosts and args.hosts > 1:
-        return not_ported("--hosts", "5d")
-    return None
-
-
 def require_native():
     """The native host library; the torch backend runs the bias filter,
     and the integer filters unless BATH_MSV_DEVICE=1/BATH_VIT_DEVICE=1
@@ -409,15 +417,20 @@ def check_query(hmm, args) -> None:
         hmm.set_max_length()
 
 
-def run(argv=None, stats=None) -> int:
+def run(argv=None, stats=None, devices=None) -> int:
     """The CLI.  <stats>: optional dict the device stages add their
-    counts to (see TorchCascade and multiquery.PackedGates)."""
+    counts to (see TorchCascade and multiquery.PackedGates).
+    <devices>: the mesh of the device stages (``--backend torch``), in
+    place of the one ``--mesh``/``--hosts`` give (``mesh_devices``); a
+    list may repeat a device, so that one card holds several shares."""
     argv = list(sys.argv[1:] if argv is None else argv)
     pre, rest = backend_parser().parse_known_args(argv)
     args = build_parser().parse_args(rest)
-    why = _unported(args, pre.backend)
-    if why:
-        raise NotImplementedError(why)
+    if pre.backend == "jax":
+        raise NotImplementedError(
+            "--backend jax is the JAX package's (python -m "
+            "bath_tpu.cli.bathsearch); this package runs --backend torch "
+            "or numpy")
     on_device = pre.backend == "torch"
     device = torch.device(pre.device)
     if on_device:
@@ -465,11 +478,30 @@ def run(argv=None, stats=None) -> int:
                   file=sys.stderr)
             return 1
 
-    ofp = open(args.outfile, "w") if args.outfile else sys.stdout
-    tblfp = open(args.tblout, "w") if args.tblout else None
-    fstblfp = open(args.fstblout, "w") if args.fstblout else None
-    extblfp = open(args.exontblout, "w") if args.exontblout \
-        else None
+    # this rank's devices before it joins the group or opens an
+    # output: a rank that cannot have them fails alone
+    nprocs, proc_id, _ = ranks_from_args(args)
+    if on_device and devices is None and (args.mesh > 1 or nprocs > 1):
+        # --mesh N: this rank's N devices; --hosts alone: its one card
+        devices = mesh_devices(max(1, args.mesh), pre.device, proc_id)
+    # multi-host SPMD (ref discipline: bathsearch.c thread merge
+    # :887-892 lifted across hosts; see parallel/hosts.py)
+    nprocs, proc_id = maybe_init_from_args(args)
+
+    if proc_id:
+        # every rank computes the merged result (it is deterministic);
+        # only rank 0 writes it.  One null file an output: the tail
+        # closes each table before the next is written
+        ofp = open(os.devnull, "w")
+        tblfp = open(os.devnull, "w") if args.tblout else None
+        fstblfp = open(os.devnull, "w") if args.fstblout else None
+        extblfp = open(os.devnull, "w") if args.exontblout else None
+    else:
+        ofp = open(args.outfile, "w") if args.outfile else sys.stdout
+        tblfp = open(args.tblout, "w") if args.tblout else None
+        fstblfp = open(args.fstblout, "w") if args.fstblout else None
+        extblfp = open(args.exontblout, "w") if args.exontblout \
+            else None
     textw = 0 if args.notextw else args.textw
     gcode = GeneticCode.create(args.ct)
     if args.aug_only:
@@ -494,13 +526,13 @@ def run(argv=None, stats=None) -> int:
     # Multi-query drive: one pass over the target, device gate batches
     # across models (multiquery.py).  Byte-identical to the serial
     # per-query loop; engaged when several HMMs share one query file
-    # and the splice post-pass, which needs the per-query stream, is
-    # off: for the torch backend always, for numpy when --cpu N asks
-    # for workers (the query-sharded pool).  BATH_MULTIQUERY=0 forces
-    # the serial loop.
+    # and no mode that needs the per-query stream (the splice
+    # post-pass, multi-host sharding) is on: for the torch backend
+    # always, for numpy when --cpu N asks for workers (the
+    # query-sharded pool).  BATH_MULTIQUERY=0 forces the serial loop.
     queries = load_queries(args.queryfile, args)
     ncpu = max(0, int(args.cpu or 0))
-    if (on_device or ncpu > 1) and not args.splice \
+    if nprocs <= 1 and (on_device or ncpu > 1) and not args.splice \
             and os.environ.get("BATH_MULTIQUERY", "1") != "0":
         hmms = []
         for hmm in queries:
@@ -509,7 +541,8 @@ def run(argv=None, stats=None) -> int:
         if len(hmms) > 1:
             from ..multiquery import run_multiquery
             run_multiquery(args, hmms, gcode, require_init, ofp, tblfp,
-                           fstblfp, device=device, stats=stats)
+                           fstblfp, device=device, stats=stats,
+                           devices=devices)
             return finish()
         queries = iter(hmms)
 
@@ -547,17 +580,33 @@ def run(argv=None, stats=None) -> int:
             ofp.write("Accession:   %s\n" % hmm.acc)
         if hmm.desc:
             ofp.write("Description: %s\n" % hmm.desc)
-        cascade = TorchCascade(om, om_fs3, device=device, stats=stats) \
-            if on_device else None
-        if ncpu > 1:
+        cascade = TorchCascade(om, om_fs3, device=device, stats=stats,
+                               devices=devices) if on_device else None
+        # the hybrid only without --hosts (ref :588-591): under it a
+        # rank's torch drive is the chunked cascade over its windows
+        hybrid = ncpu > 1 and nprocs <= 1 and cascade is not None
+        results = [] if nprocs > 1 else None
+        ctr0 = {f: getattr(pli, f) for f in _PLI_COUNTERS} \
+            if nprocs > 1 else None
+
+        def shard(specs):
+            """Window sharding across hosts: every rank walks the
+            full stream (global nres/nseqs/length bookkeeping), only
+            its own windows are processed."""
+            for spec in specs:
+                if spec[0] % nprocs == (proc_id if nprocs > 1 else 0):
+                    yield spec
+
+        specs = ((tid, *spec) for tid, spec in enumerate(
+            _windows(args, pli, om, id_lengths)))
+        if hybrid or (ncpu > 1 and cascade is None):
             wctx = dict(pli=pli, om=om, gm=gm, om_fs3=om_fs3,
                         om_fs5=om_fs5, gm_fs5=gm_fs5, data=data, bg=bg,
                         gcode=gcode, minlen=args.minlen,
                         require_init=require_init, fs_funcs=fs_funcs)
-            specs = ((tid, *spec) for tid, spec in enumerate(
-                _windows(args, pli, om, id_lengths)))
             if cascade is None:
-                _window_pool(ncpu, wctx, specs, th, hit_windows, stats)
+                _window_pool(ncpu, wctx, shard(specs), th, hit_windows,
+                             stats, results)
             else:
                 _hybrid(args, ncpu, wctx, cascade, specs, th,
                         hit_windows, stats)
@@ -568,11 +617,17 @@ def run(argv=None, stats=None) -> int:
                 flush_downstream(staged, cascade, pli, om, gm, om_fs3,
                                  om_fs5, gm_fs5, data, bg, th, gcode,
                                  hit_windows, use_device=True)
+                if results is not None:
+                    for e in staged:
+                        results.append(
+                            (e.tid, list(e.hits.unsrt),
+                             hit_windows[e.win_start:e.win_end]))
 
             chunk: list = []
             pending_orfs = 0
-            for tid, (window, seqid, nres_at) in enumerate(
-                    _windows(args, pli, om, id_lengths)):
+            for tid, window, seqid, nres_at in shard(specs):
+                th_w = th if results is None else TopHits()
+                hws_w = hit_windows if results is None else []
                 for comp in (C.NOCOMPLEMENT, C.COMPLEMENT):
                     if comp == C.NOCOMPLEMENT \
                             and pli.strands == C.STRAND_BOTTOMONLY:
@@ -590,18 +645,33 @@ def run(argv=None, stats=None) -> int:
                         # the serial host drive: every stage of this
                         # (window, strand) in the host kernels
                         pipeline_bath(pli, om, gm, om_fs3, om_fs5,
-                                      gm_fs5, data, bg, th, seqid, w,
-                                      orfs, gcode, hit_windows, comp,
-                                      fs_funcs)
+                                      gm_fs5, data, bg, th_w, seqid, w,
+                                      orfs, gcode, hws_w, comp, fs_funcs)
                         continue
                     chunk.append(ChunkEntry(w, seqid, comp, orfs,
                                             tid=tid, nres_at=nres_at))
                     pending_orfs += len(orfs)
+                if cascade is None and results is not None:
+                    results.append((tid, th_w.unsrt, hws_w))
                 if pending_orfs >= CHUNK_ORFS:
                     down_flush(chunk)
                     pending_orfs = 0
             if chunk:
                 down_flush(chunk)
+
+        if nprocs > 1:
+            # cross-host merge (ref: p7_tophits_Merge +
+            # p7_pipeline_Merge at bathsearch.c:887-892): every rank
+            # rebuilds the identical global result in stream order
+            combined = allgather_results(results)
+            th.unsrt = [h for _, hs, _ in combined for h in hs]
+            hit_windows[:] = [w for _, _, hws in combined
+                              for w in hws]
+            delta = {f: getattr(pli, f) - ctr0[f]
+                     for f in _PLI_COUNTERS}
+            red = psum_counters(delta)
+            for f in _PLI_COUNTERS:
+                setattr(pli, f, ctr0[f] + red[f])
 
         # E-values from the global residue count (ref: bathsearch.c
         # :869-884), then the serial path's sort/dedup/threshold
@@ -723,12 +793,13 @@ def _windows(args, pli, om, id_lengths):
             pli.nseqs += 1
 
 
-def _window_pool(ncpu, wctx, specs, th, hit_windows, stats):
+def _window_pool(ncpu, wctx, specs, th, hit_windows, stats, results=None):
     """``--backend numpy --cpu N`` (ref: the JAX package's forked
     worker pool, thread_loop): N workers, one window each at a time;
     the results are taken in window order, so output is byte-identical
     to serial.  <stats> gets the pool's start and its workers' reports
-    (``ready`` and ``report`` in ``parallel/pool.py``)."""
+    (``ready`` and ``report`` in ``parallel/pool.py``); <results>, a
+    list under ``--hosts``, gets (tid, hits, hit windows) a window."""
     pli = wctx["pli"]
     # N workers share the machine: cap each worker's OpenMP team so
     # the native batch kernels don't oversubscribe
@@ -742,6 +813,8 @@ def _window_pool(ncpu, wctx, specs, th, hit_windows, stats):
                                             depth=4 * ncpu):
             th.unsrt.extend(hits)
             hit_windows.extend(hws)
+            if results is not None:
+                results.append((_tid, hits, hws))
             for f, v in deltas.items():
                 setattr(pli, f, getattr(pli, f) + v)
 
@@ -905,8 +978,10 @@ def main():
         print(f"Error: {e}", file=sys.stderr)
         sys.exit(1)
     finally:
-        # the pools' server outlives them (parallel/pool.py)
+        # the pools' server outlives them (parallel/pool.py); leave
+        # the process group of --hosts
         stop_servers()
+        hosts.shutdown()
 
 
 if __name__ == "__main__":

@@ -43,7 +43,6 @@ so there is no length cap either.
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 import time
@@ -59,6 +58,7 @@ from .ops.fwd import PAD_RESIDUE, fwd_params, fwd_score
 from .ops.ssv import (SSVB_NCAP, msv_params, msv_post, msv_ssv,
                       pack_stream, ssv_capture)
 from .ops.vit import vit_capture, vit_ints, vit_params
+from .parallel.mesh import Shares
 from .stats import gumbel_invsurv
 
 F32 = np.float32
@@ -71,12 +71,6 @@ DOMDEC_CELLS = 1 << 24
 # combine as many f64 rows again: at most this many padded nucleotides
 # to a batch (~1 GB)
 FS3DOMDEC_CELLS = 1 << 22
-
-
-def not_ported(what: str, item) -> str:
-    """The refusal of a stage or mode that a later slice ports."""
-    return (f"{what} is not ported to bath_tpu_torch yet (ROADMAP.md, "
-            f"'Still to port', item {item})")
 
 
 def batches(seqs, lens, device, batch: int = BATCH,
@@ -129,6 +123,16 @@ class TorchCascade:
     """Per-query device stages for the chunked cascade.
 
     <om_fs3>: the fs3 profile (``FSOProfile``) of ``--fs``/``--fsonly``.
+    <devices>: the mesh of ``--mesh N`` (``parallel/mesh.py``
+    ``mesh_devices``), a list of torch devices that may repeat one;
+    without it the one <device>.  Over a mesh every stage splits its
+    items into one share a device (the items sorted by length and dealt
+    round the shares; the integer filters pack each share's items into
+    a residue stream of its own), goes out to every share before any
+    share is read back, and scatters the results to item order; a
+    share's items give what they give alone,
+    so the results do not depend on the mesh.  The profile tables go to
+    each device once.
     <stats>: optional dict the cascade adds its counts to: F3
     candidates scored (``fwd_items``), F3 survivors decoded
     (``domdec_items``), those whose device posteriors were valid
@@ -140,15 +144,22 @@ class TorchCascade:
     rescans (``ssvcap_overflow``), and the host wall inside each stage,
     transfers and the wait for the device included (``fwd_s``,
     ``domdec_s``, ``fs3_s``, ``fs3domdec_s``, ``msv_s``, ``vit_s``,
-    ``ssvcap_s``, ``vitcap_s``)."""
+    ``ssvcap_s``, ``vitcap_s``); over a mesh also ``mesh_items``:
+    {stage key: [items of share 0, share 1, ...]}."""
 
-    def __init__(self, om, om_fs3=None, device="cuda", stats=None):
+    def __init__(self, om, om_fs3=None, device="cuda", stats=None,
+                 devices=None):
         self.om = om
-        self.device = torch.device(device)
-        self.params = fwd_params(om, self.device)
-        self.fs3 = None if om_fs3 is None else fs3_params(om_fs3,
-                                                          self.device)
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else [torch.device(device)]
+        self.device = self.devices[0]
+        once = list(dict.fromkeys(self.devices))
+        self._fwd = {d: fwd_params(om, d) for d in once}
+        self._fs3 = None if om_fs3 is None else {d: fs3_params(om_fs3, d)
+                                                 for d in once}
+        self._int: dict = {}
         self.stats = stats if stats is not None else {}
+        self._shares = Shares(self.devices, self.stats)
         for k in ("fwd_items", "domdec_items", "domdec_ok", "fwd_s",
                   "domdec_s", "fs3_items", "fs3domdec_items",
                   "fs3domdec_ok", "fs3_s", "fs3domdec_s", "msv_items",
@@ -158,15 +169,19 @@ class TorchCascade:
             self.stats.setdefault(k, 0)
 
     def _scores(self, score, params, seqs, lens, pad, key) -> np.ndarray:
-        """Gate scores (nats, f32) per item through <score>: sorted
-        batches, scattered back; counts ``<key>_items`` and
-        ``<key>_s``."""
+        """Gate scores (nats, f32) per item through <score> with the
+        device's <params>: sorted batches of every share launched, then
+        scattered back; counts ``<key>_items`` and ``<key>_s``."""
         t0 = time.perf_counter()
         n = len(lens)
         out = np.empty(n, np.float32)
-        parts = [(idx, score(dsq, blens, params, nj=1.0))
-                 for idx, dsq, blens in batches(seqs, lens, self.device,
-                                                pad=pad)]
+        parts = []
+        for dev, items in self._shares(key, lens):
+            sq, ln = (seqs, lens) if items is None else \
+                ([seqs[i] for i in items], np.asarray(lens)[items])
+            parts += [(idx if items is None else items[idx],
+                       score(dsq, blens, params[dev], nj=1.0))
+                      for idx, dsq, blens in batches(sq, ln, dev, pad=pad)]
         for idx, sc in parts:
             out[idx] = sc.cpu().numpy()
         self.stats[f"{key}_items"] += n
@@ -174,22 +189,38 @@ class TorchCascade:
         return _perturb(out)
 
     def _decode(self, decode, seqs, max_cells, pad, key):
-        """(btot, etot, mocc, ok) per item through <decode>(dsq, lens):
-        rows sliceable to n+1, and ok=False where the caller must run
-        the host parsers; counts ``<key>_items``, ``<key>_ok`` and
-        ``<key>_s``."""
+        """(btot, etot, mocc, ok) per item through <decode>(dsq, lens,
+        device): rows sliceable to n+1, and ok=False where the caller
+        must run the host parsers; the shares' batches go out a round at
+        a time, a batch of every share, before the round is read back;
+        counts ``<key>_items``, ``<key>_ok`` and ``<key>_s``."""
         t0 = time.perf_counter()
         n = len(seqs)
         btot, etot, mocc = [None] * n, [None] * n, [None] * n
         ok = np.zeros(n, bool)
         lens = np.asarray([s.n for s in seqs], np.int64)
-        for idx, dsq, blens in batches([s.dsq for s in seqs], lens,
-                                       self.device, max_cells=max_cells,
-                                       pad=pad):
-            bt, et, mo, okv = (t.cpu().numpy() for t in decode(dsq, blens))
-            for r, i in enumerate(idx):
-                btot[i], etot[i], mocc[i] = bt[r], et[r], mo[r]
-            ok[idx] = okv
+        runs = []
+        for dev, items in self._shares(key, lens):
+            sq = seqs if items is None else [seqs[i] for i in items]
+            runs.append((dev, items, batches(
+                [s.dsq for s in sq], lens if items is None else lens[items],
+                dev, max_cells=max_cells, pad=pad)))
+        while runs:
+            launched, going = [], []
+            for dev, items, gen in runs:
+                b = next(gen, None)
+                if b is None:
+                    continue
+                going.append((dev, items, gen))
+                idx, dsq, blens = b
+                launched.append((idx if items is None else items[idx],
+                                 decode(dsq, blens, dev)))
+            runs = going
+            for idx, res in launched:
+                bt, et, mo, okv = (t.cpu().numpy() for t in res)
+                for r, i in enumerate(idx):
+                    btot[i], etot[i], mocc[i] = bt[r], et[r], mo[r]
+                ok[idx] = okv
         self.stats[f"{key}_items"] += n
         self.stats[f"{key}_ok"] += int(ok.sum())
         self.stats[f"{key}_s"] += time.perf_counter() - t0
@@ -198,69 +229,94 @@ class TorchCascade:
     # -- Forward (F3): Viterbi survivors ----------------------------
     def fwd_scores(self, seqs, lens) -> np.ndarray:
         """Forward-gate scores (nats, f32) per item."""
-        return self._scores(fwd_score, self.params, seqs, lens,
+        return self._scores(fwd_score, self._fwd, seqs, lens,
                             PAD_RESIDUE, "fwd")
 
     # -- fused Backward parser + domain decoding (F3 survivors) ------
     def domdec(self, orfseqs):
         """Posteriors of the F3 survivors (ORFs)."""
         return self._decode(
-            lambda dsq, lens: domdec_kernel(dsq, lens, self.params, nj=1.0),
+            lambda dsq, lens, dev: domdec_kernel(dsq, lens, self._fwd[dev],
+                                                 nj=1.0),
             orfseqs, DOMDEC_CELLS, PAD_RESIDUE, "domdec")
 
     # -- fs3 Forward (F4): merged DNA windows of --fs ----------------
     def fs3_scores(self, seqs, lens) -> np.ndarray:
         """fs3-Forward gate scores (nats, f32) per DNA window."""
-        return self._scores(fs3_score, self.fs3, seqs, lens, DNA_PAD, "fs3")
+        return self._scores(fs3_score, self._fs3, seqs, lens, DNA_PAD,
+                            "fs3")
 
     # -- fused fs3 Backward parser + frameshift decoding ---------------
     def fs3_domdec(self, winseqs, dec_loop: float):
         """Posteriors of the fs-branch DNA windows.  <dec_loop>: the
         N/J/C loop probability of the host decoder's profile."""
         return self._decode(
-            lambda dsq, lens: fs3_domdec_kernel(dsq, lens, self.fs3,
-                                                dec_loop, nj=1.0),
+            lambda dsq, lens, dev: fs3_domdec_kernel(
+                dsq, lens, self._fs3[dev], dec_loop, nj=1.0),
             winseqs, FS3DOMDEC_CELLS, DNA_PAD, "fs3domdec")
 
     # -- the integer filters (BATH_MSV_DEVICE=1 / BATH_VIT_DEVICE=1) ---
-    # their tables are built on first use: the default path runs these
-    # filters in the native host library and never reads them
-    @functools.cached_property
+    # their tables are built on first use, once a device: the default
+    # path runs these filters in the native host library and never
+    # reads them
+    def _tables(self, kind, dev):
+        if (kind, dev) not in self._int:
+            make = msv_params if kind == "msv" else vit_params
+            self._int[(kind, dev)] = make(self.om, dev)
+        return self._int[(kind, dev)]
+
+    @property
     def msv(self):
-        return msv_params(self.om, self.device)
+        return self._tables("msv", self.device)
 
-    @functools.cached_property
+    @property
     def vit(self):
-        return vit_params(self.om, self.device)
+        return self._tables("vit", self.device)
 
-    def _stream(self, seqs, lens, flat=None, offs=None):
-        """(flat int8, offs int64, lens int32) on the device: <flat>
-        and <offs> as given, or <seqs> concatenated."""
-        if flat is None:
-            flat, offs, lens = pack_stream(seqs)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a, t))
-                     .to(self.device) for a, t in ((flat, np.int8),
-                                                   (offs, np.int64),
-                                                   (lens, np.int32)))
+    @staticmethod
+    def _stream(dev, flat, offs, lens):
+        """The stream (flat int8, offs int64, lens int32) on <dev>."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, t)).to(dev)
+                     for a, t in ((flat, np.int8), (offs, np.int64),
+                                  (lens, np.int32)))
 
-    def _ints(self, values) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(values, np.int32)).to(self.device)
+    @staticmethod
+    def _ints(values, dev) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
+
+    def _picks(self, key, lens):
+        """[(device, item indices)] of the integer stage's non-empty
+        shares (every item on one device); each share packs its own
+        items' stream."""
+        return [(dev, np.arange(len(lens)) if items is None else items)
+                for dev, items in self._shares(key, lens)]
 
     def msv_scores(self, seqs, lens, flat=None, offs=None) -> np.ndarray:
         """MSV (F1) scores (nats, f32; inf on overflow) of every item,
         bit-identical to ``ops.reference.filters.msv_filter``: either
         <seqs> or one int8 stream <flat> with per-item <offs>, read in
-        place by one launch."""
+        place by one launch a share."""
         t0 = time.perf_counter()
         n = len(lens)
         p = self.msv
-        tjb = self._ints(p.tjb_for(lens))
-        stream = self._stream(seqs, lens, flat, offs)
-        out_int, out_inf = msv_post(*msv_ssv(*stream, tjb, p), tjb, p)
-        ints = out_int.cpu().numpy().astype(np.float64)
+        if flat is None:
+            flat, offs, lens = pack_stream(seqs)
+        offs, lens = np.asarray(offs), np.asarray(lens)
+        parts = []
+        for dev, sel in self._picks("msv", lens):
+            pd = self._tables("msv", dev)
+            stream = (flat, offs, lens) if len(sel) == n else \
+                repack(flat, offs[sel], lens[sel])
+            tjb = self._ints(pd.tjb_for(stream[2]), dev)
+            parts.append((sel, msv_post(*msv_ssv(
+                *self._stream(dev, *stream), tjb, pd), tjb, pd)))
+        ints = np.empty(n, np.float64)
+        inf = np.zeros(n, bool)
+        for sel, (out_int, out_inf) in parts:
+            ints[sel] = out_int.cpu().numpy()
+            inf[sel] = out_inf.cpu().numpy()
         sc = np.float32((ints - float(p.base)) / p.scale - 3.0)
-        sc = np.where(out_inf.cpu().numpy(), np.float32(np.inf), sc) \
-            .astype(np.float32)
+        sc = np.where(inf, np.float32(np.inf), sc).astype(np.float32)
         self.stats["msv_items"] += n
         self.stats["msv_s"] += time.perf_counter() - t0
         return sc
@@ -289,14 +345,19 @@ class TorchCascade:
         reference's contract; ``ssvcap_overflow`` counts them."""
         t0 = time.perf_counter()
         tjb, thr = self.ssv_thresholds(lens, nulls, F1)
-        nwin, wi, wk, wsc = (t.cpu().numpy() for t in ssv_capture(
-            *self._stream(seqs, lens), self._ints(tjb), self._ints(thr),
-            self.msv))
+        parts = [(sel, ssv_capture(
+            *self._stream(dev, *pack_stream([seqs[i] for i in sel])),
+            self._ints(tjb[sel], dev), self._ints(thr[sel], dev),
+            self._tables("msv", dev)))
+            for dev, sel in self._picks("ssvcap", lens)]
         caps = {}
-        for i, nv in enumerate(nwin.tolist()):
-            caps[i] = (nv, list(zip(wi[i, :nv], wk[i, :nv], wsc[i, :nv])))
+        for sel, res in parts:
+            nwin, wi, wk, wsc = (t.cpu().numpy() for t in res)
+            for i, nv in enumerate(nwin.tolist()):
+                caps[int(sel[i])] = (nv, list(zip(wi[i, :nv], wk[i, :nv],
+                                                  wsc[i, :nv])))
+            self.stats["ssvcap_overflow"] += int((nwin > SSVB_NCAP).sum())
         self.stats["ssvcap_items"] += len(lens)
-        self.stats["ssvcap_overflow"] += int((nwin > SSVB_NCAP).sum())
         self.stats["ssvcap_s"] += time.perf_counter() - t0
         return caps
 
@@ -305,9 +366,19 @@ class TorchCascade:
         inf on int16 overflow) of every item, bit-identical to
         ``ops.reference.filters.viterbi_filter``."""
         t0 = time.perf_counter()
+        n = len(lens)
         p = self.vit
-        score, has, ovf = (t.cpu().numpy() for t in vit_ints(
-            *self._stream(seqs, lens), self._ints(p.move_for(lens)), p))
+        lens = np.asarray(lens)
+        parts = []
+        for dev, sel in self._picks("vit", lens):
+            pd = self._tables("vit", dev)
+            parts.append((sel, vit_ints(
+                *self._stream(dev, *pack_stream([seqs[i] for i in sel])),
+                self._ints(pd.move_for(lens[sel]), dev), pd)))
+        score = np.empty(n, np.int64)
+        has, ovf = np.zeros(n, bool), np.zeros(n, bool)
+        for sel, res in parts:
+            score[sel], has[sel], ovf[sel] = (t.cpu().numpy() for t in res)
         sc = np.float32((score.astype(np.float64) - float(p.base))
                         / p.scale - 3.0)
         sc = np.where(has, sc, np.float32(-np.inf))
@@ -315,7 +386,7 @@ class TorchCascade:
         if np.isnan(sc).any():
             # pipeline_gates would route the item to the host scan
             raise RuntimeError("NaN ViterbiFilter score from the device")
-        self.stats["vit_items"] += len(lens)
+        self.stats["vit_items"] += n
         self.stats["vit_s"] += time.perf_counter() - t0
         return sc
 
@@ -341,23 +412,40 @@ class TorchCascade:
         """ViterbiFilter_BATH capture events of the F2 survivors:
         {i: (rows, ks)} for every item, the ascending 1-based crossing
         rows before the first int16-saturated row and their
-        striped-order k_start, as ``DeviceCascade.vit_captures``."""
+        striped-order k_start, as ``DeviceCascade.vit_captures``.  A
+        share's row array covers its own items' residues."""
         t0 = time.perf_counter()
         move, thr = self.vit_thresholds(lens, filterscs, F2)
-        flat, offs, lens = pack_stream(seqs)
-        karr, ovfrow = (t.cpu().numpy() for t in vit_capture(
-            *self._stream(None, lens, flat, offs), self._ints(move),
-            self._ints(thr), self.vit))
+        parts = []
+        for dev, sel in self._picks("vitcap", lens):
+            flat, offs, ln = pack_stream([seqs[i] for i in sel])
+            parts.append((sel, offs, ln, vit_capture(
+                *self._stream(dev, flat, offs, ln),
+                self._ints(move[sel], dev), self._ints(thr[sel], dev),
+                self._tables("vit", dev))))
         caps = {}
-        for i, (o, L) in enumerate(zip(offs.tolist(), lens.tolist())):
-            ks = karr[o:o + L]
-            rows = np.nonzero(ks)[0]
-            if ovfrow[i] > 0:
-                rows = rows[rows + 1 < ovfrow[i]]
-            caps[i] = (rows + 1, ks[rows])
+        for sel, offs, ln, res in parts:
+            karr, ovfrow = (t.cpu().numpy() for t in res)
+            for i, (o, L) in enumerate(zip(offs.tolist(), ln.tolist())):
+                ks = karr[o:o + L]
+                rows = np.nonzero(ks)[0]
+                if ovfrow[i] > 0:
+                    rows = rows[rows + 1 < ovfrow[i]]
+                caps[int(sel[i])] = (rows + 1, ks[rows])
         self.stats["vitcap_items"] += len(lens)
         self.stats["vitcap_s"] += time.perf_counter() - t0
         return caps
+
+
+def repack(flat, offs, lens):
+    """(flat, offs, lens) of the items <offs>, <lens> of the stream
+    <flat> as a stream of their own, offsets rebased to it."""
+    offs = np.asarray(offs, np.int64)
+    lens = np.asarray(lens, np.int64)
+    new = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=new[1:])
+    src = np.repeat(offs - new, lens) + np.arange(int(lens.sum()))
+    return np.asarray(flat)[src], new, lens.astype(np.int32)
 
 
 class ChunkEntry:

@@ -33,11 +33,13 @@ The workers keep every stage off the device, as the JAX package's do,
 and start from a fresh server process (``parallel/pool.py``), never by
 forking this one.
 
+``--mesh N`` deals every packed stage's items round N devices
+(``PackedGates``); the pool's workers keep every stage on the host.
+
 Not carried over from the JAX package: its lane packs and size classes
 (a model of any length and an item of any length go to the device), its
 watchdog and surrender path (a CUDA error propagates, as in
-``TorchCascade``), the compile cache and mesh sharding (``--mesh`` is
-refused, ROADMAP item 5c).
+``TorchCascade``) and the compile cache.
 
 Window-boundary note: the serial loop reads windows with per-query
 overlap (om->max_length*3, bathsearch.c:1099); the shared stream uses
@@ -72,6 +74,7 @@ from .oprofile import oprofile_convert
 from .ops import multimodel as mm
 from .ops.fs3 import DNA_PAD, fs3_params
 from .ops.fwd import PAD_RESIDUE, fwd_params
+from .parallel.mesh import Shares
 from .parallel.pool import ready, worker_pool
 from .pipeline import (DEVICE_GATE_BAND, pipeline_fwd_stage,
                        pipeline_gate_plan, pipeline_gates,
@@ -161,16 +164,26 @@ class PackedGates:
     items sorted by length, at most ``BATCH`` to a batch and, for the
     decoding stages, a cap on a batch's padded residues.
 
+    <devices>: the mesh of ``--mesh N``, as ``TorchCascade`` takes it:
+    each stage deals its items sorted by length round the devices
+    (``parallel/mesh.py`` ``Shares``), every share's batches go out
+    before any share is fetched, one fetch a share, and the packs are
+    built on each device on first use there.
+
     <stats>: optional dict the stages add their counts to, under
     ``TorchCascade``'s keys (``fwd_items``, ``fwd_s``, ``domdec_items``,
     ``domdec_ok``, ``domdec_s``, ``fs3_items``, ``fs3_s``,
-    ``fs3domdec_items``, ``fs3domdec_ok``, ``fs3domdec_s``) plus each
-    stage's DP cells (``fwd_cells``, ...) and ``mq_stages``, one
-    ``(stage, items, cells, seconds)`` per stage call."""
+    ``fs3domdec_items``, ``fs3domdec_ok``, ``fs3domdec_s``, over a mesh
+    ``mesh_items``) plus each stage's DP cells (``fwd_cells``, ...) and
+    ``mq_stages``, one ``(stage, items, cells, seconds)`` per stage
+    call."""
 
-    def __init__(self, queries: list[QState], device="cuda", stats=None):
+    def __init__(self, queries: list[QState], device="cuda", stats=None,
+                 devices=None):
         self.queries = queries
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else [torch.device(device)]
+        self.device = self.devices[0]
         self.slot = {q.qi: g for g, q in enumerate(queries)}
         self._packs: dict = {}
         self.stats = stats if stats is not None else {}
@@ -180,25 +193,32 @@ class PackedGates:
         self.stats.setdefault("domdec_ok", 0)
         self.stats.setdefault("fs3domdec_ok", 0)
         self.stats.setdefault("mq_stages", [])
+        self._shares = Shares(self.devices, self.stats)
 
-    def _pack(self, family):
-        """The Forward/decoding pack ("std") or the fs3 one ("fs")."""
-        if family not in self._packs:
+    def _pack(self, family, dev):
+        """The Forward/decoding pack ("std") or the fs3 one ("fs") on
+        <dev>."""
+        if (family, dev) not in self._packs:
             if family == "std":
-                self._packs[family] = mm.build_fwd_pack(
-                    [fwd_params(q.om, self.device) for q in self.queries])
+                self._packs[(family, dev)] = mm.build_fwd_pack(
+                    [fwd_params(q.om, dev) for q in self.queries])
             else:
-                self._packs[family] = mm.build_fs3_pack(
-                    [fs3_params(q.om_fs3, self.device)
-                     for q in self.queries])
-        return self._packs[family]
+                self._packs[(family, dev)] = mm.build_fs3_pack(
+                    [fs3_params(q.om_fs3, dev) for q in self.queries])
+        return self._packs[(family, dev)]
 
-    def _batches(self, items, pad, max_cells=None):
+    def _batches(self, items, pad, dev, max_cells=None):
         slot = np.array([self.slot[qs.qi] for qs, _, _ in items], np.int64)
         for idx, dsq, blens in batches(
                 [d[:ln] for _, d, ln in items], [ln for _, _, ln in items],
-                self.device, max_cells=max_cells, pad=pad):
+                dev, max_cells=max_cells, pad=pad):
             yield idx, dsq, blens, slot[idx]
+
+    def _split(self, key, items):
+        """[(device, the share's items, their indices into <items>)]."""
+        return [(dev, items, np.arange(len(items))) if sel is None
+                else (dev, [items[i] for i in sel], sel)
+                for dev, sel in self._shares(key, [ln for _, _, ln in items])]
 
     def _count(self, key, items, t0, cells_div=1):
         cells = _stage_cells(items) // cells_div
@@ -209,33 +229,43 @@ class PackedGates:
         self.stats["mq_stages"].append((key, len(items), cells, dt))
 
     def _scores(self, items, call, family, pad, key, cells_div=1):
-        """Gate scores (nats) per item: every batch launched, then one
-        concatenation and one fetch for the stage."""
+        """Gate scores (nats) per item: every batch of every share
+        launched, then one concatenation and one fetch a share."""
         t0 = time.perf_counter()
-        pack = self._pack(family)
-        parts = [(idx, call(pack, dsq, blens, slot, nj=1.0))
-                 for idx, dsq, blens, slot in self._batches(items, pad)]
+        shares = []
+        for dev, sub, sel in self._split(key, items):
+            pack = self._pack(family, dev)
+            shares.append([(sel[idx], call(pack, dsq, blens, slot, nj=1.0))
+                           for idx, dsq, blens, slot
+                           in self._batches(sub, pad, dev)])
         out = np.empty(len(items), F32)
-        if parts:
-            out[np.concatenate([idx for idx, _ in parts])] = \
-                torch.cat([sc for _, sc in parts]).cpu().numpy()
+        for parts in shares:
+            if parts:
+                out[np.concatenate([idx for idx, _ in parts])] = \
+                    torch.cat([sc for _, sc in parts]).cpu().numpy()
         self._count(key, items, t0, cells_div)
         return [float(v) for v in _perturb(out)]
 
     def _decode(self, items, call, family, pad, max_cells, key,
                 cells_div=1):
-        """(btot, etot, mocc, ok) per item: every batch launched, then
-        one flat concatenation and one fetch for the stage."""
+        """(btot, etot, mocc, ok) per item: every batch of every share
+        launched, then one flat concatenation and one fetch a share."""
         t0 = time.perf_counter()
-        pack = self._pack(family)
-        parts = []
-        for idx, dsq, blens, slot in self._batches(items, pad, max_cells):
-            bt, et, mo, ok = call(pack, dsq, blens, slot)
-            parts.append((idx, bt.shape, torch.cat(
-                [bt.reshape(-1), et.reshape(-1), mo.reshape(-1),
-                 ok.to(bt.dtype)])))
+        shares = []
+        for dev, sub, sel in self._split(key, items):
+            pack = self._pack(family, dev)
+            parts = []
+            for idx, dsq, blens, slot in self._batches(sub, pad, dev,
+                                                       max_cells):
+                bt, et, mo, ok = call(pack, dsq, blens, slot)
+                parts.append((sel[idx], bt.shape, torch.cat(
+                    [bt.reshape(-1), et.reshape(-1), mo.reshape(-1),
+                     ok.to(bt.dtype)])))
+            shares.append(parts)
         out = [None] * len(items)
-        if parts:
+        for parts in shares:
+            if not parts:
+                continue
             flat = torch.cat([f for _, _, f in parts]).cpu().numpy()
             at = 0
             for idx, (b, w), _ in parts:
@@ -752,17 +782,18 @@ def _balance_slices(weights, n):
 
 
 def run_multiquery(args, hmms, gcode, require_init, ofp, tblfp,
-                   fstblfp, device="cuda", stats=None) -> None:
+                   fstblfp, device="cuda", stats=None,
+                   devices=None) -> None:
     """The multi-query drive: shared window stream + packed device
     gates; per-query output buffered and written in query order.
-    <device>, <stats>: as PackedGates takes them.  With ``args.cpu`` >
-    1 every flush runs in the query-sharded pool; <stats> then gets its
-    start and its workers' reports (``parallel/pool.py``) and no device
-    stage."""
+    <device>, <stats>, <devices>: as PackedGates takes them.  With
+    ``args.cpu`` > 1 every flush runs in the query-sharded pool; <stats>
+    then gets its start and its workers' reports (``parallel/pool.py``)
+    and no device stage."""
     t_start = time.time()
     queries = [QState(h, args, gcode, qi)
                for qi, h in enumerate(hmms)]
-    pg = PackedGates(queries, device=device, stats=stats)
+    pg = PackedGates(queries, device=device, stats=stats, devices=devices)
     fs_mode = bool(args.fs or args.fsonly)
 
     ctx_pinned = bool(int(os.environ.get("BATH_WINDOW_CONTEXT", 0)))

@@ -24,6 +24,11 @@ process drives every device: there is no ``torch.distributed`` here.
 
 On ``make_mesh(n, "cpu")`` the n shares run in turn on the CPU through
 the kernels' plain versions, which the tests use.
+
+The search's ``--mesh N`` takes a process's devices from
+``mesh_devices`` and splits each stage of ``TorchCascade`` and
+``PackedGates`` into shares of any size (``deal``); the reference pads
+each batch to a bucket that its mesh divides, which a GPU needs not.
 """
 
 from __future__ import annotations
@@ -45,6 +50,64 @@ def make_mesh(n: int, device: str = "cuda") -> list[torch.device]:
     if have < n:
         raise ValueError(f"need {n} CUDA devices, have {have}")
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def mesh_devices(n: int, device="cuda", rank: int = 0) -> list:
+    """The n devices of one process of ``--mesh n`` (n >= 1): for
+    ``cuda`` without an index, cuda:(rank * n + i) % count for i in
+    0..n-1, so that the ranks of one machine take disjoint cards where
+    there are enough; for ``cuda:K``, cuda:K..K+n-1; for ``cpu``, the
+    CPU n times.  Raises when the machine has fewer than n cards, or
+    than K + n."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [dev] * n
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    first = dev.index if dev.index is not None else 0
+    if have < first + n:
+        raise ValueError(f"--mesh {n} from {dev} needs {first + n} CUDA "
+                         f"devices, have {have}")
+    if dev.index is None:
+        return [torch.device("cuda", (rank * n + i) % have)
+                for i in range(n)]
+    return [torch.device("cuda", first + i) for i in range(n)]
+
+
+def deal(lens, n: int, turn: int = 0) -> list[np.ndarray]:
+    """The items' indices in n shares, each ascending: the items sorted
+    by length and dealt round the shares, the first to share <turn> % n,
+    so that every share gets the same mix of lengths."""
+    order = np.argsort(np.asarray(lens, np.int64), kind="stable")
+    return [np.sort(order[(s - turn) % n::n]) for s in range(n)]
+
+
+class Shares:
+    """The shares of a stage call over the devices of ``--mesh N``
+    (``TorchCascade``, ``PackedGates``).  Calling it with a stage's key
+    and its items' lengths gives [(device, items)]: on one device every
+    item (items None); over several each non-empty share's item indices,
+    ascending (``deal``), the first share turning with each call of the
+    stage so that small calls reach every device.  Each share's items add to
+    ``stats["mesh_items"][key]``, a list of one count a device."""
+
+    def __init__(self, devices: list, stats: dict):
+        self.devices = devices
+        self.turns: dict = {}
+        self.counts = stats.setdefault("mesh_items", {}) \
+            if len(devices) > 1 else None
+
+    def __call__(self, key: str, lens) -> list:
+        n = len(self.devices)
+        if n == 1:
+            return [(self.devices[0], None)]
+        turn = self.turns.get(key, 0)
+        self.turns[key] = turn + 1
+        parts = deal(lens, n, turn)
+        counts = self.counts.setdefault(key, [0] * n)
+        for s, items in enumerate(parts):
+            counts[s] += len(items)
+        return [(d, items) for d, items in zip(self.devices, parts)
+                if len(items)]
 
 
 def shard_batch(mesh: list, arr) -> list[torch.Tensor]:

@@ -44,10 +44,14 @@ phase but ``deep``; ``all`` adds ``deep``):
   default cascade and the all-device one, and then ``--cpu 4`` in this
   process (the hybrid of workers and the card, standard and ``--fs``,
   the numpy window pool, and a two-model ``--splice`` file through the
-  hybrid), each held to the serial numpy run;
+  hybrid), then ``--mesh`` over every card (on one card, two shares of
+  it), standard, ``--fs`` and all-device, and ``--hosts 2``: two rank
+  processes of the CLI on the standard search; each held to the serial
+  numpy run;
 - ``multiquery``: a 48-model query file against a 5 Mb genome that
   holds copies of 12 of the models, standard and ``--fs``, serial and
-  with ``--cpu 8`` (the query-sharded pool, every stage on the host);
+  with ``--cpu 8`` (the query-sharded pool, every stage on the host),
+  and the standard drive over the mesh;
 - ``build``: ``bathbuild`` of a 48-alignment Stockholm file and
   ``bathconvert`` of the built models stripped of their frameshift
   calibration, ``--backend torch`` (one device-batched calibration)
@@ -90,6 +94,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -205,14 +210,17 @@ PARITY_MQ_PLAIN_FS3DD = (0, 47)
 # F3 candidates, F3 survivors and fs3 windows over all 48 models, fs3
 # survivors over the 12 embedded ones.  Each entry's output is also
 # held against its plain version's: the Forward gate on every item,
-# decoding on the items of every second model; the fs3 pair, whose plain
+# decoding on the items of every fourth model; the fs3 pair, whose plain
 # versions take 7 and 21 s a model over windows of thousands of rows, on
-# the items of two models (M = 132, 1200) and of two of the 12 (M = 84
-# and 763, one and two warps a window; the parity phase holds both
-# against them at up to three warps a window, ``deep`` on 12 and 4).
+# the items of two models (M = 132 and 1200) and of two of the 12
+# (M = 84 and 763: one and two warps a window; the parity phase holds
+# both against them at up to three warps a window, ``deep`` on 12 and 4
+# models of the drive's).  The --mesh and --hosts drives of ``search``
+# and ``multiquery`` took the place of the plain versions of every
+# second decoded model.
 TIME_MQ_FWD_B, TIME_MQ_DOMDEC_B = 1600, 128
 TIME_MQ_FS3_B, TIME_MQ_FS3DD_B = 512, 24
-TIME_MQ_PLAIN_DOMDEC = tuple(range(0, 48, 2))
+TIME_MQ_PLAIN_DOMDEC = tuple(range(0, 48, 4))
 TIME_MQ_PLAIN_FS3 = (3, 47)
 TIME_MQ_PLAIN_FS3DD = (1, 29)
 # "torch_host": the multi-query drive with every stage's engagement
@@ -220,10 +228,12 @@ TIME_MQ_PLAIN_FS3DD = (1, 29)
 # items (what the card's stages are weighed against).  The standard
 # drive takes such a turn; the --fs drive, whose host fs3 stages take
 # longest, leaves its time to the build path.  "_cpu": the query-sharded
-# pool (--cpu MQ_CPU_WORKERS).  Each turn is held to the first one: the
-# serial numpy drive, and under --fs the numpy pool (which the CPU tests
-# hold to the serial loop; the serial --fs turn took 82 s)
-MQ_TURNS = ("numpy", "torch", "torch_host", "torch_cpu")
+# pool (--cpu MQ_CPU_WORKERS).  "torch_mesh": the packed stages over
+# the mesh of ``mesh_options`` (standard only).  Each turn is held to
+# the first one: the serial numpy drive, and under --fs the numpy pool
+# (which the CPU tests hold to the serial loop; the serial --fs turn
+# took 82 s)
+MQ_TURNS = ("numpy", "torch", "torch_host", "torch_cpu", "torch_mesh")
 MQ_FS_TURNS = ("numpy_cpu", "torch", "torch_cpu")
 # the --fs drive's queries that the serial numpy loop also runs, alone,
 # as a reference independent of the multi-query drive's shared stream
@@ -240,6 +250,11 @@ MQ_MIN_CELLS = ("BATH_MQ_FWD_MIN_CELLS", "BATH_MQ_DD_MIN_CELLS",
 MSA_NSEQ = 20
 TAU_WARN, TAU_TOL = 0.02, 0.05
 F32_GATE_LINES = ("STATS LOCAL FORWARD", "STATS LOCAL FS3 FORWARD")
+
+# --hosts: rank processes of the CLI on the 5 Mb search, each under
+# HOSTS_LIMIT_S (one card: both ranks on cuda:0, a CUDA context each)
+HOSTS = 2
+HOSTS_LIMIT_S = 300
 
 # the mesh step on one flush's shape: MESH_B DNA windows of MESH_LN nt
 # (the fs3 gate's windows at M = 409), MESH_HOMOLOGS of them over
@@ -1777,6 +1792,7 @@ def search_all_device(run: Run, walls, fs_walls) -> None:
 
     ad0 = all_device([], "ad0", fx)
     int_launches = ad_launches[0]
+    run.cache["ad_wall"] = ad_walls[0]
     ad1 = all_device([], "ad1", fx)
     ad_fs = all_device(["--fs"], "ad_fs", fs_fx)
     ad_loose = all_device(LOOSE, "ad_loose", fx)
@@ -2125,6 +2141,178 @@ def search_cpu(run: Run, walls, fs_walls) -> None:
         fail("--cpu: " + "; ".join(bad))
 
 
+def mesh_options():
+    """(CLI options, devices for ``bathsearch.run``, shares) of the
+    --mesh drives: --mesh over every card of the machine, or on one card
+    two shares of it through ``run``'s devices (the CLI never repeats a
+    card)."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return ["--mesh", str(n)], None, n
+    return [], [DEV, DEV], 2
+
+
+def mesh_shares_ok(tag, stats, n) -> dict:
+    """The run's items per share and stage; fails unless every stage
+    that had items had them on every share (a stage of fewer items than
+    shares aside)."""
+    shares = stats.get("mesh_items") or {}
+    bad = {k: v for k, v in shares.items()
+           if len(v) != n or (sum(v) >= n and min(v) == 0)}
+    if not shares or bad:
+        fail(f"{tag}: a share of the mesh got no items: {shares}")
+    return shares
+
+
+def search_mesh(run: Run, walls, fs_walls) -> None:
+    """The 5 Mb x M = 400 searches over the mesh (``mesh_options``):
+    standard, --fs and the all-device cascade (at the default
+    thresholds), each byte-identical to the serial numpy run of the same
+    search, every stage's items on every share (``mesh_items``), and the
+    kernels of the path launched; walls beside the one-device torch
+    runs'."""
+    from bath_tpu_torch.cli import bathsearch
+    from bath_tpu_torch.ops import domdec as dd
+    from bath_tpu_torch.ops import fs3, fwd, ssv, vit
+    from bath_tpu_torch.ops import fs3_domdec as fdd
+    t0 = time.perf_counter()
+    opts, devices, n = mesh_options()
+    fx, fs_fx = run.fx(), run.fs_fx()
+    std = (BUILD / "e2e_numpy0.out", BUILD / "e2e_numpy0.tbl", None)
+    fns = {"fwd_parser": fwd.fwd_score, "domdec": dd.domdec,
+           "fs3_parser": fs3.fs3_score, "fs3_domdec": fdd.fs3_domdec,
+           "msv_filter": ssv.msv_ssv, "ssv_capture": ssv.ssv_capture,
+           "vit_filter": vit.vit_ints, "vit_capture": vit.vit_capture}
+    # (options, fixture, environment, serial numpy outputs, one-device
+    # torch walls, kernels that must launch)
+    cases = {
+        "standard": ([], fx, {}, std, walls["torch"],
+                     ("fwd_parser", "domdec")),
+        "fs": (["--fs"], fs_fx, {}, tuple(run.cache["fs_numpy"]),
+               fs_walls[("torch", "--fs")],
+               ("fwd_parser", "fs3_parser", "fs3_domdec")),
+        "all_device": ([], fx, ALL_DEVICE, std, [run.cache["ad_wall"]],
+                       ("msv_filter", "ssv_capture", "vit_filter",
+                        "vit_capture", "fwd_parser", "domdec")),
+    }
+    bad = []
+    for name, (extra, f, env, serial, one_walls, need) in cases.items():
+        paths = [BUILD / f"mesh_{name}.{x}" for x in ("out", "tbl", "fst")]
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        st: dict = {}
+        for fn in fns.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = bathsearch.run(["--backend", "torch", "--device", DEVICE,
+                             *opts, *extra, "-o", str(paths[0]), "--tblout",
+                             str(paths[1]), "--fstblout", str(paths[2]),
+                             f.hmm_path, f.fasta_path], stats=st,
+                            devices=devices)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        launches = {k: fn.launches for k, fn in fns.items()}
+        if rc != 0:
+            fail(f"bathsearch over the mesh ({name}) exited {rc}")
+        identical = (masked(paths[0]) == masked(serial[0])
+                     and rows(paths[1]) == rows(serial[1])
+                     and (serial[2] is None
+                          or rows(paths[2]) == rows(serial[2])))
+        shares = mesh_shares_ok(f"mesh {name}", st, n)
+        phase("e2e_mesh", run=name, shares=n, across_cards=devices is None,
+              byte_identical=identical, wall_s=f"{wall:.4f}",
+              one_device_torch_walls_s=",".join(f"{w:.4f}"
+                                                for w in one_walls),
+              mesh_items=shares, launches=launches, card=repr(run.card))
+        if not identical:
+            bad.append(f"{name}: output differs from serial numpy")
+        missing = [k for k in need if launches[k] <= 0]
+        if missing:
+            bad.append(f"{name}: {missing} never launched: {launches}")
+    if n < 2:
+        phase("e2e_mesh", across_cards="not run: this machine has 1 card; "
+              "the cascade ran two shares of it")
+    phase("e2e_mesh", seconds=f"{time.perf_counter() - t0:.1f}")
+    if bad:
+        fail("--mesh: " + "; ".join(bad))
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def search_hosts(run: Run, walls) -> None:
+    """--hosts HOSTS: rank processes of ``python -m
+    bath_tpu_torch.cli.bathsearch --backend torch`` in one gloo group on
+    a free port of this machine, on the standard 5 Mb x M = 400 search
+    (its --fs turn went to the plain fs3 pair's timing models); each rank searches its windows on its card (rank % cards)
+    and all take the merged result.  Fails unless every rank exits 0
+    within HOSTS_LIMIT_S, rank 0's outputs equal the serial numpy run's
+    and no other rank wrote a file; a rank still alive is killed (and
+    the check after the last phase finds any left)."""
+    t0 = time.perf_counter()
+    std = (BUILD / "e2e_numpy0.out", BUILD / "e2e_numpy0.tbl", None)
+    cases = {"standard": ([], run.fx(), std, walls)}
+    bad = []
+    for name, (extra, f, serial, one_walls) in cases.items():
+        port = free_port()
+        outs = [[BUILD / f"hosts_{name}{i}.{x}" for x in ("out", "tbl", "fst")]
+                for i in range(HOSTS)]
+        for p in (p for ps in outs for p in ps):
+            p.unlink(missing_ok=True)
+        procs = []
+        t = time.perf_counter()
+        for i, paths in enumerate(outs):
+            with open(BUILD / f"hosts_{name}{i}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "bath_tpu_torch.cli.bathsearch",
+                     "--backend", "torch", "--device", DEVICE, *extra,
+                     "--hosts", str(HOSTS), "--host-id", str(i),
+                     "--coordinator", f"localhost:{port}", "-o",
+                     str(paths[0]), "--tblout", str(paths[1]),
+                     "--fstblout", str(paths[2]), f.hmm_path, f.fasta_path],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+            CHILDREN.append(procs[-1])
+        try:
+            rcs = [p.wait(timeout=max(1.0, HOSTS_LIMIT_S
+                                      - (time.perf_counter() - t)))
+                   for p in procs]
+        except subprocess.TimeoutExpired:
+            stop_children()
+            fail(f"--hosts {HOSTS} ({name}): a rank ran past "
+                 f"{HOSTS_LIMIT_S} s")
+        wall = time.perf_counter() - t
+        logs = [(BUILD / f"hosts_{name}{i}.log").read_text()[-1500:]
+                for i in range(HOSTS)]
+        if any(rcs):
+            fail(f"--hosts {HOSTS} ({name}): ranks exited {rcs}: {logs}")
+        identical = (masked(outs[0][0]) == masked(serial[0])
+                     and rows(outs[0][1]) == rows(serial[1])
+                     and (serial[2] is None
+                          or rows(outs[0][2]) == rows(serial[2])))
+        wrote = [str(p) for ps in outs[1:] for p in ps if p.exists()]
+        phase("e2e_hosts", run=name, ranks=HOSTS,
+              cards=torch.cuda.device_count(), byte_identical=identical,
+              other_ranks_wrote=wrote or "nothing", wall_s=f"{wall:.4f}",
+              **{f"serial_{b}_walls_s": ",".join(f"{w:.4f}" for w in ws)
+                 for b, ws in one_walls.items()},
+              card=repr(run.card))
+        if not identical:
+            bad.append(f"{name}: rank 0's output differs from serial numpy")
+        if wrote:
+            bad.append(f"{name}: ranks other than 0 wrote {wrote}")
+    phase("e2e_hosts", seconds=f"{time.perf_counter() - t0:.1f}")
+    if bad:
+        fail(f"--hosts {HOSTS}: " + "; ".join(bad))
+
+
 def phase_search(run: Run) -> None:
     walls = search_standard(run)
     fs_walls = search_fs(run)
@@ -2132,6 +2320,8 @@ def phase_search(run: Run) -> None:
     search_long_model(run)
     search_splice(run)
     search_cpu(run, walls, fs_walls)
+    search_mesh(run, walls, fs_walls)
+    search_hosts(run, walls)
 
 
 # ---------------------------------------------------------------------
@@ -2151,9 +2341,11 @@ def mq_drive(run: Run, mode, turns, fixture):
     process, after every earlier phase, under hang_limit: its workers
     keep every stage on the host, and none of the four entries may
     launch, in this process or in a worker (each worker reports its own
-    counts).  Every turn is compared with the first turn's output, query
-    by query: -o with its CPU-time lines masked, --tblout and --fstblout
-    without their '#' lines."""
+    counts).  The ``torch_mesh`` turn runs over the mesh of
+    ``mesh_options``: every packed stage's items on every share.  Every
+    turn is compared with the first turn's output, query by query: -o
+    with its CPU-time lines masked, --tblout and --fstblout without their
+    '#' lines."""
     from bath_tpu_torch import fixtures
     from bath_tpu_torch.cli import bathsearch
     from bath_tpu_torch.ops import multimodel as mm
@@ -2162,6 +2354,7 @@ def mq_drive(run: Run, mode, turns, fixture):
     stats: dict = {}
     host_stats: dict = {}
     cpu_stats: dict = {}
+    mesh_stats: dict = {}
     launches = None
     cpu_launches: dict = {}
     fns = {"fwd_parser_multi": mm.fwd_pack_scores,
@@ -2174,8 +2367,12 @@ def mq_drive(run: Run, mode, turns, fixture):
         paths = [stem.with_suffix(x) for x in (".out", ".tbl", ".fst")]
         counted = turn == "torch" and launches is None
         pooled = turn.endswith("_cpu")
+        meshed = turn == "torch_mesh"
+        mesh_opts, mesh_devs, n_shares = mesh_options() if meshed \
+            else ([], None, 1)
         st = stats if counted else host_stats if turn == "torch_host" \
-            else cpu_stats.setdefault(turn, {}) if pooled else {}
+            else cpu_stats.setdefault(turn, {}) if pooled \
+            else mesh_stats if meshed else {}
         if counted or pooled:
             for f in fns.values():
                 f.launches = 0
@@ -2183,17 +2380,19 @@ def mq_drive(run: Run, mode, turns, fixture):
             os.environ.update(dict.fromkeys(MQ_MIN_CELLS, "inf"))
         argv = ["--backend", turn.split("_")[0], "--device", DEVICE, *mode,
                 *(["--cpu", str(MQ_CPU_WORKERS)] if pooled else []),
-                "-o", str(paths[0]), "--tblout", str(paths[1]),
+                *mesh_opts, "-o", str(paths[0]), "--tblout", str(paths[1]),
                 "--fstblout", str(paths[2]), fixture.hmm_path,
                 fixture.fasta_path]
         if pooled:
             wall, rc = cpu_search(argv, st, stem.name)
         else:
             t = time.perf_counter()
-            rc = bathsearch.run(argv, stats=st)
+            rc = bathsearch.run(argv, stats=st, devices=mesh_devs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         walls[turn].append(wall)
+        if meshed:
+            mesh_shares_ok(f"multi-query {mode} mesh", st, n_shares)
         for k in MQ_MIN_CELLS:
             os.environ.pop(k, None)
         if counted:
@@ -2236,6 +2435,8 @@ def mq_drive(run: Run, mode, turns, fixture):
              for k in ("pool_start_s", "pool_spawn_s", "pool_init_s")},
           pools={t: st.get("pools") for t, st in cpu_stats.items()},
           cpu_launches=cpu_launches,
+          mesh_items=mesh_stats.get("mesh_items"),
+          mesh_across_cards=torch.cuda.device_count() > 1,
           **{k: {t: st.get(k) for t, st in cpu_stats.items()}
              for k in ("worker_cuda", "worker_launches")},
           phase_s={k: round(v, 3) for k, v in stats["mq_phase_s"].items()},

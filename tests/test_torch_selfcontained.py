@@ -355,6 +355,8 @@ FUNCTIONS = [
        'for k in _DEV_MIN_ENV:\n        os.environ[_DEV_MIN_ENV[k]] = "inf"')]),
     ("multiquery", "multiquery", "_mq_pool_task", never, []),
     ("multiquery", "multiquery", "_balance_slices", never, []),
+    ("parallel/hosts", "parallel/hosts", "merge_results", never, []),
+    ("parallel/hosts", "parallel/hosts", "allgather_results", never, []),
     ("cli/bathbuild", "cli/bathbuild", "_build_task", never, []),
     ("cli/bathbuild", "cli/bathbuild", "build_parser", backend_options,
      [("(TPU-native bath_tpu)", "(bath_tpu_torch)")]),
@@ -436,9 +438,7 @@ def test_copied_block_is_the_same_code(first, n, name):
 # flush's downstream to the device (no volume gates: the reference's
 # DEV_MIN, FS_MIN_CELLS and _maybe_down are dropped, and its
 # BATH_CHUNK_ORFS default is a constant) and gives its caller's OpenMP
-# team size back (POOL_SUBS, made in the reference's statements); the
-# guard for the multi-host merge (results is None without --hosts) is
-# dropped.
+# team size back (POOL_SUBS, made in the reference's statements).
 POOL_SUBS = [
     ("_WCTX = dict(", "wctx = dict("),
     ("pool.apply_async(_pool_task, (spec,))", "pool.submit(task, spec)"),
@@ -473,11 +473,6 @@ POOL_BLOCKS = [
 ]
 
 
-def results_guard(stmt):
-    return isinstance(stmt, ast.If) \
-        and ast.unparse(stmt.test) == "results is not None"
-
-
 def volume_gate(stmt):
     """The reference hybrid's volume gates, which the port drops."""
     names = [t.id for t in getattr(stmt, "targets", ())
@@ -499,7 +494,7 @@ def test_copied_pool_statements_are_the_same_code(first, n, fn, port_first,
             definition(read(base, "cli/bathsearch"), where), opening)
             if base != REF or not volume_gate(s)][:n]
         assert len(stmts) == n
-        text = "\n".join(ast.unparse(Normalise(results_guard).visit(s))
+        text = "\n".join(ast.unparse(Normalise(never).visit(s))
                          for s in stmts)
         if base == REF:
             for a, b in POOL_SUBS:
@@ -508,6 +503,79 @@ def test_copied_pool_statements_are_the_same_code(first, n, fn, port_first,
     diff = list(difflib.unified_diff(
         texts[0], texts[1], f"bath_tpu/cli/bathsearch.py:run:{name}",
         f"bath_tpu_torch/cli/bathsearch.py:{fn}:{name}", lineterm="", n=0))
+    assert not diff, "\n".join(diff)
+
+
+# Statements of the reference's run that the port's --hosts keeps: (the
+# opening of the reference's first statement, their number, the port's
+# opening, an id).  HOSTS_SUBS are made in the reference's statements:
+# a rank other than 0 opens one null file an output (the reference's
+# one shared null file is closed by the tail's first table, and the next
+# write fails); the port's hybrid keeps its own results, so the list for
+# the merge exists with --hosts only; the serial host drive's window
+# results are taken in the loop that also feeds the device cascade.  The
+# merge is compared without the reference's hybrid branch (elif hybrid),
+# which the port's _hybrid holds.
+HOSTS_SUBS = [
+    ("devnull = open(os.devnull, 'w')\n"
+     "    ofp = tblfp = fstblfp = extblfp = None\n"
+     "    ofp = devnull\n"
+     "    tblfp = devnull if args.tblout else None\n"
+     "    fstblfp = devnull if args.fstblout else None\n"
+     "    extblfp = devnull if args.exontblout else None",
+     "ofp = open(os.devnull, 'w')\n"
+     "    tblfp = open(os.devnull, 'w') if args.tblout else None\n"
+     "    fstblfp = open(os.devnull, 'w') if args.fstblout else None\n"
+     "    extblfp = open(os.devnull, 'w') if args.exontblout else None"),
+    ("hybrid = args.backend == 'jax' and ncpu > 1 and (nprocs <= 1) and "
+     "(cascade is not None)",
+     "hybrid = ncpu > 1 and nprocs <= 1 and (cascade is not None)"),
+    ("results = [] if nprocs > 1 or hybrid else None",
+     "results = [] if nprocs > 1 else None"),
+    ("if results is not None:\n    results.append((_tid, th_w.unsrt, hws_w))",
+     "if cascade is None and results is not None:\n"
+     "    results.append((tid, th_w.unsrt, hws_w))"),
+]
+HOSTS_BLOCKS = [
+    ("nprocs, proc_id = maybe_init_from_args(args)", 2, None, "rank-outputs"),
+    ("hybrid = args.backend == 'jax' and ncpu > 1", 1, "hybrid = ncpu > 1",
+     "no-hybrid-across-hosts"),
+    ("results = [] if nprocs > 1 or hybrid else None", 2,
+     "results = [] if nprocs > 1 else None", "results-and-counters"),
+    ("def shard(specs):", 1, None, "shard"),
+    ("th_w = th if results is None else TopHits()", 2, None,
+     "host-drive-results"),
+    ("if results is not None:\n    results.append((_tid, th_w", 1,
+     "if cascade is None and results is not None:", "host-drive-append"),
+    ("if results is not None:\n    for e in staged:", 1, None,
+     "cascade-results"),
+    ("if nprocs > 1:\n    combined = allgather_results(results)", 1, None,
+     "merge"),
+]
+
+
+@pytest.mark.parametrize("first,n,port_first,name", HOSTS_BLOCKS,
+                         ids=[b[3] for b in HOSTS_BLOCKS])
+def test_copied_hosts_statements_are_the_same_code(first, n, port_first,
+                                                   name):
+    """Comments and the listed changes aside, the port's --hosts
+    statements are the reference's."""
+    texts = []
+    for base, opening in ((REF, first), (PORT, port_first or first)):
+        stmts = statements(definition(read(base, "cli/bathsearch"), "run"),
+                           opening)[:n]
+        assert len(stmts) == n
+        if name == "merge":
+            stmts = [ast.If(test=stmts[0].test, body=stmts[0].body,
+                            orelse=[])]
+        text = "\n".join(ast.unparse(s) for s in stmts)
+        if base == REF:
+            for a, b in HOSTS_SUBS:
+                text = text.replace(a, b)
+        texts.append(text.splitlines())
+    diff = list(difflib.unified_diff(
+        texts[0], texts[1], f"bath_tpu/cli/bathsearch.py:run:{name}",
+        f"bath_tpu_torch/cli/bathsearch.py:run:{name}", lineterm="", n=0))
     assert not diff, "\n".join(diff)
 
 
@@ -665,6 +733,16 @@ one, two = (mesh.make_pipeline_step(mesh.make_mesh(n, "cpu"), *p)(*batch)
 print("RUN", all(bool((a == b).all()) for a, b in zip(one, two)),
       one[3].tolist()[0])
 ''', "RUN True 480"),
+    "hosts-and-mesh": ('''
+from bath_tpu_torch.cli import bathsearch
+from bath_tpu_torch.parallel import hosts
+stats = {}
+rc = bathsearch.run(["--device", "cpu", "--mesh", "2", "-o", sys.argv[1] +
+                     "/out", fx.hmm_path, fx.fasta_path], stats=stats)
+print("RUN", rc, hosts.process_count(), hosts.allgather_bytes(b"x"),
+      hosts.merge_results([[(1, "b")], [(0, "a")]]),
+      sum(stats["mesh_items"]["fwd"]) == stats["fwd_items"] > 0)
+''', "RUN 0 1 [b'x'] [(0, 'a'), (1, 'b')] True"),
     "chip_smoke-body": ('''
 import chip_smoke
 print("RUN", callable(chip_smoke.main))

@@ -223,8 +223,6 @@ def test_torch_backend_refuses_cpu_without_flag(fx, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    pytest.param(["--mesh", "2"], 5, id="extra3-5"),
-    pytest.param(["--hosts", "2"], 5, id="hosts-5"),
     pytest.param(["--backend", "jax"], None, id="backend-jax")])
 def test_unported_modes_name_their_roadmap_item(fx, monkeypatch, extra,
                                                 item):
