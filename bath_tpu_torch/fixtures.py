@@ -344,24 +344,29 @@ def emit_alignment(hmm, nseq: int, r) -> list[str]:
 
 
 def write_msa_fixture(Ms, nseq: int, seed: int,
-                      directory: Path | None = None):
+                      directory: Path | None = None, keep=None):
     """(path, names): one multi-alignment Stockholm file with, for each
     of the seeded models of ``write_multi_fixture`` (lengths <Ms>), an
     alignment of <nseq> sequences emitted from it, named ``msa<i>-M<M>``;
-    what ``bathbuild`` takes.  Written on first use."""
+    what ``bathbuild`` takes.  With <keep> (indexes into <Ms>) only
+    those models get an alignment, each still the model of its index.
+    Written on first use."""
     from .rng import Randomness
     d = Path(directory or FIXTURE_DIR)
     d.mkdir(parents=True, exist_ok=True)
-    tag = hashlib.sha256(repr(list(Ms)).encode()).hexdigest()[:10]
-    path = d / f"msa-{len(Ms)}x{tag}-N{nseq}-s{seed}.sto"
-    names = [f"msa{i}-M{M}" for i, M in enumerate(Ms)]
+    kept = range(len(Ms)) if keep is None else sorted(set(keep))
+    key = list(Ms) if keep is None else (list(Ms), list(kept))
+    tag = hashlib.sha256(repr(key).encode()).hexdigest()[:10]
+    path = d / f"msa-{len(kept)}x{tag}-N{nseq}-s{seed}.sto"
+    names = [f"msa{i}-M{Ms[i]}" for i in kept]
     if path.exists():
         return str(path), names
     rng = np.random.default_rng(seed)
     r = Randomness(seed)
     blocks = []
-    for name, M in zip(names, Ms):
-        hmm, _ = make_query(M, rng, calibrate=False)
+    models = [make_query(M, rng, calibrate=False)[0] for M in Ms]
+    for name, i in zip(names, kept):
+        hmm = models[i]
         rows = emit_alignment(hmm, nseq, r)
         blocks.append("# STOCKHOLM 1.0\n#=GF ID " + name + "\n" + "".join(
             f"{name}-s{j:<4d} {row}\n" for j, row in enumerate(rows))

@@ -7,7 +7,10 @@ The native library is optional: every entry point has a pure-Python
 fallback (see gencode.extract_orfs), and the loader builds the .so on
 demand with g++ when it is missing, from this package's own copy of
 the source into ``build/bath_tpu_torch/`` at the repository root,
-under a file name no other package uses.
+under a file name no other package uses.  ``BATH_TORCH_NATIVE_SO``
+names another library to load as it is (the sanitizer tier's ASAN+UBSAN
+build, ``bath_tpu_torch/sanitize.py``); one that does not load then
+raises.
 """
 
 from __future__ import annotations
@@ -27,6 +30,13 @@ _SRC = os.path.join(_HERE, "src", "bathio.cpp")
 
 
 def _so_path() -> str:
+    # BATH_TORCH_NATIVE_SO: explicit library override, which the
+    # sanitizer tier (bath_tpu_torch/sanitize.py native) points at an
+    # ASAN+UBSAN build of the same source; a name of the port's own, so
+    # that the reference's BATH_NATIVE_SO never reaches this package
+    env = os.environ.get(OVERRIDE)
+    if env:
+        return env
     # the file name carries a hash of the source and of this CPU's
     # feature flags (the build is -march=native), so an edited source
     # or another machine sharing the directory builds anew
@@ -45,6 +55,7 @@ def _so_path() -> str:
                         f"libbathio_torch_{h.hexdigest()[:16]}.so")
 
 
+OVERRIDE = "BATH_TORCH_NATIVE_SO"
 _SO = _so_path()
 
 I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -74,15 +85,26 @@ def _build() -> bool:
 
 
 def get_lib():
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _SO
     if _LIB is not None or _TRIED:
         return _LIB
-    _TRIED = True
-    if not os.path.exists(_SO) and not _build():
-        return None
+    if os.environ.get(OVERRIDE):
+        # explicit override (sanitizer tier): load as-is, never
+        # rebuild it, and raise at every call where it does not load: a
+        # sanitizer run that fell through to the Python path would
+        # prove nothing
+        _SO = os.environ[OVERRIDE]
+        if not os.path.exists(_SO):
+            raise OSError(f"{OVERRIDE}={_SO}: no such library")
+    else:
+        _TRIED = True
+        if not os.path.exists(_SO) and not _build():
+            return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:
+        if os.environ.get(OVERRIDE):
+            raise
         return None
     lib.bio_digitize.restype = ctypes.c_int
     lib.bio_digitize.argtypes = [ctypes.c_char_p, ctypes.c_int64, I8P,

@@ -38,6 +38,10 @@
 //   segments (dp_common.cuh): the Forward as the gate's, the Backward in
 //   two walks a row (backward_pass_seg), in an instance of its own
 //   (blocks of 512 threads; beside a class of more warps, 1024).
+// - The wide and segmented instances are compiled in a translation unit
+//   of their own, domdec_wide.cu, which includes this file with
+//   BT_DOMDEC_WIDE defined, so that they compile beside the other (one
+//   nvcc a source).
 
 #include "dp_common.cuh"
 #include "plan.cuh"
@@ -436,23 +440,22 @@ __device__ __forceinline__ void domdec_block(
       double *__restrict__ logz2, const long long *__restrict__ plan,      \
       int ncls, int nblk
 
+#define DOMDEC_CALL                                                        \
+  (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,             \
+      (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk
+
+namespace bt {
+// Launches domdec_wide_kernel or (seg) domdec_seg_kernel
+// (domdec_wide.cu).
+int domdec_wide_launch(bool seg, const void* dsq, const void* lens, int L,
+                       float nj, void* fspec, void* bspec, void* logz2,
+                       const void* plan, int ncls, int nblk, int warps,
+                       size_t smem, void* stream);
+}  // namespace bt
+
+#ifndef BT_DOMDEC_WIDE
 __global__ void domdec_kernel(DOMDEC_ARGS) {
   domdec_block(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls, nblk);
-}
-
-// A block of more warps than domdec_kernel's registers let launch (a
-// class of more than eight warps an ORF, past M = 8448; up to 32): the
-// same code at most 64 registers a thread.
-__global__ void __launch_bounds__(1024) domdec_wide_kernel(DOMDEC_ARGS) {
-  domdec_block(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls, nblk);
-}
-
-// A launch with a segmented class (a model past 32 warps of 33 lanes):
-// blocks of its group's 16 warps (the plan segments any class of more
-// warps beside it).
-__global__ void __launch_bounds__(512) domdec_seg_kernel(DOMDEC_ARGS) {
-  domdec_block<true>(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls,
-                     nblk);
 }
 #undef DOMDEC_ARGS
 
@@ -486,14 +489,14 @@ extern "C" int bt_domdec(const void* dsq, const void* lens, int L, float nj,
             ? a.maxThreadsPerBlock
             : -1;
   }
-  const auto kernel = seg               ? domdec_seg_kernel
-                      : 32 * warps <= m ? domdec_kernel
-                                        : domdec_wide_kernel;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (seg || 32 * warps > m)
+    return bt::domdec_wide_launch(seg, dsq, lens, L, nj, fspec, bspec, logz2,
+                                  plan, ncls, nblk, warps, smem, stream);
+  cudaFuncSetAttribute(domdec_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,
-      (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk);
+  domdec_kernel<<<nblk, 32 * warps, smem,
+                  reinterpret_cast<cudaStream_t>(stream)>>>(DOMDEC_CALL);
   return (int)cudaGetLastError();
 }
 
@@ -502,3 +505,33 @@ extern "C" int bt_domdec(const void* dsq, const void* lens, int L, float nj,
 extern "C" long long bt_domdec_seg_bytes(int Mp, int n) {
   return seg_scratch_bytes(bt::dp_seg_slot_bytes(Mp), n);
 }
+#else
+// A block of more warps than domdec_kernel's registers let launch (a
+// class of more than eight warps an ORF, past M = 8448; up to 32): the
+// same code at most 64 registers a thread.
+__global__ void __launch_bounds__(1024) domdec_wide_kernel(DOMDEC_ARGS) {
+  domdec_block(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls, nblk);
+}
+
+// A launch with a segmented class (a model past 32 warps of 33 lanes):
+// blocks of its group's 16 warps (the plan segments any class of more
+// warps beside it).
+__global__ void __launch_bounds__(512) domdec_seg_kernel(DOMDEC_ARGS) {
+  domdec_block<true>(dsq, lens, L, nj, fspec, bspec, logz2, plan, ncls,
+                     nblk);
+}
+#undef DOMDEC_ARGS
+
+int bt::domdec_wide_launch(bool seg, const void* dsq, const void* lens,
+                           int L, float nj, void* fspec, void* bspec,
+                           void* logz2, const void* plan, int ncls, int nblk,
+                           int warps, size_t smem, void* stream) {
+  const auto kernel = seg ? domdec_seg_kernel : domdec_wide_kernel;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      DOMDEC_CALL);
+  return (int)cudaGetLastError();
+}
+#endif
+#undef DOMDEC_CALL

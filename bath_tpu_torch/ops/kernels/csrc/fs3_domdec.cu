@@ -37,6 +37,11 @@
 // takes a group of 16 warps that walks each row in segments
 // (fs3_common.cuh fs3_forward_pass_seg, fs3_backward_pass_seg), in an
 // instance of its own (MODE 4).
+//
+// The instances of MODE 2-4 are compiled in a translation unit of their
+// own, fs3_domdec_wide.cu, which includes this file with
+// BT_FS3_DOMDEC_WIDE defined, so that the two halves compile at once
+// (one nvcc a source).
 
 #include "fs3_common.cuh"
 
@@ -481,6 +486,19 @@ __global__ void __launch_bounds__(fs3_threads(MODE))
                          nblk);
 }
 
+#define FS3_DOMDEC_ARGS                                                     \
+  (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,              \
+      (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk
+
+namespace bt {
+// Launches the instances of MODE 2-4 (fs3_domdec_wide.cu).
+int fs3_domdec_wide_launch(int mode, const void* dsq, const void* lens,
+                           int L, float nj, void* fspec, void* bspec,
+                           void* logz2, const void* plan, int ncls, int nblk,
+                           int warps, size_t smem, void* stream);
+}  // namespace bt
+
+#ifndef BT_FS3_DOMDEC_WIDE
 // dsq [B, L] int8 nucleotides (pad 17); lens [B] int32; fspec and bspec
 // [B, 6, L+1] f64, zero-filled by the caller (rows past a window stay
 // 0): per row xB, xN, xJ, xC, xE after the row's rescale and the log
@@ -498,16 +516,15 @@ extern "C" int bt_fs3_domdec(const void* dsq, const void* lens, int L,
   const int err = fs3_check(plan_host, ncls, warps, smem);
   if (err) return err;
   const int mode = fs3_mode(plan_host, ncls, warps);
-  auto kernel = mode == 0   ? fs3_domdec_kernel<0>
-                : mode == 1 ? fs3_domdec_kernel<1>
-                : mode == 2 ? fs3_domdec_wide_kernel<2>
-                : mode == 3 ? fs3_domdec_wide_kernel<3>
-                            : fs3_domdec_wide_kernel<4>;
+  if (mode >= 2)
+    return bt::fs3_domdec_wide_launch(mode, dsq, lens, L, nj, fspec, bspec,
+                                      logz2, plan, ncls, nblk, warps, smem,
+                                      stream);
+  auto kernel = mode == 0 ? fs3_domdec_kernel<0> : fs3_domdec_kernel<1>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int8_t*)dsq, (const int*)lens, L, nj, (double*)fspec,
-      (double*)bspec, (double*)logz2, (const long long*)plan, ncls, nblk);
+      FS3_DOMDEC_ARGS);
   return (int)cudaGetLastError();
 }
 
@@ -516,3 +533,20 @@ extern "C" int bt_fs3_domdec(const void* dsq, const void* lens, int L,
 extern "C" long long bt_fs3_domdec_seg_bytes(int Mp, int n) {
   return seg_scratch_bytes(bt::fs3_seg_slot_bytes(2, Mp), n);
 }
+#else
+int bt::fs3_domdec_wide_launch(int mode, const void* dsq, const void* lens,
+                               int L, float nj, void* fspec, void* bspec,
+                               void* logz2, const void* plan, int ncls,
+                               int nblk, int warps, size_t smem,
+                               void* stream) {
+  auto kernel = mode == 2   ? fs3_domdec_wide_kernel<2>
+                : mode == 3 ? fs3_domdec_wide_kernel<3>
+                            : fs3_domdec_wide_kernel<4>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<nblk, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      FS3_DOMDEC_ARGS);
+  return (int)cudaGetLastError();
+}
+#endif
+#undef FS3_DOMDEC_ARGS

@@ -37,8 +37,11 @@ from ..ssv import SSVB_NCAP
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "bath_tpu_torch"
+# -lineinfo: line tables only (the code is the same), so that the
+# sanitizer tier's reports (bath_tpu_torch/sanitize.py) name a source
+# line; the production library and the sanitized run's are one build
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC")
 
 # Lanes per thread the kernels are instantiated for (odd: conflict-free
 # strided shared-memory reads).  A model of M positions takes the

@@ -25,7 +25,9 @@ and one that reached for the card would raise.  A worker's exception
 is raised again by the caller, and a worker that dies breaks the pool
 (``BrokenProcessPool``); nothing is retried.  Asked to (``stats``),
 every worker says before its pool closes whether it made a CUDA
-context and how many kernels it launched, counted in the worker.
+context, how many kernels it launched, counted in the worker, and which
+native host library it mapped (the sanitizer tier checks that the
+workers run the library their caller named).
 
 The server, and the resource tracker that ``multiprocessing`` starts
 with it, outlive the pools, so that a process's later pools start
@@ -101,28 +103,39 @@ def launches() -> int:
     return sum(f.launches for f in fns.values())
 
 
+def mapped_native() -> list:
+    """The native host libraries mapped into this process."""
+    with open("/proc/self/maps") as f:
+        return sorted({ln.split()[-1] for ln in f
+                       if "libbathio" in ln.split()[-1]})
+
+
 def _report():
     # a short wait, so that each idle worker takes one of the probes
     time.sleep(0.01)
     import torch
-    return os.getpid(), torch.cuda.is_initialized(), launches()
+    return (os.getpid(), torch.cuda.is_initialized(), launches(),
+            mapped_native())
 
 
 def report(pool, stats) -> None:
-    """Asks every worker of <pool> whether it made a CUDA context and
-    how many kernels it launched; <stats> gets the workers that made
-    one (``worker_cuda``) and their launches (``worker_launches``),
-    summed over pools."""
+    """Asks every worker of <pool> whether it made a CUDA context, how
+    many kernels it launched and which native libraries it mapped;
+    <stats> gets the workers that made one (``worker_cuda``), their
+    launches (``worker_launches``), summed over pools, and the libraries
+    (``worker_native``, every path once)."""
     pids = set(pool._processes)
     seen: dict = {}
     while not pids <= seen.keys():
         for f in [pool.submit(_report) for _ in pids]:
-            pid, cuda, n = f.result()
-            seen[pid] = (cuda, n)
+            pid, cuda, n, libs = f.result()
+            seen[pid] = (cuda, n, libs)
     stats["worker_cuda"] = stats.get("worker_cuda", 0) \
-        + sum(c for c, _ in seen.values())
+        + sum(c for c, _, _ in seen.values())
     stats["worker_launches"] = stats.get("worker_launches", 0) \
-        + sum(n for _, n in seen.values())
+        + sum(n for _, n, _ in seen.values())
+    stats["worker_native"] = sorted(set(stats.get("worker_native", []))
+                                    .union(*(v[2] for v in seen.values())))
 
 
 @contextlib.contextmanager

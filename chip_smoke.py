@@ -4,7 +4,7 @@
 
 Builds the CUDA kernels of ``bath_tpu_torch/ops/kernels/csrc/`` and runs
 its phases in this order (``--phases`` picks some; the default is every
-phase but ``deep``; ``all`` adds ``deep``):
+phase but ``deep`` and ``sanitize_full``; ``all`` adds both):
 
 - ``parity``: every single- and multi-model kernel entry of the search
   and calibration paths against its plain PyTorch version on the card
@@ -15,12 +15,20 @@ phase but ``deep``; ``all`` adds ``deep``):
   limit of a block's shared memory (the ViterbiFilter and its capture
   at M = 3000, the fs3 gate and fs3 decoding at M = 4000, MSV and the
   Forward gate at M = 4200) against its plain version on a few items;
-  then every family at M = 40000 and just past a block's warps, where
-  the segments begin (the ViterbiFilter at 9000, the fs3 pair at 14000,
-  the gate, decoding and MSV at 34000; the SSV capture at 23000, on 22
-  warps of 33 lanes), each row walked in segments, and the gate, the
-  ViterbiFilter and MSV in one launch of an M = 400 and an M = 40000
-  model;
+  then every family just past a block's warps, where the segments
+  begin (the ViterbiFilter at 9000, the fs3 pair at 14000, the gate,
+  decoding and MSV at 34000; the SSV capture at 23000, on 22 warps of
+  33 lanes, and at 40000), each row walked in segments, and the gate,
+  the ViterbiFilter and MSV in one launch of an M = 400 and an
+  M = 40000 model;
+- ``sanitize``: memcheck of NVIDIA's compute-sanitizer over the cases
+  of ``bath_tpu_torch/sanitize.py`` (every kernel entry at tiny shapes,
+  each plan family, a segmented class of each segmented entry, the step
+  over two shares; each output held against its plain version) in a
+  child process whose filter instruments the port's kernels only, once
+  the tool has reported its canary (a write past a buffer); where the
+  machine has no tool or it cannot attach to the card, the line says
+  ``available=False`` with the tool's own error and nothing is checked;
 - ``timing``: the same entries at the main paths' shapes, beside their
   plain versions, the host library's batches and one single-model
   launch per model, each output held again; every entry's ``ms`` is the
@@ -31,9 +39,14 @@ phase but ``deep``; ``all`` adds ``deep``):
   entries against its plain version at the script's shapes, then the
   drive (chain, one-hot by index and on the tensor cores, overlap,
   scalars at [136, 1024] and [136, 4096]);
-- ``mesh``: the data-parallel gate step (``parallel/mesh.py``) over
-  every card of the machine on one flush's shape, bit for bit the three
-  single-model entries launched on the whole batch;
+- ``mesh``: the self-check's dry run (``bath_tpu_torch/selfcheck.py``
+  ``dryrun_multichip``): the data-parallel gate step
+  (``parallel/mesh.py``) over every card of the machine (two shares of
+  one card on a machine of one) on one flush's shape, bit for bit the
+  step on one card and the three single-model entries launched on the
+  whole batch, then the production cascade over the same devices,
+  standard, ``--fs``, ``--splice`` and a multi-HMM file, byte-identical
+  to one device and to numpy;
 - ``search``: a seeded 5 Mb genome against a seeded M = 400 profile
   through the port's CLI, standard, then ``--fs`` and ``--fsonly`` on
   its frameshift twin (16 of its 40 embeds carry a 1-nt indel), then
@@ -48,27 +61,32 @@ phase but ``deep``; ``all`` adds ``deep``):
   it), standard, ``--fs`` and all-device, and ``--hosts 2``: two rank
   processes of the CLI on the standard search; each held to the serial
   numpy run;
-- ``multiquery``: a 48-model query file against a 5 Mb genome that
+- ``multiquery``: a 48-model query file against a 2 Mb genome that
   holds copies of 12 of the models, standard and ``--fs``, serial and
   with ``--cpu 8`` (the query-sharded pool, every stage on the host),
   and the standard drive over the mesh;
-- ``build``: ``bathbuild`` of a 48-alignment Stockholm file and
+- ``build``: ``bathbuild`` of a 14-alignment Stockholm file (12 of the
+  multi-query models and the narrowest and widest, M = 60..1200) and
   ``bathconvert`` of the built models stripped of their frameshift
   calibration, ``--backend torch`` (one device-batched calibration)
   against ``--backend numpy`` (the serial host calibration), then
   ``bathstat``, ``bathfetch`` and a ``bathsearch --fs`` with each file;
 - ``deep`` (not in the default run, for its time): the parity shapes
   the default run cuts: an ORF of 16 500 residues through the integer
-  filters, fs3 windows of 4500 nt, the fs3 gate timed at M = 781, 1000
+  filters, the gate, decoding, MSV, the ViterbiFilter and the fs3 pair
+  at M = 40000 (5-9 segments a row), fs3 windows of 4500 nt, the fs3 gate timed at M = 781, 1000
   and 2048, and the plain fs3 pair at the multi-query drive's shapes
-  on 12 and 4 models.
+  on 12 and 4 models;
+- ``sanitize_full`` (not in the default run): racecheck, synccheck and
+  initcheck over the sanitize phase's cases, each after its canary,
+  then the cases with no tool (their parity alone).
 
 The searches check that the output is byte-identical to the host path
 (the port's own ``--backend numpy``), that the embedded homologs and the
 frameshifts are found, and that each search went through its kernels;
 the built files may differ from the host's only in their DATE lines
 and in the taus the f32 gates simulate.  ``bathbuild --backend numpy``,
-the longest single step (two to three minutes), runs in a child process
+its serial host calibration of 14 models, runs in a child process
 beside the parity phase and has ended before anything is timed, so its
 own wall, printed with ``wall_numpy_concurrent=True``, carries that
 phase's load and no other number in the output carries its.
@@ -98,6 +116,7 @@ import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -110,6 +129,11 @@ sys.path.insert(0, str(ROOT))
 from bath_tpu_torch.ubench import (  # noqa: E402
     F32_OPS_PER_S, HBM_BYTES_PER_S, card_line, cuda_ms)
 from bath_tpu_torch.parallel.pool import stop_servers  # noqa: E402
+# the bands of a kernel against its plain version (the gates' nats,
+# decoding's posteriors, the microbenchmarks') and the capture
+# thresholds, which the sanitizer tier's cases use too
+from bath_tpu_torch.bands import (  # noqa: E402
+    DOMDEC_TOL, FWD_TOL, P1_THR, SSV_THR, UB_TOL, VIT_THR)
 
 DEVICE = "cuda"
 DEV = torch.device(DEVICE)
@@ -123,8 +147,6 @@ PARITY_DOMDEC = (32, 2048)
 WIDE = (1500, 8, 1600)      # (M, B, L): several warps per ORF
 TIME_FWD_B, TIME_DOMDEC_B = 4096, 128
 TIME_FWD_M = (400, 1000)
-FWD_TOL = 1e-3              # nats, kernel vs plain version
-DOMDEC_TOL = 1e-4           # posterior units
 MIN_OK_SHARE = 0.95
 # --fs: parity batches (B, longest L in nt) at M_SEARCH and FS3_WIDE_M
 PARITY_FS3 = (32, 2500)
@@ -155,12 +177,17 @@ LONG_FS3_ITEMS = (4, 900)
 # M = SEG_M model
 SEG_M = 40_000
 SEG_PAST = {"vit": 9000, "fs3": 14_000, "ssv": 23_000, "dd": 34_000}
+# the families at SEG_M in the default run: the SSV capture, which is
+# one segment at SEG_PAST (its 22 warps of 33 lanes); ``deep`` runs the
+# others at SEG_M too (5-9 segments a row; 38 s of the default run)
+SEG_M_FAMILIES = ("ssv",)
+DEEP_SEG_M_FAMILIES = ("dd", "vit", "fs3")
 SEG_CAP_THR = (150, 1000)   # SSV capture bytes, ViterbiFilter words
 # the all-device search with a long model: an M = SEG_SEARCH_M profile
 # against a seeded genome with two copies, at the LOOSE thresholds
 # (so that the ViterbiFilter's capture has input)
 SEG_SEARCH_M = 9000
-SEG_SEARCH = (400_000, 2)   # (genome nt, copies)
+SEG_SEARCH = (300_000, 2)   # (genome nt, copies)
 SPLICE_GENES = 16           # spaced 312 kb apart, past --max_intron
 # bath_tpu --backend numpy --splice's own count of whole genes on this
 # fixture on the CPU: 14 of 16 (the last two genes, 2 kb apart, come
@@ -179,7 +206,6 @@ CPU_WORKERS, MQ_CPU_WORKERS = 4, 8
 HYBRID_MAXQ = {"BATH_HYBRID_MAXQ": str(CPU_WORKERS)}
 CPU_RUN_LIMIT_S = 300
 INT_WIDE_M = 1500
-SSV_THR, VIT_THR, P1_THR = 180, 16_000, -(1 << 30)
 TIME_INT_B = 4096           # ORFs of the Viterbi set and the captures
 F1, F2 = 0.02, 1e-3         # bathsearch's default filter thresholds
 # the all-device cascade also runs with looser F1/F2, so that ORFs take
@@ -192,6 +218,10 @@ ALL_DEVICE = {"BATH_MSV_DEVICE": "1", "BATH_VIT_DEVICE": "1"}
 MQ_MS = [60 + (1140 * i) // 47 for i in range(48)]
 MQ_EMBEDDED = list(range(1, 48, 4))
 MQ_COPIES = 2
+# its genome: 2 Mb (a small bacterial genome) holds the 24 copies as a
+# 5 Mb one does, and takes the drives' 48-model passes 2.5 times fewer
+# residues (the single-query searches keep GENOME_NT)
+MQ_GENOME_NT = 2_000_000
 # multi-model parity batches with homologs, (items per model, longest
 # item), every model's items carrying copies of its own protein: all
 # items against the single-model entries, and the items of
@@ -210,19 +240,20 @@ PARITY_MQ_PLAIN_FS3DD = (0, 47)
 # F3 candidates, F3 survivors and fs3 windows over all 48 models, fs3
 # survivors over the 12 embedded ones.  Each entry's output is also
 # held against its plain version's: the Forward gate on every item,
-# decoding on the items of every fourth model; the fs3 pair, whose plain
+# decoding on the items of every eighth model; the fs3 pair, whose plain
 # versions take 7 and 21 s a model over windows of thousands of rows, on
-# the items of two models (M = 132 and 1200) and of two of the 12
-# (M = 84 and 763: one and two warps a window; the parity phase holds
-# both against them at up to three warps a window, ``deep`` on 12 and 4
-# models of the drive's).  The --mesh and --hosts drives of ``search``
-# and ``multiquery`` took the place of the plain versions of every
-# second decoded model.
+# the items of one model (M = 132) and of one of the 12 (M = 84: one
+# warp a window; the parity phase holds both against them at up to three
+# warps a window, ``deep`` on 12 and 4 models of the drive's).  The
+# --mesh and --hosts drives of ``search`` and ``multiquery`` took the
+# place of the plain versions of every second decoded model, and the
+# run's time limit that of every fourth and of the fs3 pair's second
+# models (M = 1200 and 763).
 TIME_MQ_FWD_B, TIME_MQ_DOMDEC_B = 1600, 128
 TIME_MQ_FS3_B, TIME_MQ_FS3DD_B = 512, 24
-TIME_MQ_PLAIN_DOMDEC = tuple(range(0, 48, 4))
-TIME_MQ_PLAIN_FS3 = (3, 47)
-TIME_MQ_PLAIN_FS3DD = (1, 29)
+TIME_MQ_PLAIN_DOMDEC = tuple(range(0, 48, 8))
+TIME_MQ_PLAIN_FS3 = (3,)
+TIME_MQ_PLAIN_FS3DD = (1,)
 # "torch_host": the multi-query drive with every stage's engagement
 # threshold out of reach, so the host runs the f32 stages on the same
 # items (what the card's stages are weighed against).  The standard
@@ -248,6 +279,11 @@ MQ_MIN_CELLS = ("BATH_MQ_FWD_MIN_CELLS", "BATH_MQ_DD_MIN_CELLS",
 # taus).  A tau of an f32 gate may sit TAU_WARN from the host parser's
 # before the run says so, and TAU_TOL before it fails.
 MSA_NSEQ = 20
+# the models that get an alignment: the narrowest, the 12 embedded ones
+# (whose copies the built files' search finds) and the widest, M = 60..1200
+# (bathbuild's host calibration takes ~2.5 s a model); the one fetched
+BUILD_MQ = (0, *MQ_EMBEDDED, 47)
+FETCHED = 29
 TAU_WARN, TAU_TOL = 0.02, 0.05
 F32_GATE_LINES = ("STATS LOCAL FORWARD", "STATS LOCAL FS3 FORWARD")
 
@@ -327,7 +363,8 @@ def host_tool(name: str, argv) -> tuple:
     """Starts ``--backend numpy`` of one of the port's CLIs in a child
     process (no CUDA there), its output into a file under build/;
     ``host_result`` waits for it.  For bathbuild, whose serial host
-    calibration of 48 models would add its minutes to the run."""
+    calibration of BUILD_MQ models would add its half minute to the
+    run."""
     log = BUILD / f"{name}_numpy.stdout"
     with open(log, "w") as f:
         proc = subprocess.Popen(
@@ -492,14 +529,14 @@ class Run:
         host's)."""
         from bath_tpu_torch import fixtures
         return self.once(("mq_fx", fs), lambda: fixtures.write_multi_fixture(
-            MQ_MS, GENOME_NT, MQ_EMBEDDED, MQ_COPIES, SEED, fs=fs,
+            MQ_MS, MQ_GENOME_NT, MQ_EMBEDDED, MQ_COPIES, SEED, fs=fs,
             device=DEVICE))
 
     def msa(self):
-        """(Stockholm file, alignment names) of the 48 models."""
+        """(Stockholm file, alignment names) of the BUILD_MQ models."""
         from bath_tpu_torch import fixtures
         return self.once("msa", lambda: fixtures.write_msa_fixture(
-            MQ_MS, MSA_NSEQ, SEED))
+            MQ_MS, MSA_NSEQ, SEED, keep=BUILD_MQ))
 
     def join_host_build(self) -> None:
         """Waits for the bathbuild --backend numpy child, if one runs."""
@@ -1033,13 +1070,11 @@ def seg_mixed(run: Run, rng) -> dict:
                 single_model_entry="bit for bit")
 
 
-def parity_segmented(run: Run) -> None:
-    """Every family at SEG_M and just past a block's warps (SEG_PAST),
-    then the one-launch mix; each case's seconds printed."""
+def parity_segmented(run: Run, cases, mixed=True) -> None:
+    """The (family, M) <cases>, then (with <mixed>) the one-launch mix;
+    each case's seconds printed."""
     from bath_tpu_torch.ops.kernels import loader
     rng = np.random.default_rng(SEED + 17)
-    cases = [(f, SEG_M) for f in ("dd", "vit", "ssv", "fs3")] + \
-        sorted((f, M) for f, M in SEG_PAST.items())
     for fam, M in cases:
         t = time.perf_counter()
         info = seg_family(run, fam, M, rng)
@@ -1049,6 +1084,8 @@ def parity_segmented(run: Run) -> None:
         phase("parity", case="segmented", family=fam, M=M,
               segments=loader.segments(*lay), B=LONG_ITEMS[0], **info,
               seconds=f"{time.perf_counter() - t:.1f}")
+    if not mixed:
+        return
     t = time.perf_counter()
     info = seg_mixed(run, rng)
     phase("parity", case="one launch of M = 400 and 40000",
@@ -1064,7 +1101,8 @@ def phase_parity(run: Run) -> None:
     parity_msv_native(run)
     parity_multi(run)
     parity_long(run)
-    parity_segmented(run)
+    parity_segmented(run, [(f, SEG_M) for f in SEG_M_FAMILIES]
+                     + sorted(SEG_PAST.items()))
 
 
 # ---------------------------------------------------------------------
@@ -2422,7 +2460,7 @@ def mq_drive(run: Run, mode, turns, fixture):
     for stage, items, cells, secs in stats["mq_stages"]:
         phase(tag, flush_stage=stage, items=items, cells=cells,
               host_wall_s=f"{secs:.4f}")
-    phase(tag, genome_nt=GENOME_NT, models=len(MQ_MS),
+    phase(tag, genome_nt=MQ_GENOME_NT, models=len(MQ_MS),
           M=f"{min(MQ_MS)}..{max(MQ_MS)}",
           embedded_models=len(MQ_EMBEDDED), copies=MQ_COPIES,
           found=f"{sum(found.values())}/{MQ_COPIES * len(MQ_EMBEDDED)}",
@@ -2554,13 +2592,13 @@ def built_paths() -> dict:
 
 def start_host_build(run: Run) -> None:
     """bathbuild --backend numpy, the serial host calibration, of the
-    48-alignment fixture, in a child process beside the parity phase
+    BUILD_MQ-alignment fixture, in a child process beside the parity phase
     (it needs no card, the host has cores to spare, and nothing timed
     runs before it has ended)."""
     sto, _ = run.msa()
     run.host_build = host_tool("bathbuild", [built_paths()["numpy"], sto])
     phase("bathbuild", backend="numpy", started="in a child process",
-          alignments=len(MQ_MS), nseq=MSA_NSEQ)
+          alignments=len(BUILD_MQ), nseq=MSA_NSEQ)
 
 
 def tool(main, argv, **kw):
@@ -2620,7 +2658,7 @@ def hit_set(tbl) -> set:
 
 
 def phase_build(run: Run) -> None:
-    """--backend torch (host builds, then all 48 models calibrated in
+    """--backend torch (host builds, then all BUILD_MQ models calibrated in
     one device-batched pass), in this process, against --backend numpy
     (the serial host calibration): bathbuild's ran in the child process
     started before the parity phase, bathconvert's runs here, just
@@ -2647,8 +2685,10 @@ def phase_build(run: Run) -> None:
     build_launches = {k: f.launches for k, f in cal_fns.items()}
     build_err, build_ndiff = model_diff(built["torch"], built["numpy"],
                                         F32_GATE_LINES, "bathbuild")
-    phase("bathbuild", alignments=len(MQ_MS), nseq=MSA_NSEQ,
-          M=f"{min(MQ_MS)}..{max(MQ_MS)}", fs=True,
+    built_ms = [MQ_MS[i] for i in BUILD_MQ]
+    fetched_name = msa_names[BUILD_MQ.index(FETCHED)]
+    phase("bathbuild", alignments=len(BUILD_MQ), nseq=MSA_NSEQ,
+          M=f"{min(built_ms)}..{max(built_ms)}", fs=True,
           calibration="200x200 aa (MSV, Viterbi), 200x100 aa (Forward), "
           "200x300 nt (fs3, fs5)",
           wall_numpy_s=f"{build_wall_numpy:.3f}",
@@ -2664,7 +2704,7 @@ def phase_build(run: Run) -> None:
           launches=build_launches, card=repr(run.card))
     if build_table != build_table_numpy:
         fail("bathbuild's tables differ between the backends")
-    if stats_lines(built["torch"], "FS5") != len(MQ_MS) \
+    if stats_lines(built["torch"], "FS5") != len(BUILD_MQ) \
             or build_stats.get("cal_fs_serial"):
         fail(f"bathbuild: {stats_lines(built['torch'], 'FS5')} models with "
              f"frameshift taus, {build_stats.get('cal_fs_serial')} through "
@@ -2689,7 +2729,7 @@ def phase_build(run: Run) -> None:
     conv_launches = {"fs3_parser_multi": mm.fs3_pack_scores.launches}
     conv_err, conv_ndiff = model_diff(conv["torch"], conv["numpy"],
                                       F32_GATE_LINES[1:], "bathconvert")
-    phase("bathconvert", models=len(MQ_MS),
+    phase("bathconvert", models=len(BUILD_MQ),
           wall_numpy_s=f"{conv_wall_numpy:.3f}",
           wall_numpy_concurrent=False, wall_torch_s=f"{conv_wall:.3f}",
           **{k: (round(v, 4) if isinstance(v, float) else v)
@@ -2699,7 +2739,7 @@ def phase_build(run: Run) -> None:
           launches=conv_launches, card=repr(run.card))
     if conv_table != conv_table_numpy:
         fail("bathconvert's tables differ between the backends")
-    if stats_lines(conv["torch"], "FS3") != len(MQ_MS):
+    if stats_lines(conv["torch"], "FS3") != len(BUILD_MQ):
         fail("bathconvert left models without frameshift taus")
     if conv_launches["fs3_parser_multi"] <= 0:
         fail("bathconvert never launched the fs3 gate")
@@ -2714,7 +2754,7 @@ def phase_build(run: Run) -> None:
     for b in built:
         tool(bathfetch.main, ["--index", built[b]])
         fetched[b] = BUILD / f"fetched_{b}.bhmm"
-        tool(bathfetch.main, ["-o", fetched[b], built[b], msa_names[29]])
+        tool(bathfetch.main, ["-o", fetched[b], built[b], fetched_name])
     fetch_err, _ = model_diff(fetched["torch"], fetched["numpy"],
                               F32_GATE_LINES, "bathfetch")
     h3_in = fixtures.write_convert_input(str(fetched["numpy"]),
@@ -2728,10 +2768,10 @@ def phase_build(run: Run) -> None:
                            F32_GATE_LINES[1:], "bathconvert of HMMER3/f")
     phase("bathstat_bathfetch", bathstat_identical=stat["torch"] ==
           stat["numpy"], rows=len(stat["torch"].splitlines()),
-          fetched=msa_names[29], fetched_tau_diff=f"{fetch_err:.4f}",
+          fetched=fetched_name, fetched_tau_diff=f"{fetch_err:.4f}",
           fetched_as_hmmer3_converted_tau_diff=f"{h3_err:.4f}")
     if stat["torch"] != stat["numpy"] \
-            or len(stat["torch"].splitlines()) < len(MQ_MS):
+            or len(stat["torch"].splitlines()) < len(BUILD_MQ):
         fail("bathstat differs between the torch- and the numpy-built file")
 
     # one bathsearch --fs of the multi-query genome (copies of 12 of the
@@ -2750,8 +2790,8 @@ def phase_build(run: Run) -> None:
         if rc != 0:
             fail(f"bathsearch --fs with the {b}-built file exited {rc}")
         hits[b] = hit_set(tbl)
-    phase("bathsearch_with_built_models", genome_nt=GENOME_NT,
-          models=len(MQ_MS), hits_torch_built=len(hits["torch"]),
+    phase("bathsearch_with_built_models", genome_nt=MQ_GENOME_NT,
+          models=len(BUILD_MQ), hits_torch_built=len(hits["torch"]),
           hits_numpy_built=len(hits["numpy"]),
           same_hits=hits["torch"] == hits["numpy"],
           queries_with_hits=len({h[0] for h in hits["torch"]}),
@@ -2767,14 +2807,8 @@ def phase_build(run: Run) -> None:
 # ---------------------------------------------------------------------
 # ubench: the card's microbenchmarks (scripts/ubench_vpu.py's four)
 # ---------------------------------------------------------------------
-# Tolerances against the plain versions (tests/test_torch_ubench.py
-# gives the reasons): the chain and the scalar rows an ulp a step (the
-# kernels' FMA against the plain version's two roundings) that their
-# map does not grow, the gather none (it adds in step order, as the
-# plain version), the tensor-core entry an ulp of the largest sum a
-# step (ubench.onehot_mma_tol), the overlap one bf16 ulp of yacc.
-UB_TOL = {"ub_chain": 1e-6, "ub_onehot_gather": 0.0,
-          "ub_overlap": 2.0 ** -8, "ub_scalars": 1e-6}
+# Tolerances against the plain versions: bands.UB_TOL, and for the
+# tensor-core entry ubench.onehot_mma_tol.
 # After 512 steps every element of the chain sits at its map's fixed
 # point whatever x is, and yacc's columns stay equal from the script's
 # start: the entries are also held after 1-3 steps, where the chain
@@ -2910,16 +2944,20 @@ def phase_ubench(run: Run) -> None:
 # mesh: the data-parallel gate step (J5)
 # ---------------------------------------------------------------------
 def phase_mesh(run: Run) -> None:
-    """The step over every card of the machine on one flush's shape:
-    MESH_B windows of MESH_LN nt of the frameshift fixture's genome and
-    the longest ORF of each window's six frames (La the longest of
-    those), under the fixture's own M_SEARCH model; its three outputs
-    bit for bit the three entries launched directly on the whole batch,
-    within tolerance of the plain versions (MSV exactly), its counters
-    exact; the same on two shares of one card; timed as a whole (host
-    copies and the counters' sync included), and on two or more cards
-    beside the whole batch and one card's share on one card."""
-    from bath_tpu_torch import fixtures
+    """The step on one flush's shape: MESH_B windows of MESH_LN nt of
+    the frameshift fixture's genome and the longest ORF of each window's
+    six frames (La the longest of those), under the fixture's own
+    M_SEARCH model, through the self-check's dry run
+    (``selfcheck.dryrun_multichip`` over every card, or two shares of
+    one card): bit for bit the step on one card and the three entries
+    launched directly on the whole batch, within tolerance of the plain
+    versions (MSV exactly), its counters exact.  The dry run then holds
+    the production cascade over the same devices (standard, --fs,
+    --splice, a multi-HMM file) to one device and to numpy.  The step
+    over every card is timed as a whole (host copies and the counters'
+    sync included), and on two or more cards beside the whole batch and
+    one card's share on one card."""
+    from bath_tpu_torch import fixtures, selfcheck
     from bath_tpu_torch.alphabet import dna
     from bath_tpu_torch.hmmfile import read_hmm
     from bath_tpu_torch.ops import fs3, fwd, ssv
@@ -2971,30 +3009,67 @@ def phase_mesh(run: Run) -> None:
             fail(f"mesh step's {k} entry vs plain: max |d| {err} > {tol}")
         errs.append(err)
     n = torch.cuda.device_count()
+    # the self-check's dry run (bath_tpu_torch/selfcheck.py): the step
+    # over every card (two shares of one card on a machine of one)
+    # against one card, bit for bit, its counters exact, then the
+    # production cascade over the same devices in four modes
+    t = time.perf_counter()
+    try:
+        rep = selfcheck.dryrun_multichip(max(n, 2), DEVICE,
+                                         step=((fp, mp, p3), batch))
+    except AssertionError as e:
+        fail(f"the self-check's dry run: {e}")
+    dry_s = time.perf_counter() - t
+    npass = int((want[0] > 0).sum() + (want[2] > 0).sum())
+    nres = int(alens.sum()) + MESH_B * MESH_LN
+    if npass == 0:
+        fail("no score of the mesh batch passes: the counters' check is "
+             "vacuous")
+    if min(rep["step_launches"].values()) < len(rep["devices"]):
+        fail(f"the dry run's step did not launch every kernel on every "
+             f"share: {rep['step_launches']} over {rep['devices']}")
+    # the step over every card, the one timed below: its own launches
+    # (each wrapper's count set to 0 just before its first call and
+    # read just after), its outputs bit for bit the entries on the whole
+    # batch, its counters exact
     wrappers = {"fwd_parser": fwd.fwd_score, "msv_filter": ssv.msv_ssv,
                 "fs3_parser": fs3.fs3_score}
+    step = mesh.make_pipeline_step(mesh.make_mesh(n), fp, mp, p3)
     for f in wrappers.values():
         f.launches = 0
-    step = mesh.make_pipeline_step(mesh.make_mesh(n), fp, mp, p3)
     out = step(*batch)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in wrappers.items()}
-    npass = int((want[0] > 0).sum() + (want[2] > 0).sum())
-    nres = int(alens.sum()) + MESH_B * MESH_LN
-    two = mesh.make_pipeline_step([DEV, DEV], fp, mp, p3)(*batch)
-    for tag, o in (("the mesh", out), ("two shares of one card", two)):
+    for tag, o in (("the dry run's shares", rep["step"]),
+                   (f"{n} card(s)", out)):
         if not all(torch.equal(x, y) for x, y in zip(o[:3], want)):
             fail(f"the step over {tag} differs from the entries launched "
                  "on the whole batch")
         if o[3].tolist() != [nres, npass]:
             fail(f"the step over {tag} counts {o[3].tolist()}, not "
                  f"{[nres, npass]}")
-    if npass == 0:
-        fail("no score of the mesh batch passes: the counters' check is "
-             "vacuous")
     if min(launches.values()) < n:
         fail(f"the step did not launch every kernel on every card: "
              f"{launches} over {n}")
+    # the self-check's entry: the fs3 gate of its flagship model on its
+    # windows, launched on the card, against the plain version
+    fn, fargs = selfcheck.entry(DEVICE)
+    before = fs3.fs3_score.launches
+    got = fn(*fargs)
+    entry_launches = fs3.fs3_score.launches - before
+    e = vs_plain("fs3_parser", got, fs3.fs3_score_ref(
+        *fargs, fs3.fs3_params(selfcheck.flagship()[1], DEV), 1.0))
+    if entry_launches != 1:
+        fail(f"selfcheck.entry launched bt_fs3_parser {entry_launches} "
+             "times")
+    phase("mesh", selfcheck_entry="bt_fs3_parser", M=selfcheck.ENTRY_M,
+          B=selfcheck.ENTRY_B, L=selfcheck.ENTRY_L, launches=entry_launches,
+          vs_plain=e)
+    phase("mesh", dryrun_multichip=max(n, 2), devices=rep["devices"],
+          step="bit for bit one device and the entries on the whole batch",
+          cascade=",".join(rep["mesh_items"]),
+          cascade_vs="one device and numpy, byte-identical",
+          mesh_items=rep["mesh_items"], seconds=f"{dry_s:.1f}")
     k_ms = cuda_ms(lambda: step(*batch), 10)
     if n > 1:
         # the same batch on one card, and one card's share of it alone:
@@ -3030,7 +3105,7 @@ def phase_mesh(run: Run) -> None:
         M=M, nres=nres, npass=npass)
     phase("mesh", devices=n, B=MESH_B, La=La, Ln=MESH_LN, M=M,
           windows_over_copies=len(over),
-          bit_for_bit_vs_entries=True, two_shares_one_card="bit for bit",
+          bit_for_bit_vs_entries=True,
           counters=[nres, npass], vs_plain=[f"{e:.3g}" for e in errs],
           launches=launches, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.2f}",
           bound_ms=f"{run.times['mesh_step'][2]:.5f}", card=repr(run.card))
@@ -3040,10 +3115,88 @@ def phase_mesh(run: Run) -> None:
 
 
 # ---------------------------------------------------------------------
+# sanitize: the kernels under compute-sanitizer
+# ---------------------------------------------------------------------
+def sanitize_line(r: dict) -> dict:
+    """What a phase line says of one tool's run (``sanitize.run_tool``):
+    whether the tool could check here, its own error where it could
+    not, whether it reported its canary, and over the cases its count
+    of errors, its summary, the cases and entries checked."""
+    keys = ("tool", "available", "error", "canary_caught", "canary_summary",
+            "errors", "summary", "rc", "held")
+    out = {k: r[k] for k in keys if k in r}
+    if r.get("checked"):
+        out.update(cases=len(r.get("cases") or ()),
+                   entries=len(r.get("entries") or ()),
+                   entry_names=",".join(r.get("entries") or ()),
+                   seconds=f"{r['seconds']:.1f}")
+    else:
+        out["checked"] = "nothing"
+    return out
+
+
+def sanitized(r: dict) -> None:
+    """Fails a tool's run that could check and did not come out clean:
+    its canary missed, a report over the cases, or a case off its plain
+    version.  A tool that could not check here (``available`` false)
+    checked nothing and fails nothing."""
+    if r.get("available") and not (r.get("canary_caught")
+                                   and r.get("clean")):
+        fail(f"{r['tool']}: {r.get('error') or r.get('report', '')[-3000:]}")
+
+
+# each child of the default memcheck step (its canary, then the cases)
+# is killed past this, a failed phase: the step is budgeted at 90 s, and
+# a tool that attaches but runs far past that must not carry the run
+# past its time limit
+SANITIZE_LIMIT_S = 150
+
+
+def phase_sanitize(run: Run) -> None:
+    """memcheck over every case of ``bath_tpu_torch.sanitize`` (every
+    kernel entry of the record, each plan family, a segmented class of
+    each segmented entry, the step over two shares) in a child process
+    under compute-sanitizer, once the tool has reported its canary (a
+    write past a buffer)."""
+    from bath_tpu_torch import sanitize
+    t = time.perf_counter()
+    r = sanitize.run_tool("memcheck", limit_s=SANITIZE_LIMIT_S)
+    phase("sanitize", **sanitize_line(r), card=repr(run.card),
+          step_seconds=f"{time.perf_counter() - t:.1f}")
+    sanitized(r)
+
+
+def phase_sanitize_full(run: Run) -> None:
+    """racecheck, synccheck and initcheck over the same cases, each
+    after its canary (a shared race, a barrier half a warp reaches, a
+    read of memory nothing wrote); then the cases with no tool, their
+    outputs against the plain versions alone (nothing sanitized)."""
+    from bath_tpu_torch import sanitize
+    for tool in ("racecheck", "synccheck", "initcheck"):
+        t = time.perf_counter()
+        r = sanitize.run_tool(tool)
+        phase("sanitize_full", **sanitize_line(r),
+              step_seconds=f"{time.perf_counter() - t:.1f}")
+        if r.get("report"):
+            print(r["report"], flush=True)
+        sanitized(r)
+    r = sanitize.run_untooled()
+    phase("sanitize_full", tool="none", sanitized="nothing (parity only)",
+          cases=len(r.get("cases") or ()),
+          entries=len(r.get("entries") or ()), held=r["held"],
+          seconds=f"{r['seconds']:.1f}")
+    if not r["clean"]:
+        fail(f"the sanitizer cases off their plain versions: "
+             f"{r.get('report', '')}")
+
+
+# ---------------------------------------------------------------------
 # deep: the shapes the default run cuts for its time
 # ---------------------------------------------------------------------
 def phase_deep(run: Run) -> None:
     parity_int(run, DEEP_LONG_ORF)
+    parity_segmented(run, [(f, SEG_M) for f in DEEP_SEG_M_FAMILIES],
+                     mixed=False)
     parity_fs3(run, np.random.default_rng(SEED + 11), DEEP_PARITY_FS3,
                DEEP_PARITY_FS3DD)
     time_fs3(run, DEEP_TIME_FS3_M, decoding=False)
@@ -3088,11 +3241,13 @@ ENTRIES = (  # (name, source, the TPU kernel it replaces)
      "bath_tpu/parallel/mesh.py:53"),
 )
 
-PHASES = {"parity": phase_parity, "timing": phase_timing,
-          "ubench": phase_ubench, "mesh": phase_mesh,
-          "search": phase_search, "multiquery": phase_multiquery,
-          "build": phase_build, "deep": phase_deep}
-DEFAULT_PHASES = tuple(p for p in PHASES if p != "deep")
+PHASES = {"parity": phase_parity, "sanitize": phase_sanitize,
+          "timing": phase_timing, "ubench": phase_ubench,
+          "mesh": phase_mesh, "search": phase_search,
+          "multiquery": phase_multiquery, "build": phase_build,
+          "deep": phase_deep, "sanitize_full": phase_sanitize_full}
+DEFAULT_PHASES = tuple(p for p in PHASES
+                       if p not in ("deep", "sanitize_full"))
 
 
 def record(run: Run) -> list:
@@ -3122,7 +3277,7 @@ def parse_phases(argv) -> tuple:
                                  "on one NVIDIA GPU.")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help=f"comma list of {', '.join(PHASES)} or all "
-                    f"(default: every phase but deep)")
+                    f"(default: every phase but deep and sanitize_full)")
     names = ap.parse_args(argv).phases.split(",")
     if "all" in names:
         return tuple(PHASES)
@@ -3132,9 +3287,34 @@ def parse_phases(argv) -> tuple:
     return tuple(p for p in PHASES if p in names)
 
 
+def host_fixtures(run: Run) -> str:
+    """Writes the seeded genomes and host-calibrated profiles of the
+    phases to run (the 5 Mb fixtures, the splice and long-model ones,
+    the alignments), which need no card, while nvcc compiles; the
+    phases read them back.  Returns what it wrote, with its seconds."""
+    from bath_tpu_torch import fixtures
+    t = time.perf_counter()
+    made = []
+    if {"parity", "timing", "search"} & set(run.phases):
+        run.fx()
+        made.append("fx")
+    if "search" in run.phases:
+        run.fs_fx()
+        fixtures.write_splice_fixture(M_SEARCH, GENOME_NT, SPLICE_GENES,
+                                      SEED)
+        fixtures.write_fixture(SEG_SEARCH_M, *SEG_SEARCH, SEED)
+        made += ["fs_fx", "splice", "long_model"]
+    if "build" in run.phases:
+        run.msa()
+        made.append("msa")
+    return f"{','.join(made) or 'none'}:{time.perf_counter() - t:.1f}s"
+
+
 def setup(run: Run) -> None:
-    """The device and card lines, the bathbuild --backend numpy child
-    (when the build phase runs), the kernels' build."""
+    """The device and card lines, the kernels' build (the host's
+    fixtures written meanwhile), then the bathbuild --backend numpy
+    child (when the build phase runs), which so leaves nvcc its
+    cores."""
     from bath_tpu_torch.cli import bathsearch
     from bath_tpu_torch.ops.kernels import loader
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3147,16 +3327,23 @@ def setup(run: Run) -> None:
           phases=",".join(run.phases))
     print(run.card, flush=True)
     BUILD.mkdir(parents=True, exist_ok=True)
-    if "build" in run.phases:
-        start_host_build(run)
     t = time.perf_counter()
-    so = loader.build()
+
+    def compile_kernels():
+        return loader.build(), time.perf_counter() - t
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(compile_kernels)
+        made = host_fixtures(run)
+        so, seconds = job.result()
     loader.lib()
-    phase("nvcc", seconds=f"{time.perf_counter() - t:.1f}",
+    phase("nvcc", seconds=f"{seconds:.1f}",
+          host_fixtures_meanwhile=made,
           nvcc=" ".join(loader.NVCC_FLAGS),
           sources=",".join(str(p.relative_to(ROOT))
                            for p in loader.sources()),
           library=so.relative_to(ROOT))
+    if "build" in run.phases:
+        start_host_build(run)
 
 
 def main(argv=None) -> None:

@@ -24,7 +24,9 @@ M = 3000, the fs3 pair at M = 4000, MSV and the Forward gate at
 M = 4200) are held to their plain versions, and the choices that change
 no arithmetic (the gate's wide classes with or without their
 transitions staged, the fs3 pair's direct loads against its ring) bit
-for bit to each other.
+for bit to each other.  The sanitizer tier's cases
+(``bath_tpu_torch.sanitize``) hold on the card with no tool, and the
+self-check entry points (``bath_tpu_torch.selfcheck``) pass there.
 """
 
 import functools
@@ -34,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from bath_tpu_torch import fixtures
+from bath_tpu_torch import fixtures, sanitize, selfcheck
 from bath_tpu_torch.cli import bathsearch
 from bath_tpu_torch.ops import domdec as td
 from bath_tpu_torch.ops import fs3 as t3
@@ -1020,3 +1022,35 @@ def test_segmented_blocks_take_turns_at_the_slots(kind):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
+
+
+# the sanitizer tier's cases and the self-check entry points on the card
+SANITIZE_CASES = [c.name for c in sanitize.cuda_cases()]
+
+
+@pytest.mark.parametrize("name", SANITIZE_CASES)
+def test_sanitizer_case_on_the_card(name):
+    """Each case of ``bath_tpu_torch.sanitize`` (every kernel entry in
+    each plan family at tiny shapes) against its plain version, with no
+    tool: what memcheck and the other tools run under them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = next(c for c in sanitize.cuda_cases() if c.name == name)
+    assert set(sanitize.run_case(case, "cuda")) == set(case.entries)
+
+
+def test_selfcheck_on_the_card():
+    """``selfcheck.entry`` launches bt_fs3_parser once, within 1e-3 nats
+    of its plain version; ``dryrun_multichip(2)`` passes on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fn, args = selfcheck.entry()
+    before = t3.fs3_score.launches
+    got = fn(*args)
+    assert t3.fs3_score.launches == before + 1
+    want = t3.fs3_score_ref(*args, t3.fs3_params(selfcheck.flagship()[1],
+                                                 "cuda"), 1.0)
+    assert float((got - want).abs().max()) <= 1e-3
+    rep = selfcheck.dryrun_multichip(2)
+    assert len(rep["devices"]) == 2 and set(rep["mesh_items"]) == set(
+        selfcheck.MODES)

@@ -7,7 +7,9 @@ and no JAX, and its host code is a faithful copy of the reference's.
   standard and ``--fs``, ``--device cpu``, and its own ``--backend
   numpy``, also under ``--cpu 2`` on both backends; bathbuild and bathconvert ``--backend torch --device cpu``,
   bathstat, bathfetch), the microbenchmarks (``ubench``) and the
-  sharded gate step (``parallel.mesh``) on CPU tensors, its
+  sharded gate step (``parallel.mesh``) on CPU tensors, a case of the
+  sanitizer tier (``sanitize``) and the self-check entry points
+  (``selfcheck``: the fs3 gate and the dry run over two CPU shares), its
   fixtures and ``chip_smoke``'s module body run in a subprocess where
   ``bath_tpu``, ``jax`` and ``jaxlib`` are unimportable, and leave none
   of them in ``sys.modules``.
@@ -70,6 +72,9 @@ LINES = {
         "before = lib.omp_get_max_threads()  # the team size it replaces":
             "the same",
         "return before": "the same",
+        # the override's library that does not load raises
+        "if os.environ.get(OVERRIDE):": "the override raises",
+        "raise": "the override raises",
     },
     "ssi": {
         "Keys are sorted bytewise (the reference binary-searches).  "
@@ -101,12 +106,16 @@ REGIONS = {
         ("def _so_path() -> str:", "_SO = _so_path()",
          "the port's library lives in build/bath_tpu_torch/ under a name "
          "that carries a hash of the source and the CPU flags, so it can "
-         "never load the reference's libbathio.so"),
+         "never load the reference's libbathio.so; the library override "
+         "has the port's own name, BATH_TORCH_NATIVE_SO (OVERRIDE), so "
+         "that the reference's BATH_NATIVE_SO never reaches the port"),
         ("def _build() -> bool:", "return False",
          "built under a temporary name and renamed; the second "
          "'return False' closes the function"),
         ("def get_lib():", "lib = ctypes.CDLL(_SO)",
-         "no BATH_NATIVE_SO override, no mtime check: the name carries "
+         "the override under the port's name, which raises at every call "
+         "where its library does not load (a sanitizer run must not fall "
+         "through to the Python path); no mtime check: the name carries "
          "the source's hash"),
     ],
 }
@@ -743,6 +752,21 @@ print("RUN", rc, hosts.process_count(), hosts.allgather_bytes(b"x"),
       hosts.merge_results([[(1, "b")], [(0, "a")]]),
       sum(stats["mesh_items"]["fwd"]) == stats["fwd_items"] > 0)
 ''', "RUN 0 1 [b'x'] [(0, 'a'), (1, 'b')] True"),
+    "sanitize": ('''
+from bath_tpu_torch import sanitize
+case = next(c for c in sanitize.cuda_cases() if c.name == "int/one width")
+errs = sanitize.run_case(case, "cpu")
+print("RUN", sorted(errs) == sorted(case.entries),
+      "fwd_parser_seg_kernel" in sanitize.kernel_names(),
+      sanitize.runtime("libasan.so").startswith("/"))
+''', "RUN True True True"),
+    "selfcheck": ('''
+from bath_tpu_torch import selfcheck
+fn, args = selfcheck.entry("cpu")
+rep = selfcheck.dryrun_multichip(2, "cpu", fixture_dir=sys.argv[1])
+print("RUN", tuple(fn(*args).shape), rep["step"][3].tolist()[0],
+      sorted(rep["mesh_items"]))
+''', "RUN (8,) 640 ['fs', 'multiquery', 'splice', 'standard']"),
     "chip_smoke-body": ('''
 import chip_smoke
 print("RUN", callable(chip_smoke.main))
