@@ -10,15 +10,16 @@
 //   bt_ub_chain          bench_chain   (pl.pallas_call at :68)
 //   bt_ub_onehot_gather  bench_onehot  (:101), emissions read by index
 //   bt_ub_onehot_mma     bench_onehot  (:101), one-hot product on the
-//                        tensor cores, as the TPU gates read emissions
+//                        tensor cores (wgmma), as the TPU gates read
+//                        emissions
 //   bt_ub_overlap        bench_overlap (:145)
 //   bt_ub_scalars        bench_scalars (:183)
 //
 // The TPU kernels hold one [Mt, Bt] tile in VMEM and step it REPS times
 // on one core.  Here the columns of the tile are independent for all
-// REPS steps, so a thread, a warp or a block owns its columns for the
-// whole call, keeps them in registers or shared memory, and nothing
-// crosses blocks.  What bounds each entry on the card:
+// REPS steps, so a thread, a warp or a warpgroup owns its columns for
+// the whole call and keeps them in registers or shared memory.  What
+// bounds each entry on the card:
 //   chain    f32 FMAs: one thread per element, v in a register, NOPS a
 //            template parameter, so each step is a true dependent FMA;
 //            at [136, 1024] the card holds 139 264 threads, about half
@@ -26,18 +27,21 @@
 //   gather   shared-memory reads and f32 adds: the table transposed in
 //            shared memory, a warp per column, so the 32 lanes read one
 //            table column's rows side by side (no bank conflicts).
-//   mma      the tensor cores through mma.sync.m16n8k16 bf16 (inline
-//            PTX): per 16 columns the one-hot tile OH^T [16, n] is
-//            built in registers and multiplied with t^T [n, 8] tiles
-//            that sit in shared memory in fragment order.  mma.sync
-//            does not reach the card's 989 TFLOP/s (only wgmma does);
-//            the bound is stated against the card.
-//   overlap  a block owns 32 columns: g [2Mt, 2Mt] and the yacc tile
-//            [2Mt, 32] in shared memory (170 240 bytes at Mt = 136), one
-//            warp per 16 rows of g @ yacc on the tensor cores, and the
-//            acc chain of the same columns on the CUDA cores, 8
-//            elements a thread.  Whether the SM overlaps the two is
-//            what t(both) against max(t(chain), t(dot)) shows.
+//   mma      the tensor cores through wgmma (inline PTX, the only path
+//            to their full rate): a warpgroup owns 64 columns, builds
+//            each step's one-hot tile OH^T [64, n] in registers as A and
+//            multiplies it with t^T in shared memory (B), n padded to
+//            16 KT (KT = 2, 5, 17 instructions a step); the steps are
+//            split over blocks to fill the card (16 tiles at Bt = 1024)
+//            and the partial sums added in a fixed order.
+//   overlap  a block owns 64 columns: G^T (B) in shared memory, Y^T (A)
+//            in the product warpgroup's registers from step to step,
+//            the acc chain in a second warpgroup; the product's floor
+//            is its bf16 work on the SMs that hold a tile, one a tile
+//            (2 x 272^2 x 64 x REPS operations at 989/132 TFLOP/s an
+//            SM: 0.647 ms at REPS = 512, for Bt = 1024 and 4096 alike).
+//            Whether the SM overlaps the two is what t(both) against
+//            max(t(chain), t(dot)) shows.
 //   scalars  one thread per column, the 16 rows in registers: on this
 //            card a [1, Bt] row is Bt lanes like any other row.
 
@@ -48,7 +52,6 @@
 namespace {
 
 constexpr int kMaxMt = 136;         // rows a gather/mma call takes
-constexpr int kOverlapCols = 32;    // columns of an overlap block
 
 // ---------------------------------------------------------------------
 // #7: REPS x { NOPS x (v = v*v + 0.25); v *= 0.5 } per element
@@ -127,211 +130,475 @@ __global__ void ub_onehot_gather_kernel(const __nv_bfloat16* __restrict__ t,
 }
 
 // ---------------------------------------------------------------------
-// The tensor-core product: D[16, 8] += A[16, 16] B[16, 8], bf16 in,
-// f32 accumulate.  Fragments (PTX ISA, mma.m16n8k16, g = lane / 4,
-// q = lane % 4; the lower half of a register holds the element of the
-// lower column (A) or row (B)):
-//   a0 (g, 2q..2q+1)  a1 (g+8, 2q..)  a2 (g, 2q+8..)  a3 (g+8, 2q+8..)
-//   b0 (2q..2q+1, g)  b1 (2q+8.., g)
-//   d0, d1 (g, 2q..2q+1)  d2, d3 (g+8, 2q..2q+1)
+// The tensor cores through wgmma (sm_90a only): a warpgroup (4 warps,
+// 128 threads; warp w holds rows 16w..16w+15) issues, asynchronously,
+//   D[64, 136] (+)= A[64, 16] B[16, 136]
+// bf16 in, f32 accumulate; A from registers, B from shared memory by a
+// matrix descriptor.  Registers (PTX ISA, wgmma .m64nNk16; g = lane / 4,
+// q = lane % 4; the lower half of an A register holds the lower column):
+//   A: a0 (16w+g, 2q..2q+1)  a1 (16w+g+8, 2q..)  a2 (16w+g, 2q+8..)
+//      a3 (16w+g+8, 2q+8..)
+//   D: d[4j], d[4j+1] (16w+g, 8j+2q..8j+2q+1), d[4j+2], d[4j+3]
+//      (16w+g+8, 8j+2q..), j < 17
+// so the D registers of columns 16k..16k+15 are, in this order, the A
+// registers of k16 slice k: one product feeds the next as its A without
+// leaving the registers (FlashAttention-3's reuse of P).
+// B is K-major (B[k][n] along k for each n) with no swizzle: core
+// matrices of 8 rows of 16 bytes, 128 contiguous bytes each; the core
+// matrix (n / 8, k / 8) of a slice sits at start + (n / 8) SBO +
+// (k / 8) LBO.  The images below put the k cores of a block of 8 rows
+// side by side: LBO = 128, SBO = 128 K / 8 for a K-wide image, and
+// slice kt starts 256 kt bytes in.  bath_tpu_torch/ubench.py
+// (kmajor_offset, wgmma_desc) mirrors the layout and the descriptor.
 // ---------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+constexpr int kWgN = 136;           // the instruction's N (kMaxMt)
+constexpr int kTileCols = 64;       // columns b of a warpgroup (its M)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFFu) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes of shared memory made visible to the async proxy
+// (wgmma's reads of B), before the barrier that publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulator
+// across the asynchronous product and its wait (CUTLASS's
+// warpgroup_fence_operand).
+__device__ __forceinline__ void fence_acc(float (&d)[68]) {
+#pragma unroll
+  for (int i = 0; i < 68; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A registers: built before the wgmma.fence that precedes
+// their products, not sunk past it (ptxas then serializes the products).
+template <int K>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) asm volatile("" : "+r"(a[k][h])::"memory");
+}
+
+// d (+)= a B[16, 136]; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n136k16(float (&d)[68],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67}, "
+      "{%68, %69, %70, %71}, %72, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+      : "memory");
 }
 
 // The one-hot pair of a row whose index sits d past the pair's first
 // column: 1.0 (bf16 0x3F80) in the half that holds it.
 __device__ __forceinline__ uint32_t onehot_pair(int d) {
-  return d == 0 ? 0x00003F80u : d == 1 ? 0x3F800000u : 0u;
+  return (unsigned)d < 2u ? 0x3F80u << (d << 4) : 0u;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------
-// #8, one-hot product: acc^T[b, m] += OH^T[b, k] t^T[k, m] per rep
+// #8, one-hot product: out^T[b, m] = sum_i OH_i[b, k] t^T[k, m]
 // ---------------------------------------------------------------------
-// A block of 4 warps owns 16 columns; warp w takes the m-tiles (8 rows
-// of t each) w, w+4, ..., w+16.  frag[kt][mt][lane] holds the B operand
-// (t^T) of k-tile kt, m-tile mt in fragment order, zero past n and Mt.
-// The indices: lane l loads column c0 + l % 16 of reps i0 + l / 16 + 2j
-// (j < 8), 16 reps a chunk; a rep's two columns g, g+8 come by shuffle.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaTiles = (kMaxMt / 8 + kMmaWarps - 1) / kMmaWarps;
+// A block is one warpgroup over 64 columns b and a split of the steps
+// (blockIdx.y; `per` steps each, whole chunks of kIdxChunk).  B = t^T
+// (t itself read as K-major: row m of t along k) is the [136][KP] image,
+// KP = 16 KT, zero past Mt and n, that ub_onehot_pack_kernel makes once
+// a call; each block copies it into shared memory 16 bytes a cp.async
+// (each block filling it element by element from t, 289 dependent
+// loads a thread at KT = 17, took longer than its products at
+// [136, 1024]).
+// Each step's A, OH_i [64, KP], is built in registers from the step's
+// indices by comparison, then KT wgmmas accumulate into d, back to back,
+// and wgmma.wait_group 0 ends the step before the next A is built.  Two
+// sets of A with wait_group 1 (one step's product beside the next
+// step's build) made ptxas serialize every wgmma (C7513: registers
+// that a wgmma reads were defined while an earlier group was in flight),
+// so the build of one block overlaps the products of the other block
+// an SM holds (two: registers and shared memory).  The indices come in
+// chunks of kIdxChunk steps x 64 columns, cp.async into a ring of two
+// shared-memory slots.  An index outside [0, n) adds nothing: it matches
+// a zero row of B (n <= k < KP) or no column of A.  With several splits
+// each block writes its partial sum to its slice of `dst` ([splits, Mt,
+// Bt]) and ub_onehot_sum_kernel adds them in split order: two calls
+// give equal bits.
+constexpr int kIdxChunk = 32;       // steps of indices a cp.async chunk
+constexpr int kMaxKT = 17;          // n <= 272: the widest codon table
 
-__global__ void ub_onehot_mma_kernel(const __nv_bfloat16* __restrict__ t,
-                                     const int* __restrict__ idx,
-                                     float* __restrict__ out, int Mt, int n,
-                                     int Bt, int reps) {
+template <int KT>
+__device__ __forceinline__ void onehot_step(uint32_t (&a)[KT][4],
+                                            float (&d)[68], const int* row,
+                                            uint32_t bs, int q) {
+  const int k0 = row[0] - 2 * q, k1 = row[8] - 2 * q;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    a[kt][0] = onehot_pair(k0 - 16 * kt);
+    a[kt][1] = onehot_pair(k1 - 16 * kt);
+    a[kt][2] = onehot_pair(k0 - 16 * kt - 8);
+    a[kt][3] = onehot_pair(k1 - 16 * kt - 8);
+  }
+  fence_a(a);
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt)
+    wgmma_m64n136k16(d, a[kt], wgmma_desc(bs + 256 * kt, 128, 256 * KT), 1);
+  wgmma_commit();
+}
+
+// img [136][16 KT] bf16: t^T's K-major image, zero past Mt and n, made
+// once a call in device memory; each block copies it whole.
+__global__ void ub_onehot_pack_kernel(const __nv_bfloat16* __restrict__ t,
+                                      __nv_bfloat16* __restrict__ img,
+                                      int Mt, int n, int KP) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= kWgN * KP) return;
+  const int m = e / KP, k = e % KP;
+  img[((m >> 3) * (KP / 8) + (k >> 3)) * 64 + (m & 7) * 8 + (k & 7)] =
+      (m < Mt && k < n) ? t[(size_t)m * n + k] : __float2bfloat16(0.f);
+}
+
+template <int KT>
+__global__ void __launch_bounds__(128, 2)
+    ub_onehot_mma_kernel(const __nv_bfloat16* __restrict__ img,
+                         const int* __restrict__ idx, float* __restrict__ dst,
+                         int Mt, int Bt, int reps, int per) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint2* frag = reinterpret_cast<uint2*>(smem_raw);
-  const int KT = (n + 15) / 16, MT = (Mt + 7) / 8;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < KT * MT * 32; e += blockDim.x) {
-    const int l = e & 31, mt = (e >> 5) % MT, kt = (e >> 5) / MT;
-    const int m = mt * 8 + (l >> 2), k = kt * 16 + 2 * (l & 3);
-    __nv_bfloat16 v[4];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const int kk = k + (h & 1) + 8 * (h >> 1);
-      v[h] = (m < Mt && kk < n) ? t[(size_t)m * n + kk] : zero;
-    }
-    frag[e] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int KP = 16 * KT;
+  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  int* is = reinterpret_cast<int*>(smem_raw + (size_t)kWgN * KP * 2);
+  constexpr int kSlot = kIdxChunk * kTileCols;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int c0 = blockIdx.x * 16;
-  float acc[kMmaTiles][4];
-#pragma unroll
-  for (int j = 0; j < kMmaTiles; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int* col = idx + c0 + (lane & 15);
-  int nxt[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int i = (lane >> 4) + 2 * j;
-    nxt[j] = i < reps ? col[(size_t)i * Bt] : -1;
-  }
-  for (int i0 = 0; i0 < reps; i0 += 16) {
-    int cur[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      cur[j] = nxt[j];
-      const int i = i0 + 16 + (lane >> 4) + 2 * j;
-      if (i < reps) nxt[j] = col[(size_t)i * Bt];
+  const int b0 = blockIdx.x * kTileCols;
+  const int i0 = blockIdx.y * per;
+  const int nsteps = max(0, min(reps, i0 + per) - i0);
+  // B: the image, 16 bytes a copy, in the first copy group
+  for (int v = tid; v < kWgN * KP / 8; v += blockDim.x)
+    cp_async16(smem_addr(bs + 8 * v), img + 8 * v);
+  // columns past Bt: index -1 (no copy ever writes them)
+  for (int e = tid; e < 2 * kSlot; e += blockDim.x)
+    if (b0 + e % kTileCols >= Bt) is[e] = -1;
+  const int nch = (nsteps + kIdxChunk - 1) / kIdxChunk;
+  auto load_chunk = [&](int c) {
+    int* slot = is + (c & 1) * kSlot;
+    for (int v = tid; v < kSlot / 4; v += blockDim.x) {
+      const int r = v / (kTileCols / 4), col = 4 * (v % (kTileCols / 4));
+      const int i = c * kIdxChunk + r;
+      if (i < nsteps && b0 + col < Bt)
+        cp_async16(smem_addr(slot + r * kTileCols + col),
+                   idx + (size_t)(i0 + i) * Bt + b0 + col);
     }
+    cp_async_commit();
+  };
+  float d[68];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      if (i0 + r >= reps) break;
-      const int src = (r & 1) << 4;
-      const int k0 = __shfl_sync(0xffffffffu, cur[r >> 1], src | g) - 2 * q;
-      const int k1 = __shfl_sync(0xffffffffu, cur[r >> 1], src | (g + 8)) -
-                     2 * q;
-      for (int kt = 0; kt < KT; ++kt) {
-        const int d0 = k0 - 16 * kt, d1 = k1 - 16 * kt;
-        const uint32_t a0 = onehot_pair(d0), a1 = onehot_pair(d1);
-        const uint32_t a2 = onehot_pair(d0 - 8), a3 = onehot_pair(d1 - 8);
-        const uint2* fk = frag + (size_t)kt * MT * 32 + lane;
-#pragma unroll
-        for (int j = 0; j < kMmaTiles; ++j) {
-          const int mt = warp + kMmaWarps * j;
-          if (mt < MT) {
-            const uint2 bf = fk[mt * 32];
-            mma_bf16(acc[j], a0, a1, a2, a3, bf.x, bf.y);
-          }
-        }
-      }
+  for (int j = 0; j < 68; ++j) d[j] = 0.f;
+  fence_acc(d);
+  uint32_t a[KT][4];
+  const uint32_t base = smem_addr(bs);
+  load_chunk(0);
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      load_chunk(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    fence_proxy_async();
+    __syncthreads();
+    const int* rows = is + (c & 1) * kSlot + 16 * warp + g;
+    const int cnt = min(kIdxChunk, nsteps - c * kIdxChunk);
+    for (int r = 0; r < cnt; ++r) {
+      onehot_step<KT>(a, d, rows + r * kTileCols, base, q);
+      wgmma_wait<0>();
+    }
+    __syncthreads();
   }
+  cp_async_wait<0>();
+  fence_acc(d);
+  float* o = dst + (size_t)blockIdx.y * Mt * Bt;
 #pragma unroll
-  for (int j = 0; j < kMmaTiles; ++j) {
-    const int m = (warp + kMmaWarps * j) * 8 + 2 * q;
+  for (int j = 0; j < 17; ++j) {
 #pragma unroll
     for (int h = 0; h < 4; ++h) {
-      const int mm = m + (h & 1), b = c0 + g + 8 * (h >> 1);
-      if (mm < Mt) out[(size_t)mm * Bt + b] = acc[j][h];
+      const int m = 8 * j + 2 * q + (h & 1);
+      const int b = b0 + 16 * warp + g + 8 * (h >> 1);
+      if (m < Mt && b < Bt) o[(size_t)m * Bt + b] = d[4 * j + h];
     }
   }
+}
+
+// out[e] = sum over the splits k, in order, of part[k][e]
+__global__ void ub_onehot_sum_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int count,
+                                     int splits) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  float s = part[e];
+  for (int k = 1; k < splits; ++k) s += part[(size_t)k * count + e];
+  out[e] = s;
 }
 
 // ---------------------------------------------------------------------
 // #9: per rep, yacc <- bf16((1e-3 g @ yacc)^2 + 0.25) [2Mt, Bt] and
 // acc <- 12 x (v*v + 0.25), then * 0.5 [Mt, Bt]; out = acc + yacc[:Mt]
 // ---------------------------------------------------------------------
-// gs [2Mt][S] and ys [32][S] bf16, S = 2Mt + 8 (row words = 4 mod 8:
-// the fragment loads hit 32 banks); ys holds the yacc tile by column,
-// so both operands load as 32-bit pairs along k.  Warp w computes rows
-// 16w..16w+15 of g @ yacc for the block's 4 n-tiles.  yacc starts at
-// 0.3, as in the script, or at y0 [2Mt, Bt] when given (a start whose
-// columns differ, so that a check can see the columns' mapping).
+// Transposed, a step is Y^T <- bf16((1e-3 Y^T G^T)^2 + 0.25) on 64
+// columns b a block.  The product's warpgroup (warps 0-3, when DOT)
+// holds G^T as B: G itself read as K-major (row i of G along j), the
+// [272][272] image (2Mt padded to 272, zero past 2Mt; 147 968 bytes),
+// loaded once.  Y^T is A, in registers: 17 k16 slices, 68 registers.
+// A step is two wgmma chains of 17 (N = 136 each: outputs i < 136, then
+// i >= 136) into d0, d1 (136 registers); after wgmma.wait_group 0 each
+// accumulator pair is squared, offset, rounded to bf16 and packed into
+// the A register it already sits in the layout of, so yacc never passes
+// through shared memory and no barrier falls inside a step.  Padded
+// rows give 0.25, which meets the zero columns of the padded G.  The
+// chain's [Mt, 64] tile (68 f32 a thread, rows 2jj + t / 64, column
+// t % 64) runs in a second warpgroup (warps 4-7, when CHAIN) of the
+// same block: mode both is whether the SM runs the FMA pipes while its
+// tensor cores work asynchronously.  Mode chain holds no shared memory
+// (its product warpgroup only waits); mode dot has no chain warpgroup.
+// At the end the product's warpgroup leaves yacc[:Mt] in shared memory
+// ([136][64] f32, over G's image) for the warpgroup that writes out.
+// yacc starts at 0.3, as in the script, or at y0 [2Mt, Bt] when given
+// (a start whose columns differ, so that a check can see the columns'
+// mapping).
+constexpr int kOvP = 2 * kMaxMt;                 // 272
+constexpr int kOvKT = kOvP / 16;                 // 17 k16 slices
+constexpr int kOvSBO = 128 * (kOvP / 8);         // bytes a block of 8 rows
+constexpr size_t kOvSmem = (size_t)kOvP * kOvP * 2;
+
+__device__ __forceinline__ uint32_t overlap_pack(float lo, float hi) {
+  lo *= 1e-3f;
+  hi *= 1e-3f;
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(fmaf(lo, lo, 0.25f), fmaf(hi, hi, 0.25f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 template <bool CHAIN, bool DOT>
-__global__ void ub_overlap_kernel(const __nv_bfloat16* __restrict__ g_in,
-                                  const float* __restrict__ x,
-                                  const __nv_bfloat16* __restrict__ y0,
-                                  float* __restrict__ out, int Mt, int Bt,
-                                  int reps) {
+__global__ void __launch_bounds__(256, 1)
+    ub_overlap_kernel(const __nv_bfloat16* __restrict__ g_in,
+                      const float* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ y0,
+                      float* __restrict__ out, int Mt, int Bt, int reps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int M2 = 2 * Mt, S = M2 + 8;
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ys = gs + (size_t)M2 * S;
-  const int c0 = blockIdx.x * kOverlapCols;
-  for (int e = threadIdx.x; e < M2 * M2; e += blockDim.x)
-    gs[(e / M2) * S + e % M2] = g_in[e];
-  for (int e = threadIdx.x; e < kOverlapCols * M2; e += blockDim.x) {
-    const int c = e / M2, m = e % M2;
-    ys[c * S + m] = y0 ? y0[(size_t)m * Bt + c0 + c] : __float2bfloat16(0.3f);
-  }
-  // the chain: elements e = tid + j * threads of the [Mt, 32] tile
-  constexpr int NE = 8;          // Mt * 32 / (32 * Mt / 8) a thread
-  float v[NE];
+  const int M2 = 2 * Mt;
+  const int b0 = blockIdx.x * kTileCols;
+  const int wg = CHAIN ? (int)(threadIdx.x >> 7) : 0;
+  const int t = threadIdx.x & 127;
+  float* ys = reinterpret_cast<float*>(smem_raw);   // [kMaxMt][64], at the end
+  if (!DOT && wg == 0) {
+    // mode chain: the product's warpgroup only waits, so that a block
+    // holds an SM's registers as in mode both and the chain's tiles sit
+    // one an SM there too (with blocks of 128 threads the scheduler
+    // could put two tiles on one SM, and the chain's time at
+    // Bt = 4096 changed from call to call)
+    named_barrier(2, 256);
+  } else if (DOT && wg == 0) {
+    __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+    for (int v = t; v < kOvP * (kOvP / 8); v += 128) {
+      const int i = v / (kOvP / 8), jc = v % (kOvP / 8);
+      __nv_bfloat16* dst =
+          gs + ((i >> 3) * (kOvP / 8) + jc) * 64 + (i & 7) * 8;
+      if (i < M2 && 8 * jc < M2)
+        cp_async16(smem_addr(dst), g_in + (size_t)i * M2 + 8 * jc);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+    const int bl = 16 * warp + g;       // the thread's columns bl, bl + 8
+    // a[kt][h]: row bl + 8 (h & 1), k = 16 kt + 2q + 8 (h >> 1), +1
+    uint32_t a[kOvKT][4];
+    const float start = __bfloat162float(__float2bfloat16(0.3f));
 #pragma unroll
-  for (int j = 0; j < NE; ++j) {
-    const int e = threadIdx.x + j * blockDim.x;
-    v[j] = x[(size_t)(e / kOverlapCols) * Bt + c0 + e % kOverlapCols];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, q = lane & 3;
-  const uint32_t* g32 = reinterpret_cast<const uint32_t*>(gs);
-  const uint32_t* y32 = reinterpret_cast<const uint32_t*>(ys);
-  const int S2 = S / 2;
-  for (int r = 0; r < reps; ++r) {
-    float d[4][4];
-    if (DOT) {
+    for (int kt = 0; kt < kOvKT; ++kt) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) d[nt][0] = d[nt][1] = d[nt][2] =
-          d[nt][3] = 0.f;
-      const uint32_t* ga = g32 + (16 * warp + gq) * S2 + q;
-      for (int kt = 0; kt < M2 / 16; ++kt) {
-        const uint32_t a0 = ga[8 * kt], a1 = ga[8 * S2 + 8 * kt];
-        const uint32_t a2 = ga[8 * kt + 4], a3 = ga[8 * S2 + 8 * kt + 4];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint32_t* yb = y32 + (8 * nt + gq) * S2 + 8 * kt + q;
-          mma_bf16(d[nt], a0, a1, a2, a3, yb[0], yb[4]);
+      for (int h = 0; h < 4; ++h) {
+        const int j = 16 * kt + 2 * q + 8 * (h >> 1);
+        const int b = b0 + bl + 8 * (h & 1);
+        float lo = 0.f, hi = 0.f;
+        if (j < M2) {
+          if (y0 == nullptr) {
+            lo = hi = start;
+          } else if (b < Bt) {
+            lo = __bfloat162float(y0[(size_t)j * Bt + b]);
+            hi = __bfloat162float(y0[(size_t)(j + 1) * Bt + b]);
+          }
         }
+        a[kt][h] = bf16_pair(lo, hi);
       }
     }
-    if (CHAIN) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    named_barrier(1, 128);
+    float d0[68], d1[68];
 #pragma unroll
-      for (int j = 0; j < NE; ++j) {
+    for (int i = 0; i < 68; ++i) d0[i] = d1[i] = 0.f;
+    fence_acc(d0);
+    fence_acc(d1);
+    fence_a(a);
+    const uint32_t base = smem_addr(gs);
+    for (int r = 0; r < reps; ++r) {
+      wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < 12; ++k) v[j] = fmaf(v[j], v[j], 0.25f);
-        v[j] *= 0.5f;
-      }
-    }
-    if (DOT) {
-      __syncthreads();
+      for (int kt = 0; kt < kOvKT; ++kt)
+        wgmma_m64n136k16(d0, a[kt], wgmma_desc(base + 256 * kt, 128, kOvSBO),
+                         kt > 0);
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int kt = 0; kt < kOvKT; ++kt)
+        wgmma_m64n136k16(
+            d1, a[kt],
+            wgmma_desc(base + (kWgN / 8) * kOvSBO + 256 * kt, 128, kOvSBO),
+            kt > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(d0);
+      fence_acc(d1);
+#pragma unroll
+      for (int kt = 0; kt < kOvKT; ++kt) {
 #pragma unroll
         for (int h = 0; h < 4; ++h) {
-          const int m = 16 * warp + gq + 8 * (h >> 1);
-          const int c = 8 * nt + 2 * q + (h & 1);
-          const float y = d[nt][h] * 1e-3f;
-          ys[c * S + m] = __float2bfloat16(y * y + 0.25f);
+          const int c = 2 * kt + (h >> 1);        // 8-column chunk of 272
+          const int e = 4 * (c % 17) + 2 * (h & 1);
+          a[kt][h] = c < 17 ? overlap_pack(d0[e], d0[e + 1])
+                            : overlap_pack(d1[e], d1[e + 1]);
         }
       }
-      __syncthreads();
+      fence_a(a);
     }
-  }
+    // every warp's products have completed: G's image may be overwritten
+    fence_proxy_async();
+    named_barrier(1, 128);
 #pragma unroll
-  for (int j = 0; j < NE; ++j) {
-    const int e = threadIdx.x + j * blockDim.x;
-    const int m = e / kOverlapCols, c = e % kOverlapCols;
-    out[(size_t)m * Bt + c0 + c] = v[j] + __bfloat162float(ys[c * S + m]);
+    for (int kt = 0; kt < kOvKT; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int j = 16 * kt + 2 * q + 8 * (h >> 1);
+        if (j < Mt) {
+          const __nv_bfloat162 v =
+              *reinterpret_cast<const __nv_bfloat162*>(&a[kt][h]);
+          const int col = bl + 8 * (h & 1);
+          ys[j * kTileCols + col] = __low2float(v);
+          ys[(j + 1) * kTileCols + col] = __high2float(v);
+        }
+      }
+    }
+    if (!CHAIN) {
+      named_barrier(1, 128);
+      const int c = t & 63, b = b0 + c;
+      for (int jj = 0; jj < kMaxMt / 2; ++jj) {
+        const int m = 2 * jj + (t >> 6);
+        if (m < Mt && b < Bt)
+          out[(size_t)m * Bt + b] =
+              x[(size_t)m * Bt + b] + ys[m * kTileCols + c];
+      }
+    } else {
+      named_barrier(2, 256);
+    }
+  } else if (CHAIN) {
+    const int c = t & 63, b = b0 + c;
+    float v[kMaxMt / 2];
+#pragma unroll
+    for (int jj = 0; jj < kMaxMt / 2; ++jj) {
+      const int m = 2 * jj + (t >> 6);
+      v[jj] = (m < Mt && b < Bt) ? x[(size_t)m * Bt + b] : 0.25f;
+    }
+    for (int r = 0; r < reps; ++r) {
+#pragma unroll
+      for (int jj = 0; jj < kMaxMt / 2; ++jj) {
+#pragma unroll
+        for (int k = 0; k < 12; ++k) v[jj] = fmaf(v[jj], v[jj], 0.25f);
+        v[jj] *= 0.5f;
+      }
+    }
+    named_barrier(2, 256);
+    const float start = __bfloat162float(__float2bfloat16(0.3f));
+#pragma unroll
+    for (int jj = 0; jj < kMaxMt / 2; ++jj) {
+      const int m = 2 * jj + (t >> 6);
+      if (m < Mt && b < Bt) {
+        const float y = DOT ? ys[m * kTileCols + c]
+                        : y0 ? __bfloat162float(y0[(size_t)m * Bt + b])
+                             : start;
+        out[(size_t)m * Bt + b] = v[jj] + y;
+      }
+    }
   }
 }
 
@@ -404,40 +671,66 @@ extern "C" int bt_ub_onehot_gather(const void* t, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// The same function and shapes; Bt a multiple of 16.
+// The same function on the tensor cores; n <= 272, Bt a multiple of 16.
+// img [136, 16 KT] bf16 scratch (KT = 2, 5, 17 for n <= 32, 80, 272);
+// part [splits, Mt, Bt] f32 scratch when splits > 1 (each split's
+// partial sum over its steps, then added in split order into out).
 extern "C" int bt_ub_onehot_mma(const void* t, const void* idx, void* out,
-                                int Mt, int n, int Bt, int reps,
-                                void* stream) {
-  if (Mt <= 0 || Mt > kMaxMt || n <= 0 || Bt <= 0 || Bt % 16)
+                                void* img, void* part, int Mt, int n, int Bt,
+                                int reps, int splits, void* stream) {
+  if (Mt <= 0 || Mt > kMaxMt || n <= 0 || n > 16 * kMaxKT || Bt <= 0 ||
+      Bt % 16 || reps < 0 || splits < 1 || img == nullptr ||
+      (splits > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem =
-      (size_t)((n + 15) / 16) * ((Mt + 7) / 8) * 32 * sizeof(uint2);
-  const int err = opt_in((const void*)ub_onehot_mma_kernel, smem);
-  if (err) return err;
-  ub_onehot_mma_kernel<<<Bt / 16, 32 * kMmaWarps, smem, st>>>(
-      (const __nv_bfloat16*)t, (const int*)idx, (float*)out, Mt, n, Bt,
-      reps);
+  const int chunks = (reps + kIdxChunk - 1) / kIdxChunk;
+  const int per = (chunks + splits - 1) / splits * kIdxChunk;
+  const dim3 grid((Bt + kTileCols - 1) / kTileCols, splits);
+  float* dst = splits > 1 ? (float*)part : (float*)out;
+  const size_t idx_smem = 2 * kIdxChunk * kTileCols * sizeof(int);
+#define UB_ONEHOT(KT)                                                        \
+  {                                                                          \
+    const size_t smem = (size_t)kWgN * 16 * KT * 2 + idx_smem;               \
+    const int err = opt_in((const void*)ub_onehot_mma_kernel<KT>, smem);     \
+    if (err) return err;                                                     \
+    ub_onehot_pack_kernel<<<(kWgN * 16 * KT + 255) / 256, 256, 0, st>>>(     \
+        (const __nv_bfloat16*)t, (__nv_bfloat16*)img, Mt, n, 16 * KT);       \
+    ub_onehot_mma_kernel<KT><<<grid, 128, smem, st>>>(                       \
+        (const __nv_bfloat16*)img, (const int*)idx, dst, Mt, Bt, reps, per); \
+  }
+  if (n <= 32)
+    UB_ONEHOT(2)
+  else if (n <= 80)
+    UB_ONEHOT(5)
+  else
+    UB_ONEHOT(17)
+#undef UB_ONEHOT
+  int err = (int)cudaGetLastError();
+  if (err || splits == 1) return err;
+  const int count = Mt * Bt;
+  ub_onehot_sum_kernel<<<(count + 255) / 256, 256, 0, st>>>(
+      (const float*)part, (float*)out, count, splits);
   return (int)cudaGetLastError();
 }
 
-// g [2Mt, 2Mt] bf16, x and out [Mt, Bt] f32, y0 [2Mt, Bt] bf16 or
-// null (yacc from 0.3); mode 1 chain, 2 dot, 3 both; Mt a multiple of
-// 8, Bt of 32.
+// g [2Mt, 2Mt] bf16 (16-byte aligned), x and out [Mt, Bt] f32, y0
+// [2Mt, Bt] bf16 or null (yacc from 0.3); mode 1 chain, 2 dot, 3 both;
+// Mt a multiple of 8 up to 136, Bt of 32 (a last tile of 32 columns is
+// masked).
 extern "C" int bt_ub_overlap(const void* g, const void* x, const void* y0,
                              void* out, int Mt, int Bt, int mode, int reps,
                              void* stream) {
-  if (Mt <= 0 || Mt % 8 || Bt <= 0 || Bt % kOverlapCols)
+  if (Mt <= 0 || Mt % 8 || Mt > kMaxMt || Bt <= 0 || Bt % 32 || reps < 0 ||
+      ((uintptr_t)g & 15))
     return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(2 * Mt + kOverlapCols) * (2 * Mt + 8) * 2;
-  const int threads = 4 * Mt;     // a warp per 16 rows of g
-  const int blocks = Bt / kOverlapCols;
+  const int blocks = (Bt + kTileCols - 1) / kTileCols;
 #define UB_OVERLAP(C, D)                                                     \
   {                                                                          \
+    const size_t smem = D ? kOvSmem : 0;                                     \
     const int err = opt_in((const void*)ub_overlap_kernel<C, D>, smem);      \
     if (err) return err;                                                     \
-    ub_overlap_kernel<C, D><<<blocks, threads, smem, st>>>(                  \
+    ub_overlap_kernel<C, D><<<blocks, C ? 256 : 128, smem, st>>>(            \
         (const __nv_bfloat16*)g, (const float*)x,                           \
         (const __nv_bfloat16*)y0, (float*)out, Mt, Bt, reps);                \
   }

@@ -27,11 +27,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ...ubench import ONEHOT_MAX_N, WG_N, WG_TILE, onehot_kt
 from ..fs3 import DNA_CODES
 from ..ssv import SSVB_NCAP
 
@@ -187,16 +190,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbath_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(seconds: dict | None = None) -> Path:
     """Compile the kernels unless a library of the current sources
     exists: one nvcc per source, run together, then one link.  Writes
     to temporary names and renames, so concurrent processes never load
-    a half-written file."""
+    a half-written file.  <seconds>, when given, gets each source's
+    name with the seconds from the build's start until its nvcc ended
+    (nothing when the library existed)."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    ended = {} if seconds is None else seconds
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs, procs = [], []
         for src in sources():
@@ -206,11 +213,15 @@ def build() -> Path:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        errors = []
-        for cmd, proc in procs:
+        def wait(job):
+            (cmd, proc), src = job
             _, err = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"{' '.join(cmd)}\n{err[-4000:]}")
+            ended[src.name] = time.perf_counter() - t0
+            return cmd, proc.returncode, err
+        with ThreadPoolExecutor(len(procs)) as pool:
+            ends = list(pool.map(wait, zip(procs, sources())))
+        errors = [f"{' '.join(cmd)}\n{err[-4000:]}"
+                  for cmd, rc, err in ends if rc != 0]
         if errors:
             raise CudaKernelError("nvcc failed:\n" + "\n".join(errors))
         tmp = os.path.join(tmpdir, so.name)
@@ -258,9 +269,10 @@ def lib() -> ctypes.CDLL:
         f.argtypes = [I, I]
     so.bt_ub_chain.restype = I
     so.bt_ub_chain.argtypes = [P, P, I, I, I, P]
-    for name in ("bt_ub_onehot_gather", "bt_ub_onehot_mma"):
-        getattr(so, name).restype = I
-        getattr(so, name).argtypes = [P, P, P, I, I, I, I, P]
+    so.bt_ub_onehot_gather.restype = I
+    so.bt_ub_onehot_gather.argtypes = [P, P, P, I, I, I, I, P]
+    so.bt_ub_onehot_mma.restype = I
+    so.bt_ub_onehot_mma.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     so.bt_ub_overlap.restype = I
     so.bt_ub_overlap.argtypes = [P, P, P, P, I, I, I, I, P]
     so.bt_ub_scalars.restype = I
@@ -629,6 +641,41 @@ def launch_ub_chain(x: torch.Tensor, nops: int, reps: int) -> torch.Tensor:
 
 
 UB_MAX_MT = 136                 # rows of t the onehot entries take
+UB_IDX_CHUNK = 32               # steps of indices a block copies at once
+
+
+def ub_onehot_check(Mt: int, n: int, Bt: int, mma: bool) -> None:
+    """The onehot entries' shapes: Mt <= UB_MAX_MT; on the tensor cores
+    also n <= ubench.ONEHOT_MAX_N and Bt a multiple of 16 (a last tile
+    of fewer than ubench.WG_TILE columns is masked).  Raises
+    ValueError."""
+    if Mt < 1 or Mt > UB_MAX_MT or n < 1 or Bt < 1 or (mma and (
+            n > ONEHOT_MAX_N or Bt % 16)):
+        raise ValueError(f"the onehot entries take Mt <= {UB_MAX_MT} (and "
+                         f"on the tensor cores n <= {ONEHOT_MAX_N} and Bt a "
+                         f"multiple of 16), got t [{Mt}, {n}], Bt {Bt}")
+
+
+def ub_overlap_check(Mt: int, Bt: int) -> None:
+    """The overlap entry's shapes: Mt a multiple of 8 up to UB_MAX_MT,
+    Bt a multiple of 32 (a last tile of 32 columns is masked)."""
+    if Mt < 8 or Mt % 8 or Mt > UB_MAX_MT or Bt < 32 or Bt % 32:
+        raise ValueError(f"the overlap entry takes Mt a multiple of 8 up "
+                         f"to {UB_MAX_MT} and Bt of 32, got [{Mt}, {Bt}]")
+
+
+def ub_onehot_splits(Bt: int, reps: int, sms: int) -> int:
+    """The blocks bt_ub_onehot_mma splits the steps of each tile of
+    ubench.WG_TILE columns over: about two blocks an SM (its registers
+    and shared memory hold two), whole chunks of UB_IDX_CHUNK steps
+    each, none empty.  [136, 1024] x 512 on 132 SMs: 16 tiles x 16
+    splits of 32 steps; Bt = 4096: 64 x 4 of 128."""
+    tiles = -(-Bt // WG_TILE)
+    chunks = -(-reps // UB_IDX_CHUNK)
+    if chunks <= 1:
+        return 1
+    per = -(-chunks // min(chunks, max(1, 2 * sms // tiles)))
+    return -(-chunks // per)
 
 
 def launch_ub_onehot(t: torch.Tensor, idx: torch.Tensor,
@@ -636,18 +683,26 @@ def launch_ub_onehot(t: torch.Tensor, idx: torch.Tensor,
     """ubench.cu bt_ub_onehot_mma (tensor cores) or bt_ub_onehot_gather
     (by index): acc [Mt, Bt] f32 = sum over reps i of t[:, idx[i]]; an
     index outside [0, n) adds nothing (not checked here: that would
-    read the indices back and stall the host on every call)."""
+    read the indices back and stall the host on every call).  The
+    tensor-core entry packs t^T into its wgmma image once (scratch
+    ``img``) and splits the steps over blocks (``ub_onehot_splits``)
+    into a scratch of partial sums, which it adds in split order."""
     _check_ub(t, idx)
     Mt, n = t.shape
     reps, Bt = idx.shape
-    if Mt > UB_MAX_MT or (mma and Bt % 16):
-        raise ValueError(f"the onehot entries take Mt <= {UB_MAX_MT} (and "
-                         f"Bt a multiple of 16 on the tensor cores), got "
-                         f"[{Mt}, {Bt}]")
+    ub_onehot_check(Mt, n, Bt, mma)
     out = torch.empty(Mt, Bt, dtype=torch.float32, device=t.device)
-    name = "ub_onehot_mma" if mma else "ub_onehot_gather"
-    _launch(name, getattr(lib(), "bt_" + name), t, idx, out, Mt, n, Bt,
-            reps)
+    if not mma:
+        _launch("ub_onehot_gather", lib().bt_ub_onehot_gather, t, idx, out,
+                Mt, n, Bt, reps)
+        return out
+    splits = ub_onehot_splits(Bt, reps, sms(t.device))
+    img = torch.empty(WG_N * 16 * onehot_kt(n), dtype=torch.bfloat16,
+                      device=t.device)
+    part = torch.empty(splits, Mt, Bt, dtype=torch.float32,
+                       device=t.device) if splits > 1 else None
+    _launch("ub_onehot_mma", lib().bt_ub_onehot_mma, t, idx, out, img, part,
+            Mt, n, Bt, reps, splits)
     return out
 
 
@@ -660,9 +715,10 @@ def launch_ub_overlap(g: torch.Tensor, x: torch.Tensor, mode: str,
     starts at 0.3, or at <y0> [2Mt, Bt] bf16."""
     _check_ub(g, x, *(() if y0 is None else (y0,)))
     Mt, Bt = x.shape
-    if Mt % 8 or Bt % 32 or Mt > UB_MAX_MT:
-        raise ValueError(f"the overlap entry takes Mt a multiple of 8 up "
-                         f"to {UB_MAX_MT} and Bt of 32, got [{Mt}, {Bt}]")
+    ub_overlap_check(Mt, Bt)
+    if g.data_ptr() % 16:
+        raise ValueError("the overlap entry reads g in 16-byte rows: g must "
+                         "start on a 16-byte boundary")
     out = torch.empty_like(x)
     _launch("ub_overlap", lib().bt_ub_overlap, g, x, y0, out, Mt, Bt,
             OVERLAP_MODES[mode], int(reps))

@@ -13,12 +13,13 @@ types, outputs and shapes (``Mt, Bt = 136, 1024``, ``REPS = 512``):
   with ``t [Mt, n]`` bf16, ``idx [REPS, Bt]`` int32, ``n`` 17, 65 and
   257 (the fs3 gate's codon tables): the table read by index
   (``onehot_gather``, how the ported gates read emissions) against the
-  one-hot product on the tensor cores (``onehot_mma``, how the TPU
-  gates read them);
+  one-hot product on the tensor cores (``onehot_mma``, ``wgmma``, how
+  the TPU gates read them; ``n`` up to 272 there);
 - ``overlap`` (``bench_overlap``): per step, a 12-op chain on ``acc
   [Mt, Bt]`` f32 and ``yacc [2Mt, Bt] <- bf16((1e-3 g @ yacc)^2 +
   0.25)`` with ``g [2Mt, 2Mt]`` bf16, modes chain, dot and both: does
-  the SM overlap a tensor-core product with an independent FMA chain;
+  the SM overlap a tensor-core product (``wgmma``) with an independent
+  FMA chain in another warpgroup;
 - ``scalars`` (``bench_scalars``): a ``[32, Bt]`` scratch from 0.3,
   rows 0-7 one by one and the block of rows 8-15 stepped ``v*v + 0.25``
   per step, row 0 out; the input ``x`` is read by nothing, as in the
@@ -283,17 +284,100 @@ def tc_bound_ms(Mt: int, Bt: int, reps: int, n: int) -> float:
     """The one-hot product's own work on the tensor cores, 2 n Mt Bt
     reps bf16 operations over the card's dense bf16 rate: what
     ``bt_ub_onehot_mma`` asks of them, not a bound of the function
-    (that is ``bound``'s, one add per element and step).  ``mma.sync``
-    does not reach that rate (only ``wgmma`` does): the share is
-    against the card, not the instruction."""
+    (that is ``bound``'s, one add per element and step)."""
     return 1e3 * 2 * n * Mt * Bt * reps / BF16_TC_OPS_PER_S
+
+
+# ---------------------------------------------------------------------
+# The tensor-core entries' design (csrc/ubench.cu): a warpgroup's wgmma
+# takes WG_TILE columns b as its M, WG_N rows as its N, k16 slices of
+# its K; B sits in shared memory as a K-major image without swizzle.
+# These mirror the kernels' layout, descriptor and floors for the tests
+# and the records.
+# ---------------------------------------------------------------------
+WG_TILE = 64                    # columns b of a warpgroup (wgmma's M)
+WG_N = 136                      # the instruction's N: Mt padded
+OVERLAP_P = 2 * WG_N            # 2Mt padded: N and K of an overlap step
+SMS = 132                       # the H100 SXM's SMs
+
+
+ONEHOT_KT = (2, 5, 17)          # k16 slices of a one-hot step's instances
+ONEHOT_MAX_N = 16 * ONEHOT_KT[-1]
+
+
+def onehot_kt(n: int) -> int:
+    """The k16 slices of a one-hot step: n padded to 32, 80 or 272."""
+    for kt in ONEHOT_KT:
+        if n <= 16 * kt:
+            return kt
+    raise ValueError(f"the tensor-core entry takes n <= {ONEHOT_MAX_N}, "
+                     f"got {n}")
+
+
+def kmajor_offset(row: int, k: int, K: int) -> int:
+    """Element offset of B[k][row] in the K-major image of an [N][K]
+    matrix (row ``row`` along k), no swizzle: core matrices of 8 rows x
+    8 elements (16 bytes a row, 128 contiguous bytes), the K / 8 cores
+    of a block of 8 rows side by side, so LBO = 128 bytes (the next core
+    along k) and SBO = 16 K bytes (the next block of 8 rows)."""
+    return ((row // 8) * (K // 8) + k // 8) * 64 + (row % 8) * 8 + k % 8
+
+
+def kmajor_image(mat: torch.Tensor, N: int, K: int) -> torch.Tensor:
+    """The image (N K elements) of <mat> [rows <= N, cols <= K], zero
+    past it, as the kernels fill their shared memory."""
+    img = torch.zeros(N * K, dtype=mat.dtype)
+    rows, cols = mat.shape
+    at = kmajor_offset(torch.arange(rows)[:, None],
+                       torch.arange(cols)[None, :], K)
+    img[at.reshape(-1)] = mat.reshape(-1)
+    return img
+
+
+def wgmma_desc(addr: int, lbo: int, sbo: int) -> int:
+    """A wgmma matrix descriptor (PTX ISA): the start address, the
+    leading (along K) and stride (along M/N) byte offsets, each >> 4 in
+    14 bits, at bits 0, 16 and 32; no swizzle (bits 62-63 zero)."""
+    enc = lambda v: (v & 0x3FFFF) >> 4  # noqa: E731
+    return enc(addr) | enc(lbo) << 16 | enc(sbo) << 32
+
+
+def desc_slice(img: torch.Tensor, desc: int, N: int) -> torch.Tensor:
+    """B[16, N] of one k16 slice read from <img> as wgmma reads it by
+    <desc>: element (k, n) at byte start + (n / 8) SBO + (k / 8) LBO +
+    16 (n % 8) + 2 (k % 8) (start relative to the image)."""
+    start, lbo, sbo = ((desc >> s & 0x3FFF) << 4 for s in (0, 16, 32))
+    k = torch.arange(16)[:, None]
+    n = torch.arange(N)[None, :]
+    at = start + (n // 8) * sbo + (k // 8) * lbo + 16 * (n % 8) + 2 * (k % 8)
+    return img[at // 2]
+
+
+def onehot_mma_floor_ms(Bt: int, reps: int, n: int) -> float:
+    """The tensor-core entry's floor as designed: the bf16 work it
+    issues (every tile of WG_TILE columns, WG_N rows and 16 KT of K,
+    each step) at the card's dense rate."""
+    tiles = -(-Bt // WG_TILE)
+    return 1e3 * 2 * WG_TILE * WG_N * 16 * onehot_kt(n) * tiles * reps \
+        / BF16_TC_OPS_PER_S
+
+
+def overlap_floor_ms(Bt: int, reps: int) -> float:
+    """The overlap product's floor as designed: each tile of WG_TILE
+    columns stays on one SM, so its 2 OVERLAP_P^2 WG_TILE bf16
+    operations a step run at one SM's share of the dense rate, in as
+    many waves as the tiles take of the SMS SMs."""
+    waves = -(-(-(-Bt // WG_TILE)) // SMS)
+    return 1e3 * waves * 2 * OVERLAP_P ** 2 * WG_TILE * reps \
+        / (BF16_TC_OPS_PER_S / SMS)
 
 
 def onehot_mma_tol(ref: torch.Tensor, reps: int = REPS) -> float:
     """The tensor-core entry's bound against the plain version: the
     tensor cores accumulate in f32 but do not round each step's add as
     an IEEE add does, so each of the <reps> steps may leave an ulp of the
-    largest |acc|."""
+    largest |acc| (the partial sums of the entry's splits, and their
+    sum, stay inside it)."""
     return reps * 2.0 ** -23 * float(ref.abs().max())
 
 
@@ -325,8 +409,10 @@ def cuda_ms(fn, reps: int) -> float:
 def drive(cases=CASES) -> list[dict]:
     """Times every case's kernel at [MT, BT] and [MT, BT_FULL] (and the
     chain on one warp), REPS steps a call, each call ten times: one
-    record a case and shape, with ``ms``, ``bound_ms``, ``bound_by`` and
-    the script's derived figure."""
+    record a case and shape, with ``ms``, ``bound_ms``, ``bound_by``,
+    the script's derived figure and, for the tensor-core entries, their
+    design's ``floor_ms`` (``onehot_mma_floor_ms``,
+    ``overlap_floor_ms``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the microbenchmarks time the card: no CUDA "
                            "device")
@@ -365,6 +451,7 @@ def drive(cases=CASES) -> list[dict]:
                     r["mma"] = mma
                     if mma:
                         r["tc_bound_ms"] = tc_bound_ms(M, Bt, reps, n)
+                        r["floor_ms"] = onehot_mma_floor_ms(Bt, reps, n)
                     r["ns_per_pos"] = 1e6 * ms / reps
                     recs.append(r)
         if "overlap" in cases:
@@ -376,6 +463,8 @@ def drive(cases=CASES) -> list[dict]:
                 r = record("overlap", "bt_ub_overlap", ms, Mt=M, Bt=Bt,
                            reps=reps, mode=mode)
                 r["ns_per_step"] = per[mode]
+                if mode != "chain":
+                    r["floor_ms"] = overlap_floor_ms(Bt, reps)
                 recs.append(r)
             ideal, serial = max(per["chain"], per["dot"]), \
                 per["chain"] + per["dot"]

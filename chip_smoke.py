@@ -36,9 +36,12 @@ phase but ``deep`` and ``sanitize_full``; ``all`` adds both):
   ``loader.prepare_*``), its wrapper's time (``wrapper_ms``) beside it;
 - ``ubench``: the card's microbenchmarks (``bath_tpu_torch.ubench``,
   the counterparts of ``scripts/ubench_vpu.py``), each of the five
-  entries against its plain version at the script's shapes, then the
-  drive (chain, one-hot by index and on the tensor cores, overlap,
-  scalars at [136, 1024] and [136, 4096]);
+  entries against its plain version at the script's shapes (the one-hot
+  and overlap entries also at [136, 4096] and with a partial last tile,
+  the tensor-core ones twice, bit for bit), ``F.embedding_bag`` timed
+  beside the one-hot entries (their library call), then the drive
+  (chain, one-hot by index and on the tensor cores, overlap, scalars at
+  [136, 1024] and [136, 4096]);
 - ``mesh``: the self-check's dry run (``bath_tpu_torch/selfcheck.py``
   ``dryrun_multichip``): the data-parallel gate step
   (``parallel/mesh.py``) over every card of the machine (two shares of
@@ -491,6 +494,7 @@ class Run:
         self.err: dict = {}
         self.launches: dict = {}
         self.extra: dict = {}
+        self.library: dict = {}     # library_ms, where one call computes it
         self.cache: dict = {}
         self.host_build = None
         self.built_numpy = None
@@ -2815,14 +2819,22 @@ def phase_build(run: Run) -> None:
 # still follows x element by element, from a yacc start whose columns
 # differ (ubench.overlap_start).
 UB_SHORT_REPS = (1, 2, 3)
+# the drive's widths; the tensor-core entries' last tiles of 64 columns
+# hold 16 (onehot) and 32 (overlap) columns at the partial widths
+UB_WIDTHS = (1024, 4096)
+UB_PARTIAL = {"onehot": 1040, "overlap": 1056}
 
 
 def phase_ubench(run: Run) -> None:
     """Each of the five entries against its plain version at the
-    script's shapes ([136, 1024], 512 steps), then the drive (launches
-    counted from 0) at [136, 1024] and [136, 4096]; beside the one-hot
-    and overlap entries one torch.matmul of one step's product, a
-    yardstick the port never calls."""
+    script's shapes ([136, 1024], 512 steps), the one-hot and overlap
+    entries also at [136, 4096] and a partial last tile, the tensor-core
+    ones twice (equal bits), then the drive (launches counted from 0) at
+    [136, 1024] and [136, 4096].  Beside the one-hot entries
+    F.embedding_bag, the one PyTorch call that computes their sum (#8's
+    library_ms); beside the overlap entry one torch.matmul of one step's
+    product, a yardstick.  The port calls neither."""
+    import torch.nn.functional as F
     from bath_tpu_torch import ubench as ub
     entries = {"ub_chain": ub.chain, "ub_onehot_gather": ub.onehot_gather,
                "ub_onehot_mma": ub.onehot_mma, "ub_overlap": ub.overlap,
@@ -2842,6 +2854,14 @@ def phase_ubench(run: Run) -> None:
               plain_ms=f"{ms:.2f}")
         return ms
 
+    def twice(entry, fn, case):
+        """The entry called twice: equal bits (fixed orders of sums)."""
+        a, b = fn(), fn()
+        if not torch.equal(a, b):
+            fail(f"{entry} ({case}) differs between two calls: max |d| "
+                 f"{max_err(a, b)}")
+        return a
+
     x, = (a.to(DEV) for a in ub.inputs("chain"))
     for nops in ub.CHAIN_NOPS:
         plain_ms["ub_chain"] = hold("ub_chain", ub.chain(x, nops),
@@ -2851,24 +2871,45 @@ def phase_ubench(run: Run) -> None:
             hold("ub_chain", ub.chain(x, nops, reps),
                  lambda: ub.chain_ref(x, nops, reps),
                  f"nops={nops} reps={reps}")
+    library = {}
+    for Bt in UB_WIDTHS + (UB_PARTIAL["onehot"],):
+        for n in ub.ONEHOT_N:
+            t, idx = (a.to(DEV) for a in ub.inputs("onehot", ub.MT, Bt,
+                                                   n=n))
+            gat = ub.onehot_gather(t, idx)
+            mma = twice("ub_onehot_mma", lambda: ub.onehot_mma(t, idx),
+                        f"n={n} Bt={Bt}")
+            for name, got in (("ub_onehot_gather", gat),
+                              ("ub_onehot_mma", mma)):
+                ms = hold(name, got, lambda: ub.onehot_ref(t, idx),
+                          f"n={n} Bt={Bt}")
+                if Bt == ub.BT:
+                    plain_ms[name] = ms
+            err = max_err(mma, gat)
+            if err > ub.onehot_mma_tol(gat):
+                fail(f"onehot mma vs gather at n={n} Bt={Bt}: max |d| {err}")
+            if Bt not in UB_WIDTHS:
+                continue
+            # the library call: its inputs laid out before the timed calls
+            bag, w = idx.T.contiguous(), t.float().T.contiguous()
+            lib_out = F.embedding_bag(bag, w, mode="sum")
+            err = max_err(lib_out.T, gat)
+            if err > ub.onehot_mma_tol(gat):
+                fail(f"embedding_bag vs the gather at n={n} Bt={Bt}: max "
+                     f"|d| {err}")
+            library[(Bt, n)] = cuda_ms(
+                lambda: F.embedding_bag(bag, w, mode="sum"), 20)
     yard = {}
-    for n in ub.ONEHOT_N:
-        t, idx = (a.to(DEV) for a in ub.inputs("onehot", n=n))
-        gat, mma = ub.onehot_gather(t, idx), ub.onehot_mma(t, idx)
-        for name, got in (("ub_onehot_gather", gat), ("ub_onehot_mma", mma)):
-            plain_ms[name] = hold(name, got, lambda: ub.onehot_ref(t, idx),
-                                  f"n={n}")
-        err = max_err(mma, gat)
-        if err > ub.onehot_mma_tol(gat):
-            fail(f"onehot mma vs gather at n={n}: max |d| {err}")
-        oh = torch.zeros(n, ub.BT, dtype=torch.bfloat16, device=DEV)
-        oh[idx[0].long(), torch.arange(ub.BT, device=DEV)] = 1.0
-        yard["ub_onehot_mma"] = cuda_ms(lambda: torch.matmul(t, oh), 20)
+    for Bt in UB_WIDTHS + (UB_PARTIAL["overlap"],):
+        g, x = (a.to(DEV) for a in ub.inputs("overlap", ub.MT, Bt))
+        for mode in ub.OVERLAP_MODES:
+            got = twice("ub_overlap", lambda: ub.overlap(g, x, mode),
+                        f"mode={mode} Bt={Bt}")
+            ms = hold("ub_overlap", got, lambda: ub.overlap_ref(g, x, mode),
+                      f"mode={mode} Bt={Bt}")
+            if Bt == ub.BT:
+                plain_ms["ub_overlap"] = ms
     g, x = (a.to(DEV) for a in ub.inputs("overlap"))
-    for mode in ub.OVERLAP_MODES:
-        plain_ms["ub_overlap"] = hold(
-            "ub_overlap", ub.overlap(g, x, mode),
-            lambda: ub.overlap_ref(g, x, mode), f"mode={mode}")
     y0 = ub.overlap_start().to(DEV)
     for reps in UB_SHORT_REPS:
         got = {m: ub.overlap(g, x, m, reps, y0) for m in ub.OVERLAP_MODES}
@@ -2904,6 +2945,8 @@ def phase_ubench(run: Run) -> None:
     recs = ub.drive()
     launches = {k: f.launches for k, f in entries.items()}
     for r in recs:
+        if r["case"] == "onehot":
+            r["library_ms"] = library[(r["Bt"], r["n"])]
         phase("ubench", **{k: (f"{v:.5g}" if isinstance(v, float) else v)
                            for k, v in r.items()}, card=repr(run.card))
     if min(launches.values()) <= 0:
@@ -2931,13 +2974,18 @@ def phase_ubench(run: Run) -> None:
                             "drive": [{k: v for k, v in q.items()
                                        if k not in ("entry", "case")}
                                       for q in mine]}
+        if "library_ms" in r:
+            run.library[entry] = r["library_ms"]
         if entry in yard:
             run.extra[entry]["torch_matmul_one_step_ms_yardstick"] = \
                 yard[entry]
-    phase("ubench_yardstick", note="torch.matmul of one step's product; "
-          "not called by the port",
-          onehot_n257_ms=f"{yard['ub_onehot_mma']:.5f}",
-          overlap_ms=f"{yard['ub_overlap']:.5f}")
+    hidden = {r["Bt"]: r["hidden_share"] for r in recs if "hidden_share" in r}
+    phase("ubench_summary", note="library_ms: F.embedding_bag, not called "
+          "by the port",
+          **{f"library_ms_n{n}_bt{Bt}": f"{ms:.5f}"
+             for (Bt, n), ms in sorted(library.items())},
+          **{f"hidden_share_bt{Bt}": f"{h:.4f}" for Bt, h in hidden.items()},
+          overlap_matmul_one_step_ms=f"{yard['ub_overlap']:.5f}")
 
 
 # ---------------------------------------------------------------------
@@ -3252,8 +3300,10 @@ DEFAULT_PHASES = tuple(p for p in PHASES
 
 def record(run: Run) -> list:
     """The kernels' record: every entry whose phases ran (all of them in
-    the default run, or it fails).  No single PyTorch call computes any
-    of these functions: library_ms is null."""
+    the default run, or it fails).  library_ms is null but for the two
+    one-hot entries (#8): F.embedding_bag(idx.T, t.float().T,
+    mode="sum") computes their sum in one call (timed in the ubench
+    phase); no single PyTorch call computes any other row's function."""
     kernels = []
     for name, src, replaces in ENTRIES:
         if not (name in run.times and name in run.err
@@ -3265,7 +3315,8 @@ def record(run: Run) -> list:
                         "launches": run.launches[name],
                         "max_abs_err": run.err[name], "ms": t[0],
                         "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
-                        "library_ms": None, **run.extra.get(name, {})})
+                        "library_ms": run.library.get(name),
+                        **run.extra.get(name, {})})
     missing = sorted({e[0] for e in ENTRIES} - {k["name"] for k in kernels})
     if set(DEFAULT_PHASES) <= set(run.phases) and missing:
         fail(f"the record lacks entries: {missing}")
@@ -3328,16 +3379,26 @@ def setup(run: Run) -> None:
     print(run.card, flush=True)
     BUILD.mkdir(parents=True, exist_ok=True)
     t = time.perf_counter()
+    per = {}
 
     def compile_kernels():
-        return loader.build(), time.perf_counter() - t
+        return loader.build(per), time.perf_counter() - t
     with ThreadPoolExecutor(1) as pool:
         job = pool.submit(compile_kernels)
         made = host_fixtures(run)
         so, seconds = job.result()
     loader.lib()
+    # each source's nvcc ends per[src] seconds after the start (they run
+    # together): ubench.cu's share of the wall and of their sum
+    ub_s = per.get("ubench.cu")
     phase("nvcc", seconds=f"{seconds:.1f}",
           host_fixtures_meanwhile=made,
+          per_source_s=",".join(f"{k}:{v:.1f}" for k, v in per.items())
+          or "cached",
+          ubench_cu_s=f"{ub_s:.1f}" if ub_s else "cached",
+          ubench_cu_share_of_wall=f"{ub_s / seconds:.3f}" if ub_s else "-",
+          ubench_cu_share_of_sum=f"{ub_s / sum(per.values()):.3f}"
+          if ub_s else "-",
           nvcc=" ".join(loader.NVCC_FLAGS),
           sources=",".join(str(p.relative_to(ROOT))
                            for p in loader.sources()),

@@ -28,9 +28,11 @@ the plain version).  Tolerances, with the largest |d| measured here:
   once (H100: 1.2e-7).
 
 The test marked ``cuda`` holds each of the five kernel entries against
-its plain version on the card at the script's shapes (and the mma and
-gather entries against each other), and the chain and overlap entries
-also after 1-3 steps: after 512 every element of the chain sits at its
+its plain version on the card at the script's shapes, the one-hot and
+overlap entries also at [136, 4096] and with a partial last tile of
+64 columns (Bt = 1040 and 1056), for every table, twice with equal bits
+(and the mma and gather entries against each other), and the chain and
+overlap entries also after 1-3 steps: after 512 every element of the chain sits at its
 map's fixed point, and from the script's yacc start of 0.3 the columns
 stay equal, so only the short runs, from ``ubench.overlap_start``, show
 which element and which column each lane read.  It skips here, and JAX is imported
@@ -45,8 +47,11 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch_threads import one_torch_thread  # noqa: F401
 
 from bath_tpu_torch import ubench as ub
+from bath_tpu_torch.ops.kernels import loader
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(Mt=16, Bt=128, REPS=4)
@@ -216,6 +221,137 @@ def test_drive_refuses_the_cpu(monkeypatch):
         ub.drive()
 
 
+@pytest.mark.parametrize("n", ub.ONEHOT_N)
+def test_embedding_bag_is_the_onehot_sum(n):
+    """#8's library call, ``F.embedding_bag(idx.T, t.float().T,
+    mode="sum")``, transposed, is ``onehot_ref`` bit for bit at the
+    script's shapes: each bag sums its table rows in step order."""
+    t, idx = ub.inputs("onehot", n=n)
+    got = F.embedding_bag(idx.T.contiguous(), t.float().T.contiguous(),
+                          mode="sum")
+    assert got.shape == (ub.BT, ub.MT)
+    assert torch.equal(got.T, ub.onehot_ref(t, idx))
+
+
+@pytest.mark.parametrize("Mt,n,Bt,mma,ok", [
+    (136, 257, 1024, True, True), (136, 257, 4096, True, True),
+    (8, 17, 32, True, True),            # the sanitizer's case
+    (136, 65, 1040, True, True),        # a last tile of 16 columns
+    (136, 272, 16, True, True), (1, 1, 16, True, True),
+    (136, 900, 1000, False, True),      # the gather: any n, any Bt
+    (137, 17, 1024, True, False), (137, 17, 1024, False, False),
+    (136, 17, 1000, True, False),       # Bt not a multiple of 16
+    (136, 273, 1024, True, False),      # past 17 k16 slices
+])
+def test_onehot_shapes_taken_and_refused(Mt, n, Bt, mma, ok):
+    if ok:
+        loader.ub_onehot_check(Mt, n, Bt, mma)
+    else:
+        with pytest.raises(ValueError):
+            loader.ub_onehot_check(Mt, n, Bt, mma)
+
+
+@pytest.mark.parametrize("Mt,Bt,ok", [
+    (136, 1024, True), (136, 4096, True), (8, 32, True),
+    (136, 1056, True),                  # a last tile of 32 columns
+    (16, 128, True), (12, 64, False), (144, 64, False), (136, 48, False),
+    (0, 64, False),
+])
+def test_overlap_shapes_taken_and_refused(Mt, Bt, ok):
+    if ok:
+        loader.ub_overlap_check(Mt, Bt)
+    else:
+        with pytest.raises(ValueError):
+            loader.ub_overlap_check(Mt, Bt)
+
+
+def test_the_kernels_refuse_cpu_tensors():
+    """A CPU tensor never reaches a kernel: the wrappers run the plain
+    version for it, the launches raise."""
+    t, idx = small("onehot", n=17)
+    g, x = small("overlap")
+    with pytest.raises(ValueError):
+        loader.launch_ub_onehot(t, idx, mma=True)
+    with pytest.raises(ValueError):
+        loader.launch_ub_overlap(g, x, "both", 1)
+
+
+@pytest.mark.parametrize("Mt,n", [(136, 17), (136, 65), (136, 257), (8, 17),
+                                  (100, 200)])
+def test_onehot_b_image_read_back_by_descriptor(Mt, n):
+    """t^T, the one-hot product's B, in the K-major image the kernel
+    fills ([136][16 KT]): each k16 slice read back by its descriptor
+    (start 256 kt, LBO 128, SBO 256 KT bytes) is t^T's slice, zero past
+    Mt and n."""
+    t, _ = ub.inputs("onehot", Mt, 16, 1, n=n)
+    kt_n = ub.onehot_kt(n)
+    K = 16 * kt_n
+    img = ub.kmajor_image(t, ub.WG_N, K)
+    pad = torch.zeros(ub.WG_N, K, dtype=t.dtype)
+    pad[:Mt, :n] = t
+    assert int(img.numel()) == ub.WG_N * K
+    for kt in range(kt_n):
+        desc = ub.wgmma_desc(256 * kt, 128, 256 * kt_n)
+        assert torch.equal(ub.desc_slice(img, desc, ub.WG_N),
+                           pad[:, 16 * kt:16 * kt + 16].T)
+    assert ub.kmajor_offset(9, 17, K) == (1 * (K // 8) + 2) * 64 + 8 + 1
+
+
+@pytest.mark.parametrize("Mt", [136, 64, 8])
+def test_overlap_b_image_read_back_by_descriptor(Mt):
+    """G^T, the overlap product's B, as the [272][272] K-major image of
+    G (row i along j): the slice kt of output half h read back by its
+    descriptor (start 17 h SBO + 256 kt, LBO 128, SBO 4352 bytes) is
+    G^T[16 kt.., 136 h..136 h + 135], zero past 2Mt."""
+    g, _ = ub.inputs("overlap", Mt, 32, 1)
+    P = ub.OVERLAP_P
+    img = ub.kmajor_image(g, P, P)
+    pad = torch.zeros(P, P, dtype=g.dtype)
+    pad[:2 * Mt, :2 * Mt] = g
+    sbo = 128 * (P // 8)
+    for h in range(2):
+        for kt in range(P // 16):
+            desc = ub.wgmma_desc(h * (ub.WG_N // 8) * sbo + 256 * kt, 128,
+                                 sbo)
+            want = pad[h * ub.WG_N:(h + 1) * ub.WG_N,
+                       16 * kt:16 * kt + 16].T
+            assert torch.equal(ub.desc_slice(img, desc, ub.WG_N), want)
+
+
+@pytest.mark.parametrize("Bt,reps,sms,want", [
+    (1024, 512, 132, 16), (4096, 512, 132, 4), (1040, 512, 132, 8),
+    (32, 3, 132, 1), (64, 512, 132, 16), (8192, 512, 132, 2),
+    (1024, 40, 132, 2), (1024, 512, 1, 1)])
+def test_onehot_splits_cover_the_steps(Bt, reps, sms, want):
+    """The tensor-core entry's splits: whole chunks of 32 steps each,
+    none empty, every step in one; about two blocks an SM."""
+    s = loader.ub_onehot_splits(Bt, reps, sms)
+    assert s == want
+    chunks = -(-reps // loader.UB_IDX_CHUNK)
+    per = -(-chunks // s) * loader.UB_IDX_CHUNK
+    assert s * per >= reps and (s - 1) * per < reps
+    tiles = -(-Bt // ub.WG_TILE)
+    assert s == 1 or tiles * s <= 2 * sms
+
+
+def test_floors_of_the_designs():
+    """The overlap product on one SM a tile: 0.647 ms at 512 steps for
+    Bt = 1024 and 4096 (16 and 64 tiles), twice past 132 tiles; the
+    one-hot product as issued (n padded to 16 KT, Mt to 136)."""
+    one = 2 * 272 ** 2 * 64 * 512 / (989e12 / 132) * 1e3
+    assert one == pytest.approx(0.6471357)
+    assert ub.overlap_floor_ms(1024, 512) == pytest.approx(one)
+    assert ub.overlap_floor_ms(4096, 512) == pytest.approx(one)
+    assert ub.overlap_floor_ms(64 * 132, 512) == pytest.approx(one)
+    assert ub.overlap_floor_ms(64 * 133, 512) == pytest.approx(2 * one)
+    assert ub.onehot_mma_floor_ms(1024, 512, 257) == pytest.approx(
+        2 * 64 * 136 * 272 * 16 * 512 / 989e12 * 1e3)
+    assert [ub.onehot_kt(n) for n in (1, 17, 32, 33, 65, 80, 81, 257)] == \
+        [2, 2, 2, 5, 5, 5, 17, 17]
+    with pytest.raises(ValueError):
+        ub.onehot_kt(273)
+
+
 @pytest.mark.cuda
 def test_ubench_kernels_vs_plain_on_card():
     if not torch.cuda.is_available():
@@ -228,13 +364,20 @@ def test_ubench_kernels_vs_plain_on_card():
         got = ub.chain(x, nops)
         assert ub.chain.launches == before + 1
         assert float((got - ub.chain_ref(x, nops)).abs().max()) <= 1e-6
-    for n in ub.ONEHOT_N:
-        t, idx = (a.to(dev) for a in ub.inputs("onehot", n=n))
-        ref = ub.onehot_ref(t, idx)
-        gat, mma = ub.onehot_gather(t, idx), ub.onehot_mma(t, idx)
-        assert torch.equal(gat, ref)
-        assert float((mma - ref).abs().max()) <= ub.onehot_mma_tol(ref)
-        assert float((mma - gat).abs().max()) <= ub.onehot_mma_tol(ref)
+    # the tensor-core entries at the drive's widths and with a partial
+    # last tile of 64 columns (16 for onehot, 32 for overlap), every
+    # table, twice: equal bits (their sums run in fixed orders)
+    for Bt in (ub.BT, ub.BT_FULL, 1040):
+        for n in ub.ONEHOT_N:
+            t, idx = (a.to(dev) for a in ub.inputs("onehot", ub.MT, Bt,
+                                                   n=n))
+            ref = ub.onehot_ref(t, idx)
+            gat, mma = ub.onehot_gather(t, idx), ub.onehot_mma(t, idx)
+            assert torch.equal(gat, ref), (Bt, n)
+            tol = ub.onehot_mma_tol(ref)
+            assert float((mma - ref).abs().max()) <= tol, (Bt, n)
+            assert float((mma - gat).abs().max()) <= tol, (Bt, n)
+            assert torch.equal(ub.onehot_mma(t, idx), mma), (Bt, n)
     # after 1-3 steps the chain still follows x element by element (after
     # 512 every element sits at the map's fixed point)
     for nops in ub.CHAIN_NOPS:
@@ -242,23 +385,26 @@ def test_ubench_kernels_vs_plain_on_card():
             got = ub.chain(x, nops, reps)
             assert float((got - ub.chain_ref(x, nops, reps)).abs().max()) \
                 <= 1e-6
-    g, x = (a.to(dev) for a in ub.inputs("overlap"))
-    for mode in ub.OVERLAP_MODES:
-        got = ub.overlap(g, x, mode)
-        assert float((got - ub.overlap_ref(g, x, mode)).abs().max()) \
-            <= 2.0 ** -8
-    # from a start whose columns differ, so that the product's column
-    # mapping shows; mode chain leaves yacc at its start (the chain's
-    # tolerance), and both - dot is the chain half alone
-    y0 = ub.overlap_start().to(dev)
-    for reps in (1, 2, 3):
-        got = {m: ub.overlap(g, x, m, reps, y0) for m in ub.OVERLAP_MODES}
-        want = {m: ub.overlap_ref(g, x, m, reps, y0)
-                for m in ub.OVERLAP_MODES}
-        for m in ub.OVERLAP_MODES:
-            tol = 1e-6 if m == "chain" else 2.0 ** -8
-            assert float((got[m] - want[m]).abs().max()) <= tol, (m, reps)
-        half = (got["both"] - got["dot"]) - (want["both"] - want["dot"])
-        assert float(half.abs().max()) <= 1e-6, reps
+    for Bt in (ub.BT, ub.BT_FULL, 1056):
+        g, x = (a.to(dev) for a in ub.inputs("overlap", ub.MT, Bt))
+        for mode in ub.OVERLAP_MODES:
+            got = ub.overlap(g, x, mode)
+            assert float((got - ub.overlap_ref(g, x, mode)).abs().max()) \
+                <= 2.0 ** -8, (Bt, mode)
+            assert torch.equal(ub.overlap(g, x, mode), got), (Bt, mode)
+        # from a start whose columns differ, so that the product's column
+        # mapping shows; mode chain leaves yacc at its start (the chain's
+        # tolerance), and both - dot is the chain half alone
+        y0 = ub.overlap_start(ub.MT, Bt).to(dev)
+        for reps in (1, 2, 3):
+            got = {m: ub.overlap(g, x, m, reps, y0) for m in ub.OVERLAP_MODES}
+            want = {m: ub.overlap_ref(g, x, m, reps, y0)
+                    for m in ub.OVERLAP_MODES}
+            for m in ub.OVERLAP_MODES:
+                tol = 1e-6 if m == "chain" else 2.0 ** -8
+                assert float((got[m] - want[m]).abs().max()) <= tol, \
+                    (Bt, m, reps)
+            half = (got["both"] - got["dot"]) - (want["both"] - want["dot"])
+            assert float(half.abs().max()) <= 1e-6, (Bt, reps)
     x, = (a.to(dev) for a in ub.inputs("scalars"))
     assert float((ub.scalars(x) - ub.scalars_ref(x)).abs().max()) <= 1e-6
