@@ -24,9 +24,10 @@
 //            template parameter, so each step is a true dependent FMA;
 //            at [136, 1024] the card holds 139 264 threads, about half
 //            of its 132 x 2048 resident ones.
-//   gather   shared-memory reads and f32 adds: the table transposed in
-//            shared memory, a warp per column, so the 32 lanes read one
-//            table column's rows side by side (no bank conflicts).
+//   gather   shared-memory reads, unpacks and f32 adds issued: t^T's
+//            padded image (made once a call) in shared memory, 16
+//            threads a column at Mt = 136, each 8 rows by one 16-byte
+//            load a step, the row offsets staged a warp at a time.
 //   mma      the tensor cores through wgmma (inline PTX, the only path
 //            to their full rate): a warpgroup owns 64 columns, builds
 //            each step's one-hot tile OH^T [64, n] in registers as A and
@@ -42,8 +43,8 @@
 //            SM: 0.647 ms at REPS = 512, for Bt = 1024 and 4096 alike).
 //            Whether the SM overlaps the two is what t(both) against
 //            max(t(chain), t(dot)) shows.
-//   scalars  one thread per column, the 16 rows in registers: on this
-//            card a [1, Bt] row is Bt lanes like any other row.
+//   scalars  the latency of one dependent FMA chain: a thread for each
+//            of the 16 x Bt stepped elements, spread over the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,20 +71,240 @@ __global__ void ub_chain_kernel(const float* __restrict__ x,
   out[i] = v;
 }
 
+// Shared-memory addresses and cp.async (sm_80+), for the entries below.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------
-// #8, by index: acc[m, b] = sum_i t[m, idx[i, b]], i in rep order
+// #8, by index: acc[m, b] = sum_i t[m, idx[i, b]], i in step order
 // ---------------------------------------------------------------------
-// ts [n][Mtp] bf16 (Mtp = Mt rounded up to 2, zero row past Mt): a
-// warp owns column b; lane l reads the row pairs 2p, 2p+1 with
-// p = l + 32j.  The indices of 32 reps travel one to a lane and are
-// broadcast by shuffle; the next 32 are loaded while these are used.
-// An index outside [0, n) adds nothing (in the mma entry it matches no
-// row of the one-hot tile), so the wrapper need not read the indices
-// back to check them.
-__global__ void ub_onehot_gather_kernel(const __nv_bfloat16* __restrict__ t,
-                                        const int* __restrict__ idx,
-                                        float* __restrict__ out, int Mt,
-                                        int n, int Bt, int reps) {
+// Each element's sum stays in one thread and runs in step order (f32
+// adds of the bf16 entries, bit for bit the plain version's), so the
+// steps cannot be split; what the design chooses is how many threads
+// share a column and where their operands come from.
+//
+// The image: t^T, row k of the table (k < n) the Mt values t[:, k]
+// padded with zeros to 8G (G = ceil(Mt / 8) groups of 8 rows, 16 bytes
+// of bf16 a group), and a zero row k = n.  ub_gather_pack_kernel makes
+// it once a call in a torch.empty scratch; each block copies it whole
+// into shared memory, 16 bytes a cp.async.  An index outside [0, n) is
+// clamped to the zero row, so no step branches: adding +0.0 leaves an
+// f32 sum that starts at +0.0 as it was.
+//
+// The threads: TPC = min(G, 16) a column, a warp owns CW = 32 / TPC
+// whole columns, lane l column l / TPC and group g = l % TPC, the rows
+// 8g..8g+7, one 16-byte shared load (ld.shared.v4) a step: at Mt = 136
+// (G = 17) 16 threads a column, two columns a warp, so each quarter-warp
+// reads 8 consecutive groups of one row (no bank conflict), and the
+// 17th group, rows 128..135, goes to the lanes g < 8, one row each (a
+// 2-byte load; every lane issues it, lanes g >= 8 drop theirs).  Bt =
+// 1024 is 512 warps, under one a scheduler of the 528, no lane idle.
+// A step of a lane: the row's byte offset (four steps a 16-byte load),
+// one add for its address, the shared load, 8 unpacks and 8 f32 adds
+// (+4 for the 17th group): 22.25 instructions for 8.5 values.  The
+// floor of the design, ubench.gather_floor_ms, is the larger of those
+// instructions at the SMs' issue rate and the shared-memory bytes at
+// 128 B a clock an SM.  What holds it above that floor on the card
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): every call's pack
+// kernel, image copy and two launches (~6 us of ~17 at [136, 1024] x
+// 512), and steps at about twice the issue floor, where one warp a
+// scheduler waits on its own loads and its ALU-pipe unpacks.
+//
+// The indices: each warp stages its own columns' indices, chunks of
+// kGatherChunk steps, 4-byte cp.async into a ring of two slots
+// ([CW][kGatherChunk + 4] ints: the pad puts the columns in different
+// banks), then each lane turns the entries it copied into the row's
+// byte offset in the image (min(k, n) x the row's bytes); steps past
+// reps and columns past Bt get the zero row.  The warp's lanes only
+// ever wait for each other (__syncwarp): no block barrier after the
+// image.  The blocks take ceil(warps / SMs) warps each (at most 16),
+// so one wave fills the card.
+//
+// A table whose padded image does not fit a block's shared memory
+// (n > 849 at Mt = 136) takes the wide instance below, the first
+// design's loop: a warp a column, the table filled by each block from t.
+constexpr int kGatherChunk = 64;            // steps a warp stages at once
+constexpr int kGatherSlot = kGatherChunk + 4;   // ints a column of a slot
+constexpr int kGatherMaxWarps = 16;
+
+__device__ __forceinline__ void lds128(uint32_t a, uint32_t& w0,
+                                       uint32_t& w1, uint32_t& w2,
+                                       uint32_t& w3) {
+  asm("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(w0), "=r"(w1), "=r"(w2), "=r"(w3)
+      : "r"(a));
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// img [(n + 1) 8G] bf16: img[k 8G + m] = t[m, k], zero past Mt and at
+// k = n.
+__global__ void ub_gather_pack_kernel(const __nv_bfloat16* __restrict__ t,
+                                      __nv_bfloat16* __restrict__ img,
+                                      int Mt, int n, int w8) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (n + 1) * w8) return;
+  const int k = e / w8, m = e - k * w8;
+  img[e] = (k < n && m < Mt) ? t[(size_t)m * n + k] : __float2bfloat16(0.f);
+}
+
+template <bool EXTRA>
+__global__ void __launch_bounds__(32 * kGatherMaxWarps)
+    ub_gather_kernel(const uint4* __restrict__ img,
+                     const int* __restrict__ idx, float* __restrict__ out,
+                     int Mt, int n, int Bt, int reps, int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int E = 2;                           // bytes an element
+  const int tpc = min(G, 16), cw = 32 / tpc;
+  const int rb = 8 * G * E;                      // bytes a row
+  const int img_bytes = (n + 1) * rb;            // a multiple of 16
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = (blockIdx.x * (blockDim.x >> 5) + warp) * cw;
+  int* ring = reinterpret_cast<int*>(smem_raw + img_bytes) +
+              warp * 2 * cw * kGatherSlot;
+  const uint32_t base = smem_addr(smem_raw);
+  // chunk ch's indices into slot ch & 1: a pass of the warp copies
+  // `rows` steps of its cw columns, lane l column l % cw (a copy
+  // instruction's lanes read along rows of idx); steps past reps and
+  // columns past Bt get n
+  const int rows = 32 / cw, js = lane % cw, ss = lane / cw;
+  auto load = [&](int ch) {
+    int* slot = ring + ((ch & 1) * cw + js) * kGatherSlot;
+    const int b = c0 + js;
+    if (ss < rows)
+      for (int s = ss; s < kGatherChunk; s += rows) {
+        const int i = ch * kGatherChunk + s;
+        if (i < reps && b < Bt)
+          cp_async4(smem_addr(slot + s), idx + (size_t)i * Bt + b);
+        else
+          slot[s] = n;
+      }
+    cp_async_commit();
+  };
+  // the entries this lane copied, as row offsets (clamped to the zero
+  // row)
+  auto offsets = [&](int ch) {
+    int* slot = ring + ((ch & 1) * cw + js) * kGatherSlot;
+    if (ss < rows)
+      for (int s = ss; s < kGatherChunk; s += rows)
+        slot[s] = (int)min((unsigned)slot[s], (unsigned)n) * rb;
+  };
+  // the image, 16 bytes a copy, and the first chunk of indices
+  for (int v = threadIdx.x; v < img_bytes / 16; v += blockDim.x)
+    cp_async16(base + 16 * v, img + v);
+  cp_async_commit();
+  if (c0 < Bt) load(0);
+  cp_async_wait<0>();
+  __syncthreads();                               // the image is in
+  if (c0 >= Bt) return;
+  const int jc = lane / tpc, g = lane - jc * tpc;
+  const int col = min(jc, cw - 1);
+  const uint32_t tb = base + 8 * E * g;          // the lane's 8 rows
+  const uint32_t tx = base + 128 * E + E * (g & 7);   // its row past 127
+  float acc[8], accx = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+  // a group of 4 steps in two halves: fetch issues its shared loads
+  // (4 words a step, the 17th group's value), add unpacks and sums
+  // them; the loop fetches group q + 1 before it adds group q, and
+  // reads group q + 2's offsets, so no load is waited for where one
+  // warp holds its scheduler alone
+  auto fetch = [&](const int4 o, uint32_t (&w)[4][4], uint32_t (&x)[4]) {
+    const int of[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lds128(tb + of[j], w[j][0], w[j][1], w[j][2], w[j][3]);
+      if (EXTRA) {
+        unsigned short h;
+        asm("ld.shared.u16 %0, [%1];\n" : "=h"(h) : "r"(tx + of[j]));
+        x[j] = (uint32_t)h << 16;
+      }
+    }
+  };
+  auto add = [&](const uint32_t (&w)[4][4], const uint32_t (&x)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        acc[2 * v] += bf16_lo(w[j][v]);
+        acc[2 * v + 1] += bf16_hi(w[j][v]);
+      }
+      if (EXTRA) accx += __uint_as_float(x[j]);
+    }
+  };
+  const int nch = (reps + kGatherChunk - 1) / kGatherChunk;
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      load(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    offsets(ch);
+    __syncwarp();
+    const int4* so = reinterpret_cast<const int4*>(
+        ring + (ch & 1) * cw * kGatherSlot + col * kGatherSlot);
+    uint32_t wa[4][4], xa[4], wb[4][4], xb[4];
+    int4 o = so[1];
+    fetch(so[0], wa, xa);
+#pragma unroll
+    for (int q = 1; q < kGatherChunk / 4; q += 2) {
+      const int4 o2 = so[q + 1 < kGatherChunk / 4 ? q + 1 : q];
+      fetch(o, wb, xb);
+      add(wa, xa);
+      if (q + 1 < kGatherChunk / 4) {
+        o = so[q + 2 < kGatherChunk / 4 ? q + 2 : q + 1];
+        fetch(o2, wa, xa);
+      }
+      add(wb, xb);
+    }
+    __syncwarp();                                // slot ch & 1 read
+  }
+  const int b = c0 + jc;
+  if (jc >= cw || b >= Bt) return;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (8 * g + r < Mt) out[(size_t)(8 * g + r) * Bt + b] = acc[r];
+  if (EXTRA && g < 8 && 128 + g < Mt) out[(size_t)(128 + g) * Bt + b] = accx;
+}
+
+// The wide instance, for a table whose padded image does not fit: ts
+// [n][Mtp] bf16 (Mtp = Mt rounded up to 2, zero row past Mt) filled by
+// each block from t; a warp owns column b, lane l reads the row pairs
+// 2p, 2p+1 with p = l + 32j.  The indices of 32 steps travel one to a
+// lane and are broadcast by shuffle; the next 32 are loaded while these
+// are used.
+__global__ void ub_onehot_gather_wide_kernel(
+    const __nv_bfloat16* __restrict__ t, const int* __restrict__ idx,
+    float* __restrict__ out, int Mt, int n, int Bt, int reps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ts = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int Mtp = (Mt + 1) & ~1;
@@ -153,10 +374,6 @@ __global__ void ub_onehot_gather_kernel(const __nv_bfloat16* __restrict__ t,
 // ---------------------------------------------------------------------
 constexpr int kWgN = 136;           // the instruction's N (kMaxMt)
 constexpr int kTileCols = 64;       // columns b of a warpgroup (its M)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo,
                                                uint32_t sbo) {
@@ -248,21 +465,6 @@ __device__ __forceinline__ void wgmma_m64n136k16(float (&d)[68],
 // column: 1.0 (bf16 0x3F80) in the half that holds it.
 __device__ __forceinline__ uint32_t onehot_pair(int d) {
   return (unsigned)d < 2u ? 0x3F80u << (d << 4) : 0u;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -604,27 +806,29 @@ __global__ void __launch_bounds__(256, 1)
 
 // ---------------------------------------------------------------------
 // #10: sp [32, Bt] from 0.3; REPS x (rows 0-7 one by one, rows 8-15 as
-// a block) v*v + 0.25; out = row 0.  The rows are read from the scratch
-// the wrapper filled with 0.3 (loaded, not constants, so the compiler
-// cannot merge the 16 identical rows into one) and written back.
+// a block) v*v + 0.25; out = row 0
 // ---------------------------------------------------------------------
+// Each of the 16 x Bt stepped elements is a chain of REPS dependent
+// FMAs of its own, one a thread (16 384 threads at Bt = 1024, about a
+// warp a scheduler), so the call takes one chain's latency, REPS x the
+// dependent FMA's (ubench.scalars_floor_ms), spread over the card.  The
+// kernel starts the scratch itself: every thread writes its element of
+// rows 0-15 after its chain and the 0.3 of rows 16-31 (which no step
+// touches), so a call is one launch into a torch.empty scratch.  The
+// start comes in as an argument, and each thread holds its own chain,
+// so the compiler can neither fold the chains nor merge the 16 equal
+// rows into one.
 __global__ void ub_scalars_kernel(float* __restrict__ sp,
-                                  float* __restrict__ out, int Bt,
-                                  int reps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= Bt) return;
-  float row[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) row[r] = sp[(size_t)r * Bt + b];
-  for (int i = 0; i < reps; ++i) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r) row[r] = fmaf(row[r], row[r], 0.25f);
-#pragma unroll
-    for (int r = 8; r < 16; ++r) row[r] = fmaf(row[r], row[r], 0.25f);
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) sp[(size_t)r * Bt + b] = row[r];
-  out[b] = row[0];
+                                  float* __restrict__ out, int Bt, int reps,
+                                  float start) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 16 * Bt) return;
+  float v = start;
+#pragma unroll 16
+  for (int i = 0; i < reps; ++i) v = fmaf(v, v, 0.25f);
+  sp[e] = v;                                     // row e / Bt, column e % Bt
+  sp[16 * (size_t)Bt + e] = start;
+  if (e < Bt) out[e] = v;
 }
 
 int opt_in(const void* kernel, size_t smem) {
@@ -653,21 +857,50 @@ extern "C" int bt_ub_chain(const void* x, void* out, int n, int nops,
   return (int)cudaGetLastError();
 }
 
-// t [Mt, n] bf16, idx [reps, Bt] int32 in [0, n), out [Mt, Bt] f32;
-// Mt <= 136.
+// t [Mt, n] bf16, idx [reps, Bt] int32 (an index outside [0, n) adds
+// nothing), out [Mt, Bt] f32; Mt <= 136.  warps > 0: ub_gather_kernel
+// with blocks of <warps> warps, img the bf16 scratch of the padded image
+// ((n + 1) 8 ceil(Mt / 8) elements); warps 0: the wide instance (img
+// unused).
 extern "C" int bt_ub_onehot_gather(const void* t, const void* idx,
-                                   void* out, int Mt, int n, int Bt,
-                                   int reps, void* stream) {
-  if (Mt <= 0 || Mt > kMaxMt || n <= 0 || Bt <= 0)
+                                   void* out, void* img, int Mt, int n,
+                                   int Bt, int reps, int warps,
+                                   void* stream) {
+  if (Mt <= 0 || Mt > kMaxMt || n <= 0 || Bt <= 0 || reps < 0 ||
+      warps < 0 || warps > kGatherMaxWarps || (warps && img == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)n * ((Mt + 1) & ~1) * 2;
-  const int err = opt_in((const void*)ub_onehot_gather_kernel, smem);
-  if (err) return err;
-  const int warps = 8;
-  ub_onehot_gather_kernel<<<(Bt + warps - 1) / warps, 32 * warps, smem,
-                            st>>>((const __nv_bfloat16*)t, (const int*)idx,
-                                  (float*)out, Mt, n, Bt, reps);
+  if (warps == 0) {
+    const size_t smem = (size_t)n * ((Mt + 1) & ~1) * 2;
+    const int err = opt_in((const void*)ub_onehot_gather_wide_kernel, smem);
+    if (err) return err;
+    const int per = 8;
+    ub_onehot_gather_wide_kernel<<<(Bt + per - 1) / per, 32 * per, smem,
+                                   st>>>((const __nv_bfloat16*)t,
+                                         (const int*)idx, (float*)out, Mt, n,
+                                         Bt, reps);
+    return (int)cudaGetLastError();
+  }
+  const int G = (Mt + 7) / 8, cw = 32 / min(G, 16);
+  const int w8 = 8 * G, elems = (n + 1) * w8;
+  const size_t smem = (size_t)elems * 2 +
+                      (size_t)warps * 2 * cw * kGatherSlot * sizeof(int);
+  const int blocks = ((Bt + cw - 1) / cw + warps - 1) / warps;
+#define UB_GATHER(X)                                                         \
+  {                                                                          \
+    const int err = opt_in((const void*)ub_gather_kernel<X>, smem);         \
+    if (err) return err;                                                     \
+    ub_gather_pack_kernel<<<(elems + 255) / 256, 256, 0, st>>>(             \
+        (const __nv_bfloat16*)t, (__nv_bfloat16*)img, Mt, n, w8);            \
+    ub_gather_kernel<X><<<blocks, 32 * warps, smem, st>>>(                  \
+        (const uint4*)img, (const int*)idx, (float*)out, Mt, n, Bt, reps,    \
+        G);                                                                  \
+  }
+  if (G == 17)
+    UB_GATHER(true)
+  else
+    UB_GATHER(false)
+#undef UB_GATHER
   return (int)cudaGetLastError();
 }
 
@@ -746,14 +979,14 @@ extern "C" int bt_ub_overlap(const void* g, const void* x, const void* y0,
   return (int)cudaGetLastError();
 }
 
-// sp [32, Bt] f32 scratch filled with 0.3 by the caller (rows 0-15 are
-// stepped in place), out [Bt] f32.
+// sp [32, Bt] f32 scratch (the kernel writes all of it: rows 0-15
+// stepped, rows 16-31 the 0.3 start), out [Bt] f32.
 extern "C" int bt_ub_scalars(void* sp, void* out, int Bt, int reps,
                              void* stream) {
   if (Bt <= 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  ub_scalars_kernel<<<(Bt + threads - 1) / threads, threads, 0, st>>>(
-      (float*)sp, (float*)out, Bt, reps);
+  const int threads = 128;
+  ub_scalars_kernel<<<(16 * Bt + threads - 1) / threads, threads, 0, st>>>(
+      (float*)sp, (float*)out, Bt, reps, 0.3f);
   return (int)cudaGetLastError();
 }

@@ -34,7 +34,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ...ubench import ONEHOT_MAX_N, WG_N, WG_TILE, onehot_kt
+from ...ubench import (ONEHOT_MAX_N, WG_N, WG_TILE, gather_groups,
+                       gather_plan, onehot_kt)
 from ..fs3 import DNA_CODES
 from ..ssv import SSVB_NCAP
 
@@ -270,7 +271,7 @@ def lib() -> ctypes.CDLL:
     so.bt_ub_chain.restype = I
     so.bt_ub_chain.argtypes = [P, P, I, I, I, P]
     so.bt_ub_onehot_gather.restype = I
-    so.bt_ub_onehot_gather.argtypes = [P, P, P, I, I, I, I, P]
+    so.bt_ub_onehot_gather.argtypes = [P, P, P, P, I, I, I, I, I, P]
     so.bt_ub_onehot_mma.restype = I
     so.bt_ub_onehot_mma.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     so.bt_ub_overlap.restype = I
@@ -683,18 +684,25 @@ def launch_ub_onehot(t: torch.Tensor, idx: torch.Tensor,
     """ubench.cu bt_ub_onehot_mma (tensor cores) or bt_ub_onehot_gather
     (by index): acc [Mt, Bt] f32 = sum over reps i of t[:, idx[i]]; an
     index outside [0, n) adds nothing (not checked here: that would
-    read the indices back and stall the host on every call).  The
-    tensor-core entry packs t^T into its wgmma image once (scratch
-    ``img``) and splits the steps over blocks (``ub_onehot_splits``)
-    into a scratch of partial sums, which it adds in split order."""
+    read the indices back and stall the host on every call).  Both
+    entries pack t^T into an image once a call (scratch ``img``).  The
+    gather's blocks take ``ubench.gather_plan``'s warps (0: the wide
+    instance, for a table whose padded image does not fit); the
+    tensor-core entry splits the steps over blocks
+    (``ub_onehot_splits``) into a scratch of partial sums, which it adds
+    in split order."""
     _check_ub(t, idx)
     Mt, n = t.shape
     reps, Bt = idx.shape
     ub_onehot_check(Mt, n, Bt, mma)
     out = torch.empty(Mt, Bt, dtype=torch.float32, device=t.device)
     if not mma:
+        warps, _ = gather_plan(Mt, n, Bt, sms(t.device))
+        img = torch.empty((n + 1) * 8 * gather_groups(Mt)[0],
+                          dtype=torch.bfloat16,
+                          device=t.device) if warps else None
         _launch("ub_onehot_gather", lib().bt_ub_onehot_gather, t, idx, out,
-                Mt, n, Bt, reps)
+                img, Mt, n, Bt, reps, warps)
         return out
     splits = ub_onehot_splits(Bt, reps, sms(t.device))
     img = torch.empty(WG_N * 16 * onehot_kt(n), dtype=torch.bfloat16,
@@ -725,11 +733,12 @@ def launch_ub_overlap(g: torch.Tensor, x: torch.Tensor, mode: str,
     return out
 
 
-def launch_ub_scalars(Bt: int, reps: int, device) -> torch.Tensor:
-    """ubench.cu bt_ub_scalars: row 0 [1, Bt] f32 of the stepped
-    scratch."""
-    sp = torch.full((32, Bt), 0.3, dtype=torch.float32, device=device)
+def launch_ub_scalars(Bt: int, reps: int, device) -> tuple:
+    """ubench.cu bt_ub_scalars, one launch: (the scratch sp [32, Bt],
+    which the kernel starts and writes whole, its rows 0-15 stepped and
+    rows 16-31 at the 0.3 start; row 0 [1, Bt]) f32."""
+    sp = torch.empty(32, Bt, dtype=torch.float32, device=device)
     out = torch.empty(1, Bt, dtype=torch.float32, device=device)
     _check_ub(sp, out)
     _launch("ub_scalars", lib().bt_ub_scalars, sp, out, Bt, int(reps))
-    return out
+    return sp, out

@@ -375,12 +375,15 @@ class Case:
     by ``run(device)``, which gives {entry: [outputs of each call]}; on
     a CUDA device the wrappers launch the kernels, on the CPU they run
     the plain versions.  <plan> names the plan family; <segmented> the
-    entries whose launch holds a segmented class."""
+    entries whose launch holds a segmented class; <reps> the steps of
+    its microbenchmark calls (the tensor-core entry's band grows with
+    them)."""
 
-    def __init__(self, name, plan, Ms, entries, run, segmented=()):
+    def __init__(self, name, plan, Ms, entries, run, segmented=(), reps=3):
         self.name, self.plan, self.Ms = name, plan, tuple(Ms)
         self.entries, self.run = tuple(entries), run
         self.segmented = tuple(segmented)
+        self.reps = reps
 
 
 def _t(a, dev):
@@ -556,6 +559,44 @@ def _ubench(dev):
             "ub_scalars": [ub.scalars(x[:1].contiguous(), 3)]}
 
 
+# the wider microbenchmark cases, UB_REPS steps: the tensor-core entry's
+# KT = 5 and 17 instances over splits of 32 steps and the sum of their
+# partial sums (UB_MMA_BT = 80: two tiles, the last of 16 columns); the
+# gather's instance of 16 threads a column with its 17th group, a last
+# warp of one column, a last chunk of 6 steps and indices outside
+# [0, n) (UB_GATHER_BT = 37); #10 at a ragged width
+UB_REPS = 70
+UB_MMA_BT, UB_GATHER_BT, UB_SCALARS_BT = 80, 37, 37
+
+
+def _ub_mma(n):
+    def run(dev):
+        from . import ubench as ub
+        t, idx = (a.to(dev) for a in ub.inputs("onehot", ub.MT, UB_MMA_BT,
+                                               UB_REPS, n=n, seed=n))
+        return {"ub_onehot_mma": [ub.onehot_mma(t, idx)]}
+    return run
+
+
+def _ub_gather_out_of_range(dev):
+    """On the CPU the plain version gets the same sum through
+    ``ubench.onehot_in_range``."""
+    import torch
+
+    from . import ubench as ub
+    t, idx = ub.inputs("onehot", ub.MT, UB_GATHER_BT, UB_REPS, n=257, seed=3)
+    idx = ub.out_of_range(idx, 257)
+    if torch.device(dev).type == "cpu":
+        t, idx = ub.onehot_in_range(t, idx)
+    return {"ub_onehot_gather": [ub.onehot_gather(t.to(dev), idx.to(dev))]}
+
+
+def _ub_scalars(dev):
+    from . import ubench as ub
+    x, = (a.to(dev) for a in ub.inputs("scalars", 1, UB_SCALARS_BT, UB_REPS))
+    return {"ub_scalars": [ub.scalars(x, UB_REPS)]}
+
+
 def _step(dev):
     """The sharded gate step over two shares of <dev> (on the CPU the
     plain versions, share by share)."""
@@ -582,6 +623,7 @@ def _step(dev):
 def cuda_cases() -> list:
     """The cases of the sanitized run, seeded; their models are made on
     first use (``case_model``)."""
+    from . import ubench as ub
     dd, vit_m, fs_m = SEG_M["dd"], SEG_M["vit"], SEG_M["fs3"]
     cases = [
         Case("f32/one width", "single_plan (gate), _one_model_plan "
@@ -660,6 +702,15 @@ def cuda_cases() -> list:
         Case("ubench", "[8, 32], 3 steps", [],
              ["ub_chain", "ub_onehot_gather", "ub_onehot_mma", "ub_overlap",
               "ub_scalars"], _ubench),
+        *(Case(f"ubench/mma n={n} splits", f"[136, {UB_MMA_BT}], "
+               f"{UB_REPS} steps over splits of 32 (KT = "
+               f"{ub.onehot_kt(n)})", [], ["ub_onehot_mma"], _ub_mma(n),
+               reps=UB_REPS) for n in (65, 257)),
+        Case("ubench/gather out of range", f"[136, {UB_GATHER_BT}], n=257, "
+             f"{UB_REPS} steps, indices -1 and n", [], ["ub_onehot_gather"],
+             _ub_gather_out_of_range, reps=UB_REPS),
+        Case("ubench/scalars ragged", f"Bt={UB_SCALARS_BT}, {UB_REPS} steps",
+             [], ["ub_scalars"], _ub_scalars, reps=UB_REPS),
         Case("mesh/two shares", "the step over two shares of one device",
              [100, 60], ["mesh_step"], _step),
     ]
@@ -678,9 +729,10 @@ def _err(got, want) -> float:
     return float((got[fin].double() - want[fin].double()).abs().max())
 
 
-def hold(entry: str, got, want) -> float:
+def hold(entry: str, got, want, reps: int = 3) -> float:
     """max |got - want| of one call's outputs, or CaseMismatch where they
-    differ past the entry's band (``KIND``)."""
+    differ past the entry's band (``KIND``; the tensor-core entry's on
+    <reps> steps)."""
     import torch
 
     from . import ubench as ub
@@ -706,7 +758,8 @@ def hold(entry: str, got, want) -> float:
             and torch.equal(got[3], want[3])
     else:
         err = _err(got[0], want[0])
-        tol = ub.onehot_mma_tol(want[0], 3) if entry == "ub_onehot_mma" \
+        tol = ub.onehot_mma_tol(want[0], reps) \
+            if entry == "ub_onehot_mma" \
             else UB_TOL[entry]
         ok = bool(torch.isfinite(got[0]).all()) and err <= tol
     if not ok:
@@ -724,7 +777,7 @@ def run_case(case: Case, device) -> dict:
         if len(got.get(entry, ())) != len(want.get(entry, ())) \
                 or not got.get(entry):
             raise CaseMismatch(f"{case.name}: {entry} was not called")
-        errs[entry] = max(hold(entry, g, w)
+        errs[entry] = max(hold(entry, g, w, case.reps)
                           for g, w in zip(got[entry], want[entry]))
     return errs
 

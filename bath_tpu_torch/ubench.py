@@ -12,9 +12,11 @@ types, outputs and shapes (``Mt, Bt = 136, 1024``, ``REPS = 512``):
 - ``onehot`` (``bench_onehot``): ``acc[m, b] = sum_i t[m, idx[i, b]]``
   with ``t [Mt, n]`` bf16, ``idx [REPS, Bt]`` int32, ``n`` 17, 65 and
   257 (the fs3 gate's codon tables): the table read by index
-  (``onehot_gather``, how the ported gates read emissions) against the
-  one-hot product on the tensor cores (``onehot_mma``, ``wgmma``, how
-  the TPU gates read them; ``n`` up to 272 there);
+  (``onehot_gather``, how the ported gates read emissions: t^T's padded
+  image in shared memory, 16 threads a column) against the one-hot
+  product on the tensor cores (``onehot_mma``, ``wgmma``, how the TPU
+  gates read them; ``n`` up to 272 there); an index outside [0, n)
+  adds nothing (``onehot_in_range`` gives ``onehot_ref`` such a sum);
 - ``overlap`` (``bench_overlap``): per step, a 12-op chain on ``acc
   [Mt, Bt]`` f32 and ``yacc [2Mt, Bt] <- bf16((1e-3 g @ yacc)^2 +
   0.25)`` with ``g [2Mt, 2Mt]`` bf16, modes chain, dot and both: does
@@ -84,6 +86,27 @@ def onehot_ref(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     for i in range(idx.shape[0]):
         acc = acc + tf[:, cols[i]]
     return acc
+
+
+def out_of_range(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """<idx> with indices outside [0, n) in it, which the entries skip:
+    -1 at every 7th step of every 5th column, n at every 11th step
+    (from 3) of every 3rd column (from 2)."""
+    idx = idx.clone()
+    idx[::7, ::5] = -1
+    idx[3::11, 2::3] = n
+    return idx
+
+
+def onehot_in_range(t: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """(t', idx') on which ``onehot_ref`` gives the entries' sum of <t>
+    and <idx>, where an index outside [0, n) adds nothing: t with a zero
+    column n beside it, and each such index pointed at that column
+    (adding +0.0 leaves each sum as it was)."""
+    Mt, n = t.shape
+    oob = (idx < 0) | (idx >= n)
+    return (torch.cat([t, t.new_zeros(Mt, 1)], 1),
+            torch.where(oob, torch.full_like(idx, n), idx))
 
 
 def overlap_ref(g: torch.Tensor, x: torch.Tensor, mode: str,
@@ -196,7 +219,7 @@ def scalars(x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
     if x.device.type == "cpu":
         return scalars_ref(x, reps)
     from .ops.kernels import loader
-    out = loader.launch_ub_scalars(x.shape[1], reps, x.device)
+    _, out = loader.launch_ub_scalars(x.shape[1], reps, x.device)
     scalars.launches += 1
     return out
 
@@ -372,6 +395,156 @@ def overlap_floor_ms(Bt: int, reps: int) -> float:
         / (BF16_TC_OPS_PER_S / SMS)
 
 
+# ---------------------------------------------------------------------
+# The gather's design (csrc/ubench.cu ub_gather_kernel): t^T's padded
+# image in shared memory, G groups of 8 rows a table row and a zero row
+# k = n; TPC threads a column, CW whole columns a warp, each index
+# staged as its row's byte offset.  These mirror the kernel's layout,
+# geometry and floor for the tests and the records.
+# ---------------------------------------------------------------------
+GATHER_CHUNK = 64               # steps a warp stages at once
+GATHER_SLOT = GATHER_CHUNK + 4  # ints a column of a staging slot
+GATHER_MAX_WARPS = 16           # warps a block at most
+SMEM_MAX = 232448               # shared memory a block can use (H100)
+# Shared memory serves 128 bytes a clock an SM; each of an SM's 4
+# schedulers issues one warp instruction a clock (the clock: the card's
+# own, max_sm_clock_hz).
+SMEM_BYTES_PER_CLOCK = 128
+SCHEDULERS = 4
+
+
+def gather_groups(Mt: int) -> tuple:
+    """(G, TPC, CW): groups of 8 rows a table row, threads a column
+    (the 17th group at Mt > 128 goes to the lanes g < 8, a row each),
+    whole columns a warp."""
+    G = -(-Mt // 8)
+    tpc = min(G, 16)
+    return G, tpc, 32 // tpc
+
+
+def gather_smem(Mt: int, n: int, warps: int) -> int:
+    """Shared bytes of a block: the image, (n + 1) 8G bf16, and a ring
+    of two staging slots a warp."""
+    G, _, cw = gather_groups(Mt)
+    return (n + 1) * 8 * G * 2 + warps * 2 * cw * GATHER_SLOT * 4
+
+
+def gather_plan(Mt: int, n: int, Bt: int, sms: int = SMS) -> tuple:
+    """(warps a block, blocks) of ``bt_ub_onehot_gather``: ceil(warps /
+    sms) warps a block (one wave fills the card), at most
+    GATHER_MAX_WARPS, fewer where the image and the rings would not fit
+    SMEM_MAX; (0, ceil(Bt / 8)) where not even one warp's fits: the wide
+    instance, 8 columns a block."""
+    _, _, cw = gather_groups(Mt)
+    nwarps = -(-Bt // cw)
+    w = min(GATHER_MAX_WARPS, -(-nwarps // sms))
+    while w > 0 and gather_smem(Mt, n, w) > SMEM_MAX:
+        w -= 1
+    if w == 0:
+        return 0, -(-Bt // 8)
+    return w, -(-nwarps // w)
+
+
+def gather_image(t: torch.Tensor) -> torch.Tensor:
+    """What ``ub_gather_pack_kernel`` makes of <t> [Mt, n] bf16:
+    img[k 8G + m] = t[m, k], zero past Mt and in the row k = n."""
+    Mt, n = t.shape
+    G = gather_groups(Mt)[0]
+    img = t.new_zeros(n + 1, 8 * G)
+    img[:n, :Mt] = t.T
+    return img.reshape(-1)
+
+
+def gather_offset(k: int, Mt: int, n: int) -> int:
+    """The byte offset a staged index k becomes: min(k as unsigned,
+    n) x the row's bytes, so an index outside [0, n) reads the zero
+    row."""
+    G = gather_groups(Mt)[0]
+    return min(k & 0xFFFFFFFF, n) * 8 * G * 2
+
+
+def gather_read(img: torch.Tensor, Mt: int, g: int, off: int) -> tuple:
+    """(8 values, the extra value or None) that lane group <g> adds in a
+    step whose row offset is <off>: 8 elements from byte 16 g + off
+    and, at Mt > 128, one from byte 256 + 2 (g & 7) + off, as the kernel
+    addresses them."""
+    at = (16 * g + off) // 2
+    extra = None
+    if gather_groups(Mt)[0] == 17:
+        extra = img[(256 + 2 * (g & 7) + off) // 2]
+    return img[at:at + 8], extra
+
+
+def gather_writes(Mt: int, Bt: int, warps: int, blocks: int) -> np.ndarray:
+    """(column, row) of every output the launch writes, as the kernel's
+    threads compute them: block, warp, lane -> columns c0 = (block warps
+    + warp) CW, the lane's column c0 + l / TPC and group g = l % TPC,
+    rows 8g..8g+7 below Mt and, at G = 17, row 128 + g for g < 8."""
+    G, tpc, cw = gather_groups(Mt)
+    lane = np.arange(32)[None, :]
+    b = np.arange(blocks * warps)[:, None] * cw + lane // tpc
+    g = np.broadcast_to(lane % tpc, b.shape)
+    live = (lane // tpc < cw) & (b < Bt)
+    b, g = b[live], g[live]
+    parts = [np.stack([b, 8 * g + r], 1) for r in range(8)]
+    if G == 17:
+        parts.append(np.stack([b[g < 8], 128 + g[g < 8]], 1))
+    w = np.concatenate(parts)
+    return w[w[:, 1] < Mt]
+
+
+def max_sm_clock_hz() -> float:
+    """``nvidia-smi --query-gpu=clocks.max.sm`` of the first card, in
+    Hz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi exited {r.returncode}: "
+                           f"{r.stderr[-500:]}")
+    return 1e6 * float(r.stdout.strip().splitlines()[0])
+
+
+def gather_floor_ms(Mt: int, Bt: int, reps: int, n: int,
+                    clock_hz: float) -> float:
+    """The gather's floor as designed, at the SM clock <clock_hz> (the
+    card's, ``max_sm_clock_hz``): the larger of
+    - its instructions at the issue rate (SMS x SCHEDULERS warp
+      instructions a clock): a warp's step is the row's address, the
+      16-byte shared load, 8 unpacks and 8 f32 adds and a quarter of
+      the offsets' 16-byte load, and at Mt > 128 four more for the 17th
+      group, for every warp of ceil(Bt / CW);
+    - its shared-memory bytes at SMEM_BYTES_PER_CLOCK an SM: a column's
+      step reads TPC groups of 16 bytes, the 17th group and the 4-byte
+      offset, and each block writes the image once."""
+    G, tpc, cw = gather_groups(Mt)
+    extra = G == 17
+    per_step = 18.25 + (4 if extra else 0)
+    blocks = gather_plan(Mt, n, Bt, SMS)[1]
+    issue = -(-Bt // cw) * reps * per_step / (SMS * SCHEDULERS)
+    nbytes = Bt * reps * (tpc * 16 + (16 if extra else 0) + 4) \
+        + blocks * (n + 1) * 8 * G * 2
+    smem = nbytes / (SMS * SMEM_BYTES_PER_CLOCK)
+    return 1e3 * max(issue, smem) / clock_hz
+
+
+SCALARS_THREADS = 128           # threads a block of bt_ub_scalars
+
+
+def scalars_geometry(Bt: int) -> tuple:
+    """(blocks, threads) of ``bt_ub_scalars``: a thread for each of the
+    16 x Bt stepped elements, thread e on row e / Bt, column e % Bt."""
+    return -(-16 * Bt // SCALARS_THREADS), SCALARS_THREADS
+
+
+def scalars_floor_ms(reps: int, step_ns: float) -> float:
+    """#10's floor: one chain of <reps> dependent FMAs at <step_ns>, the
+    latency of a lone dependent FMA that the same drive measured (the
+    one-warp chain's ``ns_per_step``); the chains of all 16 x Bt
+    elements run at once."""
+    return reps * step_ns * 1e-6
+
+
 def onehot_mma_tol(ref: torch.Tensor, reps: int = REPS) -> float:
     """The tensor-core entry's bound against the plain version: the
     tensor cores accumulate in f32 but do not round each step's add as
@@ -410,9 +583,11 @@ def drive(cases=CASES) -> list[dict]:
     """Times every case's kernel at [MT, BT] and [MT, BT_FULL] (and the
     chain on one warp), REPS steps a call, each call ten times: one
     record a case and shape, with ``ms``, ``bound_ms``, ``bound_by``,
-    the script's derived figure and, for the tensor-core entries, their
-    design's ``floor_ms`` (``onehot_mma_floor_ms``,
-    ``overlap_floor_ms``)."""
+    the script's derived figure and its design's ``floor_ms``
+    (``gather_floor_ms`` at the card's ``clocks.max.sm``, which its
+    records carry as ``sm_clock_mhz``, ``onehot_mma_floor_ms``,
+    ``overlap_floor_ms``, ``scalars_floor_ms`` from the one-warp chain's
+    ``ns_per_step``; the chain has none)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the microbenchmarks time the card: no CUDA "
                            "device")
@@ -427,7 +602,19 @@ def drive(cases=CASES) -> list[dict]:
                 "bound_ms": b_ms, "bound_by": by}
 
     Mt, reps, timing_reps, seed = MT, REPS, 10, 0
+    clock_hz = max_sm_clock_hz() if "onehot" in cases else None
     recs = []
+
+    def step_ns():
+        """The one-warp chain's ns a dependent step (nops 16), from the
+        records or timed here."""
+        for r in recs:
+            if r["case"] == "chain" and r["shape"] == "one warp" \
+                    and r["nops"] == CHAIN_NOPS[-1]:
+                return r["ns_per_step"]
+        x, = on(*inputs("chain", 1, 32, reps, seed=seed))
+        ms = cuda_ms(lambda: chain(x, CHAIN_NOPS[-1], reps), timing_reps)
+        return 1e6 * ms / (reps * (CHAIN_NOPS[-1] + 1))
     shapes = [(Mt, Bt) for Bt in (BT, BT_FULL)]
     for M, Bt in shapes + [(1, 32)] if "chain" in cases else []:
         x, = on(*inputs("chain", M, Bt, reps, seed=seed))
@@ -452,6 +639,10 @@ def drive(cases=CASES) -> list[dict]:
                     if mma:
                         r["tc_bound_ms"] = tc_bound_ms(M, Bt, reps, n)
                         r["floor_ms"] = onehot_mma_floor_ms(Bt, reps, n)
+                    else:
+                        r["floor_ms"] = gather_floor_ms(M, Bt, reps, n,
+                                                        clock_hz)
+                        r["sm_clock_mhz"] = clock_hz / 1e6
                     r["ns_per_pos"] = 1e6 * ms / reps
                     recs.append(r)
         if "overlap" in cases:
@@ -478,6 +669,7 @@ def drive(cases=CASES) -> list[dict]:
             r = record("scalars", "bt_ub_scalars", ms, Mt=M, Bt=Bt,
                        reps=reps)
             r["ns_per_iter"] = 1e6 * ms / reps
+            r["floor_ms"] = scalars_floor_ms(reps, step_ns())
             recs.append(r)
     return recs
 

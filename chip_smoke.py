@@ -38,10 +38,12 @@ phase but ``deep`` and ``sanitize_full``; ``all`` adds both):
   the counterparts of ``scripts/ubench_vpu.py``), each of the five
   entries against its plain version at the script's shapes (the one-hot
   and overlap entries also at [136, 4096] and with a partial last tile,
-  the tensor-core ones twice, bit for bit), ``F.embedding_bag`` timed
-  beside the one-hot entries (their library call), then the drive
-  (chain, one-hot by index and on the tensor cores, overlap, scalars at
-  [136, 1024] and [136, 4096]);
+  the one-hot ones and overlap twice, bit for bit; the gather also at
+  Mt = 135 and 8 with indices outside the table, the scalars at 4096
+  and a ragged width), ``F.embedding_bag`` timed beside the one-hot
+  entries (their library call), then the drive (chain, one-hot by index
+  and on the tensor cores, overlap, scalars at [136, 1024] and [136,
+  4096], each with its design's ``floor_ms``);
 - ``mesh``: the self-check's dry run (``bath_tpu_torch/selfcheck.py``
   ``dryrun_multichip``): the data-parallel gate step
   (``parallel/mesh.py``) over every card of the machine (two shares of
@@ -2823,19 +2825,29 @@ UB_SHORT_REPS = (1, 2, 3)
 # hold 16 (onehot) and 32 (overlap) columns at the partial widths
 UB_WIDTHS = (1024, 4096)
 UB_PARTIAL = {"onehot": 1040, "overlap": 1056}
+# the gather at every n also at these Mt (the 17th group's rows below 8,
+# a table of 8 rows: a column a lane) on the partial width, each with
+# indices -1 and n in the stream (ubench.out_of_range); #10 also at the
+# full width and a ragged one
+UB_GATHER_MT = (136, 135, 8)
+UB_SCALARS_BT = (1024, 4096, 1000)
 
 
 def phase_ubench(run: Run) -> None:
     """Each of the five entries against its plain version at the
     script's shapes ([136, 1024], 512 steps), the one-hot and overlap
-    entries also at [136, 4096] and a partial last tile, the tensor-core
-    ones twice (equal bits), then the drive (launches counted from 0) at
-    [136, 1024] and [136, 4096].  Beside the one-hot entries
+    entries also at [136, 4096] and a partial last tile, the one-hot
+    ones twice (equal bits), the gather also at UB_GATHER_MT with
+    indices out of range, #10 at UB_SCALARS_BT, then the drive
+    (launches counted from 0) at [136, 1024] and [136, 4096], each
+    record with its design's floor_ms (the gather's at the card's
+    clocks.max.sm, which it carries).  Beside the one-hot entries
     F.embedding_bag, the one PyTorch call that computes their sum (#8's
     library_ms); beside the overlap entry one torch.matmul of one step's
     product, a yardstick.  The port calls neither."""
     import torch.nn.functional as F
     from bath_tpu_torch import ubench as ub
+    from bath_tpu_torch.ops.kernels import loader
     entries = {"ub_chain": ub.chain, "ub_onehot_gather": ub.onehot_gather,
                "ub_onehot_mma": ub.onehot_mma, "ub_overlap": ub.overlap,
                "ub_scalars": ub.scalars}
@@ -2876,7 +2888,8 @@ def phase_ubench(run: Run) -> None:
         for n in ub.ONEHOT_N:
             t, idx = (a.to(DEV) for a in ub.inputs("onehot", ub.MT, Bt,
                                                    n=n))
-            gat = ub.onehot_gather(t, idx)
+            gat = twice("ub_onehot_gather", lambda: ub.onehot_gather(t, idx),
+                        f"n={n} Bt={Bt}")
             mma = twice("ub_onehot_mma", lambda: ub.onehot_mma(t, idx),
                         f"n={n} Bt={Bt}")
             for name, got in (("ub_onehot_gather", gat),
@@ -2899,6 +2912,20 @@ def phase_ubench(run: Run) -> None:
                      f"|d| {err}")
             library[(Bt, n)] = cuda_ms(
                 lambda: F.embedding_bag(bag, w, mode="sum"), 20)
+    # the gather's other instances, indices -1 and n adding nothing (the
+    # plain version sums the same through ub.onehot_in_range)
+    Bt = UB_PARTIAL["onehot"]
+    for Mt in UB_GATHER_MT:
+        for n in ub.ONEHOT_N:
+            t, idx = ub.inputs("onehot", Mt, Bt, n=n, seed=Mt + n)
+            idx = ub.out_of_range(idx, n)
+            t0, idx0 = (a.to(DEV) for a in ub.onehot_in_range(t, idx))
+            t, idx = t.to(DEV), idx.to(DEV)
+            case = f"Mt={Mt} n={n} Bt={Bt} out of range"
+            gat = twice("ub_onehot_gather", lambda: ub.onehot_gather(t, idx),
+                        case)
+            hold("ub_onehot_gather", gat, lambda: ub.onehot_ref(t0, idx0),
+                 case)
     yard = {}
     for Bt in UB_WIDTHS + (UB_PARTIAL["overlap"],):
         g, x = (a.to(DEV) for a in ub.inputs("overlap", ub.MT, Bt))
@@ -2936,9 +2963,21 @@ def phase_ubench(run: Run) -> None:
     y = torch.full((2 * ub.MT, ub.BT), 0.3, dtype=torch.bfloat16,
                    device=DEV)
     yard["ub_overlap"] = cuda_ms(lambda: torch.matmul(g, y), 20)
-    x, = (a.to(DEV) for a in ub.inputs("scalars"))
-    plain_ms["ub_scalars"] = hold("ub_scalars", ub.scalars(x),
-                                  lambda: ub.scalars_ref(x), "row 0")
+    for Bt in UB_SCALARS_BT:
+        x, = (a.to(DEV) for a in ub.inputs("scalars", 1, Bt))
+        ms = hold("ub_scalars", ub.scalars(x), lambda: ub.scalars_ref(x),
+                  f"row 0 Bt={Bt}")
+        if Bt == ub.BT:
+            plain_ms["ub_scalars"] = ms
+        # the scratch the kernel wrote: all 16 stepped rows, the rest at
+        # the start
+        sp, _ = loader.launch_ub_scalars(Bt, ub.REPS, DEV)
+        err = max_err(sp[:16], ub.scalars_ref(x).expand(16, Bt))
+        start = torch.full((16, Bt), 0.3, device=DEV)
+        if err > UB_TOL["ub_scalars"] or not torch.equal(sp[16:], start):
+            fail(f"ub_scalars' scratch at Bt={Bt}: stepped rows max |d| "
+                 f"{err}, rows 16-31 at the start: "
+                 f"{torch.equal(sp[16:], start)}")
 
     for f in entries.values():
         f.launches = 0
@@ -2974,6 +3013,10 @@ def phase_ubench(run: Run) -> None:
                             "drive": [{k: v for k, v in q.items()
                                        if k not in ("entry", "case")}
                                       for q in mine]}
+        if "floor_ms" in r:
+            run.extra[entry]["floor_ms"] = r["floor_ms"]
+        if "sm_clock_mhz" in r:         # the clock the gather's floor is at
+            run.extra[entry]["floor_sm_clock_mhz"] = r["sm_clock_mhz"]
         if "library_ms" in r:
             run.library[entry] = r["library_ms"]
         if entry in yard:

@@ -117,6 +117,35 @@ def test_the_plan_families():
     assert len(widths) == len(BY_NAME["multi/f32 widths"].Ms)
 
 
+def test_the_microbenchmark_cases_reach_every_instance():
+    """The tensor-core entry at n = 65 and 257 (KT = 5 and 17) over two
+    splits or more, so ``ub_onehot_sum_kernel`` runs; the gather's
+    instance of 16 threads a column with its 17th group, a last warp of
+    one column, a last chunk shorter than its ring's and indices
+    outside [0, n) in its stream; #10 at a ragged width."""
+    from bath_tpu_torch import ubench as ub
+    kts = {ub.onehot_kt(n) for n in (65, 257)}
+    assert kts == {5, 17}
+    assert loader.ub_onehot_splits(sanitize.UB_MMA_BT, sanitize.UB_REPS,
+                                   SMS) >= 2
+    assert sanitize.UB_MMA_BT % ub.WG_TILE
+    for n in (65, 257):
+        assert f"ubench/mma n={n} splits" in BY_NAME
+    warps, _ = ub.gather_plan(ub.MT, 257, sanitize.UB_GATHER_BT, SMS)
+    assert warps > 0 and ub.gather_groups(ub.MT) == (17, 16, 2)
+    assert sanitize.UB_GATHER_BT % 2 == 1
+    assert sanitize.UB_REPS % ub.GATHER_CHUNK
+    got = BY_NAME["ubench/gather out of range"].run("cpu")
+    assert got["ub_onehot_gather"][0].shape == (ub.MT, sanitize.UB_GATHER_BT)
+    t, idx = ub.inputs("onehot", ub.MT, sanitize.UB_GATHER_BT,
+                       sanitize.UB_REPS, n=257, seed=3)
+    idx = ub.out_of_range(idx, 257)
+    assert (idx == -1).any() and (idx == 257).any()
+    assert sanitize.UB_SCALARS_BT % 32
+    assert all(c.reps == sanitize.UB_REPS for c in CASES
+               if c.name.startswith("ubench/"))
+
+
 @pytest.mark.parametrize("name", list(BY_NAME))
 def test_case_runs_through_the_plain_versions(name):
     errs = sanitize.run_case(BY_NAME[name], "cpu")

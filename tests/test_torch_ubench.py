@@ -31,7 +31,9 @@ The test marked ``cuda`` holds each of the five kernel entries against
 its plain version on the card at the script's shapes, the one-hot and
 overlap entries also at [136, 4096] and with a partial last tile of
 64 columns (Bt = 1040 and 1056), for every table, twice with equal bits
-(and the mma and gather entries against each other), and the chain and
+(and the mma and gather entries against each other), the gather also
+at Mt = 135 and 8 with indices out of range and at the widest n of
+each of its instances, #10 at three widths with its whole scratch, and the chain and
 overlap entries also after 1-3 steps: after 512 every element of the chain sits at its
 map's fixed point, and from the script's yacc start of 0.3 the columns
 stay equal, so only the short runs, from ``ubench.overlap_start``, show
@@ -352,6 +354,126 @@ def test_floors_of_the_designs():
         ub.onehot_kt(273)
 
 
+@pytest.mark.parametrize("Mt,n", [
+    (136, 257), (136, 17), (135, 65), (129, 5), (128, 65), (8, 17), (7, 3),
+    (1, 1), (100, 33), (136, 849), (130, 20), (24, 9)])
+def test_gather_image_read_back(Mt, n):
+    """The gather's image (``gather_image``, the pack kernel's layout)
+    read back as the kernel addresses it (``gather_offset``,
+    ``gather_read``): every lane group of every staged index gives
+    t^T's rows of that table row, zero past Mt, the zero row for an
+    index outside [0, n); at Mt > 128 the lanes g < 8 also read row
+    128 + g (lanes g >= 8 re-read a row they drop)."""
+    t, _ = ub.inputs("onehot", Mt, 16, 1, n=n)
+    G, tpc, _ = ub.gather_groups(Mt)
+    img = ub.gather_image(t)
+    assert img.numel() == (n + 1) * 8 * G
+    pad = torch.zeros(n + 1, 8 * G, dtype=torch.float32)
+    pad[:n, :Mt] = t.T.float()
+    for k in (0, 1, n // 2, n - 1, n, -1, n + 3, 2 ** 31 - 1, -2 ** 31):
+        off = ub.gather_offset(k, Mt, n)
+        row = pad[k if 0 <= k < n else n]
+        for g in range(tpc):
+            vals, extra = ub.gather_read(img, Mt, g, off)
+            assert torch.equal(vals.float(), row[8 * g:8 * g + 8]), (k, g)
+            if G == 17:
+                assert float(extra) == float(row[128 + (g & 7)]), (k, g)
+            else:
+                assert extra is None
+    assert float(pad[n].abs().max()) == 0.0
+    if Mt % 8:
+        assert float(pad[:, Mt:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Bt", [1, 31, 1024, 1040, 4096])
+@pytest.mark.parametrize("Mt", [1, 7, 8, 135, 136])
+def test_gather_launch_covers_every_output_once(Mt, Bt):
+    """Every (column, row) of [Mt, Bt] is written by exactly one lane of
+    the gather's launch (``gather_plan``'s blocks, ``gather_writes``'
+    mirror of the kernel's index arithmetic); #10's launch covers every
+    element of its [32, Bt] scratch once (``scalars_geometry``): thread e
+    steps row e / Bt, column e % Bt, and writes row 16 + e / Bt."""
+    warps, blocks = ub.gather_plan(Mt, 257, Bt)
+    G, tpc, cw = ub.gather_groups(Mt)
+    assert 1 <= warps <= ub.GATHER_MAX_WARPS
+    assert (blocks - 1) * warps * cw < Bt <= blocks * warps * cw
+    w = ub.gather_writes(Mt, Bt, warps, blocks)
+    key = w[:, 0].astype(np.int64) * 1000 + w[:, 1]
+    assert len(key) == Mt * Bt and len(np.unique(key)) == Mt * Bt
+    assert w[:, 0].min() == 0 and w[:, 0].max() == Bt - 1
+    assert w[:, 1].min() == 0 and w[:, 1].max() == Mt - 1
+    nb, threads = ub.scalars_geometry(Bt)
+    e = np.arange(nb * threads)
+    e = e[e < 16 * Bt]
+    cells = np.concatenate([(e // Bt) * Bt + e % Bt,
+                            (16 + e // Bt) * Bt + e % Bt])
+    assert np.array_equal(np.sort(cells), np.arange(32 * Bt))
+
+
+def test_gather_plan_fills_the_card():
+    """One wave: ceil(warps / 132) warps a block (at most 16); the
+    script's shape on 512 warps of two columns, 16 threads each, in 128
+    blocks; a table whose image does not fit takes the wide instance,
+    one it does at the fewest warps."""
+    assert ub.gather_groups(136) == (17, 16, 2)
+    assert ub.gather_groups(128) == (16, 16, 2)
+    assert ub.gather_groups(8) == (1, 1, 32)
+    assert ub.gather_plan(136, 257, 1024) == (4, 128)
+    assert ub.gather_plan(136, 257, 1040) == (4, 130)
+    assert ub.gather_plan(136, 257, 4096) == (16, 128)
+    assert ub.gather_plan(136, 849, 1024) == (1, 512)
+    assert ub.gather_smem(136, 849, 1) <= ub.SMEM_MAX
+    assert ub.gather_plan(136, 850, 1024) == (0, 128)
+    assert ub.gather_plan(136, 854, 1024) == (0, 128)
+    # the wide instance's table, as before: n Mtp bf16
+    assert 854 * 136 * 2 <= ub.SMEM_MAX < 855 * 136 * 2
+    for Mt, n, Bt in ((136, 257, 8192), (8, 5000, 4096), (64, 300, 100)):
+        w, _ = ub.gather_plan(Mt, n, Bt)
+        assert w == 0 or ub.gather_smem(Mt, n, w) <= ub.SMEM_MAX
+
+
+def test_floors_follow_the_work():
+    """The gather's floor: at [136, 1024] x 512 its issue (512 warps x
+    512 steps x 22.25 instructions over 132 x 4 schedulers) outweighs
+    its shared bytes (276 a column a step and 128 images); it scales
+    with Bt and reps, and inversely with the card's SM clock.  #10's:
+    reps dependent FMAs at the measured step."""
+    clk = 1.98e9
+    issue = 512 * 512 * 22.25 / (132 * 4) / clk * 1e3
+    smem = (1024 * 512 * 276 + 128 * 258 * 272) / (132 * 128) / clk * 1e3
+    assert issue > smem
+    assert ub.gather_floor_ms(136, 1024, 512, 257, clk) == \
+        pytest.approx(issue)
+    assert ub.gather_floor_ms(136, 4096, 512, 257, clk) == pytest.approx(
+        4 * issue, rel=0.01)
+    assert ub.gather_floor_ms(136, 1024, 256, 257, clk) < 0.51 * issue
+    assert ub.gather_floor_ms(136, 1024, 512, 257, clk / 2) == \
+        pytest.approx(2 * issue)
+    assert ub.gather_floor_ms(8, 1024, 512, 17, clk) < issue
+    assert ub.scalars_floor_ms(512, 2.35) == pytest.approx(512 * 2.35e-6)
+    assert ub.scalars_floor_ms(1024, 2.35) == pytest.approx(
+        2 * ub.scalars_floor_ms(512, 2.35))
+
+
+@pytest.mark.parametrize("n", ub.ONEHOT_N)
+def test_indices_out_of_range_add_nothing(n):
+    """``out_of_range`` puts -1 and n in the stream; ``onehot_in_range``
+    gives the plain version the entries' sum: each element's sum over
+    the steps whose index lies in [0, n), in step order."""
+    t, idx = small("onehot", n=n)
+    idx = ub.out_of_range(idx.repeat(4, 1), n)
+    assert (idx == -1).any() and (idx == n).any()
+    got = ub.onehot_ref(*ub.onehot_in_range(t, idx))
+    tf = t.float().numpy()
+    want = np.zeros(got.shape, np.float32)
+    for i in range(idx.shape[0]):
+        k = idx[i].numpy()
+        ok = (k >= 0) & (k < n)
+        want[:, ok] = want[:, ok] + tf[:, k[ok]]
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(ub.onehot_gather(*ub.onehot_in_range(t, idx)), got)
+
+
 @pytest.mark.cuda
 def test_ubench_kernels_vs_plain_on_card():
     if not torch.cuda.is_available():
@@ -406,5 +528,28 @@ def test_ubench_kernels_vs_plain_on_card():
                     (Bt, m, reps)
             half = (got["both"] - got["dot"]) - (want["both"] - want["dot"])
             assert float(half.abs().max()) <= 1e-6, (Bt, reps)
-    x, = (a.to(dev) for a in ub.inputs("scalars"))
-    assert float((ub.scalars(x) - ub.scalars_ref(x)).abs().max()) <= 1e-6
+    # the gather's other instances: the 17th group's rows below 8 (Mt =
+    # 135), a column a lane (Mt = 8), indices -1 and n, twice; the widest
+    # n of each instance at Mt = 136 (849: the padded image; 854: the
+    # wide one)
+    for Mt, n, Bt in [(Mt, n, 1040) for Mt in (135, 8) for n in ub.ONEHOT_N] \
+            + [(136, 849, 1024), (136, 854, 1024)]:
+        t, idx = ub.inputs("onehot", Mt, Bt, n=n, seed=Mt + n)
+        idx = ub.out_of_range(idx, n)
+        ref = ub.onehot_ref(*(a.to(dev) for a in ub.onehot_in_range(t, idx)))
+        t, idx = t.to(dev), idx.to(dev)
+        before = ub.onehot_gather.launches
+        gat = ub.onehot_gather(t, idx)
+        assert ub.onehot_gather.launches == before + 1
+        assert torch.equal(gat, ref), (Mt, n, Bt)
+        assert torch.equal(ub.onehot_gather(t, idx), gat), (Mt, n, Bt)
+    # #10 at the script's width, the full one and a ragged one; its
+    # scratch: the 16 stepped rows, then the start
+    for Bt in (ub.BT, ub.BT_FULL, 1000):
+        x, = (a.to(dev) for a in ub.inputs("scalars", 1, Bt))
+        ref = ub.scalars_ref(x)
+        assert float((ub.scalars(x) - ref).abs().max()) <= 1e-6
+        sp, out = loader.launch_ub_scalars(Bt, ub.REPS, dev)
+        assert torch.equal(out, sp[:1])
+        assert float((sp[:16] - ref).abs().max()) <= 1e-6
+        assert torch.equal(sp[16:], torch.full((16, Bt), 0.3, device=dev))
