@@ -86,6 +86,7 @@ from ..parallel.hosts import (allgather_results, maybe_init_from_args,
                               psum_counters, ranks_from_args)
 from ..parallel.mesh import mesh_devices
 from ..parallel.pool import by_name, imap, ready, stop_servers, worker_pool
+from ..phasestats import each, phase
 from ..pipeline import Pipeline, pipeline_bath, statistics_text
 from ..profile import profile_config, profile_config_fs
 from ..scoredata import score_data_create
@@ -612,11 +613,13 @@ def run(argv=None, stats=None, devices=None) -> int:
                         hit_windows, stats)
         else:
             def down_flush(chunk):
-                staged = flush_gates(chunk, cascade, pli, om, data, bg,
-                                     hit_windows)
-                flush_downstream(staged, cascade, pli, om, gm, om_fs3,
-                                 om_fs5, gm_fs5, data, bg, th, gcode,
-                                 hit_windows, use_device=True)
+                with phase("flush.gates"):
+                    staged = flush_gates(chunk, cascade, pli, om, data, bg,
+                                         hit_windows)
+                with phase("flush.downstream"):
+                    flush_downstream(staged, cascade, pli, om, gm, om_fs3,
+                                     om_fs5, gm_fs5, data, bg, th, gcode,
+                                     hit_windows, use_device=True)
                 if results is not None:
                     for e in staged:
                         results.append(
@@ -625,7 +628,8 @@ def run(argv=None, stats=None, devices=None) -> int:
 
             chunk: list = []
             pending_orfs = 0
-            for tid, window, seqid, nres_at in shard(specs):
+            for tid, window, seqid, nres_at in each("cli.windows",
+                                                    shard(specs)):
                 th_w = th if results is None else TopHits()
                 hws_w = hit_windows if results is None else []
                 for comp in (C.NOCOMPLEMENT, C.COMPLEMENT):
@@ -635,12 +639,13 @@ def run(argv=None, stats=None, devices=None) -> int:
                     if comp == C.COMPLEMENT \
                             and pli.strands == C.STRAND_TOPONLY:
                         continue
-                    w = window if comp == C.NOCOMPLEMENT \
-                        else window.reverse_complement()
-                    orfs = extract_orfs(
-                        gcode, w.dsq, minlen=args.minlen,
-                        is_revcomp=comp == C.COMPLEMENT,
-                        require_initiator=require_init)
+                    with phase("cli.orfs"):
+                        w = window if comp == C.NOCOMPLEMENT \
+                            else window.reverse_complement()
+                        orfs = extract_orfs(
+                            gcode, w.dsq, minlen=args.minlen,
+                            is_revcomp=comp == C.COMPLEMENT,
+                            require_initiator=require_init)
                     if cascade is None:
                         # the serial host drive: every stage of this
                         # (window, strand) in the host kernels
@@ -681,17 +686,20 @@ def run(argv=None, stats=None, devices=None) -> int:
                 res_cnt *= 2
         else:
             res_cnt = pli.nres
-        th.compute_evalues_bath(res_cnt, om.max_length * 3)
-        th.sort_by_seqidx_and_alipos()
-        for h in th.unsrt:
-            if h.seqidx in id_lengths:
-                h.target_len = id_lengths[h.seqidx]
-                if h.dcl and h.dcl[0].ad is not None:
-                    h.dcl[0].ad.L = id_lengths[h.seqidx]
-        th.remove_duplicates(pli.use_bit_cutoffs)
-        th.sort_by_sortkey()
-        pli.Z = 1.0
-        th.threshold(pli)
+        # the E-values and the output are the span cli.output, the
+        # --splice post-pass between them is not
+        with phase("cli.output"):
+            th.compute_evalues_bath(res_cnt, om.max_length * 3)
+            th.sort_by_seqidx_and_alipos()
+            for h in th.unsrt:
+                if h.seqidx in id_lengths:
+                    h.target_len = id_lengths[h.seqidx]
+                    if h.dcl and h.dcl[0].ad is not None:
+                        h.dcl[0].ad.L = id_lengths[h.seqidx]
+            th.remove_duplicates(pli.use_bit_cutoffs)
+            th.sort_by_sortkey()
+            pli.Z = 1.0
+            th.threshold(pli)
 
         t_splice = time.time()
         # --splice post-pass (ref: bathsearch.c :925-947)
@@ -731,28 +739,29 @@ def run(argv=None, stats=None, devices=None) -> int:
             stats["splice_s"] = stats.get("splice_s", 0.0) \
                 + time.time() - t_splice
 
-        pli.n_output = pli.pos_output = 0
-        for h in th.hit:
-            if h.flags & (IS_REPORTED | IS_INCLUDED):
-                pli.n_output += 1
-                for d in h.dcl:
-                    pli.pos_output += 1 + abs(d.jali - d.iali)
-        ofp.write(th.targets_text(pli, textw))
-        ofp.write("\n\n")
-        ofp.write(th.domains_text(pli, textw))
-        ofp.write("\n\n")
-        if tblfp:
-            tblfp.write(th.tabular_targets_text(hmm.name, hmm.acc, pli,
-                                                nquery == 1))
-        if fstblfp:
-            fstblfp.write(th.tabular_frameshifts_text(
-                hmm.name, hmm.acc, pli, nquery == 1))
-        if extblfp:
-            extblfp.write(th.tabular_exons_text(
-                hmm.name, hmm.acc, pli, nquery == 1,
-                node_info=args.nodeinfo))
-        ofp.write(statistics_text(pli, time.time() - t0))
-        ofp.write("//\n")
+        with phase("cli.output"):
+            pli.n_output = pli.pos_output = 0
+            for h in th.hit:
+                if h.flags & (IS_REPORTED | IS_INCLUDED):
+                    pli.n_output += 1
+                    for d in h.dcl:
+                        pli.pos_output += 1 + abs(d.jali - d.iali)
+            ofp.write(th.targets_text(pli, textw))
+            ofp.write("\n\n")
+            ofp.write(th.domains_text(pli, textw))
+            ofp.write("\n\n")
+            if tblfp:
+                tblfp.write(th.tabular_targets_text(hmm.name, hmm.acc, pli,
+                                                    nquery == 1))
+            if fstblfp:
+                fstblfp.write(th.tabular_frameshifts_text(
+                    hmm.name, hmm.acc, pli, nquery == 1))
+            if extblfp:
+                extblfp.write(th.tabular_exons_text(
+                    hmm.name, hmm.acc, pli, nquery == 1,
+                    node_info=args.nodeinfo))
+            ofp.write(statistics_text(pli, time.time() - t0))
+            ofp.write("//\n")
     return finish()
 
 
@@ -956,10 +965,6 @@ def _hybrid(args, ncpu, wctx, cascade, spec_iter, th, hit_windows,
                 wait([pend[0]], 0.05)
     finally:
         set_native_threads(threads)
-    if os.environ.get("BATH_DEVICE_STATS"):
-        print(f"# hybrid split: {n_pool} windows -> workers, "
-              f"{n_main} -> device cascade main",
-              file=sys.stderr)
     if stats is not None:
         stats["hybrid_pool"] = stats.get("hybrid_pool", 0) + n_pool
         stats["hybrid_main"] = stats.get("hybrid_main", 0) + n_main

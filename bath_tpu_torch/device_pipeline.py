@@ -51,10 +51,12 @@ import numpy as np
 import torch
 
 from . import constants as C
+from . import phasestats
 from .ops.domdec import domdec as domdec_kernel
 from .ops.fs3 import DNA_PAD, fs3_params, fs3_score
 from .ops.fs3_domdec import fs3_domdec as fs3_domdec_kernel
 from .ops.fwd import PAD_RESIDUE, fwd_params, fwd_score
+from .ops.kernels.loader import Launch
 from .ops.ssv import (SSVB_NCAP, msv_params, msv_post, msv_ssv,
                       pack_stream, ssv_capture)
 from .ops.vit import vit_capture, vit_ints, vit_params
@@ -101,6 +103,56 @@ def batches(seqs, lens, device, batch: int = BATCH,
                torch.from_numpy(lens[idx].astype(np.int32)).to(device))
 
 
+class StageTally:
+    """The counters of one call of a device stage, added to <stats>
+    under <key> by ``close``, after the stage's read-back:
+    ``<key>_items``; ``<key>_cells``, the items' residues x M;
+    ``<key>_padded_cells``, each batch's rows x padded width x M (the
+    integer filters read their items in place: their cells);
+    ``<key>_batches``, the launch calls; ``<key>_s``, the host wall
+    from the tally's making to ``close``; and, with ``phasestats`` on
+    and on a card, ``<key>_dev_s``: the card's time for the stage's
+    kernels, a pair of CUDA events round each bare launch that a
+    batch's launch call makes (``loader.Launch``), read after the
+    read-back has synchronised.  The events leave out the wrapper's
+    check, its read-back and its plan, which the host makes while the
+    card waits, and the small PyTorch ops round the kernel.  <div>
+    divides the cells (3: the fs3 stages count nucleotides / 3)."""
+
+    def __init__(self, stats: dict, key: str, div: int = 1):
+        self.stats, self.key, self.div = stats, key, div
+        self.t0 = time.perf_counter()
+        self.padded = self.batches = 0
+        self.events: list = []
+
+    def launch(self, dev, padded: int, call, *args, **kwargs):
+        """<call>(*args, **kwargs): one batch of <padded> cells on
+        <dev>."""
+        self.batches += 1
+        self.padded += padded
+        if not (phasestats.on() and dev.type == "cuda"):
+            return call(*args, **kwargs)
+        Launch.timing = (dev, self.events)
+        try:
+            return call(*args, **kwargs)
+        finally:
+            Launch.timing = None
+
+    def close(self, items: int, cells: int) -> float:
+        """Adds the call's counters; returns its host wall."""
+        st, k = self.stats, self.key
+        for name, v in (("items", items), ("cells", cells // self.div),
+                        ("padded_cells", self.padded // self.div),
+                        ("batches", self.batches)):
+            st[f"{k}_{name}"] = st.get(f"{k}_{name}", 0) + v
+        if self.events:
+            st[f"{k}_dev_s"] = st.get(f"{k}_dev_s", 0.0) + sum(
+                a.elapsed_time(b) for a, b in self.events) / 1e3
+        dt = time.perf_counter() - self.t0
+        st[f"{k}_s"] = st.get(f"{k}_s", 0) + dt
+        return dt
+
+
 def _perturb(scores: np.ndarray) -> np.ndarray:
     """Test hook (BATH_DEVICE_PERTURB=<nats>): inject alternating-sign
     error into the device gate scores.  tests/test_device_pipeline.py
@@ -144,8 +196,12 @@ class TorchCascade:
     rescans (``ssvcap_overflow``), and the host wall inside each stage,
     transfers and the wait for the device included (``fwd_s``,
     ``domdec_s``, ``fs3_s``, ``fs3domdec_s``, ``msv_s``, ``vit_s``,
-    ``ssvcap_s``, ``vitcap_s``); over a mesh also ``mesh_items``:
-    {stage key: [items of share 0, share 1, ...]}."""
+    ``ssvcap_s``, ``vitcap_s``); each stage's ``StageTally`` counters
+    besides (``fwd_cells``, ``fwd_padded_cells``, ``fwd_batches`` and,
+    with ``phasestats`` on and on a card, ``fwd_dev_s``; the same for
+    each key); over a mesh also ``mesh_items``: {stage key: [items of
+    share 0, share 1, ...]}.  Each public stage is a ``phasestats``
+    span ``stage.<name>``."""
 
     def __init__(self, om, om_fs3=None, device="cuda", stats=None,
                  devices=None):
@@ -168,34 +224,35 @@ class TorchCascade:
                   "vitcap_s"):
             self.stats.setdefault(k, 0)
 
-    def _scores(self, score, params, seqs, lens, pad, key) -> np.ndarray:
+    def _scores(self, score, params, seqs, lens, pad, key,
+                div=1) -> np.ndarray:
         """Gate scores (nats, f32) per item through <score> with the
         device's <params>: sorted batches of every share launched, then
-        scattered back; counts ``<key>_items`` and ``<key>_s``."""
-        t0 = time.perf_counter()
-        n = len(lens)
+        scattered back; counted by a ``StageTally`` under <key>."""
+        tally = StageTally(self.stats, key, div)
+        n, M = len(lens), self.om.M
         out = np.empty(n, np.float32)
         parts = []
         for dev, items in self._shares(key, lens):
             sq, ln = (seqs, lens) if items is None else \
                 ([seqs[i] for i in items], np.asarray(lens)[items])
             parts += [(idx if items is None else items[idx],
-                       score(dsq, blens, params[dev], nj=1.0))
+                       tally.launch(dev, dsq.numel() * M, score, dsq, blens,
+                                    params[dev], nj=1.0))
                       for idx, dsq, blens in batches(sq, ln, dev, pad=pad)]
         for idx, sc in parts:
             out[idx] = sc.cpu().numpy()
-        self.stats[f"{key}_items"] += n
-        self.stats[f"{key}_s"] += time.perf_counter() - t0
+        tally.close(n, int(np.sum(lens)) * M)
         return _perturb(out)
 
-    def _decode(self, decode, seqs, max_cells, pad, key):
+    def _decode(self, decode, seqs, max_cells, pad, key, div=1):
         """(btot, etot, mocc, ok) per item through <decode>(dsq, lens,
         device): rows sliceable to n+1, and ok=False where the caller
         must run the host parsers; the shares' batches go out a round at
         a time, a batch of every share, before the round is read back;
-        counts ``<key>_items``, ``<key>_ok`` and ``<key>_s``."""
-        t0 = time.perf_counter()
-        n = len(seqs)
+        counts ``<key>_ok`` and, by a ``StageTally``, the rest."""
+        tally = StageTally(self.stats, key, div)
+        n, M = len(seqs), self.om.M
         btot, etot, mocc = [None] * n, [None] * n, [None] * n
         ok = np.zeros(n, bool)
         lens = np.asarray([s.n for s in seqs], np.int64)
@@ -214,25 +271,27 @@ class TorchCascade:
                 going.append((dev, items, gen))
                 idx, dsq, blens = b
                 launched.append((idx if items is None else items[idx],
-                                 decode(dsq, blens, dev)))
+                                 tally.launch(dev, dsq.numel() * M, decode,
+                                              dsq, blens, dev)))
             runs = going
             for idx, res in launched:
                 bt, et, mo, okv = (t.cpu().numpy() for t in res)
                 for r, i in enumerate(idx):
                     btot[i], etot[i], mocc[i] = bt[r], et[r], mo[r]
                 ok[idx] = okv
-        self.stats[f"{key}_items"] += n
         self.stats[f"{key}_ok"] += int(ok.sum())
-        self.stats[f"{key}_s"] += time.perf_counter() - t0
+        tally.close(n, int(lens.sum()) * M)
         return btot, etot, mocc, ok
 
     # -- Forward (F3): Viterbi survivors ----------------------------
+    @phasestats.spanned("stage.fwd_scores")
     def fwd_scores(self, seqs, lens) -> np.ndarray:
         """Forward-gate scores (nats, f32) per item."""
         return self._scores(fwd_score, self._fwd, seqs, lens,
                             PAD_RESIDUE, "fwd")
 
     # -- fused Backward parser + domain decoding (F3 survivors) ------
+    @phasestats.spanned("stage.domdec")
     def domdec(self, orfseqs):
         """Posteriors of the F3 survivors (ORFs)."""
         return self._decode(
@@ -241,19 +300,21 @@ class TorchCascade:
             orfseqs, DOMDEC_CELLS, PAD_RESIDUE, "domdec")
 
     # -- fs3 Forward (F4): merged DNA windows of --fs ----------------
+    @phasestats.spanned("stage.fs3_scores")
     def fs3_scores(self, seqs, lens) -> np.ndarray:
         """fs3-Forward gate scores (nats, f32) per DNA window."""
         return self._scores(fs3_score, self._fs3, seqs, lens, DNA_PAD,
-                            "fs3")
+                            "fs3", div=3)
 
     # -- fused fs3 Backward parser + frameshift decoding ---------------
+    @phasestats.spanned("stage.fs3_domdec")
     def fs3_domdec(self, winseqs, dec_loop: float):
         """Posteriors of the fs-branch DNA windows.  <dec_loop>: the
         N/J/C loop probability of the host decoder's profile."""
         return self._decode(
             lambda dsq, lens, dev: fs3_domdec_kernel(
                 dsq, lens, self._fs3[dev], dec_loop, nj=1.0),
-            winseqs, FS3DOMDEC_CELLS, DNA_PAD, "fs3domdec")
+            winseqs, FS3DOMDEC_CELLS, DNA_PAD, "fs3domdec", div=3)
 
     # -- the integer filters (BATH_MSV_DEVICE=1 / BATH_VIT_DEVICE=1) ---
     # their tables are built on first use, once a device: the default
@@ -291,13 +352,14 @@ class TorchCascade:
         return [(dev, np.arange(len(lens)) if items is None else items)
                 for dev, items in self._shares(key, lens)]
 
+    @phasestats.spanned("stage.msv_scores")
     def msv_scores(self, seqs, lens, flat=None, offs=None) -> np.ndarray:
         """MSV (F1) scores (nats, f32; inf on overflow) of every item,
         bit-identical to ``ops.reference.filters.msv_filter``: either
         <seqs> or one int8 stream <flat> with per-item <offs>, read in
         place by one launch a share."""
-        t0 = time.perf_counter()
-        n = len(lens)
+        tally = StageTally(self.stats, "msv")
+        n, M = len(lens), self.om.M
         p = self.msv
         if flat is None:
             flat, offs, lens = pack_stream(seqs)
@@ -308,8 +370,9 @@ class TorchCascade:
             stream = (flat, offs, lens) if len(sel) == n else \
                 repack(flat, offs[sel], lens[sel])
             tjb = self._ints(pd.tjb_for(stream[2]), dev)
-            parts.append((sel, msv_post(*msv_ssv(
-                *self._stream(dev, *stream), tjb, pd), tjb, pd)))
+            parts.append((sel, tally.launch(
+                dev, int(stream[2].sum()) * M, lambda: msv_post(*msv_ssv(
+                    *self._stream(dev, *stream), tjb, pd), tjb, pd))))
         ints = np.empty(n, np.float64)
         inf = np.zeros(n, bool)
         for sel, (out_int, out_inf) in parts:
@@ -317,8 +380,7 @@ class TorchCascade:
             inf[sel] = out_inf.cpu().numpy()
         sc = np.float32((ints - float(p.base)) / p.scale - 3.0)
         sc = np.where(inf, np.float32(np.inf), sc).astype(np.float32)
-        self.stats["msv_items"] += n
-        self.stats["msv_s"] += time.perf_counter() - t0
+        tally.close(n, int(lens.sum()) * M)
         return sc
 
     def ssv_thresholds(self, lens, nulls, F1):
@@ -337,15 +399,18 @@ class TorchCascade:
             thr[:] = -(1 << 30)
         return tjb, thr
 
+    @phasestats.spanned("stage.ssv_captures")
     def ssv_captures(self, seqs, lens, nulls, F1):
         """SSV_BATH capture events of the bias survivors under F2:
         {i: (nwin, [(row, k, score), ...])} for every item, as
         ``DeviceCascade.ssv_captures``.  Items with more than 16 events
         (nwin > len(events)) are rescanned by the host, by the
         reference's contract; ``ssvcap_overflow`` counts them."""
-        t0 = time.perf_counter()
+        tally = StageTally(self.stats, "ssvcap")
+        M = self.om.M
         tjb, thr = self.ssv_thresholds(lens, nulls, F1)
-        parts = [(sel, ssv_capture(
+        parts = [(sel, tally.launch(
+            dev, int(np.asarray(lens)[sel].sum()) * M, ssv_capture,
             *self._stream(dev, *pack_stream([seqs[i] for i in sel])),
             self._ints(tjb[sel], dev), self._ints(thr[sel], dev),
             self._tables("msv", dev)))
@@ -357,22 +422,23 @@ class TorchCascade:
                 caps[int(sel[i])] = (nv, list(zip(wi[i, :nv], wk[i, :nv],
                                                   wsc[i, :nv])))
             self.stats["ssvcap_overflow"] += int((nwin > SSVB_NCAP).sum())
-        self.stats["ssvcap_items"] += len(lens)
-        self.stats["ssvcap_s"] += time.perf_counter() - t0
+        tally.close(len(lens), int(np.sum(lens)) * M)
         return caps
 
+    @phasestats.spanned("stage.vit_scores")
     def vit_scores(self, seqs, lens) -> np.ndarray:
         """ViterbiFilter (F2) scores (nats, f32; -inf with no result,
         inf on int16 overflow) of every item, bit-identical to
         ``ops.reference.filters.viterbi_filter``."""
-        t0 = time.perf_counter()
-        n = len(lens)
+        tally = StageTally(self.stats, "vit")
+        n, M = len(lens), self.om.M
         p = self.vit
         lens = np.asarray(lens)
         parts = []
         for dev, sel in self._picks("vit", lens):
             pd = self._tables("vit", dev)
-            parts.append((sel, vit_ints(
+            parts.append((sel, tally.launch(
+                dev, int(lens[sel].sum()) * M, vit_ints,
                 *self._stream(dev, *pack_stream([seqs[i] for i in sel])),
                 self._ints(pd.move_for(lens[sel]), dev), pd)))
         score = np.empty(n, np.int64)
@@ -386,8 +452,7 @@ class TorchCascade:
         if np.isnan(sc).any():
             # pipeline_gates would route the item to the host scan
             raise RuntimeError("NaN ViterbiFilter score from the device")
-        self.stats["vit_items"] += n
-        self.stats["vit_s"] += time.perf_counter() - t0
+        tally.close(n, int(lens.sum()) * M)
         return sc
 
     def vit_thresholds(self, lens, filterscs, F2):
@@ -408,18 +473,21 @@ class TorchCascade:
             thr[:] = -(1 << 30)
         return move, thr
 
+    @phasestats.spanned("stage.vit_captures")
     def vit_captures(self, seqs, lens, filterscs, F2):
         """ViterbiFilter_BATH capture events of the F2 survivors:
         {i: (rows, ks)} for every item, the ascending 1-based crossing
         rows before the first int16-saturated row and their
         striped-order k_start, as ``DeviceCascade.vit_captures``.  A
         share's row array covers its own items' residues."""
-        t0 = time.perf_counter()
+        tally = StageTally(self.stats, "vitcap")
+        M = self.om.M
         move, thr = self.vit_thresholds(lens, filterscs, F2)
         parts = []
         for dev, sel in self._picks("vitcap", lens):
             flat, offs, ln = pack_stream([seqs[i] for i in sel])
-            parts.append((sel, offs, ln, vit_capture(
+            parts.append((sel, offs, ln, tally.launch(
+                dev, int(np.sum(ln)) * M, vit_capture,
                 *self._stream(dev, flat, offs, ln),
                 self._ints(move[sel], dev), self._ints(thr[sel], dev),
                 self._tables("vit", dev))))
@@ -432,8 +500,7 @@ class TorchCascade:
                 if ovfrow[i] > 0:
                     rows = rows[rows + 1 < ovfrow[i]]
                 caps[int(sel[i])] = (rows + 1, ks[rows])
-        self.stats["vitcap_items"] += len(lens)
-        self.stats["vitcap_s"] += time.perf_counter() - t0
+        tally.close(len(lens), int(np.sum(lens)) * M)
         return caps
 
 

@@ -65,10 +65,10 @@ import numpy as np
 import torch
 
 from . import constants as C
-from . import stats
+from . import phasestats, stats
 from .bg import Background
-from .device_pipeline import (DOMDEC_CELLS, FS3DOMDEC_CELLS, _perturb,
-                              batches)
+from .device_pipeline import (DOMDEC_CELLS, FS3DOMDEC_CELLS, StageTally,
+                              _perturb, batches)
 from .gencode import extract_orfs
 from .oprofile import oprofile_convert
 from .ops import multimodel as mm
@@ -174,9 +174,11 @@ class PackedGates:
     ``TorchCascade``'s keys (``fwd_items``, ``fwd_s``, ``domdec_items``,
     ``domdec_ok``, ``domdec_s``, ``fs3_items``, ``fs3_s``,
     ``fs3domdec_items``, ``fs3domdec_ok``, ``fs3domdec_s``, over a mesh
-    ``mesh_items``) plus each stage's DP cells (``fwd_cells``, ...) and
-    ``mq_stages``, one ``(stage, items, cells, seconds)`` per stage
-    call."""
+    ``mesh_items``, and the rest of ``device_pipeline.StageTally``'s
+    counters: ``fwd_cells``, ``fwd_padded_cells``, ``fwd_batches``,
+    ``fwd_dev_s``, ...) plus ``mq_stages``, one ``(stage, items, cells,
+    seconds)`` per stage call.  Each public stage is a ``phasestats``
+    span ``stage.<name>``."""
 
     def __init__(self, queries: list[QState], device="cuda", stats=None,
                  devices=None):
@@ -185,6 +187,7 @@ class PackedGates:
             else [torch.device(device)]
         self.device = self.devices[0]
         self.slot = {q.qi: g for g, q in enumerate(queries)}
+        self._M = np.array([q.hmm.M for q in queries], np.int64)
         self._packs: dict = {}
         self.stats = stats if stats is not None else {}
         for key in ("fwd", "domdec", "fs3", "fs3domdec"):
@@ -220,44 +223,45 @@ class PackedGates:
                 else (dev, [items[i] for i in sel], sel)
                 for dev, sel in self._shares(key, [ln for _, _, ln in items])]
 
-    def _count(self, key, items, t0, cells_div=1):
-        cells = _stage_cells(items) // cells_div
-        dt = time.perf_counter() - t0
-        self.stats[f"{key}_items"] += len(items)
-        self.stats[f"{key}_cells"] += cells
-        self.stats[f"{key}_s"] += dt
-        self.stats["mq_stages"].append((key, len(items), cells, dt))
+    def _count(self, key, items, tally):
+        cells = _stage_cells(items)
+        dt = tally.close(len(items), cells)
+        self.stats["mq_stages"].append((key, len(items), cells // tally.div,
+                                        dt))
 
     def _scores(self, items, call, family, pad, key, cells_div=1):
         """Gate scores (nats) per item: every batch of every share
         launched, then one concatenation and one fetch a share."""
-        t0 = time.perf_counter()
+        tally = StageTally(self.stats, key, cells_div)
         shares = []
         for dev, sub, sel in self._split(key, items):
             pack = self._pack(family, dev)
-            shares.append([(sel[idx], call(pack, dsq, blens, slot, nj=1.0))
-                           for idx, dsq, blens, slot
-                           in self._batches(sub, pad, dev)])
+            shares.append([(sel[idx], tally.launch(
+                dev, dsq.shape[1] * int(self._M[slot].sum()), call, pack,
+                dsq, blens, slot, nj=1.0))
+                for idx, dsq, blens, slot in self._batches(sub, pad, dev)])
         out = np.empty(len(items), F32)
         for parts in shares:
             if parts:
                 out[np.concatenate([idx for idx, _ in parts])] = \
                     torch.cat([sc for _, sc in parts]).cpu().numpy()
-        self._count(key, items, t0, cells_div)
+        self._count(key, items, tally)
         return [float(v) for v in _perturb(out)]
 
     def _decode(self, items, call, family, pad, max_cells, key,
                 cells_div=1):
         """(btot, etot, mocc, ok) per item: every batch of every share
         launched, then one flat concatenation and one fetch a share."""
-        t0 = time.perf_counter()
+        tally = StageTally(self.stats, key, cells_div)
         shares = []
         for dev, sub, sel in self._split(key, items):
             pack = self._pack(family, dev)
             parts = []
             for idx, dsq, blens, slot in self._batches(sub, pad, dev,
                                                        max_cells):
-                bt, et, mo, ok = call(pack, dsq, blens, slot)
+                bt, et, mo, ok = tally.launch(
+                    dev, dsq.shape[1] * int(self._M[slot].sum()), call,
+                    pack, dsq, blens, slot)
                 parts.append((sel[idx], bt.shape, torch.cat(
                     [bt.reshape(-1), et.reshape(-1), mo.reshape(-1),
                      ok.to(bt.dtype)])))
@@ -275,24 +279,28 @@ class PackedGates:
                 for r, i in enumerate(idx):
                     out[i] = (post[0, r], post[1, r], post[2, r],
                               bool(oks[r]))
-        self._count(key, items, t0, cells_div)
+        self._count(key, items, tally)
         self.stats[f"{key}_ok"] += sum(v[3] for v in out)
         return out
 
+    @phasestats.spanned("stage.fwd_scores")
     def fwd_scores(self, items):
         return self._scores(items, mm.fwd_pack_scores, "std", PAD_RESIDUE,
                             "fwd")
 
+    @phasestats.spanned("stage.domdec")
     def domdec(self, items):
         return self._decode(
             items, lambda p, d, l, s: mm.domdec_pack_batch(p, d, l, s,
                                                            nj=1.0),
             "std", PAD_RESIDUE, DOMDEC_CELLS, "domdec")
 
+    @phasestats.spanned("stage.fs3_scores")
     def fs3_scores(self, items):
         return self._scores(items, mm.fs3_pack_scores, "fs", DNA_PAD, "fs3",
                             cells_div=3)
 
+    @phasestats.spanned("stage.fs3_domdec")
     def fs3_domdec(self, items, dec_loop):
         return self._decode(
             items, lambda p, d, l, s: mm.fs3_domdec_pack_batch(

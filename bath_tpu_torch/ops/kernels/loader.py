@@ -369,13 +369,28 @@ class Launch:
     outputs and launches, with no check and no read back, so the
     kernel's own time is the call's.  ``launches``: kernel launches a
     call; ``plan``: the one-launch plan (``ops/multimodel.py``
-    ``LaunchPlan``) of the entries that take one."""
+    ``LaunchPlan``) of the entries that take one.  ``timing``: while a
+    device stage times its launches (``device_pipeline.StageTally``),
+    its device and its list of event pairs; each call then records a
+    pair of CUDA events round itself on that device's current stream."""
+
+    timing = None
 
     def __init__(self, call, launches: int, plan=None):
         self._call, self.launches, self.plan = call, launches, plan
 
     def __call__(self, *args):
-        return self._call(*args)
+        if Launch.timing is None:
+            return self._call(*args)
+        dev, pairs = Launch.timing
+        stream = torch.cuda.current_stream(dev)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record(stream)
+        out = self._call(*args)
+        pair[1].record(stream)
+        pairs.append(pair)
+        return out
 
 
 # the entries with a segmented instance, each with its bt_*_seg_bytes

@@ -30,7 +30,11 @@ self-check entry points (``bath_tpu_torch.selfcheck``) pass there.
 """
 
 import functools
+import json
+import os
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1054,3 +1058,47 @@ def test_selfcheck_on_the_card():
     rep = selfcheck.dryrun_multichip(2)
     assert len(rep["devices"]) == 2 and set(rep["mesh_items"]) == set(
         selfcheck.MODES)
+
+
+STAGE_SECONDS = """
+import json
+import numpy as np
+from types import SimpleNamespace
+from bath_tpu_torch import fixtures
+from bath_tpu_torch.device_pipeline import TorchCascade
+rng = np.random.default_rng(400)
+hmm, q = fixtures.make_query(400, rng, calibrate=False)
+dsq, lens = fixtures.kernel_batch(q, 64, 600, rng)
+seqs = [d[:n].copy() for d, n in zip(dsq, lens)]
+stats = {}
+tc = TorchCascade(fixtures.search_profile(hmm), device="cuda", stats=stats)
+for _ in range(2):
+    tc.fwd_scores(seqs, lens)
+    tc.domdec([SimpleNamespace(dsq=s, n=len(s)) for s in seqs])
+print("STATS", json.dumps({k: v for k, v in stats.items()
+                           if isinstance(v, (int, float))}))
+"""
+
+
+@pytest.mark.parametrize("tracing", [False, True], ids=["off", "on"])
+def test_stage_device_seconds(tracing):
+    """``<key>_dev_s``: 0 < it <= ``<key>_s`` with tracing on, absent with
+    it off; the cells counted either way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    env = dict(os.environ)
+    env.pop("BATH_PHASE_STATS", None)
+    if tracing:
+        env["BATH_PHASE_STATS"] = "1"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", STAGE_SECONDS],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=root, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    stats = json.loads(r.stdout.split("STATS ", 1)[1])
+    for key in ("fwd", "domdec"):
+        assert stats[f"{key}_padded_cells"] >= stats[f"{key}_cells"] > 0
+        if tracing:
+            assert 0 < stats[f"{key}_dev_s"] <= stats[f"{key}_s"]
+        else:
+            assert f"{key}_dev_s" not in stats

@@ -42,7 +42,7 @@ REF, PORT = os.path.join(ROOT, "bath_tpu"), os.path.join(ROOT,
 # modules copied whole, by their path under both packages
 COPIED = """constants logsum rng codontable alphabet stats bg hmm hmmfile
 prior msa builder evalues scorematrix gencode sequence profile oprofile
-scoredata phasestats ops/reference/__init__ ops/reference/filters
+scoredata ops/reference/__init__ ops/reference/filters
 ops/reference/fwdback ops/reference/fwdback_fs native/__init__ domaindef
 ensemble tracealign alidisplay tophits pipeline pipeline_fs
 cli/_io emit ssi cli/bathstat cli/bathfetch splice/__init__ splice/graph
@@ -472,8 +472,6 @@ POOL_BLOCKS = [
      "hybrid-main-share"),
     ("pend: deque = deque()", 7, "_hybrid", None, "hybrid-policy"),
     ("while True:", 1, "_hybrid", None, "hybrid-loop"),
-    ("if os.environ.get('BATH_DEVICE_STATS'):", 1, "_hybrid", None,
-     "hybrid-split-line"),
     ("results.sort(key=lambda r: r[0])", 3, "_hybrid", None, "hybrid-merge"),
     ("_wthreads = max(1, (os.cpu_count() or 1) // ncpu)", 1, "_window_pool",
      None, "pool-threads"),
