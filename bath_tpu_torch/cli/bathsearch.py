@@ -762,6 +762,9 @@ def run(argv=None, stats=None, devices=None) -> int:
                     node_info=args.nodeinfo))
             ofp.write(statistics_text(pli, time.time() - t0))
             ofp.write("//\n")
+        if stats is not None:
+            stats["rescore_host_items"] = \
+                stats.get("rescore_host_items", 0) + pli.ddef.host_fills
     return finish()
 
 

@@ -13,7 +13,12 @@ with its imports.  The f32 stages run on the device:
   window of a flush (``ops/fs3.py``);
 - ``fs3_domdec``: fused fs3 Forward + Backward + frameshift domain
   decoding over the windows that pass the gate and arbitration
-  (``ops/fs3_domdec.py``).
+  (``ops/fs3_domdec.py``);
+- ``rescore``: the standard branch's envelope fills (the unihit Forward
+  and Backward, posterior decoding and the optimal-accuracy fill, bit
+  for bit the native host fills) of every envelope of a flush
+  (``ops/rescore.py``); the host keeps the OA trace, null2 and the rest
+  of rescoring.
 
 The integer filters run on the device when ``flush_gates`` selects
 them, as in the JAX package: ``BATH_MSV_DEVICE=1`` and
@@ -37,8 +42,9 @@ Batching: the f32 stages sort items by length and cut them into
 batches of at most ``BATCH`` items, each padded to its own longest
 item; the decoding stages also cap a batch's padded residues.  The
 integer filters take every item of a stage in one launch, each read at
-its offset in one residue stream.  A GPU needs no fixed shape buckets,
-so there is no length cap either.
+its offset in one residue stream.  The envelope fills take one block an
+envelope, unpadded, in launches whose outputs fit ``RESCORE_BYTES``.  A
+GPU needs no fixed shape buckets, so there is no length cap either.
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ from .ops.fs3 import DNA_PAD, fs3_params, fs3_score
 from .ops.fs3_domdec import fs3_domdec as fs3_domdec_kernel
 from .ops.fwd import PAD_RESIDUE, fwd_params, fwd_score
 from .ops.kernels.loader import Launch
+from .ops.rescore import batch_plan as rescore_plan
+from .ops.rescore import launch as rescore_launch
+from .ops.rescore import rescore_params
 from .ops.ssv import (SSVB_NCAP, msv_params, msv_post, msv_ssv,
                       pack_stream, ssv_capture)
 from .ops.vit import vit_capture, vit_ints, vit_params
@@ -190,14 +199,15 @@ class TorchCascade:
     (``domdec_items``), those whose device posteriors were valid
     (``domdec_ok``), the same for the fs3 gate's DNA windows
     (``fs3_items``) and the fs-branch windows decoded
-    (``fs3domdec_items``, ``fs3domdec_ok``), the integer filters' items
+    (``fs3domdec_items``, ``fs3domdec_ok``), the envelopes filled
+    (``rescore_items``), the integer filters' items
     (``msv_items``, ``vit_items``, ``ssvcap_items``, ``vitcap_items``)
     and the SSV captures with more than 16 events, which the host
     rescans (``ssvcap_overflow``), and the host wall inside each stage,
     transfers and the wait for the device included (``fwd_s``,
-    ``domdec_s``, ``fs3_s``, ``fs3domdec_s``, ``msv_s``, ``vit_s``,
-    ``ssvcap_s``, ``vitcap_s``); each stage's ``StageTally`` counters
-    besides (``fwd_cells``, ``fwd_padded_cells``, ``fwd_batches`` and,
+    ``domdec_s``, ``fs3_s``, ``fs3domdec_s``, ``rescore_s``, ``msv_s``,
+    ``vit_s``, ``ssvcap_s``, ``vitcap_s``); each stage's ``StageTally``
+    counters besides (``fwd_cells``, ``fwd_padded_cells``, ``fwd_batches`` and,
     with ``phasestats`` on and on a card, ``fwd_dev_s``; the same for
     each key); over a mesh also ``mesh_items``: {stage key: [items of
     share 0, share 1, ...]}.  Each public stage is a ``phasestats``
@@ -214,6 +224,7 @@ class TorchCascade:
         self._fs3 = None if om_fs3 is None else {d: fs3_params(om_fs3, d)
                                                  for d in once}
         self._int: dict = {}
+        self._resc: dict = {}
         self.stats = stats if stats is not None else {}
         self._shares = Shares(self.devices, self.stats)
         for k in ("fwd_items", "domdec_items", "domdec_ok", "fwd_s",
@@ -221,7 +232,7 @@ class TorchCascade:
                   "fs3domdec_ok", "fs3_s", "fs3domdec_s", "msv_items",
                   "msv_s", "vit_items", "vit_s", "ssvcap_items",
                   "ssvcap_overflow", "ssvcap_s", "vitcap_items",
-                  "vitcap_s"):
+                  "vitcap_s", "rescore_items", "rescore_s"):
             self.stats.setdefault(k, 0)
 
     def _scores(self, score, params, seqs, lens, pad, key,
@@ -298,6 +309,45 @@ class TorchCascade:
             lambda dsq, lens, dev: domdec_kernel(dsq, lens, self._fwd[dev],
                                                  nj=1.0),
             orfseqs, DOMDEC_CELLS, PAD_RESIDUE, "domdec")
+
+    # -- envelope rescoring: the standard branch's envelope fills -----
+    @phasestats.spanned("stage.rescore")
+    def rescore(self, envs) -> list:
+        """The fills of the envelopes <envs> [(residues, length model)]
+        (``ops/rescore.py`` ``Fills``, in order), bit for bit the native
+        host fills: the launches of each share's ``batch_plan``, a round
+        at a time, each round read back before the next."""
+        tally = StageTally(self.stats, "rescore")
+        M = self.om.M
+        lens = np.array([len(d) for d, _ in envs], np.int64)
+        out = [None] * len(envs)
+        runs = []
+        for dev, items in self._shares("rescore", lens):
+            idx = np.arange(len(envs)) if items is None else items
+            runs.append((dev, idx, iter(rescore_plan(lens[idx], M))))
+        while runs:
+            launched, going = [], []
+            for dev, idx, plan in runs:
+                b = next(plan, None)
+                if b is None:
+                    continue
+                going.append((dev, idx, plan))
+                sel = idx[b]
+                launched.append((sel, tally.launch(
+                    dev, int(lens[sel].sum()) * M, rescore_launch,
+                    self._rescore_params(dev), [envs[i][0] for i in sel],
+                    np.array([envs[i][1] for i in sel], F32))))
+            runs = going
+            for sel, pending in launched:
+                for i, f in zip(sel, pending.fills()):
+                    out[i] = f
+        tally.close(len(envs), int(lens.sum()) * M)
+        return out
+
+    def _rescore_params(self, dev):
+        if dev not in self._resc:
+            self._resc[dev] = rescore_params(self.om, dev)
+        return self._resc[dev]
 
     # -- fs3 Forward (F4): merged DNA windows of --fs ----------------
     @phasestats.spanned("stage.fs3_scores")
@@ -773,8 +823,10 @@ def flush_downstream(staged: list[ChunkEntry], cascade: TorchCascade,
     Forward F3/F4 gate + domain definition, then the --fs branch.
     <use_device>=False runs the bit-exact host path for every stage
     (the adaptive cascade's surrender: identical bytes by the
-    DEVICE_GATE_BAND contract)."""
-    from .pipeline import pipeline_fwd_stage
+    DEVICE_GATE_BAND contract).  On the device the standard branch's
+    envelopes are planned entry by entry, filled by one call of
+    ``TorchCascade.rescore`` and finished in the entries' order."""
+    from .pipeline import finish_survivors, pipeline_fwd_stage
 
     # Phase 2: device Forward over every Vit survivor of the chunk,
     # then the host F3/F4 stage (+ domaindef for F3 survivors).
@@ -784,6 +836,7 @@ def flush_downstream(staged: list[ChunkEntry], cascade: TorchCascade,
                                                        np.int64)) \
         if cand_lens and use_device else None
     nres_now = pli.nres
+    deferred = [] if use_device else None
     pos = 0
     for e in staged:
         # the early domain keep-filter uses pli.Z = nres/max_length
@@ -800,8 +853,10 @@ def flush_downstream(staged: list[ChunkEntry], cascade: TorchCascade,
                            fwd_dev=None if fwd_all is None
                            else fwd_all[pos:pos + ncand],
                            domdec_fn=cascade.domdec if use_device
-                           else None)
+                           else None, deferred=deferred)
         pos += ncand
+    if deferred:
+        finish_survivors(pli, om, gm, gm_fs5, bg, deferred, cascade.rescore)
 
     # Phase 3 (--fs): build merged DNA windows per entry, gate them
     # through the device fs3-Forward, then arbitration + domaindef.

@@ -66,6 +66,8 @@ class DomainDef:
     seed: int = 42
     splice: bool = False
     fstbl: bool = False
+    # envelopes filled by the native host fills, over the object's life
+    host_fills: int = 0
 
     nexpected: float = 0.0
     nregions: int = 0
@@ -253,15 +255,38 @@ def rescore_isolated_domain_bath(ddef: DomainDef, om: OProfile,
                                  windowsq: Sequence, ntsqlen: int,
                                  i: int, j: int,
                                  null2_is_done: bool,
-                                 abc) -> bool:
+                                 abc, fills=None) -> bool:
     """Envelope rescore for the standard (non-frameshift) branch
     (ref: p7_domaindef.c rescore_isolated_domain_bath :1236).
-    Returns True if a domain was registered."""
+    Returns True if a domain was registered.  <fills>: the envelope's
+    Forward, Backward, decoding and OA fills made by the card's stage
+    (``ops/rescore.py`` ``Fills``); None runs the native host fills and
+    counts them in ``ddef.host_fills``."""
     from .phasestats import phase
     with phase("envelope-std"):
         return _rescore_isolated_domain_bath(
             ddef, om, gm_fs5, orfsq, windowsq, ntsqlen, i, j,
-            null2_is_done, abc)
+            null2_is_done, abc, fills)
+
+
+def envelope_fills(om: OProfile, dsq):
+    """(Forward matrix, envsc, Backward matrix, pp) of the envelope <dsq>
+    under <om>'s length model, by the native host fills; raises
+    RangeError as they do."""
+    oxf, envsc = fb.forward(dsq, om, full=True)
+    oxb, _ = fb.backward(dsq, om, oxf, full=True)
+    return oxf, envsc, oxb, fb.decoding(om, oxf, oxb)
+
+
+def host_fills(om: OProfile, dsq):
+    """(envsc, pp, ox, oasc) of the envelope <dsq> under <om>'s length
+    model, by the native host fills; None where they raise RangeError."""
+    try:
+        _, envsc, _, pp = envelope_fills(om, dsq)
+    except RangeError:
+        return None
+    ox, oasc = fb.optimal_accuracy(om, pp)
+    return envsc, pp, ox, oasc
 
 
 def _rescore_isolated_domain_bath(ddef: DomainDef, om: OProfile,
@@ -269,17 +294,17 @@ def _rescore_isolated_domain_bath(ddef: DomainDef, om: OProfile,
                                   windowsq: Sequence, ntsqlen: int,
                                   i: int, j: int,
                                   null2_is_done: bool,
-                                  abc) -> bool:
+                                  abc, fills=None) -> bool:
     Ld = j - i + 1
     om.reconfig_length(Ld)
-    sub = orfsq.dsq[i - 1:j]
-    try:
-        oxf, envsc = fb.forward(sub, om, full=True)
-        oxb, _ = fb.backward(sub, om, oxf, full=True)
-        pp = fb.decoding(om, oxf, oxb)
-    except RangeError:
+    if fills is None:
+        ddef.host_fills += 1
+        got = host_fills(om, orfsq.dsq[i - 1:j])
+    else:
+        got = fills.host(om)
+    if got is None:
         return False
-    ox, oasc = fb.optimal_accuracy(om, pp)
+    envsc, pp, ox, oasc = got
     tr = fb.oa_trace(om, pp, ox)
     # offset trace seq coords to the original ORF dsq
     for z in range(tr.N):
@@ -349,24 +374,63 @@ def _rescore_isolated_domain_bath(ddef: DomainDef, om: OProfile,
     return True
 
 
-def by_posterior_heuristics_bath(orfsq, windowsq: Sequence, ntsqlen: int,
-                                 om: OProfile, gm_fs5: FSProfile,
-                                 oxf: PMatrix, oxb: PMatrix,
-                                 ddef: DomainDef, abc,
-                                 ensemble_fn=None,
-                                 posteriors=None,
-                                 margin_eps: float = 0.0) -> None:
-    """Standard-branch domain definition on an ORF
-    (ref: p7_domaindef.c p7_domaindef_ByPosteriorHeuristics_BATH :499).
+@dataclass
+class DomainPlan:
+    """One ORF's domain definition up to its envelopes' fills: the
+    regions the posterior scan found, in order, each [(i, j, xff)] of its
+    envelopes (xff: the unihit length model of the envelope, the eight
+    floats the fills read) and whether it was multidomain; and the
+    DomainDef state the envelopes' rescoring reads (the posteriors, the
+    null2 scores the ensemble set, the scan's counters)."""
+    regions: list
+    saveL: int
+    multihit: bool
+    btot: np.ndarray
+    etot: np.ndarray
+    mocc: np.ndarray
+    n2sc: np.ndarray
+    nexpected: float
+    nregions: int
+    nclustered: int
+    nenvelopes: int
 
-    <ensemble_fn(i, j)> resolves a multidomain region into envelope
-    coordinates; if None, the region is treated as one envelope.
+    def envelopes(self) -> list:
+        return [env for _, envs in self.regions for env in envs]
 
-    <posteriors>: optional precomputed (btot, etot, mocc) — the device
-    domdec kernel's output — used instead of running the host
-    Backward + p7_DomainDecoding (oxf/oxb may then be None).  With
-    <margin_eps> > 0, PosteriorMargin is raised BEFORE any side
-    effects if a trigger decision is within eps of its threshold."""
+
+def _unihit(om: OProfile, saveL: int) -> None:
+    """Envelope rescoring's mode: unihit at the ORF's length."""
+    om.nj = 0.0
+    om.xf[C.X_E, C.MOVE] = 1.0
+    om.xf[C.X_E, C.LOOP] = 0.0
+    om.xw[C.X_E, C.MOVE] = 0
+    om.xw[C.X_E, C.LOOP] = -32768
+    om.reconfig_rest_length(saveL)
+
+
+def _restore_mode(om: OProfile, saveL: int, multihit: bool) -> None:
+    if multihit:
+        om.nj = 1.0
+        om.xf[C.X_E, C.MOVE] = 0.5
+        om.xf[C.X_E, C.LOOP] = 0.5
+        from .oprofile import _wordify
+        om.xw[C.X_E, C.MOVE] = _wordify(om.scale_w, np.log(0.5))
+        om.xw[C.X_E, C.LOOP] = _wordify(om.scale_w, np.log(0.5))
+    om.reconfig_rest_length(saveL)
+
+
+def plan_domains_bath(orfsq, om: OProfile, oxf: PMatrix, oxb: PMatrix,
+                      ddef: DomainDef, ensemble_fn=None, posteriors=None,
+                      margin_eps: float = 0.0) -> DomainPlan:
+    """The region scan of p7_domaindef_ByPosteriorHeuristics_BATH
+    (ref: p7_domaindef.c :499) without the envelopes' rescoring, which
+    no decision of the scan reads: regions, multidomain tests and the
+    ensemble's envelopes (the ensemble runs here, its RNG stream in the
+    serial order), counted in <ddef> as the serial path counts them but
+    ``noverlaps``, which reads the rescoring.  <ddef> keeps the state the
+    plan also holds; <om> ends in the mode it started in.  Arguments as
+    ``by_posterior_heuristics_bath``'s."""
+    from .native import _xff_of
     n = orfsq.n
     saveL = om.L
     save_mode_multihit = om.nj > 0
@@ -379,14 +443,13 @@ def by_posterior_heuristics_bath(orfsq, windowsq: Sequence, ntsqlen: int,
     ddef.btot, ddef.etot, ddef.mocc = btot, etot, mocc
     ddef.n2sc = np.zeros(n + 1, dtype=F32)
     ddef.nexpected = float(btot[n])
+    _unihit(om, saveL)
 
-    om.nj = 0.0
-    om.xf[C.X_E, C.MOVE] = 1.0
-    om.xf[C.X_E, C.LOOP] = 0.0
-    om.xw[C.X_E, C.MOVE] = 0
-    om.xw[C.X_E, C.LOOP] = -32768
-    om.reconfig_rest_length(saveL)
+    def env(a, b):
+        om.reconfig_length(b - a + 1)
+        return (a, b, _xff_of(om))
 
+    regions = []
     i = -1
     triggered = False
     j = 1
@@ -407,32 +470,70 @@ def by_posterior_heuristics_bath(orfsq, windowsq: Sequence, ntsqlen: int,
                     envs = ensemble_fn(ddef, om, orfsq, i, j, saveL)
                 if envs is None:
                     envs = [(i, j)]
-                last_j2 = 0
                 if len(envs) == 0:
                     ddef.nenvelopes += 1
-                for (i2, j2) in envs:
-                    if i2 <= last_j2:
-                        ddef.noverlaps += 1
-                    ddef.nenvelopes += 1
-                    if rescore_isolated_domain_bath(
-                            ddef, om, gm_fs5, orfsq, windowsq, ntsqlen,
-                            i2, j2, True, abc):
-                        last_j2 = j2
+                ddef.nenvelopes += len(envs)
+                regions.append((True, [env(i2, j2) for i2, j2 in envs]))
             else:
                 ddef.nenvelopes += 1
-                rescore_isolated_domain_bath(ddef, om, gm_fs5, orfsq,
-                                             windowsq, ntsqlen, i, j,
-                                             False, abc)
+                regions.append((False, [env(i, j)]))
             i = -1
             triggered = False
         j += 1
 
-    # restore mode
-    if save_mode_multihit:
-        om.nj = 1.0
-        om.xf[C.X_E, C.MOVE] = 0.5
-        om.xf[C.X_E, C.LOOP] = 0.5
-        from .oprofile import _wordify
-        om.xw[C.X_E, C.MOVE] = _wordify(om.scale_w, np.log(0.5))
-        om.xw[C.X_E, C.LOOP] = _wordify(om.scale_w, np.log(0.5))
-    om.reconfig_rest_length(saveL)
+    _restore_mode(om, saveL, save_mode_multihit)
+    return DomainPlan(regions, saveL, save_mode_multihit, btot, etot, mocc,
+                      ddef.n2sc, ddef.nexpected, ddef.nregions,
+                      ddef.nclustered, ddef.nenvelopes)
+
+
+def finish_domains_bath(plan: DomainPlan, orfsq, windowsq: Sequence,
+                        ntsqlen: int, om: OProfile, gm_fs5: FSProfile,
+                        ddef: DomainDef, abc, fills=None) -> None:
+    """The envelopes of <plan> rescored in the scan's order, with <ddef>
+    set back to the plan's state first and the overlaps of each
+    multidomain region's envelopes counted: <fills> one ``Fills`` an
+    envelope of ``plan.envelopes()`` (the card's), or None for the host
+    fills.  <om> ends in the mode it started in."""
+    ddef.btot, ddef.etot, ddef.mocc = plan.btot, plan.etot, plan.mocc
+    ddef.n2sc, ddef.nexpected = plan.n2sc, plan.nexpected
+    ddef.nregions, ddef.nclustered = plan.nregions, plan.nclustered
+    ddef.nenvelopes = plan.nenvelopes
+    _unihit(om, plan.saveL)
+    fill = iter(fills) if fills is not None else None
+    for multi, envs in plan.regions:
+        last_j2 = 0
+        for (i, j, _) in envs:
+            if multi and i <= last_j2:
+                ddef.noverlaps += 1
+            if rescore_isolated_domain_bath(
+                    ddef, om, gm_fs5, orfsq, windowsq, ntsqlen, i, j,
+                    multi, abc, None if fill is None else next(fill)):
+                last_j2 = j
+    _restore_mode(om, plan.saveL, plan.multihit)
+
+
+def by_posterior_heuristics_bath(orfsq, windowsq: Sequence, ntsqlen: int,
+                                 om: OProfile, gm_fs5: FSProfile,
+                                 oxf: PMatrix, oxb: PMatrix,
+                                 ddef: DomainDef, abc,
+                                 ensemble_fn=None,
+                                 posteriors=None,
+                                 margin_eps: float = 0.0) -> None:
+    """Standard-branch domain definition on an ORF
+    (ref: p7_domaindef.c p7_domaindef_ByPosteriorHeuristics_BATH :499):
+    the region scan (``plan_domains_bath``), then each envelope rescored
+    by the host fills (``finish_domains_bath``).
+
+    <ensemble_fn(i, j)> resolves a multidomain region into envelope
+    coordinates; if None, the region is treated as one envelope.
+
+    <posteriors>: optional precomputed (btot, etot, mocc) — the device
+    domdec kernel's output — used instead of running the host
+    Backward + p7_DomainDecoding (oxf/oxb may then be None).  With
+    <margin_eps> > 0, PosteriorMargin is raised BEFORE any side
+    effects if a trigger decision is within eps of its threshold."""
+    plan = plan_domains_bath(orfsq, om, oxf, oxb, ddef, ensemble_fn,
+                             posteriors, margin_eps)
+    finish_domains_bath(plan, orfsq, windowsq, ntsqlen, om, gm_fs5, ddef,
+                        abc)

@@ -501,6 +501,48 @@ def fs_window_batch(q: np.ndarray, B: int, Lmax: int,
     return dsq, lens
 
 
+def envelope_batch(om, q: np.ndarray, lens, rng: np.random.Generator):
+    """(residues, [n, 8] length models) of envelopes of the lengths
+    <lens> under the profile <om> of the query <q>, as envelope
+    rescoring fills them: two of three are mutated copies of <q> laid end
+    to end and cut to their length, the third background residues; each
+    length model is <om>'s unihit one at the envelope's length
+    (``native._xff_of``).  Leaves <om> unihit."""
+    from .native import _xff_of
+    dsqs, xffs = [], []
+    for n, L in enumerate(lens):
+        if n % 3 == 2:
+            d = rng.integers(0, 20, L)
+        else:
+            d = np.concatenate([_mutate(q, rng)
+                                for _ in range(-(-L // len(q)))])[:L]
+        om.reconfig_unihit(L)
+        dsqs.append(np.asarray(d, np.uint8))
+        xffs.append(_xff_of(om))
+    return dsqs, np.array(xffs, np.float32)
+
+
+def failing_envelopes(M: int, n: int, seed: int):
+    """(profile, residues, length models) of <n> >= 5 envelopes of 120
+    residues (``envelope_batch``) whose first five fail on the host, one
+    a way: a NaN, an underflow and an overflow of the Forward, a NaN and
+    an underflow of the Backward; the profile's match odds of the code 27
+    are infinite."""
+    rng = np.random.default_rng(seed)
+    hmm, q = make_query(M, rng, calibrate=False)
+    om = search_profile(hmm)
+    dsqs, xffs = envelope_batch(om, q, [120] * n, rng)
+    om.rfv = np.array(om.rfv)
+    om.rfv[27] = np.inf
+    dsqs[0] = dsqs[0].copy()
+    dsqs[0][60] = 27
+    dsqs[1] = np.full(40, 28, np.uint8)
+    xffs[2, 4] = 3e38
+    xffs[3, 5] = np.nan
+    xffs[4, 5] = 0.0
+    return om, dsqs, xffs
+
+
 def kernel_batch(q: np.ndarray, B: int, Lmax: int,
                  rng: np.random.Generator):
     """(dsq [B, Lmax] int8 padded with 28, lens [B] int32): ragged random

@@ -957,3 +957,8 @@ def run_multiquery(args, hmms, gcode, require_init, ofp, tblfp,
                 hmm.name, hmm.acc, pli, nquery == 1))
         ofp.write(statistics_text(pli, time.time() - t_start))
         ofp.write("//\n")
+        if stats is not None:
+            # the host fills of this process (a pool's workers keep
+            # their own)
+            stats["rescore_host_items"] = \
+                stats.get("rescore_host_items", 0) + pli.ddef.host_fills

@@ -278,6 +278,10 @@ def lib() -> ctypes.CDLL:
     so.bt_ub_overlap.argtypes = [P, P, P, P, I, I, I, I, P]
     so.bt_ub_scalars.restype = I
     so.bt_ub_scalars.argtypes = [P, P, I, I, P]
+    so.bt_rescore.restype = I
+    so.bt_rescore.argtypes = [P, P, P, P, P, P, P, P, I, I, P, P, P, I, P]
+    so.bt_rescore_scratch_floats.restype = ctypes.c_longlong
+    so.bt_rescore_scratch_floats.argtypes = [I, I]
     _lib = so
     return so
 
@@ -635,6 +639,33 @@ def prepare_vit(flat, offs, lens, move, slot, pack, thresh=None) -> Launch:
                 thresh, B, ovfrow, karr, *tail)
         return karr, ovfrow
     return Launch(run, int(plan.nblk > 0), plan)
+
+
+# ---------------------------------------------------------------------
+# rescore.cu: the envelope fills (``ops/rescore.py``)
+# ---------------------------------------------------------------------
+def prepare_rescore(dsq, doff, lens, xff, ooff, total: int, p) -> Launch:
+    """The envelope fills of ``csrc/rescore.cu`` on a batch whose
+    residues, lengths and length models the caller checked on the host
+    (``ops/rescore.py``): one block an envelope, <dsq> one int8 stream
+    read at the int64 offsets <doff>, each envelope's output region at
+    the float offsets <ooff> of one buffer of <total> floats.  The call
+    gives (that buffer, the int32 statuses)."""
+    so = lib()
+    B = int(lens.numel())
+    per_block = int(so.bt_rescore_scratch_floats(p.M, p.nleaf))
+
+    def run():
+        dev = dsq.device
+        out = torch.empty(total, dtype=torch.float32, device=dev)
+        status = torch.empty(B, dtype=torch.int32, device=dev)
+        scratch = torch.empty(per_block * B, dtype=torch.float32,
+                              device=dev) if per_block else None
+        _launch("rescore", so.bt_rescore, dsq, doff, lens, xff, ooff, p.rfv,
+                p.tv, p.pw, p.M, p.nleaf, out, status, scratch, B)
+        return out, status
+
+    return Launch(run, 1)
 
 
 # ---------------------------------------------------------------------

@@ -21,7 +21,7 @@ from . import stats
 from .alidisplay import nonfs_create
 from .alphabet import amino, dna
 from .bg import Background
-from .domaindef import DomainDef, by_posterior_heuristics_bath
+from .domaindef import DomainDef
 from .gencode import GeneticCode, Orf, extract_orfs
 from .logsum import flogsum
 from .oprofile import OProfile
@@ -603,12 +603,15 @@ DOMDEC_MARGIN = 2e-3
 
 def _f3_survivor_domaindef(pli, om, gm, gm_fs5, bg, hitlist, seqidx,
                            dnasq, hit_windows, complementarity, cand,
-                           posteriors=None) -> None:
+                           posteriors=None, deferred=None) -> None:
     """Domain definition + hit assembly for one F3-surviving ORF
     (ref: p7_pipeline.c:1740-1771).  <posteriors>: optional device
     (btot, etot, mocc); the host Backward runs only when absent or
-    when a trigger margin trips (PosteriorMargin)."""
-    from .domaindef import PosteriorMargin
+    when a trigger margin trips (PosteriorMargin).  <deferred>: a list
+    that takes the survivor's ``SurvivorPlan`` when it has envelopes,
+    for ``finish_survivors`` to rescore with the card's fills; without
+    it the host fills rescore them here."""
+    from .domaindef import PosteriorMargin, plan_domains_bath
     from .ensemble import region_trace_ensemble
     orfsq = cand.orfsq
     old_window_cnt = cand.win_lo
@@ -627,32 +630,79 @@ def _f3_survivor_domaindef(pli, om, gm, gm_fs5, bg, hitlist, seqidx,
         start=orf_start, end=orf_end, L=orf_end - orf_start + 1,
         abc=dnasq.abc)
     pli.pos_past_fwd += orfsq.n * 3
-    done = False
+    plan = None
     if posteriors is not None:
         try:
-            by_posterior_heuristics_bath(
-                orfsq, windowsq, dnasq.n, om, gm_fs5, None, None,
-                pli.ddef, amino(), ensemble_fn=region_trace_ensemble,
-                posteriors=posteriors, margin_eps=DOMDEC_MARGIN)
-            done = True
+            plan = plan_domains_bath(
+                orfsq, om, None, None, pli.ddef,
+                ensemble_fn=region_trace_ensemble, posteriors=posteriors,
+                margin_eps=DOMDEC_MARGIN)
         except PosteriorMargin:
-            done = False
-    if not done:
+            plan = None
+    if plan is None:
         try:
             oxf, _ = fb.forward(orfsq.dsq, om, full=False)
             oxb, _ = fb.backward(orfsq.dsq, om, oxf, full=False)
         except RangeError:
             return
-        by_posterior_heuristics_bath(orfsq, windowsq, dnasq.n, om,
-                                     gm_fs5, oxf, oxb, pli.ddef,
-                                     amino(),
-                                     ensemble_fn=region_trace_ensemble)
+        plan = plan_domains_bath(orfsq, om, oxf, oxb, pli.ddef,
+                                 ensemble_fn=region_trace_ensemble)
     if pli.ddef.nregions == 0 or pli.ddef.nenvelopes == 0:
         pli.ddef.reuse()
         return
-    _postdomaindef_bath(pli, om, gm, gm_fs5, bg, hitlist, seqidx,
-                        orf_start, orfsq, dnasq, windowsq,
-                        complementarity)
+    rec = SurvivorPlan(plan, orfsq, windowsq, orf_start, dnasq, hitlist,
+                       seqidx, complementarity, pli.nres)
+    if deferred is not None:
+        pli.ddef.reuse()
+        deferred.append(rec)
+        return
+    _finish_survivor(pli, om, gm, gm_fs5, bg, rec)
+
+
+def _finish_survivor(pli, om, gm, gm_fs5, bg, rec: SurvivorPlan,
+                     fills=None) -> None:
+    """The survivor's envelopes rescored (<fills>: the card's, one an
+    envelope of its plan; None: the host fills), then its hits."""
+    from .domaindef import finish_domains_bath
+    pli.nres = rec.nres
+    finish_domains_bath(rec.plan, rec.orfsq, rec.windowsq, rec.dnasq.n, om,
+                        gm_fs5, pli.ddef, amino(), fills)
+    _postdomaindef_bath(pli, om, gm, gm_fs5, bg, rec.hitlist, rec.seqidx,
+                        rec.orf_start, rec.orfsq, rec.dnasq, rec.windowsq,
+                        rec.complementarity)
+
+
+class SurvivorPlan:
+    """One F3 survivor between its domain plan and its envelopes'
+    rescoring (``pipeline_fwd_stage``'s <deferred>): the plan
+    (``domaindef.DomainPlan``) and what the survivor's finish and hit
+    assembly read, the window's residue count (``pli.nres``) included."""
+    __slots__ = ("plan", "orfsq", "windowsq", "orf_start", "dnasq",
+                 "hitlist", "seqidx", "complementarity", "nres")
+
+    def __init__(self, plan, orfsq, windowsq, orf_start, dnasq, hitlist,
+                 seqidx, complementarity, nres):
+        self.plan, self.orfsq, self.windowsq = plan, orfsq, windowsq
+        self.orf_start, self.dnasq, self.hitlist = orf_start, dnasq, hitlist
+        self.seqidx, self.complementarity = seqidx, complementarity
+        self.nres = nres
+
+
+def finish_survivors(pli, om, gm, gm_fs5, bg, deferred: list,
+                     rescore_fn) -> None:
+    """The deferred survivors of ``pipeline_fwd_stage`` finished in the
+    order they were planned: every envelope of them filled by one call
+    of <rescore_fn>([(residues, length model), ...]) -> [Fills], then
+    each survivor rescored and assembled into its hit list, with the
+    window's ``pli.nres`` of its plan (the caller restores its own)."""
+    envs = [(rec.orfsq.dsq[i - 1:j], xff)
+            for rec in deferred for (i, j, xff) in rec.plan.envelopes()]
+    fills = rescore_fn(envs) if envs else []
+    pos = 0
+    for rec in deferred:
+        n = len(rec.plan.envelopes())
+        _finish_survivor(pli, om, gm, gm_fs5, bg, rec, fills[pos:pos + n])
+        pos += n
 
 
 def pipeline_fwd_stage(pli: Pipeline, om: OProfile, gm: Profile,
@@ -660,7 +710,8 @@ def pipeline_fwd_stage(pli: Pipeline, om: OProfile, gm: Profile,
                        seqidx: int, dnasq: Sequence,
                        hit_windows: list[Window], complementarity: int,
                        cands: list[F3Candidate], P_orf, fwdsc_arr,
-                       oxf_holder, fwd_dev=None, domdec_fn=None) -> None:
+                       oxf_holder, fwd_dev=None, domdec_fn=None,
+                       deferred=None) -> None:
     """Phase 2: the Forward gate — F3 + domaindef + hit assembly for
     the standard pipeline (ref: p7_pipeline.c:1735-1771), or the
     per-ORF F4 gate for the frameshift pipeline (ref: :1774-1789).
@@ -674,7 +725,10 @@ def pipeline_fwd_stage(pli: Pipeline, om: OProfile, gm: Profile,
     <domdec_fn(orfseqs) -> (btot, etot, mocc, ok)>: optional batched
     device domain decoding (the fused Backward-parser kernel) run
     over every F3 survivor; survivors then skip the per-ORF host
-    Forward+Backward entirely unless flagged or margin-tripped."""
+    Forward+Backward entirely unless flagged or margin-tripped.
+
+    <deferred>: a list that takes each F3 survivor's ``SurvivorPlan``
+    (``_f3_survivor_domaindef``) for ``finish_survivors``."""
     from .native import fwd_parser_score_native
     thresh = pli.F3 if not pli.fs_pipe else pli.F4
     survivors = []
@@ -750,7 +804,8 @@ def pipeline_fwd_stage(pli: Pipeline, om: OProfile, gm: Profile,
                      mocc[si][:n + 1])
         _f3_survivor_domaindef(pli, om, gm, gm_fs5, bg, hitlist,
                                seqidx, dnasq, hit_windows,
-                               complementarity, cand, posteriors=p)
+                               complementarity, cand, posteriors=p,
+                               deferred=deferred)
 
 
 def statistics_text(pli: Pipeline, elapsed: float | None = None) -> str:

@@ -22,7 +22,7 @@ of the same search without them.  The
 environment (``parallel/pool.py``); each says which native library it
 mapped (``stats["worker_native"]``), which must be the sanitized one.
 
-``cuda`` runs every kernel entry of the port (the nineteen of
+``cuda`` runs every kernel entry of the port (the twenty of
 ``chip_smoke.py``'s record and the sharded step over two shares) at
 tiny shapes on the card, each output held against its plain version as
 the parity phase holds it (the integer entries bit for bit, the f32
@@ -340,6 +340,7 @@ KIND = {"fwd_parser": "gate", "fs3_parser": "gate",
         "msv_filter": "exact", "ssv_capture": "exact", "vit_filter": "exact",
         "vit_capture": "exact", "msv_filter_multi": "exact",
         "vit_filter_multi": "exact", "mesh_step": "step",
+        "rescore": "exact",
         **{k: "ubench" for k in ("ub_chain", "ub_onehot_gather",
                                  "ub_onehot_mma", "ub_overlap",
                                  "ub_scalars")}}
@@ -597,6 +598,42 @@ def _ub_scalars(dev):
     return {"ub_scalars": [ub.scalars(x, UB_REPS)]}
 
 
+def _rescore(M: int, lens, seed: int, budget=None):
+    """The envelope fills of envelopes of <lens> residues under the case
+    model of M (``fixtures.envelope_batch``), through the launches of
+    <budget> bytes (``ops/rescore.py`` ``batch_plan``; None: the stage's
+    own): the floats of every region whose fill did not fail, as int32,
+    and the statuses."""
+    def run(dev):
+        import copy
+
+        import numpy as np
+        import torch
+
+        from .fixtures import envelope_batch
+        from .ops import rescore as rr
+        om, q = case_model(M)
+        om = copy.deepcopy(om)
+        dsqs, xffs = envelope_batch(om, q, lens,
+                                    np.random.default_rng(SEED + seed))
+        fills = rr.rescore(rr.rescore_params(om, dev), dsqs, xffs,
+                           budget or rr.RESCORE_BYTES)
+        region = np.concatenate([f.region for f in fills
+                                 if f.status == 0])
+        return {"rescore": [(
+            torch.from_numpy(region.view(np.int32)),
+            torch.tensor([f.status for f in fills], dtype=torch.int32))]}
+    return run
+
+
+# the envelope fills' cases: lengths about each leaf size of the pairwise
+# row sums, a batch cut by a budget of two envelopes of RESCORE_SPLIT[1]
+# residues, and a model past a block's shared memory
+RESCORE_LENS = (1, 7, 8, 9, 64, 129, 200)
+RESCORE_SPLIT = (100, 120)
+RESCORE_GLOBAL_M = 4000
+
+
 def _step(dev):
     """The sharded gate step over two shares of <dev> (on the CPU the
     plain versions, share by share)."""
@@ -713,8 +750,25 @@ def cuda_cases() -> list:
              [], ["ub_scalars"], _ub_scalars, reps=UB_REPS),
         Case("mesh/two shares", "the step over two shares of one device",
              [100, 60], ["mesh_step"], _step),
+        Case("rescore/one launch", "one block an envelope, the transitions "
+             "and working vectors in shared memory", [100], ["rescore"],
+             _rescore(100, RESCORE_LENS, 17)),
+        Case("rescore/budget", "a batch cut into launches by the byte "
+             "budget", [RESCORE_SPLIT[0]], ["rescore"],
+             _rescore(RESCORE_SPLIT[0], [RESCORE_SPLIT[1]] * 5, 18,
+                      rescore_split_budget())),
+        Case(f"rescore/M={RESCORE_GLOBAL_M}", "the transitions and working "
+             "vectors in global memory (past a block's shared memory)",
+             [RESCORE_GLOBAL_M], ["rescore"],
+             _rescore(RESCORE_GLOBAL_M, (1, 9, 40), 19)),
     ]
     return cases
+
+
+def rescore_split_budget() -> int:
+    """The budget of the rescore/budget case: two envelopes' outputs."""
+    from .ops.rescore import region_floats
+    return 2 * 4 * region_floats(RESCORE_SPLIT[1], RESCORE_SPLIT[0])
 
 
 def _err(got, want) -> float:

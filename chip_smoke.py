@@ -149,6 +149,10 @@ MIN_FOUND = 30
 SEED = 20261016
 PARITY_FWD = (256, 2048)    # (B, longest L) of the parity batches
 PARITY_DOMDEC = (32, 2048)
+# the envelope fills: envelopes of these lengths at M_SEARCH (parity),
+# and a flush of the benchmark's cell, envelopes of M_SEARCH residues
+PARITY_RESCORE = (1, 7, 64, 129, 250, 400, 401, 777)
+TIME_RESCORE_B = 20
 WIDE = (1500, 8, 1600)      # (M, B, L): several warps per ORF
 TIME_FWD_B, TIME_DOMDEC_B = 4096, 128
 TIME_FWD_M = (400, 1000)
@@ -318,7 +322,7 @@ DEEP_TIME_MQ_PLAIN_FS3DD = (1, 13, 29, 45)           # M = 84..1151
 # backward pass's.
 OPS_PER_CELL = {"fwd_parser": 19, "domdec": 37, "fs3_parser": 23,
                 "fs3_domdec": 43, "msv_filter": 8, "ssv_capture": 4,
-                "vit_filter": 20, "vit_capture": 21}
+                "vit_filter": 20, "vit_capture": 21, "rescore": 45}
 
 
 CHILDREN: list = []             # child processes still to be reaped
@@ -1099,8 +1103,37 @@ def parity_segmented(run: Run, cases, mixed=True) -> None:
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
+def rescore_batch(run: Run, lens, seed: int):
+    """(profile, residues, length models) of envelopes of <lens>
+    residues under the M_SEARCH model (``fixtures.envelope_batch``)."""
+    from bath_tpu_torch import fixtures
+    hmm, q, _ = run.once("q400", query400)
+    om = fixtures.search_profile(hmm)
+    return (om, *fixtures.envelope_batch(om, q, lens,
+                                         np.random.default_rng(seed)))
+
+
+def parity_rescore(run: Run) -> None:
+    """The envelope fills at M_SEARCH on envelopes of 1-777 residues,
+    every status, and every float of the region of each fill that did
+    not fail, bit for bit the host fills (``ops/rescore.py``
+    ``same_fills``)."""
+    from bath_tpu_torch.ops import rescore as rr
+    om, dsqs, xffs = rescore_batch(run, PARITY_RESCORE, SEED + 20)
+    got = rr.rescore(rr.rescore_params(om, DEV), dsqs, xffs)
+    want = rr.rescore(rr.rescore_params(om), dsqs, xffs)
+    if not rr.same_fills(got, want):
+        fail("rescore kernel vs the native fills: not bit for bit")
+    run.note_err("rescore", 0.0)
+    phase("parity", kernel="rescore", M=M_SEARCH, B=len(dsqs),
+          L=f"1..{max(PARITY_RESCORE)}", bit_identical=True,
+          failed=sum(f.status != 0 for f in want),
+          rescaled=sum(bool((f.spec("fscale") != 1).any()) for f in want))
+
+
 def phase_parity(run: Run) -> None:
     rng = np.random.default_rng(SEED + 7)
+    parity_rescore(run)
     parity_single(run, rng)
     parity_fs3(run, rng, PARITY_FS3, PARITY_FS3DD)
     parity_int(run, LONG_ORF)
@@ -1617,7 +1650,34 @@ def time_int_multi(run: Run) -> None:
                   h, np.arange(len(h)), om_g))
 
 
+def time_rescore(run: Run) -> None:
+    """The envelope fills of a flush of the benchmark's cell:
+    TIME_RESCORE_B envelopes of M_SEARCH residues under the M_SEARCH
+    model; ``ms`` the bare launch, ``wrapper_ms`` the stage's call with
+    its copies into pinned memory, ``plain_ms`` the native host fills."""
+    from bath_tpu_torch.ops import rescore as rr
+    om, dsqs, xffs = rescore_batch(run, [M_SEARCH] * TIME_RESCORE_B,
+                                   SEED + 21)
+    p = rr.rescore_params(om, DEV)
+    lens = np.array([len(d) for d in dsqs], np.int64)
+    launch, sizes = rr.prepare(p, dsqs, xffs, lens)
+    k_ms = cuda_ms(launch, 5)
+    w_ms = cuda_ms(lambda: rr.rescore(p, dsqs, xffs), 5)
+    p_ms = host_ms(lambda: rr.rescore(rr.rescore_params(om), dsqs, xffs))
+    cells = float(lens.sum()) * M_SEARCH
+    run.times["rescore"] = (k_ms, p_ms, *bound(
+        "rescore", cells, int(lens.sum()) + 4 * int(sizes.sum())
+        + nbytes(p.tv, p.rfv)))
+    run.extra["rescore"] = {"wrapper_ms": w_ms}
+    phase("timing", kernel="rescore", M=M_SEARCH, B=TIME_RESCORE_B,
+          L=M_SEARCH, ms=f"{k_ms:.4f}", wrapper_ms=f"{w_ms:.4f}",
+          plain_ms=f"{p_ms:.2f}", launches_per_call=1,
+          us_per_row=f"{1e3 * k_ms / M_SEARCH:.3f}",
+          gcups=f"{cells / k_ms / 1e6:.3f}", card=repr(run.card))
+
+
 def phase_timing(run: Run) -> None:
+    time_rescore(run)
     time_fwd_domdec(run)
     time_fs3(run, TIME_FS3_M, decoding=True)
     time_int(run)
@@ -1637,6 +1697,7 @@ def search_standard(run: Run) -> dict:
     from bath_tpu_torch.cli import bathsearch
     from bath_tpu_torch.ops import domdec as dd
     from bath_tpu_torch.ops import fwd
+    from bath_tpu_torch.ops import rescore as rr
     fx = run.fx()
     walls: dict = {"torch": [], "numpy": []}
 
@@ -1657,9 +1718,11 @@ def search_standard(run: Run) -> dict:
     stats: dict = {}
     fwd.fwd_score.launches = 0
     dd.domdec.launches = 0
+    rr.launch.launches = 0
     out_t, tbl_t = search("torch", stats)
     launches = {"fwd_parser": fwd.fwd_score.launches,
-                "domdec": dd.domdec.launches}
+                "domdec": dd.domdec.launches,
+                "rescore": rr.launch.launches}
     search("torch")
     search("numpy")
     run.cache["out_numpy"] = out_n
@@ -3330,6 +3393,7 @@ ENTRIES = (  # (name, source, the TPU kernel it replaces)
     ("ub_scalars", CSRC + "ubench.cu", "scripts/ubench_vpu.py:183"),
     ("mesh_step", "bath_tpu_torch/parallel/mesh.py",
      "bath_tpu/parallel/mesh.py:53"),
+    ("rescore", CSRC + "rescore.cu", "bath_tpu/domaindef.py:267"),
 )
 
 PHASES = {"parity": phase_parity, "sanitize": phase_sanitize,

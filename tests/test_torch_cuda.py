@@ -26,7 +26,13 @@ no arithmetic (the gate's wide classes with or without their
 transitions staged, the fs3 pair's direct loads against its ring) bit
 for bit to each other.  The sanitizer tier's cases
 (``bath_tpu_torch.sanitize``) hold on the card with no tool, and the
-self-check entry points (``bath_tpu_torch.selfcheck``) pass there.
+self-check entry points (``bath_tpu_torch.selfcheck``) pass there.  The
+envelope fills (``ops/rescore.py``) equal the host fills bit for bit:
+every envelope's status and every float of the region of each that did
+not fail, at M = 40, 400, 2000 and 4000 (past a block's shared memory),
+envelopes of 1 to 1200 residues, with a NaN, an underflow and an
+overflow of the Forward and the Backward, and over launches that the
+byte budget cuts; the CPU's launch plan reads the kernel's scratch rule.
 """
 
 import functools
@@ -47,6 +53,7 @@ from bath_tpu_torch.ops import fs3 as t3
 from bath_tpu_torch.ops import fs3_domdec as td3
 from bath_tpu_torch.ops import fwd as tf
 from bath_tpu_torch.ops import multimodel as mm
+from bath_tpu_torch.ops import rescore as rr
 from bath_tpu_torch.ops import ssv as ts
 from bath_tpu_torch.ops import vit as tv
 
@@ -1102,3 +1109,83 @@ def test_stage_device_seconds(tracing):
             assert 0 < stats[f"{key}_dev_s"] <= stats[f"{key}_s"]
         else:
             assert f"{key}_dev_s" not in stats
+
+
+RESCORE_LENS = [1, 2, 7, 8, 9, 63, 64, 65, 127, 128, 129, 300, 401, 777, 1200]
+
+
+def hold_fills(got, want):
+    """Each envelope's status equal, the region of each that did not
+    fail equal bit for bit."""
+    assert len(got) == len(want)
+    for e, (g, w) in enumerate(zip(got, want)):
+        assert g.status == w.status, e
+        if w.status == 0:
+            assert torch.equal(torch.from_numpy(g.region).view(torch.int32),
+                               torch.from_numpy(w.region).view(torch.int32)), e
+
+
+def rescore_case(M, lens, seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(seed)
+    hmm, q = fixtures.make_query(M, rng, calibrate=False)
+    om = fixtures.search_profile(hmm)
+    dsqs, xffs = fixtures.envelope_batch(om, q, lens, rng)
+    return om, dsqs, xffs
+
+
+@pytest.mark.parametrize("M", [40, 400, 2000, 4000])
+def test_rescore_kernel_equals_the_native_fills(M):
+    """Every envelope of one launch, lengths 1-1200 (M = 4000: the
+    working vectors in global memory), bit for bit the native fills."""
+    lens = RESCORE_LENS if M < 4000 else [1, 8, 129, 300]
+    om, dsqs, xffs = rescore_case(M, lens, M + 7)
+    got = rr.rescore(rr.rescore_params(om, "cuda"), dsqs, xffs)
+    want = rr.rescore(rr.rescore_params(om), dsqs, xffs)
+    hold_fills(got, want)
+    # a long background envelope may fail on the host too (its status)
+    assert 2 * sum(f.status == 0 for f in want) > len(want)
+    if M >= 400:
+        assert any((f.spec("fscale") != 1).any() for f in want)
+
+
+def test_rescore_kernel_statuses():
+    """A NaN, an underflow and an overflow of the Forward, a NaN and an
+    underflow of the Backward: the statuses of the host fills, the other
+    regions bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    om, dsqs, xffs = fixtures.failing_envelopes(100, 7, 5)
+    want = rr.rescore(rr.rescore_params(om), dsqs, xffs)
+    got = rr.rescore(rr.rescore_params(om, "cuda"), dsqs, xffs)
+    assert [f.status for f in want] == [1, 2, 3, 4, 5, 0, 0]
+    hold_fills(got, want)
+
+
+@pytest.mark.parametrize("M", [1, 40, 400, 2000, 3300, 3500, 4000, 9000])
+def test_rescore_scratch_rule_is_the_kernels(M):
+    """``rescore._scratch_floats``, which plans the launches on the CPU
+    too, is the kernel's own rule (``bt_rescore_scratch_floats``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bath_tpu_torch.ops.kernels import loader
+    nleaf = int(rr.pairwise_plan(M)[0])
+    assert rr._scratch_floats(M) == \
+        int(loader.lib().bt_rescore_scratch_floats(M, nleaf))
+
+
+def test_rescore_kernel_over_budget_launches():
+    """24 envelopes of 1200 residues at M = 2000 hold 1.16 GB of outputs:
+    two launches under RESCORE_BYTES (1 GiB), and twelve under a budget
+    of two and a half envelopes' bytes; every envelope bit for bit the
+    native fills."""
+    om, dsqs, xffs = rescore_case(2000, [1200] * 24, 11)
+    lens = [len(d) for d in dsqs]
+    assert len(rr.batch_plan(lens, 2000)) == 2
+    small = 5 * 4 * rr.region_floats(1200, 2000) // 2
+    assert len(rr.batch_plan(lens, 2000, small)) == 12
+    want = rr.rescore(rr.rescore_params(om), dsqs, xffs)
+    pc = rr.rescore_params(om, "cuda")
+    hold_fills(rr.rescore(pc, dsqs, xffs), want)
+    hold_fills(rr.rescore(pc, dsqs, xffs, small), want)

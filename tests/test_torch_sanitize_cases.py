@@ -2,7 +2,7 @@
 cuda``) on the CPU, where there is no card and no compute-sanitizer.
 
 - The case list covers every kernel entry of ``chip_smoke.py``'s record
-  (the nineteen entries and the sharded step) and each plan family: one
+  (the twenty entries and the sharded step) and each plan family: one
   width, several widths and several models in one launch, a pack's
   single-model call (``_one_model_plan``), the fs3 pair on the direct
   loads and on the emission ring, the step over two shares, and a
@@ -144,6 +144,20 @@ def test_the_microbenchmark_cases_reach_every_instance():
     assert sanitize.UB_SCALARS_BT % 32
     assert all(c.reps == sanitize.UB_REPS for c in CASES
                if c.name.startswith("ubench/"))
+
+
+def test_the_rescore_cases_reach_each_plan():
+    """The envelope fills: one launch of the shared-memory instance, a
+    batch the byte budget cuts into three launches, and a model whose
+    working vectors lie in global memory."""
+    from bath_tpu_torch.ops import rescore as rr
+    lens = [sanitize.RESCORE_SPLIT[1]] * 5
+    assert len(rr.batch_plan(lens, sanitize.RESCORE_SPLIT[0],
+                             sanitize.rescore_split_budget())) == 3
+    assert len(rr.batch_plan(sanitize.RESCORE_LENS, 100)) == 1
+    assert rr._scratch_floats(100) == 0
+    assert rr._scratch_floats(sanitize.RESCORE_GLOBAL_M) > 0
+    assert "rescore_kernel" in sanitize.kernel_names()
 
 
 @pytest.mark.parametrize("name", list(BY_NAME))

@@ -88,6 +88,13 @@ LINES = {
         "reference and the native host library).  Internal exons are":
             "named Pallas",
     },
+    "domaindef": {
+        "# envelopes filled by the native host fills, over the object's "
+        "life": "the counter of the host fills (stats "
+        "rescore_host_items): the card's stage fills the envelopes of "
+        "the device cascade",
+        "host_fills: int = 0": "the same",
+    },
     "ops/reference/filters": {
         "(ops.ssv.ssv_capture).\"\"\"": "named the jnp capture kernel",
         "event kernel (ops.vit.vit_capture).  Returns":
@@ -95,9 +102,29 @@ LINES = {
     },
 }
 
-# Regions (first line, last line; stripped, inclusive) cut from both
-# files before they are compared, and the reason.
+# Regions (first line, last line; stripped, inclusive; a last line of
+# None: to the end of the file) cut from both files before they are
+# compared, and the reason.
 REGIONS = {
+    "domaindef": [
+        ("def rescore_isolated_domain_bath(ddef: DomainDef, om: OProfile,",
+         None,
+         "the port splits domain definition into the region scan "
+         "(plan_domains_bath), the envelopes' fills and their rescoring "
+         "(finish_domains_bath), so that the device cascade fills every "
+         "envelope of a flush in one call of its stage "
+         "(TorchCascade.rescore); by_posterior_heuristics_bath runs the "
+         "two with the host fills, the same arithmetic in the same order"),
+    ],
+    "pipeline": [
+        ("def _f3_survivor_domaindef(pli, om, gm, gm_fs5, bg, hitlist, "
+         "seqidx,",
+         "def statistics_text(pli: Pipeline, elapsed: float | None = None) "
+         "-> str:",
+         "an F3 survivor's domain plan may be deferred (SurvivorPlan) "
+         "until finish_survivors fills the envelopes of every survivor of "
+         "a flush in one call of the device cascade's stage"),
+    ],
     "native/__init__": [
         ('"""ctypes bindings for the native C++ host runtime', '"""',
          "the docstring says where the port builds its own library"),
@@ -134,6 +161,10 @@ def cut_regions(lines, regions, which):
     while i < len(lines):
         if todo and lines[i].strip() == todo[0][0]:
             j = i if todo[0][0] == todo[0][1] else i + 1
+            if todo[0][1] is None:
+                i = len(lines)
+                todo.pop(0)
+                continue
             # a region that ends with 'return False' closes at the
             # function's last one
             ends = [k for k in range(j, len(lines))
@@ -331,6 +362,25 @@ CONVERT_MAIN = [
      'stats=stats)'),
 ]
 
+# flush_downstream: on the device the standard branch's F3 survivors are
+# planned entry by entry (deferred), then every envelope of the flush is
+# filled by one call of the cascade's rescore stage and the survivors
+# finished in order (pipeline.finish_survivors)
+FLUSH_DOWNSTREAM = [
+    ("    from .pipeline import pipeline_fwd_stage\n",
+     "    from .pipeline import finish_survivors, pipeline_fwd_stage\n"),
+    ("    nres_now = pli.nres\n    pos = 0\n",
+     "    nres_now = pli.nres\n    deferred = [] if use_device else None\n"
+     "    pos = 0\n"),
+    ("                           domdec_fn=cascade.domdec if use_device\n"
+     "                           else None)\n        pos += ncand\n",
+     "                           domdec_fn=cascade.domdec if use_device\n"
+     "                           else None, deferred=deferred)\n"
+     "        pos += ncand\n    if deferred:\n"
+     "        finish_survivors(pli, om, gm, gm_fs5, bg, deferred, "
+     "cascade.rescore)\n"),
+]
+
 FUNCTIONS = [
     # (reference module, port module, name, statements dropped, textual
     #  substitutions made in the reference first)
@@ -346,7 +396,7 @@ FUNCTIONS = [
     ("device_pipeline", "device_pipeline", "flush_gates", never,
      [("DeviceCascade", "TorchCascade")]),
     ("device_pipeline", "device_pipeline", "flush_downstream", never,
-     [("DeviceCascade", "TorchCascade")]),
+     [("DeviceCascade", "TorchCascade")] + FLUSH_DOWNSTREAM),
     ("cli/bathsearch", "cli/bathsearch", "_pool_task", never, []),
     ("multiquery", "multiquery", "QState", lane_pack_state, []),
     ("multiquery", "multiquery", "MQEntry", never, []),
@@ -696,7 +746,8 @@ print("RUN", rc, rc2, stats["hybrid_main"] > 0, stats["hybrid_pool"] > 0,
       stats["pools"], mq_stats["pools"])
 ''', "RUN 0 0 True True 1 2"),
     "cli-numpy-backend": (SEARCH.format(
-        args='"--backend", "numpy"', fixture="mq", check="stats == {}"),
+        args='"--backend", "numpy"', fixture="mq",
+        check='list(stats) == ["rescore_host_items"]'),
         "RUN 0 2 True"),
     "bathbuild-torch": ('''
 from bath_tpu_torch.cli import bathbuild, bathconvert, bathfetch, bathstat
