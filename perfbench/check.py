@@ -1,29 +1,41 @@
 """What decides ``correct``: the timed jobs' answers against the plain
 reference (``perfbench/reference``).
 
-- ``fwd_gap_nats``: the widest gap, in nats, between the Forward-gate
-  score the device stage gave an item and the reference's, over a
-  sample of the window's items drawn from the seed, the longest item
-  always in it;
-- ``domdec_gap``: the widest gap between decoding's rows (``btot``,
-  ``etot``, ``mocc``) and the reference's, over a sample of the items
-  whose device posteriors the program kept (``ok``);
-- ``orf_misses``: sampled items that are no stop-free stretch of the
-  genome's six-frame translation, as long as the search's ``-l``;
-- ``hits_off``: in the job that reads worst, the embedded copies no
-  reported hit of their profile covers, and the hits at E <= 1e-5 that
-  cover no copy of their profile.
+Every number the check compares is a file of its own,
+``perfbench/checks/<number>.py``, found by the name a cell's ``limits``
+give it, as metrics are found by theirs.  A number's file holds
 
-``limits`` of a cell's file hold each number's limit; a number over it,
-or a stage with no item to compare, makes the run not correct.
+- ``ITEMS``: the device stages whose items it reads (the recorder
+  keeps the items of these, ``recorder.SCORES`` and ``DECODINGS``);
+- ``value(ctx)``: its reading of the window, from the ``Context``: the
+  jobs, their ``--tblout`` files, the inputs, the cell and the seed;
+- optionally ``control(ctx)``: the control's reading, the reference in
+  bfloat16 put in the stages' place (``perfbench.control``).
+
+A run computes exactly the numbers its cell's ``limits`` name; one
+whose stages gave no item reads ``inf``, and ``decide`` makes a run
+with a number over its limit not correct.
+
+The items compared are drawn from the seed: the Forward gate's and
+standard decoding's from ``default_rng([seed, 2])`` (``samples``), the
+fs3 gate's and fs3 decoding's from ``default_rng([seed, 3])``
+(``fs_samples``), the longest item of each always among them and
+decoding's among the items whose posteriors the program kept (``ok``).
 """
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from .reference import dp, hits, hmmfile, profile, translate
+from .recorder import DECODINGS
+from .reference import dp, fs3, hmmfile, profile
+
+INF = float("inf")
+
 
 def sample(records: list, k: int, rng) -> list:
     """<k> of <records> (``(profile, residues, ...)``), the longest
@@ -38,29 +50,36 @@ def sample(records: list, k: int, rng) -> list:
 
 class Reference:
     """The profiles of a query file's text, as the reference reads
-    them, and its dynamic programming on <device> in <dtype>."""
+    them, and its dynamic programming on <device> in <dtype>: the
+    standard model's (``dp``), or with <fs> the frameshift model's
+    (``fs3``)."""
 
-    def __init__(self, query_text: str, device, dtype=torch.float64):
+    def __init__(self, query_text: str, device, dtype=torch.float64,
+                 fs: bool = False):
         self.hmms = {h.name: h for h in hmmfile.read_text(query_text)}
         self.device, self.dtype = device, dtype
+        self.dp, self._make = (fs3, fs3.tables) if fs \
+            else (dp, profile.tables)
         self._tables: dict = {}
 
-    def _batch(self, recs):
+    def _batch(self, recs, **kw):
         names = sorted({r[0] for r in recs})
         for n in names:
             if n not in self._tables:
-                self._tables[n] = profile.tables(self.hmms[n])
+                self._tables[n] = self._make(self.hmms[n])
         slot = {n: i for i, n in enumerate(names)}
         items = [(slot[r[0]], r[1].astype(np.int64)) for r in recs]
-        return dp.Batch(items, [self._tables[n] for n in names],
-                        self.device, self.dtype)
+        return self.dp.Batch(items, [self._tables[n] for n in names],
+                             self.device, self.dtype, **kw)
 
     def scores(self, recs) -> np.ndarray:
-        score, _ = dp.forward(self._batch(recs))
+        score, _ = self.dp.forward(self._batch(recs))
         return score.cpu().numpy()
 
-    def posteriors(self, recs) -> list:
-        return dp.decode(self._batch(recs))[1]
+    def posteriors(self, recs, **kw) -> list:
+        """Decoding's rows of <recs>; <kw> the batch's own arguments (the
+        frameshift model's ``dec_loop``)."""
+        return self.dp.decode(self._batch(recs, **kw))[1]
 
 
 def fwd_gap(got, want) -> float:
@@ -73,42 +92,99 @@ def domdec_gap(got: list, want: list) -> float:
                for gr, wr in zip(got, want) for g, w in zip(gr, wr))
 
 
+def _draw(jobs, stages: tuple, sizes: tuple, rng) -> tuple:
+    out = []
+    for stage, k in zip(stages, sizes):
+        recs = [r for j in jobs for r in j.items[stage]]
+        if stage in DECODINGS:
+            recs = [r for r in recs if r[5]]
+        out.append(sample(recs, k, rng))
+    return tuple(out)
+
+
 def samples(jobs, cell: dict, seed: int) -> tuple[list, list]:
-    """The gate's and decoding's items the check compares: drawn from
-    <seed>, decoding's among the items whose posteriors the program
-    kept."""
+    """The Forward gate's and decoding's items the check compares:
+    drawn from <seed>, decoding's among the items whose posteriors the
+    program kept."""
     rng = np.random.default_rng([seed % (1 << 64), 2])
-    fwd = sample([r for j in jobs for r in j.fwd], cell["sample"]["fwd"],
-                 rng)
-    dd = sample([r for j in jobs for r in j.domdec if r[5]],
-                cell["sample"]["domdec"], rng)
-    return fwd, dd
+    size = cell["sample"]
+    return _draw(jobs, ("fwd_scores", "domdec"),
+                 (size.get("fwd", 0), size.get("domdec", 0)), rng)
 
 
-def check(jobs, inputs, cell: dict, seed: int, device, minlen: int,
-          tblouts: list) -> dict:
-    """{number: value} of the window's <jobs> (``recorder.Job``) with
-    their --tblout files <tblouts>."""
-    fwd, dd = samples(jobs, cell, seed)
-    ref = Reference(inputs.query.read_text(), device)
+def fs_samples(jobs, cell: dict, seed: int) -> tuple[list, list]:
+    """The fs3 gate's and fs3 decoding's items the check compares,
+    drawn as ``samples`` draws the standard stages' but from a
+    generator of their own."""
+    rng = np.random.default_rng([seed % (1 << 64), 3])
+    size = cell["sample"]
+    return _draw(jobs, ("fs3_scores", "fs3_domdec"),
+                 (size.get("fs3", 0), size.get("fs3_domdec", 0)), rng)
+
+
+class Context:
+    """What a number reads: the window's <jobs> (``recorder.Job``) and
+    their <tblouts>, the <inputs> (``entries.<entry>.Inputs``), the
+    <cell>'s file, the <seed>, the reference's <device> and the
+    search's ``-l`` <minlen>; the samples and the references once."""
+
+    def __init__(self, jobs, inputs, cell: dict, seed: int, device,
+                 minlen: int, tblouts: list):
+        self.jobs, self.inputs, self.cell = jobs, inputs, cell
+        self.seed, self.device, self.minlen = seed, device, minlen
+        self.tblouts = tblouts
+        self._memo: dict = {}
+
+    def once(self, key, make):
+        """What <make>() gives, made the first time <key> is asked for."""
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
+
+    def samples(self) -> tuple[list, list]:
+        return self.once("samples", lambda: samples(
+            self.jobs, self.cell, self.seed))
+
+    def fs_samples(self) -> tuple[list, list]:
+        return self.once("fs_samples", lambda: fs_samples(
+            self.jobs, self.cell, self.seed))
+
+    def reference(self, dtype=torch.float64, fs: bool = False) -> Reference:
+        return self.once(("ref", dtype, fs), lambda: Reference(
+            self.inputs.query.read_text(), self.device, dtype, fs))
+
+
+def load(root: Path, names) -> dict:
+    """{name: module} of the check numbers <names>
+    (``perfbench/checks/<name>.py``)."""
     out = {}
-    out["fwd_gap_nats"] = fwd_gap([r[2] for r in fwd], ref.scores(fwd)) \
-        if fwd else float("inf")
-    out["domdec_gap"] = domdec_gap([r[2:5] for r in dd],
-                                   ref.posteriors(dd)) \
-        if dd else float("inf")
-    frames = translate.six_frames(inputs.dna)
-    out["orf_misses"] = sum(not translate.in_frames(r[1], frames, minlen)
-                            for r in fwd + dd)
-    worst = 0
-    for job, tbl in zip(jobs, tblouts):
-        if job.rc != 0 or not tbl.exists():
-            worst = max(worst, sum(map(len, inputs.copies.values())))
-            continue
-        worst = max(worst, sum(hits.hits_off(hits.read_tblout(str(tbl)),
-                                             inputs.copies)))
-    out["hits_off"] = worst
+    for name in names:
+        path = root / "perfbench" / "checks" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(
+            "perfbench_check_" + name.replace(".", "_"), path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[name] = mod
     return out
+
+
+def _fed(mod, ctx) -> bool:
+    """Whether a stage of <mod>'s gave an item, or it reads none."""
+    st = getattr(mod, "ITEMS", ())
+    return not st or any(j.items[s] for j in ctx.jobs for s in st)
+
+
+def check(numbers: dict, ctx: Context) -> dict:
+    """{number: value} of <numbers> ({name: module}) over the window."""
+    return {k: mod.value(ctx) if _fed(mod, ctx) else INF
+            for k, mod in numbers.items()}
+
+
+def control(numbers: dict, ctx: Context) -> dict:
+    """{number: the control's reading} of those of <numbers> that have
+    a control."""
+    return {k: mod.control(ctx) if _fed(mod, ctx) else INF
+            for k, mod in numbers.items() if hasattr(mod, "control")}
 
 
 def decide(numbers: dict, limits: dict, failed: int) -> tuple:
@@ -117,16 +193,3 @@ def decide(numbers: dict, limits: dict, failed: int) -> tuple:
     correct = failed == 0 and all(numbers[k] <= limits[k] for k in limits)
     return bool(correct), {k: {"value": numbers[k], "limit": limits[k]}
                            for k in limits}
-
-
-def control(jobs, inputs, cell: dict, seed: int, device,
-            dtype=torch.bfloat16) -> dict:
-    """The control's readings: the reference computed in <dtype> put in
-    the device stages' place, on the items the check samples."""
-    fwd, dd = samples(jobs, cell, seed)
-    text = inputs.query.read_text()
-    ref = Reference(text, device)
-    low = Reference(text, device, dtype)
-    return {"fwd_gap_nats": fwd_gap(low.scores(fwd), ref.scores(fwd)),
-            "domdec_gap": domdec_gap(low.posteriors(dd),
-                                     ref.posteriors(dd))}

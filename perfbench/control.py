@@ -22,11 +22,12 @@ import os
 import shutil
 import sys
 import tempfile
+import time
 from pathlib import Path
 
-from .check import check, control, decide
-from .harness import Spec
-from .recorder import Job, Recorder
+from . import check
+from .harness import Spec, kept_stages, minlen
+from .recorder import DECODINGS, Job, Recorder
 
 
 def readings(cell: str, seeds: list, device: str = "cuda",
@@ -38,9 +39,8 @@ def readings(cell: str, seeds: list, device: str = "cuda",
     os.environ.update(cel.get("env", {}))
     import torch
     entry = importlib.import_module(f"perfbench.entries.{cfg['entry']}")
-    minlen = int(dict(zip(cfg["search_args"], cfg["search_args"][1:]))
-                 .get("-l", 20))
-    rec = Recorder()
+    numbers = check.load(root, cel["limits"])
+    rec = Recorder(sorted(kept_stages(spec, numbers)))
     rec.install()
     out = []
     for i, seed in enumerate(seeds):
@@ -60,20 +60,26 @@ def readings(cell: str, seeds: list, device: str = "cuda",
             rec.job = None
             if device == "cuda":
                 torch.cuda.synchronize()
-            prog = check([job], inputs, cel, seed, device, minlen, [tbl])
+            ctx = check.Context([job], inputs, cel, seed, device,
+                                minlen(cfg), [tbl])
+            t0 = time.perf_counter()
+            prog = check.check(numbers, ctx)
+            t1 = time.perf_counter()
             # the control in the stages' place: the same items and hits,
             # its own gaps
-            ctl = {**prog, **control([job], inputs, cel, seed, device)}
+            ctl = {**prog, **check.control(numbers, ctx)}
             failed = int(job.rc != 0)
             row = {"cell": cell, "seed": seed, "rc": job.rc,
-                   "fwd_items": len(job.fwd),
-                   "domdec_items": len(job.domdec),
-                   "domdec_ok": sum(r[5] for r in job.domdec),
+                   **{f"{k.removesuffix('_scores')}_items": len(v)
+                      for k, v in job.items.items()},
+                   **{f"{k}_ok": sum(r[5] for r in job.items[k])
+                      for k in DECODINGS},
+                   "check_s": t1 - t0, "control_s": time.perf_counter() - t1,
                    "program": prog, "control_bf16": ctl,
-                   "program_correct": decide(prog, cel["limits"],
-                                             failed)[0],
-                   "control_correct": decide(ctl, cel["limits"],
-                                             failed)[0],
+                   "program_correct": check.decide(prog, cel["limits"],
+                                                   failed)[0],
+                   "control_correct": check.decide(ctl, cel["limits"],
+                                                   failed)[0],
                    "limits": cel["limits"]}
             print(json.dumps(row), flush=True)
             out.append(row)

@@ -30,6 +30,7 @@ class Inputs:
     copies: dict            # {profile name: [(first, last)]}
     warm: Path              # the warm-up job's genome
     genome_nt: int
+    shifted: dict           # the copies made with a frameshift, as copies
 
 
 def seed_rng(seed: int, *tail: int):
@@ -47,15 +48,17 @@ def prepare(root: Path, config: dict, cell: dict, rundir: Path,
     proteins = [np.array([AMINO.index(c) for c in s], np.uint8)
                 for s in prot.values()]
     traffic = cell["traffic"]
+    shifted: dict = {}
     dna, copies = genome.make(traffic, config["genome"], names, proteins,
-                              traffic["genome_nt"], seed_rng(seed))
+                              traffic["genome_nt"], seed_rng(seed), shifted)
     path = rundir / "genome.fa"
     genome.write_fasta(path, f"genome{seed}", dna)
     wdna, _ = genome.make(traffic, config["genome"], names, proteins,
                           cell["warmup_nt"], seed_rng(seed, 1))
     warm = rundir / "warmup.fa"
     genome.write_fasta(warm, f"warmup{seed}", wdna)
-    return Inputs(query, path, dna, copies, warm, traffic["genome_nt"])
+    return Inputs(query, path, dna, copies, warm, traffic["genome_nt"],
+                  shifted)
 
 
 def argv(config: dict, cell: dict, inputs: Inputs, target: Path,

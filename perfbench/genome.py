@@ -165,11 +165,12 @@ def _site_gene(model, proteins, members, subst, shift, rng):
 
 
 def make(traffic: dict, figures: dict, names: list, proteins: list,
-         genome_len: int, rng):
+         genome_len: int, rng, shifted: dict | None = None):
     """(DNA, {profile name: [(first, last)]} 1-based plus-strand
     coordinates of each copy) of the traffic at <genome_len> nt;
     <figures>: the configuration's ``genome``; <names>, <proteins>: its
-    profiles in file order and their residues."""
+    profiles in file order and their residues.  <shifted>, where given,
+    gets the same of the copies made with a frameshift."""
     model = Model(figures, genome_len)
     subst = traffic.get("substitution", 0.30)
     rounds = max(n for _, n in traffic["copies"])
@@ -199,6 +200,10 @@ def make(traffic: dict, figures: dict, names: list, proteins: list,
         sites.append((start, dna))
         for g, (b, e) in zip(mem, spans):
             copies[names[g]].append((start + b + 1, start + e))
+        if shift and shifted is not None:
+            b, e = spans[0]
+            shifted.setdefault(names[mem[0]], []).append((start + b + 1,
+                                                          start + e))
     # the background genes tile the stretches between the sites
     perm = rng.permutation(len(model.gene_codons))
     lengths = model.gene_codons[perm]
@@ -225,6 +230,9 @@ def make(traffic: dict, figures: dict, names: list, proteins: list,
             j += 1
     for start, dna in sites:
         seq[start:start + len(dna)] = dna
+    if shifted is not None:
+        for v in shifted.values():
+            v.sort()
     return seq.tobytes().decode(), {k: sorted(v) for k, v in copies.items()}
 
 

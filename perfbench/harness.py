@@ -12,7 +12,12 @@ that belongs to it sits in files the harness finds by name:
 - ``perfbench/entries/<entry>.py``: how a job of that entry is made
   and run;
 - ``perfbench/metrics/<metric>.py``: a reader, ``read(run)`` -> a
-  number or None, for every metric ``BENCHMARK.json`` lists.
+  number or None, for every metric ``BENCHMARK.json`` lists;
+- ``perfbench/checks/<number>.py``: each number the cell's ``limits``
+  name (``check.py``).
+
+The recorder keeps the items of the device stages that the cell's
+numbers and metric readers declare (their ``ITEMS``), and no others.
 
 A run: the inputs are made from ``--seed``; one warm-up job on a short
 genome carrying the cell's copies launches every stage of the path;
@@ -37,6 +42,7 @@ import tempfile
 import time
 from pathlib import Path
 
+from . import check
 from .recorder import Job, Recorder
 
 # modules that may not be loaded once the window has closed, by whole
@@ -103,13 +109,27 @@ class Spec:
                 if "workloads" not in m or self.name in m["workloads"]]
 
 
-def reader(root: Path, name: str):
+def metric(root: Path, name: str):
+    """The module of metric <name> (``perfbench/metrics/<name>.py``)."""
     path = root / "perfbench" / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
         "perfbench_metric_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(root: Path, name: str):
+    return metric(root, name).read
+
+
+def kept_stages(spec: Spec, numbers: dict) -> set:
+    """The device stages whose items the cell's <numbers> and its
+    metrics, of either kind, read."""
+    mods = [*numbers.values(), *(metric(spec.root, m["name"])
+                                 for t in (False, True)
+                                 for m in spec.metrics(t))]
+    return {s for m in mods for s in getattr(m, "ITEMS", ())}
 
 
 class Run:
@@ -182,7 +202,8 @@ def _run(spec, entry, seed, seconds, trace, device, cuda, scratch,
          t_proc, torch) -> int:
     cfg, cel = spec.config, spec.cell
     inputs = entry.prepare(spec.root, cfg, cel, scratch, seed)
-    rec = Recorder()
+    numbers = check.load(spec.root, cel["limits"])
+    rec = Recorder(sorted(kept_stages(spec, numbers)))
     rec.install()
     # the warm-up job: every stage of the path launches once
     warm = entry.argv(cfg, cel, inputs, inputs.warm, scratch / "warm.out",
@@ -274,11 +295,12 @@ def _run(spec, entry, seed, seconds, trace, device, cuda, scratch,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    from .check import check, decide
-    minlen = int(dict(zip(cfg["search_args"], cfg["search_args"][1:]))
-                 .get("-l", 20))
-    numbers = check(run.jobs, inputs, cel, seed, device, minlen, tblouts)
-    correct, checks = decide(numbers, cel["limits"], failed)
+    ctx = check.Context(run.jobs, inputs, cel, seed, device,
+                        minlen(cfg), tblouts)
+    t_check = time.perf_counter()
+    correct, checks = check.decide(check.check(numbers, ctx), cel["limits"],
+                                   failed)
+    print(json.dumps({"check_s": time.perf_counter() - t_check}))
     # whatever the readers, the trace's summary or the check loaded
     # counts too
     found = forbidden_modules()
@@ -297,6 +319,12 @@ def _run(spec, entry, seed, seconds, trace, device, cuda, scratch,
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0
+
+
+def minlen(config: dict) -> int:
+    """The search's ``-l``: the shortest ORF it takes."""
+    args = config["search_args"]
+    return int(dict(zip(args, args[1:])).get("-l", 20))
 
 
 def breakdown(s) -> dict:

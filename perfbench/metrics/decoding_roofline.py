@@ -5,12 +5,14 @@ gives the stage's launches."""
 
 from perfbench import roofline
 
+ITEMS = ("domdec",)
+
 
 def read(run):
     t = run.trace.stage_kernel_s.get("decoding", 0.0) if run.trace \
         else 0.0
     items = [(len(r[1]), run.model_M[r[0]]) for j in run.jobs
-             for r in j.domdec]
+             for r in j.items["domdec"]]
     if t <= 0 or not items:
         return None
     return 100.0 * roofline.bound_s("domdec",

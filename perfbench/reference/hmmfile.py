@@ -4,8 +4,10 @@ HMMER3/BATH3 save files: a header, then for every node k = 0..M a
 line of match emissions (node 0: the COMPO line, optional), a line of
 insert emissions and a line of transitions.  Values are negative
 natural logs; ``*`` is probability zero.  Only what the reference's
-dynamic programming needs is kept: the match emission probabilities
-and the transition probabilities.
+dynamic programming needs is kept: the match emission probabilities,
+the transition probabilities and, from the header, the frameshift
+probability (``FRAMESHIFT PROB``, a profile that ``--fs`` searches) and
+the genetic code (``CODON TABLE``), each None where the file has none.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ class Hmm:
     M: int
     mat: np.ndarray         # [M + 1, 20] f64, row k = match state k
     t: np.ndarray           # [M + 1, 7] f64, row k = out of node k
+    fsprob: float | None = None
+    ct: int | None = None
 
 
 def _prob(field: str) -> float:
@@ -62,5 +66,9 @@ def read_text(text: str) -> list[Hmm]:
             t[k] = [_prob(v) for v in next(lines).split()[:7]]
         if next(lines).strip() != "//":
             raise ValueError(f"{hdr.get('NAME')}: no '//' after node {M}")
-        out.append(Hmm(hdr["NAME"], M, mat, t))
+        fs = hdr.get("FRAMESHIFT", "").split()
+        ct = hdr.get("CODON", "").split()
+        out.append(Hmm(hdr["NAME"], M, mat, t,
+                       float(fs[1]) if fs[:1] == ["PROB"] else None,
+                       int(ct[1]) if ct[:1] == ["TABLE"] else None))
     return out

@@ -105,3 +105,17 @@ def test_library_copies():
 def test_too_short_a_genome_is_refused():
     with pytest.raises(ValueError):
         make(1, 20_000, {"copies": [[0, 40]]})
+
+
+def test_shifted_copies_recorded():
+    """``shifted`` names the copies made with a frameshift, and only
+    those, without changing what is made."""
+    tr = dict(TRAFFIC, frameshifts=4, doubles=1)
+    shifted: dict = {}
+    dna, copies = genome.make(tr, FIG, ["synth400"], [Q], 300_000,
+                              seed_rng(3), shifted)
+    assert (dna, copies) == make(3, traffic=tr)
+    spans = shifted["synth400"]
+    assert len(spans) == 4 and set(spans) <= set(copies["synth400"])
+    assert sorted(e - s + 1 for s, e in spans) == \
+        [3 * len(Q) - 1] * 2 + [3 * len(Q) + 1] * 2

@@ -52,6 +52,18 @@ def test_library_cell(tiny_root, capsys):
     assert rc == 0 and res["correct"] is True, res["checks"]
 
 
+def test_frameshift_cell(tiny_root, capsys):
+    """``--fs``: the fs3 gate's and fs3 decoding's items compared, and
+    the frameshifted copies found with a shift."""
+    rc, res, err = run(tiny_root, capsys, cell="fs84.tiny")
+    assert rc == 0 and res["correct"] is True, res["checks"]
+    assert list(res["checks"]) == ["fwd_gap_nats", "orf_misses", "hits_off",
+                                   "fs3_gap_nats", "fs3_domdec_gap",
+                                   "shift_misses"]
+    assert res["checks"]["fs3_gap_nats"]["value"] > 0
+    assert res["checks"]["fs3_domdec_gap"]["value"] > 0
+
+
 def test_jax_loaded_after_the_window_prints_no_result(tmp_path, capsys,
                                                      monkeypatch):
     """A metric reader, run after the window, that loads a module named
@@ -110,20 +122,42 @@ def _decoding_altered(orig):
     return domdec
 
 
+def _fs3_altered(orig):
+    def fs3_scores(self, seqs, lens):
+        out = np.array(orig(self, seqs, lens))
+        out[len(out) // 2] += 0.05
+        return out
+    return fs3_scores
+
+
+def _fs3_decoding_altered(orig):
+    def fs3_domdec(self, winseqs, dec_loop):
+        bt, et, mo, ok = orig(self, winseqs, dec_loop)
+        mo = [m.copy() for m in mo]
+        for m in mo:
+            m[len(m) // 2] += 0.05
+        return bt, et, mo, ok
+    return fs3_domdec
+
+
 @pytest.mark.parametrize("fault,attr,number", [
     ("half of the batch left out, the mean of the rest in its place",
      ("fwd_scores", _half_scored), "fwd_gap_nats"),
     ("one gate score altered where it is produced",
      ("fwd_scores", _one_altered), "fwd_gap_nats"),
     ("one decoding row altered where it is produced",
-     ("domdec", _decoding_altered), "domdec_gap")])
+     ("domdec", _decoding_altered), "domdec_gap"),
+    ("one fs3 gate score altered where it is produced",
+     ("fs3_scores", _fs3_altered, "fs84.tiny"), "fs3_gap_nats"),
+    ("one fs3 decoding row altered where it is produced",
+     ("fs3_domdec", _fs3_decoding_altered, "fs84.tiny"), "fs3_domdec_gap")])
 def test_fault_makes_run_incorrect(tiny_root, capsys, monkeypatch, fault,
                                    attr, number):
     from bath_tpu_torch.device_pipeline import TorchCascade
-    name, make = attr
+    name, make, *cell = attr
     monkeypatch.setattr(TorchCascade, name,
                         make(getattr(TorchCascade, name)))
-    rc, res, _ = run(tiny_root, capsys)
+    rc, res, _ = run(tiny_root, capsys, *cell)
     assert rc == 0 and res["correct"] is False, fault
     c = res["checks"][number]
     assert c["value"] > c["limit"]
@@ -149,6 +183,27 @@ def test_reported_hit_altered(tiny_root, capsys, monkeypatch):
     rc, res, _ = run(tiny_root, capsys)
     assert rc == 0 and res["correct"] is False
     assert res["checks"]["hits_off"]["value"] >= 1
+
+
+def test_shift_lost(tiny_root, capsys, monkeypatch):
+    """The frameshifts of the hits read 0 where the table is written:
+    the frameshifted copies are covered, but not with a shift."""
+    from bath_tpu_torch import tophits
+    orig = tophits.TopHits.tabular_targets_text
+
+    def unshifted(self, *a, **kw):
+        rows = []
+        for ln in orig(self, *a, **kw).splitlines(True):
+            if not ln.startswith("#") and ln.strip():
+                c = ln.split()
+                ln = " ".join(c[:15] + ["0"] + c[16:]) + "\n"
+            rows.append(ln)
+        return "".join(rows)
+    monkeypatch.setattr(tophits.TopHits, "tabular_targets_text", unshifted)
+    rc, res, _ = run(tiny_root, capsys, "fs84.tiny")
+    assert rc == 0 and res["correct"] is False
+    assert res["checks"]["shift_misses"]["value"] == 2
+    assert res["checks"]["hits_off"]["value"] == 0
 
 
 def test_no_card_no_result(tmp_path):

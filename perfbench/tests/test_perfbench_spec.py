@@ -8,7 +8,7 @@ import re
 
 import pytest
 
-from perfbench import harness
+from perfbench import check, harness, recorder
 from perfbench.reference import hmmfile
 from perfbench.tests.conftest import REPO, make_root
 
@@ -51,8 +51,9 @@ def test_cell_files_found_by_name(cell):
     spec = harness.Spec(REPO, cell)
     assert spec.cell["config"] == spec.entry["config"]
     assert spec.cell["traffic_name"] == spec.entry["traffic"]
-    assert set(spec.cell["limits"]) == {"fwd_gap_nats", "domdec_gap",
-                                        "orf_misses", "hits_off"}
+    numbers = check.load(REPO, spec.cell["limits"])
+    assert set(numbers) == set(spec.cell["limits"])
+    assert all(callable(n.value) for n in numbers.values())
     text = lzma.decompress((REPO / spec.config["profiles"]).read_bytes())
     hmms = hmmfile.read_text(text.decode())
     prot = json.loads((REPO / spec.config["proteins"]).read_text())
@@ -69,6 +70,20 @@ def test_metric_reader_found_by_name(metric):
     assert callable(harness.reader(REPO, metric))
 
 
+def test_check_numbers_found_by_name():
+    """A file for each number, each declaring the stages whose items it
+    reads; the gaps have a control."""
+    names = sorted(p.stem for p in (REPO / "perfbench" / "checks")
+                   .glob("*.py"))
+    assert names == ["domdec_gap", "fs3_domdec_gap", "fs3_gap_nats",
+                     "fwd_gap_nats", "hits_off", "orf_misses",
+                     "shift_misses"]
+    kept = set(recorder.SCORES + recorder.DECODINGS)
+    for name, mod in check.load(REPO, names).items():
+        assert set(mod.ITEMS) <= kept, name
+        assert hasattr(mod, "control") == ("gap" in name), name
+
+
 def digest(root):
     return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
             for p in sorted((root / "perfbench").rglob("*"))
@@ -83,6 +98,9 @@ def test_new_cell_and_metric_need_no_edit(tmp_path):
     cell = json.loads((root / "perfbench" / "workloads"
                        / "single400.std_dense.json").read_text())
     cell["traffic"]["copies"] = [[0, 8]]
+    (root / "perfbench" / "checks" / "jobs_seen.py").write_text(
+        "ITEMS = ()\n\n\ndef value(ctx):\n    return len(ctx.jobs)\n")
+    cell["limits"]["jobs_seen"] = 3
     (root / "perfbench" / "workloads" / "single400.sparse.json") \
         .write_text(json.dumps(cell))
     b = json.loads((root / "BENCHMARK.json").read_text())
@@ -100,5 +118,12 @@ def test_new_cell_and_metric_need_no_edit(tmp_path):
     run = harness.Run()
     run.jobs = [object(), object()]
     assert harness.reader(root, "jobs_in_window")(run) == 2.0
+    numbers = check.load(root, spec.cell["limits"])
+    assert list(numbers)[-1] == "jobs_seen"
+    ctx = check.Context([object(), object()], None, spec.cell, 1, "cpu",
+                        20, [])
+    assert check.check({"jobs_seen": numbers["jobs_seen"]}, ctx) == \
+        {"jobs_seen": 2}
+    assert harness.kept_stages(spec, numbers) == {"fwd_scores", "domdec"}
     after = digest(root)
     assert {k: v for k, v in after.items() if k in before} == before
